@@ -1,0 +1,129 @@
+"""The port's two kernels (paged flash-decode, flash-MHA) against the JAX
+package's, on the cases of tests/test_paged_attention.py and
+tests/test_kernels.py.
+
+On the CPU the port's ``kernels.ops`` runs the plain PyTorch versions
+(``repro_torch.kernels.ref``); they are held against the JAX Pallas kernels
+in interpret mode (``repro.kernels.ops``) and the JAX oracles
+(``repro.kernels.ref``) on the same numpy inputs. The CUDA kernels are held
+against the plain versions on the same cases by tests/test_torch_gpu.py.
+
+Tolerances (``F32``, ``BF16``) and cases are in tests/torch_cases.py.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")     # held against the JAX package
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
+from repro_torch.kernels import attention as mha_kernel  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import paged_attention as paged_kernel  # noqa: E402
+from torch_cases import (BF16, F32, MHA_CASES, PAGED_CASES,  # noqa: E402
+                         mha_inputs, paged_case, paged_inputs)
+
+@pytest.mark.parametrize("name", sorted(PAGED_CASES))
+def test_plain_paged_matches_jax_kernel_and_oracle(name):
+    (q, kp, vp, table, lens), kw = paged_inputs(name)
+    got = ops.paged_attention(*map(torch.from_numpy, (q, kp, vp, table,
+                                                      lens)), **kw).numpy()
+    jargs = tuple(map(jnp.asarray, (q, kp, vp, table, lens)))
+    np.testing.assert_allclose(got, np.asarray(jops.paged_attention(
+        *jargs, **kw)), **F32)
+    np.testing.assert_allclose(got, np.asarray(jref.paged_attention_ref(
+        *jargs, **kw)), **F32)
+
+
+def test_plain_paged_ignores_pool_garbage():
+    """Poisoning the scratch page and every row past each length must not
+    move the output at all."""
+    clean = paged_case(3, 4, 2, 4, 2, 16, 8, 4, [2, 7, 9, 32])
+    dirty = paged_case(3, 4, 2, 4, 2, 16, 8, 4, [2, 7, 9, 32], poison=True)
+    a, b = (ops.paged_attention(*map(torch.from_numpy, c)) for c in
+            (clean, dirty))
+    assert torch.equal(a, b)
+
+
+def test_plain_paged_single_token_is_the_3d_path():
+    q, kp, vp, table, lens = map(torch.from_numpy, paged_case(
+        14, 3, 1, 8, 2, 32, 16, 4, [5, 33, 64]))
+    a = ops.paged_attention(q[:, 0], kp, vp, table, lens)
+    b = ops.paged_attention(q, kp, vp, table, lens)
+    assert a.shape == (3, 8, 32) and torch.equal(a, b[:, 0])
+
+
+def test_plain_paged_bf16_matches_jax():
+    q, kp, vp, table, lens = paged_case(21, 3, 2, 8, 2, 32, 16, 4,
+                                        [3, 40, 64])
+    got = ops.paged_attention(*(torch.from_numpy(x).to(torch.bfloat16)
+                                for x in (q, kp, vp)),
+                              torch.from_numpy(table),
+                              torch.from_numpy(lens)).float().numpy()
+    want = jref.paged_attention_ref(
+        *(jnp.asarray(x, jnp.bfloat16) for x in (q, kp, vp)),
+        jnp.asarray(table), jnp.asarray(lens))
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), **BF16)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", MHA_CASES)
+def test_plain_mha_matches_jax_kernel_and_oracle(shape, causal):
+    q, k, v = mha_inputs(sum(shape), *shape)
+    got = ops.attention(*map(torch.from_numpy, (q, k, v)),
+                        causal=causal).numpy()
+    jargs = tuple(map(jnp.asarray, (q, k, v)))
+    np.testing.assert_allclose(got, np.asarray(jops.attention(
+        *jargs, causal=causal, bq=16, bk=16)), **F32)
+    np.testing.assert_allclose(got, np.asarray(jref.mha_ref(
+        *jargs, causal=causal)), **F32)
+
+
+def test_plain_mha_kv_valid_per_batch():
+    """A (B,) kv_valid: each batch row equals the JAX oracle at its own
+    int kv_valid, and differs from attending to the whole cache."""
+    q, k, v = mha_inputs(5, 2, 16, 64, 4, 2, 16)
+    valid = np.array([33, 64], np.int32)
+    got = ops.attention(*map(torch.from_numpy, (q, k, v)), causal=False,
+                        kv_valid=torch.from_numpy(valid)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jops.attention(
+        *map(jnp.asarray, (q, k, v)), causal=False,
+        kv_valid=jnp.asarray(valid), bq=8, bk=16)), **F32)
+    for b, n in enumerate(valid):
+        want = jref.mha_ref(*(jnp.asarray(x[b:b + 1]) for x in (q, k, v)),
+                            causal=False, kv_valid=int(n))
+        np.testing.assert_allclose(got[b:b + 1], np.asarray(want), **F32)
+    full = jref.mha_ref(*map(jnp.asarray, (q, k, v)), causal=False)
+    assert not np.allclose(got[0], np.asarray(full)[0], atol=1e-3)
+
+
+def test_plain_mha_bf16_matches_jax():
+    q, k, v = mha_inputs(6, 1, 32, 32, 4, 2, 32)
+    got = ops.attention(*(torch.from_numpy(x).to(torch.bfloat16)
+                          for x in (q, k, v))).float().numpy()
+    want = jref.mha_ref(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), **BF16)
+
+
+def test_plain_mha_fully_masked_rows_are_zero():
+    """kv_valid 0 masks every key: the kernels' floored denominator gives
+    0, and the plain version matches that."""
+    q, k, v = map(torch.from_numpy, mha_inputs(7, 1, 8, 8, 2, 1, 16))
+    out = ops.attention(q, k, v, causal=False, kv_valid=0)
+    assert torch.equal(out, torch.zeros_like(out))
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The CUDA wrappers never fall back: a CPU tensor is an error there
+    (kernels.ops routes CPU tensors to the plain versions instead)."""
+    q, kp, vp, table, lens = map(torch.from_numpy, paged_case(
+        1, 1, 1, 4, 2, 16, 8, 2, [5]))
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        paged_kernel.paged_attention(q, kp, vp, table, lens)
+    with pytest.raises(ValueError, match="CUDA"):
+        mha_kernel.mha(q, kp[:1], vp[:1])
+    assert ops.launch_counts() == before
