@@ -128,23 +128,49 @@ def paged_case(rng, B, T, Hq, KVh, Dh, page, lengths, n_blocks, dtype,
             torch.tensor(lengths, dtype=torch.int32, device=dev))
 
 
+def agrees(name, got, want) -> float:
+    """Logs and checks one case: on every query row the error over the
+    row's largest reference output stays within ref.ROW_TOL. Returns the
+    case's max abs error."""
+    err = (got.float() - want.float()).abs().max().item()
+    worst = ref.row_error(got, want).max().item()
+    tol = ref.ROW_TOL[got.dtype]
+    ok = worst <= tol
+    log(f"{name}: max abs err {err:.3g}, worst row {worst:.3g} of its "
+        f"largest output (tolerance {tol:g}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{name} disagrees with its plain version")
+    return err
+
+
+def mask_shift_caught(name, shifted, want) -> None:
+    """The tolerance must fail a kernel whose mask is off by one key:
+    ``shifted``, the plain version with the mask moved by one key, has to
+    miss ``want`` on every row. Run at fp32, where rounding leaves the most
+    room below the shift; the masking code is the same for every dtype."""
+    least = ref.row_error(shifted, want).min().item()
+    tol = ref.ROW_TOL[want.dtype]
+    log(f"{name}: one-key mask shift, least row error {least:.3g} (must "
+        f"exceed {tol:g})")
+    if not least > tol:
+        fail(f"{name}: the tolerance lets a one-key mask shift pass")
+
+
 def check_paged(rng) -> float:
     """Max abs error of the paged kernel against paged_attention_ref."""
-    bf16 = torch.bfloat16
+    bf16, f32 = torch.bfloat16, torch.float32
+    serve = ([1, 17, 64, 200, 333, 512, 600, 1000], MAX_LEN // PAGE)
     cases = [
-        # name, B, T, page, lengths, n_blocks, dtype, kv_scale, window, tol
-        ("serve widths, ragged", SLOTS, 1, PAGE,
-         [1, 17, 64, 200, 333, 512, 600, 1000], MAX_LEN // PAGE, bf16, None,
-         0, 2e-2),
-        ("T=4 block", 3, 4, PAGE, [4, 37, 300], 32, bf16, None, 0, 2e-2),
-        ("window 48, T=2", 3, 2, PAGE, [2, 49, 400], 32, bf16, None, 48,
-         2e-2),
-        ("int8 pools", 3, 1, PAGE, [5, 130, 511], 32, bf16, 8.0, 0, 2e-2),
-        ("page 64, fp32", 2, 1, 64, [70, 500], 8, torch.float32, None, 0,
-         1e-4),
+        # name, B, T, page, lengths, n_blocks, dtype, kv_scale, window
+        ("serve widths, ragged", SLOTS, 1, PAGE, *serve, bf16, None, 0),
+        ("serve widths, ragged, fp32", SLOTS, 1, PAGE, *serve, f32, None, 0),
+        ("T=4 block", 3, 4, PAGE, [4, 37, 300], 32, bf16, None, 0),
+        ("window 48, T=2", 3, 2, PAGE, [2, 49, 400], 32, bf16, None, 48),
+        ("int8 pools", 3, 1, PAGE, [5, 130, 511], 32, bf16, 8.0, 0),
+        ("page 64, fp32", 2, 1, 64, [70, 500], 8, f32, None, 0),
     ]
     worst = 0.0
-    for name, B, T, page, lengths, nb, dtype, scale, window, tol in cases:
+    for name, B, T, page, lengths, nb, dtype, scale, window in cases:
         q, kp, vp, table, lens = paged_case(rng, B, T, H, KV, D, page,
                                             lengths, nb, dtype, scale)
         got = paged_kernel.paged_attention(q, kp, vp, table, lens,
@@ -152,30 +178,27 @@ def check_paged(rng) -> float:
         torch.cuda.synchronize()
         want = ref.paged_attention_ref(q, kp, vp, table, lens,
                                        kv_scale=scale, window=window)
-        err = (got.float() - want.float()).abs().max().item()
-        worst = max(worst, err)
-        ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
-        log(f"paged_attention [{name}]: max abs err {err:.3g} "
-            f"(tolerance {tol:g}) {'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            fail(f"paged_attention disagrees with its plain version: {name}")
+        worst = max(worst, agrees(f"paged_attention [{name}]", got, want))
+        if name == "serve widths, ragged, fp32":  # drop each row's last key
+            mask_shift_caught(f"paged_attention [{name}]",
+                              ref.paged_attention_ref(q, kp, vp, table,
+                                                      lens - 1), want)
     return worst
 
 
 def check_mha(rng) -> float:
     """Max abs error of the mha kernel against mha_ref."""
-    bf16 = torch.bfloat16
+    bf16, f32 = torch.bfloat16, torch.float32
     cases = [
-        # name, B, Sq, Sk, causal, kv_valid, dtype, tol
-        ("prefill 1024, causal", 1, 1024, 1024, True, None, bf16, 2e-2),
-        ("kv_valid (200, 0), causal", 2, 256, 256, True, [200, 0], bf16,
-         2e-2),
-        ("kv_valid (77, 300), cross", 2, 100, 300, False, [77, 300], bf16,
-         2e-2),
-        ("ragged fp32", 1, 100, 100, True, None, torch.float32, 1e-4),
+        # name, B, Sq, Sk, causal, kv_valid, dtype
+        ("prefill 1024, causal", 1, 1024, 1024, True, None, bf16),
+        ("prefill 1024, causal, fp32", 1, 1024, 1024, True, None, f32),
+        ("kv_valid (200, 0), causal", 2, 256, 256, True, [200, 0], bf16),
+        ("kv_valid (77, 300), cross", 2, 100, 300, False, [77, 300], bf16),
+        ("ragged fp32", 1, 100, 100, True, None, f32),
     ]
     worst = 0.0
-    for name, B, Sq, Sk, causal, valid, dtype, tol in cases:
+    for name, B, Sq, Sk, causal, valid, dtype in cases:
         def t(*shape):
             return torch.tensor(rng.standard_normal(shape), dtype=dtype,
                                 device="cuda")
@@ -185,13 +208,10 @@ def check_mha(rng) -> float:
         got = mha_kernel.mha(q, k, v, causal=causal, kv_valid=kv_valid)
         torch.cuda.synchronize()
         want = ref.mha_ref(q, k, v, causal=causal, kv_valid=kv_valid)
-        err = (got.float() - want.float()).abs().max().item()
-        worst = max(worst, err)
-        ok = torch.allclose(got.float(), want.float(), atol=tol, rtol=tol)
-        log(f"mha [{name}]: max abs err {err:.3g} (tolerance {tol:g}) "
-            f"{'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            fail(f"mha disagrees with its plain version: {name}")
+        worst = max(worst, agrees(f"mha [{name}]", got, want))
+        if name == "prefill 1024, causal, fp32":  # row i sees keys < i
+            mask_shift_caught(f"mha [{name}]", ref.mha_ref(
+                q[:, 1:], k[:, :-1], v[:, :-1], causal=True), want[:, 1:])
     return worst
 
 

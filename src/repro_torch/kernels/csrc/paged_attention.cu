@@ -208,8 +208,10 @@ size_t smem_bytes(int T, int H, int KV, int D, int page) {
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16, 2 int8 (pools only). Returns the
-// launch's cudaGetLastError() (0 = launched).
+// dtype codes: 0 float32, 1 bfloat16, 2 int8 (pools only). Built for the
+// (q, pool) pairs the engine and the tests use: fp32 q over fp32, bf16 or
+// int8 pools, bf16 q over bf16 or int8 pools. Returns the launch's
+// cudaGetLastError() (0 = launched).
 extern "C" int paged_attention_launch(const void* q, const void* k_pool, const void* v_pool,
                                       const void* block_table, const void* lengths, void* out,
                                       int B, int T, int H, int KV, int D, int page, int n_blocks,
@@ -225,7 +227,6 @@ extern "C" int paged_attention_launch(const void* q, const void* k_pool, const v
   PAGED_CASE(0, 0, float, float)
   PAGED_CASE(0, 1, float, __nv_bfloat16)
   PAGED_CASE(0, 2, float, int8_t)
-  PAGED_CASE(1, 0, __nv_bfloat16, float)
   PAGED_CASE(1, 1, __nv_bfloat16, __nv_bfloat16)
   PAGED_CASE(1, 2, __nv_bfloat16, int8_t)
 #undef PAGED_CASE

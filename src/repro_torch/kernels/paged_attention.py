@@ -47,7 +47,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
     q:           (B, H, D) or (B, T, H, D), float32 or bfloat16, contiguous.
     k/v_pool:    (P, page, KV, D) float32, bfloat16 or int8 (with
-                 ``kv_scale``), contiguous; H % KV == 0.
+                 ``kv_scale``), contiguous; H % KV == 0; float32 pools
+                 need float32 q.
     block_table: (B, n_blocks) int32 — logical block j of request b is
                  physical page block_table[b, j].
     lengths:     (B,) int32 tensor or an int — live tokens including the
@@ -72,6 +73,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
              f"q dtype {q.dtype} (float32 or bfloat16)")
     _require(k_pool.dtype == v_pool.dtype and k_pool.dtype in _DTYPES,
              f"pool dtypes {k_pool.dtype}/{v_pool.dtype}")
+    _require(not (q.dtype == torch.bfloat16
+                  and k_pool.dtype == torch.float32),
+             "bfloat16 q over float32 pools is not built")
     int8 = k_pool.dtype == torch.int8
     _require(not int8 or kv_scale is not None, "int8 pools need kv_scale")
     _require(block_table.dim() == 2 and block_table.shape[0] == B

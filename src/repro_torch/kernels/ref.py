@@ -29,6 +29,25 @@ def _masked_softmax(s: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, torch.softmax(s, dim=-1), torch.zeros_like(s))
 
 
+# How far a kernel's output may stray from its plain version, as a share of
+# the largest reference output of the same query row (``row_error``). fp32:
+# the order of the sums only. bf16: both compute in fp32 from the same bf16
+# inputs and differ in the rounding of the bf16 output (one bf16 step is up
+# to 2^-7 of the row's largest value) and, in mha, of P cast to bf16 (2^-9 of
+# each term); two steps. A key masked in or out by one position moves a row
+# of 1000 keys by more than 1e-2 of it, far past the fp32 limit.
+ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def row_error(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    """Per query row of (..., H, D) outputs: the largest absolute error over
+    the row's heads and dims, over the row's largest reference magnitude (a
+    row that is all zeros in the reference must be zeros)."""
+    g, w = got.float(), want.float()
+    scale = w.abs().amax(dim=(-2, -1)).clamp_min(1e-6)
+    return (g - w).abs().amax(dim=(-2, -1)) / scale
+
+
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool = True, kv_valid=None) -> torch.Tensor:
     """Exact softmax attention with GQA. q: (B, Sq, H, D); k, v: (B, Sk, KV,

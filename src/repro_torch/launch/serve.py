@@ -2,12 +2,12 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       [--smoke] [--slots 4] [--requests 8] [--max-new 12] [--max-len 128] \
-      [--page-size 16] [--num-pages N] [--device cuda|cpu] [--seed 0]
+      [--page-size 16] [--num-pages N] [--device cuda|cpu]
 
-Weights are drawn from ``--seed`` on the device. Runs on CUDA by default and
-raises if there is none; ``--device cpu`` runs every kernel's plain PyTorch
-version instead. Prints the JAX launcher's summary lines plus each CUDA
-kernel's launch count.
+Weights are drawn on the device from a generator seeded with 0. Runs on
+CUDA by default and raises if there is none; ``--device cpu`` runs every
+kernel's plain PyTorch version instead. Prints the JAX launcher's summary
+lines plus each CUDA kernel's launch count.
 """
 from __future__ import annotations
 
@@ -37,15 +37,13 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a CUDA device) or "
                          "cpu (plain PyTorch versions of the kernels)")
-    ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random weights")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     print(f"[launch.serve] {cfg.name}: {cfg.param_count()/1e6:.1f}M params, "
           f"{args.slots} slots, device {device}")
-    gen = torch.Generator(device=device).manual_seed(args.seed)
+    gen = torch.Generator(device=device).manual_seed(0)
     params = api.init_params(cfg, gen, device=device)
     eng = PagedServingEngine(cfg, params, slots=args.slots,
                              max_len=args.max_len, page_size=args.page_size,

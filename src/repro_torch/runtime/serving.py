@@ -215,11 +215,14 @@ class PagedServingEngine:
 
     def _release_slot(self, slot: int) -> Request:
         """Reclaim a slot's pages; its table becomes all-scratch so a dead
-        slot can only ever write to the scratch page."""
+        slot can only ever write to the scratch page, and its position 0 so
+        the decode kernel walks one scratch page for it, not its old
+        length."""
         req = self.live[slot]
         self.live[slot] = None
         self.alloc.free_request(req.rid)
         self.block_table[slot] = SCRATCH_PAGE
+        self.pos[slot] = 0
         self.live_mask[slot] = False
         return req
 

@@ -15,8 +15,19 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import paged_attention as paged_kernel  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.runtime.serving import PagedServingEngine, Request  # noqa
-from torch_cases import (BF16, F32, MHA_CASES, PAGED_CASES,  # noqa: E402
+from torch_cases import (F32, MHA_CASES, PAGED_CASES,  # noqa: E402
                          mha_inputs, paged_inputs)
+
+
+def assert_agrees(got, want):
+    """fp32: summation order only. bf16: on every query row, within
+    ref.ROW_TOL of the row's largest reference output (rounding of the bf16
+    output, and of P in mha)."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, **F32)
+    else:
+        worst = ref.row_error(got, want).max().item()
+        assert worst <= ref.ROW_TOL[got.dtype], worst
 
 
 @pytest.fixture
@@ -48,8 +59,7 @@ def test_cuda_paged_matches_plain(cuda, name, dtype):
     torch.cuda.synchronize()
     assert paged_kernel.paged_attention.launches == before + 1
     want = ref.paged_attention_ref(q, kp, vp, table, lens, **kw)
-    tol = F32 if dtype == "float32" else BF16
-    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert_agrees(got, want)
 
 
 @pytest.mark.gpu
@@ -68,8 +78,7 @@ def test_cuda_mha_matches_plain(cuda, shape, causal, dtype):
         torch.cuda.synchronize()
         assert mha_kernel.mha.launches == before + 1
         want = ref.mha_ref(q, k, v, causal=causal, kv_valid=kv_valid)
-        tol = F32 if dtype == "float32" else BF16
-        torch.testing.assert_close(got.float(), want.float(), **tol)
+        assert_agrees(got, want)
 
 
 @pytest.mark.gpu

@@ -133,6 +133,10 @@ def test_engine_counts_and_drops_unservable_requests():
     m = eng.metrics()
     assert m["latency.requests"] == 2.0 and m["engine.prefill_buckets"] == 1
     assert eng.alloc.allocated_pages == 0
+    # released slots: all-scratch tables at position 0 (one scratch page
+    # for the decode kernel to walk)
+    assert eng.pos.tolist() == [0, 0]
+    assert not eng.block_table.any()
 
 
 def test_eos_token_ends_a_request_early():

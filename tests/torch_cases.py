@@ -5,7 +5,9 @@ same numbers. Imports neither jax nor the JAX package.
 
 Tolerances: fp32 atol = rtol = 2e-5 — the same fp32 arithmetic, only the
 order of the sums differs (per-page online softmax vs one dense softmax);
-bf16 2e-2 — bf16 inputs and outputs round at 2^-8 relative.
+bf16 2e-2 between the two packages — bf16 inputs and outputs round at 2^-8
+relative. On the card a bf16 kernel is held to its plain version per query
+row instead (``repro_torch.kernels.ref.ROW_TOL``).
 """
 import numpy as np
 
