@@ -13,7 +13,15 @@ Phases, each failing loudly (non-zero exit, no result line):
    head dim 128, bf16) plus small cases for the kernels' other features.
 4. times: CUDA-event times of each kernel, its plain version and (for mha)
    PyTorch's SDPA, beside the card's least time for the same work.
-5. serve: qwen2.5-3b at full width with seeded random weights, through the
+5. kernel layer (gemm_os float and int8 with the quant epilogue,
+   conv_im2col, maxpool, blocked_layout, tiled_transpose; built in phase 2):
+   each kernel against its plain version on the card at the JAX tests'
+   cases and the paper's workload shapes (BERT-Base FFN, ResNet-50), a
+   check that each tolerance has teeth, times beside the bound and a
+   PyTorch yardstick, then one run of the kernel benchmark port
+   (``repro_torch.launch.kernel_bench``) at full shapes, which must launch
+   every kernel and give finite rows.
+6. serve: qwen2.5-3b at full width with seeded random weights, through the
    paged engine and the scheduler; checks every request finished, the
    kernel launch counts, and a 2-layer full-width prefill/decode against an
    fp32 CPU reference.
@@ -38,16 +46,20 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.kernels import attention as mha_kernel  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import conv_im2col as conv_kernel  # noqa: E402
+from repro_torch.kernels import gemm_os as gemm_kernel  # noqa: E402
+from repro_torch.kernels import maxpool as pool_kernel  # noqa: E402
 from repro_torch.kernels import paged_attention as paged_kernel  # noqa: E402
+from repro_torch.kernels import reshuffle as reshuffle_kernel  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch import kernel_bench as bench  # noqa: E402
+from repro_torch.launch.kernel_bench import cuda_ms  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.runtime.serving import PagedServingEngine, Request  # noqa: E402
 
-HBM_BYTES_S = 3.35e12      # H100 SXM device memory rate (data sheet)
-BF16_FLOP_S = 989e12       # H100 SXM dense bf16 tensor-core rate
 SEED = 0
 
-# serving configuration of phase 5 (and the shapes phase 4 times at)
+# serving configuration of phase 6 (and the shapes phase 4 times at)
 SLOTS, MAX_LEN, PAGE, MAX_NEW, N_REQ = 8, 1024, 16, 32, 16
 H, KV, D = 16, 2, 128
 
@@ -220,27 +232,6 @@ def check_mha(rng) -> float:
 # ---------------------------------------------------------------------------
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean CUDA-event milliseconds per call of ``fn`` after a warm-up."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def bound_ms(n_bytes: float, flops: float):
-    t_bytes = n_bytes / HBM_BYTES_S * 1e3
-    t_ops = flops / BF16_FLOP_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def time_paged(rng, B, lengths, label):
     """Times at (B, lengths): a pool per layer, cycled through so that the
     pools together exceed the 50 MB L2 cache, as the serving path's 36
@@ -265,7 +256,7 @@ def time_paged(rng, B, lengths, label):
     q = layers[0][0]
     n_bytes = live + 2 * q.numel() * q.element_size() + B * n_blocks * 4 + B * 4
     flops = 4 * sum(lengths) * H * D
-    bms, by = bound_ms(n_bytes, flops)
+    bms, by = bench.bound_ms(n_bytes, flops, torch.bfloat16)
     log(f"paged_attention time [{label}]: {ms:.4f} ms/launch, plain "
         f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), "
         f"{bms / ms:.1%} of bound")
@@ -284,7 +275,7 @@ def time_mha(rng, Sq, label):
         qt, kt, vt, is_causal=True, enable_gqa=True))
     n_bytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
     flops = 4 * H * D * Sq * (Sq + 1) / 2
-    bms, by = bound_ms(n_bytes, flops)
+    bms, by = bench.bound_ms(n_bytes, flops, torch.bfloat16)
     log(f"mha time [{label}]: {ms:.4f} ms/launch, plain {plain:.4f} ms, "
         f"SDPA {lib:.4f} ms, bound {bms:.4f} ms ({by}), "
         f"{bms / ms:.1%} of bound")
@@ -292,7 +283,274 @@ def time_mha(rng, Sq, label):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: serve
+# phase 5: the kernel layer
+# ---------------------------------------------------------------------------
+
+
+def same_bits(name, got, want) -> float:
+    """Logs and checks a case that must be bitwise equal
+    (``ref.bitwise_equal``). Returns its max abs error (0)."""
+    ok = ref.bitwise_equal(got, want)
+    log(f"{name}: {'bitwise equal' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{name} differs from its plain version")
+    return 0.0
+
+
+def sum_order(name, got, want, abs_product, depth) -> float:
+    """Logs and checks one float GEMM or conv case: each element within
+    depth * 2^-24 * (|x| @ |w|) of the plain version (+ one bf16 step of
+    |want| for a bf16 output; ref.sum_order_error). Returns its max abs
+    error."""
+    err = (got.double() - want.double()).abs().max().item()
+    worst = ref.sum_order_error(got, want, abs_product, depth).item()
+    log(f"{name}: max abs err {err:.3g}, worst element at {worst:.3g} of "
+        f"its limit {'ok' if worst <= 1 else 'MISMATCH'}")
+    if not worst <= 1:
+        fail(f"{name} disagrees with its plain version")
+    return err
+
+
+def has_teeth(name, wrong, want, abs_product, depth) -> None:
+    """The limit must reject a plain version with a known fault."""
+    worst = ref.sum_order_error(wrong, want, abs_product, depth).item()
+    n_out = int((wrong.double() - want.double()).abs().gt(
+        depth * 2.0 ** -24 * abs_product.double()).sum())
+    log(f"{name}: worst element at {worst:.3g} of its limit, {n_out} of "
+        f"{want.numel()} elements outside (must be rejected)")
+    if not worst > 1:
+        fail(f"{name}: the tolerance lets a known fault pass")
+
+
+def _rand(rng, shape, dtype):
+    if dtype == torch.int8:
+        return torch.tensor(rng.integers(-128, 128, shape), dtype=dtype,
+                            device="cuda")
+    return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                        device="cuda").to(dtype)
+
+
+def check_gemm(rng):
+    """Max abs errors (float, int8) of gemm_os against gemm_ref: the JAX
+    tests' shapes in fp32, bf16 and int8, the quant scales, the int32
+    accumulation, and the BERT-Base FFN at token size 512."""
+    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+    tests = [(8, 8, 8), (100, 300, 200), (128, 128, 128), (1, 512, 96),
+             (257, 129, 65)]
+    float_cases = [(s, dt) for dt in (f32, bf16) for s in tests] + [
+        ((512, 768, 3072), bf16), ((512, 768, 3072), f32)]
+    err_f = 0.0
+    for (M, K, N), dt in float_cases:
+        x, w = _rand(rng, (M, K), dt), _rand(rng, (K, N), dt)
+        got = gemm_kernel.gemm_os(x, w)
+        torch.cuda.synchronize()
+        want = ref.gemm_ref(x, w)
+        absp = ref.gemm_ref(x.abs().float(), w.abs().float())
+        err_f = max(err_f, sum_order(f"gemm_os [{M}x{K}x{N} {dt}]", got, want,
+                                     absp, K))
+        if (M, K, N) == (512, 768, 3072) and dt == f32:
+            has_teeth("gemm_os [last K tile of 16 dropped]",
+                      ref.gemm_ref(x[:, :-16], w[:-16]), want, absp, K)
+    err_i = 0.0
+    for M, K, N in tests:
+        x, w = _rand(rng, (M, K), i8), _rand(rng, (K, N), i8)
+        err_i = max(err_i, same_bits(f"gemm_os int8 [{M}x{K}x{N}]",
+                                     gemm_kernel.gemm_os(x, w),
+                                     ref.gemm_ref(x, w)))
+    quant = [((64, 256, 96), s) for s in (1.0, 0.01, 0.0005)] + [
+        ((512, 3072, 768), 0.002)]
+    for (M, K, N), scale in quant:
+        x, w = _rand(rng, (M, K), i8), _rand(rng, (K, N), i8)
+        err_i = max(err_i, same_bits(
+            f"gemm_os int8 quant [{M}x{K}x{N}, scale {scale}]",
+            gemm_kernel.gemm_os(x, w, quant_scale=scale),
+            ref.gemm_ref(x, w, quant_scale=scale)))
+    ones = torch.full((8, 512), 127, dtype=i8, device="cuda")
+    acc = gemm_kernel.gemm_os(ones, ones.t().contiguous())
+    err_i = max(err_i, same_bits("gemm_os int8 [512 * 127 * 127 in int32]",
+                                 acc, torch.full_like(acc, 512 * 127 * 127)))
+    return err_f, err_i
+
+
+CONV_TESTS = [  # (N, H, W, C, K, R, stride), tests/test_kernels.py's specs
+    (2, 12, 12, 16, 24, 3, 1), (2, 12, 12, 16, 24, 3, 2),
+    (2, 8, 8, 8, 32, 1, 1), (2, 14, 14, 16, 8, 7, 2), (2, 9, 9, 16, 8, 3, 2)]
+CONV_PAPER = [  # ResNet-50: the stem, and a stage-3 3x3
+    (1, 224, 224, 3, 64, 7, 2), (1, 28, 28, 128, 128, 3, 1)]
+
+
+def check_conv(rng) -> float:
+    """Max abs error of conv_im2col against conv2d_ref."""
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        for N, H, W, C, K, R, st in CONV_TESTS + CONV_PAPER:
+            x, w = _rand(rng, (N, H, W, C), dt), _rand(rng, (R, R, C, K), dt)
+            got = conv_kernel.conv2d(x, w, stride=st)
+            torch.cuda.synchronize()
+            want = ref.conv2d_ref(x, w, stride=st)
+            absp = ref.conv2d_ref(x.abs().float(), w.abs().float(),
+                                  stride=st)
+            err = max(err, sum_order(
+                f"conv_im2col [{N}x{H}x{W}x{C}->{K} {R}x{R}/{st} {dt}]", got,
+                want, absp, R * R * C))
+            if (H, R, dt) == (224, 7, torch.float32):
+                # the input moved down one row = the padding shifted by one
+                shifted = torch.nn.functional.pad(x, (0, 0, 0, 0, 1, 0))[:, :-1]
+                has_teeth("conv_im2col [stem, padding shifted by one row]",
+                          ref.conv2d_ref(shifted, w, stride=st), want, absp,
+                          R * R * C)
+    return err
+
+
+def check_layout(rng):
+    """Max abs errors (all must be 0) of maxpool, blocked_layout and
+    tiled_transpose against their plain versions."""
+    errs = {"maxpool": 0.0, "blocked_layout": 0.0, "tiled_transpose": 0.0}
+    pools = [(2, 8, 8, 16, 2, 2), (2, 9, 9, 8, 3, 2), (2, 12, 12, 32, 3, 3),
+             (2, 10, 10, 8, 5, 1), (1, 112, 112, 64, 3, 2)]
+    blocks = [(5, 6, 256, 8), (5, 6, 256, 32), (5, 6, 256, 128),
+              (4, 4, 100, 128), (56, 56, 256, 8), (56, 56, 256, 128),
+              (28, 28, 100, 128)]
+    mats = [(128, 128), (100, 70), (257, 33), (1, 129), (3072, 768),
+            (1000, 3001)]
+    for dt in (torch.float32, torch.bfloat16):
+        for N, H, W, C, win, st in pools:
+            x = _rand(rng, (N, H, W, C), dt)
+            errs["maxpool"] = max(errs["maxpool"], same_bits(
+                f"maxpool [{N}x{H}x{W}x{C} {win}x{win}/{st} {dt}]",
+                pool_kernel.maxpool2d(x, window=win, stride=st),
+                ref.maxpool2d_ref(x, window=win, stride=st)))
+        x = _rand(rng, (2, 9, 9, 8), dt)
+        x[0, 4, 4, 3] = float("nan")
+        x[1, 0, 0, 0] = float("nan")
+        errs["maxpool"] = max(errs["maxpool"], same_bits(
+            f"maxpool [NaN in two windows, {dt}]",
+            pool_kernel.maxpool2d(x, window=3, stride=2),
+            ref.maxpool2d_ref(x, window=3, stride=2)))
+        for H, W, C, cb in blocks:
+            x = _rand(rng, (H, W, C), dt)
+            errs["blocked_layout"] = max(errs["blocked_layout"], same_bits(
+                f"blocked_layout [{H}x{W}x{C} cb{cb} {dt}]",
+                reshuffle_kernel.blocked_layout(x, cb),
+                ref.blocked_layout_ref(x, cb)))
+        for M, N in mats:
+            x = _rand(rng, (M, N), dt)
+            errs["tiled_transpose"] = max(errs["tiled_transpose"], same_bits(
+                f"tiled_transpose [{M}x{N} {dt}]",
+                reshuffle_kernel.tiled_transpose(x), ref.transpose_ref(x)))
+    return errs
+
+
+def device_ms(fn, copies) -> float:
+    """Device milliseconds per call of ``fn`` over one pass through
+    ``copies``, from torch.profiler's kernel events: the kernel's own time,
+    without the host's gaps between launches that the CUDA-event time
+    includes when the host issues calls slower than the card runs them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(*copies[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for args in copies:
+            fn(*args)
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    return busy / 1e3 / len(copies)
+
+
+def time_layer() -> dict:
+    """Times of each kernel at the paper's workload shapes; the first case
+    of each name is the one the kernels line reports."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        ("gemm_os", bench.gemm_case(512, 768, 3072, bf16, "cuda")),
+        ("gemm_os", bench.gemm_case(512, 768, 3072, f32, "cuda")),
+        ("gemm_os_int8", bench.gemm_case(512, 3072, 768, torch.int8, "cuda",
+                                         quant_scale=0.002)),
+    ] + [("conv_im2col", bench.conv_case("cuda", N, H, W, C, K, R, st, dt,
+                                         shape=f"{H}x{W}x{C}->{K} "
+                                         f"{R}x{R}/{st}"))
+         for dt in (bf16, f32) for N, H, W, C, K, R, st in CONV_PAPER] + [
+        ("maxpool", bench.pool_case(1, 112, 112, 64, 3, 2, f32, "cuda")),
+        ("maxpool", bench.pool_case(1, 112, 112, 64, 3, 2, bf16, "cuda")),
+        ("blocked_layout", bench.blocked_case(56, 56, 256, 8, f32, "cuda")),
+        ("blocked_layout", bench.blocked_case(56, 56, 256, 128, f32, "cuda")),
+        ("blocked_layout", bench.blocked_case(28, 28, 100, 128, f32, "cuda")),
+        ("tiled_transpose", bench.transpose_case(3072, 768, f32, "cuda")),
+        ("tiled_transpose", bench.transpose_case(1000, 3001, f32, "cuda")),
+    ]
+    first = {}
+    for name, c in cases:
+        m = bench.measure(c)
+        dev = device_ms(c["fn"], bench.cold_copies(c["args"], c["n_bytes"]))
+        dtype = c["args"][0].dtype
+        lib = "none" if m["library_ms"] is None else \
+            f"{m['library_ms']:.4f} ms"
+        log(f"{name} time [{c['shape']} {dtype}]: {m['ms']:.4f} ms/launch "
+            f"(device {dev:.4f} ms), plain {m['plain_ms']:.4f} ms, library "
+            f"{lib}, bound {m['bound_ms']:.4f} ms ({m['bound_by']}), "
+            f"{m['bound_ms'] / m['ms']:.1%} of bound")
+        first.setdefault(name, m)
+    return first
+
+
+def run_kernel_bench() -> dict:
+    """The kernel layer's main path: the benchmark port at full shapes,
+    through ``ops``. Returns the launch counts over this run."""
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows = bench.run(smoke=False, device="cuda")
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    log(f"kernel bench: {len(rows)} rows in {time.perf_counter() - t0:.1f} s")
+    for r in rows:
+        log("kernel bench: " + ",".join(
+            f"{v:.6g}" if isinstance(v, float) else str(v)
+            for v in r.values()))
+    for r in rows:
+        for k in ("ms", "plain_ms", "library_ms", "bound_us"):
+            if r[k] != "" and not (isinstance(r[k], float)
+                                   and np.isfinite(r[k]) and r[k] > 0):
+                fail(f"kernel bench: {r['bench']} {r['shape']} {k} = {r[k]}")
+    log(f"kernel bench: kernel launches {counts}")
+    idle = [k for k, n in counts.items() if n == 0]
+    if idle:
+        fail(f"kernel bench: kernels never launched: {idle}")
+    return counts
+
+
+def kernel_layer(rng) -> list:
+    """Phase 5; returns the kernels line's entries of the six new kernel
+    datapaths."""
+    with bench.fp32_exact():     # plain versions and yardsticks in fp32
+        err_gemm, err_int8 = check_gemm(rng)
+        err_conv = check_conv(rng)
+        errs = check_layout(rng)
+        times = time_layer()
+    counts = run_kernel_bench()
+    src = "src/repro_torch/kernels/csrc/"
+    jax = "src/repro/kernels/"
+    meta = [("gemm_os", "gemm_os.cu", "gemm_os.py:35", err_gemm),
+            ("gemm_os_int8", "gemm_os.cu", "gemm_os.py:35", err_int8),
+            ("conv_im2col", "conv_im2col.cu", "conv_im2col.py:31", err_conv),
+            ("maxpool", "maxpool.cu", "maxpool.py:19", errs["maxpool"]),
+            ("blocked_layout", "reshuffle.cu", "reshuffle.py:22",
+             errs["blocked_layout"]),
+            ("tiled_transpose", "reshuffle.cu", "reshuffle.py:44",
+             errs["tiled_transpose"])]
+    return [{"name": name, "route": "cuda", "source": src + cu,
+             "replaces": jax + at, "launches": counts[name],
+             "max_abs_err": err, "ms": times[name]["ms"],
+             "plain_ms": times[name]["plain_ms"],
+             "bound_ms": times[name]["bound_ms"],
+             "bound_by": times[name]["bound_by"],
+             "library_ms": times[name]["library_ms"]}
+            for name, cu, at, err in meta]
+
+
+# ---------------------------------------------------------------------------
+# phase 6: serve
 # ---------------------------------------------------------------------------
 
 
@@ -385,11 +643,12 @@ def serve(rng):
         fail("serve: not every request finished with max_new tokens")
     if any(not 0 <= t < cfg.vocab for r in done for t in r.generated):
         fail("serve: a token outside the vocabulary")
-    want = {"paged_attention": cfg.num_layers * eng.decode_steps,
-            "mha": cfg.num_layers * eng.prefills}
+    want = dict.fromkeys(counts, 0)
+    want.update({"paged_attention": cfg.num_layers * eng.decode_steps,
+                 "mha": cfg.num_layers * eng.prefills})
     if counts != want:
         fail(f"serve: launches {counts} != {want} (layers x decode steps, "
-             f"layers x prefills)")
+             f"layers x prefills, no other kernel)")
     eng.alloc.check_no_aliasing()
     profile_decode(engine, rng, cfg.vocab)
     return counts
@@ -445,6 +704,7 @@ def main() -> None:
     time_paged(rng, 16, [2048] * 16, "B=16, 2048-token contexts")
     mha_t = time_mha(rng, 1024, "serve shapes: B=1, Sq=Sk=1024 bucket")
     time_mha(rng, 512, "B=1, Sq=Sk=512 bucket")
+    layer = kernel_layer(rng)
     check_model(rng)
     counts = serve(rng)
     print(smi, flush=True)
@@ -461,7 +721,7 @@ def main() -> None:
          "launches": counts["mha"], "max_abs_err": err_mha, "ms": mha_t[0],
          "plain_ms": mha_t[1], "bound_ms": mha_t[2], "bound_by": mha_t[3],
          "library_ms": mha_t[4]},
-    ]}), flush=True)
+    ] + layer}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

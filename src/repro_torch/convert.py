@@ -1,7 +1,8 @@
 """Weight bridge: a JAX package parameter tree (as numpy) -> port parameters.
 
     tree = jax.tree.map(np.asarray, repro.models.api.init_params(cfg, key))
-    params = params_from_jax(cfg, tree, device="cpu")
+    params = params_from_jax(cfg, tree)                 # on the card
+    params = params_from_jax(cfg, tree, device="cpu")   # plain CPU path
 
 The caller converts the JAX arrays to numpy; the port never sees a JAX
 array. The JAX tree stacks each pattern position's block parameters along a
@@ -16,6 +17,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.models import transformer as tfm
 
 
@@ -35,7 +37,10 @@ def _map(tree, fn):
 
 
 def params_from_jax(cfg, tree: Dict[str, Any], *,
-                    device="cpu") -> Dict[str, Any]:
+                    device="cuda") -> Dict[str, Any]:
+    """The port's parameters on ``device`` (CUDA unless the caller asks for
+    the CPU; raises when CUDA is asked for and absent)."""
+    device = resolve_device(device)
     kinds = tfm.pattern_for(cfg)
     n_super, tail = tfm.layer_plan(cfg)
     tfm.layer_kinds(cfg)                       # raises on unported kinds

@@ -17,7 +17,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 128)
+_HEAD_DIMS = (16, 32, 64, 128)
 
 
 @functools.lru_cache(maxsize=None)
@@ -38,7 +38,7 @@ def _require(ok: bool, msg: str) -> None:
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool = True, kv_valid=None) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Sk, KV, D), one dtype (float32 or
-    bfloat16), contiguous, H % KV == 0, D in (16, 32, 128).
+    bfloat16), contiguous, H % KV == 0, D in (16, 32, 64, 128).
     kv_valid: None (all Sk keys), an int, or a (B,) int32 tensor — only the
     first kv_valid[b] keys of sequence b attend. Returns (B, Sq, H, D)."""
     _require(q.is_cuda, "needs CUDA tensors (CPU tensors go through "

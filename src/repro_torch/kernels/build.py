@@ -3,8 +3,9 @@
 Each source compiles with ``nvcc`` into its own shared library with a plain
 C interface (no PyTorch headers: seconds per file, not minutes) under
 ``build/torch_kernels/`` at the repository root, a directory ``.gitignore``
-lists. A library's file name carries a hash of its source and flags, so an
-edited source rebuilds on its next use and an unchanged one loads as built.
+lists. A library's file name carries a hash of its source, the local headers
+it includes (``#include "x.cuh"``) and the flags, so an edited source or
+header rebuilds on its next use and an unchanged one loads as built.
 ``build_all`` starts one ``nvcc`` per source at once; ``library`` builds
 what is missing on first use. Nothing is built or loaded at import time.
 """
@@ -14,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -21,7 +23,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-SOURCES = ("paged_attention", "mha")
+SOURCES = ("paged_attention", "mha", "gemm_os", "conv_im2col", "maxpool",
+           "reshuffle")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,8 +42,25 @@ def nvcc_path() -> str:
     return str(path)
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _source_bytes(path: Path, seen=None) -> bytes:
+    """``path``'s bytes followed by those of every local header it includes,
+    transitively, each once."""
+    seen = set() if seen is None else seen
+    seen.add(path)
+    text = path.read_bytes()
+    out = [text]
+    for inc in _LOCAL_INCLUDE.findall(text):
+        header = path.parent / inc.decode()
+        if header not in seen:
+            out.append(_source_bytes(header, seen))
+    return b"".join(out)
+
+
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = _source_bytes(CSRC / f"{name}.cu")
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

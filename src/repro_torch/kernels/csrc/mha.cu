@@ -239,6 +239,7 @@ int launch_d(const void* q, const void* k, const void* v, const void* kv_valid, 
   switch (D) {
     case 16: return launch<T, 16>(q, k, v, kv_valid, out, B, Sq, Sk, H, KV, scale, causal, s);
     case 32: return launch<T, 32>(q, k, v, kv_valid, out, B, Sq, Sk, H, KV, scale, causal, s);
+    case 64: return launch<T, 64>(q, k, v, kv_valid, out, B, Sq, Sk, H, KV, scale, causal, s);
     case 128: return launch<T, 128>(q, k, v, kv_valid, out, B, Sq, Sk, H, KV, scale, causal, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -246,8 +247,8 @@ int launch_d(const void* q, const void* k, const void* v, const void* kv_valid, 
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16; D in {16, 32, 128} (the tests' and
-// qwen2.5-3b's head dims). Returns the launch's cudaGetLastError() (0 =
+// dtype codes: 0 float32, 1 bfloat16; D in {16, 32, 64, 128} (the tests',
+// the kernel benchmark's and qwen2.5-3b's head dims). Returns the launch's cudaGetLastError() (0 =
 // launched).
 extern "C" int mha_fwd_launch(const void* q, const void* k, const void* v, const void* kv_valid,
                               void* out, int B, int Sq, int Sk, int H, int KV, int D, int dtype,

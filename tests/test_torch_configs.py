@@ -38,6 +38,9 @@ def test_import_loads_no_jax_and_no_repro_module():
         "import repro_torch, repro_torch.convert\n"
         "import repro_torch.runtime.serving, repro_torch.runtime.scheduler\n"
         "import repro_torch.launch.serve, repro_torch.kernels.ops\n"
+        "import repro_torch.launch.kernel_bench, repro_torch.kernels.gemm_os\n"
+        "import repro_torch.kernels.conv_im2col, repro_torch.kernels.maxpool\n"
+        "import repro_torch.kernels.reshuffle, repro_torch.kernels.build\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"

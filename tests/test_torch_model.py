@@ -45,7 +45,7 @@ def bridged(dtype, seed=0):
         attn[name] = (0.1 * rng.standard_normal(attn[name].shape)).astype(
             attn[name].dtype)
     jp = jax.tree.map(jnp.asarray, tree)
-    return jc, tc, jp, params_from_jax(tc, tree)
+    return jc, tc, jp, params_from_jax(tc, tree, device="cpu")
 
 
 def close(got, want, dtype):
@@ -101,6 +101,14 @@ def test_bridge_unstacks_every_layer():
         want = np.asarray(jp["blocks"]["scan"]["0"]["attn"]["wq"][i])
         np.testing.assert_array_equal(blk["attn"]["wq"].numpy(), want)
     np.testing.assert_array_equal(tp["head"].numpy(), np.asarray(jp["head"]))
+
+
+def test_bridge_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    jc, tc = configs("float32")
+    tree = jax.tree.map(np.asarray, japi.init_params(jc, jax.random.key(0)))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_jax(tc, tree)
 
 
 def test_init_params_matches_jax_tree():

@@ -79,7 +79,8 @@ def _fp32_pair():
     jc = dataclasses.replace(jcfg("qwen2.5-3b"), dtype="float32")
     tc = dataclasses.replace(tcfg("qwen2.5-3b"), dtype="float32")
     jp = japi.init_params(jc, jax.random.key(0))
-    return jc, tc, jp, params_from_jax(tc, jax.tree.map(np.asarray, jp))
+    tp = params_from_jax(tc, jax.tree.map(np.asarray, jp), device="cpu")
+    return jc, tc, jp, tp
 
 
 @pytest.mark.parametrize("attn_impl", ["kernel", "gather"])

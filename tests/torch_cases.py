@@ -86,3 +86,63 @@ def mha_inputs(seed, B, Sq, Sk, H, KV, D):
     return (rng.standard_normal((B, Sq, H, D)).astype(np.float32),
             rng.standard_normal((B, Sk, KV, D)).astype(np.float32),
             rng.standard_normal((B, Sk, KV, D)).astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# The kernel layer (gemm_os, conv_im2col, maxpool, reshuffle), from
+# tests/test_kernels.py. Float GEMMs and convs are held to
+# repro_torch.kernels.ref.sum_order_error (two fp32 sums of the same
+# products in another order: depth * 2^-24 * (|x| @ |w|) elementwise, plus
+# one bf16 step of |want| for a bf16 output); everything else is exact.
+# ---------------------------------------------------------------------------
+
+GEMM_SHAPES = [(8, 8, 8), (100, 300, 200), (128, 128, 128), (1, 512, 96),
+               (257, 129, 65)]
+QUANT_SCALES = [1.0, 0.01, 0.0005]
+CONV_SPECS = [
+    # (H, W, C, K, R, stride), batch 2
+    (12, 12, 16, 24, 3, 1),
+    (12, 12, 16, 24, 3, 2),
+    (8, 8, 8, 32, 1, 1),
+    (14, 14, 16, 8, 7, 2),
+    (9, 9, 16, 8, 3, 2),        # odd spatial
+]
+POOL_SPECS = [
+    # (H, W, C, window, stride), batch 2
+    (8, 8, 16, 2, 2),
+    (9, 9, 8, 3, 2),
+    (12, 12, 32, 3, 3),
+    (10, 10, 8, 5, 1),          # arbitrary window, stride 1
+]
+BLOCKED_CASES = [
+    # (H, W, C, cb)
+    (5, 6, 256, 8), (5, 6, 256, 32), (5, 6, 256, 128),
+    (4, 4, 100, 128),           # C padded up to cb
+]
+TRANSPOSE_SHAPES = [(128, 128), (100, 70), (257, 33), (1, 129)]
+
+
+def normal(seed, *shape):
+    """float32 standard normal values (bf16 cases round them on both
+    sides)."""
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def int8s(seed, *shape):
+    return np.random.default_rng(seed).integers(-128, 128, shape).astype(
+        np.int8)
+
+
+def gemm_inputs(seed, M, K, N, integer=False):
+    make = int8s if integer else normal
+    return make(seed, M, K), make(seed + 1, K, N)
+
+
+def pool_input(seed, H, W, C, *, nan=False):
+    """(2, H, W, C); nan=True puts a NaN in a window of each image."""
+    x = normal(seed, 2, H, W, C)
+    if nan:
+        x[0, H // 2, W // 2, 1] = np.nan
+        x[1, 0, 0, 0] = np.nan
+    return x
