@@ -17,22 +17,17 @@
 // once, over 3.35 TB/s. What the design does about that: coalesced loads;
 // overlapping windows (stride < window) re-read their shared rows, mostly
 // from L2.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cvt.cuh"
+
 namespace {
 
+using cvt::from_f32;
+using cvt::to_f32;
+
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

@@ -12,24 +12,19 @@
 // (K, N) row-major weight in both.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cvt.cuh"
+
 namespace os_tile {
+
+using cvt::from_f32;
+using cvt::to_f32;
 
 constexpr int kThreads = 256;
 constexpr int kTile = 64;  // output rows and columns per CTA
 constexpr int kDepth = 16; // depth per shared-memory stage
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // acc[i][j] += sum_k a(m0 + ty + 16i, k) * b[k, n0 + tx + 16j], k ascending.
 template <typename AFn, typename TB>

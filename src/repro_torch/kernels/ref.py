@@ -220,15 +220,15 @@ def bitwise_equal(got: torch.Tensor, want: torch.Tensor) -> bool:
     return torch.equal(got.view(bits)[~nan], want.view(bits)[~nan])
 
 
-def sum_order_error(got: torch.Tensor, want: torch.Tensor,
+def sum_order_ratio(got: torch.Tensor, want: torch.Tensor,
                     abs_product: torch.Tensor, depth: int) -> torch.Tensor:
-    """The largest ratio, over the elements, of |got - want| to the limit
-    that two fp32 sums of the same ``depth`` products in different orders
-    respect: depth * 2^-24 * (|x| @ |w|) elementwise, ``abs_product`` being
-    that product of absolute values (for a conv, the conv of |x| with |w|).
-    A bfloat16 output also gets one bf16 step of |want|, 2^-7 of it: both
-    sides round a slightly different fp32 sum, and the two roundings can
-    land one step apart. Within the limit iff the result is <= 1."""
+    """Elementwise ratio of |got - want| to the limit that two fp32 sums of
+    the same ``depth`` products in different orders respect: depth * 2^-24
+    * (|x| @ |w|), ``abs_product`` being that product of absolute values
+    (for a conv, the conv of |x| with |w|). A bfloat16 output also gets one
+    bf16 step of |want|, 2^-7 of it: both sides round a slightly different
+    fp32 sum, and the two roundings can land one step apart. An element is
+    within its limit iff its ratio is <= 1."""
     g, w = got.double(), want.double()
     limit = depth * 2.0 ** -24 * abs_product.double()
     if want.dtype == torch.bfloat16:
@@ -236,4 +236,11 @@ def sum_order_error(got: torch.Tensor, want: torch.Tensor,
     err = (g - w).abs()
     # an element both sides compute exactly (limit 0) must agree exactly
     return torch.where(err > 0, err / limit.clamp_min(1e-300),
-                       torch.zeros_like(err)).max()
+                       torch.zeros_like(err))
+
+
+def sum_order_error(got: torch.Tensor, want: torch.Tensor,
+                    abs_product: torch.Tensor, depth: int) -> torch.Tensor:
+    """The largest ``sum_order_ratio`` over the elements: within the limit
+    iff <= 1."""
+    return sum_order_ratio(got, want, abs_product, depth).max()

@@ -30,7 +30,13 @@ derived TPU roofline:
   peak for their type (67 TFLOP/s fp32 outside the tensor cores, 989
   TFLOP/s bf16, 1,979 TOP/s int8; NVIDIA's data sheet);
 - ``spatial_util``: the tile-edge efficiency of the kernel's own blocking
-  (64 x 64 outputs, depth 16 float / 32 int8) for the GEMM rows.
+  (64 x 64 outputs, depth 16 float / 32 int8) for the GEMM rows;
+- ``err_of_limit``: the row's output against its plain version on the same
+  inputs, as the worst element's (or query row's) error over its limit: 0
+  where it must be bitwise equal (int8 GEMM, maxpool, reshuffler) and is;
+  ``ref.sum_order_error`` for float GEMM and conv; ``ref.row_error`` over
+  ``ref.ROW_TOL`` for attention. Above 1 the benchmark raises. Empty for
+  the gather row, which is a plain version itself.
 
 fp32 products run in full fp32 throughout (TF32 off for cuBLAS and cuDNN
 while the benchmark runs), as the kernels compute. ``--device cpu`` runs the
@@ -63,7 +69,7 @@ PEAK_OPS_S = {                  # H100 SXM dense peaks (data sheet)
 L2_BYTES = 50e6
 NOT_MEASURED = "not measured"
 COLUMNS = ("bench", "shape", "ms", "plain_ms", "library_ms", "bound_us",
-           "bound", "spatial_util")
+           "bound", "spatial_util", "err_of_limit")
 FLOAT_TILE = (64, 64, 16)       # gemm_os.cu's float blocking (bm, bn, bk)
 INT8_TILE = (64, 64, 32)        # and its int8 blocking
 
@@ -146,19 +152,49 @@ def conv_taps(H: int, W: int, R: int, S: int, stride: int) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Agreement with the plain version: the worst error over its limit (<= 1)
+# ---------------------------------------------------------------------------
+
+
+def exact(got, want, args) -> float:
+    """0 if ``got`` is bitwise ``want`` (``ref.bitwise_equal``), else inf."""
+    return 0.0 if ref.bitwise_equal(got, want) else math.inf
+
+
+def per_row(got, want, args) -> float:
+    """Attention: the worst query row's error over the row's largest
+    reference output (``ref.row_error``), over ``ref.ROW_TOL``."""
+    # repro-lint: disable=host-sync — a correctness check, outside any timing
+    return ref.row_error(got, want).max().item() / ref.ROW_TOL[got.dtype]
+
+
+def sum_order(abs_fn: Callable, depth: int) -> Callable:
+    """Float GEMM or conv: ``ref.sum_order_error`` at ``depth`` products,
+    ``abs_fn`` being the plain version that takes |x| and |w| in fp32."""
+    def agree(got, want, args) -> float:
+        absp = abs_fn(*(a.abs().float() for a in args))
+        # repro-lint: disable=host-sync — a correctness check, outside timing
+        return ref.sum_order_error(got, want, absp, depth).item()
+    return agree
+
+
+# ---------------------------------------------------------------------------
 # Cases: one dict per row
 # ---------------------------------------------------------------------------
 
 
 def _case(bench, shape, fn, args, plain, library, n_bytes, n_ops, dtype,
-          util="", lib_args=None) -> Dict:
+          util="", lib_args=None, agree=None) -> Dict:
     """``fn(*args)`` is the row's call, ``plain(*args)`` the kernel's plain
-    version (or None), ``library(*lib_args)`` the one-call yardstick (or
-    None; ``lib_args`` default to ``args``); ``n_bytes`` and ``n_ops`` the
-    work its bound counts, ``dtype`` the type of the operations."""
+    version (or None), ``agree(fn's out, plain's out, args)`` the error over
+    its limit between the two, ``library(*lib_args)`` the one-call
+    yardstick (or None; ``lib_args`` default to ``args``); ``n_bytes`` and
+    ``n_ops`` the work its bound counts, ``dtype`` the type of the
+    operations."""
+    assert (plain is None) == (agree is None), bench
     return dict(bench=bench, shape=shape, fn=fn, args=args, plain=plain,
-                library=library, lib_args=args if lib_args is None
-                else lib_args, n_bytes=n_bytes, n_ops=n_ops, dtype=dtype,
+                agree=agree, library=library, lib_args=args if lib_args is
+                None else lib_args, n_bytes=n_bytes, n_ops=n_ops, dtype=dtype,
                 util=util)
 
 
@@ -196,11 +232,12 @@ def gemm_case(M: int, K: int, N: int, dtype, dev, *,
             bench, shape, lambda x, w: ops.quant_matmul(x, w, quant_scale),
             (x, w), lambda x, w: ref.gemm_ref(x, w, quant_scale=quant_scale),
             int_mm_or_none(x, w), nbytes(x, w) + M * N, 2.0 * M * K * N,
-            torch.int8, spatial_utilization(M, K, N, INT8_TILE))
+            torch.int8, spatial_utilization(M, K, N, INT8_TILE), agree=exact)
     x, w = _normal(rng, (M, K), dtype, dev), _normal(rng, (K, N), dtype, dev)
     return _case(bench, shape, ops.matmul, (x, w), ref.gemm_ref, torch.matmul,
                  nbytes(x, w) + M * N * x.element_size(), 2.0 * M * K * N,
-                 dtype, spatial_utilization(M, K, N, FLOAT_TILE))
+                 dtype, spatial_utilization(M, K, N, FLOAT_TILE),
+                 agree=sum_order(ref.gemm_ref, K))
 
 
 def gemm_cases(smoke: bool, dev) -> List[Dict]:
@@ -227,7 +264,7 @@ def mha_case(smoke: bool, dev) -> Dict:
                  (q, k, v), ref.mha_ref, sdpa, 2 * nbytes(q) + nbytes(k, v),
                  4.0 * B * H * D * S * (S + 1) / 2, torch.float32,
                  lib_args=tuple(t.transpose(1, 2).contiguous()
-                                for t in (q, k, v)))
+                                for t in (q, k, v)), agree=per_row)
 
 
 def conv_case(dev, N=1, H=28, W=28, C=64, K=128, R=3, stride=1,
@@ -242,12 +279,13 @@ def conv_case(dev, N=1, H=28, W=28, C=64, K=128, R=3, stride=1,
     xp = F.pad(x, (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2)
     wl = w.permute(3, 2, 0, 1).contiguous(
         memory_format=torch.channels_last)
+    def plain(x, w):
+        return ref.conv2d_ref(x, w, stride=stride)
     return _case(bench, shape, lambda x, w: ops.conv2d(x, w, stride=stride),
-                 (x, w), lambda x, w: ref.conv2d_ref(x, w, stride=stride),
-                 lambda x, w: F.conv2d(x, w, stride=stride),
+                 (x, w), plain, lambda x, w: F.conv2d(x, w, stride=stride),
                  nbytes(x, w) + N * OH * OW * K * x.element_size(),
                  2.0 * N * conv_taps(H, W, R, R, stride) * C * K, dtype,
-                 lib_args=(xp, wl))
+                 lib_args=(xp, wl), agree=sum_order(plain, R * R * C))
 
 
 def paged_cases(smoke: bool, dev) -> List[Dict]:
@@ -272,7 +310,8 @@ def paged_cases(smoke: bool, dev) -> List[Dict]:
     n_ops = 4.0 * H * D * sum(lens)
     return [
         _case("kernel_paged_attn", shape, ops.paged_attention, args,
-              ref.paged_attention_ref, None, n_bytes, n_ops, torch.float32),
+              ref.paged_attention_ref, None, n_bytes, n_ops, torch.float32,
+              agree=per_row),
         # the dense pool gather the kernel exists to avoid, as its own row
         _case("kernel_paged_attn_gather", shape, ref.paged_attention_ref,
               args, None, None, n_bytes, n_ops, torch.float32),
@@ -292,7 +331,8 @@ def pool_case(N: int, H: int, W: int, C: int, window: int, stride: int,
         lambda x: ref.maxpool2d_ref(x, window=window, stride=stride),
         lambda x: F.max_pool2d(x.permute(0, 3, 1, 2), window, stride),
         nbytes(x) + N * OH * OW * C * x.element_size(),
-        float(N * OH * OW * C * (window * window - 1)), torch.float32)
+        float(N * OH * OW * C * (window * window - 1)), torch.float32,
+        agree=exact)
 
 
 def blocked_case(H: int, W: int, C: int, cb: int, dtype, dev, *,
@@ -311,7 +351,7 @@ def blocked_case(H: int, W: int, C: int, cb: int, dtype, dev, *,
                  lambda x: ref.blocked_layout_ref(x, cb),
                  library if C % cb == 0 else None,
                  nbytes(x) + H * W * Cp * x.element_size(), 0.0,
-                 torch.float32)
+                 torch.float32, agree=exact)
 
 
 def transpose_case(M: int, N: int, dtype, dev, *, seed: int = 12) -> Dict:
@@ -319,7 +359,7 @@ def transpose_case(M: int, N: int, dtype, dev, *, seed: int = 12) -> Dict:
     x = _normal(np.random.default_rng(seed), (M, N), dtype, dev)
     return _case("kernel_transpose", f"{M}x{N}", ops.transpose, (x,),
                  ref.transpose_ref, lambda x: x.t().contiguous(),
-                 2 * nbytes(x), 0.0, torch.float32)
+                 2 * nbytes(x), 0.0, torch.float32, agree=exact)
 
 
 def layout_cases(smoke: bool, dev) -> List[Dict]:
@@ -363,20 +403,29 @@ def measure(c: Dict) -> Dict:
 
 
 def run(smoke: bool = False, device="cuda") -> List[Dict]:
-    """The benchmark's rows. Raises if any output is not finite."""
+    """The benchmark's rows. Raises if any output is not finite or
+    disagrees with the kernel's plain version on the same inputs."""
     dev = resolve_device(device)
     rows = []
     with fp32_exact():
         for c in cases(smoke, dev):
+            label = f"{c['bench']} {c['shape']}"
             out = c["fn"](*c["args"])
             if not _finite(out):
-                raise RuntimeError(f"{c['bench']} {c['shape']}: output not "
-                                   f"finite")
+                raise RuntimeError(f"{label}: output not finite")
+            err = ""
+            if c["plain"] is not None:
+                err = c["agree"](out, c["plain"](*c["args"]), c["args"])
+                if not err <= 1:
+                    raise RuntimeError(
+                        f"{label}: disagrees with its plain version, worst "
+                        f"error at {err:.3g} of its limit")
             bms, by = bound_ms(c["n_bytes"], c["n_ops"], c["dtype"])
             row = {"bench": c["bench"], "shape": c["shape"],
                    "ms": NOT_MEASURED, "plain_ms": NOT_MEASURED,
                    "library_ms": NOT_MEASURED, "bound_us": bms * 1e3,
-                   "bound": by, "spatial_util": c["util"]}
+                   "bound": by, "spatial_util": c["util"],
+                   "err_of_limit": err}
             if dev.type == "cuda":
                 m = measure(c)
                 row.update({k: "" if m[k] is None else m[k]

@@ -166,6 +166,25 @@ def test_cuda_gemm_matches_plain(fp32_exact, mkn, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("types", [("float32", "bfloat16"),
+                                   ("bfloat16", "float32")])
+@pytest.mark.parametrize("mkn", [(1, 512, 96), (257, 129, 65)])
+def test_cuda_gemm_out_dtype_matches_plain(fp32_exact, mkn, types):
+    """An output type other than the inputs' (``out_dtype``), both ways."""
+    M, K, N = mkn
+    dt, out = (getattr(torch, t) for t in types)
+    x, w = (torch.from_numpy(a).to(fp32_exact, dt)
+            for a in gemm_inputs(sum(mkn), M, K, N))
+    got = launched_once(lambda: gemm_kernel.gemm_os.launches,
+                        lambda: ops.matmul(x, w, out_dtype=out))
+    assert got.dtype == out
+    want = ref.gemm_ref(x, w, out_dtype=out)
+    worst = ref.sum_order_error(got, want, ref.gemm_ref(
+        x.abs().float(), w.abs().float()), K).item()
+    assert worst <= 1, worst
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("scale", QUANT_SCALES)
 def test_cuda_quant_epilogue_matches_plain_exactly(cuda, scale):
     x, w = (torch.from_numpy(a).to(cuda) for a in gemm_inputs(
@@ -243,3 +262,5 @@ def test_cuda_kernel_bench_smoke_launches_every_kernel(cuda):
     assert all(n > 0 for n in ops.launch_counts().values()), \
         ops.launch_counts()
     assert all(isinstance(r["ms"], float) and r["ms"] > 0 for r in rows)
+    assert all(r["err_of_limit"] == "" or r["err_of_limit"] <= 1
+               for r in rows)

@@ -298,6 +298,45 @@ def test_kernel_bench_rows_match_jax_kernel_bench(smoke, monkeypatch,
         assert r["ms"] == r["plain_ms"] == r["library_ms"] == "not measured"
         assert float(r["bound_us"]) > 0 and r["bound"] in ("bytes",
                                                            "operations")
+        # on the CPU the row's call is its plain version: no error at all
+        assert r["err_of_limit"] == (
+            "" if r["bench"] == "kernel_paged_attn_gather" else "0")
+
+
+FAULTS = {
+    # a row whose call has a known fault, by the rule that must catch it
+    "float gemm, last K value dropped": lambda: dict(
+        kernel_bench.gemm_case(33, 40, 17, torch.float32, "cpu"),
+        fn=lambda x, w: ref.gemm_ref(x[:, :-1], w[:-1])),
+    "bf16 conv, input shifted a row": lambda: dict(
+        kernel_bench.conv_case("cpu", 1, 9, 9, 4, 8, 3, 2, torch.bfloat16),
+        fn=lambda x, w: ref.conv2d_ref(
+            torch.nn.functional.pad(x, (0, 0, 0, 0, 1, 0))[:, :-1], w,
+            stride=2)),
+    "int8 epilogue, scale off by 1%": lambda: dict(
+        kernel_bench.gemm_case(16, 64, 16, torch.int8, "cpu",
+                               quant_scale=0.01),
+        fn=lambda x, w: ref.gemm_ref(x, w, quant_scale=0.0101)),
+    "mha, one key masked out": lambda: dict(
+        kernel_bench.mha_case(True, "cpu"),
+        fn=lambda q, k, v: ref.mha_ref(q, k, v, causal=True,
+                                       kv_valid=k.shape[1] - 1)),
+    "transpose, one element off": lambda: dict(
+        kernel_bench.transpose_case(8, 6, torch.float32, "cpu"),
+        fn=lambda x: ref.transpose_ref(x).index_put_(
+            (torch.tensor(0), torch.tensor(0)), torch.tensor(7.0))),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+def test_kernel_bench_rejects_a_row_that_disagrees_with_its_plain_version(
+        fault, monkeypatch):
+    """Every row's output is held against its kernel's plain version on the
+    same inputs; a known fault stops the benchmark."""
+    monkeypatch.setattr(kernel_bench, "cases",
+                        lambda smoke, dev: [FAULTS[fault]()])
+    with pytest.raises(RuntimeError, match="disagrees with its plain"):
+        kernel_bench.run(smoke=True, device="cpu")
 
 
 def test_bound_counts_each_byte_once_at_h100_peaks():

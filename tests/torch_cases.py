@@ -78,6 +78,7 @@ MHA_CASES = [
     (2, 100, 100, 8, 2, 32),
     (2, 37, 53, 6, 3, 16),
     (1, 1, 64, 8, 1, 32),
+    (1, 128, 128, 8, 2, 64),    # head dim 64, as the kernel_mha bench row
 ]
 
 
