@@ -7,27 +7,32 @@ Phases, each failing loudly (non-zero exit, no result line):
 
 1. card: the GPU's name and power limit (``nvidia-smi``); no CUDA -> exit 1.
 2. build: every CUDA kernel of ``src/repro_torch/kernels/csrc`` from source,
-   one ``nvcc`` per file, all at once.
+   one ``nvcc`` per file, all at once; each source's build time.
 3. correctness: each kernel against its plain PyTorch version on the card,
    at the serving path's widths (qwen2.5-3b: 16 query heads over 2 KV heads,
-   head dim 128, bf16) plus small cases for the kernels' other features.
-4. times: CUDA-event times of each kernel, its plain version and (for mha)
-   PyTorch's SDPA, beside the card's least time for the same work.
+   head dim 128, bf16) plus small cases for the kernels' other features,
+   and bf16 mha on inputs whose scores peak on one key, where a one-key
+   mask shift must miss every row.
+4. times: CUDA-event and profiler device times of each kernel, its plain
+   version and (for mha) PyTorch's SDPA, beside the card's least time for
+   the same work; host microseconds per call of the mha and conv
+   wrappers (``repro_torch.launch.host_cost``).
 5. kernel layer (gemm_os float and int8 with the quant epilogue,
    conv_im2col, maxpool, blocked_layout, tiled_transpose; built in phase 2),
    drawing from a generator of its own so that phase 6's traffic does not
    depend on it: each kernel against its plain version on the card at the
    JAX tests' cases and the paper's workload shapes (BERT-Base FFN,
    ResNet-50), mha at the benchmark's head dim 64, a check that each
-   tolerance has teeth (fp32 and bf16), times beside the bound and a
-   PyTorch yardstick, then one run of the kernel benchmark port
+   tolerance has teeth (fp32 and bf16), event, device and host times
+   beside the bound and a PyTorch yardstick's event and device times, then
+   one run of the kernel benchmark port
    (``repro_torch.launch.kernel_bench``) at full shapes, which must launch
    every kernel, give finite rows, and hold each row's output against its
    plain version on the same inputs.
 6. serve: qwen2.5-3b at full width with seeded random weights, through the
    paged engine and the scheduler; checks every request finished, the
    kernel launch counts, and a 2-layer full-width prefill/decode against an
-   fp32 CPU reference.
+   fp32 CPU reference; profiles a decode window and a prefill window.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -55,7 +60,9 @@ from repro_torch.kernels import maxpool as pool_kernel  # noqa: E402
 from repro_torch.kernels import paged_attention as paged_kernel  # noqa: E402
 from repro_torch.kernels import reshuffle as reshuffle_kernel  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch import host_cost  # noqa: E402
 from repro_torch.launch import kernel_bench as bench  # noqa: E402
+from repro_torch.launch.host_cost import host_us  # noqa: E402
 from repro_torch.launch.kernel_bench import cuda_ms  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.runtime.serving import PagedServingEngine, Request  # noqa: E402
@@ -98,8 +105,9 @@ def build_kernels() -> None:
     t0 = time.perf_counter()
     reports = build.build_all()
     log(f"build: {len(reports)} CUDA sources in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for name, text in reports.items():
+        f"{time.perf_counter() - t0:.1f} s, all at once; each: " + ", ".join(
+            f"{name} {sec:.1f} s" for name, (_, sec) in reports.items()))
+    for name, (text, _) in reports.items():
         for ln in text.splitlines():
             if "registers" in ln or "spill" in ln:
                 log(f"  {name}: {ln.strip()}")
@@ -161,8 +169,7 @@ def agrees(name, got, want) -> float:
 def mask_shift_caught(name, shifted, want) -> None:
     """The tolerance must fail a kernel whose mask is off by one key:
     ``shifted``, the plain version with the mask moved by one key, has to
-    miss ``want`` on every row. Run at fp32, where rounding leaves the most
-    room below the shift; the masking code is the same for every dtype."""
+    miss ``want`` on every row."""
     least = ref.row_error(shifted, want).min().item()
     tol = ref.ROW_TOL[want.dtype]
     log(f"{name}: one-key mask shift, least row error {least:.3g} (must "
@@ -242,9 +249,50 @@ def check_mha(rng, cases, heads=(H, KV, D)) -> float:
     return worst
 
 
+def mha_bf16_teeth(rng) -> float:
+    """bf16 at serving widths, on inputs whose scores peak on one key
+    (``ref.peaked_mha_inputs``): the kernel agrees with its plain version,
+    and the plain version with its causal mask, or its kv_valid, shifted by
+    one key misses on every row. On random inputs a shift moves a row by
+    less than the bf16 tolerance. Returns the max abs error."""
+    def cuda(arrays):
+        return [torch.tensor(a, dtype=torch.bfloat16, device="cuda")
+                for a in arrays]
+    q, k, v = cuda(ref.peaked_mha_inputs(rng, 1, 1024, H, KV, D))
+    got = mha_kernel.mha(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    want = ref.mha_ref(q, k, v, causal=True)
+    err = agrees("mha [peaked on the diagonal, causal 1024]", got, want)
+    mask_shift_caught("mha [peaked on the diagonal, causal 1024]",
+                      ref.mha_ref(q[:, 1:], k[:, :-1], v[:, :-1],
+                                  causal=True), want[:, 1:])
+    valid = [300, 123]
+    q, k, v = cuda(ref.peaked_mha_inputs(rng, 2, 300, H, KV, D,
+                                         last_key=[n - 1 for n in valid]))
+    kv_valid = torch.tensor(valid, dtype=torch.int32, device="cuda")
+    got = mha_kernel.mha(q, k, v, causal=False, kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    want = ref.mha_ref(q, k, v, causal=False, kv_valid=kv_valid)
+    err = max(err, agrees("mha [peaked on the last valid key, kv_valid "
+                          "(300, 123)]", got, want))
+    mask_shift_caught("mha [peaked on the last valid key, kv_valid "
+                      "(300, 123)]", ref.mha_ref(
+                          q, k, v, causal=False, kv_valid=kv_valid - 1), want)
+    return err
+
+
 # ---------------------------------------------------------------------------
 # phase 4: times
 # ---------------------------------------------------------------------------
+
+
+def host_split(seed: int) -> None:
+    """Where the host time of an mha and a conv call goes
+    (``repro_torch.launch.host_cost``): wrapper, ``ops``, bare C launch,
+    and the PyTorch call beside it."""
+    for kernel, routes in host_cost.measure(seed).items():
+        log(f"host us/call, {kernel}: " + ", ".join(
+            f"{route} {us:.1f}" for route, us in routes.items()))
 
 
 def time_paged(rng, B, lengths, label):
@@ -283,17 +331,26 @@ def time_mha(rng, Sq, label):
         return torch.tensor(rng.standard_normal(shape), dtype=torch.bfloat16,
                             device="cuda")
     q, k, v = t(1, Sq, H, D), t(1, Sq, KV, D), t(1, Sq, KV, D)
-    ms = cuda_ms(lambda: mha_kernel.mha(q, k, v, causal=True))
-    plain = cuda_ms(lambda: ref.mha_ref(q, k, v, causal=True), iters=5)
+    def kernel():
+        mha_kernel.mha(q, k, v, causal=True)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lib = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True))
+
+    def sdpa():
+        torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    ms = cuda_ms(kernel)
+    dev = device_ms(kernel, [()] * 20)
+    plain = cuda_ms(lambda: ref.mha_ref(q, k, v, causal=True), iters=5)
+    lib = cuda_ms(sdpa)
+    lib_dev = device_ms(sdpa, [()] * 20)
+    host = host_us(kernel)
     n_bytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
     flops = 4 * H * D * Sq * (Sq + 1) / 2
     bms, by = bench.bound_ms(n_bytes, flops, torch.bfloat16)
-    log(f"mha time [{label}]: {ms:.4f} ms/launch, plain {plain:.4f} ms, "
-        f"SDPA {lib:.4f} ms, bound {bms:.4f} ms ({by}), "
-        f"{bms / ms:.1%} of bound")
+    log(f"mha time [{label}]: {ms:.4f} ms/launch (device {dev:.4f} ms, host "
+        f"{host:.1f} us/call), plain {plain:.4f} ms, SDPA {lib:.4f} ms "
+        f"(device {lib_dev:.4f} ms), bound {bms:.4f} ms ({by}), "
+        f"{bms / ms:.1%} of bound ({bms / dev:.1%} on the device)")
     return ms, plain, bms, by, lib
 
 
@@ -418,6 +475,11 @@ def check_conv(rng) -> float:
                 has_teeth(f"conv_im2col [stem {dt}, padding shifted by one "
                           f"row]", ref.conv2d_ref(shifted, w, stride=st),
                           want, absp, R * R * C)
+                dropped = w.clone()
+                dropped[-1, -1] = 0          # the last tap (kh, kw) = (6, 6)
+                has_teeth(f"conv_im2col [stem {dt}, last tap dropped]",
+                          ref.conv2d_ref(x, dropped, stride=st), want, absp,
+                          R * R * C)
     return err
 
 
@@ -460,22 +522,38 @@ def check_layout(rng):
     return errs
 
 
-def device_ms(fn, copies) -> float:
+def device_ms(fn, copies, want: int = 3, tries: int = 12) -> float:
     """Device milliseconds per call of ``fn`` over one pass through
     ``copies``, from torch.profiler's kernel events: the kernel's own time,
     without the host's gaps between launches that the CUDA-event time
-    includes when the host issues calls slower than the card runs them."""
+    includes when the host issues calls slower than the card runs them.
+    On the H100 a profiler session now and then loses some or all of its
+    kernel events, several sessions in a row at times. A session counts
+    only if it recorded at least one kernel per call; the pass is profiled
+    until ``want`` sessions count (at most ``tries``), and their median is
+    returned. NaN, logged as not measured, if none counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn(*copies[0])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for args in copies:
-            fn(*args)
-        torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
-    return busy / 1e3 / len(copies)
+    busy = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for args in copies:
+                fn(*args)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        if sum(e.count for e in events) >= len(copies):
+            busy.append(sum(e.self_device_time_total for e in events))
+            if len(busy) == want:
+                break
+    if not busy:
+        log(f"device time not measured: torch.profiler lost the kernel "
+            f"events of all {tries} sessions")
+        return float("nan")
+    busy.sort()
+    return busy[len(busy) // 2] / 1e3 / len(copies)
 
 
 def time_layer() -> dict:
@@ -502,14 +580,21 @@ def time_layer() -> dict:
     first = {}
     for name, c in cases:
         m = bench.measure(c)
-        dev = device_ms(c["fn"], bench.cold_copies(c["args"], c["n_bytes"]))
+        copies = bench.cold_copies(c["args"], c["n_bytes"])
+        dev = device_ms(c["fn"], copies)
+        host = host_us(lambda: c["fn"](*c["args"]))
         dtype = c["args"][0].dtype
-        lib = "none" if m["library_ms"] is None else \
-            f"{m['library_ms']:.4f} ms"
+        lib = "none"
+        if m["library_ms"] is not None:
+            lib_dev = device_ms(c["library"], bench.cold_copies(
+                c["lib_args"], c["n_bytes"]))
+            lib = f"{m['library_ms']:.4f} ms (device {lib_dev:.4f} ms)"
         log(f"{name} time [{c['shape']} {dtype}]: {m['ms']:.4f} ms/launch "
-            f"(device {dev:.4f} ms), plain {m['plain_ms']:.4f} ms, library "
-            f"{lib}, bound {m['bound_ms']:.4f} ms ({m['bound_by']}), "
-            f"{m['bound_ms'] / m['ms']:.1%} of bound")
+            f"(device {dev:.4f} ms, host {host:.1f} us/call), plain "
+            f"{m['plain_ms']:.4f} ms, library {lib}, bound "
+            f"{m['bound_ms']:.4f} ms ({m['bound_by']}), "
+            f"{m['bound_ms'] / m['ms']:.1%} of bound "
+            f"({m['bound_ms'] / dev:.1%} on the device)")
         first.setdefault(name, m)
     return first
 
@@ -676,6 +761,7 @@ def serve(rng):
              f"layers x prefills, no other kernel)")
     eng.alloc.check_no_aliasing()
     profile_decode(engine, rng, cfg.vocab)
+    profile_prefill(engine, rng, cfg.vocab)
     return counts
 
 
@@ -716,12 +802,49 @@ def profile_decode(eng_factory, rng, vocab) -> None:
         log(f"profile:   {t / 1e3:8.3f} ms {t / busy:6.1%}  {key[:70]}")
 
 
+def profile_prefill(eng_factory, rng, vocab) -> None:
+    """torch.profiler over the prefills of 4 prompts of 512 tokens (one
+    bucket): the card's busy share of the wall time, and the flash-MHA
+    kernel's device time and share of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    eng = eng_factory()
+    reqs = [Request(rid=i, prompt=[int(t) for t in rng.integers(0, vocab,
+                                                                512)],
+                    max_new=2) for i in range(4)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for r in reqs:
+            if not eng.submit(r):
+                fail("profile: admission rejected")
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.self_device_time_total, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    busy = sum(t for t, _ in rows)
+    if busy <= 0:
+        log("profile prefill: no device time in the trace (not measured)")
+        return
+    mha_us = sum(t for t, key in rows if "mha_" in key)
+    log(f"profile prefill: 4 prefills of 512 tokens, wall "
+        f"{wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms = "
+        f"{busy / wall_us:.1%} (idle {1 - busy / wall_us:.1%}); flash-MHA "
+        f"{mha_us / 1e3:.3f} ms = {mha_us / busy:.1%} of the device time")
+    for t, key in sorted(rows, reverse=True)[:6]:
+        log(f"profile prefill:   {t / 1e3:8.3f} ms {t / busy:6.1%}  "
+            f"{key[:70]}")
+
+
 def main() -> None:
     smi = card()
     build_kernels()
     rng = np.random.default_rng(SEED)
     err_paged = check_paged(rng)
     err_mha = check_mha(rng, MHA_SERVE)
+    # a generator of its own: phase 6's traffic stays as it was
+    err_mha = max(err_mha, mha_bf16_teeth(np.random.default_rng(SEED + 3)))
     serve_lengths = [int(n) for n in rng.integers(64 + 32, 632, SLOTS)]
     paged_t = time_paged(rng, SLOTS, serve_lengths,
                          f"serve shapes: B={SLOTS}, contexts "
@@ -729,6 +852,7 @@ def main() -> None:
     time_paged(rng, 16, [2048] * 16, "B=16, 2048-token contexts")
     mha_t = time_mha(rng, 1024, "serve shapes: B=1, Sq=Sk=1024 bucket")
     time_mha(rng, 512, "B=1, Sq=Sk=512 bucket")
+    host_split(SEED + 4)
     layer, err_mha64 = kernel_layer(np.random.default_rng(SEED + 2))
     err_mha = max(err_mha, err_mha64)
     check_model(rng)

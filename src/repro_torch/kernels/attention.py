@@ -4,8 +4,10 @@ The Hopper counterpart of ``repro.kernels.attention``: fused flash attention
 with K in its natural layout, GQA, causal masking by absolute row, a traced
 (B,) ``kv_valid``, fully masked rows -> 0. Same public signature and layouts
 as the JAX ``mha`` (the TPU block sizes ``bq``/``bk`` have no counterpart:
-the CUDA kernel's tiles are fixed at 64 x 64). CUDA tensors only:
-``kernels.ops.attention`` routes CPU tensors to ``ref.mha_ref``.
+the CUDA kernels' tiles are fixed at 64 x 64). bfloat16 runs on the tensor
+cores (wgmma fed by TMA), float32 on the FMA units (``csrc/mha.cu`` says
+why). CUDA tensors only: ``kernels.ops.attention`` routes CPU tensors to
+``ref.mha_ref``.
 """
 from __future__ import annotations
 
@@ -30,9 +32,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _require(ok: bool, msg: str) -> None:
+def _require(ok: bool, msg: str, *args) -> None:
+    """Raise with ``msg.format(*args)`` unless ``ok``; the message is built
+    only on failure (its formatting would cost every call microseconds)."""
     if not ok:
-        raise ValueError(f"mha kernel: {msg}")
+        raise ValueError("mha kernel: " + msg.format(*args))
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -44,36 +48,40 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _require(q.is_cuda, "needs CUDA tensors (CPU tensors go through "
              "repro_torch.kernels.ops)")
     _require(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
-             f"q (B,Sq,H,D) and k, v (B,Sk,KV,D) of one shape, got "
-             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+             "q (B,Sq,H,D) and k, v (B,Sk,KV,D) of one shape, got {}, {}, "
+             "{}", q.shape, k.shape, v.shape)
     B, Sq, H, D = q.shape
     _, Sk, KV, Dk = k.shape
     _require(k.shape[0] == B and Dk == D and H % KV == 0,
-             f"q {tuple(q.shape)} does not fit k {tuple(k.shape)}")
-    _require(D in _HEAD_DIMS, f"head dim {D} not in {_HEAD_DIMS}")
-    _require(q.dtype in _DTYPES and k.dtype == q.dtype
-             and v.dtype == q.dtype, f"dtypes {q.dtype}/{k.dtype}/{v.dtype}"
-             f" (one of float32, bfloat16)")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _require(t.device == q.device, f"{name} on {t.device}, q on "
-                 f"{q.device}")
-        _require(t.is_contiguous(), f"{name} must be contiguous")
-        _require(t.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
-    if kv_valid is None or isinstance(kv_valid, int):
-        # filled on the device: no host copy, no sync
-        valid = torch.full((B,), Sk if kv_valid is None else kv_valid,
-                           dtype=torch.int32, device=q.device)
+             "q {} does not fit k {}", q.shape, k.shape)
+    _require(D in _HEAD_DIMS, "head dim {} not in {}", D, _HEAD_DIMS)
+    dtype = _DTYPES.get(q.dtype)
+    _require(dtype is not None and k.dtype == q.dtype and v.dtype == q.dtype,
+             "dtypes {}/{}/{} (one of float32, bfloat16)", q.dtype, k.dtype,
+             v.dtype)
+    dev = q.device
+    _require(k.device == dev and v.device == dev, "q, k, v on {}, {}, {}",
+             dev, k.device, v.device)
+    _require(q.is_contiguous() and k.is_contiguous() and v.is_contiguous(),
+             "q, k and v must be contiguous")
+    _require((q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 == 0,
+             "q, k and v must be 16-byte aligned")
+    if kv_valid is None:
+        valid_ptr = 0           # the kernel reads all Sk keys: no fill launch
     else:
-        valid = torch.as_tensor(kv_valid, dtype=torch.int32,
-                                device=q.device).expand(B).contiguous()
+        if isinstance(kv_valid, int):
+            # filled on the device: no host copy, no sync
+            valid = torch.full((B,), kv_valid, dtype=torch.int32, device=dev)
+        else:
+            valid = torch.as_tensor(kv_valid, dtype=torch.int32,
+                                    device=dev).expand(B).contiguous()
+        valid_ptr = valid.data_ptr()
 
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib().mha_fwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            out.data_ptr(), B, Sq, Sk, H, KV, D, _DTYPES[q.dtype],
-            int(causal), D ** -0.5, stream)
+    err = build.launch_on(dev, _lib().mha_fwd_launch, q.data_ptr(),
+                          k.data_ptr(), v.data_ptr(), valid_ptr,
+                          out.data_ptr(), B, Sq, Sk, H, KV, D, dtype,
+                          int(causal), D ** -0.5)
     if err:
         raise RuntimeError(f"mha kernel launch failed: CUDA error {err}")
     mha.launches += 1

@@ -18,8 +18,11 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -65,28 +68,39 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
+def build_all(names: Sequence[str] = SOURCES) -> Dict[str, Tuple[str, float]]:
     """Compile every missing library, one ``nvcc`` per source, all started
-    together. Returns each source's compiler report (``-Xptxas -v``:
-    registers, shared memory, spills; empty for a library already built).
-    Raises with the compiler's output if any build fails."""
+    together. Returns, per source, the compiler's report (``-Xptxas -v``:
+    registers, shared memory, spills) and the seconds from the start of
+    the builds to that ``nvcc``'s exit (``("", 0.0)`` for a library already
+    built). Raises with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
+    t0 = time.perf_counter()
     procs = {}
     for name in names:
         out = lib_path(name)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = tmp.with_suffix(".log")
         cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out)
-    reports = {name: "" for name in names}
+        with open(log, "w") as fh:     # a file, not a pipe: nvcc never blocks
+            proc = subprocess.Popen(cmd, stdout=fh, stderr=subprocess.STDOUT)
+        procs[name] = (proc, tmp, out, log)
+    reports = {name: ("", 0.0) for name in names}
+    done = set()
+    while len(done) < len(procs):
+        for name, (proc, *_rest) in procs.items():
+            if name not in done and proc.poll() is not None:
+                done.add(name)
+                reports[name] = ("", time.perf_counter() - t0)
+        time.sleep(0.02)
     failed = []
-    for name, (proc, tmp, out) in procs.items():
-        text, _ = proc.communicate()
-        reports[name] = text
+    for name, (proc, tmp, out, log) in procs.items():
+        text = log.read_text()
+        log.unlink(missing_ok=True)
+        reports[name] = (text, reports[name][1])
         if proc.returncode != 0:
             failed.append(f"--- nvcc {name}.cu (exit {proc.returncode}) ---\n"
                           f"{text}")
@@ -107,3 +121,14 @@ def library(name: str) -> ctypes.CDLL:
         build_all([name])
     return ctypes.CDLL(str(path))
 
+
+def launch_on(device, fn, *args) -> int:
+    """``fn(*args, stream)``: a kernel's C launch function, called on
+    ``device``'s current stream with ``device`` as the current device (a
+    CUDA launch goes to the thread's current device). The device is
+    switched only when it is not current already: the context manager
+    costs microseconds per call."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)

@@ -31,9 +31,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _require(ok: bool, msg: str) -> None:
+def _require(ok: bool, msg: str, *args) -> None:
+    """Raise with ``msg.format(*args)`` unless ``ok``; the message is built
+    only on failure (its formatting would cost every call microseconds)."""
     if not ok:
-        raise ValueError(f"conv_im2col kernel: {msg}")
+        raise ValueError("conv_im2col kernel: " + msg.format(*args))
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1
@@ -44,27 +46,26 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1
     _require(x.is_cuda, "needs CUDA tensors (CPU tensors go through "
              "repro_torch.kernels.ops)")
     _require(x.dim() == 4 and w.dim() == 4 and w.shape[2] == x.shape[3],
-             f"x (N, H, W, C) and w (R, S, C, K), got {tuple(x.shape)}, "
-             f"{tuple(w.shape)}")
+             "x (N, H, W, C) and w (R, S, C, K), got {}, {}", x.shape,
+             w.shape)
     N, H, W, C = x.shape
     R, S, _, K = w.shape
     _require(x.numel() > 0 and w.numel() > 0, "empty x or w")
-    _require(stride >= 1, f"stride {stride}")
-    _require(x.dtype in _DTYPES and w.dtype == x.dtype,
-             f"dtypes {x.dtype}/{w.dtype} (one of float32, bfloat16)")
-    _require(w.device == x.device, f"w on {w.device}, x on {x.device}")
+    _require(stride >= 1, "stride {}", stride)
+    dtype = _DTYPES.get(x.dtype)
+    _require(dtype is not None and w.dtype == x.dtype,
+             "dtypes {}/{} (one of float32, bfloat16)", x.dtype, w.dtype)
+    _require(w.device == x.device, "w on {}, x on {}", w.device, x.device)
     _require(x.is_contiguous() and w.is_contiguous(),
              "x and w must be contiguous")
     OH, OW, (pad_t, _), (pad_l, _) = same_padding(H, W, R, S, stride)
     _require(-(-N * OH * OW // 64) < 65536,
-             f"{N * OH * OW} output pixels need more than 65535 row tiles")
+             "{} output pixels need more than 65535 row tiles", N * OH * OW)
 
     out = torch.empty((N, OH, OW, K), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().conv_im2col_launch(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), N, H, W, C, R, S, K,
-            OH, OW, stride, pad_t, pad_l, _DTYPES[x.dtype], stream)
+    err = build.launch_on(x.device, _lib().conv_im2col_launch, x.data_ptr(),
+                          w.data_ptr(), out.data_ptr(), N, H, W, C, R, S, K,
+                          OH, OW, stride, pad_t, pad_l, dtype)
     if err:
         raise RuntimeError(f"conv_im2col kernel launch failed: CUDA error "
                            f"{err}")

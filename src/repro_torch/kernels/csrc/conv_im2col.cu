@@ -10,70 +10,264 @@
 // already the (R*S*C, K) row-major B of the GEMM. The kernel computes each
 // input address itself, ih = oh*stride + kh - pad_top (likewise iw), and
 // reads 0 outside the image: this is the chip's AGU walking a 6-D affine
-// pattern. No padded copy of x and no im2col buffer is ever written. The
-// tile loop (64 x 64 outputs per CTA, accumulator in registers) is the
-// GEMM's, shared through os_tile.cuh; A is read one scalar at a time, since
-// the ResNet-50 stem has C = 3 and admits no vector width over C.
+// pattern. No padded copy of x and no im2col buffer is ever written.
 //
 // What bounds it on this card: operations at the ResNet-50 shapes (the
-// fp32 stem does ~0.24 GFLOP on 0.6 MB of input and weights). The least time is the FLOPs
-// of the in-image taps over 67 TFLOP/s (fp32) or 989 TFLOP/s (bf16). What
-// the design does about that, for now: register tiling only, fp32 FMAs,
-// plus an integer address walk per element of A. Tensor cores are later
-// work.
+// stem does ~0.24 GFLOP on 0.6 MB of input and weights). The least time is
+// the FLOPs of the in-image taps over 989 TFLOP/s (bf16) or 67 TFLOP/s
+// (fp32).
+//
+// bf16: the tensor-core mainloop of tc_tile.cuh (mma.sync.m16n8k16, fp32
+// accumulators, a ring of cp.async stages). Each CTA first
+// writes an address table: for every output row of its tile (n*H,
+// oh*stride - pad_t, ow*stride - pad_l), once, into shared memory; each
+// thread then works out (kh, kw, c) once per depth step for the one depth
+// column (or 8-channel group) it always loads, and no division is left per
+// element. Where C % 8 == 0 (stage 3, C = 128) A arrives as 16-byte
+// cp.async copies of 8 channels of one tap, pixels outside the image
+// zero-filled through the copy's source size; otherwise (the stem, C = 3)
+// scalar loads, staged in registers across a stage's products, fill the
+// same tile. Depth past R*S*C is zero-filled to the stage depth (147 -> 160
+// at the stem). Tiles: 64 x 64, 32 deep, where that grid already covers the
+// SMs (the stem: 196 CTAs), else 32 x 16, 64 deep (stage 3: M = 784,
+// K = 128 gives 200 CTAs where 64 x 64 gave 26). Each output is
+// summed by one thread in one order: two runs give the same bits. What
+// bounds it now: not the tensor cores. At stage 3 the small tiles re-read
+// A once per column tile (8 times) and B once per row tile (25 times),
+// ~22 MB from L2 for a 0.5 MB problem, and each CTA waits on its loads
+// through 18 short stages; 32 deep and 4 stages ran about twice as long
+// as 64 deep and 5 (PERF.md). Next: 64 x 64 tiles with the taps split over
+// CTAs and a second pass that adds the partial sums in a fixed order,
+// which cuts that traffic threefold. At the stem, the scalar gather of
+// C = 3 (16 two-byte loads per thread and stage).
+//
+// fp32: the FMA tile loop of os_tile.cuh (64 x 64 outputs per CTA, 4 x 4
+// per thread), with A read one scalar at a time through the same address
+// walk. It stays on the FMA units on purpose: TF32 tensor cores would miss
+// the ref.sum_order_error limit (depth * 2^-24 of |x| * |w|).
+#include <cuda_bf16.h>
+
 #include "os_tile.cuh"
+#include "tc_tile.cuh"
 
 namespace {
 
-using os_tile::kThreads;
-using os_tile::kTile;
+// ===========================================================================
+// fp32: the os_tile FMA loop
+// ===========================================================================
 
-template <typename T>
-struct Im2col {
-  const T* x;
+struct Im2colF32 {
+  const float* x;
   int H, W, C, S, OH, OW, stride, pad_t, pad_l;
   __device__ __forceinline__ float operator()(int m, int k) const {
     const int ow = m % OW, t = m / OW, oh = t % OH, n = t / OH;
     const int c = k % C, tap = k / C, kw = tap % S, kh = tap / S;
     const int ih = oh * stride + kh - pad_t, iw = ow * stride + kw - pad_l;
     if (ih < 0 || ih >= H || iw < 0 || iw >= W) return 0.f;
-    return os_tile::to_f32(x[(((long)n * H + ih) * W + iw) * C + c]);
+    return x[(((long)n * H + ih) * W + iw) * C + c];
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    conv_kernel(Im2col<T> a, const T* __restrict__ w, T* __restrict__ out, int M, int Cout,
-                int depth) {
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+__global__ void __launch_bounds__(os_tile::kThreads)
+    conv_f32_kernel(Im2colF32 a, const float* __restrict__ w, float* __restrict__ out, int M,
+                    int Cout, int depth) {
+  const int m0 = blockIdx.y * os_tile::kTile, n0 = blockIdx.x * os_tile::kTile;
   float acc[4][4] = {};
   os_tile::accumulate(a, w, M, Cout, depth, m0, n0, acc);
   os_tile::store(out, M, Cout, m0, n0, acc);
 }
 
-template <typename T>
-int launch(const void* x, const void* w, void* out, int N, int H, int W, int C, int R, int S,
-           int Cout, int OH, int OW, int stride, int pad_t, int pad_l, cudaStream_t s) {
-  const int M = N * OH * OW;
-  const Im2col<T> a{static_cast<const T*>(x), H, W, C, S, OH, OW, stride, pad_t, pad_l};
-  const dim3 grid((Cout + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-  conv_kernel<T><<<grid, kThreads, 0, s>>>(a, static_cast<const T*>(w), static_cast<T*>(out), M,
-                                           Cout, R * S * C);
-  return static_cast<int>(cudaGetLastError());
+// ===========================================================================
+// bf16: the tensor-core mainloop
+// ===========================================================================
+
+using bf16 = __nv_bfloat16;
+
+struct ConvArgs {
+  const bf16* x;
+  const bf16* w;
+  bf16* out;
+  int H, W, C, S, OH, OW, stride, pad_t, pad_l, M, Cout, depth;
+};
+
+constexpr int kOutside = -(1 << 28);  // an ih that no tap brings into the image
+
+// Fills one stage: A = depth [k0, k0 + BK) of the tile's output rows, read
+// through the address table; B = rows [k0, k0 + BK) of w, the tile's
+// columns. kVecA: C % 8 == 0, 16-byte cp.async copies of 8 channels of one
+// tap; else scalar loads staged in registers (issue) and stored (land).
+// kVecB: Cout % 8 == 0, likewise for w.
+template <typename Sh, bool kVecA, bool kVecB>
+struct ConvLoad {
+  static constexpr int BM = Sh::BM, BN = Sh::BN, BK = Sh::BK, kT = tc_tile::kThreads;
+  static constexpr int kScalarA = kVecA ? 1 : BM * BK / kT;  // register-staged values
+  static constexpr int kScalarB = kVecB ? 1 : BK * BN / kT;
+  static_assert(kT % (BK / 8) == 0 && kT % BK == 0 && (BM * BK) % kT == 0 &&
+                    (BK * BN) % kT == 0,
+                "each thread keeps one depth column (or 8-channel group)");
+  ConvArgs p;
+  const int* row_n;  // n * H per tile row
+  const int* row_h;  // oh * stride - pad_t (kOutside past M)
+  const int* row_w;  // ow * stride - pad_l
+  int n0;
+  bf16 a_reg[kScalarA];
+  bf16 b_reg[kScalarB];
+
+  // (kh, kw, c) of depth k, once per depth step and thread
+  __device__ __forceinline__ void tap_of(int k, int& kh, int& kw, int& c) const {
+    const int tap = k / p.C;
+    c = k - tap * p.C;
+    kh = tap / p.S;
+    kw = tap - kh * p.S;
+  }
+
+  __device__ __forceinline__ void issue(tc_tile::Stages<Sh>& st, int s, int step) {
+    const int k0 = step * BK;
+    int kh, kw, c;
+    if constexpr (kVecA) {
+      constexpr int kGroups = BK / 8;  // thread t loads 8-channel group t % kGroups
+      const int k = k0 + 8 * (threadIdx.x % kGroups);
+      tap_of(k, kh, kw, c);
+      const bool kin = k < p.depth;
+#pragma unroll
+      for (int i = 0; i < BM * kGroups / kT; ++i) {
+        const int e = threadIdx.x + kT * i, r = e / kGroups;
+        const int ih = row_h[r] + kh, iw = row_w[r] + kw;
+        const bool in = kin && (unsigned)ih < (unsigned)p.H && (unsigned)iw < (unsigned)p.W;
+        const bf16* src = in ? p.x + ((long)(row_n[r] + ih) * p.W + iw) * p.C + c : p.x;
+        tc_tile::cp_async16(&st.a[s][r][8 * (e % kGroups)], src, in);
+      }
+    } else {
+      const int k = k0 + threadIdx.x % BK;  // thread t loads depth column t % BK
+      tap_of(k, kh, kw, c);
+      const bool kin = k < p.depth;
+#pragma unroll
+      for (int i = 0; i < kScalarA; ++i) {
+        const int r = threadIdx.x / BK + (kT / BK) * i;
+        const int ih = row_h[r] + kh, iw = row_w[r] + kw;
+        const bool in = kin && (unsigned)ih < (unsigned)p.H && (unsigned)iw < (unsigned)p.W;
+        a_reg[i] = in ? p.x[((long)(row_n[r] + ih) * p.W + iw) * p.C + c] : __float2bfloat16(0.f);
+      }
+    }
+    if constexpr (kVecB) {
+      constexpr int kChunks = BN / 8;
+#pragma unroll
+      for (int i = 0; i < (BK * kChunks + kT - 1) / kT; ++i) {
+        const int e = threadIdx.x + kT * i;
+        if (e >= BK * kChunks) break;
+        const int kr = e / kChunks, cn = 8 * (e % kChunks);
+        const int k = k0 + kr, n = n0 + cn;
+        const bool in = k < p.depth && n < p.Cout;
+        tc_tile::cp_async16(&st.b[s][kr][cn], in ? p.w + (long)k * p.Cout + n : p.w, in);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kScalarB; ++i) {
+        const int e = threadIdx.x + kT * i, kr = e / BN, cn = e % BN;
+        const int k = k0 + kr, n = n0 + cn;
+        b_reg[i] = (k < p.depth && n < p.Cout) ? p.w[(long)k * p.Cout + n]
+                                                : __float2bfloat16(0.f);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void land(tc_tile::Stages<Sh>& st, int s) const {
+    if constexpr (!kVecA) {
+#pragma unroll
+      for (int i = 0; i < kScalarA; ++i)
+        st.a[s][threadIdx.x / BK + (kT / BK) * i][threadIdx.x % BK] = a_reg[i];
+    }
+    if constexpr (!kVecB) {
+#pragma unroll
+      for (int i = 0; i < kScalarB; ++i) {
+        const int e = threadIdx.x + kT * i;
+        st.b[s][e / BN][e % BN] = b_reg[i];
+      }
+    }
+  }
+};
+
+template <typename Sh, bool kVecA, bool kVecB>
+__global__ void __launch_bounds__(tc_tile::kThreads) conv_bf16_kernel(const ConvArgs p) {
+  constexpr int BM = Sh::BM, BN = Sh::BN;
+  __shared__ __align__(128) tc_tile::Stages<Sh> st;
+  __shared__ int row_n[BM], row_h[BM], row_w[BM];
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  for (int r = threadIdx.x; r < BM; r += tc_tile::kThreads) {
+    const int m = m0 + r;
+    if (m < p.M) {
+      const int ow = m % p.OW, t = m / p.OW, oh = t % p.OH, n = t / p.OH;
+      row_n[r] = n * p.H;
+      row_h[r] = oh * p.stride - p.pad_t;
+      row_w[r] = ow * p.stride - p.pad_l;
+    } else {
+      row_n[r] = 0;
+      row_h[r] = kOutside;
+      row_w[r] = 0;
+    }
+  }
+  __syncthreads();
+  float acc[Sh::WM / 16][Sh::WN / 8][4] = {};
+  ConvLoad<Sh, kVecA, kVecB> load{p, row_n, row_h, row_w, n0};
+  tc_tile::mainloop<Sh>(st, load, (p.depth + Sh::BK - 1) / Sh::BK, acc);
+  tc_tile::store<Sh>(p.out, p.M, p.Cout, m0, n0, acc);
+}
+
+// 64 x 64 tiles, 32 deep: where they already give a CTA per SM (the stem:
+// 196 CTAs, depth 147 -> 160). 32 x 16 tiles, 64 deep, 5 stages: small
+// maps (stage 3: 200 CTAs); fewer, deeper stages keep more bytes in flight
+// per SM, which is what a CTA of this size waits on.
+using Big = tc_tile::Shape<64, 64, 32, 32, 32, 4>;
+using Small = tc_tile::Shape<32, 16, 16, 8, 64, 5>;
+
+template <typename Sh, bool kVecA, bool kVecB>
+void launch_tile(const ConvArgs& p, cudaStream_t s) {
+  const dim3 grid((p.Cout + Sh::BN - 1) / Sh::BN, (p.M + Sh::BM - 1) / Sh::BM);
+  conv_bf16_kernel<Sh, kVecA, kVecB><<<grid, tc_tile::kThreads, 0, s>>>(p);
+}
+
+template <bool kVecA, bool kVecB>
+void launch_bf16(const ConvArgs& p, cudaStream_t s) {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const long big_tiles = (long)((p.M + Big::BM - 1) / Big::BM) * ((p.Cout + Big::BN - 1) / Big::BN);
+  if (big_tiles >= sms)
+    launch_tile<Big, kVecA, kVecB>(p, s);
+  else
+    launch_tile<Small, kVecA, kVecB>(p, s);
 }
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16 (x, w and out alike). Returns the
-// launch's cudaGetLastError() (0 = launched).
+// dtype codes: 0 float32 (FMA loop), 1 bfloat16 (tensor cores); x, w and
+// out alike. Returns the launch's cudaGetLastError() (0 = launched).
 extern "C" int conv_im2col_launch(const void* x, const void* w, void* out, int N, int H, int W,
                                   int C, int R, int S, int Cout, int OH, int OW, int stride,
                                   int pad_t, int pad_l, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(x, w, out, N, H, W, C, R, S, Cout, OH, OW, stride, pad_t, pad_l, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(x, w, out, N, H, W, C, R, S, Cout, OH, OW, stride, pad_t, pad_l,
-                                 s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int M = N * OH * OW;
+  if (dtype == 0) {
+    const Im2colF32 a{static_cast<const float*>(x), H, W, C, S, OH, OW, stride, pad_t, pad_l};
+    const dim3 grid((Cout + os_tile::kTile - 1) / os_tile::kTile,
+                    (M + os_tile::kTile - 1) / os_tile::kTile);
+    conv_f32_kernel<<<grid, os_tile::kThreads, 0, s>>>(a, static_cast<const float*>(w),
+                                                       static_cast<float*>(out), M, Cout,
+                                                       R * S * C);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const ConvArgs p{static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                   static_cast<bf16*>(out), H, W, C, S, OH, OW, stride, pad_t, pad_l, M, Cout,
+                   R * S * C};
+  const bool vec_a = C % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_b = Cout % 8 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if (vec_a && vec_b) launch_bf16<true, true>(p, s);
+  else if (vec_a) launch_bf16<true, false>(p, s);
+  else if (vec_b) launch_bf16<false, true>(p, s);
+  else launch_bf16<false, false>(p, s);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -60,6 +60,34 @@ def row_error(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
     return (g - w).abs().amax(dim=(-2, -1)) / scale
 
 
+def peaked_mha_inputs(rng: np.random.Generator, B: int, S: int, H: int,
+                      KV: int, D: int, last_key=None, peak: float = 30.0):
+    """numpy float32 (q, k, v), (B, S, H, D) and (B, S, KV, D), on which
+    every query row's scores peak on one key, ~``peak`` above the rest, so
+    that the row's output is nearly that key's value row and a mask off by
+    one key moves every row by far more than ``ROW_TOL[bfloat16]`` (a random
+    input spreads the weight over many keys, and the same shift moves a row
+    by less than that tolerance). Each GQA group's query rows are a shared
+    direction u plus 10% noise. last_key None: key i is c * u_i, so causal
+    row i peaks on its own (diagonal) key, which a causal mask shifted by
+    one drops. last_key (B,) ints: key last_key[b] is c * u for a direction
+    u shared by all of batch b's rows, so every row peaks on that key,
+    which a kv_valid of last_key[b] (one short) drops."""
+    G = H // KV
+    c = peak / np.sqrt(D)        # |u|^2 ~ D: the peak's score ~ peak
+    k = rng.standard_normal((B, S, KV, D)).astype(np.float32)
+    v = rng.standard_normal((B, S, KV, D)).astype(np.float32)
+    if last_key is None:
+        u = rng.standard_normal((B, S, KV, D))
+        k = (c * u).astype(np.float32)
+    else:
+        u = rng.standard_normal((B, 1, KV, D)) * np.ones((1, S, 1, 1))
+        for b, L in enumerate(last_key):
+            k[b, L] = c * u[b, 0]
+    q = np.repeat(u, G, axis=2) + 0.1 * rng.standard_normal((B, S, H, D))
+    return q.astype(np.float32), k, v
+
+
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool = True, kv_valid=None) -> torch.Tensor:
     """Exact softmax attention with GQA. q: (B, Sq, H, D); k, v: (B, Sk, KV,

@@ -1,0 +1,114 @@
+"""Host microseconds per call of the flash-MHA and conv_im2col wrappers, on
+the card, split into what the wrapper adds and what the launch itself
+costs.
+
+    PYTHONPATH=src python -m repro_torch.launch.host_cost
+    python src/repro_torch/launch/host_cost.py --port-src OTHER/src
+
+Prints one line per case: bf16 mha at the serving shape (B1 S1024 H16 KV2
+D128, causal) and the bf16 ResNet-50 stage-3 conv (1x28x28x128 -> 128,
+3x3), each through its wrapper, through ``kernels.ops``, as a bare
+``ctypes`` launch of the same C function, and as the PyTorch call beside it
+(SDPA, ``F.conv2d``); mha also with an int ``kv_valid``, which fills a
+(B,) tensor on the device before the launch. A call's host time is the
+wall time of 20 back-to-back calls before the card is waited for, the
+least over 5 batches: where the card keeps up, what the host pays per
+call. ``--port-src`` times another checkout's ``repro_torch`` (run this
+file by path then), so that two versions of the wrappers are compared in
+one process on one card.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from typing import Callable, Dict
+
+
+def host_us(fn: Callable[[], object], iters: int = 20,
+            batches: int = 5) -> float:
+    """Host microseconds per call of ``fn``: the least, over ``batches``
+    batches, of the wall time of ``iters`` back-to-back calls before the
+    card is waited for (other processes on the host only ever add)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / iters * 1e6)
+        torch.cuda.synchronize()
+    return best
+
+
+def cases(seed: int = 0) -> Dict[str, Dict[str, Callable[[], object]]]:
+    """The calls to time, by kernel and by route, on fresh seeded inputs."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention, conv_im2col, ops
+    if not torch.cuda.is_available():
+        raise RuntimeError("host_cost times launches on a CUDA device")
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.bfloat16,
+                            device="cuda")
+    H, KV, D, S = 16, 2, 128, 1024
+    q, k, v = t(1, S, H, D), t(1, S, KV, D), t(1, S, KV, D)
+    out = torch.empty_like(q)
+    valid = torch.full((1,), S, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    mha_lib = attention._lib()
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    x, w = t(1, 28, 28, 128), t(3, 3, 128, 128)
+    y = torch.empty((1, 28, 28, 128), dtype=torch.bfloat16, device="cuda")
+    conv_lib = conv_im2col._lib()
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1)).permute(0, 3, 1, 2)
+    wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return {
+        "mha bf16 B1 S1024 H16 KV2 D128": {
+            "wrapper": lambda: attention.mha(q, k, v, causal=True),
+            "wrapper, int kv_valid": lambda: attention.mha(
+                q, k, v, causal=True, kv_valid=S),
+            "ops.attention": lambda: ops.attention(q, k, v, causal=True),
+            "bare C launch": lambda: mha_lib.mha_fwd_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+                out.data_ptr(), 1, S, S, H, KV, D, 1, 1, D ** -0.5, stream),
+            "SDPA": lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)},
+        "conv_im2col bf16 28x28x128->128 3x3": {
+            "wrapper": lambda: conv_im2col.conv2d(x, w),
+            "ops.conv2d": lambda: ops.conv2d(x, w),
+            "bare C launch": lambda: conv_lib.conv_im2col_launch(
+                x.data_ptr(), w.data_ptr(), y.data_ptr(), 1, 28, 28, 128, 3,
+                3, 128, 28, 28, 1, 1, 1, 1, stream),
+            "F.conv2d": lambda: F.conv2d(xp, wl)},
+    }
+
+
+def measure(seed: int = 0) -> Dict[str, Dict[str, float]]:
+    """Host µs per call of every case (``cases``)."""
+    return {kernel: {route: host_us(fn) for route, fn in routes.items()}
+            for kernel, routes in cases(seed).items()}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--port-src", default=None,
+                    help="a checkout's src/ whose repro_torch is timed "
+                         "(default: the one on the path)")
+    args = ap.parse_args(argv)
+    if args.port_src:
+        sys.path.insert(0, args.port_src)
+    label = args.port_src or "repro_torch"
+    for kernel, routes in measure().items():
+        print(f"host us/call [{label}] {kernel}: " + ", ".join(
+            f"{route} {us:.1f}" for route, us in routes.items()), flush=True)
+
+
+if __name__ == "__main__":
+    main()

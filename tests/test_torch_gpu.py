@@ -5,6 +5,7 @@ its fixture, when no CUDA device is present. Imports no jax: the card's
 machine runs the port alone."""
 import dataclasses
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -21,9 +22,10 @@ from repro_torch.launch import kernel_bench  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.runtime.serving import PagedServingEngine, Request  # noqa
 from torch_cases import (BLOCKED_CASES, CONV_SPECS, F32,  # noqa: E402
-                         GEMM_SHAPES, MHA_CASES, PAGED_CASES, POOL_SPECS,
-                         QUANT_SCALES, TRANSPOSE_SHAPES, gemm_inputs,
-                         mha_inputs, normal, paged_inputs, pool_input)
+                         GEMM_SHAPES, MASK_PROBES, MHA_CASES, PAGED_CASES,
+                         POOL_SPECS, QUANT_SCALES, STEM_SPEC,
+                         TRANSPOSE_SHAPES, gemm_inputs, mha_inputs, normal,
+                         paged_inputs, pool_input)
 
 
 def assert_agrees(got, want):
@@ -104,6 +106,36 @@ def test_cuda_mha_matches_plain(cuda, shape, causal, dtype):
         assert mha_kernel.mha.launches == before + 1
         want = ref.mha_ref(q, k, v, causal=causal, kv_valid=kv_valid)
         assert_agrees(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("probe", MASK_PROBES)
+def test_cuda_mha_bf16_agrees_where_a_mask_shift_shows(cuda, probe):
+    """On inputs whose scores peak on one key, the bf16 kernel agrees with
+    its plain version per row, and the plain version with its mask shifted
+    by one key misses ref.ROW_TOL on every row: an off-by-one mask in the
+    kernel could not pass."""
+    kind, B, S, H, KV, D, valid = probe
+    q, k, v = (torch.from_numpy(x).to(cuda, torch.bfloat16)
+               for x in ref.peaked_mha_inputs(
+                   np.random.default_rng(S + D), B, S, H, KV, D,
+                   last_key=None if valid is None
+                   else [n - 1 for n in valid]))
+    causal = kind == "causal"
+    kv_valid = None if valid is None else torch.tensor(
+        valid, dtype=torch.int32, device=cuda)
+    got = launched_once(lambda: mha_kernel.mha.launches,
+                        lambda: ops.attention(q, k, v, causal=causal,
+                                              kv_valid=kv_valid))
+    want = ref.mha_ref(q, k, v, causal=causal, kv_valid=kv_valid)
+    assert_agrees(got, want)
+    if causal:
+        shifted = ref.mha_ref(q[:, 1:], k[:, :-1], v[:, :-1], causal=True)
+        want = want[:, 1:]
+    else:
+        shifted = ref.mha_ref(q, k, v, causal=False, kv_valid=kv_valid - 1)
+    assert ref.row_error(shifted, want).min().item() > \
+        ref.ROW_TOL[torch.bfloat16]
 
 
 @pytest.mark.gpu
@@ -215,6 +247,27 @@ def test_cuda_conv_matches_plain(fp32_exact, spec, dtype):
     worst = ref.sum_order_error(got, want, ref.conv2d_ref(
         x.abs().float(), w.abs().float(), stride=stride), R * R * C).item()
     assert worst <= 1, worst
+
+
+@pytest.mark.gpu
+def test_cuda_conv_bf16_stem_agrees_where_a_dropped_tap_shows(fp32_exact):
+    """The bf16 kernel on a stem-like conv (C = 3, 7x7/2: the scalar
+    gather, depth 147 padded to 160) agrees with its plain version, which
+    with its last tap dropped falls outside the same limit."""
+    H, W, C, K, R, stride = STEM_SPEC
+    x = torch.from_numpy(normal(H + W, 2, H, W, C)).to(fp32_exact,
+                                                       torch.bfloat16)
+    w = torch.from_numpy(normal(C + K, R, R, C, K)).to(fp32_exact,
+                                                       torch.bfloat16)
+    got = launched_once(lambda: conv_kernel.conv2d.launches,
+                        lambda: ops.conv2d(x, w, stride=stride))
+    want = ref.conv2d_ref(x, w, stride=stride)
+    absp = ref.conv2d_ref(x.abs().float(), w.abs().float(), stride=stride)
+    assert ref.sum_order_error(got, want, absp, R * R * C).item() <= 1
+    dropped = w.clone()
+    dropped[-1, -1] = 0
+    wrong = ref.conv2d_ref(x, dropped, stride=stride)
+    assert ref.sum_order_error(wrong, want, absp, R * R * C).item() > 1
 
 
 @pytest.mark.gpu

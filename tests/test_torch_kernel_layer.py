@@ -37,8 +37,8 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import reshuffle as reshuffle_kernel  # noqa: E402
 from repro_torch.launch import kernel_bench  # noqa: E402
 from torch_cases import (BLOCKED_CASES, CONV_SPECS, GEMM_SHAPES,  # noqa: E402
-                         POOL_SPECS, QUANT_SCALES, TRANSPOSE_SHAPES,
-                         gemm_inputs, normal, pool_input)
+                         POOL_SPECS, QUANT_SCALES, STEM_SPEC,
+                         TRANSPOSE_SHAPES, gemm_inputs, normal, pool_input)
 
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16),
@@ -159,6 +159,23 @@ def test_plain_conv_bf16_matches_jax_oracle():
     assert_sum_order(got, to_torch(jref.conv2d_ref(xj, wj, stride=2)),
                      ref.conv2d_ref(xt.abs().float(), wt.abs().float(),
                                     stride=2), 3 * 3 * 16)
+
+
+def test_plain_conv_bf16_stem_without_its_last_tap_is_rejected():
+    """The bf16 sum-order limit has teeth on a stem-like conv (C = 3,
+    7x7/2): the plain version with its last tap dropped falls outside it,
+    while the plain version itself agrees with the JAX oracle."""
+    H, W, C, K, R, stride = STEM_SPEC
+    xt, xj = both(normal(H + W, 2, H, W, C), "bfloat16")
+    wt, wj = both(normal(C + K, R, R, C, K), "bfloat16")
+    want = ops.conv2d(xt, wt, stride=stride)
+    absp = ref.conv2d_ref(xt.abs().float(), wt.abs().float(), stride=stride)
+    assert_sum_order(want, to_torch(jref.conv2d_ref(xj, wj, stride=stride)),
+                     absp, R * R * C)
+    dropped = wt.clone()
+    dropped[-1, -1] = 0
+    wrong = ref.conv2d_ref(xt, dropped, stride=stride)
+    assert ref.sum_order_error(wrong, want, absp, R * R * C).item() > 1
 
 
 def test_same_padding_splits_like_lax():
@@ -337,6 +354,16 @@ def test_kernel_bench_rejects_a_row_that_disagrees_with_its_plain_version(
                         lambda smoke, dev: [FAULTS[fault]()])
     with pytest.raises(RuntimeError, match="disagrees with its plain"):
         kernel_bench.run(smoke=True, device="cpu")
+
+
+def test_host_cost_needs_a_card():
+    """The host-cost probe times launches on the card: without one it
+    raises rather than report a CPU time."""
+    from repro_torch.launch import host_cost
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        host_cost.cases()
 
 
 def test_bound_counts_each_byte_once_at_h100_peaks():

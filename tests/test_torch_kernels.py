@@ -23,8 +23,9 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.kernels import attention as mha_kernel  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as paged_kernel  # noqa: E402
-from torch_cases import (BF16, F32, MHA_CASES, PAGED_CASES,  # noqa: E402
-                         mha_inputs, paged_case, paged_inputs)
+from repro_torch.kernels import ref  # noqa: E402
+from torch_cases import (BF16, F32, MASK_PROBES, MHA_CASES,  # noqa: E402
+                         PAGED_CASES, mha_inputs, paged_case, paged_inputs)
 
 @pytest.mark.parametrize("name", sorted(PAGED_CASES))
 def test_plain_paged_matches_jax_kernel_and_oracle(name):
@@ -106,6 +107,40 @@ def test_plain_mha_bf16_matches_jax():
                           for x in (q, k, v))).float().numpy()
     want = jref.mha_ref(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)))
     np.testing.assert_allclose(got, np.asarray(want, np.float32), **BF16)
+
+
+@pytest.mark.parametrize("probe", MASK_PROBES)
+def test_plain_mha_bf16_mask_shift_is_caught(probe):
+    """On inputs whose scores peak on one key, the plain version agrees
+    with the JAX oracle, and in bf16 a mask shifted by one key misses
+    ref.ROW_TOL on every row (on random inputs such a shift stays under
+    the bf16 tolerance): the tolerance the card holds the bf16 kernel to
+    has teeth there."""
+    kind, B, S, H, KV, D, valid = probe
+    q, k, v = ref.peaked_mha_inputs(np.random.default_rng(S + D), B, S, H,
+                                    KV, D, last_key=None if valid is None
+                                    else [n - 1 for n in valid])
+    causal = kind == "causal"
+    got = ops.attention(*map(torch.from_numpy, (q, k, v)), causal=causal,
+                        kv_valid=None if valid is None else
+                        torch.tensor(valid, dtype=torch.int32))
+    for b in range(B):    # the JAX oracle takes one int kv_valid
+        np.testing.assert_allclose(got[b:b + 1].numpy(), np.asarray(
+            jref.mha_ref(*(jnp.asarray(x[b:b + 1]) for x in (q, k, v)),
+                         causal=causal,
+                         kv_valid=None if valid is None else valid[b])),
+            **F32)
+    qb, kb, vb = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, v))
+    if causal:
+        want = ref.mha_ref(qb, kb, vb, causal=True)[:, 1:]
+        shifted = ref.mha_ref(qb[:, 1:], kb[:, :-1], vb[:, :-1], causal=True)
+    else:
+        kv_valid = torch.tensor(valid, dtype=torch.int32)
+        want = ref.mha_ref(qb, kb, vb, causal=False, kv_valid=kv_valid)
+        shifted = ref.mha_ref(qb, kb, vb, causal=False,
+                              kv_valid=kv_valid - 1)
+    least = ref.row_error(shifted, want).min().item()
+    assert least > ref.ROW_TOL[torch.bfloat16], least
 
 
 def test_plain_mha_fully_masked_rows_are_zero():

@@ -79,7 +79,27 @@ MHA_CASES = [
     (2, 37, 53, 6, 3, 16),
     (1, 1, 64, 8, 1, 32),
     (1, 128, 128, 8, 2, 64),    # head dim 64, as the kernel_mha bench row
+    (1, 200, 200, 8, 1, 128),   # D 128, G 8; 200 rows: no multiple of a tile
+    (2, 150, 70, 4, 2, 16),     # Sq > Sk at D 16: rows past the last key
 ]
+
+
+# Inputs whose scores peak on one key (repro_torch.kernels.ref.
+# peaked_mha_inputs), where a mask off by one key misses the bf16 row
+# tolerance on every row: (kind, B, S, H, KV, D, kv_valid). "causal": each
+# row peaks on its diagonal key, the causal mask is shifted. "kv_valid":
+# every row of batch b peaks on key kv_valid[b] - 1, kv_valid is shifted.
+MASK_PROBES = [
+    ("causal", 1, 256, 8, 2, 64, None),
+    ("causal", 1, 200, 8, 1, 128, None),
+    ("causal", 2, 150, 4, 2, 16, None),
+    ("kv_valid", 2, 200, 8, 2, 64, [200, 77]),
+    ("kv_valid", 2, 150, 8, 1, 128, [150, 1]),
+]
+
+# A stem-like bf16 conv whose last tap (kh, kw) = (6, 6) is dropped: the
+# sum-order limit must reject it. (H, W, C, K, R, stride), batch 2.
+STEM_SPEC = (16, 16, 3, 8, 7, 2)
 
 
 def mha_inputs(seed, B, Sq, Sk, H, KV, D):
@@ -107,6 +127,9 @@ CONV_SPECS = [
     (8, 8, 8, 32, 1, 1),
     (14, 14, 16, 8, 7, 2),
     (9, 9, 16, 8, 3, 2),        # odd spatial
+    (16, 16, 3, 8, 7, 2),       # stem-like: C = 3, 7x7/2, depth 147
+    (10, 10, 12, 16, 3, 1),     # C = 12, not a multiple of 8
+    (11, 13, 32, 40, 3, 1),     # M = 286 and K = 40: no multiple of a tile
 ]
 POOL_SPECS = [
     # (H, W, C, window, stride), batch 2
