@@ -15,16 +15,19 @@ Phases, each failing loudly (non-zero exit, no result line):
    mask shift must miss every row.
 4. times: CUDA-event and profiler device times of each kernel, its plain
    version and (for mha) PyTorch's SDPA, beside the card's least time for
-   the same work; host microseconds per call of the mha and conv
+   the same work; host microseconds per call of the mha, conv and gemm_os
    wrappers (``repro_torch.launch.host_cost``).
 5. kernel layer (gemm_os float and int8 with the quant epilogue,
    conv_im2col, maxpool, blocked_layout, tiled_transpose; built in phase 2),
    drawing from a generator of its own so that phase 6's traffic does not
    depend on it: each kernel against its plain version on the card at the
    JAX tests' cases and the paper's workload shapes (BERT-Base FFN,
-   ResNet-50), mha at the benchmark's head dim 64, a check that each
-   tolerance has teeth (fp32 and bf16), event, device and host times
-   beside the bound and a PyTorch yardstick's event and device times, then
+   ResNet-50), gemm_os on the tensor cores through every loader and tile
+   (views off a 16-byte boundary, two runs bit for bit, int8 at +-127, the
+   epilogue's ties and clipping), mha at the benchmark's head dim 64, a
+   check that each tolerance has teeth (fp32 and bf16), event, device and
+   host times beside the bound and a PyTorch yardstick's event and device
+   times (int8 also ``torch._int_mm`` with w column-major), then
    one run of the kernel benchmark port
    (``repro_torch.launch.kernel_bench``) at full shapes, which must launch
    every kernel, give finite rows, and hold each row's output against its
@@ -287,7 +290,7 @@ def mha_bf16_teeth(rng) -> float:
 
 
 def host_split(seed: int) -> None:
-    """Where the host time of an mha and a conv call goes
+    """Where the host time of an mha, a conv and a gemm_os call goes
     (``repro_torch.launch.host_cost``): wrapper, ``ops``, bare C launch,
     and the PyTorch call beside it."""
     for kernel, routes in host_cost.measure(seed).items():
@@ -401,50 +404,119 @@ def _rand(rng, shape, dtype):
                         device="cuda").to(dtype)
 
 
+# gemm_os on the tensor cores: each loader variant (x by 16-byte copies
+# where K is a whole number of 16-byte chunks, w where N is; else scalar
+# loads) under each tile the launcher picks on an H100 (32 x 32 for the
+# 100-row grids, 64 x 64 for 1000 x 1000), and M = 1
+GEMM_TC = [(100, 256, 192), (100, 250, 192), (100, 256, 190), (100, 250, 190),
+           (100, 248, 200), (1, 768, 3072), (1000, 256, 1024),
+           (1000, 250, 1024), (1000, 256, 1002), (1000, 250, 1002)]
+
+
+def _offset(a: torch.Tensor) -> torch.Tensor:
+    """``a`` as a contiguous view one element past a 16-byte boundary."""
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    view = buf[1:].view(a.shape)
+    view.copy_(a)
+    return view
+
+
 def check_gemm(rng):
     """Max abs errors (float, int8) of gemm_os against gemm_ref: the JAX
     tests' shapes in fp32, bf16 and int8, the quant scales, the int32
-    accumulation, the BERT-Base FFN at token size 512, and an output type
-    other than the input's (``out_dtype``) both ways."""
+    accumulation, the BERT-Base FFN at token size 512, an output type other
+    than the input's (``out_dtype``) both ways, and for the tensor-core
+    paths (bf16, int8) every loader variant under each tile, views off a
+    16-byte boundary, two runs giving the same bits, int8 at K = 3072 with
+    every input at +-127, and the epilogue's ties and clipping."""
     f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
     tests = [(8, 8, 8), (100, 300, 200), (128, 128, 128), (1, 512, 96),
              (257, 129, 65)]
-    ffn = (512, 768, 3072)
+    ffn, ffn2 = (512, 768, 3072), (512, 3072, 768)
     float_cases = [(s, dt, dt) for dt in (f32, bf16) for s in tests] + [
+        (s, bf16, bf16) for s in GEMM_TC] + [
         (ffn, bf16, bf16), (ffn, f32, f32)] + [
-        (s, a, b) for s in ((257, 129, 65), ffn)
+        (s, a, b) for s in ((257, 129, 65), (1000, 256, 1024), ffn)
         for a, b in ((f32, bf16), (bf16, f32))]
     err_f = 0.0
-    for (M, K, N), dt, out in float_cases:
-        x, w = _rand(rng, (M, K), dt), _rand(rng, (K, N), dt)
+
+    def float_case(label, x, w, out):
         got = gemm_kernel.gemm_os(x, w, out_dtype=out)
         torch.cuda.synchronize()
         want = ref.gemm_ref(x, w, out_dtype=out)
         absp = ref.gemm_ref(x.abs().float(), w.abs().float())
+        return sum_order(label, got, want, absp, x.shape[1]), want, absp
+
+    for (M, K, N), dt, out in float_cases:
+        x, w = _rand(rng, (M, K), dt), _rand(rng, (K, N), dt)
         types = f"{dt}" if out == dt else f"{dt} -> {out}"
-        err_f = max(err_f, sum_order(f"gemm_os [{M}x{K}x{N} {types}]", got,
-                                     want, absp, K))
+        err, want, absp = float_case(f"gemm_os [{M}x{K}x{N} {types}]", x, w,
+                                     out)
+        err_f = max(err_f, err)
         if (M, K, N) == ffn and out == dt:
             has_teeth(f"gemm_os [{types}, last K tile of 16 dropped]",
                       ref.gemm_ref(x[:, :-16], w[:-16]), want, absp, K)
+    for which in ("x", "w", "both"):     # (96, 256, 160) admits copies
+        x, w = _rand(rng, (96, 256), bf16), _rand(rng, (256, 160), bf16)
+        x = _offset(x) if which != "w" else x
+        w = _offset(w) if which != "x" else w
+        err_f = max(err_f, float_case(
+            f"gemm_os [96x256x160 bf16, {which} off a 16-byte boundary]", x,
+            w, bf16)[0])
     err_i = 0.0
-    for M, K, N in tests:
+    for M, K, N in tests + GEMM_TC + [ffn, ffn2]:
         x, w = _rand(rng, (M, K), i8), _rand(rng, (K, N), i8)
         err_i = max(err_i, same_bits(f"gemm_os int8 [{M}x{K}x{N}]",
                                      gemm_kernel.gemm_os(x, w),
                                      ref.gemm_ref(x, w)))
     quant = [((64, 256, 96), s) for s in (1.0, 0.01, 0.0005)] + [
-        ((512, 3072, 768), 0.002)]
+        (ffn2, 0.002), ((1000, 250, 1002), 0.002)]
     for (M, K, N), scale in quant:
         x, w = _rand(rng, (M, K), i8), _rand(rng, (K, N), i8)
         err_i = max(err_i, same_bits(
             f"gemm_os int8 quant [{M}x{K}x{N}, scale {scale}]",
             gemm_kernel.gemm_os(x, w, quant_scale=scale),
             ref.gemm_ref(x, w, quant_scale=scale)))
+    for which in ("x", "w", "both"):
+        x, w = _rand(rng, (96, 256), i8), _rand(rng, (256, 160), i8)
+        x = _offset(x) if which != "w" else x
+        w = _offset(w) if which != "x" else w
+        err_i = max(err_i, same_bits(
+            f"gemm_os int8 quant [96x256x160, {which} off a 16-byte "
+            f"boundary]", gemm_kernel.gemm_os(x, w, quant_scale=0.01),
+            ref.gemm_ref(x, w, quant_scale=0.01)))
+    for (M, K, N), dt, scale in ((ffn, bf16, None), (ffn2, i8, None),
+                                 (ffn2, i8, 0.002)):
+        x, w = _rand(rng, (M, K), dt), _rand(rng, (K, N), dt)
+        same_bits(f"gemm_os [{M}x{K}x{N} {dt}, scale {scale}: two runs]",
+                  gemm_kernel.gemm_os(x, w, quant_scale=scale),
+                  gemm_kernel.gemm_os(x, w, quant_scale=scale))
     ones = torch.full((8, 512), 127, dtype=i8, device="cuda")
     acc = gemm_kernel.gemm_os(ones, ones.t().contiguous())
     err_i = max(err_i, same_bits("gemm_os int8 [512 * 127 * 127 in int32]",
                                  acc, torch.full_like(acc, 512 * 127 * 127)))
+    sign = torch.tensor([-127, 127], dtype=i8, device="cuda")
+    x = sign[torch.tensor(rng.integers(0, 2, (64, 3072)), device="cuda")]
+    w = sign[torch.tensor(rng.integers(0, 2, (3072, 96)), device="cuda")]
+    x[0], w[:, 0] = 127, 127
+    acc = gemm_kernel.gemm_os(x, w)
+    err_i = max(err_i, same_bits("gemm_os int8 [64x3072x96, every input "
+                                 "+-127]", acc, ref.gemm_ref(x, w)))
+    if int(acc[0, 0]) != 3072 * 127 * 127:
+        fail("gemm_os int8: 3072 * 127^2 not exact in int32")
+    # the epilogue's edges: scale 0.5 puts every odd acc on a tie; rows of x
+    # at +-127 push acc * scale far past +-127 (K, N: 16-byte copies)
+    x = torch.tensor(rng.integers(-3, 4, (64, 64)), dtype=i8, device="cuda")
+    x[32:] = sign[torch.tensor(rng.integers(0, 2, (32, 64)), device="cuda")]
+    w = torch.tensor(rng.integers(-3, 4, (64, 48)), dtype=i8, device="cuda")
+    q = ref.gemm_ref(x, w).double() * 0.5
+    log(f"gemm_os int8 quant [64x64x48, scale 0.5]: {int((q % 1 == 0.5).sum())}"
+        f" ties, {int((q > 127).sum())} above 127, {int((q < -128).sum())} "
+        f"below -128 of {q.numel()}")
+    err_i = max(err_i, same_bits(
+        "gemm_os int8 quant [64x64x48, scale 0.5: ties and clipping]",
+        gemm_kernel.gemm_os(x, w, quant_scale=0.5),
+        ref.gemm_ref(x, w, quant_scale=0.5)))
     return err_f, err_i
 
 
@@ -595,8 +667,25 @@ def time_layer() -> dict:
             f"{m['bound_ms']:.4f} ms ({m['bound_by']}), "
             f"{m['bound_ms'] / m['ms']:.1%} of bound "
             f"({m['bound_ms'] / dev:.1%} on the device)")
+        if name == "gemm_os_int8":
+            int_mm_col_major(c)
         first.setdefault(name, m)
     return first
+
+
+def int_mm_col_major(c) -> None:
+    """A second yardstick for the int8 row: ``torch._int_mm`` with w given
+    column-major (``w.t().contiguous().t()``, made outside the timed
+    call). The row-major call (the row's library column) runs far below
+    the tensor cores' rate, which suggests cuBLAS took a slow route for
+    that layout; this call shows whether the layout is the cause."""
+    x, w = c["lib_args"]
+    wc = w.t().contiguous().t()
+    copies = bench.cold_copies((x, wc), c["n_bytes"])
+    ms = bench.cold_ms(torch._int_mm, copies)
+    dev = device_ms(torch._int_mm, copies)
+    log(f"gemm_os_int8 yardstick [{c['shape']}]: torch._int_mm with w "
+        f"column-major {ms:.4f} ms (device {dev:.4f} ms), no epilogue")
 
 
 def run_kernel_bench() -> dict:

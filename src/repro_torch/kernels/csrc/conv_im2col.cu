@@ -17,8 +17,9 @@
 // the FLOPs of the in-image taps over 989 TFLOP/s (bf16) or 67 TFLOP/s
 // (fp32).
 //
-// bf16: the tensor-core mainloop of tc_tile.cuh (mma.sync.m16n8k16, fp32
-// accumulators, a ring of cp.async stages). Each CTA first
+// bf16: the tensor-core mainloop of tc_tile.cuh under its Bf16 policy
+// (mma.sync.m16n8k16, fp32 accumulators, a ring of cp.async stages; w
+// through the header's RowMajorB loader). Each CTA first
 // writes an address table: for every output row of its tile (n*H,
 // oh*stride - pad_t, ow*stride - pad_l), once, into shared memory; each
 // thread then works out (kh, kw, c) once per depth step for the one depth
@@ -96,22 +97,19 @@ constexpr int kOutside = -(1 << 28);  // an ih that no tap brings into the image
 // through the address table; B = rows [k0, k0 + BK) of w, the tile's
 // columns. kVecA: C % 8 == 0, 16-byte cp.async copies of 8 channels of one
 // tap; else scalar loads staged in registers (issue) and stored (land).
-// kVecB: Cout % 8 == 0, likewise for w.
+// kVecB: Cout % 8 == 0 and w 16-byte aligned (tc_tile::RowMajorB).
 template <typename Sh, bool kVecA, bool kVecB>
 struct ConvLoad {
-  static constexpr int BM = Sh::BM, BN = Sh::BN, BK = Sh::BK, kT = tc_tile::kThreads;
+  static constexpr int BM = Sh::BM, BK = Sh::BK, kT = tc_tile::kThreads;
   static constexpr int kScalarA = kVecA ? 1 : BM * BK / kT;  // register-staged values
-  static constexpr int kScalarB = kVecB ? 1 : BK * BN / kT;
-  static_assert(kT % (BK / 8) == 0 && kT % BK == 0 && (BM * BK) % kT == 0 &&
-                    (BK * BN) % kT == 0,
+  static_assert(kT % (BK / 8) == 0 && kT % BK == 0 && (BM * BK) % kT == 0,
                 "each thread keeps one depth column (or 8-channel group)");
   ConvArgs p;
   const int* row_n;  // n * H per tile row
   const int* row_h;  // oh * stride - pad_t (kOutside past M)
   const int* row_w;  // ow * stride - pad_l
-  int n0;
+  tc_tile::RowMajorB<Sh, kVecB> b;
   bf16 a_reg[kScalarA];
-  bf16 b_reg[kScalarB];
 
   // (kh, kw, c) of depth k, once per depth step and thread
   __device__ __forceinline__ void tap_of(int k, int& kh, int& kw, int& c) const {
@@ -149,26 +147,7 @@ struct ConvLoad {
         a_reg[i] = in ? p.x[((long)(row_n[r] + ih) * p.W + iw) * p.C + c] : __float2bfloat16(0.f);
       }
     }
-    if constexpr (kVecB) {
-      constexpr int kChunks = BN / 8;
-#pragma unroll
-      for (int i = 0; i < (BK * kChunks + kT - 1) / kT; ++i) {
-        const int e = threadIdx.x + kT * i;
-        if (e >= BK * kChunks) break;
-        const int kr = e / kChunks, cn = 8 * (e % kChunks);
-        const int k = k0 + kr, n = n0 + cn;
-        const bool in = k < p.depth && n < p.Cout;
-        tc_tile::cp_async16(&st.b[s][kr][cn], in ? p.w + (long)k * p.Cout + n : p.w, in);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < kScalarB; ++i) {
-        const int e = threadIdx.x + kT * i, kr = e / BN, cn = e % BN;
-        const int k = k0 + kr, n = n0 + cn;
-        b_reg[i] = (k < p.depth && n < p.Cout) ? p.w[(long)k * p.Cout + n]
-                                                : __float2bfloat16(0.f);
-      }
-    }
+    b.issue(st, s, k0);
   }
 
   __device__ __forceinline__ void land(tc_tile::Stages<Sh>& st, int s) const {
@@ -177,13 +156,7 @@ struct ConvLoad {
       for (int i = 0; i < kScalarA; ++i)
         st.a[s][threadIdx.x / BK + (kT / BK) * i][threadIdx.x % BK] = a_reg[i];
     }
-    if constexpr (!kVecB) {
-#pragma unroll
-      for (int i = 0; i < kScalarB; ++i) {
-        const int e = threadIdx.x + kT * i;
-        st.b[s][e / BN][e % BN] = b_reg[i];
-      }
-    }
+    b.land(st, s);
   }
 };
 
@@ -207,18 +180,18 @@ __global__ void __launch_bounds__(tc_tile::kThreads) conv_bf16_kernel(const Conv
     }
   }
   __syncthreads();
-  float acc[Sh::WM / 16][Sh::WN / 8][4] = {};
-  ConvLoad<Sh, kVecA, kVecB> load{p, row_n, row_h, row_w, n0};
+  tc_tile::Accum<Sh> acc = {};
+  ConvLoad<Sh, kVecA, kVecB> load{p, row_n, row_h, row_w, {p.w, p.depth, p.Cout, n0}};
   tc_tile::mainloop<Sh>(st, load, (p.depth + Sh::BK - 1) / Sh::BK, acc);
-  tc_tile::store<Sh>(p.out, p.M, p.Cout, m0, n0, acc);
+  tc_tile::store<Sh>(p.out, p.M, p.Cout, m0, n0, acc, tc_tile::Round<bf16>{});
 }
 
 // 64 x 64 tiles, 32 deep: where they already give a CTA per SM (the stem:
 // 196 CTAs, depth 147 -> 160). 32 x 16 tiles, 64 deep, 5 stages: small
 // maps (stage 3: 200 CTAs); fewer, deeper stages keep more bytes in flight
 // per SM, which is what a CTA of this size waits on.
-using Big = tc_tile::Shape<64, 64, 32, 32, 32, 4>;
-using Small = tc_tile::Shape<32, 16, 16, 8, 64, 5>;
+using Big = tc_tile::Shape<tc_tile::Bf16, 64, 64, 32, 32, 32, 4>;
+using Small = tc_tile::Shape<tc_tile::Bf16, 32, 16, 16, 8, 64, 5>;
 
 template <typename Sh, bool kVecA, bool kVecB>
 void launch_tile(const ConvArgs& p, cudaStream_t s) {

@@ -9,145 +9,239 @@
 // rintf rounds half to even, as jnp.round does; acc becomes fp32 with
 // __int2float_rn and the product is one fp32 multiply, as in JAX.
 //
-// Layout: one CTA per 64 x 64 output tile, its accumulator in registers for
-// the whole K sweep (os_tile.cuh for float; the int8 loop below), written
-// once; this is the TPU kernel's VMEM-resident accumulator and Voltra's
-// output-stationarity. Ragged edges are masked in the kernel: no padded copy
-// of x or w is made, unlike the JAX wrapper's jnp.pad.
+// Layout: one CTA per output tile, its accumulator in registers for the
+// whole K sweep, written once: the TPU kernel's VMEM-resident accumulator
+// and Voltra's output-stationarity. Ragged edges are masked in the kernel:
+// no padded copy of x or w is made, unlike the JAX wrapper's jnp.pad. Each
+// output is summed by one thread in one order (no split K, no atomics), so
+// two runs give the same bits.
 //
-// What bounds it on this card: operations, at the paper's BERT-Base FFN
-// shapes (512 x 768 x 3072: ~400 FLOPs per byte of inputs). The least time
-// is 2MKN over the tensor cores' rate (989 TFLOP/s bf16, 1979 TOP/s int8),
-// or over 67 TFLOP/s for fp32. What the design does about that, for now:
-// register tiling only. Float products are fp32 FMAs (never TF32, which
-// keeps ~3 digits); int8 products are __dp4a (4 MACs per instruction) on
-// words packed in shared memory: w is (K, N) row-major, so the four K values
-// of one column are strided in memory and are packed on the way in.
-// Tensor-core tiles (wgmma, TMA) are later work.
+// What bounds it on this card, at the paper's BERT-Base FFN shapes: bytes,
+// barely. bf16 512 x 768 x 3072: 8.7 MB over 3.35 TB/s = 2.6 us, its
+// 2.4 GFLOP over 989 TFLOP/s 2.4 us. int8 512 x 3072 x 768 with the
+// epilogue: 4.3 MB = 1.3 us, 2.4 GOP over 1,979 TOP/s 1.2 us.
+//
+// bf16 and int8: the tensor-core mainloop of tc_tile.cuh, mma.sync on a
+// ring of 4 shared-memory stages (bf16: m16n8k16 with fp32 accumulators;
+// int8: m16n8k32 with int32 accumulators, w transposed into its stages by
+// the TransposeB loader, since the MMA wants w's K values contiguous per
+// column). x arrives as 16-byte cp.async copies where its rows are whole
+// 16-byte chunks and it is 16-byte aligned, w likewise by columns; else as
+// scalar loads, staged in registers across a stage's products. The
+// launcher decides this from the pointers: a contiguous view may start at
+// any byte. Tiles: 64 x 64 or 32 x 32, whichever leaves the busiest SM
+// fewer bytes to load (busiest_sm_rows): 64 x 64 at both FFN products.
+// The int8 epilogue runs in registers on the accumulator fragments.
+//
+// What limits it now (launch/gemm_probe.py, H100): the loads first. With
+// copies through L2 only (.cg) the mainloop without its MMAs took as long
+// as the kernel (bf16 0.023 ms), and tiles from 64 x 64 to 128 x 128 all
+// took 0.022-0.026 ms though the largest read half the bytes from L2.
+// Copies through L1 (.ca) cut the loads to 0.016 ms and the kernel to
+// 0.021; without its loads the kernel takes 0.014 (mma.sync, 4 warps a
+// CTA), so both count now. int8 on cold inputs: 0.022 without its MMAs,
+// 0.021 in all. cuBLAS takes 0.0061 ms at the bf16 shape and
+// torch._int_mm with w column-major 0.0085 at the int8 one. Next: TMA into
+// the ring, wgmma, and larger tiles shared over a cluster.
+//
+// fp32: the FMA tile loop of os_tile.cuh (64 x 64 outputs per CTA, 4 x 4
+// per thread). It stays on the FMA units on purpose: TF32 tensor cores
+// would miss the ref.sum_order_error limit (depth * 2^-24 of |x| @ |w|).
+#include <cuda_bf16.h>
+
 #include "os_tile.cuh"
+#include "tc_tile.cuh"
 
 namespace {
 
-using os_tile::kThreads;
-using os_tile::kTile;
+// ===========================================================================
+// fp32: the os_tile FMA loop
+// ===========================================================================
 
-template <typename T>
 struct RowMajor {
-  const T* x;
+  const float* x;
   int K;
-  __device__ __forceinline__ float operator()(int m, int k) const {
-    return os_tile::to_f32(x[(long)m * K + k]);
-  }
+  __device__ __forceinline__ float operator()(int m, int k) const { return x[(long)m * K + k]; }
 };
 
-template <typename TI, typename TO>
-__global__ void __launch_bounds__(kThreads)
-    gemm_f32_kernel(const TI* __restrict__ x, const TI* __restrict__ w, TO* __restrict__ out, int M,
-                    int N, int K) {
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
+template <typename TO>
+__global__ void __launch_bounds__(os_tile::kThreads)
+    gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w, TO* __restrict__ out,
+                    int M, int N, int K) {
+  const int m0 = blockIdx.y * os_tile::kTile, n0 = blockIdx.x * os_tile::kTile;
   float acc[4][4] = {};
-  os_tile::accumulate(RowMajor<TI>{x, K}, w, M, N, K, m0, n0, acc);
+  os_tile::accumulate(RowMajor{x, K}, w, M, N, K, m0, n0, acc);
   os_tile::store(out, M, N, m0, n0, acc);
 }
 
-constexpr int kWords = 8;  // packed 4-byte words of depth per stage (32 K values)
-
-__device__ __forceinline__ int pack4(int8_t a, int8_t b, int8_t c, int8_t d) {
-  return (int)((uint32_t)(uint8_t)a | ((uint32_t)(uint8_t)b << 8) | ((uint32_t)(uint8_t)c << 16) |
-               ((uint32_t)(uint8_t)d << 24));
-}
-
-// quant == 0: out is int32 acc; quant == 1: out is the int8 epilogue.
-__global__ void __launch_bounds__(kThreads)
-    gemm_int8_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, void* __restrict__ out,
-                     int M, int N, int K, int quant, float scale) {
-  __shared__ int a_s[kWords][kTile + 1];  // a_s[p][m] = x[m, k0+4p .. k0+4p+3]
-  __shared__ int b_s[kWords][kTile];      // b_s[p][n] = w[k0+4p .. k0+4p+3, n]
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  int acc[4][4] = {};
-  for (int k0 = 0; k0 < K; k0 += 4 * kWords) {
-    for (int e = threadIdx.x; e < kTile * kWords; e += kThreads) {
-      const int m = e / kWords, p = e % kWords;
-      const int row = m0 + m, k = k0 + 4 * p;
-      int8_t v[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) v[u] = (row < M && k + u < K) ? x[(long)row * K + k + u] : 0;
-      a_s[p][m] = pack4(v[0], v[1], v[2], v[3]);
-    }
-    for (int e = threadIdx.x; e < kTile * kWords; e += kThreads) {
-      const int p = e / kTile, n = e % kTile;
-      const int col = n0 + n, k = k0 + 4 * p;
-      int8_t v[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) v[u] = (col < N && k + u < K) ? w[(long)(k + u) * N + col] : 0;
-      b_s[p][n] = pack4(v[0], v[1], v[2], v[3]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int p = 0; p < kWords; ++p) {
-      int av[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) av[i] = a_s[p][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = b_s[p][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n >= N) continue;
-      const long o = (long)m * N + n;
-      if (quant) {
-        const float q = rintf(__fmul_rn(__int2float_rn(acc[i][j]), scale));
-        static_cast<int8_t*>(out)[o] = static_cast<int8_t>(fminf(fmaxf(q, -128.f), 127.f));
-      } else {
-        static_cast<int32_t*>(out)[o] = acc[i][j];
-      }
-    }
-  }
-}
-
-template <typename TI, typename TO>
+template <typename TO>
 int launch_f32(const void* x, const void* w, void* out, int M, int N, int K, cudaStream_t s) {
-  const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-  gemm_f32_kernel<TI, TO><<<grid, kThreads, 0, s>>>(static_cast<const TI*>(x),
-                                                    static_cast<const TI*>(w),
-                                                    static_cast<TO*>(out), M, N, K);
+  const dim3 grid((N + os_tile::kTile - 1) / os_tile::kTile, (M + os_tile::kTile - 1) / os_tile::kTile);
+  gemm_f32_kernel<TO><<<grid, os_tile::kThreads, 0, s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<TO*>(out), M, N, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ===========================================================================
+// bf16 and int8: the tensor-core mainloop
+// ===========================================================================
+
+using bf16 = __nv_bfloat16;
+using tc_tile::Bf16;
+using tc_tile::S8;
+
+// x and w; the 16-byte copies go through L1 (.ca), which fed the 64 x 64
+// bf16 tiles 10% faster than L2 only (.cg), the int8 ones within 3%
+template <typename Sh, bool kVecA, bool kVecB>
+struct GemmLoad {
+  tc_tile::RowMajorA<Sh, kVecA, true> a;
+  tc_tile::LoadB<Sh, kVecB, true> b;
+
+  __device__ __forceinline__ void issue(tc_tile::Stages<Sh>& st, int s, int step) {
+    a.issue(st, s, step * Sh::BK);
+    b.issue(st, s, step * Sh::BK);
+  }
+  __device__ __forceinline__ void land(tc_tile::Stages<Sh>& st, int s) const {
+    a.land(st, s);
+    b.land(st, s);
+  }
+};
+
+// int32 accumulators stored as they are
+struct Exact {
+  __device__ __forceinline__ int32_t operator()(int32_t acc) const { return acc; }
+};
+
+// the fused quant epilogue, bit for bit as ref.gemm_ref and the JAX kernel
+struct Quant {
+  float scale;
+  __device__ __forceinline__ int8_t operator()(int32_t acc) const {
+    const float q = rintf(__fmul_rn(__int2float_rn(acc), scale));
+    return static_cast<int8_t>(fminf(fmaxf(q, -128.f), 127.f));
+  }
+};
+
+// the ring lives in dynamic shared memory: the int8 64 x 64 stages take
+// 72 KB, above the 48 KB a static array may hold
+template <typename Sh, bool kVecA, bool kVecB, typename TO, typename Epi>
+__global__ void __launch_bounds__(tc_tile::kThreads)
+    gemm_tc_kernel(const typename Sh::T* __restrict__ x, const typename Sh::T* __restrict__ w,
+                   TO* __restrict__ out, int M, int N, int K, Epi epi) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  auto& st = *reinterpret_cast<tc_tile::Stages<Sh>*>(smem);
+  const int m0 = blockIdx.y * Sh::BM, n0 = blockIdx.x * Sh::BN;
+  tc_tile::Accum<Sh> acc = {};
+  GemmLoad<Sh, kVecA, kVecB> load{{x, M, K, m0}, {w, K, N, n0}};
+  tc_tile::mainloop<Sh>(st, load, (K + Sh::BK - 1) / Sh::BK, acc);
+  tc_tile::store<Sh>(out, M, N, m0, n0, acc, epi);
+}
+
+// Two tiles per policy, 4 stages each: 64 x 64, and 32 x 32 twice as deep
+// per stage (more bytes in flight per CTA, as the conv's small tiles).
+// int8 stages are 128 deep: at 64 deep the register-staged transpose of w
+// has one stage's products to land in, and the FFN's second product took
+// 0.038 ms instead of 0.021 on cold inputs (launch/gemm_probe.py).
+template <typename P>
+struct Tiles;
+template <>
+struct Tiles<Bf16> {
+  using Big = tc_tile::Shape<Bf16, 64, 64, 32, 32, 32, 4>;
+  using Small = tc_tile::Shape<Bf16, 32, 32, 16, 16, 64, 4>;
+};
+template <>
+struct Tiles<S8> {
+  using Big = tc_tile::Shape<S8, 64, 64, 32, 32, 128, 4>;
+  using Small = tc_tile::Shape<S8, 32, 32, 16, 16, 128, 4>;
+};
+
+int sm_count() {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+template <typename Sh, bool kVecA, bool kVecB, typename TO, typename Epi>
+void launch_tile(const void* x, const void* w, void* out, int M, int N, int K, Epi epi,
+                 cudaStream_t s) {
+  using T = typename Sh::T;
+  constexpr int kSmem = sizeof(tc_tile::Stages<Sh>);
+  auto* kernel = gemm_tc_kernel<Sh, kVecA, kVecB, TO, Epi>;
+  static int sized_for = -1;  // the device whose limit was raised; a failure shows at the launch
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (sized_for != dev) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    sized_for = dev;
+  }
+  const dim3 grid((N + Sh::BN - 1) / Sh::BN, (M + Sh::BM - 1) / Sh::BM);
+  kernel<<<grid, tc_tile::kThreads, kSmem, s>>>(static_cast<const T*>(x), static_cast<const T*>(w),
+                                                static_cast<TO*>(out), M, N, K, epi);
+}
+
+// Bytes of x and w that the busiest SM reads through shape Sh: its CTAs
+// (tiles over SMs, rounded up) times (BM + BN) rows of depth each. The
+// loads set most of the time of both paths (launch/gemm_probe.py), so the
+// launcher takes the tile whose busiest SM reads less; a tie goes to
+// 64 x 64, which reads less in all. The FFN's first product: 384 CTAs of
+// 64 x 64 (3 per SM x 128 rows) against 1536 of 32 x 32 (12 x 64), 0.021
+// against 0.033 ms; its second: 96 of 64 x 64 (1 x 128) against 384 of
+// 32 x 32 (3 x 64), 0.021 against 0.023. At 256 x 1024 x 256, 32 x 32
+// (64 against 128 rows): 0.0068 against 0.0130 ms (bf16), 0.0053 against
+// 0.0069 (int8).
+template <typename Sh>
+long busiest_sm_rows(int M, int N) {
+  const long tiles = (long)((M + Sh::BM - 1) / Sh::BM) * ((N + Sh::BN - 1) / Sh::BN);
+  return (tiles + sm_count() - 1) / sm_count() * (Sh::BM + Sh::BN);
+}
+
+template <typename P, bool kVecA, bool kVecB, typename TO, typename Epi>
+void launch_tiles(const void* x, const void* w, void* out, int M, int N, int K, Epi epi,
+                  cudaStream_t s) {
+  using Big = typename Tiles<P>::Big;
+  using Small = typename Tiles<P>::Small;
+  if (busiest_sm_rows<Big>(M, N) <= busiest_sm_rows<Small>(M, N))
+    launch_tile<Big, kVecA, kVecB, TO>(x, w, out, M, N, K, epi, s);
+  else
+    launch_tile<Small, kVecA, kVecB, TO>(x, w, out, M, N, K, epi, s);
+}
+
+// 16-byte copies of x where K is a whole number of 16-byte chunks and x is
+// 16-byte aligned; of w where N is, and w is
+template <typename P, typename TO, typename Epi>
+int launch_tc(const void* x, const void* w, void* out, int M, int N, int K, Epi epi,
+              cudaStream_t s) {
+  constexpr int kChunk = 16 / sizeof(typename P::T);
+  const bool vec_a = K % kChunk == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_b = N % kChunk == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if (vec_a && vec_b) launch_tiles<P, true, true, TO>(x, w, out, M, N, K, epi, s);
+  else if (vec_a) launch_tiles<P, true, false, TO>(x, w, out, M, N, K, epi, s);
+  else if (vec_b) launch_tiles<P, false, true, TO>(x, w, out, M, N, K, epi, s);
+  else launch_tiles<P, false, false, TO>(x, w, out, M, N, K, epi, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16, 2 int8, 3 int32. Built: float32 or
-// bfloat16 in -> float32 or bfloat16 out; int8 in -> int32 out (quant 0) or
-// int8 out (quant 1, with scale). Returns the launch's cudaGetLastError()
-// (0 = launched).
+// dtype codes: 0 float32, 1 bfloat16, 2 int8, 3 int32. Built: float32 in
+// (FMA loop) or bfloat16 in (tensor cores) -> float32 or bfloat16 out;
+// int8 in (tensor cores) -> int32 out (quant 0) or int8 out (quant 1, with
+// scale). Returns the launch's cudaGetLastError() (0 = launched).
 extern "C" int gemm_os_launch(const void* x, const void* w, void* out, int M, int N, int K,
                               int in_dtype, int out_dtype, int quant, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == 0 && out_dtype == 0) return launch_f32<float, float>(x, w, out, M, N, K, s);
-  if (in_dtype == 0 && out_dtype == 1)
-    return launch_f32<float, __nv_bfloat16>(x, w, out, M, N, K, s);
+  if (in_dtype == 0 && out_dtype == 0) return launch_f32<float>(x, w, out, M, N, K, s);
+  if (in_dtype == 0 && out_dtype == 1) return launch_f32<bf16>(x, w, out, M, N, K, s);
   if (in_dtype == 1 && out_dtype == 0)
-    return launch_f32<__nv_bfloat16, float>(x, w, out, M, N, K, s);
+    return launch_tc<Bf16, float>(x, w, out, M, N, K, tc_tile::Round<float>{}, s);
   if (in_dtype == 1 && out_dtype == 1)
-    return launch_f32<__nv_bfloat16, __nv_bfloat16>(x, w, out, M, N, K, s);
-  if (in_dtype == 2 && ((quant == 0 && out_dtype == 3) || (quant == 1 && out_dtype == 2))) {
-    const dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-    gemm_int8_kernel<<<grid, kThreads, 0, s>>>(static_cast<const int8_t*>(x),
-                                               static_cast<const int8_t*>(w), out, M, N, K, quant,
-                                               scale);
-    return static_cast<int>(cudaGetLastError());
-  }
+    return launch_tc<Bf16, bf16>(x, w, out, M, N, K, tc_tile::Round<bf16>{}, s);
+  if (in_dtype == 2 && quant == 0 && out_dtype == 3)
+    return launch_tc<S8, int32_t>(x, w, out, M, N, K, Exact{}, s);
+  if (in_dtype == 2 && quant == 1 && out_dtype == 2)
+    return launch_tc<S8, int8_t>(x, w, out, M, N, K, Quant{scale}, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,11 +1,13 @@
-// The output-stationary float tile loop shared by gemm_os.cu and
-// conv_im2col.cu: one CTA of 256 threads owns a 64 x 64 tile of C = A @ B
-// and keeps it in registers (a 4 x 4 block per thread, rows ty + 16i,
-// columns tx + 16j) for the whole sweep over the depth K, the way the TPU
-// kernel kept its accumulator in VMEM scratch. A and B pass through shared
-// memory 16 deep at a time as fp32 (bf16 widened on load, exactly). Every
-// element is read with a bounds check, so ragged edges need no padded copy;
-// a value past an edge reads as 0 and adds exactly 0.
+// The output-stationary fp32 tile loop of the fp32 paths only: gemm_os.cu
+// and conv_im2col.cu with float32 inputs (their bf16 and int8 paths run on
+// the tensor cores, tc_tile.cuh). One CTA of 256 threads owns a 64 x 64
+// tile of C = A @ B and keeps it in registers (a 4 x 4 block per thread,
+// rows ty + 16i, columns tx + 16j) for the whole sweep over the depth K,
+// the way the TPU kernel kept its accumulator in VMEM scratch. A and B pass
+// through shared memory 16 deep at a time. Every element is read with a
+// bounds check, so ragged edges need no padded copy; a value past an edge
+// reads as 0 and adds exactly 0. FMAs, not TF32 tensor cores: TF32 would
+// miss the ref.sum_order_error limit.
 //
 // A is reached through a functor a(m, k) -> float: a row-major matrix for
 // the GEMM, the implicit im2col address walk for the conv. B is the

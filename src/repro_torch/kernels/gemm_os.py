@@ -4,10 +4,12 @@ The Hopper counterpart of ``repro.kernels.gemm_os``: ``x (M, K) @ w (K, N)``
 with the accumulator held for the whole K sweep, float inputs accumulated
 in fp32, int8 inputs in int32, and the fused int8 quantisation epilogue
 (Voltra C1 + C4). Same public signature and layouts as the JAX ``gemm_os``
-(the TPU ``block`` sizes have no counterpart: the CUDA kernel's tiles are
-fixed at 64 x 64, and it masks ragged edges instead of padding). CUDA
-tensors only: ``kernels.ops.matmul`` / ``quant_matmul`` route CPU tensors to
-``ref.gemm_ref``.
+(the TPU ``block`` sizes have no counterpart: the CUDA launcher picks its
+tiles, on the tensor cores 64 x 64 or 32 x 32, whichever leaves the busiest
+of the card's SMs fewer bytes to load, on the FMA units 64 x 64, and masks
+ragged edges instead of padding). bf16 and int8 inputs run on the tensor
+cores, fp32 inputs on the FMA units. CUDA tensors only: ``kernels.ops.matmul`` / ``quant_matmul`` route
+CPU tensors to ``ref.gemm_ref``.
 
 ``spatial_utilization`` is the JAX module's tile-edge formula, copied (it is
 pure Python and the port imports nothing of ``repro``).
@@ -35,9 +37,16 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _require(ok: bool, msg: str) -> None:
+def _require(ok: bool, msg: str, *args) -> None:
+    """Raise with ``msg.format(*args)`` unless ``ok``; the message is built
+    only on failure (its formatting would cost every call microseconds)."""
     if not ok:
-        raise ValueError(f"gemm_os kernel: {msg}")
+        raise ValueError("gemm_os kernel: " + msg.format(*args))
+
+
+# the smallest row tile the launcher can pick: row tiles go on grid.y,
+# which holds at most 65535
+_MIN_ROW_TILE = 32
 
 
 def gemm_os(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
@@ -52,41 +61,40 @@ def gemm_os(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
     _require(x.is_cuda, "needs CUDA tensors (CPU tensors go through "
              "repro_torch.kernels.ops)")
     _require(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0],
-             f"x (M, K) and w (K, N), got {tuple(x.shape)}, "
-             f"{tuple(w.shape)}")
+             "x (M, K) and w (K, N), got {}, {}", x.shape, w.shape)
     M, K = x.shape
     N = w.shape[1]
-    _require(min(M, K, N) >= 1, f"empty product {M}x{K}x{N}")
-    _require(w.dtype == x.dtype, f"dtypes {x.dtype}/{w.dtype} differ")
-    _require(w.device == x.device, f"w on {w.device}, x on {x.device}")
+    _require(min(M, K, N) >= 1, "empty product {}x{}x{}", M, K, N)
+    _require(w.dtype == x.dtype, "dtypes {}/{} differ", x.dtype, w.dtype)
+    _require(w.device == x.device, "w on {}, x on {}", w.device, x.device)
     _require(x.is_contiguous() and w.is_contiguous(),
              "x and w must be contiguous")
     integer = x.dtype == torch.int8
     if quant_scale is not None:
-        _require(integer, f"the quant epilogue takes int8 inputs, got "
-                 f"{x.dtype}")
+        _require(integer, "the quant epilogue takes int8 inputs, got {}",
+                 x.dtype)
         _require(out_dtype in (None, torch.int8),
-                 f"the quant epilogue stores int8, not {out_dtype}")
+                 "the quant epilogue stores int8, not {}", out_dtype)
         out_dtype = torch.int8
     elif integer:
         _require(out_dtype in (None, torch.int32),
-                 f"int8 inputs give int32, not {out_dtype}")
+                 "int8 inputs give int32, not {}", out_dtype)
         out_dtype = torch.int32
     else:
-        _require(x.dtype in _FLOAT, f"dtype {x.dtype} (float32, bfloat16 "
-                 f"or int8)")
+        _require(x.dtype in _FLOAT, "dtype {} (float32, bfloat16 or int8)",
+                 x.dtype)
         out_dtype = x.dtype if out_dtype is None else out_dtype
-        _require(out_dtype in _FLOAT, f"float inputs give float32 or "
-                 f"bfloat16, not {out_dtype}")
-    _require(-(-M // 64) < 65536, f"M = {M} needs more than 65535 row tiles")
+        _require(out_dtype in _FLOAT,
+                 "float inputs give float32 or bfloat16, not {}", out_dtype)
+    _require(-(-M // _MIN_ROW_TILE) < 65536,
+             "M = {} needs more than 65535 row tiles", M)
 
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().gemm_os_launch(
-            x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
-            _CODES[x.dtype], _CODES[out_dtype], int(quant_scale is not None),
-            0.0 if quant_scale is None else quant_scale, stream)
+    err = build.launch_on(
+        x.device, _lib().gemm_os_launch, x.data_ptr(), w.data_ptr(),
+        out.data_ptr(), M, N, K, _CODES[x.dtype], _CODES[out_dtype],
+        int(quant_scale is not None),
+        0.0 if quant_scale is None else quant_scale)
     if err:
         raise RuntimeError(f"gemm_os kernel launch failed: CUDA error {err}")
     if integer:

@@ -1,0 +1,168 @@
+"""What sets the time of gemm_os's tensor-core paths on the card: a probe.
+
+    PYTHONPATH=src python -m repro_torch.launch.gemm_probe
+
+Builds ``kernels/csrc/gemm_probe.cu`` (tc_tile.cuh's mainloop with
+gemm_os.cu's loaders under other tiles, copies through L1 or L2 only, and
+without its global loads or without its MMAs; "no MMAs" still reads the
+fragments with ldmatrix) and prints one line per (shape, variant): the
+profiler's device
+milliseconds per call on hot inputs (the same x and w every call) and on
+cold ones (cycling through copies that exceed the 50 MB L2 cache), with
+the check of each full variant's output against ``ref.gemm_ref`` (float:
+``ref.sum_order_error``; int8: bitwise). Then the PyTorch call at the same
+shape. The shapes: the BERT-Base FFN's two products (bf16 512x768x3072,
+int8 512x3072x768 with the quant epilogue) and the kernel benchmark's
+256x1024x256, where the launcher takes 32 x 32 tiles. Needs a CUDA card;
+measures nothing on the CPU.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import subprocess
+from typing import Callable, List
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build, ref
+
+# index in gemm_probe.cu: (dtype, tile (BM x BN x BK), copies, mode)
+VARIANTS = {
+    0: ("bf16", "64x64x32", ".ca", "full (gemm_os.cu)"),
+    1: ("bf16", "64x64x32", ".ca", "no MMAs"),
+    2: ("bf16", "64x64x32", ".ca", "no loads"),
+    3: ("bf16", "64x64x32", ".cg", "full"),
+    4: ("bf16", "64x64x32", ".cg", "no MMAs"),
+    5: ("bf16", "128x128x32", ".cg", "full"),
+    6: ("bf16", "128x128x32", ".cg", "no MMAs"),
+    7: ("bf16", "128x64x32", ".cg", "full"),
+    8: ("bf16", "64x128x64", ".cg", "full"),
+    9: ("bf16", "32x32x64", ".ca", "full (gemm_os.cu)"),
+    10: ("int8", "64x64x128", ".ca", "full (gemm_os.cu)"),
+    11: ("int8", "64x64x128", ".ca", "no MMAs"),
+    12: ("int8", "64x64x128", ".ca", "no loads"),
+    13: ("int8", "64x64x128", ".cg", "full"),
+    14: ("int8", "64x64x64", ".ca", "full"),
+    15: ("int8", "32x32x128", ".ca", "full (gemm_os.cu)"),
+    16: ("int8", "32x32x128", ".ca", "no MMAs"),
+}
+# (dtype, (M, K, N), variants)
+CASES = [
+    ("bf16", (512, 768, 3072), [0, 1, 2, 3, 4, 5, 6, 7, 8, 9]),
+    ("int8", (512, 3072, 768), [10, 11, 12, 13, 14, 15, 16]),
+    ("bf16", (256, 1024, 256), [0, 9]),
+    ("int8", (256, 1024, 256), [10, 15]),
+]
+SCALE = 0.002
+
+
+@functools.lru_cache(maxsize=None)
+def _launch() -> Callable:
+    fn = build.library("gemm_probe").gemm_probe_launch
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [i, p, p, p, i, i, i, f, p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def device_ms(fn: Callable[[int], object], n: int = 20, sessions: int = 5
+              ) -> float:
+    """Median over profiler sessions of the kernels' device ms per call of
+    ``fn(j)``, j = 0 .. n-1; sessions that lost events are dropped (NaN if
+    all did)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    got = []
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for j in range(n):
+                fn(j)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        if sum(e.count for e in events) >= n:
+            got.append(sum(e.self_device_time_total for e in events) / 1e3
+                       / n)
+    return float(np.median(got)) if got else float("nan")
+
+
+def _inputs(rng, dtype: str, M: int, K: int, N: int):
+    if dtype == "int8":
+        return tuple(torch.tensor(rng.integers(-128, 128, s),
+                                  dtype=torch.int8, device="cuda")
+                     for s in ((M, K), (K, N)))
+    return tuple(torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                              device="cuda").to(torch.bfloat16)
+                 for s in ((M, K), (K, N)))
+
+
+def run() -> List[str]:
+    if not torch.cuda.is_available():
+        raise RuntimeError("gemm_probe measures kernels on a CUDA device")
+    launch = _launch()
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(0)
+    lines = []
+    for dtype, (M, K, N), variants in CASES:
+        n_copies = max(2, int(np.ceil(3 * 50e6 / ((M * K + K * N) * (
+            1 if dtype == "int8" else 2)))))
+        copies = [_inputs(rng, dtype, M, K, N) for _ in range(n_copies)]
+        integer = dtype == "int8"
+        out = torch.empty((M, N), dtype=torch.int8 if integer
+                          else torch.bfloat16, device="cuda")
+        x0, w0 = copies[0]
+        want = ref.gemm_ref(x0, w0, quant_scale=SCALE if integer else None)
+        absp = ref.gemm_ref(x0.abs().float(), w0.abs().float())
+        for v in variants:
+            def call(j, v=v):
+                x, w = copies[j % len(copies)]
+                err = launch(v, x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                             M, N, K, SCALE, stream)
+                if err:
+                    raise RuntimeError(f"gemm_probe variant {v}: CUDA error "
+                                       f"{err}")
+            call(0)
+            torch.cuda.synchronize()
+            _, tile, copy, mode = VARIANTS[v]
+            check = ""
+            if mode.startswith("full"):
+                if integer:
+                    ok = ref.bitwise_equal(out, want)
+                else:
+                    # repro-lint: disable=host-sync — a check, outside timing
+                    ok = ref.sum_order_error(out, want, absp, K).item() <= 1
+                check = ", agrees" if ok else ", DISAGREES"
+            hot = device_ms(lambda j: call(0))
+            cold = device_ms(call)
+            lines.append(f"gemm_probe {dtype} {M}x{K}x{N} [{v}] {tile} "
+                         f"{copy} {mode}: device {hot:.4f} ms hot, "
+                         f"{cold:.4f} ms cold{check}")
+            print(lines[-1], flush=True)
+        if integer:
+            wc = w0.t().contiguous().t()
+            lib = [("torch._int_mm, w row-major", lambda j: torch._int_mm(
+                x0, w0)), ("torch._int_mm, w column-major",
+                           lambda j: torch._int_mm(x0, wc))]
+        else:
+            lib = [("torch.matmul", lambda j: torch.matmul(x0, w0))]
+        for name, fn in lib:
+            lines.append(f"gemm_probe {dtype} {M}x{K}x{N} {name}: device "
+                         f"{device_ms(fn):.4f} ms hot")
+            print(lines[-1], flush=True)
+    return lines
+
+
+def main() -> None:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(smi.stdout.strip() or "nvidia-smi unavailable", flush=True)
+    run()
+
+
+if __name__ == "__main__":
+    main()

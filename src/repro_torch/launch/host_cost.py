@@ -1,16 +1,18 @@
-"""Host microseconds per call of the flash-MHA and conv_im2col wrappers, on
-the card, split into what the wrapper adds and what the launch itself
-costs.
+"""Host microseconds per call of the flash-MHA, conv_im2col and gemm_os
+wrappers, on the card, split into what the wrapper adds and what the launch
+itself costs.
 
     PYTHONPATH=src python -m repro_torch.launch.host_cost
     python src/repro_torch/launch/host_cost.py --port-src OTHER/src
 
 Prints one line per case: bf16 mha at the serving shape (B1 S1024 H16 KV2
-D128, causal) and the bf16 ResNet-50 stage-3 conv (1x28x28x128 -> 128,
-3x3), each through its wrapper, through ``kernels.ops``, as a bare
-``ctypes`` launch of the same C function, and as the PyTorch call beside it
-(SDPA, ``F.conv2d``); mha also with an int ``kv_valid``, which fills a
-(B,) tensor on the device before the launch. A call's host time is the
+D128, causal), the bf16 ResNet-50 stage-3 conv (1x28x28x128 -> 128, 3x3),
+and gemm_os at the BERT-Base FFN (bf16 512x768x3072; int8 512x3072x768
+with the quant epilogue), each through its wrapper, through
+``kernels.ops``, as a bare ``ctypes`` launch of the same C function, and as
+the PyTorch call beside it (SDPA, ``F.conv2d``, ``torch.matmul``,
+``torch._int_mm`` without the epilogue); mha also with an int
+``kv_valid``, which fills a (B,) tensor on the device before the launch. A call's host time is the
 wall time of 20 back-to-back calls before the card is waited for, the
 least over 5 batches: where the card keeps up, what the host pays per
 call. ``--port-src`` times another checkout's ``repro_torch`` (run this
@@ -49,7 +51,7 @@ def cases(seed: int = 0) -> Dict[str, Dict[str, Callable[[], object]]]:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import attention, conv_im2col, ops
+    from repro_torch.kernels import attention, conv_im2col, gemm_os, ops
     if not torch.cuda.is_available():
         raise RuntimeError("host_cost times launches on a CUDA device")
     rng = np.random.default_rng(seed)
@@ -69,6 +71,15 @@ def cases(seed: int = 0) -> Dict[str, Dict[str, Callable[[], object]]]:
     conv_lib = conv_im2col._lib()
     xp = F.pad(x, (0, 0, 1, 1, 1, 1)).permute(0, 3, 1, 2)
     wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    gemm_lib = gemm_os._lib()
+    a, b = t(512, 768), t(768, 3072)
+    ab = torch.empty((512, 3072), dtype=torch.bfloat16, device="cuda")
+
+    def int8(*shape):
+        return torch.tensor(rng.integers(-128, 128, shape), dtype=torch.int8,
+                            device="cuda")
+    qa, qb = int8(512, 3072), int8(3072, 768)
+    qab = torch.empty((512, 768), dtype=torch.int8, device="cuda")
     return {
         "mha bf16 B1 S1024 H16 KV2 D128": {
             "wrapper": lambda: attention.mha(q, k, v, causal=True),
@@ -87,6 +98,20 @@ def cases(seed: int = 0) -> Dict[str, Dict[str, Callable[[], object]]]:
                 x.data_ptr(), w.data_ptr(), y.data_ptr(), 1, 28, 28, 128, 3,
                 3, 128, 28, 28, 1, 1, 1, 1, stream),
             "F.conv2d": lambda: F.conv2d(xp, wl)},
+        "gemm_os bf16 512x768x3072": {
+            "wrapper": lambda: gemm_os.gemm_os(a, b),
+            "ops.matmul": lambda: ops.matmul(a, b),
+            "bare C launch": lambda: gemm_lib.gemm_os_launch(
+                a.data_ptr(), b.data_ptr(), ab.data_ptr(), 512, 3072, 768, 1,
+                1, 0, 0.0, stream),
+            "torch.matmul": lambda: torch.matmul(a, b)},
+        "gemm_os int8 + epilogue 512x3072x768": {
+            "wrapper": lambda: gemm_os.gemm_os(qa, qb, quant_scale=0.002),
+            "ops.quant_matmul": lambda: ops.quant_matmul(qa, qb, 0.002),
+            "bare C launch": lambda: gemm_lib.gemm_os_launch(
+                qa.data_ptr(), qb.data_ptr(), qab.data_ptr(), 512, 768, 3072,
+                2, 2, 1, 0.002, stream),
+            "torch._int_mm": lambda: torch._int_mm(qa, qb)},
     }
 
 

@@ -21,11 +21,12 @@ from repro_torch.kernels import reshuffle as reshuffle_kernel  # noqa: E402
 from repro_torch.launch import kernel_bench  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.runtime.serving import PagedServingEngine, Request  # noqa
-from torch_cases import (BLOCKED_CASES, CONV_SPECS, F32,  # noqa: E402
-                         GEMM_SHAPES, MASK_PROBES, MHA_CASES, PAGED_CASES,
-                         POOL_SPECS, QUANT_SCALES, STEM_SPEC,
-                         TRANSPOSE_SHAPES, gemm_inputs, mha_inputs, normal,
-                         paged_inputs, pool_input)
+from torch_cases import (BLOCKED_CASES, CONV_SPECS,  # noqa: E402
+                         EPILOGUE_EDGES, F32, GEMM_SHAPES, MASK_PROBES,
+                         MHA_CASES, PAGED_CASES, POOL_SPECS, QUANT_SCALES,
+                         STEM_SPEC, TC_GEMM_SHAPES, TRANSPOSE_SHAPES,
+                         epilogue_inputs, gemm_inputs, int8_extremes,
+                         mha_inputs, normal, paged_inputs, pool_input)
 
 
 def assert_agrees(got, want):
@@ -177,9 +178,19 @@ def test_cuda_engine_tokens_equal_cpu_engine(cuda):
 # ---------------------------------------------------------------------------
 
 
+def assert_gemm_agrees(got, want, x, w):
+    """int8 inputs: bitwise. Float: within ref.sum_order_error."""
+    if x.dtype == torch.int8:
+        assert ref.bitwise_equal(got, want)
+    else:
+        worst = ref.sum_order_error(got, want, ref.gemm_ref(
+            x.abs().float(), w.abs().float()), x.shape[1]).item()
+        assert worst <= 1, worst
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("mkn", GEMM_SHAPES)
+@pytest.mark.parametrize("mkn", GEMM_SHAPES + TC_GEMM_SHAPES)
 def test_cuda_gemm_matches_plain(fp32_exact, mkn, dtype):
     M, K, N = mkn
     dt = getattr(torch, dtype)
@@ -188,19 +199,82 @@ def test_cuda_gemm_matches_plain(fp32_exact, mkn, dtype):
     attr = "int8_launches" if dtype == "int8" else "launches"
     got = launched_once(lambda: getattr(gemm_kernel.gemm_os, attr),
                         lambda: ops.matmul(x, w))
-    want = ref.gemm_ref(x, w)
-    if dtype == "int8":
-        assert ref.bitwise_equal(got, want)
-    else:
-        worst = ref.sum_order_error(got, want, ref.gemm_ref(
-            x.abs().float(), w.abs().float()), K).item()
-        assert worst <= 1, worst
+    assert_gemm_agrees(got, ref.gemm_ref(x, w), x, w)
+
+
+def offset_view(a: np.ndarray, dev, dtype, offset: bool):
+    """``a`` on the card as a contiguous view whose data pointer is one
+    element past a 16-byte boundary (offset=True), or as is."""
+    if not offset:
+        return torch.from_numpy(a).to(dev, dtype)
+    buf = torch.empty(a.size + 1, dtype=dtype, device=dev)
+    view = buf[1:].view(a.shape)
+    view.copy_(torch.from_numpy(a).to(dtype))
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("which", ["x", "w", "both"])
+def test_cuda_gemm_unaligned_view_matches_plain(cuda, which, dtype):
+    """A contiguous view that starts off a 16-byte boundary takes the scalar
+    loader though its shape (K, N multiples of 16) admits 16-byte copies:
+    the launcher decides from the pointers."""
+    dt = getattr(torch, dtype)
+    xa, wa = gemm_inputs(7, 96, 256, 160, integer=dtype == "int8")
+    x = offset_view(xa, cuda, dt, which in ("x", "both"))
+    w = offset_view(wa, cuda, dt, which in ("w", "both"))
+    got = ops.matmul(x, w)
+    torch.cuda.synchronize()
+    assert_gemm_agrees(got, ref.gemm_ref(x, w), x, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, scale", [("bfloat16", None), ("int8", None),
+                                          ("int8", 0.002)])
+def test_cuda_gemm_two_runs_give_the_same_bits(cuda, dtype, scale):
+    """Each output is summed by one thread in one order: no split K, no
+    atomics, so the same inputs give the same bits (the FFN's shapes)."""
+    M, K, N = (512, 768, 3072) if dtype == "bfloat16" else (512, 3072, 768)
+    x, w = (torch.from_numpy(a).to(cuda, getattr(torch, dtype))
+            for a in gemm_inputs(11, M, K, N, integer=dtype == "int8"))
+    first = gemm_kernel.gemm_os(x, w, quant_scale=scale)
+    second = gemm_kernel.gemm_os(x, w, quant_scale=scale)
+    torch.cuda.synchronize()
+    assert ref.bitwise_equal(first, second)
+
+
+@pytest.mark.gpu
+def test_cuda_int8_extremes_accumulate_exactly(cuda):
+    """K = 3072 with every input at +-127: sums up to 3072 * 127^2, exact
+    in int32 through the tensor cores."""
+    x, w = (torch.from_numpy(a).to(cuda)
+            for a in int8_extremes(5, 64, 3072, 96))
+    got = ops.matmul(x, w)
+    torch.cuda.synchronize()
+    assert int(got[0, 0]) == 3072 * 127 * 127
+    assert ref.bitwise_equal(got, ref.gemm_ref(x, w))
+
+
+@pytest.mark.gpu
+def test_cuda_quant_epilogue_ties_and_saturation_exactly(cuda):
+    """The epilogue's ties (acc * scale on .5, rounded to even) and its
+    clipping beyond +-127, at a depth that takes the 16-byte copies."""
+    (M, K, N), scale = EPILOGUE_EDGES
+    x, w = (torch.from_numpy(a).to(cuda)
+            for a in epilogue_inputs(6, M, K, N))
+    got = launched_once(lambda: gemm_kernel.gemm_os.int8_launches,
+                        lambda: ops.quant_matmul(x, w, scale))
+    assert ref.bitwise_equal(got, ref.gemm_ref(x, w, quant_scale=scale))
+    assert {-128, 127} <= set(got.unique().tolist())
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("types", [("float32", "bfloat16"),
                                    ("bfloat16", "float32")])
-@pytest.mark.parametrize("mkn", [(1, 512, 96), (257, 129, 65)])
+@pytest.mark.parametrize("mkn", [(1, 512, 96), (257, 129, 65),
+                                 (1000, 256, 1024), (512, 768, 3072)])
 def test_cuda_gemm_out_dtype_matches_plain(fp32_exact, mkn, types):
     """An output type other than the inputs' (``out_dtype``), both ways."""
     M, K, N = mkn

@@ -36,9 +36,11 @@ from repro_torch.kernels import maxpool as pool_kernel  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import reshuffle as reshuffle_kernel  # noqa: E402
 from repro_torch.launch import kernel_bench  # noqa: E402
-from torch_cases import (BLOCKED_CASES, CONV_SPECS, GEMM_SHAPES,  # noqa: E402
-                         POOL_SPECS, QUANT_SCALES, STEM_SPEC,
-                         TRANSPOSE_SHAPES, gemm_inputs, normal, pool_input)
+from torch_cases import (BLOCKED_CASES, CONV_SPECS,  # noqa: E402
+                         EPILOGUE_EDGES, GEMM_SHAPES, POOL_SPECS,
+                         QUANT_SCALES, STEM_SPEC, TRANSPOSE_SHAPES,
+                         epilogue_inputs, gemm_inputs, int8_extremes, normal,
+                         pool_input)
 
 DTYPES = {"float32": (torch.float32, jnp.float32),
           "bfloat16": (torch.bfloat16, jnp.bfloat16),
@@ -108,6 +110,37 @@ def test_plain_quant_epilogue_rounds_half_to_even():
     want = jref.gemm_ref(jnp.asarray(x.numpy()), jnp.asarray(w.numpy()),
                          quant_scale=0.5)
     assert torch.equal(got, to_torch(want))
+
+
+def test_epilogue_edge_inputs_tie_and_saturate_like_jax():
+    """The card's epilogue case (tests/test_torch_gpu.py) has teeth: many
+    acc * scale land exactly on .5 and many beyond +-127 both ways in the
+    plain version, which equals the JAX kernel (interpret mode) and oracle
+    bit for bit there."""
+    (M, K, N), scale = EPILOGUE_EDGES
+    assert K % 16 == 0 and N % 16 == 0     # the 16-byte copy path
+    x, w = epilogue_inputs(6, M, K, N)
+    acc = ref.gemm_ref(torch.from_numpy(x), torch.from_numpy(w)).double()
+    q = acc * float(np.float32(scale))
+    ties = (q - q.floor() == 0.5).sum().item()
+    assert ties >= M * N // 8, ties
+    assert (q > 127).sum().item() >= M * N // 8
+    assert (q < -128).sum().item() >= M * N // 8
+    got = ops.quant_matmul(torch.from_numpy(x), torch.from_numpy(w), scale)
+    xj, wj = jnp.asarray(x), jnp.asarray(w)
+    assert torch.equal(got, to_torch(jops.quant_matmul(xj, wj, scale)))
+    assert torch.equal(got, to_torch(jref.gemm_ref(xj, wj,
+                                                   quant_scale=scale)))
+
+
+def test_int8_extremes_accumulate_exactly_like_jax():
+    """The card's K = 3072 case at +-127: int32 holds every sum (up to
+    3072 * 127^2) exactly, in the plain version and the JAX kernel."""
+    x, w = int8_extremes(5, 64, 3072, 96)
+    got = ops.matmul(torch.from_numpy(x), torch.from_numpy(w))
+    assert got.dtype == torch.int32 and int(got[0, 0]) == 3072 * 127 * 127
+    assert torch.equal(got, to_torch(jops.matmul(jnp.asarray(x),
+                                                 jnp.asarray(w))))
 
 
 def test_plain_int8_accumulates_in_int32():
@@ -364,6 +397,18 @@ def test_host_cost_needs_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         host_cost.cases()
+
+
+def test_gemm_probe_needs_a_card():
+    """The gemm probe times kernels on the card: without one it raises
+    rather than report a CPU time, and it builds nothing first."""
+    from repro_torch.launch import gemm_probe
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gemm_probe.run()
+    assert set(gemm_probe.VARIANTS) >= {v for _, _, vs in gemm_probe.CASES
+                                       for v in vs}
 
 
 def test_bound_counts_each_byte_once_at_h100_peaks():

@@ -119,7 +119,31 @@ def mha_inputs(seed, B, Sq, Sk, H, KV, D):
 
 GEMM_SHAPES = [(8, 8, 8), (100, 300, 200), (128, 128, 128), (1, 512, 96),
                (257, 129, 65)]
+# gemm_os on the tensor cores (bf16, int8), on the card only: a shape for
+# each loader variant (x through 16-byte copies where K is a whole number
+# of 16-byte chunks, 8 bf16 or 16 int8, w where N is; else scalar loads)
+# under each tile the launcher picks on an H100 (32 x 32 for the small
+# grids, 64 x 64 for 1000 x 1000 and up), M = 1, and the BERT-Base FFN.
+TC_GEMM_SHAPES = [
+    (100, 256, 192),    # vector x, vector w
+    (100, 250, 192),    # scalar x, vector w
+    (100, 256, 190),    # vector x, scalar w
+    (100, 250, 190),    # scalar x, scalar w
+    (100, 248, 200),    # bf16 vector / vector; int8 scalar / scalar
+    (1, 768, 3072),     # M = 1
+    (1000, 256, 1024),  # 64 x 64: vector x, vector w
+    (1000, 250, 1024),  # scalar x, vector w
+    (1000, 256, 1002),  # vector x, scalar w
+    (1000, 250, 1002),  # scalar x, scalar w
+    (512, 768, 3072),   # the FFN's first product
+    (512, 3072, 768),   # its second
+]
 QUANT_SCALES = [1.0, 0.01, 0.0005]
+# The quant epilogue's edge cases at a depth that takes the 16-byte copies
+# (K, N multiples of 16): with scale 0.5 every odd accumulator lands on .5
+# (a tie, rounded to even), and rows of x at +-127 push acc * scale far
+# beyond +-127 (clipped). (M, K, N), scale.
+EPILOGUE_EDGES = ((64, 64, 48), 0.5)
 CONV_SPECS = [
     # (H, W, C, K, R, stride), batch 2
     (12, 12, 16, 24, 3, 1),
@@ -161,6 +185,25 @@ def int8s(seed, *shape):
 def gemm_inputs(seed, M, K, N, integer=False):
     make = int8s if integer else normal
     return make(seed, M, K), make(seed + 1, K, N)
+
+
+def epilogue_inputs(seed, M, K, N):
+    """int8 (x, w) for EPILOGUE_EDGES: w and the first half of x's rows in
+    [-3, 3] (small sums, many odd), the other rows of x at +-127."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-3, 4, (M, K)).astype(np.int8)
+    x[M // 2:] = rng.choice(np.array([-127, 127], np.int8), (M - M // 2, K))
+    return x, rng.integers(-3, 4, (K, N)).astype(np.int8)
+
+
+def int8_extremes(seed, M, K, N):
+    """int8 (x, w) at +-127 with random signs, the first row of x and the
+    first column of w all +127: sums up to K * 127^2, exact in int32."""
+    rng = np.random.default_rng(seed)
+    sign = np.array([-127, 127], np.int8)
+    x, w = rng.choice(sign, (M, K)), rng.choice(sign, (K, N))
+    x[0], w[:, 0] = 127, 127
+    return x, w
 
 
 def pool_input(seed, H, W, C, *, nan=False):
