@@ -413,6 +413,12 @@ GEMM_TC = [(100, 256, 192), (100, 250, 192), (100, 256, 190), (100, 250, 190),
            (1000, 250, 1024), (1000, 256, 1002), (1000, 250, 1002)]
 
 
+# gemm_os fp32 with the depth split over CTAs: the kernel bench's float
+# rows, M = N = 1, and a depth no multiple of a range or a stage
+GEMM_SPLIT = [(128, 4096, 128), (512, 512, 512), (1024, 1024, 1024),
+              (1, 4096, 1), (100, 4099, 72)]
+
+
 def _offset(a: torch.Tensor) -> torch.Tensor:
     """``a`` as a contiguous view one element past a 16-byte boundary."""
     buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
@@ -421,14 +427,34 @@ def _offset(a: torch.Tensor) -> torch.Tensor:
     return view
 
 
+def f32_plan_label(plan) -> str:
+    """A launcher's fp32 plan (``f32_plan``) as a log label."""
+    bm, bn, chunk, splits = plan
+    return f"tile {bm}x{bn}, {splits} range{'s' if splits > 1 else ''} " \
+        f"of {chunk} deep"
+
+
+def gemm_plan(M, K, N):
+    return gemm_kernel.f32_plan(M, N, K, gemm_kernel.sm_count(0))
+
+
+def conv_plan(N, H, W, C, K, R, stride):
+    OH, OW, _, _ = ref.same_padding(H, W, R, R, stride)
+    return conv_kernel.f32_plan(N * OH * OW, K, C, R, R,
+                                gemm_kernel.sm_count(0))
+
+
 def check_gemm(rng):
     """Max abs errors (float, int8) of gemm_os against gemm_ref: the JAX
     tests' shapes in fp32, bf16 and int8, the quant scales, the int32
     accumulation, the BERT-Base FFN at token size 512, an output type other
-    than the input's (``out_dtype``) both ways, and for the tensor-core
-    paths (bf16, int8) every loader variant under each tile, views off a
-    16-byte boundary, two runs giving the same bits, int8 at K = 3072 with
-    every input at +-127, and the epilogue's ties and clipping."""
+    than the input's (``out_dtype``) both ways, fp32 with its depth split
+    over CTAs (the kernel bench's shapes, M = N = 1, a depth no multiple of
+    a range; two runs bit for bit; 16 depth values dropped from the middle
+    of one range must be rejected), and for the tensor-core paths (bf16,
+    int8) every loader variant under each tile, views off a 16-byte
+    boundary, two runs giving the same bits, int8 at K = 3072 with every
+    input at +-127, and the epilogue's ties and clipping."""
     f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
     tests = [(8, 8, 8), (100, 300, 200), (128, 128, 128), (1, 512, 96),
              (257, 129, 65)]
@@ -436,6 +462,7 @@ def check_gemm(rng):
     float_cases = [(s, dt, dt) for dt in (f32, bf16) for s in tests] + [
         (s, bf16, bf16) for s in GEMM_TC] + [
         (ffn, bf16, bf16), (ffn, f32, f32)] + [
+        (s, f32, f32) for s in GEMM_SPLIT] + [
         (s, a, b) for s in ((257, 129, 65), (1000, 256, 1024), ffn)
         for a, b in ((f32, bf16), (bf16, f32))]
     err_f = 0.0
@@ -450,12 +477,21 @@ def check_gemm(rng):
     for (M, K, N), dt, out in float_cases:
         x, w = _rand(rng, (M, K), dt), _rand(rng, (K, N), dt)
         types = f"{dt}" if out == dt else f"{dt} -> {out}"
-        err, want, absp = float_case(f"gemm_os [{M}x{K}x{N} {types}]", x, w,
-                                     out)
+        plan = f", {f32_plan_label(gemm_plan(M, K, N))}" if dt == f32 else ""
+        err, want, absp = float_case(f"gemm_os [{M}x{K}x{N} {types}{plan}]",
+                                     x, w, out)
         err_f = max(err_f, err)
         if (M, K, N) == ffn and out == dt:
             has_teeth(f"gemm_os [{types}, last K tile of 16 dropped]",
                       ref.gemm_ref(x[:, :-16], w[:-16]), want, absp, K)
+        if (M, K, N) == GEMM_SPLIT[0]:
+            chunk = gemm_plan(M, K, N)[2]
+            mid = K // chunk // 2 * chunk + chunk // 2 - 8
+            dropped = x.clone()
+            dropped[:, mid:mid + 16] = 0
+            has_teeth(f"gemm_os [{M}x{K}x{N} {types}, 16 depth values "
+                      f"dropped from the middle of range {mid // chunk}]",
+                      ref.gemm_ref(dropped, w), want, absp, K)
     for which in ("x", "w", "both"):     # (96, 256, 160) admits copies
         x, w = _rand(rng, (96, 256), bf16), _rand(rng, (256, 160), bf16)
         x = _offset(x) if which != "w" else x
@@ -486,7 +522,8 @@ def check_gemm(rng):
             f"boundary]", gemm_kernel.gemm_os(x, w, quant_scale=0.01),
             ref.gemm_ref(x, w, quant_scale=0.01)))
     for (M, K, N), dt, scale in ((ffn, bf16, None), (ffn2, i8, None),
-                                 (ffn2, i8, 0.002)):
+                                 (ffn2, i8, 0.002), (ffn, f32, None),
+                                 (GEMM_SPLIT[0], f32, None)):
         x, w = _rand(rng, (M, K), dt), _rand(rng, (K, N), dt)
         same_bits(f"gemm_os [{M}x{K}x{N} {dt}, scale {scale}: two runs]",
                   gemm_kernel.gemm_os(x, w, quant_scale=scale),
@@ -525,22 +562,30 @@ CONV_TESTS = [  # (N, H, W, C, K, R, stride), tests/test_kernels.py's specs
     (2, 8, 8, 8, 32, 1, 1), (2, 14, 14, 16, 8, 7, 2), (2, 9, 9, 16, 8, 3, 2)]
 CONV_PAPER = [  # ResNet-50: the stem, and a stage-3 3x3
     (1, 224, 224, 3, 64, 7, 2), (1, 28, 28, 128, 128, 3, 1)]
+CONV_BENCH = (1, 28, 28, 64, 128, 3, 1)  # the kernel bench's conv row
 
 
 def check_conv(rng) -> float:
-    """Max abs error of conv_im2col against conv2d_ref."""
+    """Max abs error of conv_im2col against conv2d_ref; fp32 at stage 3
+    (taps split over CTAs) also twice, bit for bit."""
     err = 0.0
     for dt in (torch.float32, torch.bfloat16):
-        for N, H, W, C, K, R, st in CONV_TESTS + CONV_PAPER:
+        for N, H, W, C, K, R, st in CONV_TESTS + CONV_PAPER + [CONV_BENCH]:
             x, w = _rand(rng, (N, H, W, C), dt), _rand(rng, (R, R, C, K), dt)
             got = conv_kernel.conv2d(x, w, stride=st)
             torch.cuda.synchronize()
             want = ref.conv2d_ref(x, w, stride=st)
             absp = ref.conv2d_ref(x.abs().float(), w.abs().float(),
                                   stride=st)
-            err = max(err, sum_order(
-                f"conv_im2col [{N}x{H}x{W}x{C}->{K} {R}x{R}/{st} {dt}]", got,
-                want, absp, R * R * C))
+            plan = f", {f32_plan_label(conv_plan(N, H, W, C, K, R, st))}" \
+                if dt == torch.float32 else ""
+            label = f"conv_im2col [{N}x{H}x{W}x{C}->{K} {R}x{R}/{st} {dt}"
+            err = max(err, sum_order(f"{label}{plan}]", got, want, absp,
+                                     R * R * C))
+            if dt == torch.float32 and (N, H, W, C, K, R, st) == \
+                    CONV_PAPER[1]:
+                same_bits(f"{label}: two runs]", got,
+                          conv_kernel.conv2d(x, w, stride=st))
             if (H, R) == (224, 7):
                 # the input moved down one row = the padding shifted by one
                 shifted = torch.nn.functional.pad(x, (0, 0, 0, 0, 1, 0))[:, :-1]
@@ -629,18 +674,31 @@ def device_ms(fn, copies, want: int = 3, tries: int = 12) -> float:
 
 
 def time_layer() -> dict:
-    """Times of each kernel at the paper's workload shapes; the first case
-    of each name is the one the kernels line reports."""
+    """Times of each kernel at the paper's workload shapes, and of fp32
+    gemm_os, conv_im2col and mha at the kernel bench's too (each fp32 gemm
+    and conv row also logs its launcher's plan); the first case of each
+    name is the one the kernels line reports (mha's comes from time_mha)."""
     f32, bf16 = torch.float32, torch.bfloat16
+
+    def conv(dt, N, H, W, C, K, R, st):
+        c = bench.conv_case("cuda", N, H, W, C, K, R, st, dt,
+                            shape=f"{H}x{W}x{C}->{K} {R}x{R}/{st}")
+        OH, OW, _, _ = ref.same_padding(H, W, R, R, st)
+        c["plan"] = (conv_plan(N, H, W, C, K, R, st), N * OH * OW, K)
+        return "conv_im2col", c
+
+    def gemm(M, K, N, dt):
+        c = bench.gemm_case(M, K, N, dt, "cuda")
+        c["plan"] = (gemm_plan(M, K, N), M, N)
+        return "gemm_os", c
     cases = [
-        ("gemm_os", bench.gemm_case(512, 768, 3072, bf16, "cuda")),
-        ("gemm_os", bench.gemm_case(512, 768, 3072, f32, "cuda")),
+        gemm(512, 768, 3072, bf16), gemm(512, 768, 3072, f32),
+    ] + [gemm(M, K, N, f32) for M, K, N in GEMM_SPLIT[:3]] + [
         ("gemm_os_int8", bench.gemm_case(512, 3072, 768, torch.int8, "cuda",
                                          quant_scale=0.002)),
-    ] + [("conv_im2col", bench.conv_case("cuda", N, H, W, C, K, R, st, dt,
-                                         shape=f"{H}x{W}x{C}->{K} "
-                                         f"{R}x{R}/{st}"))
-         for dt in (bf16, f32) for N, H, W, C, K, R, st in CONV_PAPER] + [
+    ] + [conv(dt, *spec) for dt in (bf16, f32) for spec in CONV_PAPER] + [
+        conv(f32, *CONV_BENCH),
+        ("mha", bench.mha_case(False, "cuda")),   # the bench's fp32 row
         ("maxpool", bench.pool_case(1, 112, 112, 64, 3, 2, f32, "cuda")),
         ("maxpool", bench.pool_case(1, 112, 112, 64, 3, 2, bf16, "cuda")),
         ("blocked_layout", bench.blocked_case(56, 56, 256, 8, f32, "cuda")),
@@ -669,8 +727,21 @@ def time_layer() -> dict:
             f"({m['bound_ms'] / dev:.1%} on the device)")
         if name == "gemm_os_int8":
             int_mm_col_major(c)
+        if dtype == f32 and name in ("gemm_os", "conv_im2col"):
+            log_plan(name, c)
         first.setdefault(name, m)
     return first
+
+
+def log_plan(name, c) -> None:
+    """The plan the fp32 launcher took for a timed case (``f32_plan``, kept
+    in the case as ``c["plan"]`` = (plan, output rows, output columns)):
+    its tile, its depth ranges, and the CTAs they give."""
+    (bm, bn, chunk, splits), rows, cols = c["plan"]
+    log(f"{name} plan [{c['shape']} torch.float32]: "
+        f"{f32_plan_label((bm, bn, chunk, splits))}, "
+        f"{-(-rows // bm) * -(-cols // bn) * splits} CTAs on "
+        f"{gemm_kernel.sm_count(0)} SMs")
 
 
 def int_mm_col_major(c) -> None:

@@ -6,6 +6,9 @@ NHWC against w (R, S, C, K) RSCK, SAME padding, a stride, fp32
 accumulation, output in x's dtype. The kernel computes every input address
 itself (the AGU's role): no padded copy of x is made, unlike the JAX
 wrapper's jnp.pad, and there is no output-channel block ``bn`` to pad to.
+fp32 runs on the FMA units with the depth (kh, kw, c) split over CTAs where
+the tiles alone leave the SMs short of warps (``f32_plan``; partials added
+in a fixed order), bf16 on the tensor cores.
 CUDA tensors only: ``kernels.ops.conv2d`` routes CPU tensors to
 ``ref.conv2d_ref``.
 """
@@ -13,10 +16,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.gemm_os import sm_count, workspace_numel
 from repro_torch.kernels.ref import same_padding
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -28,7 +33,24 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.conv_im2col_launch.argtypes = [p, p, p] + [i] * 13 + [p]
     lib.conv_im2col_launch.restype = ctypes.c_int
+    lib.conv_im2col_f32_plan.argtypes = [i] * 6 + [p]
+    lib.conv_im2col_f32_plan.restype = None
+    lib.conv_im2col_f32_launch.argtypes = [p, p, p, p] + [i] * 13 + [p]
+    lib.conv_im2col_f32_launch.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=4096)
+def f32_plan(M: int, Cout: int, C: int, R: int, S: int, sms: int
+             ) -> Tuple[int, int, int, int]:
+    """The fp32 path's plan for a conv of M output pixels, Cout channels
+    and an R x S x C depth on ``sms`` SMs, from the launcher
+    (``conv_im2col_f32_plan``): (tile rows, tile columns, depth values per
+    range, ranges). Where C is a whole number of 16-deep stages a range is
+    whole taps or a whole fraction of one."""
+    plan = (ctypes.c_int * 4)()
+    _lib().conv_im2col_f32_plan(M, Cout, C, R, S, sms, plan)
+    return tuple(plan)
 
 
 def _require(ok: bool, msg: str, *args) -> None:
@@ -63,9 +85,21 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1
              "{} output pixels need more than 65535 row tiles", N * OH * OW)
 
     out = torch.empty((N, OH, OW, K), dtype=x.dtype, device=x.device)
-    err = build.launch_on(x.device, _lib().conv_im2col_launch, x.data_ptr(),
-                          w.data_ptr(), out.data_ptr(), N, H, W, C, R, S, K,
-                          OH, OW, stride, pad_t, pad_l, dtype)
+    if dtype == 0:
+        plan = f32_plan(N * OH * OW, K, C, R, S, sm_count(x.device.index))
+        ws = workspace_numel(N * OH * OW, K, plan)
+        ws = torch.empty(ws, dtype=torch.float32, device=x.device) \
+            if ws else None
+        err = build.launch_on(
+            x.device, _lib().conv_im2col_f32_launch, x.data_ptr(),
+            w.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), N, H, W, C, R, S, K, OH,
+            OW, stride, pad_t, pad_l, plan[2])
+    else:
+        err = build.launch_on(
+            x.device, _lib().conv_im2col_launch, x.data_ptr(), w.data_ptr(),
+            out.data_ptr(), N, H, W, C, R, S, K, OH, OW, stride, pad_t,
+            pad_l, dtype)
     if err:
         raise RuntimeError(f"conv_im2col kernel launch failed: CUDA error "
                            f"{err}")

@@ -42,10 +42,20 @@
 // which cuts that traffic threefold. At the stem, the scalar gather of
 // C = 3 (16 two-byte loads per thread and stage).
 //
-// fp32: the FMA tile loop of os_tile.cuh (64 x 64 outputs per CTA, 4 x 4
-// per thread), with A read one scalar at a time through the same address
-// walk. It stays on the FMA units on purpose: TF32 tensor cores would miss
-// the ref.sum_order_error limit (depth * 2^-24 of |x| * |w|).
+// fp32: exact fp32 on the FMA units through os_tile.cuh (64 x 64 tiles,
+// 8 x 4 outputs a thread, a ring of 4 cp.async stages 16 deep; TF32 would
+// miss the ref.sum_order_error limit). A arrives through the same per-CTA
+// address table as bf16's (fill_rows): each thread works out (kh, kw, c)
+// once per stage for the depth column (or 4-channel group) it always
+// loads. Where C % 4 == 0 (stage 3, C = 128; the bench's C = 64) A comes
+// as 16-byte cp.async copies of 4 channels of one tap, pixels outside the
+// image zero-filled through the copy's source size; otherwise (the stem,
+// C = 3) as 4-byte copies. Where the tiles alone leave the SMs short of
+// warps the taps are split over CTAs (os_tile::plan), ranges of whole taps
+// or whole fractions of one where C is a whole number of stages: stage 3
+// (26 tiles) in 18 ranges of half a tap, 468 CTAs; the partials are added
+// in rank order by a second pass, so two runs give the same bits. What
+// bounds it: operations, the in-image taps' FLOPs over 67 TFLOP/s.
 #include <cuda_bf16.h>
 
 #include "os_tile.cuh"
@@ -53,29 +63,116 @@
 
 namespace {
 
+constexpr int kOutside = -(1 << 28);  // an ih that no tap brings into the image
+
+// Per output row r of the CTA's tile, once, into shared memory (both
+// paths): row_n = n * H, row_h = oh * stride - pad_t (kOutside past M),
+// row_w = ow * stride - pad_l. The loaders then add a tap's (kh, kw) and
+// divide nothing per element.
+template <int BM>
+__device__ __forceinline__ void fill_rows(int* row_n, int* row_h, int* row_w, int m0, int M,
+                                          int H, int OH, int OW, int stride, int pad_t,
+                                          int pad_l, int threads) {
+  for (int r = threadIdx.x; r < BM; r += threads) {
+    const int m = m0 + r;
+    if (m < M) {
+      const int ow = m % OW, t = m / OW, oh = t % OH, n = t / OH;
+      row_n[r] = n * H;
+      row_h[r] = oh * stride - pad_t;
+      row_w[r] = ow * stride - pad_l;
+    } else {
+      row_n[r] = 0;
+      row_h[r] = kOutside;
+      row_w[r] = 0;
+    }
+  }
+}
+
 // ===========================================================================
 // fp32: the os_tile FMA loop
 // ===========================================================================
 
+// A = the implicit im2col rows of the tile, depth [k0, k0 + BK), zeros
+// outside the image and at and past k_end. Each thread always loads the
+// same depth column (vec: 4-channel group) of the stage, so it works out
+// (kh, kw, c) once per stage; rows come from the table, no division per
+// element. vec (runtime, uniform): C % 4 == 0 and x 16-byte aligned,
+// 16-byte copies of 4 channels of one tap; else 4-byte copies.
+template <typename Sh>
 struct Im2colF32 {
   const float* x;
-  int H, W, C, S, OH, OW, stride, pad_t, pad_l;
-  __device__ __forceinline__ float operator()(int m, int k) const {
-    const int ow = m % OW, t = m / OW, oh = t % OH, n = t / OH;
-    const int c = k % C, tap = k / C, kw = tap % S, kh = tap / S;
-    const int ih = oh * stride + kh - pad_t, iw = ow * stride + kw - pad_l;
-    if (ih < 0 || ih >= H || iw < 0 || iw >= W) return 0.f;
-    return x[(((long)n * H + ih) * W + iw) * C + c];
+  int H, W, C, S;
+  const int* row_n;  // the CTA's row table (fill_rows)
+  const int* row_h;
+  const int* row_w;
+  bool vec;
+
+  __device__ __forceinline__ void issue(os_tile::Stages<Sh>& st, int s, int k0, int k_end) const {
+    constexpr int BK = Sh::BK, kT = Sh::kThreads;
+    constexpr int kLanes = BK / 4;  // 4-channel groups per stage
+    const int col = vec ? 4 * (threadIdx.x % kLanes) : threadIdx.x % BK;
+    const int k = k0 + col;
+    const int tap = k / C, c = k - tap * C, kh = tap / S, kw = tap - kh * S;
+    const bool kin = k < k_end;
+    if (vec) {
+#pragma unroll
+      for (int i = 0; i < Sh::BM * kLanes / kT; ++i) {
+        const int r = threadIdx.x / kLanes + (kT / kLanes) * i;
+        const int ih = row_h[r] + kh, iw = row_w[r] + kw;
+        const bool in = kin && (unsigned)ih < (unsigned)H && (unsigned)iw < (unsigned)W;
+        os_tile::cp_async16<true>(&st.a[s][r][col],
+                                  in ? x + ((long)(row_n[r] + ih) * W + iw) * C + c : x, in);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < Sh::BM * BK / kT; ++i) {
+        const int r = threadIdx.x / BK + (kT / BK) * i;
+        const int ih = row_h[r] + kh, iw = row_w[r] + kw;
+        const bool in = kin && (unsigned)ih < (unsigned)H && (unsigned)iw < (unsigned)W;
+        os_tile::cp_async4(&st.a[s][r][col],
+                           in ? x + ((long)(row_n[r] + ih) * W + iw) * C + c : x, in);
+      }
+    }
   }
 };
 
-__global__ void __launch_bounds__(os_tile::kThreads)
-    conv_f32_kernel(Im2colF32 a, const float* __restrict__ w, float* __restrict__ out, int M,
-                    int Cout, int depth) {
-  const int m0 = blockIdx.y * os_tile::kTile, n0 = blockIdx.x * os_tile::kTile;
-  float acc[4][4] = {};
-  os_tile::accumulate(a, w, M, Cout, depth, m0, n0, acc);
-  os_tile::store(out, M, Cout, m0, n0, acc);
+struct ConvF32Args {
+  const float* x;
+  const float* w;
+  float* out;
+  float* ws;  // null: one range
+  int H, W, C, S, OH, OW, stride, pad_t, pad_l, M, Cout, depth, chunk;
+  bool vec_a, vec_b, vec_out;
+};
+
+__global__ void __launch_bounds__(os_tile::Tile::kThreads, 1)
+    conv_f32_kernel(const ConvF32Args p) {
+  using T = os_tile::Tile;
+  extern __shared__ __align__(128) unsigned char smem[];
+  auto& st = *reinterpret_cast<os_tile::Stages<T>*>(smem);
+  __shared__ int row_n[T::BM], row_h[T::BM], row_w[T::BM];
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int k_begin = blockIdx.z * p.chunk, k_end = min(p.depth, k_begin + p.chunk);
+  fill_rows<T::BM>(row_n, row_h, row_w, m0, p.M, p.H, p.OH, p.OW, p.stride, p.pad_t, p.pad_l,
+                   T::kThreads);
+  __syncthreads();
+  os_tile::Accum<T> acc = {};
+  const Im2colF32<T> a{p.x, p.H, p.W, p.C, p.S, row_n, row_h, row_w, p.vec_a};
+  const os_tile::LoadB<T> b{p.w, p.Cout, n0, p.vec_b};
+  os_tile::mainloop<T>(st, a, b, k_begin, k_end, acc);
+  if (p.ws)
+    os_tile::store_partial<T>(p.ws, m0, n0, acc);
+  else
+    os_tile::store<T>(p.out, p.M, p.Cout, m0, n0, acc, p.vec_out);
+}
+
+int launch_f32(ConvF32Args p, cudaStream_t s) {
+  using T = os_tile::Tile;
+  const int splits = static_cast<int>(os_tile::cdiv(p.depth, p.chunk));
+  const dim3 grid(os_tile::cdiv(p.Cout, T::BN), os_tile::cdiv(p.M, T::BM), splits);
+  if (splits == 1) p.ws = nullptr;
+  conv_f32_kernel<<<grid, T::kThreads, sizeof(os_tile::Stages<T>), s>>>(p);
+  return os_tile::finish(p.ws, p.out, p.M, p.Cout, grid.y * T::BM, grid.x * T::BN, splits, s);
 }
 
 // ===========================================================================
@@ -90,8 +187,6 @@ struct ConvArgs {
   bf16* out;
   int H, W, C, S, OH, OW, stride, pad_t, pad_l, M, Cout, depth;
 };
-
-constexpr int kOutside = -(1 << 28);  // an ih that no tap brings into the image
 
 // Fills one stage: A = depth [k0, k0 + BK) of the tile's output rows, read
 // through the address table; B = rows [k0, k0 + BK) of w, the tile's
@@ -166,19 +261,8 @@ __global__ void __launch_bounds__(tc_tile::kThreads) conv_bf16_kernel(const Conv
   __shared__ __align__(128) tc_tile::Stages<Sh> st;
   __shared__ int row_n[BM], row_h[BM], row_w[BM];
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  for (int r = threadIdx.x; r < BM; r += tc_tile::kThreads) {
-    const int m = m0 + r;
-    if (m < p.M) {
-      const int ow = m % p.OW, t = m / p.OW, oh = t % p.OH, n = t / p.OH;
-      row_n[r] = n * p.H;
-      row_h[r] = oh * p.stride - p.pad_t;
-      row_w[r] = ow * p.stride - p.pad_l;
-    } else {
-      row_n[r] = 0;
-      row_h[r] = kOutside;
-      row_w[r] = 0;
-    }
-  }
+  fill_rows<BM>(row_n, row_h, row_w, m0, p.M, p.H, p.OH, p.OW, p.stride, p.pad_t, p.pad_l,
+                tc_tile::kThreads);
   __syncthreads();
   tc_tile::Accum<Sh> acc = {};
   ConvLoad<Sh, kVecA, kVecB> load{p, row_n, row_h, row_w, {p.w, p.depth, p.Cout, n0}};
@@ -216,22 +300,52 @@ void launch_bf16(const ConvArgs& p, cudaStream_t s) {
 
 }  // namespace
 
-// dtype codes: 0 float32 (FMA loop), 1 bfloat16 (tensor cores); x, w and
-// out alike. Returns the launch's cudaGetLastError() (0 = launched).
+// The fp32 path's plan for a conv of M = N * OH * OW output pixels, Cout
+// channels, an R x S x C depth, on `sms` SMs (os_tile::plan; where C is a
+// whole number of stages, ranges are whole taps or whole fractions of
+// one): plan[0..3] = tile rows, tile columns, depth values per range
+// (`chunk`), ranges (`splits`). With splits > 1 the launch needs a
+// workspace of splits * ceil(M / rows) * rows * ceil(Cout / cols) * cols
+// floats.
+extern "C" void conv_im2col_f32_plan(int M, int Cout, int C, int R, int S, int sms, int* plan) {
+  constexpr int BK = os_tile::Tile::BK;
+  const os_tile::Plan p = os_tile::plan(M, Cout, R * S * C, sms, C % BK == 0 ? C / BK : 0);
+  plan[0] = os_tile::Tile::BM;
+  plan[1] = os_tile::Tile::BN;
+  plan[2] = p.chunk;
+  plan[3] = p.splits;
+}
+
+// fp32 x, w -> out with the depth (kh, kw, c) cut into ranges of `chunk`
+// values (a multiple of 16); ws: the workspace where there is more than
+// one range, else unused. Returns the first launch error (0 = launched).
+extern "C" int conv_im2col_f32_launch(const void* x, const void* w, void* out, void* ws, int N,
+                                      int H, int W, int C, int R, int S, int Cout, int OH, int OW,
+                                      int stride, int pad_t, int pad_l, int chunk, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int M = N * OH * OW, depth = R * S * C;
+  if (chunk < 1 || chunk % os_tile::Tile::BK != 0 || (chunk < depth && ws == nullptr) ||
+      os_tile::cdiv(depth, chunk) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const ConvF32Args p{static_cast<const float*>(x),
+                      static_cast<const float*>(w),
+                      static_cast<float*>(out),
+                      static_cast<float*>(ws),
+                      H, W, C, S, OH, OW, stride, pad_t, pad_l, M, Cout, depth, chunk,
+                      C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0,
+                      Cout % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0,
+                      Cout % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0};
+  return launch_f32(p, s);
+}
+
+// bfloat16 x, w and out (tensor cores; dtype 1; float32 goes through
+// conv_im2col_f32_launch). Returns the launch's cudaGetLastError()
+// (0 = launched).
 extern "C" int conv_im2col_launch(const void* x, const void* w, void* out, int N, int H, int W,
                                   int C, int R, int S, int Cout, int OH, int OW, int stride,
                                   int pad_t, int pad_l, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int M = N * OH * OW;
-  if (dtype == 0) {
-    const Im2colF32 a{static_cast<const float*>(x), H, W, C, S, OH, OW, stride, pad_t, pad_l};
-    const dim3 grid((Cout + os_tile::kTile - 1) / os_tile::kTile,
-                    (M + os_tile::kTile - 1) / os_tile::kTile);
-    conv_f32_kernel<<<grid, os_tile::kThreads, 0, s>>>(a, static_cast<const float*>(w),
-                                                       static_cast<float*>(out), M, Cout,
-                                                       R * S * C);
-    return static_cast<int>(cudaGetLastError());
-  }
   if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   const ConvArgs p{static_cast<const bf16*>(x), static_cast<const bf16*>(w),
                    static_cast<bf16*>(out), H, W, C, S, OH, OW, stride, pad_t, pad_l, M, Cout,

@@ -9,12 +9,14 @@
 // rintf rounds half to even, as jnp.round does; acc becomes fp32 with
 // __int2float_rn and the product is one fp32 multiply, as in JAX.
 //
-// Layout: one CTA per output tile, its accumulator in registers for the
-// whole K sweep, written once: the TPU kernel's VMEM-resident accumulator
-// and Voltra's output-stationarity. Ragged edges are masked in the kernel:
-// no padded copy of x or w is made, unlike the JAX wrapper's jnp.pad. Each
-// output is summed by one thread in one order (no split K, no atomics), so
-// two runs give the same bits.
+// Layout: one CTA per output tile, its accumulator in registers for its
+// whole depth sweep, written once: the TPU kernel's VMEM-resident
+// accumulator and Voltra's output-stationarity. Ragged edges are masked in
+// the kernel: no padded copy of x or w is made, unlike the JAX wrapper's
+// jnp.pad. Each output has one summation order: bf16 and int8 sum all of K
+// in one thread; fp32 may split K into ranges over CTAs (a fixed-order
+// split, below), each summed by one thread, the partials added in rank
+// order by a second pass. No atomics: two runs give the same bits.
 //
 // What bounds it on this card, at the paper's BERT-Base FFN shapes: bytes,
 // barely. bf16 512 x 768 x 3072: 8.7 MB over 3.35 TB/s = 2.6 us, its
@@ -44,9 +46,14 @@
 // torch._int_mm with w column-major 0.0085 at the int8 one. Next: TMA into
 // the ring, wgmma, and larger tiles shared over a cluster.
 //
-// fp32: the FMA tile loop of os_tile.cuh (64 x 64 outputs per CTA, 4 x 4
-// per thread). It stays on the FMA units on purpose: TF32 tensor cores
-// would miss the ref.sum_order_error limit (depth * 2^-24 of |x| @ |w|).
+// fp32: exact fp32 on the FMA units (TF32 tensor cores would miss the
+// ref.sum_order_error limit, depth * 2^-24 of |x| @ |w|), through
+// os_tile.cuh: 64 x 64 tiles, 8 x 4 outputs a thread read as float4 from
+// shared memory, a ring of 4 cp.async stages 16 deep, and the depth split
+// over CTAs in a fixed order where the tiles alone leave the SMs short of
+// warps (os_tile::plan). What bounds it: operations, 2 M N K over 67
+// TFLOP/s. Its source note gives the design, what it reaches, and the
+// variants tried and not kept.
 #include <cuda_bf16.h>
 
 #include "os_tile.cuh"
@@ -58,28 +65,74 @@ namespace {
 // fp32: the os_tile FMA loop
 // ===========================================================================
 
-struct RowMajor {
+// A = x (M, K) row-major: rows [m0, m0 + BM), depth [k0, k0 + BK) of the
+// stage, zeros past M and at and past k_end. vec (a runtime flag, uniform
+// over the grid): K % 4 == 0 and x 16-byte aligned, 16-byte copies of 4
+// depth values; else 4-byte copies.
+template <typename Sh>
+struct RowMajorF32 {
   const float* x;
-  int K;
-  __device__ __forceinline__ float operator()(int m, int k) const { return x[(long)m * K + k]; }
+  int M, K, m0;
+  bool vec;
+
+  __device__ __forceinline__ void issue(os_tile::Stages<Sh>& st, int s, int k0, int k_end) const {
+    constexpr int BK = Sh::BK, kT = Sh::kThreads;
+    if (vec) {
+#pragma unroll
+      for (int i = 0; i < Sh::BM * BK / 4 / kT; ++i) {
+        const int e = threadIdx.x + kT * i, r = e / (BK / 4), k = 4 * (e % (BK / 4));
+        const bool in = m0 + r < M && k0 + k < k_end;
+        os_tile::cp_async16<true>(&st.a[s][r][k], in ? x + (long)(m0 + r) * K + k0 + k : x, in);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < Sh::BM * BK / kT; ++i) {
+        const int e = threadIdx.x + kT * i, r = e / BK, k = e % BK;
+        const bool in = m0 + r < M && k0 + k < k_end;
+        os_tile::cp_async4(&st.a[s][r][k], in ? x + (long)(m0 + r) * K + k0 + k : x, in);
+      }
+    }
+  }
 };
 
+// One CTA: the tile (blockIdx.y, blockIdx.x) over depth range blockIdx.z
+// of `chunk` values. ws null: one range, out written directly; else the
+// partial sums into the workspace, for reduce_splits.
 template <typename TO>
-__global__ void __launch_bounds__(os_tile::kThreads)
+__global__ void __launch_bounds__(os_tile::Tile::kThreads, 1)
     gemm_f32_kernel(const float* __restrict__ x, const float* __restrict__ w, TO* __restrict__ out,
-                    int M, int N, int K) {
-  const int m0 = blockIdx.y * os_tile::kTile, n0 = blockIdx.x * os_tile::kTile;
-  float acc[4][4] = {};
-  os_tile::accumulate(RowMajor{x, K}, w, M, N, K, m0, n0, acc);
-  os_tile::store(out, M, N, m0, n0, acc);
+                    float* __restrict__ ws, int M, int N, int K, int chunk, bool vec_a, bool vec_b,
+                    bool vec_out) {
+  using T = os_tile::Tile;
+  extern __shared__ __align__(128) unsigned char smem[];
+  auto& st = *reinterpret_cast<os_tile::Stages<T>*>(smem);
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int k_begin = blockIdx.z * chunk, k_end = min(K, k_begin + chunk);
+  os_tile::Accum<T> acc = {};
+  const RowMajorF32<T> a{x, M, K, m0, vec_a};
+  const os_tile::LoadB<T> b{w, N, n0, vec_b};
+  os_tile::mainloop<T>(st, a, b, k_begin, k_end, acc);
+  if (ws)
+    os_tile::store_partial<T>(ws, m0, n0, acc);
+  else
+    os_tile::store<T>(out, M, N, m0, n0, acc, vec_out);
 }
 
 template <typename TO>
-int launch_f32(const void* x, const void* w, void* out, int M, int N, int K, cudaStream_t s) {
-  const dim3 grid((N + os_tile::kTile - 1) / os_tile::kTile, (M + os_tile::kTile - 1) / os_tile::kTile);
-  gemm_f32_kernel<TO><<<grid, os_tile::kThreads, 0, s>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<TO*>(out), M, N, K);
-  return static_cast<int>(cudaGetLastError());
+int launch_f32(const void* x, const void* w, void* out, void* ws, int M, int N, int K, int chunk,
+               cudaStream_t s) {
+  using T = os_tile::Tile;
+  const int splits = static_cast<int>(os_tile::cdiv(K, chunk));
+  const dim3 grid(os_tile::cdiv(N, T::BN), os_tile::cdiv(M, T::BM), splits);
+  const bool vec_a = K % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_b = N % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const bool vec_out = N % 4 == 0 && reinterpret_cast<uintptr_t>(out) % (4 * sizeof(TO)) == 0;
+  TO* o = static_cast<TO*>(out);
+  float* partial = splits > 1 ? static_cast<float*>(ws) : nullptr;
+  gemm_f32_kernel<TO><<<grid, T::kThreads, sizeof(os_tile::Stages<T>), s>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), o, partial, M, N, K, chunk, vec_a,
+      vec_b, vec_out);
+  return os_tile::finish(partial, o, M, N, grid.y * T::BM, grid.x * T::BN, splits, s);
 }
 
 // ===========================================================================
@@ -226,15 +279,14 @@ int launch_tc(const void* x, const void* w, void* out, int M, int N, int K, Epi 
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16, 2 int8, 3 int32. Built: float32 in
-// (FMA loop) or bfloat16 in (tensor cores) -> float32 or bfloat16 out;
-// int8 in (tensor cores) -> int32 out (quant 0) or int8 out (quant 1, with
-// scale). Returns the launch's cudaGetLastError() (0 = launched).
+// dtype codes: 0 float32, 1 bfloat16, 2 int8, 3 int32. Built here: bfloat16
+// in (tensor cores) -> float32 or bfloat16 out; int8 in (tensor cores) ->
+// int32 out (quant 0) or int8 out (quant 1, with scale). float32 in goes
+// through gemm_os_f32_launch. Returns the launch's cudaGetLastError()
+// (0 = launched).
 extern "C" int gemm_os_launch(const void* x, const void* w, void* out, int M, int N, int K,
                               int in_dtype, int out_dtype, int quant, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == 0 && out_dtype == 0) return launch_f32<float>(x, w, out, M, N, K, s);
-  if (in_dtype == 0 && out_dtype == 1) return launch_f32<bf16>(x, w, out, M, N, K, s);
   if (in_dtype == 1 && out_dtype == 0)
     return launch_tc<Bf16, float>(x, w, out, M, N, K, tc_tile::Round<float>{}, s);
   if (in_dtype == 1 && out_dtype == 1)
@@ -243,5 +295,34 @@ extern "C" int gemm_os_launch(const void* x, const void* w, void* out, int M, in
     return launch_tc<S8, int32_t>(x, w, out, M, N, K, Exact{}, s);
   if (in_dtype == 2 && quant == 1 && out_dtype == 2)
     return launch_tc<S8, int8_t>(x, w, out, M, N, K, Quant{scale}, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The fp32 path's plan for an (M, K) @ (K, N) product on `sms` SMs
+// (os_tile::plan): plan[0..3] = tile rows, tile columns, depth values per
+// range (`chunk`), ranges (`splits`). With splits > 1 the launch needs a
+// workspace of splits * ceil(M / rows) * rows * ceil(N / cols) * cols
+// floats.
+extern "C" void gemm_os_f32_plan(int M, int N, int K, int sms, int* plan) {
+  const os_tile::Plan p = os_tile::plan(M, N, K, sms, 0);
+  plan[0] = os_tile::Tile::BM;
+  plan[1] = os_tile::Tile::BN;
+  plan[2] = p.chunk;
+  plan[3] = p.splits;
+}
+
+// fp32 x (M, K) @ w (K, N) -> out (M, N), float32 (out_dtype 0) or
+// bfloat16 (1), with the depth cut into ranges of `chunk` values (a
+// multiple of 16); ws: the workspace where there is more than one range,
+// else unused. Any chunk gives the same function up to the order of the
+// sums; gemm_os_f32_plan's is the one the wrapper takes.
+extern "C" int gemm_os_f32_launch(const void* x, const void* w, void* out, void* ws, int M,
+                                  int N, int K, int out_dtype, int chunk, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chunk < 1 || chunk % os_tile::Tile::BK != 0 || (chunk < K && ws == nullptr) ||
+      os_tile::cdiv(K, chunk) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (out_dtype == 0) return launch_f32<float>(x, w, out, ws, M, N, K, chunk, s);
+  if (out_dtype == 1) return launch_f32<bf16>(x, w, out, ws, M, N, K, chunk, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

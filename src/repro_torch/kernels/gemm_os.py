@@ -6,9 +6,12 @@ in fp32, int8 inputs in int32, and the fused int8 quantisation epilogue
 (Voltra C1 + C4). Same public signature and layouts as the JAX ``gemm_os``
 (the TPU ``block`` sizes have no counterpart: the CUDA launcher picks its
 tiles, on the tensor cores 64 x 64 or 32 x 32, whichever leaves the busiest
-of the card's SMs fewer bytes to load, on the FMA units 64 x 64, and masks
-ragged edges instead of padding). bf16 and int8 inputs run on the tensor
-cores, fp32 inputs on the FMA units. CUDA tensors only: ``kernels.ops.matmul`` / ``quant_matmul`` route
+of the card's SMs fewer bytes to load, and masks ragged edges instead of
+padding). bf16 and int8 inputs run on the tensor cores, fp32 inputs on the
+FMA units in 64 x 64 tiles, 16 deep per ``cp.async`` stage, with the depth
+split over CTAs where the tiles alone leave the SMs short of warps
+(``f32_plan``; the partials are added in a fixed order, so two runs give the
+same bits). CUDA tensors only: ``kernels.ops.matmul`` / ``quant_matmul`` route
 CPU tensors to ``ref.gemm_ref``.
 
 ``spatial_utilization`` is the JAX module's tile-edge formula, copied (it is
@@ -34,7 +37,36 @@ def _lib() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.gemm_os_launch.argtypes = [p, p, p, i, i, i, i, i, i, f, p]
     lib.gemm_os_launch.restype = ctypes.c_int
+    lib.gemm_os_f32_plan.argtypes = [i, i, i, i, p]
+    lib.gemm_os_f32_plan.restype = None
+    lib.gemm_os_f32_launch.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.gemm_os_f32_launch.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=4096)
+def f32_plan(M: int, N: int, K: int, sms: int) -> Tuple[int, int, int, int]:
+    """The fp32 path's plan for x (M, K) @ w (K, N) on ``sms`` SMs, from
+    the launcher (``gemm_os_f32_plan``): (tile rows, tile columns, depth
+    values per range, ranges). More than one range: the depth is split,
+    the partials go to a workspace and a second pass adds them in rank
+    order."""
+    plan = (ctypes.c_int * 4)()
+    _lib().gemm_os_f32_plan(M, N, K, sms, plan)
+    return tuple(plan)
+
+
+def workspace_numel(M: int, N: int, plan: Tuple[int, int, int, int]) -> int:
+    """fp32 elements of the workspace a plan needs (0 without a split):
+    one (M, N) slice per range, rounded up to whole tiles."""
+    bm, bn, _, splits = plan
+    return 0 if splits == 1 else splits * -(-M // bm) * bm * -(-N // bn) * bn
 
 
 def _require(ok: bool, msg: str, *args) -> None:
@@ -90,11 +122,21 @@ def gemm_os(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
              "M = {} needs more than 65535 row tiles", M)
 
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
-    err = build.launch_on(
-        x.device, _lib().gemm_os_launch, x.data_ptr(), w.data_ptr(),
-        out.data_ptr(), M, N, K, _CODES[x.dtype], _CODES[out_dtype],
-        int(quant_scale is not None),
-        0.0 if quant_scale is None else quant_scale)
+    if x.dtype == torch.float32:
+        plan = f32_plan(M, N, K, sm_count(x.device.index))
+        ws = workspace_numel(M, N, plan)
+        ws = torch.empty(ws, dtype=torch.float32, device=x.device) \
+            if ws else None
+        err = build.launch_on(
+            x.device, _lib().gemm_os_f32_launch, x.data_ptr(), w.data_ptr(),
+            out.data_ptr(), None if ws is None else ws.data_ptr(), M, N, K,
+            _CODES[out_dtype], plan[2])
+    else:
+        err = build.launch_on(
+            x.device, _lib().gemm_os_launch, x.data_ptr(), w.data_ptr(),
+            out.data_ptr(), M, N, K, _CODES[x.dtype], _CODES[out_dtype],
+            int(quant_scale is not None),
+            0.0 if quant_scale is None else quant_scale)
     if err:
         raise RuntimeError(f"gemm_os kernel launch failed: CUDA error {err}")
     if integer:

@@ -178,6 +178,19 @@ def gemm_ref(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
     return acc.to(out_dtype)
 
 
+def gemm_split_ref(x: torch.Tensor, w: torch.Tensor, chunk: int, *,
+                   out_dtype=None) -> torch.Tensor:
+    """The summation order of gemm_os's fp32 path as a plain version: the
+    depth K cut into ranges of ``chunk`` values, each range's products
+    summed in fp32, the partials added in rank order (rank 0 first) in fp32
+    and rounded once to ``out_dtype`` (default x's dtype)."""
+    acc = None
+    for k0 in range(0, x.shape[1], chunk):
+        part = x[:, k0:k0 + chunk].float() @ w[k0:k0 + chunk].float()
+        acc = part if acc is None else acc + part
+    return acc.to(x.dtype if out_dtype is None else out_dtype)
+
+
 def same_padding(H: int, W: int, R: int, S: int, stride: int
                  ) -> Tuple[int, int, Tuple[int, int], Tuple[int, int]]:
     """SAME padding as lax.conv computes it: (OH, OW, (top, bottom),

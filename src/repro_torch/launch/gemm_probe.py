@@ -1,6 +1,7 @@
-"""What sets the time of gemm_os's tensor-core paths on the card: a probe.
+"""What sets the time of gemm_os's tensor-core paths, and which plan suits
+its fp32 path and conv_im2col's, on the card: a probe.
 
-    PYTHONPATH=src python -m repro_torch.launch.gemm_probe
+    PYTHONPATH=src python -m repro_torch.launch.gemm_probe [--f32]
 
 Builds ``kernels/csrc/gemm_probe.cu`` (tc_tile.cuh's mainloop with
 gemm_os.cu's loaders under other tiles, copies through L1 or L2 only, and
@@ -13,8 +14,15 @@ the check of each full variant's output against ``ref.gemm_ref`` (float:
 ``ref.sum_order_error``; int8: bitwise). Then the PyTorch call at the same
 shape. The shapes: the BERT-Base FFN's two products (bf16 512x768x3072,
 int8 512x3072x768 with the quant epilogue) and the kernel benchmark's
-256x1024x256, where the launcher takes 32 x 32 tiles. Needs a CUDA card;
-measures nothing on the CPU.
+256x1024x256, where the launcher takes 32 x 32 tiles.
+
+``--f32`` instead times the fp32 paths of gemm_os.cu and conv_im2col.cu
+with the depth cut into other numbers of ranges than their launchers' plan
+(``F32_CASES``), through the same C launch functions the wrappers call, and
+prints each split's device ms hot and cold, its check against the plain
+version (``ref.sum_order_error``), which split the launcher picks, and the
+PyTorch call (TF32 off). Needs a CUDA card; measures nothing
+on the CPU.
 """
 from __future__ import annotations
 
@@ -156,12 +164,118 @@ def run() -> List[str]:
     return lines
 
 
-def main() -> None:
+# (kind, shape, ranges to time): gemm (M, K, N); conv (H, W, C, Cout, R,
+# stride), batch 1. The kernel bench's fp32 rows and the paper's.
+F32_CASES = [
+    ("gemm", (128, 4096, 128), [1, 8, 16, 32, 64]),
+    ("gemm", (512, 512, 512), [1, 2, 4, 8]),
+    ("gemm", (1024, 1024, 1024), [1, 2, 4]),
+    ("gemm", (512, 768, 3072), [1, 2]),
+    ("conv", (28, 28, 128, 128, 3, 1), [1, 5, 9, 18, 36]),
+    ("conv", (28, 28, 64, 128, 3, 1), [1, 5, 9, 18]),
+    ("conv", (224, 224, 3, 64, 7, 2), [1, 2, 3]),
+]
+
+
+def _f32_case(rng, kind, shape):
+    """(call(x, w, out, ws, chunk), the launcher's plan, depth, M, N,
+    inputs, out, plain version, |x| * |w|, PyTorch call) of one F32_CASES
+    entry."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import conv_im2col, gemm_os
+    stream = torch.cuda.current_stream().cuda_stream
+    sms = gemm_os.sm_count(torch.cuda.current_device())
+
+    def normal(*s):
+        return torch.tensor(rng.standard_normal(s), dtype=torch.float32,
+                            device="cuda")
+    if kind == "gemm":
+        M, K, N = shape
+        x, w = normal(M, K), normal(K, N)
+        out = torch.empty((M, N), device="cuda")
+
+        def call(x, w, out, ws, chunk):
+            return gemm_os._lib().gemm_os_f32_launch(
+                x.data_ptr(), w.data_ptr(), out.data_ptr(), ws, M, N, K, 0,
+                chunk, stream)
+        return (call, gemm_os.f32_plan(M, N, K, sms), K, M, N, (x, w), out,
+                ref.gemm_ref(x, w), ref.gemm_ref(x.abs(), w.abs()),
+                lambda: torch.matmul(x, w))
+    H, W, C, Co, R, st = shape
+    x, w = normal(1, H, W, C), normal(R, R, C, Co)
+    OH, OW, (pt, pb), (pl, pr) = ref.same_padding(H, W, R, R, st)
+    out = torch.empty((1, OH, OW, Co), device="cuda")
+
+    def call(x, w, out, ws, chunk):
+        return conv_im2col._lib().conv_im2col_f32_launch(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), ws, 1, H, W, C, R, R,
+            Co, OH, OW, st, pt, pl, chunk, stream)
+    xp = F.pad(x, (0, 0, pl, pr, pt, pb)).permute(0, 3, 1, 2)
+    wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return (call, conv_im2col.f32_plan(OH * OW, Co, C, R, R, sms), R * R * C,
+            OH * OW, Co, (x, w), out, ref.conv2d_ref(x, w, stride=st),
+            ref.conv2d_ref(x.abs(), w.abs(), stride=st),
+            lambda: F.conv2d(xp, wl, stride=st))
+
+
+def run_f32() -> List[str]:
+    """The fp32 splits of F32_CASES on the card; one line per split."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("gemm_probe measures kernels on a CUDA device")
+    from repro_torch.kernels.gemm_os import workspace_numel
+    from repro_torch.launch.kernel_bench import fp32_exact
+    rng = np.random.default_rng(1)
+    lines = []
+    with fp32_exact():
+        for kind, shape, counts in F32_CASES:
+            (call, own, depth, M, N, (x, w), out, want, absp,
+             library) = _f32_case(rng, kind, shape)
+            n_bytes = 4 * (x.numel() + w.numel())
+            copies = [(x, w)] + [(x.clone(), w.clone()) for _ in range(
+                max(1, int(np.ceil(3 * 50e6 / n_bytes))) - 1)]
+            label = f"gemm_probe f32 {kind} {'x'.join(map(str, shape))}"
+            stages = -(-depth // 16)
+            chunks = [16 * -(-stages // n) for n in counts]
+            for chunk in chunks + ([] if own[2] in chunks else [own[2]]):
+                ranges = -(-depth // chunk)
+                ws = torch.empty(max(1, workspace_numel(
+                    M, N, own[:2] + (chunk, ranges))), device="cuda")
+
+                def one(j, chunk=chunk, ws=ws):
+                    a, b = copies[j % len(copies)]
+                    err = call(a, b, out, ws.data_ptr(), chunk)
+                    if err:
+                        raise RuntimeError(f"{label} chunk {chunk}: CUDA "
+                                           f"error {err}")
+                one(0)
+                torch.cuda.synchronize()
+                # repro-lint: disable=host-sync — a check, outside timing
+                ok = ref.sum_order_error(out, want, absp, depth).item() <= 1
+                hot = device_ms(lambda j: one(0))
+                cold = device_ms(one)
+                tag = " (the launcher's plan)" if chunk == own[2] else ""
+                lines.append(f"{label} chunk {chunk} ranges {ranges}{tag}: "
+                             f"device {hot:.4f} ms hot, {cold:.4f} ms cold, "
+                             f"{'agrees' if ok else 'DISAGREES'}")
+                print(lines[-1], flush=True)
+            lines.append(f"{label} PyTorch call: device "
+                         f"{device_ms(lambda j: library()):.4f} ms hot")
+            print(lines[-1], flush=True)
+    return lines
+
+
+def main(argv=None) -> None:
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--f32", action="store_true",
+                    help="time the fp32 splits (F32_CASES) instead")
+    args = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(smi.stdout.strip() or "nvidia-smi unavailable", flush=True)
-    run()
+    run_f32() if args.f32 else run()
 
 
 if __name__ == "__main__":

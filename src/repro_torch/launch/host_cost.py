@@ -7,8 +7,10 @@ itself costs.
 
 Prints one line per case: bf16 mha at the serving shape (B1 S1024 H16 KV2
 D128, causal), the bf16 ResNet-50 stage-3 conv (1x28x28x128 -> 128, 3x3),
-and gemm_os at the BERT-Base FFN (bf16 512x768x3072; int8 512x3072x768
-with the quant epilogue), each through its wrapper, through
+gemm_os at the BERT-Base FFN (bf16 512x768x3072; int8 512x3072x768
+with the quant epilogue), and the fp32 paths where they split the depth
+(gemm_os 128x4096x128, the stage-3 conv; the wrapper allocates their
+workspace each call), each through its wrapper, through
 ``kernels.ops``, as a bare ``ctypes`` launch of the same C function, and as
 the PyTorch call beside it (SDPA, ``F.conv2d``, ``torch.matmul``,
 ``torch._int_mm`` without the epilogue); mha also with an int
@@ -80,6 +82,25 @@ def cases(seed: int = 0) -> Dict[str, Dict[str, Callable[[], object]]]:
                             device="cuda")
     qa, qb = int8(512, 3072), int8(3072, 768)
     qab = torch.empty((512, 768), dtype=torch.int8, device="cuda")
+
+    def f32(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                            device="cuda")
+    # fp32 with the depth split: the wrapper allocates the workspace per
+    # call, the bare launch gets one made beforehand
+    sms = gemm_os.sm_count(torch.cuda.current_device())
+    fa, fb = f32(128, 4096), f32(4096, 128)
+    fab = torch.empty((128, 128), device="cuda")
+    gplan = gemm_os.f32_plan(128, 128, 4096, sms)
+    gws = torch.empty(gemm_os.workspace_numel(128, 128, gplan),
+                      device="cuda")
+    fx, fw = f32(1, 28, 28, 128), f32(3, 3, 128, 128)
+    fy = torch.empty((1, 28, 28, 128), device="cuda")
+    cplan = conv_im2col.f32_plan(28 * 28, 128, 128, 3, 3, sms)
+    cws = torch.empty(gemm_os.workspace_numel(28 * 28, 128, cplan),
+                      device="cuda")
+    fxp = F.pad(fx, (0, 0, 1, 1, 1, 1)).permute(0, 3, 1, 2)
+    fwl = fw.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     return {
         "mha bf16 B1 S1024 H16 KV2 D128": {
             "wrapper": lambda: attention.mha(q, k, v, causal=True),
@@ -112,6 +133,21 @@ def cases(seed: int = 0) -> Dict[str, Dict[str, Callable[[], object]]]:
                 qa.data_ptr(), qb.data_ptr(), qab.data_ptr(), 512, 768, 3072,
                 2, 2, 1, 0.002, stream),
             "torch._int_mm": lambda: torch._int_mm(qa, qb)},
+        f"gemm_os fp32 128x4096x128 ({gplan[3]} ranges)": {
+            "wrapper": lambda: gemm_os.gemm_os(fa, fb),
+            "ops.matmul": lambda: ops.matmul(fa, fb),
+            "bare C launch": lambda: gemm_lib.gemm_os_f32_launch(
+                fa.data_ptr(), fb.data_ptr(), fab.data_ptr(), gws.data_ptr(),
+                128, 128, 4096, 0, gplan[2], stream),
+            "torch.matmul": lambda: torch.matmul(fa, fb)},
+        f"conv_im2col fp32 28x28x128->128 3x3 ({cplan[3]} ranges)": {
+            "wrapper": lambda: conv_im2col.conv2d(fx, fw),
+            "ops.conv2d": lambda: ops.conv2d(fx, fw),
+            "bare C launch": lambda: conv_lib.conv_im2col_f32_launch(
+                fx.data_ptr(), fw.data_ptr(), fy.data_ptr(), cws.data_ptr(),
+                1, 28, 28, 128, 3, 3, 128, 28, 28, 1, 1, 1, cplan[2],
+                stream),
+            "F.conv2d": lambda: F.conv2d(fxp, fwl)},
     }
 
 

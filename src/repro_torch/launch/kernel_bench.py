@@ -30,8 +30,10 @@ derived TPU roofline:
   peak for their type (67 TFLOP/s fp32 outside the tensor cores, 989
   TFLOP/s bf16, 1,979 TOP/s int8; NVIDIA's data sheet);
 - ``spatial_util``: the tile-edge efficiency of the kernel's own blocking
-  for the GEMM rows (fp32: 64 x 64 outputs, 16 deep; int8: the 32 x 32
-  tiles, 128 deep, that the launcher takes at the int8 row's shape);
+  for the GEMM rows (fp32: 64 x 64 outputs, 16 deep per stage, the depth
+  split into ranges of whole stages where the launcher's plan splits it,
+  which adds no padding; int8: the 32 x 32 tiles, 128 deep, that the
+  launcher takes at the int8 row's shape);
 - ``err_of_limit``: the row's output against its plain version on the same
   inputs, as the worst element's (or query row's) error over its limit: 0
   where it must be bitwise equal (int8 GEMM, maxpool, reshuffler) and is;
@@ -71,7 +73,7 @@ L2_BYTES = 50e6
 NOT_MEASURED = "not measured"
 COLUMNS = ("bench", "shape", "ms", "plain_ms", "library_ms", "bound_us",
            "bound", "spatial_util", "err_of_limit")
-FLOAT_TILE = (64, 64, 16)       # gemm_os.cu's fp32 blocking (bm, bn, bk)
+FLOAT_TILE = (64, 64, 16)       # os_tile.cuh's fp32 blocking (bm, bn, bk)
 INT8_TILE = (32, 32, 128)       # its int8 blocking at the int8 row's shape
                                 # (256x1024x256) on an H100's 132 SMs
 

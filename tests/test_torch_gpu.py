@@ -29,6 +29,15 @@ from torch_cases import (BLOCKED_CASES, CONV_SPECS,  # noqa: E402
                          mha_inputs, normal, paged_inputs, pool_input)
 
 
+# gemm_os's fp32 path with its depth split over CTAs (the launcher's plan on
+# an H100's 132 SMs): the kernel bench's 128 x 4096 x 128 (4 output tiles),
+# M = N = 1, and a depth that is no multiple of a range or a stage.
+SPLIT_GEMM_SHAPES = [(128, 4096, 128), (1, 4096, 1), (100, 4099, 72)]
+# ResNet-50 stage 3 and the kernel bench's conv row, batch 2: fp32 splits
+# each tile's taps over CTAs there. (H, W, C, K, R, stride).
+CONV_PAPER_SPECS = [(28, 28, 128, 128, 3, 1), (28, 28, 64, 128, 3, 1)]
+
+
 def assert_agrees(got, want):
     """fp32: summation order only. bf16: on every query row, within
     ref.ROW_TOL of the row's largest reference output (rounding of the bf16
@@ -190,7 +199,8 @@ def assert_gemm_agrees(got, want, x, w):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
-@pytest.mark.parametrize("mkn", GEMM_SHAPES + TC_GEMM_SHAPES)
+@pytest.mark.parametrize("mkn", GEMM_SHAPES + TC_GEMM_SHAPES +
+                         SPLIT_GEMM_SHAPES)
 def test_cuda_gemm_matches_plain(fp32_exact, mkn, dtype):
     M, K, N = mkn
     dt = getattr(torch, dtype)
@@ -231,18 +241,66 @@ def test_cuda_gemm_unaligned_view_matches_plain(cuda, which, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype, scale", [("bfloat16", None), ("int8", None),
-                                          ("int8", 0.002)])
-def test_cuda_gemm_two_runs_give_the_same_bits(cuda, dtype, scale):
-    """Each output is summed by one thread in one order: no split K, no
-    atomics, so the same inputs give the same bits (the FFN's shapes)."""
-    M, K, N = (512, 768, 3072) if dtype == "bfloat16" else (512, 3072, 768)
+@pytest.mark.parametrize("dtype, scale, mkn", [
+    pytest.param("bfloat16", None, (512, 768, 3072), id="bfloat16-None"),
+    pytest.param("int8", None, (512, 3072, 768), id="int8-None"),
+    pytest.param("int8", 0.002, (512, 3072, 768), id="int8-0.002"),
+    pytest.param("float32", None, (512, 768, 3072), id="float32-ffn"),
+    pytest.param("float32", None, (128, 4096, 128), id="float32-split")])
+def test_cuda_gemm_two_runs_give_the_same_bits(cuda, dtype, scale, mkn):
+    """Each output's sum has one order: one thread per output and depth
+    range, and where the fp32 path splits the depth (128 x 4096 x 128) the
+    partials are added in rank order by a second pass; no atomics. So the
+    same inputs give the same bits (the FFN's shapes, and a split one)."""
+    M, K, N = mkn
     x, w = (torch.from_numpy(a).to(cuda, getattr(torch, dtype))
             for a in gemm_inputs(11, M, K, N, integer=dtype == "int8"))
     first = gemm_kernel.gemm_os(x, w, quant_scale=scale)
     second = gemm_kernel.gemm_os(x, w, quant_scale=scale)
     torch.cuda.synchronize()
     assert ref.bitwise_equal(first, second)
+
+
+@pytest.mark.gpu
+def test_cuda_f32_plans_fill_the_card(cuda):
+    """The fp32 launcher's plans (``f32_plan``): whole 16-deep stages per
+    range, and enough CTAs for the 132 SMs where the tiles alone are few:
+    128 x 4096 x 128 (4 tiles of 64 x 64) from 4 CTAs to at least 128,
+    ResNet-50 stage 3 (26 tiles) to at least 130, its ranges whole taps or
+    whole fractions of one."""
+    sms = gemm_kernel.sm_count(cuda.index or 0)
+    for M, K, N in [(128, 4096, 128), (1, 4096, 1), (100, 4099, 72),
+                    (512, 768, 3072)]:
+        bm, bn, chunk, splits = gemm_kernel.f32_plan(M, N, K, sms)
+        assert chunk % 16 == 0 and splits == -(-K // chunk)
+        if (M, K, N) == (128, 4096, 128):
+            assert -(-M // bm) * -(-N // bn) * splits >= 128
+    for H, W, C, K, R, _ in CONV_PAPER_SPECS:
+        bm, bn, chunk, splits = conv_kernel.f32_plan(H * W, K, C, R, R, sms)
+        assert chunk % C == 0 or C % chunk == 0
+        assert -(-H * W // bm) * -(-K // bn) * splits >= 130
+
+
+@pytest.mark.gpu
+def test_cuda_f32_split_agrees_where_a_dropped_chunk_shows(fp32_exact):
+    """128 x 4096 x 128 fp32, the depth split over CTAs: the kernel agrees
+    with its plain version, which without 16 depth values from the middle
+    of one range falls outside the same limit."""
+    M, K, N = 128, 4096, 128
+    xa, wa = gemm_inputs(13, M, K, N)
+    x, w = (torch.from_numpy(a).to(fp32_exact) for a in (xa, wa))
+    chunk = gemm_kernel.f32_plan(M, N, K, gemm_kernel.sm_count(
+        fp32_exact.index or 0))[2]
+    got = launched_once(lambda: gemm_kernel.gemm_os.launches,
+                        lambda: ops.matmul(x, w))
+    want = ref.gemm_ref(x, w)
+    absp = ref.gemm_ref(x.abs(), w.abs())
+    assert ref.sum_order_error(got, want, absp, K).item() <= 1
+    mid = K // chunk // 2 * chunk + chunk // 2 - 8
+    dropped = x.clone()
+    dropped[:, mid:mid + 16] = 0
+    assert ref.sum_order_error(ref.gemm_ref(dropped, w), want, absp,
+                               K).item() > 1
 
 
 @pytest.mark.gpu
@@ -309,7 +367,7 @@ def test_cuda_int8_accumulates_in_int32(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("spec", CONV_SPECS)
+@pytest.mark.parametrize("spec", CONV_SPECS + CONV_PAPER_SPECS)
 def test_cuda_conv_matches_plain(fp32_exact, spec, dtype):
     H, W, C, K, R, stride = spec
     dt = getattr(torch, dtype)
@@ -321,6 +379,19 @@ def test_cuda_conv_matches_plain(fp32_exact, spec, dtype):
     worst = ref.sum_order_error(got, want, ref.conv2d_ref(
         x.abs().float(), w.abs().float(), stride=stride), R * R * C).item()
     assert worst <= 1, worst
+
+
+@pytest.mark.gpu
+def test_cuda_conv_f32_two_runs_give_the_same_bits(cuda):
+    """ResNet-50 stage 3 in fp32, its taps split over CTAs: the partials
+    are added in rank order, so two runs give the same bits."""
+    H, W, C, K, R, stride = CONV_PAPER_SPECS[0]
+    x = torch.from_numpy(normal(H + W, 2, H, W, C)).to(cuda)
+    w = torch.from_numpy(normal(C + K, R, R, C, K)).to(cuda)
+    first = conv_kernel.conv2d(x, w, stride=stride)
+    second = conv_kernel.conv2d(x, w, stride=stride)
+    torch.cuda.synchronize()
+    assert ref.bitwise_equal(first, second)
 
 
 @pytest.mark.gpu

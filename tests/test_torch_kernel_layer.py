@@ -89,6 +89,53 @@ def test_plain_gemm_matches_jax_kernel_and_oracle(mkn, dtype):
                                                      wt.abs().float()), K)
 
 
+# ((M, K, N), depth values per range): the summation order of gemm_os's
+# fp32 path with its depth split (ref.gemm_split_ref); 64 is the launcher's
+# range at 128 x 4096 x 128 on an H100's 132 SMs
+SPLIT_ORDERS = [((128, 4096, 128), 64), ((128, 4096, 128), 128),
+                ((100, 4099, 72), 128)]
+
+
+def dropped_in_a_range(x: np.ndarray, chunk: int) -> np.ndarray:
+    """x with 16 depth values zeroed in the middle of one range of
+    ``chunk`` values (the middle range): a kernel that lost them."""
+    mid = x.shape[1] // chunk // 2 * chunk + chunk // 2 - 8
+    x = x.copy()
+    x[:, mid:mid + 16] = 0
+    return x
+
+
+@pytest.mark.parametrize("mkn, chunk", SPLIT_ORDERS)
+def test_split_sum_order_is_within_the_limit_of_the_jax_oracle(mkn, chunk):
+    """The fp32 kernel's order (the depth in ranges of ``chunk``, each
+    summed in fp32, the partials added in rank order) stays within
+    ref.sum_order_error of the JAX oracle, and the same order with 16
+    depth values dropped from the middle of one range falls outside it."""
+    M, K, N = mkn
+    x, w = gemm_inputs(sum(mkn), M, K, N)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    want = to_torch(jref.gemm_ref(jnp.asarray(x), jnp.asarray(w)))
+    absp = ref.gemm_ref(xt.abs(), wt.abs())
+    assert_sum_order(ref.gemm_split_ref(xt, wt, chunk), want, absp, K)
+    wrong = ref.gemm_split_ref(torch.from_numpy(dropped_in_a_range(x, chunk)),
+                               wt, chunk)
+    assert ref.sum_order_error(wrong, want, absp, K).item() > 1
+
+
+def test_split_sum_order_is_within_the_limit_of_the_jax_kernel():
+    """The same at a deep-K shape small enough for the Pallas kernel in
+    interpret mode (16 K blocks of 128): 16 ranges of 128."""
+    M, K, N, chunk = 128, 2048, 128, 128
+    x, w = gemm_inputs(7, M, K, N)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    want = to_torch(jops.matmul(jnp.asarray(x), jnp.asarray(w)))
+    absp = ref.gemm_ref(xt.abs(), wt.abs())
+    assert_sum_order(ref.gemm_split_ref(xt, wt, chunk), want, absp, K)
+    wrong = ref.gemm_split_ref(torch.from_numpy(dropped_in_a_range(x, chunk)),
+                               wt, chunk)
+    assert ref.sum_order_error(wrong, want, absp, K).item() > 1
+
+
 @pytest.mark.parametrize("scale", QUANT_SCALES)
 def test_plain_quant_epilogue_matches_jax_exactly(scale):
     (xt, xj), (wt, wj) = (both(a, "int8") for a in gemm_inputs(
