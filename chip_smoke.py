@@ -12,11 +12,16 @@ Phases, each failing loudly (non-zero exit, no result line):
    at the serving path's widths (qwen2.5-3b: 16 query heads over 2 KV heads,
    head dim 128, bf16) plus small cases for the kernels' other features,
    and bf16 mha on inputs whose scores peak on one key, where a one-key
-   mask shift must miss every row.
+   mask shift must miss every row. Paged flash-decode at every (q, pool)
+   dtype pair, with its pages split over CTAs by the wrapper's plan (the
+   largest split and none among the cases), fp32 also against its
+   summation structure (``ref.paged_attention_split_ref``), twice bit for
+   bit, and the split reference with one range dropped must miss every row
+   that range fed.
 4. times: CUDA-event and profiler device times of each kernel, its plain
    version and (for mha) PyTorch's SDPA, beside the card's least time for
-   the same work; host microseconds per call of the mha, conv and gemm_os
-   wrappers (``repro_torch.launch.host_cost``).
+   the same work; host microseconds per call of the paged, mha, conv and
+   gemm_os wrappers (``repro_torch.launch.host_cost``).
 5. kernel layer (gemm_os float and int8 with the quant epilogue,
    conv_im2col, maxpool, blocked_layout, tiled_transpose; built in phase 2),
    drawing from a generator of its own so that phase 6's traffic does not
@@ -122,9 +127,10 @@ def build_kernels() -> None:
 
 
 def paged_case(rng, B, T, Hq, KVh, Dh, page, lengths, n_blocks, dtype,
-               kv_scale=None):
-    """Random q and pools whose live pages are scattered through the pool by
-    a shuffled block table; scratch page 0, unowned table entries and the
+               kv_scale=None, pool_dtype=None):
+    """Random q (``dtype``) and pools (``pool_dtype``, default q's; int8 with
+    ``kv_scale``) whose live pages are scattered through the pool by a
+    shuffled block table; scratch page 0, unowned table entries and the
     rows past each length hold finite garbage (1e4)."""
     dev = "cuda"
     n_live = [-(-n // page) for n in lengths]
@@ -148,7 +154,7 @@ def paged_case(rng, B, T, Hq, KVh, Dh, page, lengths, n_blocks, dtype,
         if kv_scale is not None:
             return torch.clamp(torch.round(x * (127.0 / kv_scale)), -127,
                                127).to(torch.int8)
-        return x.to(dtype)
+        return x.to(dtype if pool_dtype is None else pool_dtype)
 
     return (q, pool(), pool(), torch.tensor(table, device=dev),
             torch.tensor(lengths, dtype=torch.int32, device=dev))
@@ -181,33 +187,119 @@ def mask_shift_caught(name, shifted, want) -> None:
         fail(f"{name}: the tolerance lets a one-key mask shift pass")
 
 
+def paged_plan(B, T, n_blocks, page=PAGE) -> int:
+    """The split plan of the paged wrapper at serving heads on this card."""
+    return paged_kernel.split_plan(B, KV, n_blocks, page, T * (H // KV),
+                                   build.sm_count(0))
+
+
+def dropped_range_caught(name, args, splits, want) -> None:
+    """The tolerance must fail a kernel that loses one range's partial:
+    the split reference with its largest range dropped has to miss ``want``
+    on every query row that range fed (sees a key of)."""
+    q, kp, _, table, lens = args
+    T = q.shape[1]
+    first, last = ref.live_pages(lens, T, kp.shape[1], table.shape[1])
+    ranges = ref.split_ranges(first, last, splits)
+    rank = int((ranges[..., 1] - ranges[..., 0]).sum(0).argmax())
+    wrong = ref.paged_attention_split_ref(*args, splits=splits, drop=rank)
+    err = ref.row_error(wrong, want)                          # (B, T)
+    lo, hi = ranges[:, rank, 0], ranges[:, rank, 1]
+    qlen = lens.long()[:, None] - T + torch.arange(T, device=lens.device) + 1
+    fed = lo[:, None] * kp.shape[1] < torch.minimum(hi[:, None] * kp.shape[1],
+                                                    qlen)
+    least = err[fed].min().item()
+    tol = ref.ROW_TOL[want.dtype]
+    log(f"{name}: range {rank} of {splits} dropped, least error over the "
+        f"{int(fed.sum())} rows it fed {least:.3g} (must exceed {tol:g})")
+    if not least > tol:
+        fail(f"{name}: the tolerance lets a dropped range pass")
+
+
 def check_paged(rng) -> float:
-    """Max abs error of the paged kernel against paged_attention_ref."""
+    """Max abs error of the paged kernel against paged_attention_ref, and
+    for fp32 against its summation structure at the plan's split
+    (paged_attention_split_ref, 1e-5 of each row's largest output)."""
     bf16, f32 = torch.bfloat16, torch.float32
     serve = ([1, 17, 64, 200, 333, 512, 600, 1000], MAX_LEN // PAGE)
+    # the cases drawn from ``rng`` stay as they were, so that the serve
+    # phase's traffic does too; the others draw from a generator of their own
+    own = np.random.default_rng(SEED + 5)
     cases = [
-        # name, B, T, page, lengths, n_blocks, dtype, kv_scale, window
-        ("serve widths, ragged", SLOTS, 1, PAGE, *serve, bf16, None, 0),
-        ("serve widths, ragged, fp32", SLOTS, 1, PAGE, *serve, f32, None, 0),
-        ("T=4 block", 3, 4, PAGE, [4, 37, 300], 32, bf16, None, 0),
-        ("window 48, T=2", 3, 2, PAGE, [2, 49, 400], 32, bf16, None, 48),
-        ("int8 pools", 3, 1, PAGE, [5, 130, 511], 32, bf16, 8.0, 0),
-        ("page 64, fp32", 2, 1, 64, [70, 500], 8, f32, None, 0),
+        # name, generator, B, T, page, lengths, n_blocks, q dtype, pool
+        # dtype, kv_scale, window
+        ("serve widths, ragged", rng, SLOTS, 1, PAGE, *serve, bf16, bf16,
+         None, 0),
+        ("serve widths, ragged, fp32", rng, SLOTS, 1, PAGE, *serve, f32, f32,
+         None, 0),
+        ("T=4 block", rng, 3, 4, PAGE, [4, 37, 300], 32, bf16, bf16, None, 0),
+        ("window 48, T=2", rng, 3, 2, PAGE, [2, 49, 400], 32, bf16, bf16,
+         None, 48),
+        ("int8 pools", rng, 3, 1, PAGE, [5, 130, 511], 32, bf16, None, 8.0,
+         0),
+        ("page 64, fp32", rng, 2, 1, 64, [70, 500], 8, f32, f32, None, 0),
+        ("serve widths, bf16 q over fp32 pools", own, SLOTS, 1, PAGE, *serve,
+         bf16, f32, None, 0),
+        ("serve widths, fp32 q over bf16 pools", own, SLOTS, 1, PAGE, *serve,
+         f32, bf16, None, 0),
+        ("int8 pools, fp32 q", own, 3, 1, PAGE, [5, 130, 511], 32, f32, None,
+         8.0, 0),
+        ("one request, the largest split", own, 1, 1, PAGE, [1000], 64, bf16,
+         bf16, None, 0),
+        ("one request, the largest split, fp32", own, 1, 1, PAGE, [1000], 64,
+         f32, f32, None, 0),
+        ("B=66: one range", own, 66, 1, PAGE, [int(n) for n in own.integers(
+            1, 1001, 66)], 64, bf16, bf16, None, 0),
     ]
     worst = 0.0
-    for name, B, T, page, lengths, nb, dtype, scale, window in cases:
-        q, kp, vp, table, lens = paged_case(rng, B, T, H, KV, D, page,
-                                            lengths, nb, dtype, scale)
+    for name, gen, B, T, page, lengths, nb, qt, pt, scale, window in cases:
+        q, kp, vp, table, lens = paged_case(gen, B, T, H, KV, D, page,
+                                            lengths, nb, qt, scale,
+                                            pool_dtype=pt)
+        S = paged_plan(B, T, nb, page)
+        label = f"paged_attention [{name}, S={S}]"
         got = paged_kernel.paged_attention(q, kp, vp, table, lens,
                                            kv_scale=scale, window=window)
         torch.cuda.synchronize()
         want = ref.paged_attention_ref(q, kp, vp, table, lens,
                                        kv_scale=scale, window=window)
-        worst = max(worst, agrees(f"paged_attention [{name}]", got, want))
+        worst = max(worst, agrees(label, got, want))
+        if qt == f32:
+            split = ref.paged_attention_split_ref(
+                q, kp, vp, table, lens, kv_scale=scale, window=window,
+                splits=S)
+            err = ref.row_error(got, split).max().item()
+            log(f"{label}: worst row {err:.3g} of its largest output against "
+                f"the split reference (limit 1e-05)")
+            if not err <= 1e-5:
+                fail(f"{label} disagrees with its summation structure")
+        if name.startswith("serve widths, ragged"):
+            same_bits(f"{label}: two runs", got, paged_kernel.paged_attention(
+                q, kp, vp, table, lens, kv_scale=scale, window=window))
+        if name == "serve widths, ragged":
+            for form, other in (("on the host", lens.cpu()),
+                                ("as a list", lens.tolist())):
+                same_bits(f"{label}: lengths {form}", got,
+                          paged_kernel.paged_attention(q, kp, vp, table,
+                                                       other))
         if name == "serve widths, ragged, fp32":  # drop each row's last key
-            mask_shift_caught(f"paged_attention [{name}]",
-                              ref.paged_attention_ref(q, kp, vp, table,
-                                                      lens - 1), want)
+            mask_shift_caught(label, ref.paged_attention_ref(
+                q, kp, vp, table, lens - 1), want)
+            dropped_range_caught(label, (q, kp, vp, table, lens), S, want)
+    # head dims past 256: the wide body, for every pair
+    for dh, qt, pt, scale, window in ((512, bf16, bf16, None, 0),
+                                      (1024, f32, None, 8.0, 0),
+                                      (1432, bf16, f32, None, 40)):
+        q, kp, vp, table, lens = paged_case(own, 3, 2, H, KV, dh, PAGE,
+                                            [2, 100, 700], 64, qt, scale,
+                                            pool_dtype=pt)
+        label = (f"paged_attention [head dim {dh}, {qt} q over "
+                 f"{kp.dtype} pools, S={paged_plan(3, 2, 64)}]")
+        got = paged_kernel.paged_attention(q, kp, vp, table, lens,
+                                           kv_scale=scale, window=window)
+        torch.cuda.synchronize()
+        worst = max(worst, agrees(label, got, ref.paged_attention_ref(
+            q, kp, vp, table, lens, kv_scale=scale, window=window)))
     return worst
 
 
@@ -301,7 +393,7 @@ def host_split(seed: int) -> None:
 def time_paged(rng, B, lengths, label):
     """Times at (B, lengths): a pool per layer, cycled through so that the
     pools together exceed the 50 MB L2 cache, as the serving path's 36
-    layers do."""
+    layers do; CUDA-event and profiler device ms, the split plan."""
     n_blocks = MAX_LEN // PAGE if max(lengths) <= MAX_LEN else \
         -(-max(lengths) // PAGE)
     live = sum(lengths) * KV * D * 2 * 2          # K and V, bf16
@@ -318,14 +410,17 @@ def time_paged(rng, B, lengths, label):
         return call
 
     ms = cuda_ms(run(paged_kernel.paged_attention), iters=4 * n_pools)
+    dev = device_ms(paged_kernel.paged_attention, layers)
     plain = cuda_ms(run(ref.paged_attention_ref), iters=n_pools, warmup=1)
+    host = host_us(lambda: paged_kernel.paged_attention(*layers[0]))
     q = layers[0][0]
     n_bytes = live + 2 * q.numel() * q.element_size() + B * n_blocks * 4 + B * 4
     flops = 4 * sum(lengths) * H * D
     bms, by = bench.bound_ms(n_bytes, flops, torch.bfloat16)
-    log(f"paged_attention time [{label}]: {ms:.4f} ms/launch, plain "
-        f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), "
-        f"{bms / ms:.1%} of bound")
+    log(f"paged_attention time [{label}, S={paged_plan(B, 1, n_blocks)}]: "
+        f"{ms:.4f} ms/launch (device {dev:.4f} ms, host {host:.1f} us/call), "
+        f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), {bms / ms:.1%} "
+        f"of bound ({bms / dev:.1%} on the device)")
     return ms, plain, bms, by
 
 
@@ -435,13 +530,13 @@ def f32_plan_label(plan) -> str:
 
 
 def gemm_plan(M, K, N):
-    return gemm_kernel.f32_plan(M, N, K, gemm_kernel.sm_count(0))
+    return gemm_kernel.f32_plan(M, N, K, build.sm_count(0))
 
 
 def conv_plan(N, H, W, C, K, R, stride):
     OH, OW, _, _ = ref.same_padding(H, W, R, R, stride)
     return conv_kernel.f32_plan(N * OH * OW, K, C, R, R,
-                                gemm_kernel.sm_count(0))
+                                build.sm_count(0))
 
 
 def check_gemm(rng):
@@ -606,8 +701,11 @@ def check_layout(rng):
     errs = {"maxpool": 0.0, "blocked_layout": 0.0, "tiled_transpose": 0.0}
     pools = [(2, 8, 8, 16, 2, 2), (2, 9, 9, 8, 3, 2), (2, 12, 12, 32, 3, 3),
              (2, 10, 10, 8, 5, 1), (1, 112, 112, 64, 3, 2)]
+    # the tests' cases (16-byte vectors where cb and C allow, else elements:
+    # odd C, cb 3 and 6), the paper's, and two views off a 16-byte boundary
     blocks = [(5, 6, 256, 8), (5, 6, 256, 32), (5, 6, 256, 128),
-              (4, 4, 100, 128), (56, 56, 256, 8), (56, 56, 256, 128),
+              (4, 4, 100, 128), (5, 6, 6, 8), (5, 6, 30, 3), (5, 6, 36, 6),
+              (4, 4, 104, 64), (56, 56, 256, 8), (56, 56, 256, 128),
               (28, 28, 100, 128)]
     mats = [(128, 128), (100, 70), (257, 33), (1, 129), (3072, 768),
             (1000, 3001)]
@@ -630,6 +728,20 @@ def check_layout(rng):
             errs["blocked_layout"] = max(errs["blocked_layout"], same_bits(
                 f"blocked_layout [{H}x{W}x{C} cb{cb} {dt}]",
                 reshuffle_kernel.blocked_layout(x, cb),
+                ref.blocked_layout_ref(x, cb)))
+        for H, W, C, cb in ((5, 6, 256, 8), (4, 4, 104, 64)):
+            x = _offset(_rand(rng, (H, W, C), dt))
+            errs["blocked_layout"] = max(errs["blocked_layout"], same_bits(
+                f"blocked_layout [{H}x{W}x{C} cb{cb} {dt}, off a 16-byte "
+                f"boundary]", reshuffle_kernel.blocked_layout(x, cb),
+                ref.blocked_layout_ref(x, cb)))
+        # more channel blocks than a grid's y dimension takes
+        for H, W, C, cb in ((1, 2, 70001, 1), (2, 1, 560008, 8)):
+            x = torch.arange(1, H * W * C + 1, device="cuda",
+                             dtype=torch.float32).reshape(H, W, C).to(dt)
+            errs["blocked_layout"] = max(errs["blocked_layout"], same_bits(
+                f"blocked_layout [{H}x{W}x{C} cb{cb} {dt}, {-(-C // cb)} "
+                f"channel blocks]", reshuffle_kernel.blocked_layout(x, cb),
                 ref.blocked_layout_ref(x, cb)))
         for M, N in mats:
             x = _rand(rng, (M, N), dt)
@@ -741,7 +853,7 @@ def log_plan(name, c) -> None:
     log(f"{name} plan [{c['shape']} torch.float32]: "
         f"{f32_plan_label((bm, bn, chunk, splits))}, "
         f"{-(-rows // bm) * -(-cols // bn) * splits} CTAs on "
-        f"{gemm_kernel.sm_count(0)} SMs")
+        f"{build.sm_count(0)} SMs")
 
 
 def int_mm_col_major(c) -> None:

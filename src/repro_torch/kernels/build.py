@@ -122,6 +122,12 @@ def library(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(path))
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def launch_on(device, fn, *args) -> int:
     """``fn(*args, stream)``: a kernel's C launch function, called on
     ``device``'s current stream with ``device`` as the current device (a

@@ -21,7 +21,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.gemm_os import sm_count, workspace_numel
+from repro_torch.kernels.gemm_os import workspace_numel
 from repro_torch.kernels.ref import same_padding
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -86,7 +86,8 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1
 
     out = torch.empty((N, OH, OW, K), dtype=x.dtype, device=x.device)
     if dtype == 0:
-        plan = f32_plan(N * OH * OW, K, C, R, S, sm_count(x.device.index))
+        plan = f32_plan(N * OH * OW, K, C, R, S,
+                        build.sm_count(x.device.index))
         ws = workspace_numel(N * OH * OW, K, plan)
         ws = torch.empty(ws, dtype=torch.float32, device=x.device) \
             if ws else None

@@ -44,12 +44,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    """Streaming multiprocessors of CUDA device ``index``."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 @functools.lru_cache(maxsize=4096)
 def f32_plan(M: int, N: int, K: int, sms: int) -> Tuple[int, int, int, int]:
     """The fp32 path's plan for x (M, K) @ w (K, N) on ``sms`` SMs, from
@@ -123,7 +117,7 @@ def gemm_os(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
 
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if x.dtype == torch.float32:
-        plan = f32_plan(M, N, K, sm_count(x.device.index))
+        plan = f32_plan(M, N, K, build.sm_count(x.device.index))
         ws = workspace_numel(M, N, plan)
         ws = torch.empty(ws, dtype=torch.float32, device=x.device) \
             if ws else None

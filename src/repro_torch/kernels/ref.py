@@ -3,9 +3,11 @@
 Each function computes what its CUDA kernel computes, in fp32, the obvious
 way: ``mha_ref`` is a dense masked softmax, ``paged_attention_ref`` first
 gathers every request's pages into a dense buffer (the data movement the
-kernel exists to avoid), ``conv2d_ref`` pads x and runs a VALID convolution,
-``maxpool2d_ref`` takes the largest of strided slices, ``blocked_layout_ref``
-and ``transpose_ref`` copy through a padded, permuted view. ``kernels.ops``
+kernel exists to avoid; ``paged_attention_split_ref`` also follows the
+kernel's split of the pages into ranges and its merge), ``conv2d_ref`` pads
+x and runs a VALID convolution, ``maxpool2d_ref`` takes the largest of
+strided slices, ``blocked_layout_ref`` and ``transpose_ref`` copy through a
+padded, permuted view. ``kernels.ops``
 runs them for CPU tensors; the tests and ``chip_smoke.py`` hold the kernels
 against them.
 
@@ -146,6 +148,96 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
         mask = mask & (kpos >= qlen - window)
     p = _masked_softmax(s, mask[:, :, None, None, :])
     o = torch.einsum("btkgs,bskd->btkgd", p, vg)
+    o = o.reshape(B, T, H, D).to(q.dtype)
+    return o[:, 0] if squeeze else o
+
+
+def live_pages(lengths: torch.Tensor, T: int, page: int, n_blocks: int,
+               window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The paged kernel's live pages [first, last) of each request, (B,)
+    each: pages at or past lengths hold no live key, and with a window the
+    pages wholly below the earliest query row's window are skipped."""
+    lengths = lengths.long()
+    base = lengths - T
+    lo = base - window + 1
+    first = torch.where((lo > 0) & (window > 0), lo.clamp_min(0) // page,
+                        torch.zeros_like(lo))
+    last = torch.clamp(-(-lengths // page), max=n_blocks)
+    return first, torch.maximum(last, first)
+
+
+def split_ranges(first: torch.Tensor, last: torch.Tensor, splits: int
+                 ) -> torch.Tensor:
+    """(B, splits, 2) page ranges [start, end): rank r of ``splits`` takes
+    the live pages [first + n*r // splits, first + n*(r+1) // splits),
+    n = last - first, the paged kernel's cut (a range may be empty)."""
+    n = (last - first)[:, None]
+    r = torch.arange(splits + 1, device=first.device)[None, :]
+    edges = first[:, None] + n * r // splits
+    return torch.stack([edges[:, :-1], edges[:, 1:]], dim=-1)
+
+
+def paged_attention_split_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor, block_table: torch.Tensor,
+                              lengths, *, kv_scale: Optional[float] = None,
+                              window: int = 0, splits: int = 1,
+                              drop: Optional[int] = None) -> torch.Tensor:
+    """The paged kernel's summation structure as a plain function: each
+    request's live pages cut into ``splits`` ranges (``split_ranges``),
+    each range's partial (m, l, acc) a softmax over the keys it holds, in
+    fp32 (m = -1e30, l = 0, acc = 0 for a range a row sees no key of), and
+    the partials merged with the log-sum-exp rule in rank order, rank 0
+    first: out = sum_r acc_r e^(m_r - M) / max(sum_r l_r e^(m_r - M),
+    1e-30), M = max_r m_r. ``drop``: the rank whose partial is left out of
+    the merge (a known fault, for checks that must reject it). Arguments
+    as ``paged_attention_ref``."""
+    squeeze = q.dim() == 3
+    if squeeze:
+        q = q[:, None]
+    B, T, H, D = q.shape
+    _, page, KV, _ = k_pool.shape
+    G = H // KV
+    n_blocks = block_table.shape[1]
+    lengths = _lengths(lengths, B, q.device)
+
+    def dq(x):
+        if x.is_floating_point():
+            return x.float()
+        return x.float() * (kv_scale / 127.0)
+
+    idx = block_table.long()
+    kg = dq(k_pool[idx]).reshape(B, n_blocks * page, KV, D)
+    vg = dq(v_pool[idx]).reshape(B, n_blocks * page, KV, D)
+    qg = q.reshape(B, T, KV, G, D).float()
+    s = torch.einsum("btkgd,bskd->btkgs", qg, kg) * (D ** -0.5)
+    kpos = torch.arange(n_blocks * page, device=q.device)[None, None, :]
+    qlen = (lengths[:, None] - T
+            + torch.arange(T, device=q.device)[None, :] + 1)[..., None]
+    seen = kpos < qlen                                          # (B, T, S)
+    if window > 0:
+        seen = seen & (kpos >= qlen - window)
+    ranges = split_ranges(*live_pages(lengths, T, page, n_blocks, window),
+                          splits)                        # (B, splits, 2)
+    kpage = kpos[:, 0] // page                           # (1, S)
+    parts = []
+    for r in range(splits):
+        held = (kpage >= ranges[:, r, :1]) & (kpage < ranges[:, r, 1:])
+        mask = (seen & held[:, None])[:, :, None, None, :]
+        sr = torch.where(mask, s, torch.full_like(s, _NEG))
+        m = sr.amax(dim=-1)
+        p = torch.where(mask, torch.exp(sr - m[..., None]),
+                        torch.zeros_like(s))
+        parts.append((m, p.sum(-1), torch.einsum("btkgs,bskd->btkgd", p,
+                                                 vg)))
+    keep = [part for r, part in enumerate(parts) if r != drop]
+    M = torch.stack([m for m, _, _ in keep]).amax(dim=0)
+    num = torch.zeros_like(keep[0][2])
+    den = torch.zeros_like(keep[0][1])
+    for m, l, acc in keep:                               # rank order
+        w = torch.exp(m - M)
+        num = num + acc * w[..., None]
+        den = den + l * w
+    o = num / den.clamp_min(1e-30)[..., None]
     o = o.reshape(B, T, H, D).to(q.dtype)
     return o[:, 0] if squeeze else o
 

@@ -2,11 +2,13 @@
 
 The Hopper counterparts of ``repro.kernels.reshuffle``:
 ``blocked_layout`` (H, W, C) -> (Cp/cb, H, W, cb), C zero-padded to a
-multiple of cb inside the kernel, and ``tiled_transpose`` (M, N) -> (N, M)
-through shared-memory tiles, ragged edges masked (no pad, no crop; the TPU
-``block`` size has no counterpart). Both copy bits, for float32 and
-bfloat16. CUDA tensors only: ``kernels.ops.blocked_layout`` / ``transpose``
-route CPU tensors to ``ref.blocked_layout_ref`` / ``ref.transpose_ref``.
+multiple of cb inside the kernel (16-byte vectors where cb and C are whole
+vectors and x is 16-byte aligned, else single elements), and
+``tiled_transpose`` (M, N) -> (N, M) through shared-memory tiles, ragged
+edges masked (no pad, no crop; the TPU ``block`` size has no counterpart).
+Both copy bits, for float32 and bfloat16. CUDA tensors only:
+``kernels.ops.blocked_layout`` / ``transpose`` route CPU tensors to
+``ref.blocked_layout_ref`` / ``ref.transpose_ref``.
 """
 from __future__ import annotations
 
@@ -53,15 +55,17 @@ def blocked_layout(x: torch.Tensor, cb: int = 128) -> torch.Tensor:
     """(H, W, C) -> (Cp // cb, H, W, cb), Cp = C rounded up to a multiple
     of cb, channels C..Cp-1 zero."""
     _check("blocked_layout", x, 3)
+    H, W, C = x.shape
     if cb < 1:
         raise ValueError(f"blocked_layout kernel: cb {cb}")
-    H, W, C = x.shape
     Cp = -(-C // cb) * cb
+    if H * W * cb >= 2 ** 31:
+        raise ValueError(f"blocked_layout kernel: channel blocks of "
+                         f"{H * W * cb} elements (fewer than 2^31 each)")
     out = torch.empty((Cp // cb, H, W, cb), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().blocked_layout_launch(x.data_ptr(), out.data_ptr(), H, W,
-                                           C, cb, x.element_size(), stream)
+    err = build.launch_on(x.device, _lib().blocked_layout_launch,
+                          x.data_ptr(), out.data_ptr(), H, W, C, cb,
+                          x.element_size())
     _launched("blocked_layout", err)
     blocked_layout.launches += 1
     return out

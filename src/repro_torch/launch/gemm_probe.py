@@ -185,7 +185,7 @@ def _f32_case(rng, kind, shape):
 
     from repro_torch.kernels import conv_im2col, gemm_os
     stream = torch.cuda.current_stream().cuda_stream
-    sms = gemm_os.sm_count(torch.cuda.current_device())
+    sms = build.sm_count(torch.cuda.current_device())
 
     def normal(*s):
         return torch.tensor(rng.standard_normal(s), dtype=torch.float32,

@@ -5,7 +5,9 @@ itself costs.
     PYTHONPATH=src python -m repro_torch.launch.host_cost
     python src/repro_torch/launch/host_cost.py --port-src OTHER/src
 
-Prints one line per case: bf16 mha at the serving shape (B1 S1024 H16 KV2
+Prints one line per case: bf16 paged flash-decode at the serving step (8
+requests of 237-584 tokens, H16 KV2 D128, pages of 16; the wrapper launches
+through ``build.launch_on``), bf16 mha at the serving shape (B1 S1024 H16 KV2
 D128, causal), the bf16 ResNet-50 stage-3 conv (1x28x28x128 -> 128, 3x3),
 gemm_os at the BERT-Base FFN (bf16 512x768x3072; int8 512x3072x768
 with the quant epilogue), and the fp32 paths where they split the depth
@@ -53,7 +55,8 @@ def cases(seed: int = 0) -> Dict[str, Dict[str, Callable[[], object]]]:
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels import attention, conv_im2col, gemm_os, ops
+    from repro_torch.kernels import (attention, build, conv_im2col, gemm_os,
+                                     ops, paged_attention)
     if not torch.cuda.is_available():
         raise RuntimeError("host_cost times launches on a CUDA device")
     rng = np.random.default_rng(seed)
@@ -88,7 +91,7 @@ def cases(seed: int = 0) -> Dict[str, Dict[str, Callable[[], object]]]:
                             device="cuda")
     # fp32 with the depth split: the wrapper allocates the workspace per
     # call, the bare launch gets one made beforehand
-    sms = gemm_os.sm_count(torch.cuda.current_device())
+    sms = build.sm_count(torch.cuda.current_device())
     fa, fb = f32(128, 4096), f32(4096, 128)
     fab = torch.empty((128, 128), device="cuda")
     gplan = gemm_os.f32_plan(128, 128, 4096, sms)
@@ -101,7 +104,31 @@ def cases(seed: int = 0) -> Dict[str, Dict[str, Callable[[], object]]]:
                       device="cuda")
     fxp = F.pad(fx, (0, 0, 1, 1, 1, 1)).permute(0, 3, 1, 2)
     fwl = fw.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    # paged flash-decode at the serving step: 8 requests, tables of 64 pages
+    pq = t(8, H, D)
+    lens = [int(n) for n in rng.integers(237, 585, 8)]
+    n_pages = [-(-n // 16) for n in lens]
+    pk, pv = t(1 + sum(n_pages), 16, KV, D), t(1 + sum(n_pages), 16, KV, D)
+    table = torch.zeros((8, 64), dtype=torch.int32)
+    nxt = 1
+    for row, n in enumerate(n_pages):
+        table[row, :n] = torch.arange(nxt, nxt + n)
+        nxt += n
+    table = table.to("cuda")
+    plen = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    pout = torch.empty_like(pq)
+    splits = paged_attention.split_plan(8, KV, 64, 16, H // KV, sms)
+    paged_lib = paged_attention._lib()
     return {
+        f"paged_attention bf16 B8 H16 KV2 D128 ({splits} ranges)": {
+            "wrapper": lambda: paged_attention.paged_attention(
+                pq, pk, pv, table, plen),
+            "ops.paged_attention": lambda: ops.paged_attention(
+                pq, pk, pv, table, plen),
+            "bare C launch": lambda: paged_lib.paged_attention_launch(
+                pq.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+                table.data_ptr(), plen.data_ptr(), pout.data_ptr(), 8, 1,
+                H, KV, D, 16, 64, 1, 1, D ** -0.5, 1.0, 0, splits, stream)},
         "mha bf16 B1 S1024 H16 KV2 D128": {
             "wrapper": lambda: attention.mha(q, k, v, causal=True),
             "wrapper, int kv_valid": lambda: attention.mha(

@@ -15,7 +15,7 @@ from repro_torch.kernels import attention as mha_kernel  # noqa: E402
 from repro_torch.kernels import conv_im2col as conv_kernel  # noqa: E402
 from repro_torch.kernels import gemm_os as gemm_kernel  # noqa: E402
 from repro_torch.kernels import maxpool as pool_kernel  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import paged_attention as paged_kernel  # noqa: E402
 from repro_torch.kernels import reshuffle as reshuffle_kernel  # noqa: E402
 from repro_torch.launch import kernel_bench  # noqa: E402
@@ -26,7 +26,8 @@ from torch_cases import (BLOCKED_CASES, CONV_SPECS,  # noqa: E402
                          MHA_CASES, PAGED_CASES, POOL_SPECS, QUANT_SCALES,
                          STEM_SPEC, TC_GEMM_SHAPES, TRANSPOSE_SHAPES,
                          epilogue_inputs, gemm_inputs, int8_extremes,
-                         mha_inputs, normal, paged_inputs, pool_input)
+                         int8, mha_inputs, normal, paged_case,
+                         paged_inputs, pool_input)
 
 
 # gemm_os's fp32 path with its depth split over CTAs (the launcher's plan on
@@ -97,6 +98,181 @@ def test_cuda_paged_matches_plain(cuda, name, dtype):
     assert paged_kernel.paged_attention.launches == before + 1
     want = ref.paged_attention_ref(q, kp, vp, table, lens, **kw)
     assert_agrees(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("types", [("bfloat16", "float32"),
+                                   ("float32", "bfloat16")])
+@pytest.mark.parametrize("name", sorted(n for n, c in PAGED_CASES.items()
+                                        if "kv_scale" not in c[-1]))
+def test_cuda_paged_mixed_dtype_pairs_match_plain(cuda, name, types):
+    """q in one float type over pools in the other: pairs the JAX kernel
+    takes (both run on the FMA body)."""
+    qt, pt = (getattr(torch, t) for t in types)
+    (q, kp, vp, table, lens), kw = paged_inputs(name)
+    q = torch.from_numpy(q).to(cuda, qt)
+    kp, vp = (torch.from_numpy(x).to(cuda, pt) for x in (kp, vp))
+    table, lens = (torch.from_numpy(x).to(cuda) for x in (table, lens))
+    got = launched_once(lambda: paged_kernel.paged_attention.launches,
+                        lambda: ops.paged_attention(q, kp, vp, table, lens,
+                                                    **kw))
+    assert got.dtype == qt
+    assert_agrees(got, ref.paged_attention_ref(q, kp, vp, table, lens, **kw))
+
+
+# Shapes at serving widths (16 query heads over 2 KV heads, head dim 128,
+# pages of 16) where the split plan on an H100's 132 SMs takes S = 1 (B *
+# KV = 132), an intermediate S (5) and the largest (8); ragged lengths,
+# the short ones leaving ranges empty. (B, n_blocks, lengths, S).
+PAGED_SPLIT_SHAPES = [
+    (66, 8, [1 + 127 * b // 65 for b in range(66)], 1),
+    (16, 32, [1, 17, 100, 230, 333, 400, 511, 512] * 2, 5),
+    (1, 64, [1000], 8),
+    (2, 64, [3, 1000], 8),
+]
+
+
+def split_case(B, n_blocks, lengths, dtype, dev):
+    q, kp, vp, table, lens = paged_case(B + n_blocks, B, 1, 16, 2, 128, 16,
+                                        n_blocks, lengths, poison=True)
+    q, kp, vp = (torch.from_numpy(x).to(dev, dtype) for x in (q, kp, vp))
+    return q, kp, vp, torch.from_numpy(table).to(dev), \
+        torch.from_numpy(lens).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", PAGED_SPLIT_SHAPES)
+def test_cuda_paged_split_matches_split_ref(cuda, shape, dtype):
+    """At the plan's S the kernel agrees with its summation structure
+    (``ref.paged_attention_split_ref``): fp32 within 1e-5 of each row's
+    largest output; and with the dense oracle within ref.ROW_TOL."""
+    B, n_blocks, lengths, S = shape
+    dt = getattr(torch, dtype)
+    args = split_case(B, n_blocks, lengths, dt, cuda)
+    assert paged_kernel.split_plan(B, 2, n_blocks, 16, 8, build.
+                                   sm_count(cuda.index or 0)) == S
+    got = launched_once(lambda: paged_kernel.paged_attention.launches,
+                        lambda: ops.paged_attention(*args))
+    split = ref.paged_attention_split_ref(*args, splits=S)
+    tol = 1e-5 if dt == torch.float32 else ref.ROW_TOL[dt]
+    assert ref.row_error(got, split).max().item() <= tol
+    assert_agrees(got, ref.paged_attention_ref(*args))
+
+
+# The batch at which the plan on an H100's 132 SMs takes each S from 2 to 7
+# at serving heads (2 KV heads, 8 query rows): S = ceil(132 / (2 B)).
+PLAN_BATCHES = {2: 33, 3: 22, 4: 17, 5: 14, 6: 11, 7: 10}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("splits", sorted(PLAN_BATCHES))
+def test_cuda_paged_every_split_matches_split_ref(cuda, splits):
+    """Each S from 2 to 7, reached through the plan by the batch, on ragged
+    fp32 inputs whose short requests leave ranges empty."""
+    B = PLAN_BATCHES[splits]
+    lengths = [(1, 15, 16, 17, 200, 333, 600, 1000)[b % 8] for b in range(B)]
+    args = split_case(B, 64, lengths, torch.float32, cuda)
+    assert paged_kernel.split_plan(B, 2, 64, 16, 8, build.sm_count(
+        cuda.index or 0)) == splits
+    got = launched_once(lambda: paged_kernel.paged_attention.launches,
+                        lambda: paged_kernel.paged_attention(*args))
+    split = ref.paged_attention_split_ref(*args, splits=splits)
+    assert ref.row_error(got, split).max().item() <= 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [2, 66])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_long_table_matches_split_ref(cuda, dtype, B):
+    """Pages of 4 keys (a 16-key tile spans four) in a table of 600: the
+    kernel stages 256 table entries at a time and moves the window along
+    the range; at B = 2 the plan splits the sweep 8 ways, at B = 66 not."""
+    dt = getattr(torch, dtype)
+    lengths = [(2397, 1000)[b % 2] for b in range(B)]
+    q, kp, vp, table, lens = paged_case(3, B, 1, 16, 2, 128, 4, 600,
+                                        lengths, poison=True)
+    args = (torch.from_numpy(q).to(cuda, dt),
+            *(torch.from_numpy(x).to(cuda, dt) for x in (kp, vp)),
+            torch.from_numpy(table).to(cuda), torch.from_numpy(lens).to(cuda))
+    got = launched_once(lambda: paged_kernel.paged_attention.launches,
+                        lambda: paged_kernel.paged_attention(*args))
+    S = paged_kernel.split_plan(B, 2, 600, 4, 8, build.sm_count(
+        cuda.index or 0))
+    assert S == (8 if B == 2 else 1)
+    tol = 1e-5 if dt == torch.float32 else ref.ROW_TOL[dt]
+    split = ref.paged_attention_split_ref(*args, splits=S)
+    assert ref.row_error(got, split).max().item() <= tol
+    assert_agrees(got, ref.paged_attention_ref(*args))
+
+
+# Head dims past 256 (the wide body, every pair): (D, T, q dtype, pool
+# dtype, kwargs); 1432 is the largest that bf16 pools take.
+WIDE_HEAD_CASES = [
+    (272, 1, "float32", "float32", {}),
+    (512, 2, "bfloat16", "bfloat16", {"window": 20}),
+    (1024, 1, "float32", "int8", {"kv_scale": 8.0}),
+    (1432, 3, "bfloat16", "float32", {}),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", WIDE_HEAD_CASES)
+def test_cuda_paged_wide_head_dims_match_plain(cuda, case):
+    """Head dims up to MAX_HEAD_DIM, ragged lengths and empty ranges (the
+    plan splits the sweep 4 ways), against the dense oracle."""
+    D, T, qt, pt, kw = case
+    q, kp, vp, table, lens = paged_case(D, 3, T, 4, 2, D, 16, 8,
+                                        [T, 40, 120], poison=True)
+    q = torch.from_numpy(q).to(cuda, getattr(torch, qt))
+    if pt == "int8":
+        kp, vp = (torch.from_numpy(int8(x, kw["kv_scale"])).to(cuda)
+                  for x in (kp, vp))
+    else:
+        kp, vp = (torch.from_numpy(x).to(cuda, getattr(torch, pt))
+                  for x in (kp, vp))
+    table, lens = (torch.from_numpy(x).to(cuda) for x in (table, lens))
+    got = launched_once(lambda: paged_kernel.paged_attention.launches,
+                        lambda: ops.paged_attention(q, kp, vp, table, lens,
+                                                    **kw))
+    assert_agrees(got, ref.paged_attention_ref(q, kp, vp, table, lens, **kw))
+
+
+@pytest.mark.gpu
+def test_cuda_paged_refuses_head_dims_past_its_limit(cuda):
+    D = paged_kernel.MAX_HEAD_DIM + 2
+    q = torch.zeros((1, 2, D), device=cuda)
+    kp = torch.zeros((2, 16, 1, D), device=cuda)
+    with pytest.raises(ValueError, match="D >"):
+        paged_kernel.paged_attention(q, kp, kp, torch.zeros(
+            (1, 1), dtype=torch.int32, device=cuda), 1)
+
+
+@pytest.mark.gpu
+def test_cuda_paged_takes_lengths_in_any_form(cuda):
+    """lengths as an int32 tensor on the card, on the host, as int64 and as
+    a list: the same bits."""
+    args = split_case(8, 64, [1, 17, 100, 230, 333, 400, 511, 512],
+                      torch.bfloat16, cuda)
+    want = paged_kernel.paged_attention(*args)
+    lens = args[-1]
+    for other in (lens.cpu(), lens.long(), lens.tolist()):
+        got = paged_kernel.paged_attention(*args[:-1], other)
+        torch.cuda.synchronize()
+        assert ref.bitwise_equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_paged_two_runs_give_the_same_bits(cuda, dtype):
+    """The ranks' partials merge in rank order, the warps' in warp order,
+    with no atomics: the same inputs give the same bits."""
+    args = split_case(8, 64, [237, 300, 350, 400, 450, 500, 550, 584],
+                      getattr(torch, dtype), cuda)
+    first = paged_kernel.paged_attention(*args)
+    second = paged_kernel.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert ref.bitwise_equal(first, second)
 
 
 @pytest.mark.gpu
@@ -268,7 +444,7 @@ def test_cuda_f32_plans_fill_the_card(cuda):
     128 x 4096 x 128 (4 tiles of 64 x 64) from 4 CTAs to at least 128,
     ResNet-50 stage 3 (26 tiles) to at least 130, its ranges whole taps or
     whole fractions of one."""
-    sms = gemm_kernel.sm_count(cuda.index or 0)
+    sms = build.sm_count(cuda.index or 0)
     for M, K, N in [(128, 4096, 128), (1, 4096, 1), (100, 4099, 72),
                     (512, 768, 3072)]:
         bm, bn, chunk, splits = gemm_kernel.f32_plan(M, N, K, sms)
@@ -289,7 +465,7 @@ def test_cuda_f32_split_agrees_where_a_dropped_chunk_shows(fp32_exact):
     M, K, N = 128, 4096, 128
     xa, wa = gemm_inputs(13, M, K, N)
     x, w = (torch.from_numpy(a).to(fp32_exact) for a in (xa, wa))
-    chunk = gemm_kernel.f32_plan(M, N, K, gemm_kernel.sm_count(
+    chunk = gemm_kernel.f32_plan(M, N, K, build.sm_count(
         fp32_exact.index or 0))[2]
     got = launched_once(lambda: gemm_kernel.gemm_os.launches,
                         lambda: ops.matmul(x, w))
@@ -439,6 +615,38 @@ def test_cuda_blocked_layout_matches_plain(cuda, case, dtype):
                                                      getattr(torch, dtype))
     got = launched_once(lambda: reshuffle_kernel.blocked_layout.launches,
                         lambda: ops.blocked_layout(x, cb))
+    assert ref.bitwise_equal(got, ref.blocked_layout_ref(x, cb))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [(5, 6, 256, 8), (4, 4, 104, 64)])
+def test_cuda_blocked_layout_unaligned_view_matches_plain(cuda, case, dtype):
+    """A contiguous view one element past a 16-byte boundary: shapes that
+    admit 16-byte vectors take the element path (the launcher decides from
+    the pointer), bitwise equal all the same."""
+    H, W, C, cb = case
+    x = offset_view(normal(C + cb, H, W, C), cuda, getattr(torch, dtype),
+                    True)
+    got = launched_once(lambda: reshuffle_kernel.blocked_layout.launches,
+                        lambda: ops.blocked_layout(x, cb))
+    assert ref.bitwise_equal(got, ref.blocked_layout_ref(x, cb))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [(1, 2, 70001, 1), (1, 2, 280000, 4),
+                                  (2, 1, 560008, 8)])
+def test_cuda_blocked_layout_many_channel_blocks_matches_plain(cuda, case,
+                                                               dtype):
+    """More than 65535 channel blocks, past the grid's y limit: the CTAs
+    step on over the blocks (elements, fp32 vectors, vectors in both)."""
+    H, W, C, cb = case
+    x = (torch.arange(1, H * W * C + 1, device=cuda, dtype=torch.float32)
+         .reshape(H, W, C).to(getattr(torch, dtype)))
+    got = launched_once(lambda: reshuffle_kernel.blocked_layout.launches,
+                        lambda: ops.blocked_layout(x, cb))
+    assert got.shape[0] > 65535
     assert ref.bitwise_equal(got, ref.blocked_layout_ref(x, cb))
 
 

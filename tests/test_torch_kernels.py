@@ -10,6 +10,9 @@ against the plain versions on the same cases by tests/test_torch_gpu.py.
 
 Tolerances (``F32``, ``BF16``) and cases are in tests/torch_cases.py.
 """
+import functools
+import inspect
+
 import numpy as np
 import pytest
 
@@ -27,6 +30,7 @@ from repro_torch.kernels import ref  # noqa: E402
 from torch_cases import (BF16, F32, MASK_PROBES, MHA_CASES,  # noqa: E402
                          PAGED_CASES, mha_inputs, paged_case, paged_inputs)
 
+
 @pytest.mark.parametrize("name", sorted(PAGED_CASES))
 def test_plain_paged_matches_jax_kernel_and_oracle(name):
     (q, kp, vp, table, lens), kw = paged_inputs(name)
@@ -37,6 +41,135 @@ def test_plain_paged_matches_jax_kernel_and_oracle(name):
         *jargs, **kw)), **F32)
     np.testing.assert_allclose(got, np.asarray(jref.paged_attention_ref(
         *jargs, **kw)), **F32)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_paged(name):
+    """The JAX Pallas kernel's (interpret mode) and the JAX oracle's
+    outputs on PAGED_CASES[name], computed once per case."""
+    (q, kp, vp, table, lens), kw = paged_inputs(name)
+    jargs = tuple(map(jnp.asarray, (q, kp, vp, table, lens)))
+    return (np.asarray(jops.paged_attention(*jargs, **kw)),
+            np.asarray(jref.paged_attention_ref(*jargs, **kw)))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("name", sorted(PAGED_CASES))
+def test_split_paged_matches_jax_kernel_and_oracle(name, splits):
+    """The kernel's summation structure (each request's live pages cut into
+    ``splits`` ranges, per-range softmax partials merged in rank order) on
+    every case: windows, T = 3 and 5, int8, poisoned pools, lengths 1 and
+    7; at 8 splits some ranges are empty (fewer live pages than ranges)."""
+    (q, kp, vp, table, lens), kw = paged_inputs(name)
+    got = ref.paged_attention_split_ref(
+        *map(torch.from_numpy, (q, kp, vp, table, lens)), splits=splits,
+        **kw).numpy()
+    for want in jax_paged(name):
+        np.testing.assert_allclose(got, want, **F32)
+
+
+def split_inputs(name):
+    (q, kp, vp, table, lens), kw = paged_inputs(name)
+    return tuple(map(torch.from_numpy, (q, kp, vp, table, lens))), kw
+
+
+def fed_rows(lens, T, page, n_blocks, window, splits, rank):
+    """(B, T) bool: the query rows that see at least one key of range
+    ``rank``."""
+    first, last = ref.live_pages(lens, T, page, n_blocks, window)
+    lo, hi = ref.split_ranges(first, last, splits)[:, rank].unbind(-1)
+    qlen = lens.long()[:, None] - T + torch.arange(T)[None, :] + 1
+    start = qlen - window if window > 0 else torch.zeros_like(qlen)
+    # keys [max(lo*page, start), min(hi*page, qlen)) must be non-empty
+    return torch.maximum(lo[:, None] * page, start) < torch.minimum(
+        hi[:, None] * page, qlen)
+
+
+@pytest.mark.parametrize("name", sorted(PAGED_CASES))
+def test_split_paged_dropped_range_is_caught(name):
+    """Leaving one non-empty range's partial out of the merge moves every
+    row that range fed by more than ref.ROW_TOL (fp32) and no other row at
+    all: the tolerance the card holds the split kernel to has teeth."""
+    (q, kp, vp, table, lens), kw = split_inputs(name)
+    T = q.shape[1]
+    page, n_blocks = kp.shape[1], table.shape[1]
+    want = ref.paged_attention_split_ref(q, kp, vp, table, lens, splits=3,
+                                         **kw)
+    tested = 0
+    for splits in (2, 3, 8):
+        for rank in range(splits):
+            fed = fed_rows(lens, T, page, n_blocks, kw.get("window", 0),
+                           splits, rank)
+            if not fed.any():
+                continue
+            wrong = ref.paged_attention_split_ref(
+                q, kp, vp, table, lens, splits=splits, drop=rank, **kw)
+            err = ref.row_error(wrong, want)                   # (B, T)
+            assert (err[fed] > ref.ROW_TOL[torch.float32]).all(), \
+                (splits, rank, err[fed].min().item())
+            # rows the range fed no key are those of the undropped merge
+            same = ref.paged_attention_split_ref(q, kp, vp, table, lens,
+                                                 splits=splits, **kw)
+            assert torch.equal(wrong[~fed], same[~fed])
+            tested += 1
+    assert tested >= 3
+
+
+def test_split_ranges_cover_each_live_page_once():
+    """Every live page lies in exactly one range, ranges are contiguous and
+    in rank order, and a range holds at most one page more than another."""
+    rng = np.random.default_rng(0)
+    first = torch.from_numpy(rng.integers(0, 20, 64))
+    last = first + torch.from_numpy(rng.integers(0, 40, 64))
+    for splits in range(1, 9):
+        r = ref.split_ranges(first, last, splits)
+        assert torch.equal(r[:, 0, 0], first)
+        assert torch.equal(r[:, -1, 1], last)
+        assert torch.equal(r[:, 1:, 0], r[:, :-1, 1])      # contiguous
+        size = r[..., 1] - r[..., 0]
+        assert (size >= 0).all()
+        assert (size.amax(1) - size.amin(1) <= 1).all()
+
+
+def test_live_pages_skip_pages_below_the_window():
+    lens = torch.tensor([1, 16, 17, 100, 100], dtype=torch.int32)
+    first, last = ref.live_pages(lens, 1, 16, 8, window=0)
+    assert first.tolist() == [0] * 5
+    assert last.tolist() == [1, 1, 2, 7, 7]
+    first, last = ref.live_pages(lens, 1, 16, 8, window=20)
+    # base = 99, earliest visible key 80: pages 0-4 hold none
+    assert first.tolist() == [0, 0, 0, 5, 5]
+
+
+def test_split_plan_fills_the_card_from_shapes_alone():
+    """``split_plan``: S = 1 once B * KV (times the row tiles) reaches the
+    SMs, at most 8 (one cluster), enough CTAs for the SMs otherwise (up to
+    2 a SM), at least 2 pages and 32 keys a range at the longest table; it
+    takes shapes, never the lengths."""
+    plan = paged_kernel.split_plan
+    assert "lengths" not in inspect.signature(plan).parameters
+    assert plan(8, 2, 64, 16, 8, 132) == 8           # serving: 128 CTAs
+    assert plan(16, 2, 128, 16, 8, 132) == 5         # B = 16 x 2048
+    assert plan(1, 2, 64, 16, 8, 132) == 8
+    assert plan(8, 2, 4, 16, 8, 132) == 2            # 2 pages a range
+    assert plan(8, 2, 64, 8, 8, 132) == 8
+    assert plan(8, 2, 8, 4, 8, 132) == 1             # 32 keys in all
+    for B in range(1, 300, 7):
+        for KV in (1, 2, 4, 8):
+            for n_blocks in (1, 2, 3, 16, 64, 129):
+                for rows in (1, 8, 20, 32):
+                    S = plan(B, KV, n_blocks, 16, rows, 132)
+                    ctas = B * KV * -(-rows // 8)
+                    assert 1 <= S <= paged_kernel.MAX_SPLITS
+                    if B * KV >= 132:
+                        assert S == 1
+                    if S > 1:
+                        assert n_blocks // S >= 2
+                        assert ctas * S < 2 * 132
+                        assert ctas * (S - 1) < 132
+                    elif ctas < 132:
+                        assert n_blocks < 4
+    assert plan.cache_info().currsize > 0           # cached per shape
 
 
 def test_plain_paged_ignores_pool_garbage():
@@ -162,3 +295,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         mha_kernel.mha(q, kp[:1], vp[:1])
     assert ops.launch_counts() == before
+
+
+def test_paged_probe_needs_a_card():
+    """The probe times kernels on the card: without one it stops before
+    building anything."""
+    from repro_torch.launch import paged_probe
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="CUDA"):
+        paged_probe.main([])

@@ -163,9 +163,14 @@ POOL_SPECS = [
     (10, 10, 8, 5, 1),          # arbitrary window, stride 1
 ]
 BLOCKED_CASES = [
-    # (H, W, C, cb)
+    # (H, W, C, cb); the CUDA kernel moves 16-byte vectors (4 fp32 or 8
+    # bf16 channels) where cb and C are whole vectors, else elements
     (5, 6, 256, 8), (5, 6, 256, 32), (5, 6, 256, 128),
-    (4, 4, 100, 128),           # C padded up to cb
+    (4, 4, 100, 128),           # C padded up to cb (fp32 vectors, bf16 not)
+    (5, 6, 6, 8),               # odd C: padded, elements
+    (5, 6, 30, 3),              # cb not a multiple of 4
+    (5, 6, 36, 6),              # cb 6: elements, no padding
+    (4, 4, 104, 64),            # vectors in both dtypes, padded
 ]
 TRANSPOSE_SHAPES = [(128, 128), (100, 70), (257, 33), (1, 129)]
 
