@@ -12,12 +12,13 @@ Phases, each failing loudly (non-zero exit, no result line):
    at the serving path's widths (qwen2.5-3b: 16 query heads over 2 KV heads,
    head dim 128, bf16) plus small cases for the kernels' other features,
    and bf16 mha on inputs whose scores peak on one key, where a one-key
-   mask shift must miss every row. Paged flash-decode at every (q, pool)
-   dtype pair, with its pages split over CTAs by the wrapper's plan (the
-   largest split and none among the cases), fp32 also against its
-   summation structure (``ref.paged_attention_split_ref``), twice bit for
-   bit, and the split reference with one range dropped must miss every row
-   that range fed.
+   mask shift must miss every row; fp32 mha with kv_valid 0 and 1, Sq !=
+   Sk and Sq = 1 (a generator of its own), twice bit for bit at 1024.
+   Paged flash-decode at every (q, pool) dtype pair, with its pages split
+   over CTAs by the wrapper's plan (the largest split and none among the
+   cases), fp32 also against its summation structure
+   (``ref.paged_attention_split_ref``), twice bit for bit, and the split
+   reference with one range dropped must miss every row that range fed.
 4. times: CUDA-event and profiler device times of each kernel, its plain
    version and (for mha) PyTorch's SDPA, beside the card's least time for
    the same work; host microseconds per call of the paged, mha, conv and
@@ -29,11 +30,14 @@ Phases, each failing loudly (non-zero exit, no result line):
    JAX tests' cases and the paper's workload shapes (BERT-Base FFN,
    ResNet-50), gemm_os on the tensor cores through every loader and tile
    (views off a 16-byte boundary, two runs bit for bit, int8 at +-127, the
-   epilogue's ties and clipping), mha at the benchmark's head dim 64, a
-   check that each tolerance has teeth (fp32 and bf16), event, device and
-   host times beside the bound and a PyTorch yardstick's event and device
-   times (int8 also ``torch._int_mm`` with w column-major), then
-   one run of the kernel benchmark port
+   epilogue's ties and clipping), maxpool at channel counts of whole
+   16-byte vectors and not, off a 16-byte boundary, with NaN in shared
+   columns and windows of -inf, mha at the benchmark's head dim 64 (fp32
+   also with kv_valid 0 and 1, cross and Sq = 1; timed there and at the
+   serving heads), a check that each tolerance has teeth (fp32 and
+   bf16), event, device and host times beside the bound and a PyTorch
+   yardstick's event and device times (int8 also ``torch._int_mm`` with w
+   column-major), then one run of the kernel benchmark port
    (``repro_torch.launch.kernel_bench``) at full shapes, which must launch
    every kernel, give finite rows, and hold each row's output against its
    plain version on the same inputs.
@@ -313,10 +317,28 @@ MHA_SERVE = [
      torch.bfloat16),
     ("ragged fp32", 1, 100, 100, True, None, torch.float32),
 ]
+MHA_SERVE_F32 = [
+    # fp32 at the serving heads: kv_valid 0 and 1 (a fully masked batch is
+    # 0), Sq != Sk both ways, one query row, non-causal
+    ("kv_valid (200, 1, 0), causal, fp32", 3, 256, 256, True, [200, 1, 0],
+     torch.float32),
+    ("kv_valid (77, 300), cross, fp32", 2, 100, 300, False, [77, 300],
+     torch.float32),
+    ("Sq 1 against 300 keys, kv_valid (300, 1), fp32", 2, 1, 300, False,
+     [300, 1], torch.float32),
+    ("Sq 150 > Sk 70, causal, fp32", 1, 150, 70, True, None, torch.float32),
+]
 MHA_BENCH = [  # the kernel benchmark's kernel_mha row: H 8, KV 2, D 64
     ("bench B1 S1024 H8 kv2 D64, causal", 1, 1024, 1024, True, None,
      torch.bfloat16),
     ("bench B1 S1024 H8 kv2 D64, causal, fp32", 1, 1024, 1024, True, None,
+     torch.float32),
+    # fp32 at D 64, where the plan takes 32-row blocks in 4 key splits
+    ("bench heads, kv_valid (0, 1, 700), causal, fp32", 3, 1024, 1024, True,
+     [0, 1, 700], torch.float32),
+    ("bench heads, cross 300 x 1000, kv_valid (1000, 555), fp32", 2, 300,
+     1000, False, [1000, 555], torch.float32),
+    ("bench heads, Sq 1 against 333 keys, fp32", 2, 1, 333, True, None,
      torch.float32),
 ]
 
@@ -337,10 +359,16 @@ def check_mha(rng, cases, heads=(H, KV, D)) -> float:
         torch.cuda.synchronize()
         want = ref.mha_ref(q, k, v, causal=causal, kv_valid=kv_valid)
         worst = max(worst, agrees(f"mha [{name}]", got, want))
-        if causal and Sq == Sk == 1024 and dtype == torch.float32:
+        if causal and Sq == Sk == 1024 and dtype == torch.float32 and \
+                valid is None:
             # row i sees keys < i
             mask_shift_caught(f"mha [{name}]", ref.mha_ref(
                 q[:, 1:], k[:, :-1], v[:, :-1], causal=True), want[:, 1:])
+            # one summation order per output: the same bits again
+            same_bits(f"mha [{name}], two runs", mha_kernel.mha(
+                q, k, v, causal=causal, kv_valid=kv_valid), got)
+        if valid is not None and 0 in valid and got[valid.index(0)].any():
+            fail(f"mha [{name}]: a batch with kv_valid 0 is not all zeros")
     return worst
 
 
@@ -723,6 +751,7 @@ def check_layout(rng):
             f"maxpool [NaN in two windows, {dt}]",
             pool_kernel.maxpool2d(x, window=3, stride=2),
             ref.maxpool2d_ref(x, window=3, stride=2)))
+        errs["maxpool"] = max(errs["maxpool"], check_pool_edges(rng, dt))
         for H, W, C, cb in blocks:
             x = _rand(rng, (H, W, C), dt)
             errs["blocked_layout"] = max(errs["blocked_layout"], same_bits(
@@ -749,6 +778,37 @@ def check_layout(rng):
                 f"tiled_transpose [{M}x{N} {dt}]",
                 reshuffle_kernel.tiled_transpose(x), ref.transpose_ref(x)))
     return errs
+
+
+def check_pool_edges(rng, dt) -> float:
+    """maxpool at channel counts of no whole 16-byte vector (C = 3, 6, 13)
+    and of whole ones (C = 8, 64) at windows the kernel fixes (2/2, 3/2,
+    3/3) and others (1/1, 2/3, 5/1); on views off a 16-byte boundary; at
+    the stem's batch 8; with a NaN in a column that two windows share; on
+    windows of only -inf or only negative values. All bitwise; returns 0."""
+    def case(label, x, win, st):
+        same_bits(f"maxpool [{label}, {win}x{win}/{st} {dt}]",
+                  pool_kernel.maxpool2d(x, window=win, stride=st),
+                  ref.maxpool2d_ref(x, window=win, stride=st))
+    for C in (3, 6, 13, 8, 64):
+        for win, st in ((1, 1), (2, 3), (3, 2), (3, 3), (5, 1), (2, 2)):
+            case(f"2x11x13x{C}", _rand(rng, (2, 11, 13, C), dt), win, st)
+    for win, st in ((3, 2), (2, 2), (5, 1)):
+        case("2x12x12x64 off a 16-byte boundary",
+             _offset(_rand(rng, (2, 12, 12, 64), dt)), win, st)
+    # the stem's pool at batch 8
+    case("8x112x112x64", _rand(rng, (8, 112, 112, 64), dt), 3, 2)
+    x = _rand(rng, (2, 11, 11, 8), dt)
+    x[0, 4, 4, 1] = float("nan")      # four windows share it
+    x[1, 3, 6, 7] = float("nan")      # two windows of one row share it
+    case("NaN in shared columns", x, 3, 2)
+    neg = -1.0 - _rand(rng, (2, 9, 9, 8), dt).abs()
+    x = torch.full_like(neg, float("-inf"))
+    x[1] = neg[1]
+    for win, st in ((3, 2), (2, 2), (2, 3)):
+        case("only negative values", neg, win, st)
+        case("only -inf, and negatives", x, win, st)
+    return 0.0
 
 
 def device_ms(fn, copies, want: int = 3, tries: int = 12) -> float:
@@ -811,6 +871,7 @@ def time_layer() -> dict:
     ] + [conv(dt, *spec) for dt in (bf16, f32) for spec in CONV_PAPER] + [
         conv(f32, *CONV_BENCH),
         ("mha", bench.mha_case(False, "cuda")),   # the bench's fp32 row
+        ("mha", bench.mha_case(False, "cuda", heads=(H, KV, D))),  # serve
         ("maxpool", bench.pool_case(1, 112, 112, 64, 3, 2, f32, "cuda")),
         ("maxpool", bench.pool_case(1, 112, 112, 64, 3, 2, bf16, "cuda")),
         ("blocked_layout", bench.blocked_case(56, 56, 256, 8, f32, "cuda")),
@@ -1115,8 +1176,10 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     err_paged = check_paged(rng)
     err_mha = check_mha(rng, MHA_SERVE)
-    # a generator of its own: phase 6's traffic stays as it was
+    # generators of their own: phase 6's traffic stays as it was
     err_mha = max(err_mha, mha_bf16_teeth(np.random.default_rng(SEED + 3)))
+    err_mha = max(err_mha, check_mha(np.random.default_rng(SEED + 6),
+                                     MHA_SERVE_F32))
     serve_lengths = [int(n) for n in rng.integers(64 + 32, 632, SLOTS)]
     paged_t = time_paged(rng, SLOTS, serve_lengths,
                          f"serve shapes: B={SLOTS}, contexts "

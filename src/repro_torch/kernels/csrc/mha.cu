@@ -45,11 +45,61 @@
 // heads of a cluster. Next: two consumer warpgroups in ping-pong on one
 // q block of 128 rows, as FlashAttention-3 does.
 //
-// fp32: the FMA kernel (mha_fma_kernel), one CTA per (64-row q block, q
-// head), a 16x16 thread grid with 4x4 register tiles, K and V read into
-// shared memory as fp32. It stays on the FMA units on purpose: TF32 tensor
-// cores keep ~3 decimal digits and would miss the fp32 row tolerance (1e-4
-// of the row's largest output).
+// fp32: the FMA kernel (mha_f32_kernel). It stays on the FMA units on
+// purpose: TF32 tensor cores keep ~3 decimal digits and would miss the fp32
+// row tolerance (1e-4 of the row's largest output).
+// What bounds it on this card: operations, the causal FLOPs over the 67
+// TFLOP/s FMA peak: 0.0160 ms at the kernel bench's B1 S1024 H8 KV2 D64,
+// 0.0642 ms at the serving heads (H16 D128). The first port's kernel
+// reached 8.9% of the first: one CTA per 64-row q block (128 CTAs, the
+// causal heaviest 16 tiles against a mean of 8.5, the light ones launched
+// first), 8 scalar shared loads per 16 FMAs, S and P through shared
+// memory with one warp per row doing the softmax, four barriers a tile,
+// no copy in flight.
+// The design:
+// - The work is laid out on the host from shapes (attention.f32_plan,
+//   f32_ctas): a CTA of 8 warps owns q blocks of 16 RG rows, RG row groups
+//   x 8 / RG key splits. Causal, CTA x takes blocks x and n - 1 - x in
+//   turn, so every CTA sweeps the same number of keys to within a round.
+//   The bench row takes 32-row blocks (128 CTAs of 9 rounds); the serving
+//   heads 64-row blocks (128 CTAs of 17 rounds): one CTA an SM, 8 warps.
+// - Register tiles: a lane holds S for 4 rows x 4 keys and O for 4 rows x
+//   D / 8 columns. S takes 8 float4 reads per 64 FMAs (Q and K rows padded
+//   so that a quarter-warp's 8 rows cover the 32 banks), P V 3 per 32.
+// - The softmax stays in registers: a row's 32 scores are on the 8 lanes
+//   of a quarter-warp (max by 3 shuffles, scale folded into ex2). P goes
+//   to the warp's own P^T in shared memory (a __syncwarp, no barrier), so
+//   that P V reads 4 rows' P as one float4.
+// - K and V come through a 2-stage cp.async ring of rounds (KS x 32 keys),
+//   rows past the block's keys zero-filled; one barrier a round. The next
+//   q block's Q and first stage are copied while this one merges.
+// - The key splits' partials (m, l, O) meet in shared memory and are
+//   merged in ascending split order: one order per output, so two runs
+//   give the same bits; no atomics.
+// What it reaches (launch/mha_pool_probe.py, device ms, H100 80GB HBM3 at
+// 700 W; the first port's kernel in brackets): the bench row 0.0417 (38% of its
+// bound; 0.1810), the serving heads 0.1296 (50%; 0.4710), a ragged Sq =
+// Sk = 100 at the serving heads 0.0264 (0.0406). 128-202 registers a
+// thread (202 at D = 128), no spills.
+// What bounds it now, from builds that drop one part (bench row, before
+// the copy loop was streamlined, 0.0460): without P V 0.0340, without
+// the K/V copies 0.0412, without Q's reloads 0.0434. The FMAs of an SM's
+// 9 rounds (8 warps x 2048 a round) take 0.019 ms at the FMA peak the
+// bound uses; the rest is rounds with idle key splits (a causal pair
+// holds 33 tiles for 4 splits: 9 rounds for 8.25 rounds' work), a barrier
+// a round at 8 warps an SM, the merge and the copies.
+// Tried on the card and not kept (same probe, bench row unless said):
+// - 64-row blocks in 2 splits at the bench row (half the CTAs): 0.0709;
+// - P from the lanes holding it by 4 shuffles a key: 0.0497 against
+//   0.0467 through P^T; exp2f in place of ex2: 0.0460 against 0.0458;
+// - the copy loop dividing each chunk's index: 0.0460 against 0.0416.
+// Not built: 16 warps an SM. The bench row's 8,192 query rows are 512
+// warps' rows of 16 on 132 SMs, so more warps means more key splits a
+// round, and two stages of 8 splits (256 keys) take 270 KB at D = 64;
+// at 168-202 registers a thread (D >= 64) 16 warps would not fit the
+// register file either. Nor 3xTF32 on mma.sync: 3 m16n8k8 products per
+// fp32 product, 192 a warp tile, at mma.sync's share of the tensor cores'
+// rate, against 2048 FMAs.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,197 +108,333 @@
 
 #include "cvt.cuh"
 #include "hopper.cuh"
+#include "tc_tile.cuh"
 
 namespace {
 
 constexpr float kNeg = -1e30f;
 
 // ===========================================================================
-// fp32: FMA kernel
+// fp32: FMA kernel (cp.async ring, S and P in registers, keys split over warps)
 // ===========================================================================
 
-constexpr int kFmaThreads = 256;
-constexpr int kFmaBQ = 64;  // query rows per CTA
-constexpr int kFmaBK = 64;  // keys per tile
+constexpr int kF32Warps = 8;
+constexpr int kF32Threads = 32 * kF32Warps;
+constexpr int kF32Keys = 32;  // keys of one warp's tile
 
-// rows [row0, row0 + n) of a (rows, D) fp32 view with row stride `stride`
-// elements -> shared, pitch `pitch`; rows at or past `limit` read as 0.
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, int pitch, const float* src, long stride,
-                                          int row0, int n, int limit) {
-  constexpr int vecs = D / 4;
-  for (int i = threadIdx.x; i < n * vecs; i += blockDim.x) {
-    const int r = i / vecs, c = (i % vecs) * 4;
-    float* d = dst + r * pitch + c;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < limit) v = *reinterpret_cast<const float4*>(src + (long)(row0 + r) * stride + c);
-    d[0] = v.x;
-    d[1] = v.y;
-    d[2] = v.z;
-    d[3] = v.w;
+// A CTA of 8 warps owns a q block of BQ = 16 RG query rows of one head: RG
+// row groups of 16 rows x KS = 8 / RG key splits. A round stages KS tiles of
+// 32 keys; warp (rg, ks) takes row group rg against tile ks. RG is the
+// launcher's plan (attention.f32_plan): 4, or 2 where 64-row blocks leave
+// SMs idle (D <= 64 only: a round of 128 keys at D = 128 would not fit twice
+// in shared memory).
+template <int D, int RG>
+struct F32Geo {
+  static constexpr int KS = kF32Warps / RG;
+  static constexpr int BQ = 16 * RG;
+  static constexpr int kRoundKeys = KS * kF32Keys;
+  // Q and K rows padded by 4 floats: the float4 reads of 8 consecutive rows
+  // (one quarter-warp) cover all 32 banks. V is read along its rows.
+  static constexpr int QP = D + 4, KP = D + 4;
+  static constexpr int VW = D >= 32 ? 4 : 2;  // a thread's O columns come VW at a time,
+  static constexpr int NV = D / (8 * VW);     // NV such vectors
+  // P^T of each warp's tile: key kk's row holds the tile's 16 rows, the
+  // 4 of lane group ty at 4 ty .. 4 ty + 3; padded so that 8 keys' rows
+  // stored at one column cover 32 banks
+  static constexpr int PP = 20;
+  // shared: Q, two stages of K and V, then P^T of the 8 warps
+  static constexpr int kQ = BQ * QP, kK = kRoundKeys * KP, kStage = kK + kRoundKeys * D;
+  static constexpr int kP = kF32Keys * PP;
+  static constexpr size_t kSmem = sizeof(float) * (kQ + 2 * kStage + kF32Warps * kP);
+  static_assert(kStage >= KS * BQ * (D + 2), "the merge's partials fit in one stage");
+};
+
+// kRows rows of D floats from a (rows, D) fp32 view with row stride
+// `stride` -> shared rows of pitch `pitch`, by 16-byte cp.async; rows at or
+// past `limit` are zero-filled and not read. A thread copies one column
+// chunk, tid % (D / 4), of rows tid / (D / 4) + t RP: its addresses step by
+// constants, so a copy costs a compare, a select and an add.
+template <int D, int kRows>
+__device__ __forceinline__ void copy_rows(float* dst, int pitch, const float* src, long stride,
+                                          int row0, int limit) {
+  constexpr int kVecs = D / 4, RP = kF32Threads / kVecs, kSteps = (kRows + RP - 1) / RP;
+  const int r = threadIdx.x / kVecs, c = (threadIdx.x % kVecs) * 4;
+  const float* s = src + (row0 + r) * stride + c;
+  float* d = dst + r * pitch + c;
+#pragma unroll
+  for (int t = 0; t < kSteps; ++t) {
+    if (kRows % RP != 0 && r + t * RP >= kRows) break;
+    const bool ok = row0 + r + t * RP < limit;
+    tc_tile::cp_async16(d + t * RP * pitch, ok ? s + t * RP * stride : src, ok);
   }
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// 2^x by the MUFU unit alone (max relative error 2^-22; a result below
+// 2^-126 flushes to 0, a probability the fp32 tolerance cannot see):
+// exp2f's guard for subnormal results cost 1.3% at the kernel bench's row
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
+// One warp's tile: its 16 query rows against 32 keys from k0. Lane (ty, tx)
+// = (lane / 8, lane % 8) holds S for rows ty + 4i and keys tx + 8j (i, j <
+// 4), and O for rows ty + 4i and columns (8u + tx) VW + e. q_s, k_s and v_s
+// point at the warp's rows and keys, p_s at its P^T; r0 is its first query
+// row.
+template <int D, int RG>
+__device__ __forceinline__ void f32_tile(float (&o)[4][D / 8], float (&m)[4], float (&l)[4],
+                                         const float* q_s, const float* k_s, const float* v_s,
+                                         float* p_s, int r0, int k0, int valid, int causal,
+                                         float scale_log2) {
+  using G = F32Geo<D, RG>;
+  const int ty = threadIdx.x % 32 / 8, tx = threadIdx.x % 8;
+
+  // S = Q K^T: per 4 depth values, 8 float4 reads for 64 FMAs
+  float s[4][4];
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll
+  for (int d = 0; d < D; d += 4) {
+    float4 a[4], c[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(q_s + (ty + 4 * i) * G::QP + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      c[j] = *reinterpret_cast<const float4*>(k_s + (tx + 8 * j) * G::KP + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(a[i].x, c[j].x, s[i][j]);
+        s[i][j] = fmaf(a[i].y, c[j].y, s[i][j]);
+        s[i][j] = fmaf(a[i].z, c[j].z, s[i][j]);
+        s[i][j] = fmaf(a[i].w, c[j].w, s[i][j]);
+      }
+  }
+
+  // The kernels' one predicate; masked scores -> -inf, whose exp2f is 0.
+  // A tile wholly visible to all 16 rows skips it.
+  if (k0 + kF32Keys > valid || (causal && k0 + kF32Keys - 1 > r0)) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + tx + 8 * j, qpos = r0 + ty + 4 * i;
+        if (kpos >= valid || (causal && qpos < kpos)) s[i][j] = -CUDART_INF_F;
+      }
+  }
+
+  // online softmax in registers: a row's 32 scores are on the 8 lanes of
+  // one quarter-warp; l keeps this lane's share of the denominator; -inf
+  // (masked) gives ex2 0
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float mx = m[i];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mx = fmaxf(mx, s[i][j]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 4));
+    const float corr = ex2((m[i] - mx) * scale_log2);
+    const float m_scaled = mx * scale_log2;
+    m[i] = mx;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      s[i][j] = ex2(fmaf(s[i][j], scale_log2, -m_scaled));
+      sum += s[i][j];
+    }
+    l[i] = l[i] * corr + sum;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) o[i][c] *= corr;
+  }
+
+  // O += P V, keys in ascending order. P goes through the warp's P^T in
+  // shared memory, so that a lane reads its 4 rows' P of key kk as one
+  // float4 (4 shuffles from the lanes holding them took 6% longer at the
+  // kernel bench's row); V's row kk comes as NV vectors.
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    *reinterpret_cast<float4*>(p_s + (tx + 8 * j) * G::PP + 4 * ty) =
+        make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
+  __syncwarp();
+#pragma unroll
+  for (int kk = 0; kk < kF32Keys; ++kk) {
+    const float4 pk = *reinterpret_cast<const float4*>(p_s + kk * G::PP + 4 * ty);
+    const float p[4] = {pk.x, pk.y, pk.z, pk.w};
+#pragma unroll
+    for (int u = 0; u < G::NV; ++u) {
+      const float* vr = v_s + kk * D + (8 * u + tx) * G::VW;
+      float vv[G::VW];
+      if constexpr (G::VW == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(vr);
+        vv[0] = t.x, vv[1] = t.y, vv[2] = t.z, vv[3] = t.w;
+      } else {
+        const float2 t = *reinterpret_cast<const float2*>(vr);
+        vv[0] = t.x, vv[1] = t.y;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < G::VW; ++e)
+          o[i][u * G::VW + e] = fmaf(p[i], vv[e], o[i][u * G::VW + e]);
+    }
+  }
+  __syncwarp();  // P^T is read before the warp's next tile writes it
 }
 
-template <int D>
-__global__ void __launch_bounds__(kFmaThreads) mha_fma_kernel(
+// grid (x, H, B): causal, CTA x takes q blocks x and n - 1 - x (grid x =
+// ceil(n / 2)), so that every CTA sweeps about the same number of keys;
+// otherwise block x alone (grid x = n).
+template <int D, int RG>
+__global__ void __launch_bounds__(kF32Threads, 1) mha_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int* __restrict__ kv_valid, float* __restrict__ out, int Sq, int Sk, int H, int KV,
-    float scale, int causal) {
-  constexpr int QP = D + 1, KP = D + 1, SP = kFmaBK + 1;  // padded pitches
-  constexpr int NR = kFmaBQ / 16, NS = kFmaBK / 16, NO = D / 16;
-  const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kh = h / (H / KV);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+    float scale_log2, int causal) {
+  using G = F32Geo<D, RG>;
+  extern __shared__ __align__(16) float f32_smem[];
+  float* q_s = f32_smem;
+  float* ring = q_s + G::kQ;  // stage s: K at ring + s kStage, V kK further
+  float* p_s = ring + 2 * G::kStage + (threadIdx.x / 32) * G::kP;  // this warp's P^T
+
+  const int h = blockIdx.y, b = blockIdx.z, kh = h / (H / KV);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-
-  extern __shared__ float smem[];
-  float* q_s = smem;                // kFmaBQ x QP
-  float* k_s = q_s + kFmaBQ * QP;   // kFmaBK x KP
-  float* v_s = k_s + kFmaBK * KP;   // kFmaBK x D
-  float* p_s = v_s + kFmaBK * D;    // kFmaBQ x SP
-  float* m_s = p_s + kFmaBQ * SP;   // kFmaBQ
-  float* l_s = m_s + kFmaBQ;        // kFmaBQ
-  float* c_s = l_s + kFmaBQ;        // kFmaBQ
-
-  const int q0 = qb * kFmaBQ;
-  const int valid = kv_valid ? min(kv_valid[b], Sk) : Sk;
-  int kv_end = valid;
-  if (causal) kv_end = min(kv_end, q0 + kFmaBQ);
+  const int rg = warp % RG, ks = warp / RG;
+  const int ty = lane / 8, tx = lane % 8;
+  const int valid = max(kv_valid ? min(kv_valid[b], Sk) : Sk, 0);
   const long q_stride = (long)H * D, kv_stride = (long)KV * D;
-  load_tile<D>(q_s, QP, q + ((long)b * Sq * H + h) * D, q_stride, q0, kFmaBQ, Sq);
-  for (int i = threadIdx.x; i < kFmaBQ; i += blockDim.x) {
-    m_s[i] = kNeg;
-    l_s[i] = 0.f;
-  }
-  float acc[NR][NO];
-#pragma unroll
-  for (int i = 0; i < NR; ++i)
-#pragma unroll
-    for (int j = 0; j < NO; ++j) acc[i][j] = 0.f;
+  const float* qb = q + (long)b * Sq * q_stride + (long)h * D;
+  const float* kb = k + (long)b * Sk * kv_stride + (long)kh * D;
+  const float* vb = v + (long)b * Sk * kv_stride + (long)kh * D;
+  float* ob = out + (long)b * Sq * q_stride + (long)h * D;
 
-  const float* kb = k + ((long)b * Sk * KV + kh) * D;
-  const float* vb = v + ((long)b * Sk * KV + kh) * D;
-  for (int k0 = 0; k0 < kv_end; k0 += kFmaBK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<D>(k_s, KP, kb, kv_stride, k0, kFmaBK, Sk);
-    load_tile<D>(v_s, D, vb, kv_stride, k0, kFmaBK, Sk);
-    __syncthreads();
+  // keys [key0, key0 + a round) of K and V -> stage st; rows at or past
+  // kv_end are zero-filled
+  auto load_stage = [&](int st, int key0, int kv_end) {
+    float* dst = ring + st * G::kStage;
+    copy_rows<D, G::kRoundKeys>(dst, G::KP, kb, kv_stride, key0, kv_end);
+    copy_rows<D, G::kRoundKeys>(dst + G::kK, D, vb, kv_stride, key0, kv_end);
+  };
+  const int n_blocks = (Sq + G::BQ - 1) / G::BQ;
+  const int first = blockIdx.x, second = causal ? n_blocks - 1 - first : first;
+  const int passes = second > first ? 2 : 1;
+  auto block_end = [&](int q0) { return causal ? min(valid, q0 + G::BQ) : valid; };
+  // a pass's Q and first stage are in flight before it starts: the next
+  // pass's are issued while this one merges
+  copy_rows<D, G::BQ>(q_s, G::QP, qb, q_stride, first * G::BQ, Sq);
+  if (block_end(first * G::BQ) > 0) load_stage(0, 0, block_end(first * G::BQ));
+  tc_tile::cp_async_commit();
 
-    // S = Q K^T for rows ty + 16i, keys tx + 16j
-    float s[NR][NS];
+  for (int pass = 0; pass < passes; ++pass) {
+    const int q0 = (pass ? second : first) * G::BQ;
+    const int kv_end = block_end(q0);
+    const int rounds = (kv_end + G::kRoundKeys - 1) / G::kRoundKeys;
+    const int r0 = q0 + 16 * rg;  // this warp's first query row
+    float o[4][D / 8], m[4], l[4];
 #pragma unroll
-    for (int i = 0; i < NR; ++i)
+    for (int i = 0; i < 4; ++i) {
+      m[i] = kNeg;
+      l[i] = 0.f;
 #pragma unroll
-      for (int j = 0; j < NS; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qv[NR], kv[NS];
-#pragma unroll
-      for (int i = 0; i < NR; ++i) qv[i] = q_s[(ty + 16 * i) * QP + d];
-#pragma unroll
-      for (int j = 0; j < NS; ++j) kv[j] = k_s[(tx + 16 * j) * KP + d];
-#pragma unroll
-      for (int i = 0; i < NR; ++i)
-#pragma unroll
-        for (int j = 0; j < NS; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      for (int c = 0; c < D / 8; ++c) o[i][c] = 0.f;
     }
-#pragma unroll
-    for (int i = 0; i < NR; ++i)
-#pragma unroll
-      for (int j = 0; j < NS; ++j) p_s[(ty + 16 * i) * SP + tx + 16 * j] = s[i][j] * scale;
-    __syncthreads();
+    for (int r = 0; r < rounds; ++r) {
+      tc_tile::cp_async_wait<0>();
+      __syncthreads();  // round r's stage is in; every warp is done with round r - 1's
+      if (r + 1 < rounds) load_stage((r + 1) & 1, (r + 1) * G::kRoundKeys, kv_end);
+      tc_tile::cp_async_commit();
+      const int k0 = r * G::kRoundKeys + ks * kF32Keys;
+      const float* st = ring + (r & 1) * G::kStage;
+      if (k0 < kv_end && r0 < Sq && (!causal || k0 <= r0 + 15))
+        f32_tile<D, RG>(o, m, l, q_s + 16 * rg * G::QP, st + ks * kF32Keys * G::KP,
+                        st + G::kK + ks * kF32Keys * D, p_s, r0, k0, valid, causal,
+                        scale_log2);
+    }
 
-    // online softmax, one warp per row, two keys per lane
-    for (int r = warp; r < kFmaBQ; r += kFmaThreads / 32) {
-      const int qpos = q0 + r;
-      float sv[2], pv[2];
-      bool ok[2];
+    tc_tile::cp_async_wait<0>();
+    __syncthreads();  // every warp is done with Q and both stages
+    if (pass + 1 < passes) {
+      copy_rows<D, G::BQ>(q_s, G::QP, qb, q_stride, second * G::BQ, Sq);
+      if (block_end(second * G::BQ) > 0) load_stage(0, 0, block_end(second * G::BQ));
+    }
+    tc_tile::cp_async_commit();
+
+    // merge the KS partials of each row in ascending ks, through stage 1:
+    // one order, so two runs give the same bits
+    float* part = ring + G::kStage;             // KS x BQ x D partial outputs,
+    float* part_ml = part + G::KS * G::BQ * D;  // and (m, l) per partial row
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 4);
+      const int row = ks * G::BQ + 16 * rg + ty + 4 * i;
+      float* po = part + row * D;
+#pragma unroll
+      for (int u = 0; u < G::NV; ++u) {
+        float* dst = po + (8 * u + tx) * G::VW;
+        const float* src = &o[i][u * G::VW];
+        if constexpr (G::VW == 4)
+          *reinterpret_cast<float4*>(dst) = make_float4(src[0], src[1], src[2], src[3]);
+        else
+          *reinterpret_cast<float2*>(dst) = make_float2(src[0], src[1]);
+      }
+      if (tx == 0) {
+        part_ml[2 * row] = m[i];
+        part_ml[2 * row + 1] = l[i];
+      }
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < G::BQ * (D / 4); e += kF32Threads) {
+      const int row = e / (D / 4), c = (e % (D / 4)) * 4;
+      if (q0 + row >= Sq) continue;
       float mx = kNeg;
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int kpos = k0 + lane + 32 * u;
-        ok[u] = kpos < valid && (!causal || qpos >= kpos);
-        sv[u] = ok[u] ? p_s[r * SP + lane + 32 * u] : kNeg;
-        mx = fmaxf(mx, sv[u]);
+      for (int w = 0; w < G::KS; ++w) mx = fmaxf(mx, part_ml[2 * (w * G::BQ + row)]);
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      float den = 0.f;
+#pragma unroll
+      for (int w = 0; w < G::KS; ++w) {
+        const int pr = w * G::BQ + row;
+        const float wt = exp2f((part_ml[2 * pr] - mx) * scale_log2);
+        den += part_ml[2 * pr + 1] * wt;
+        const float4 pv = *reinterpret_cast<const float4*>(part + pr * D + c);
+        acc.x += pv.x * wt;
+        acc.y += pv.y * wt;
+        acc.z += pv.z * wt;
+        acc.w += pv.w * wt;
       }
-      const float m_prev = m_s[r];
-      const float m_new = fmaxf(m_prev, warp_max(mx));
-      float sum = 0.f;
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        pv[u] = ok[u] ? expf(sv[u] - m_new) : 0.f;
-        sum += pv[u];
-        p_s[r * SP + lane + 32 * u] = pv[u];
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        c_s[r] = corr;
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-      }
+      den = fmaxf(den, 1e-30f);  // a fully masked row: 0 / 1e-30 = 0
+      *reinterpret_cast<float4*>(ob + (q0 + row) * q_stride + c) =
+          make_float4(acc.x / den, acc.y / den, acc.z / den, acc.w / den);
     }
-    __syncthreads();
-
-    // O = O * corr + P V for rows ty + 16i, columns tx + 16j
-#pragma unroll
-    for (int i = 0; i < NR; ++i) {
-      const float corr = c_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < NO; ++j) acc[i][j] *= corr;
-    }
-    for (int kk = 0; kk < kFmaBK; ++kk) {
-      float pv[NR], vv[NO];
-#pragma unroll
-      for (int i = 0; i < NR; ++i) pv[i] = p_s[(ty + 16 * i) * SP + kk];
-#pragma unroll
-      for (int j = 0; j < NO; ++j) vv[j] = v_s[kk * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < NR; ++i)
-#pragma unroll
-        for (int j = 0; j < NO; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < NR; ++i) {
-    const int r = ty + 16 * i, qpos = q0 + r;
-    if (qpos >= Sq) continue;
-    const float l = fmaxf(l_s[r], 1e-30f);
-    float* o = out + (((long)b * Sq + qpos) * H + h) * D;
-#pragma unroll
-    for (int j = 0; j < NO; ++j) o[tx + 16 * j] = acc[i][j] / l;
+    // the next pass's first barrier orders these reads of stage 1 before
+    // its copies into it
   }
 }
 
-template <int D>
-int launch_fma(const void* q, const void* k, const void* v, const int* kv_valid, void* out, int B,
+template <int D, int RG>
+int launch_f32(const void* q, const void* k, const void* v, const int* kv_valid, void* out, int B,
                int Sq, int Sk, int H, int KV, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(float) * ((size_t)kFmaBQ * (D + 1) + (size_t)kFmaBK * (D + 1) +
-                                           (size_t)kFmaBK * D + (size_t)kFmaBQ * (kFmaBK + 1) +
-                                           3 * kFmaBQ);
+  using G = F32Geo<D, RG>;
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(mha_fma_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e = cudaFuncSetAttribute(mha_f32_kernel<D, RG>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)G::kSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
-  const dim3 grid((Sq + kFmaBQ - 1) / kFmaBQ, H, B);
-  mha_fma_kernel<D><<<grid, kFmaThreads, smem, stream>>>(
+  const int n_blocks = (Sq + G::BQ - 1) / G::BQ;
+  const dim3 grid(causal ? (n_blocks + 1) / 2 : n_blocks, H, B);
+  mha_f32_kernel<D, RG><<<grid, kF32Threads, G::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      kv_valid, static_cast<float*>(out), Sq, Sk, H, KV, scale, causal);
+      kv_valid, static_cast<float*>(out), Sq, Sk, H, KV, scale * 1.4426950408889634f, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -532,18 +718,29 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int* kv_vali
 // dtype codes: 0 float32 (FMA kernel), 1 bfloat16 (tensor-core kernel); D in
 // {16, 32, 64, 128} (the tests', the kernel benchmark's and qwen2.5-3b's
 // head dims). kv_valid: a (B,) int32 device array, or null for all Sk keys.
-// Returns the launch's cudaGetLastError() (0 = launched).
+// rg: float32 only, the row groups of 16 query rows a CTA owns
+// (attention.f32_plan): 4, or 2 for D <= 64. Returns the launch's
+// cudaGetLastError() (0 = launched).
 extern "C" int mha_fwd_launch(const void* q, const void* k, const void* v, const void* kv_valid,
                               void* out, int B, int Sq, int Sk, int H, int KV, int D, int dtype,
-                              int causal, float scale, void* stream) {
+                              int causal, float scale, int rg, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* valid = static_cast<const int*>(kv_valid);
   if (dtype == 0) {
-    switch (D) {
-      case 16: return launch_fma<16>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
-      case 32: return launch_fma<32>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
-      case 64: return launch_fma<64>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
-      case 128: return launch_fma<128>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
+    if (rg == 4) {
+      switch (D) {
+        case 16: return launch_f32<16, 4>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
+        case 32: return launch_f32<32, 4>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
+        case 64: return launch_f32<64, 4>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
+        case 128:
+          return launch_f32<128, 4>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
+      }
+    } else if (rg == 2) {
+      switch (D) {
+        case 16: return launch_f32<16, 2>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
+        case 32: return launch_f32<32, 2>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
+        case 64: return launch_f32<64, 2>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
+      }
     }
   } else if (dtype == 1) {
     switch (D) {

@@ -26,9 +26,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _require(ok: bool, msg: str) -> None:
+def _require(ok: bool, msg: str, *args) -> None:
+    """Raise with ``msg.format(*args)`` unless ``ok``; the message is built
+    only on failure."""
     if not ok:
-        raise ValueError(f"maxpool kernel: {msg}")
+        raise ValueError("maxpool kernel: " + msg.format(*args))
 
 
 def maxpool2d(x: torch.Tensor, *, window: int = 2, stride: int = 2
@@ -38,22 +40,18 @@ def maxpool2d(x: torch.Tensor, *, window: int = 2, stride: int = 2
     _require(x.is_cuda, "needs CUDA tensors (CPU tensors go through "
              "repro_torch.kernels.ops)")
     _require(x.dim() == 4 and x.numel() > 0,
-             f"x must be a non-empty (N, H, W, C), got {tuple(x.shape)}")
+             "x must be a non-empty (N, H, W, C), got {}", tuple(x.shape))
     N, H, W, C = x.shape
     _require(window >= 1 and stride >= 1 and window <= min(H, W),
-             f"window {window}, stride {stride} on {H}x{W}")
-    _require(x.dtype in _DTYPES, f"dtype {x.dtype} (float32 or bfloat16)")
+             "window {}, stride {} on {}x{}", window, stride, H, W)
+    _require(x.dtype in _DTYPES, "dtype {} (float32 or bfloat16)", x.dtype)
     _require(x.is_contiguous(), "x must be contiguous")
     OH = (H - window) // stride + 1
     OW = (W - window) // stride + 1
-    _require(-(-N * OH * OW * C // 256) < 2 ** 31, "output too large")
-
     out = torch.empty((N, OH, OW, C), dtype=x.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib().maxpool_launch(x.data_ptr(), out.data_ptr(), N, H, W, C,
-                                    OH, OW, window, stride, _DTYPES[x.dtype],
-                                    stream)
+    err = build.launch_on(x.device, _lib().maxpool_launch, x.data_ptr(),
+                          out.data_ptr(), N, H, W, C, OH, OW, window, stride,
+                          _DTYPES[x.dtype])
     if err:
         raise RuntimeError(f"maxpool kernel launch failed: CUDA error {err}")
     maxpool2d.launches += 1

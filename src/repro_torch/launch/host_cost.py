@@ -136,7 +136,7 @@ def cases(seed: int = 0) -> Dict[str, Dict[str, Callable[[], object]]]:
             "ops.attention": lambda: ops.attention(q, k, v, causal=True),
             "bare C launch": lambda: mha_lib.mha_fwd_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-                out.data_ptr(), 1, S, S, H, KV, D, 1, 1, D ** -0.5, stream),
+                out.data_ptr(), 1, S, S, H, KV, D, 1, 1, D ** -0.5, 0, stream),
             "SDPA": lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)},
         "conv_im2col bf16 28x28x128->128 3x3": {

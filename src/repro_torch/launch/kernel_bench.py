@@ -254,9 +254,12 @@ def gemm_cases(smoke: bool, dev) -> List[Dict]:
                   seed=3)]
 
 
-def mha_case(smoke: bool, dev) -> Dict:
+def mha_case(smoke: bool, dev, heads=(8, 2, 64)) -> Dict:
+    """fp32 causal flash-MHA at B 1, S 1024 (256 smoke); ``heads`` = (query
+    heads, KV heads, head dim), the bench row's by default."""
     rng = np.random.default_rng(4)
-    B, S, H, KV, D = (1, 256, 8, 2, 64) if smoke else (1, 1024, 8, 2, 64)
+    H, KV, D = heads
+    B, S = (1, 256) if smoke else (1, 1024)
     q = _normal(rng, (B, S, H, D), torch.float32, dev)
     k = _normal(rng, (B, S, KV, D), torch.float32, dev)
     v = _normal(rng, (B, S, KV, D), torch.float32, dev)

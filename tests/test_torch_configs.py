@@ -41,6 +41,7 @@ def test_import_loads_no_jax_and_no_repro_module():
         "import repro_torch.launch.kernel_bench, repro_torch.kernels.gemm_os\n"
         "import repro_torch.launch.host_cost, repro_torch.launch.gemm_probe\n"
         "import repro_torch.launch.paged_probe\n"
+        "import repro_torch.launch.mha_pool_probe\n"
         "import repro_torch.kernels.conv_im2col, repro_torch.kernels.maxpool\n"
         "import repro_torch.kernels.reshuffle, repro_torch.kernels.build\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "

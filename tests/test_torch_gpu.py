@@ -324,6 +324,98 @@ def test_cuda_mha_bf16_agrees_where_a_mask_shift_shows(cuda, probe):
         ref.ROW_TOL[torch.bfloat16]
 
 
+# fp32 mha: (B, Sq, Sk) with per-batch kv_valid (0 and 1 among them), at
+# (H, KV) = (4, 2); Sq != Sk both ways, Sq = 1, and a q block cut by Sq
+F32_MHA_SHAPES = [(3, 130, 300, [0, 1, 257]), (3, 1, 77, [1, 0, 77]),
+                  (2, 150, 70, [70, 1]), (2, 257, 257, [0, 200])]
+
+
+def assert_rows_agree(got, want):
+    worst = ref.row_error(got, want).max().item()
+    assert worst <= ref.ROW_TOL[got.dtype], worst
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("shape", F32_MHA_SHAPES)
+def test_cuda_mha_f32_matches_plain_per_row(cuda, shape, D, causal):
+    """The fp32 kernel at every head dim it builds, within ref.ROW_TOL of
+    its plain version on every query row, with kv_valid None, an int and
+    a (B,) tensor holding 0 and 1: a fully masked row is 0."""
+    B, Sq, Sk, valid = shape
+    q, k, v = (torch.from_numpy(x).to(cuda)
+               for x in mha_inputs(Sq + Sk + D, B, Sq, Sk, 4, 2, D))
+    for kv_valid in (None, 1, torch.tensor(valid, dtype=torch.int32,
+                                            device=cuda)):
+        got = launched_once(lambda: mha_kernel.mha.launches,
+                            lambda: ops.attention(q, k, v, causal=causal,
+                                                  kv_valid=kv_valid))
+        want = ref.mha_ref(q, k, v, causal=causal, kv_valid=kv_valid)
+        assert_rows_agree(got, want)
+        if isinstance(kv_valid, torch.Tensor) and 0 in valid:
+            assert not got[valid.index(0)].any()   # kv_valid 0: rows are 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rg", [2, 4])
+@pytest.mark.parametrize("D", [16, 32, 64])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_mha_f32_every_plan_matches_plain(cuda, rg, D, causal):
+    """Both layouts the fp32 plan picks from (64-row blocks in 2 key splits,
+    32-row blocks in 4), launched through the C entry point whatever the
+    plan would take, agree with the plain version per row."""
+    B, Sq, Sk, H, KV = 2, 200, 230, 4, 2
+    q, k, v = (torch.from_numpy(x).to(cuda)
+               for x in mha_inputs(rg + D, B, Sq, Sk, H, KV, D))
+    valid = torch.tensor([230, 97], dtype=torch.int32, device=cuda)
+    out = torch.empty_like(q)
+    err = build.launch_on(q.device, mha_kernel._lib().mha_fwd_launch,
+                          q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          valid.data_ptr(), out.data_ptr(), B, Sq, Sk, H, KV,
+                          D, 0, int(causal), D ** -0.5, rg)
+    assert err == 0
+    torch.cuda.synchronize()
+    assert_rows_agree(out, ref.mha_ref(q, k, v, causal=causal,
+                                       kv_valid=valid))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [(8, 2, 64), (16, 2, 128)],
+                         ids=["bench", "serve"])
+def test_cuda_mha_f32_two_runs_give_the_same_bits(cuda, heads):
+    """Each output sums its keys in one order (tiles ascending within a key
+    split, the splits merged in ascending order), so the same inputs give
+    the same bits: the kernel bench's row and the serving heads, 1024
+    causal."""
+    H, KV, D = heads
+    q, k, v = (torch.from_numpy(x).to(cuda)
+               for x in mha_inputs(H + D, 1, 1024, 1024, H, KV, D))
+    first = mha_kernel.mha(q, k, v, causal=True)
+    second = mha_kernel.mha(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert ref.bitwise_equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads", [(8, 2, 64), (16, 2, 128)],
+                         ids=["bench", "serve"])
+def test_cuda_mha_f32_agrees_where_a_mask_shift_shows(cuda, heads):
+    """At 1024 causal the fp32 kernel agrees per row, and its plain version
+    with the causal mask shifted by one key misses ref.ROW_TOL[float32] on
+    every row: an off-by-one mask in the kernel could not pass."""
+    H, KV, D = heads
+    q, k, v = (torch.from_numpy(x).to(cuda)
+               for x in mha_inputs(H * D, 1, 1024, 1024, H, KV, D))
+    got = launched_once(lambda: mha_kernel.mha.launches,
+                        lambda: ops.attention(q, k, v, causal=True))
+    want = ref.mha_ref(q, k, v, causal=True)
+    assert_rows_agree(got, want)
+    shifted = ref.mha_ref(q[:, 1:], k[:, :-1], v[:, :-1], causal=True)
+    assert ref.row_error(shifted, want[:, 1:]).min().item() > \
+        ref.ROW_TOL[torch.float32]
+
+
 @pytest.mark.gpu
 def test_cuda_engine_tokens_equal_cpu_engine(cuda):
     """fp32 smoke model: the engine on the card (both kernels) emits the
@@ -604,6 +696,105 @@ def test_cuda_maxpool_matches_plain(cuda, spec, nan, dtype):
     assert bool(got.isnan().any()) == nan
     assert ref.bitwise_equal(got, ref.maxpool2d_ref(x, window=win,
                                                     stride=stride))
+
+
+def pooled(x, window, stride):
+    """The kernel's max-pool of x (one launch), checked bitwise against the
+    plain version."""
+    got = launched_once(lambda: pool_kernel.maxpool2d.launches,
+                        lambda: ops.maxpool2d(x, window=window,
+                                              stride=stride))
+    assert ref.bitwise_equal(got, ref.maxpool2d_ref(x, window=window,
+                                                    stride=stride))
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [3, 6, 13, 8, 64])
+@pytest.mark.parametrize("win_stride", [(1, 1), (2, 3), (3, 2), (3, 3),
+                                        (5, 1), (2, 2)])
+def test_cuda_maxpool_channels_and_windows_bitwise(cuda, win_stride, C,
+                                                   dtype):
+    """Channel counts of no whole 16-byte vector (C = 3, 6, 13) and of
+    whole ones (C = 8, 64), at windows the kernel fixes (2/2, 3/2, 3/3) and
+    others (1/1, 2/3 with stride past the window, 5/1), on 11 x 13 images
+    whose last columns no window reaches."""
+    win, stride = win_stride
+    x = torch.from_numpy(normal(C * win + stride, 2, 11, 13, C)).to(
+        cuda, getattr(torch, dtype))
+    pooled(x, win, stride)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("win_stride", [(3, 2), (2, 2), (5, 1)])
+def test_cuda_maxpool_unaligned_view_bitwise(cuda, win_stride, dtype):
+    """A contiguous view one element past a 16-byte boundary, at C = 64."""
+    x = offset_view(normal(5, 2, 12, 12, 64), cuda, getattr(torch, dtype),
+                    True)
+    assert x.data_ptr() % 16
+    pooled(x, *win_stride)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [8, 13])
+def test_cuda_maxpool_nan_in_a_shared_column(cuda, C, dtype):
+    """3x3/2 windows overlap in every other column and row: a NaN at
+    (4, 4) lies in four windows, which all give NaN, the other outputs
+    none; a NaN in a column two windows share only along the row, too."""
+    x = torch.from_numpy(normal(C, 2, 11, 11, C)).to(cuda,
+                                                      getattr(torch, dtype))
+    x[0, 4, 4, 1] = float("nan")      # rows 1-2 x columns 1-2 of outputs
+    x[1, 3, 6, C - 1] = float("nan")  # row 1 x columns 2-3 of outputs
+    got = pooled(x, 3, 2)
+    nan = got.isnan()
+    assert nan[0, 1:3, 1:3, 1].all() and int(nan[0].sum()) == 4
+    assert nan[1, 1, 2:4, C - 1].all() and int(nan[1].sum()) == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("win_stride", [(3, 2), (2, 2), (2, 3)])
+def test_cuda_maxpool_windows_of_minus_inf_or_negatives(cuda, win_stride,
+                                                        dtype):
+    """A window of only -inf gives -inf (the kernel's start value is no
+    stand-in for an input); a window of negatives gives its largest."""
+    win, stride = win_stride
+    dt = getattr(torch, dtype)
+    neg = -1.0 - torch.from_numpy(normal(3, 2, 9, 9, 8)).abs().to(cuda, dt)
+    got = pooled(neg, win, stride)
+    assert (got < 0).all()
+    x = torch.full((2, 9, 9, 8), float("-inf"), device=cuda, dtype=dt)
+    x[1] = neg[1]
+    got = pooled(x, win, stride)
+    assert torch.isneginf(got[0]).all() and (got[1] > float("-inf")).all()
+
+
+@pytest.mark.gpu
+def test_cuda_maxpool_row_of_2_31_elements(cuda):
+    """An input row of W * C = 2^31 + 2 elements (bf16 1 x 2 x (2^30 + 1) x
+    2, 2x2 windows at stride 1: 8 GiB in) takes the kernel's 64-bit index:
+    each output is its window's largest, up to a NaN in the last column."""
+    W = 2 ** 30 + 1
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((1, 2, W, 2), generator=gen, device=cuda,
+                    dtype=torch.bfloat16)
+    x[0, 1, W - 1, 1] = float("nan")
+    got = launched_once(lambda: pool_kernel.maxpool2d.launches,
+                        lambda: ops.maxpool2d(x, window=2, stride=1))
+    rows = torch.maximum(x[:, 0], x[:, 1])
+    del x
+    want = torch.maximum(rows[:, :-1], rows[:, 1:]).unsqueeze(1)
+    del rows
+    assert got.shape == want.shape == (1, 1, 2 ** 30, 2)
+    nan = got.isnan()
+    assert bool(nan[0, 0, -1, 1]) and int(nan.sum()) == 1
+    assert bool(want[0, 0, -1, 1].isnan())
+    del nan
+    got[0, 0, -1, 1] = want[0, 0, -1, 1] = 0     # bits compared, NaN aside
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 @pytest.mark.gpu

@@ -172,6 +172,79 @@ def test_split_plan_fills_the_card_from_shapes_alone():
     assert plan.cache_info().currsize > 0           # cached per shape
 
 
+F32_WORK_SHAPES = [(1, 1024, 1024, 8), (2, 100, 100, 16), (3, 1, 77, 4),
+                   (2, 257, 257, 4), (1, 96, 300, 2), (1, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rg", [2, 4])
+def test_f32_mha_work_covers_every_row_block_once(rg, causal):
+    """``f32_ctas`` (the fp32 kernel's layout): every (b, h, q block of 16
+    rg rows) exactly once over the CTAs; a CTA stays in one (b, h) and,
+    causal, pairs block x with n - 1 - x."""
+    for B, Sq, Sk, H in F32_WORK_SHAPES:
+        ctas = mha_kernel.f32_ctas(B, Sq, Sk, H, causal, rg)
+        n = -(-Sq // (16 * rg))
+        assert sorted((b, h, blk) for cta in ctas for b, h, blk, _ in cta) \
+            == [(b, h, i) for b in range(B) for h in range(H)
+                for i in range(n)]
+        for cta in ctas:
+            assert len({(b, h) for b, h, *_ in cta}) == 1
+            assert len(cta) == 1 or (causal and len(cta) == 2
+                                     and cta[0][2] + cta[1][2] == n - 1)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("rg", [2, 4])
+def test_f32_mha_heaviest_matches_the_layout(rg, causal):
+    """``f32_heaviest``, which the plan counts with, gives the rounds of the
+    heaviest CTA of the layout ``f32_ctas`` models, at odd and even block
+    counts and with Sk below, at and past Sq."""
+    shapes = F32_WORK_SHAPES + [(1, Sq, Sk, 1) for Sq in (31, 32, 33, 95,
+                                                          97, 1000, 4096)
+                                for Sk in (1, 40, 128, 1000, 5000)]
+    for B, Sq, Sk, H in shapes:
+        want = max(mha_kernel.f32_rounds(cta, rg)
+                   for cta in mha_kernel.f32_ctas(B, Sq, Sk, H, causal, rg))
+        assert mha_kernel.f32_heaviest(Sq, Sk, causal, rg) == want, \
+            (Sq, Sk)
+
+
+@pytest.mark.parametrize("heads", [(8, 64), (16, 128)],
+                         ids=["bench", "serve"])
+def test_f32_mha_plan_balances_causal_ctas(heads):
+    """At the kernel bench's row (B1 S1024 H8 KV2 D64) and at the serving
+    heads (H16 KV2 D128), causal 1024 on 132 SMs: the plan fills the card
+    with at most one CTA an SM, and the busiest CTA sweeps within one
+    32-key tile, and one round, of the mean."""
+    H, D = heads
+    rg = mha_kernel.f32_plan(1, 1024, 1024, H, D, True, 132)
+    assert rg == (2 if D == 64 else 4)
+    ctas = mha_kernel.f32_ctas(1, 1024, 1024, H, True, rg)
+    assert 120 <= len(ctas) <= 132
+    tiles = [sum(-(-keys // 32) for *_, keys in cta) for cta in ctas]
+    rounds = [mha_kernel.f32_rounds(cta, rg) for cta in ctas]
+    assert max(tiles) - sum(tiles) / len(tiles) <= 1
+    assert max(rounds) - sum(rounds) / len(rounds) <= 1
+
+
+def test_f32_mha_plan_from_shapes_alone():
+    """``f32_plan`` takes shapes and the SM count, never kv_valid; D = 128
+    keeps 64-row blocks (two stages of a 4-split round would not fit in
+    shared memory); where both layouts fill the card alike it keeps 64-row
+    blocks, whose K/V tiles serve more rows."""
+    plan = mha_kernel.f32_plan
+    assert "kv_valid" not in inspect.signature(plan).parameters
+    assert plan(1, 1024, 1024, 8, 128, True, 132) == 4
+    assert plan(1, 1024, 1024, 8, 64, False, 132) == 4
+    assert plan(8, 1024, 1024, 16, 64, True, 132) == 4
+    for B, Sq, Sk, H in F32_WORK_SHAPES:
+        for D in (16, 32, 64, 128):
+            for causal in (True, False):
+                assert plan(B, Sq, Sk, H, D, causal, 132) in \
+                    ((2, 4) if D <= 64 else (4,))
+
+
 def test_plain_paged_ignores_pool_garbage():
     """Poisoning the scratch page and every row past each length must not
     move the output at all."""
@@ -295,6 +368,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         mha_kernel.mha(q, kp[:1], vp[:1])
     assert ops.launch_counts() == before
+
+
+def test_mha_pool_probe_needs_a_card():
+    """The fp32 mha and max-pool probe times kernels on the card: without
+    one it stops before building anything."""
+    from repro_torch.launch import mha_pool_probe
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="CUDA"):
+        mha_pool_probe.main([])
 
 
 def test_paged_probe_needs_a_card():
