@@ -42,9 +42,23 @@ Phases, each failing loudly (non-zero exit, no result line):
    every kernel, give finite rows, and hold each row's output against its
    plain version on the same inputs.
 6. serve: qwen2.5-3b at full width with seeded random weights, through the
-   paged engine and the scheduler; checks every request finished, the
-   kernel launch counts, and a 2-layer full-width prefill/decode against an
-   fp32 CPU reference; profiles a decode window and a prefill window.
+   paged engine and the scheduler, each decode step a replay of the
+   engine's CUDA graph (captured by a warm-up request on the same engine,
+   then ``reset_metrics``); checks every request finished, the kernel
+   launch counts (the paged kernel's by replay: layers x decode steps), one
+   capture through admissions between steps, and a 2-layer full-width
+   prefill/decode against an fp32 CPU reference; logs the tracer's host ms
+   per decode step; holds one step's bf16 logits of the graph against the
+   uncaptured step body at full depth; profiles a decode window (also
+   timed without the profiler) and a prefill window.
+7. the decode graph and the rest of the slice: at fp32, full width, 4 of
+   36 layers, 16 steps of the graph against the uncaptured body and of the
+   gather baseline against the kernel (equal greedy tokens, logits at a
+   near tie); yi-6b, qwen1.5-4b and granite-3-2b at full width and depth
+   (their paged and mha shapes against the plain versions, 4 requests of
+   16 tokens, launch counts, one capture, peak memory); one
+   ``repro_torch.launch.serve_bench --full`` run, its CSV printed and
+   gated by ``repro_torch.launch.check_csv``.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -53,6 +67,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -78,6 +93,7 @@ from repro_torch.launch.host_cost import host_us  # noqa: E402
 from repro_torch.launch.kernel_bench import cuda_ms  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.runtime.serving import PagedServingEngine, Request  # noqa: E402
+from repro_torch.runtime.trace import Tracer  # noqa: E402
 
 SEED = 0
 
@@ -1038,10 +1054,85 @@ def check_model(rng) -> float:
     return err
 
 
+class UncapturedEngine(PagedServingEngine):
+    """The engine with its step body run as it is on the card, uncaptured:
+    what the replayed CUDA graph must reproduce."""
+
+    def _dispatch(self):
+        self._step_body()
+
+
+# logits of two runs of the port on the card, over the largest |logit|. fp32
+# activations over the configs' bf16 KV cache: a key that differs by 1e-6
+# between two runs (another order of the attention sums) can round to the
+# neighbouring bf16 value, 2^-8 of it, so logits part by up to 5e-5 of the
+# largest on the SMOKE config over 16 steps (CPU); 1e-3 is the bound. bf16
+# is held to tests/test_torch_model.py's bound
+F32_LOGIT_TOL = 1e-3
+BF16_LOGIT_TOL = 2e-2
+
+
+def lockstep(name, eng_a, eng_b, prompts, steps, tol, *,
+             logits=False) -> None:
+    """Admit ``prompts`` (one slot each) into both engines and step both
+    ``steps`` times: engine b's greedy tokens must equal engine a's at every
+    step. At a step whose tokens differ, every differing row's top-2 logit
+    gap (engine a) and the step's logits must be within ``tol`` of the
+    largest |logit| (a near tie, logged); the two runs part there and the
+    comparison stops. ``logits=True`` holds every step's logits to ``tol``
+    too. Logs the worst logit difference."""
+    reqs = {}
+    for key, eng in (("a", eng_a), ("b", eng_b)):
+        reqs[key] = [Request(rid=i, prompt=p, max_new=steps + 1)
+                     for i, p in enumerate(prompts)]
+        for r in reqs[key]:
+            if not eng.submit(r):
+                fail(f"{name}: admission rejected")
+    if [r.generated for r in reqs["a"]] != [r.generated for r in reqs["b"]]:
+        fail(f"{name}: the prefills' tokens differ")
+    V = eng_a.cfg.vocab
+    worst = 0.0
+    for s in range(1, steps + 1):
+        eng_a.step()
+        eng_b.step()
+        la = eng_a.last_logits[:, :V].float()
+        lb = eng_b.last_logits[:, :V].float()
+        scale = la.abs().max().item()
+        err = (la - lb).abs().max().item() / scale
+        worst = max(worst, err)
+        if not torch.isfinite(lb).all() or (logits and not err <= tol):
+            fail(f"{name}: step {s}: logits differ by {err:.3g} of the "
+                 f"largest (tolerance {tol:g})")
+        ta = [r.generated[-1] for r in reqs["a"]]
+        tb = [r.generated[-1] for r in reqs["b"]]
+        if ta != tb:
+            rows = [i for i in range(len(ta)) if ta[i] != tb[i]]
+            top2 = la[rows].topk(2, dim=-1).values
+            gap = (top2[:, 0] - top2[:, 1]).max().item() / scale
+            log(f"{name}: step {s}: rows {rows} part on a near tie (top-2 "
+                f"gap {gap:.3g} of the largest logit, logits within "
+                f"{err:.3g}; tolerance {tol:g}); compared {s} steps")
+            if not (gap < tol and err <= tol):
+                fail(f"{name}: step {s}: greedy tokens differ")
+            return
+    log(f"{name}: {steps} step(s) x {len(prompts)} requests, equal greedy "
+        f"tokens, logits within {worst:.3g} of the largest (tolerance "
+        f"{tol:g}{', every step' if logits else ', at a near tie'})")
+
+
+def phase_walls_per_step(tracer, steps: int) -> str:
+    walls = tracer.phase_walls()
+    return ", ".join(
+        f"{name} {walls[name][1] / steps * 1e3:.3f}"
+        for name in ("decode_tick", "ensure_capacity", "device_dispatch",
+                     "host_sync") if name in walls)
+
+
 def serve(rng):
     """The main path: qwen2.5-3b, full width, seeded weights on the card,
-    paged engine + scheduler, greedy. Returns the kernels' launch counts
-    over this run."""
+    paged engine + scheduler, greedy, each decode step a replay of the
+    engine's CUDA graph. Returns the kernels' launch counts over this
+    run."""
     cfg = get_config("qwen2.5-3b")
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1051,19 +1142,26 @@ def serve(rng):
         f"{cfg.num_layers} layers, bf16, weights drawn on the card in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    def engine():
-        return PagedServingEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
-                                  page_size=PAGE, device="cuda")
+    def engine(tracer=None, cls=PagedServingEngine):
+        return cls(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                   page_size=PAGE, tracer=tracer, device="cuda")
 
-    # warm-up (cuBLAS heuristics, allocator) on a throwaway engine
-    engine().run_to_completion([Request(rid=-1, prompt=list(range(64)),
-                                        max_new=2)])
+    # warm-up (the decode graph's capture, cuBLAS heuristics, allocator) on
+    # the engine that serves, then the reference's single reset point
+    tracer = Tracer(enabled=True)
+    eng = engine(tracer)
+    t0 = time.perf_counter()
+    eng.run_to_completion([Request(rid=-1, prompt=list(range(64)),
+                                   max_new=2)])
+    log(f"serve: warm-up request with the decode graph's capture "
+        f"{time.perf_counter() - t0:.2f} s")
+    eng.reset_metrics()
+    tracer.clear()
     system = [int(t) for t in rng.integers(0, cfg.vocab, 32)]
     lengths = rng.integers(64, 601, N_REQ)
     reqs = [Request(rid=i, prompt=system + [
         int(t) for t in rng.integers(0, cfg.vocab, int(n) - 32)],
         max_new=MAX_NEW) for i, n in enumerate(lengths)]
-    eng = engine()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1074,51 +1172,81 @@ def serve(rng):
     counts = ops.launch_counts()
     m = eng.metrics()
     n_tok = sum(len(r.generated) for r in done)
+    steps = eng.decode_steps
     log(f"serve: {len(done)}/{N_REQ} requests (prompts "
         f"{int(lengths.min())}-{int(lengths.max())} tokens), {n_tok} tokens "
         f"in {wall:.2f} s = {n_tok / wall:.1f} tok/s, ttft p50 "
         f"{m['latency.ttft_p50_s']:.4f} s, tpot p50 "
-        f"{m['latency.tpot_p50_s']:.4f} s, {int(m['engine.decode_steps'])} "
-        f"decode steps, {int(m['engine.prefills'])} prefills, peak memory "
+        f"{m['latency.tpot_p50_s']:.4f} s, {steps} decode steps (graph "
+        f"replays), {eng.prefills} prefills, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"serve: kernel launches {counts}")
+    log(f"serve: tracer, host ms per decode step: "
+        f"{phase_walls_per_step(tracer, steps)}; util.temporal "
+        f"{m['util.temporal']:.3f}")
+    log(f"serve: tracer, per phase:\n" + tracer.format_phase_walls())
+    log(f"serve: kernel launches {counts} (the graph holds "
+        f"{eng._graph_launches})")
     if len(done) != N_REQ or any(len(r.generated) != MAX_NEW for r in done):
         fail("serve: not every request finished with max_new tokens")
     if any(not 0 <= t < cfg.vocab for r in done for t in r.generated):
         fail("serve: a token outside the vocabulary")
+    if m["sampling.step_traces"] != 1.0:
+        fail(f"serve: {m['sampling.step_traces']} decode graph captures "
+             f"after admissions between steps (must be 1)")
     want = dict.fromkeys(counts, 0)
-    want.update({"paged_attention": cfg.num_layers * eng.decode_steps,
+    want.update({"paged_attention": cfg.num_layers * steps,
                  "mha": cfg.num_layers * eng.prefills})
     if counts != want:
         fail(f"serve: launches {counts} != {want} (layers x decode steps, "
              f"layers x prefills, no other kernel)")
     eng.alloc.check_no_aliasing()
+    # the graph against the uncaptured body at full depth: one step, bf16
+    own = np.random.default_rng(SEED + 8)
+    prompts = [[int(t) for t in own.integers(0, cfg.vocab, int(n))]
+               for n in own.integers(64, 601, 4)]
+    lockstep("graph vs uncaptured body, bf16, 36 layers",
+             engine(cls=UncapturedEngine), engine(), prompts, 1,
+             BF16_LOGIT_TOL, logits=True)
     profile_decode(engine, rng, cfg.vocab)
     profile_prefill(engine, rng, cfg.vocab)
     return counts
 
 
 def profile_decode(eng_factory, rng, vocab) -> None:
-    """torch.profiler over a short serve run (8 requests of 256 tokens, 8
-    new tokens each): the card's busy share of the wall time and the
-    kernels that take it, largest first."""
+    """torch.profiler over a short serve run (8 requests of 256 tokens, 9
+    new tokens each; the first decode step, which captures the graph, runs
+    before the window): the card's busy share of the wall time and the
+    kernels that take it, largest first. The same window runs once more
+    without the profiler on an engine of its own, since the profiler's
+    recording of each kernel a replay launches lengthens the wall; the
+    busy share is given against both walls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    eng = eng_factory()
-    reqs = [Request(rid=i, prompt=[int(t) for t in rng.integers(0, vocab,
-                                                                256)],
-                    max_new=8) for i in range(SLOTS)]
-    for r in reqs:                  # admit outside the window: decode only
-        if not eng.submit(r):
-            fail("profile: admission rejected")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    prompts = [[int(t) for t in rng.integers(0, vocab, 256)]
+               for _ in range(SLOTS)]
+
+    def ready():
+        eng = eng_factory()
+        for i, p in enumerate(prompts):   # admit outside the window
+            if not eng.submit(Request(rid=i, prompt=p, max_new=9)):
+                fail("profile: admission rejected")
+        eng.step()                        # the capture
+        torch.cuda.synchronize()
+        return eng
+
+    def window(eng):
         t0 = time.perf_counter()
         while eng.has_live():
             eng.step()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        return (time.perf_counter() - t0) * 1e6
+
+    plain_us = window(ready())
+    eng = ready()
+    steps0 = eng.decode_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_us = window(eng)
     # device-side events only (kernels, copies): CPU ops also carry the
     # device time of what they launched and would count it twice
     rows = [(e.self_device_time_total, e.key) for e in prof.key_averages()
@@ -1127,10 +1255,16 @@ def profile_decode(eng_factory, rng, vocab) -> None:
     if busy <= 0:
         log("profile: no device time in the trace (not measured)")
         return
-    log(f"profile: {eng.decode_steps} decode steps (B={SLOTS}, ~260-token "
-        f"contexts), wall {wall_us / 1e3:.2f} ms, device busy "
-        f"{busy / 1e3:.2f} ms = {busy / wall_us:.1%} (idle "
-        f"{1 - busy / wall_us:.1%})")
+    paged_rows = sum(1 for _, key in rows if "paged_decode" in key)
+    n = eng.decode_steps - steps0
+    log(f"profile: {n} decode steps as graph replays (B={SLOTS}, ~260-token "
+        f"contexts), wall {wall_us / 1e3:.2f} ms under the profiler, "
+        f"{plain_us / 1e3:.2f} ms without; device busy {busy / 1e3:.2f} ms "
+        f"= {busy / wall_us:.1%} of the profiled wall (idle "
+        f"{1 - busy / wall_us:.1%}), {busy / plain_us:.1%} of the plain "
+        f"wall (idle {1 - busy / plain_us:.1%})"
+        + ("" if paged_rows else "; the profiler recorded no paged kernel "
+           "row inside the replays: busy is what it recorded"))
     for t, key in sorted(rows, reverse=True)[:6]:
         log(f"profile:   {t / 1e3:8.3f} ms {t / busy:6.1%}  {key[:70]}")
 
@@ -1170,6 +1304,138 @@ def profile_prefill(eng_factory, rng, vocab) -> None:
             f"{key[:70]}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the decode graph's checks, the other dense configs, serve_bench
+# ---------------------------------------------------------------------------
+
+
+def check_graph_and_gather() -> None:
+    """qwen2.5-3b at full width in fp32, cut to 4 of its 36 layers (two
+    fp32 engines of the whole stack would hold 27 GB of weights): over 16
+    decode steps of 4 requests, the replayed graph against the uncaptured
+    step body, then the gather baseline against the kernel (each in its own
+    graph). The kernel's plan splits each request's pages over a cluster
+    of CTAs at this batch."""
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=4,
+                              dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    params = api.init_params(cfg, gen, device="cuda")
+    rng = np.random.default_rng(SEED + 7)
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, int(n))]
+               for n in rng.integers(64, 601, 4)]
+
+    def engine(cls=PagedServingEngine, impl="kernel"):
+        return cls(cfg, params, slots=len(prompts), max_len=MAX_LEN,
+                   page_size=PAGE, attn_impl=impl, device="cuda")
+
+    splits = paged_kernel.split_plan(len(prompts), KV, MAX_LEN // PAGE,
+                                     PAGE, H // KV, build.sm_count(0))
+    eager, graph = engine(UncapturedEngine), engine()
+    lockstep(f"graph vs uncaptured body, fp32, 4 layers, paged split "
+             f"{splits}", eager, graph, prompts, 16, F32_LOGIT_TOL)
+    gather, kernel = engine(impl="gather"), engine()
+    lockstep("gather vs kernel, fp32, 4 layers", gather, kernel, prompts,
+             16, F32_LOGIT_TOL)
+    if (eager.step_traces, graph.step_traces, gather.step_traces,
+            kernel.step_traces) != (0, 1, 1, 1):
+        fail("graph checks: captures are not one an engine")
+
+
+NEW_CONFIGS = ("yi-6b", "qwen1.5-4b", "granite-3-2b")
+
+
+def serve_configs() -> None:
+    """Each dense config the port added after qwen2.5-3b at full width and
+    full depth, seeded weights drawn on the card: its paged flash-decode
+    and flash-MHA shapes against their plain versions, then 4 requests of
+    16 new tokens through the engine, with the launch counts, one capture
+    and the peak memory."""
+    for k, arch in enumerate(NEW_CONFIGS):
+        cfg = get_config(arch)
+        hd = cfg.resolved_head_dim
+        rng = np.random.default_rng(SEED + 10 + k)
+        lengths = [int(n) for n in rng.integers(1, 700, 4)]
+        args = paged_case(rng, 4, 1, cfg.num_heads, cfg.kv_heads, hd, PAGE,
+                          lengths, MAX_LEN // PAGE, torch.bfloat16)
+        got = paged_kernel.paged_attention(*args)
+        torch.cuda.synchronize()
+        agrees(f"paged [{arch} heads H{cfg.num_heads} KV{cfg.kv_heads} "
+               f"D{hd}, B=4]", got, ref.paged_attention_ref(*args))
+        check_mha(rng, [("prefill 512, causal", 1, 512, 512, True, None,
+                         torch.bfloat16)],
+                  heads=(cfg.num_heads, cfg.kv_heads, hd))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 10 + k)
+        params = api.init_params(cfg, gen, device="cuda")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        eng = PagedServingEngine(cfg, params, slots=4, max_len=MAX_LEN,
+                                 page_size=PAGE, device="cuda")
+        reqs = [Request(rid=i, prompt=[int(t) for t in rng.integers(
+            0, cfg.vocab, int(n))], max_new=16)
+            for i, n in enumerate(rng.integers(64, 601, 4))]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = eng.run_to_completion(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        want = dict.fromkeys(counts, 0)
+        want.update({"paged_attention": cfg.num_layers * eng.decode_steps,
+                     "mha": cfg.num_layers * eng.prefills})
+        log(f"config {arch}: {cfg.param_count() / 1e9:.2f}B params, "
+            f"{cfg.num_layers} layers, H{cfg.num_heads} KV{cfg.kv_heads} "
+            f"D{hd}, vocab {cfg.vocab}{', tied' if cfg.tie_embeddings else ''}"
+            f"; weights in {t_init:.1f} s; {len(done)}/4 requests, "
+            f"{eng.decode_steps} decode steps in {wall:.2f} s (capture "
+            f"included), launches paged {counts['paged_attention']} mha "
+            f"{counts['mha']}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if counts != want:
+            fail(f"config {arch}: launches {counts} != {want}")
+        if len(done) != 4 or any(len(r.generated) != 16 for r in done) \
+                or any(not 0 <= t < cfg.vocab for r in done
+                       for t in r.generated):
+            fail(f"config {arch}: requests unfinished or tokens outside "
+                 f"the vocabulary")
+        if eng.step_traces != 1 or not torch.isfinite(eng.last_logits).all():
+            fail(f"config {arch}: {eng.step_traces} captures or non-finite "
+                 f"logits")
+        eng.alloc.check_no_aliasing()
+        del eng, params
+        torch.cuda.empty_cache()
+
+
+def run_serve_bench() -> None:
+    """``launch/serve_bench.py --full`` in a process of its own: its CSV
+    on lines of their own, gated by ``launch/check_csv.py`` (the three
+    scenarios the port lacks are the only violations allowed)."""
+    from repro_torch.launch import check_csv
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_bench", "--full"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if r.returncode != 0:
+        fail(f"serve_bench --full exited {r.returncode}:\n{r.stderr[-3000:]}")
+    text = r.stdout.strip()
+    log(f"serve_bench --full (qwen2.5-3b, 4 slots, 12 requests, 8 new "
+        f"tokens, mixed trace) in {time.perf_counter() - t0:.1f} s:")
+    print(text, flush=True)
+    errors = check_csv.check(text)
+    if errors != check_csv.missing_scenario_errors():
+        fail(f"serve_bench CSV: {errors}")
+    rows = [dict(zip(text.splitlines()[0].split(","), line.split(",")))
+            for line in text.splitlines()[1:]]
+    for row in rows[:2]:
+        if row["requests_done"] != "12" or row["sched_exhausted"] != "0":
+            fail(f"serve_bench: {row['engine']} did not finish its trace")
+    log(f"serve_bench: CSV passes the gate but for the "
+        f"{len(errors)} scenarios the port lacks")
+
+
 def main() -> None:
     smi = card()
     build_kernels()
@@ -1192,6 +1458,9 @@ def main() -> None:
     err_mha = max(err_mha, err_mha64)
     check_model(rng)
     counts = serve(rng)
+    check_graph_and_gather()
+    serve_configs()
+    run_serve_bench()
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "paged_attention", "route": "cuda",

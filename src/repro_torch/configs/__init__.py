@@ -1,7 +1,8 @@
 """Architecture registry of the archs the port serves.
 
 ``get_config("<arch-id>")`` / ``get_smoke_config`` as in the JAX package;
-only full-attention decoder stacks whose layers the port has are listed.
+only full-attention decoder stacks whose layers the port has are listed
+(the dense ``attn_mlp`` archs of the JAX package's registry, in its order).
 """
 from __future__ import annotations
 
@@ -10,7 +11,7 @@ from typing import List
 
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
-ARCHS: List[str] = ["qwen2.5-3b"]
+ARCHS: List[str] = ["yi-6b", "qwen1.5-4b", "qwen2.5-3b", "granite-3-2b"]
 
 
 def _module_name(arch: str) -> str:

@@ -67,8 +67,9 @@ class ModelConfig:
     remat: str = "full"
     decode_kv_chunk: int = 2048
     flash_chunking: bool = True
-    # the port's paged decode always runs the flash-decode kernel; the
-    # field stays so both packages' configs compare field for field
+    # paged decode attention: "kernel" (flash-decode through the block
+    # tables) or "gather" (dense pool gather + layers.attend_decode, the
+    # reference's baseline); PagedServingEngine(attn_impl=) sets it
     paged_attn_impl: str = "kernel"
     kv_cache_dtype: str = "bfloat16"   # "bfloat16" | "int8"
     kv_scale: float = 8.0              # static absmax bound of int8 caches

@@ -113,3 +113,12 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn, attr in _COUNTERS.values():
         setattr(fn, attr, 0)
+
+
+def add_launch_counts(delta: dict) -> None:
+    """Add ``delta[name]`` to each named counter. A CUDA graph's replay
+    launches the kernels it captured without calling their wrappers, so
+    the engine that replays it adds the launches the graph holds."""
+    for name, n in delta.items():
+        fn, attr = _COUNTERS[name]
+        setattr(fn, attr, getattr(fn, attr) + n)

@@ -2,12 +2,17 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       [--smoke] [--slots 4] [--requests 8] [--max-new 12] [--max-len 128] \
-      [--page-size 16] [--num-pages N] [--device cuda|cpu]
+      [--page-size 16] [--num-pages N] [--paged-attn kernel|gather] \
+      [--trace [trace.json]] [--device cuda|cpu]
 
 Weights are drawn on the device from a generator seeded with 0. Runs on
 CUDA by default and raises if there is none; ``--device cpu`` runs every
 kernel's plain PyTorch version instead. Prints the JAX launcher's summary
-lines plus each CUDA kernel's launch count.
+lines plus each CUDA kernel's launch count and the decode graph's
+captures. ``--trace`` records the engine's and scheduler's spans and
+prints the wall time per phase; with a file name it also writes Chrome
+Trace Event JSON (open in Perfetto; ``python -m repro_torch.runtime.trace
+FILE`` validates it).
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.kernels import ops
 from repro_torch.models import api
 from repro_torch.runtime.serving import PagedServingEngine, Request
+from repro_torch.runtime.trace import Tracer
 
 
 def main(argv=None) -> None:
@@ -34,6 +40,15 @@ def main(argv=None) -> None:
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=None,
                     help="usable KV pages (default: slots*max_len/page)")
+    ap.add_argument("--paged-attn", choices=["kernel", "gather"],
+                    default="kernel",
+                    help="paged decode attention: flash-decode through the "
+                         "block tables, or the dense pool gather baseline")
+    ap.add_argument("--trace", nargs="?", const="", default=None,
+                    metavar="TRACE.JSON",
+                    help="record per-tick spans and print the per-phase "
+                         "wall breakdown; with a file name, also export "
+                         "Chrome Trace Event JSON (open in Perfetto)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a CUDA device) or "
                          "cpu (plain PyTorch versions of the kernels)")
@@ -45,10 +60,13 @@ def main(argv=None) -> None:
           f"{args.slots} slots, device {device}")
     gen = torch.Generator(device=device).manual_seed(0)
     params = api.init_params(cfg, gen, device=device)
+    tracer = Tracer(enabled=True) if args.trace is not None else None
     eng = PagedServingEngine(cfg, params, slots=args.slots,
                              max_len=args.max_len, page_size=args.page_size,
-                             num_pages=args.num_pages, device=device)
-    print(f"[launch.serve] engine: {type(eng).__name__}")
+                             num_pages=args.num_pages,
+                             attn_impl=args.paged_attn, tracer=tracer,
+                             device=device)
+    print(f"[launch.serve] engine: {type(eng).__name__}[{eng.attn_impl}]")
     # every request opens with the same system prompt, tails vary in length
     sys_prompt = [(5 * j + 2) % cfg.vocab for j in range(2 * args.page_size)]
     reqs = [Request(rid=i,
@@ -65,8 +83,8 @@ def main(argv=None) -> None:
     toks = sum(len(r.generated) for r in done)
     m = eng.metrics()
     print(f"[launch.serve] {len(done)}/{len(reqs)} requests, {toks} tokens, "
-          f"{toks/dt:.1f} tok/s, {int(m['engine.prefill_buckets'])} prefill "
-          f"buckets")
+          f"{toks/dt:.1f} tok/s, {int(m['engine.prefill_traces'])} prefill "
+          f"traces")
     st = eng.pool_stats()
     print(f"[launch.serve] kv pages: peak {st.peak_pages}/{st.num_pages} "
           f"({st.peak_pages * st.page_size} tokens reserved at peak vs "
@@ -79,8 +97,17 @@ def main(argv=None) -> None:
     print(f"[launch.serve] kernel launches: paged_attention "
           f"{counts['paged_attention']} ({int(m['engine.decode_steps'])} "
           f"decode steps x {cfg.num_layers} layers), mha {counts['mha']} "
-          f"({int(m['engine.prefills'])} prefills x {cfg.num_layers} "
-          f"layers){' — CPU: plain versions ran instead' if device.type == 'cpu' else ''}")
+          f"({eng.prefills} prefills x {cfg.num_layers} layers), "
+          f"{int(m['sampling.step_traces'])} decode graph capture(s)"
+          f"{' — CPU: plain versions ran instead' if device.type == 'cpu' else ''}")
+    if tracer is not None:
+        print("[launch.serve] trace: per-phase wall time")
+        print(tracer.format_phase_walls())
+        if args.trace:
+            tracer.export(args.trace)
+            print(f"[launch.serve] wrote {args.trace}: "
+                  f"{len(tracer.events())} events "
+                  f"({tracer.dropped_events} dropped) — open in Perfetto")
 
 
 if __name__ == "__main__":

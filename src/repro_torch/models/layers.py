@@ -1,6 +1,7 @@
 """Layer library, attention-only subset: rmsnorm/layernorm, rotary embedding,
 GQA attention for prefill (flash-MHA kernel) and paged decode (flash-decode
-kernel), KV-cache quantization and the gated MLP.
+kernel, or the dense-gather baseline through ``attend_decode``), KV-cache
+quantization and the gated MLP.
 
 Counterpart of ``repro.models.layers``: plain functions on tensors with
 parameter dicts of the same names and shapes (``wq`` (d, H, hd), ``wo``
@@ -108,7 +109,9 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
     block_table: (B, n_blocks) int32. The T new tokens' k/v are scattered
     token by token to page block_table[b, (pos+t) // page], row
     (pos+t) % page — rows past the table go to scratch page 0 — and the
-    flash-decode kernel then attends through the block table. The pools are
+    flash-decode kernel then attends through the block table (with
+    ``cfg.paged_attn_impl == "gather"``, a dense gather of the tables'
+    pages and ``attend_decode`` instead). The pools are
     updated IN PLACE (``index_put_``), where the JAX package returns new
     pools: the port never copies a layer's pool. Returns (out, cache)."""
     B, T = x.shape[0], x.shape[1]
@@ -126,10 +129,67 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
     off = (pos_t % page).long()
     ck.index_put_((phys, off), kv_quant(cfg, k))
     cv.index_put_((phys, off), kv_quant(cfg, v))
-    scale = cfg.kv_scale if ck.dtype == torch.int8 else None
-    out = ops.paged_attention(q.contiguous(), ck, cv, block_table, pos + T,
-                              kv_scale=scale)
+    if cfg.paged_attn_impl == "gather":
+        # the reference's baseline: every request's whole table gathered
+        # into a dense (B, n_blocks * page, KV, D) copy, then plain
+        # attention over it (buffer index == absolute position)
+        kg = ck[block_table.long()].flatten(1, 2)
+        vg = cv[block_table.long()].flatten(1, 2)
+        out = attend_decode(q, kv_dequant(cfg, kg, q.dtype),
+                            kv_dequant(cfg, vg, q.dtype), pos,
+                            kv_chunk=cfg.decode_kv_chunk)
+    else:
+        scale = cfg.kv_scale if ck.dtype == torch.int8 else None
+        out = ops.paged_attention(q.contiguous(), ck, cv, block_table,
+                                  pos + T, kv_scale=scale)
     return _out(p, out), cache
+
+
+def attend_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                  pos: torch.Tensor, *, window: int = 0,
+                  kv_chunk: int = 0) -> torch.Tensor:
+    """Decode attention against a contiguous cache whose buffer index is the
+    key's absolute position: the reference's ``attend_decode`` with
+    ``ring=False`` (the ring-buffer layout waits for the hybrid stacks).
+    q: (B, Tq, H, D), row t at position pos + t; ck/cv: (B, S, KV, D);
+    pos: (B,) position of the first row. Row t attends to keys at
+    positions <= pos + t (in-block causal), and with ``window`` > 0 only
+    to the last ``window`` of them. The keys go in chunks of ``kv_chunk``
+    (one chunk if 0 or if it does not divide S) through an online
+    softmax, scores and sums in fp32, P cast to the cache dtype before the
+    P V product, as in the reference. Returns q's shape and dtype."""
+    B, Tq, H, D = q.shape
+    S, KV = ck.shape[1], ck.shape[2]
+    G = H // KV
+    dev = q.device
+    qg = q.reshape(B, Tq, KV, G, D).float()
+    nvalid = (pos[:, None] + torch.arange(Tq, device=dev)[None, :]
+              + 1)                                         # (B, Tq)
+    c = S if kv_chunk <= 0 else min(kv_chunk, S)
+    if S % c:
+        c = S
+    m = torch.full((B, KV, G, Tq), -1e30, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KV, G, Tq), dtype=torch.float32, device=dev)
+    o = torch.zeros((B, KV, G, Tq, D), dtype=torch.float32, device=dev)
+    for i in range(0, S, c):
+        kb, vb = ck[:, i:i + c], cv[:, i:i + c]
+        s = torch.einsum("btkgd,bckd->bkgtc", qg, kb.float()) * D ** -0.5
+        slots = i + torch.arange(c, device=dev)
+        mask = slots[None, None, :] < nvalid[:, :, None]    # (B, Tq, c)
+        if window:
+            mask = mask & (slots[None, None, :]
+                           > nvalid[:, :, None] - 1 - window)
+        mask = mask[:, None, None]                 # over (b, k, g, t, c)
+        m2 = torch.maximum(m, torch.where(mask, s, -torch.inf).amax(-1))
+        m2 = m2.clamp(min=-1e30)                   # fully masked chunk
+        p = torch.where(mask, torch.exp(s - m2[..., None]), 0.0)
+        corr = torch.exp(m - m2)
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + torch.einsum(
+            "bkgtc,bckd->bkgtd", p.to(vb.dtype).float(), vb.float())
+        m = m2
+    o = o / l[..., None].clamp(min=1e-30)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, D).to(q.dtype)
 
 
 def mlp_apply(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:

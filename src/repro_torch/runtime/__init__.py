@@ -1,2 +1,2 @@
 """Serving runtime of the port: page allocator, greedy sampler, paged
-engine and scheduler."""
+engine with its metrics surface, scheduler and tracer."""

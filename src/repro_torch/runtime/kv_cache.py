@@ -164,6 +164,10 @@ class PoolStats:
     live_tokens: int
     utilization: float
     dense_equiv_tokens: int    # what a dense slots x max_len cache reserves
+    # the reference's prefix-sharing fields: 0 until the prefix cache is
+    # ported (no page is cached idle or shared)
+    cached_idle_pages: int = 0
+    shared_page_refs: int = 0
 
     @staticmethod
     def of(alloc: PageAllocator, slots: int, max_len: int) -> "PoolStats":

@@ -42,6 +42,10 @@ def test_import_loads_no_jax_and_no_repro_module():
         "import repro_torch.launch.host_cost, repro_torch.launch.gemm_probe\n"
         "import repro_torch.launch.paged_probe\n"
         "import repro_torch.launch.mha_pool_probe\n"
+        "import repro_torch.runtime.trace, repro_torch.launch.serve_bench\n"
+        "import repro_torch.launch.check_csv, repro_torch.models.layers\n"
+        "from repro_torch.configs import ARCHS, get_config\n"
+        "[get_config(a) for a in ARCHS]\n"
         "import repro_torch.kernels.conv_im2col, repro_torch.kernels.maxpool\n"
         "import repro_torch.kernels.reshuffle, repro_torch.kernels.build\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -20,6 +20,7 @@ from repro_torch.kernels import paged_attention as paged_kernel  # noqa: E402
 from repro_torch.kernels import reshuffle as reshuffle_kernel  # noqa: E402
 from repro_torch.launch import kernel_bench  # noqa: E402
 from repro_torch.models import api  # noqa: E402
+from repro_torch.runtime.scheduler import Scheduler  # noqa: E402
 from repro_torch.runtime.serving import PagedServingEngine, Request  # noqa
 from torch_cases import (BLOCKED_CASES, CONV_SPECS,  # noqa: E402
                          EPILOGUE_EDGES, F32, GEMM_SHAPES, MASK_PROBES,
@@ -416,38 +417,150 @@ def test_cuda_mha_f32_agrees_where_a_mask_shift_shows(cuda, heads):
         ref.ROW_TOL[torch.float32]
 
 
+def tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+class UncapturedEngine(PagedServingEngine):
+    """The engine with its step body run as it is on the card, uncaptured:
+    what the CUDA graph must reproduce."""
+
+    def _dispatch(self):
+        self._step_body()
+
+
+def smoke_fp32(arch="qwen2.5-3b"):
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    return cfg, api.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+
+
+def preempting_traffic():
+    return [Request(rid=0, prompt=[5, 4, 3, 2, 1, 6, 7], max_new=8),
+            Request(rid=1, prompt=[1, 2, 3, 4, 5, 6], max_new=8)]
+
+
+def serve_on(cls, cfg, params, dev, reqs, **kw):
+    """(tokens, engine, launches over the run) of ``reqs`` through a
+    ``cls`` engine on ``dev``."""
+    kw = dict(dict(slots=2, max_len=32, page_size=4, num_pages=4), **kw)
+    eng = cls(cfg, tree_to(params, dev), device=dev, **kw)
+    before = ops.launch_counts()
+    eng.run_to_completion(reqs, max_steps=400)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    eng.alloc.check_no_aliasing()
+    return ([r.generated for r in reqs], eng,
+            {k: after[k] - before[k] for k in after})
+
+
 @pytest.mark.gpu
-def test_cuda_engine_tokens_equal_cpu_engine(cuda):
-    """fp32 smoke model: the engine on the card (both kernels) emits the
-    CPU engine's greedy tokens (plain versions), through a preemption, and
-    launches each kernel once per layer per decode step / prefill."""
-    cfg = dataclasses.replace(get_smoke_config("qwen2.5-3b"),
-                              dtype="float32")
-    params = api.init_params(cfg, torch.Generator().manual_seed(0),
-                             device="cpu")
+@pytest.mark.parametrize("attn_impl", ["kernel", "gather"])
+@pytest.mark.parametrize("arch", ["yi-6b", "qwen1.5-4b", "qwen2.5-3b",
+                                  "granite-3-2b"])
+def test_cuda_engine_tokens_equal_cpu_engine(cuda, arch, attn_impl):
+    """fp32 smoke model: the engine on the card (its decode step a replayed
+    CUDA graph) emits the CPU engine's greedy tokens (plain versions),
+    through a preemption, and launches each kernel once per layer per
+    decode step / prefill (the gather baseline: no paged kernel)."""
+    cfg, params = smoke_fp32(arch)
+    want, _, _ = serve_on(PagedServingEngine, cfg, params, "cpu",
+                          preempting_traffic(), attn_impl=attn_impl)
+    got, eng, launched = serve_on(PagedServingEngine, cfg, params, cuda,
+                                  preempting_traffic(), attn_impl=attn_impl)
+    paged = cfg.num_layers * eng.decode_steps if attn_impl == "kernel" \
+        else 0
+    assert launched["paged_attention"] == paged
+    assert launched["mha"] == cfg.num_layers * eng.prefills
+    assert eng.step_traces == 1
+    assert got == want
 
-    def to(tree, dev):
-        if isinstance(tree, dict):
-            return {k: to(v, dev) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to(v, dev) for v in tree]
-        return tree.to(dev)
 
-    out = {}
-    for dev in ("cpu", cuda):
-        eng = PagedServingEngine(cfg, to(params, dev), slots=2, max_len=32,
-                                 page_size=4, num_pages=4, device=dev)
-        reqs = [Request(rid=0, prompt=[5, 4, 3, 2, 1, 6, 7], max_new=8),
-                Request(rid=1, prompt=[1, 2, 3, 4, 5, 6], max_new=8)]
-        before = ops.launch_counts()
-        eng.run_to_completion(reqs, max_steps=400)
-        after = ops.launch_counts()
-        out[str(dev)] = [r.generated for r in reqs]
-        eng.alloc.check_no_aliasing()
-    assert after["paged_attention"] - before["paged_attention"] == \
-        cfg.num_layers * eng.decode_steps
-    assert after["mha"] - before["mha"] == cfg.num_layers * eng.prefills
-    assert out["cuda"] == out["cpu"]
+@pytest.mark.gpu
+@pytest.mark.parametrize("attn_impl", ["kernel", "gather"])
+@pytest.mark.parametrize("max_len,page", [(32, 4), (256, 16)])
+def test_cuda_graph_replay_equals_uncaptured_body(cuda, attn_impl, max_len,
+                                                  page):
+    """The replayed graph emits the tokens of the same step body run
+    uncaptured on the card, through admissions between steps, finishes and
+    a preemption. At max_len 256, page 16 the paged kernel's plan cuts each
+    request's pages over a cluster of CTAs (splits > 1), so the cluster
+    launch is captured and replayed."""
+    cfg, params = smoke_fp32()
+    kw = dict(attn_impl=attn_impl, max_len=max_len, page_size=page,
+              num_pages=4 if max_len == 32 else 24)
+
+    def traffic():
+        n = 7 if max_len == 32 else 150
+        return [Request(rid=i, prompt=[(3 * i + 5 * j) % cfg.vocab
+                                       for j in range(n - i)], max_new=8 + i)
+                for i in range(3)]
+
+    if attn_impl == "kernel" and max_len == 256:
+        assert paged_kernel.split_plan(
+            2, cfg.kv_heads, max_len // page, page,
+            cfg.num_heads // cfg.kv_heads,
+            build.sm_count(torch.cuda.current_device())) > 1
+    want, ref_eng, _ = serve_on(UncapturedEngine, cfg, params, cuda,
+                                traffic(), **kw)
+    got, eng, _ = serve_on(PagedServingEngine, cfg, params, cuda, traffic(),
+                           **kw)
+    assert ref_eng.step_traces == 0 and eng.step_traces == 1
+    assert got == want
+
+
+@pytest.mark.gpu
+def test_cuda_one_capture_through_admissions_finishes_and_preemption(cuda):
+    """One capture serves the engine's life: requests admitted between
+    steps, finished and preempted leave ``sampling.step_traces`` at 1, and
+    ``reset_metrics`` keeps it (a lifetime fact)."""
+    cfg, params = smoke_fp32()
+    eng = PagedServingEngine(cfg, tree_to(params, cuda), slots=2,
+                             max_len=32, page_size=4, num_pages=4,
+                             device=cuda)
+    sched = Scheduler(eng)
+    reqs = preempting_traffic() + [Request(rid=2, prompt=[9, 8, 7],
+                                           max_new=3)]
+    for r in reqs:
+        sched.add(r)
+    sched.drain(max_steps=400)
+    assert sched.preempted >= 1 and all(r.done for r in reqs)
+    assert eng.metrics()["sampling.step_traces"] == 1.0
+    eng.reset_metrics()
+    eng.run_to_completion([Request(rid=3, prompt=[1, 2], max_new=4)])
+    assert eng.metrics()["sampling.step_traces"] == 1.0
+
+
+@pytest.mark.gpu
+def test_cuda_graph_launches_are_counted_per_replay(cuda):
+    """The wrappers count a launch only when called; the graph holds one
+    paged launch per layer, which each replay adds, so the counters read
+    layers x decode steps whatever the warm-up and capture did."""
+    cfg, params = smoke_fp32()
+    _, eng, launched = serve_on(PagedServingEngine, cfg, params, cuda,
+                                preempting_traffic())
+    assert eng._graph_launches == {"paged_attention": cfg.num_layers}
+    assert launched["paged_attention"] == cfg.num_layers * eng.decode_steps
+    steps = eng.decode_steps
+    before = ops.launch_counts()["paged_attention"]
+    eng.run_to_completion([Request(rid=5, prompt=[3, 1, 4], max_new=4)])
+    assert ops.launch_counts()["paged_attention"] - before == \
+        cfg.num_layers * (eng.decode_steps - steps)
+
+
+@pytest.mark.gpu
+def test_cuda_gather_tokens_equal_kernel_tokens(cuda):
+    """fp32 on the card: the dense-gather baseline and the flash-decode
+    kernel, each inside the captured step, emit the same greedy tokens."""
+    cfg, params = smoke_fp32()
+    out = {impl: serve_on(PagedServingEngine, cfg, params, cuda,
+                          preempting_traffic(), attn_impl=impl)[0]
+           for impl in ("gather", "kernel")}
+    assert out["gather"] == out["kernel"]
 
 
 # ---------------------------------------------------------------------------

@@ -192,3 +192,139 @@ def test_decode_rows_past_the_table_go_to_scratch():
     for pool in pools:
         assert pool["k"][1:].abs().sum() == 0
         assert pool["k"][0].abs().sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# The dense-gather decode baseline (cfg.paged_attn_impl == "gather")
+# ---------------------------------------------------------------------------
+
+
+def close_cache(got, want):
+    """Cache rows in the cache dtype: fp32 k/v that differ in their last
+    bits may round to neighbouring values, one bf16 step (2^-7 relative at
+    most) or one int8 step."""
+    tol = dict(rtol=0, atol=1) if got.dtype == torch.int8 \
+        else dict(rtol=2 ** -7, atol=1e-6)
+    got = got.float().numpy()
+    want = np.asarray(jnp.asarray(want).astype(jnp.float32))
+    np.testing.assert_allclose(got, want, **tol)
+
+
+ATTEND_CASES = [
+    # (B, Tq, S, H, KV, D, window, kv_chunk, pos): row t of request b sits
+    # at pos[b] + t and the cache holds the block, so pos + Tq <= S
+    (2, 1, 32, 4, 2, 16, 0, 0, [5, 31]),
+    (2, 3, 32, 4, 2, 16, 0, 8, [0, 20]),       # kv_chunk < S: 4 chunks
+    (2, 1, 32, 4, 4, 16, 7, 8, [3, 30]),       # window, G = 1
+    (3, 2, 24, 6, 3, 16, 5, 16, [1, 10, 22]),  # 16 does not divide 24
+    (1, 4, 64, 8, 1, 32, 9, 16, [40]),         # window inside a T block
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ATTEND_CASES)
+def test_attend_decode_matches_jax(case, dtype):
+    B, Tq, S, H, KV, D, window, chunk, pos = case
+    rng = np.random.default_rng(S + Tq)
+    q, ck, cv = (rng.standard_normal(shape).astype(np.float32) for shape in
+                 ((B, Tq, H, D), (B, S, KV, D), (B, S, KV, D)))
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    pos = np.asarray(pos, np.int32)
+    want = jlayers.attend_decode(
+        *(jnp.asarray(a, jdt) for a in (q, ck, cv)), jnp.asarray(pos),
+        window=window, kv_chunk=chunk)
+    got = layers.attend_decode(
+        *(torch.from_numpy(a).to(tdt) for a in (q, ck, cv)),
+        torch.from_numpy(pos), window=window, kv_chunk=chunk)
+    assert got.dtype == tdt and got.shape == (B, Tq, H, D)
+    close(got.float(), want.astype(jnp.float32), dtype)
+
+
+@pytest.mark.parametrize("kv_dtype", ["bfloat16", "int8"])
+@pytest.mark.parametrize("T", [1, 3])
+def test_gather_decode_matches_jax_and_the_kernel_path(T, kv_dtype):
+    """api.decode_step with cfg.paged_attn_impl "gather" (dense pool gather,
+    kv_dequant, attend_decode in kv_chunk pieces) against the JAX package's
+    gather branch, and against the port's kernel path (the plain
+    flash-decode), on pages of a shuffled table; the scattered rows too."""
+    jc, tc, jp, tp = bridged("float32")
+    jc, tc = (dataclasses.replace(c, kv_cache_dtype=kv_dtype,
+                                  decode_kv_chunk=8) for c in (jc, tc))
+    rng = np.random.default_rng(3 + T)
+    B, page, nb = 2, 4, 8
+    P = 1 + B * nb
+    table = rng.permutation(np.arange(1, P, dtype=np.int32)).reshape(B, nb)
+    L = np.array([9, 23], np.int32)
+    kp = 2 * rng.standard_normal((tc.num_layers, P, page, 2, 16))
+    vp = 2 * rng.standard_normal((tc.num_layers, P, page, 2, 16))
+    if kv_dtype == "int8":
+        kp, vp = (np.clip(np.round(a * 127 / tc.kv_scale), -127, 127)
+                  for a in (kp, vp))
+    jdt, tdt = jnp.dtype(kv_dtype), getattr(torch, kv_dtype)
+    toks = rng.integers(0, jc.vocab, (B, T)).astype(np.int32)
+    jpools = {"scan": {"0": {"k": jnp.asarray(kp, jdt),
+                             "v": jnp.asarray(vp, jdt)}}, "tail": []}
+    want, jnew = japi.decode_step(
+        dataclasses.replace(jc, paged_attn_impl="gather"), jp, jpools,
+        jnp.asarray(toks), jnp.asarray(L), block_table=jnp.asarray(table))
+    out = {}
+    for impl in ("gather", "kernel"):
+        pools = [{"k": torch.from_numpy(kp[i]).to(tdt),
+                  "v": torch.from_numpy(vp[i]).to(tdt)}
+                 for i in range(tc.num_layers)]
+        out[impl], _ = api.decode_step(
+            dataclasses.replace(tc, paged_attn_impl=impl), tp, pools,
+            torch.from_numpy(toks).long(), torch.from_numpy(L),
+            block_table=torch.from_numpy(table))
+        close_cache(pools[1]["v"], jnew["scan"]["0"]["v"][1])
+    close(out["gather"], want, "float32")
+    close(out["gather"], out["kernel"], "float32")
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "qwen1.5-4b", "granite-3-2b"])
+def test_new_configs_prefill_and_decode_logits_match_jax(arch):
+    """The dense configs the port added after qwen2.5-3b, at their SMOKE
+    sizes in fp32: GQA 2:1 at rope theta 5e6 (yi), MHA with QKV biases
+    (qwen1.5), tied embeddings and a vocab of 250 padded to 256 (granite).
+    Prefill logits, the cache, and one paged decode step's logits equal the
+    JAX package's."""
+    jc = dataclasses.replace(jcfg(arch), dtype="float32")
+    tc = dataclasses.replace(tcfg(arch), dtype="float32")
+    tree = jax.tree.map(np.asarray, japi.init_params(jc, jax.random.key(1)))
+    tp = params_from_jax(tc, tree, device="cpu")
+    jp = jax.tree.map(jnp.asarray, tree)
+    assert ("head" in tp) == (not tc.tie_embeddings)
+    rng = np.random.default_rng(4)
+    B, S, page = 2, 16, 4
+    toks = rng.integers(0, jc.vocab, (B, S)).astype(np.int32)
+    L = np.array([13, 16], np.int32)
+    jl, jcache, _ = japi.prefill(jc, jp, {"tokens": jnp.asarray(toks)},
+                                 length=jnp.asarray(L))
+    tl, tcache, _ = api.prefill(tc, tp, torch.from_numpy(toks).long(),
+                                length=torch.from_numpy(L))
+    assert tl.shape == (B, 256)
+    close(tl, jl, "float32")
+    close_cache(tcache[0]["v"], jcache["scan"]["0"]["v"][0])
+    # the prefill's cache on pages in order, then one decode step
+    nb = S // page + 1
+    table = np.arange(1, 1 + B * nb, dtype=np.int32).reshape(B, nb)
+    shape = (tc.num_layers, 1 + B * nb, page, tc.kv_heads, 16)
+    kp, vp = np.zeros(shape, np.float32), np.zeros(shape, np.float32)
+    for name, dst in (("k", kp), ("v", vp)):
+        src = np.asarray(jcache["scan"]["0"][name].astype(jnp.float32))
+        for b in range(B):
+            for t in range(L[b]):
+                dst[:, table[b, t // page], t % page] = src[:, b, t]
+    nxt = rng.integers(0, jc.vocab, (B, 1)).astype(np.int32)
+    jd, _ = japi.decode_step(
+        jc, jp, {"scan": {"0": {"k": jnp.asarray(kp, jnp.bfloat16),
+                                "v": jnp.asarray(vp, jnp.bfloat16)}},
+                 "tail": []},
+        jnp.asarray(nxt), jnp.asarray(L), block_table=jnp.asarray(table))
+    td, _ = api.decode_step(
+        tc, tp, [{"k": torch.from_numpy(kp[i]).bfloat16(),
+                  "v": torch.from_numpy(vp[i]).bfloat16()}
+                 for i in range(tc.num_layers)],
+        torch.from_numpy(nxt).long(), torch.from_numpy(L),
+        block_table=torch.from_numpy(table))
+    close(td, jd, "float32")

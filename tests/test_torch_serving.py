@@ -2,6 +2,7 @@
 PagedServingEngine (token for token, through preemption and resume), and
 the launcher (runs on the CPU when asked; raises without CUDA otherwise)."""
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -75,21 +76,30 @@ def _prompts():
     return [[5, 4, 3, 2, 1, 6, 7], [1, 2, 3, 4, 5, 6]]
 
 
-def _fp32_pair():
-    jc = dataclasses.replace(jcfg("qwen2.5-3b"), dtype="float32")
-    tc = dataclasses.replace(tcfg("qwen2.5-3b"), dtype="float32")
+def _fp32_pair(arch="qwen2.5-3b"):
+    jc = dataclasses.replace(jcfg(arch), dtype="float32")
+    tc = dataclasses.replace(tcfg(arch), dtype="float32")
     jp = japi.init_params(jc, jax.random.key(0))
     tp = params_from_jax(tc, jax.tree.map(np.asarray, jp), device="cpu")
     return jc, tc, jp, tp
 
 
-@pytest.mark.parametrize("attn_impl", ["kernel", "gather"])
-def test_greedy_tokens_equal_jax_engine_through_preemption(attn_impl):
+# every arch of the port's registry under both decode attention impls
+# (qwen2.5-3b's cases keep their ids: "kernel", "gather")
+ENGINE_CASES = [pytest.param(arch, impl, id=impl if arch == "qwen2.5-3b"
+                             else f"{arch}-{impl}")
+                for arch in ("qwen2.5-3b", "yi-6b", "qwen1.5-4b",
+                             "granite-3-2b")
+                for impl in ("kernel", "gather")]
+
+
+@pytest.mark.parametrize("arch,attn_impl", ENGINE_CASES)
+def test_greedy_tokens_equal_jax_engine_through_preemption(arch, attn_impl):
     """The scenario of tests/test_paged_attention.py's fp32 engine test:
     two requests, page 4, a 4-page pool that forces a preemption. The port
-    (plain attention on the CPU) must emit the JAX engine's tokens, and its
-    pool must end empty and unaliased."""
-    jc, tc, jp, tp = _fp32_pair()
+    (plain attention on the CPU) must emit the JAX engine's tokens under
+    the same ``attn_impl``, and its pool must end empty and unaliased."""
+    jc, tc, jp, tp = _fp32_pair(arch)
     jeng = JEngine(jc, jp, slots=2, max_len=32, page_size=4, num_pages=4,
                    attn_impl=attn_impl)
     jreqs = [JRequest(rid=i, prompt=p, max_new=8)
@@ -100,7 +110,7 @@ def test_greedy_tokens_equal_jax_engine_through_preemption(attn_impl):
     jsched.drain(max_steps=400)
 
     eng = PagedServingEngine(tc, tp, slots=2, max_len=32, page_size=4,
-                             num_pages=4, device="cpu")
+                             num_pages=4, attn_impl=attn_impl, device="cpu")
     reqs = [Request(rid=i, prompt=p, max_new=8)
             for i, p in enumerate(_prompts())]
     sched = Scheduler(eng)
@@ -132,7 +142,7 @@ def test_engine_counts_and_drops_unservable_requests():
     assert eng.prefills == 2 and eng.decode_steps == 12
     assert ops.launch_counts() == before     # CPU: no kernel launched
     m = eng.metrics()
-    assert m["latency.requests"] == 2.0 and m["engine.prefill_buckets"] == 1
+    assert m["latency.requests"] == 2.0 and m["engine.prefill_traces"] == 1
     assert eng.alloc.allocated_pages == 0
     # released slots: all-scratch tables at position 0 (one scratch page
     # for the decode kernel to walk)
@@ -181,6 +191,47 @@ def test_engine_refuses_cuda_without_a_device_and_bad_page_size():
         PagedServingEngine(tc, tp, page_size=6, device="cpu")
 
 
+def test_engine_validates_attn_impl_and_sets_it_on_its_config():
+    _, tc, _, tp = _fp32_pair()
+    with pytest.raises(ValueError, match="kernel|gather"):
+        PagedServingEngine(tc, tp, attn_impl="dense", device="cpu")
+    eng = PagedServingEngine(tc, tp, attn_impl="gather", device="cpu")
+    assert eng.attn_impl == eng.cfg.paged_attn_impl == "gather"
+    assert tc.paged_attn_impl == "kernel"          # the caller's config
+
+
+def test_scheduler_caps_admissions_per_tick():
+    """max_admits_per_step bounds the prefills of one tick; a request
+    dropped as done (prompt too long) does not spend the budget."""
+    _, tc, _, tp = _fp32_pair()
+    eng = PagedServingEngine(tc, tp, slots=4, max_len=16, page_size=4,
+                             device="cpu")
+    sched = Scheduler(eng, max_admits_per_step=1)
+    reqs = [Request(rid=0, prompt=list(range(15)), max_new=2)] + [
+        Request(rid=i, prompt=[i, 2, 3], max_new=3) for i in (1, 2, 3)]
+    for r in reqs:
+        sched.add(r)
+    sched.tick()
+    assert sched.admitted == 2 and eng.prefills == 1
+    assert [r.rid for r in sched.pending] == [2, 3]
+    sched.drain(max_steps=100)
+    assert sched.admitted == 4 and all(r.done for r in reqs)
+    assert [len(r.generated) for r in reqs] == [0, 3, 3, 3]
+
+
+def test_scheduler_drain_can_warn_instead_of_raising():
+    _, tc, _, tp = _fp32_pair()
+    eng = PagedServingEngine(tc, tp, slots=1, max_len=32, page_size=4,
+                             device="cpu")
+    sched = Scheduler(eng)
+    sched.add(Request(rid=0, prompt=[1, 2, 3], max_new=10))
+    with pytest.warns(UserWarning, match="exhausted"):
+        sched.drain(max_steps=3, on_exhaust="warn")
+    assert sched.exhausted
+    with pytest.raises(ValueError, match="raise|warn"):
+        sched.drain(on_exhaust="ignore")
+
+
 # ---------------------------------------------------------------------------
 # Launcher
 # ---------------------------------------------------------------------------
@@ -202,9 +253,77 @@ def test_launcher_serves_on_cpu_when_asked():
     assert "kernel launches: paged_attention 0" in r.stdout
 
 
+def test_launcher_gather_baseline_and_trace_on_cpu(tmp_path):
+    """--paged-attn gather serves the same tokens count; --trace prints the
+    per-phase walls and writes a trace that validates."""
+    path = tmp_path / "trace.json"
+    r = _launch("--device", "cpu", "--slots", "2", "--requests", "3",
+                "--max-new", "4", "--max-len", "64", "--paged-attn",
+                "gather", "--trace", str(path))
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "PagedServingEngine[gather]" in r.stdout
+    assert "3/3 requests, 12 tokens" in r.stdout
+    assert "decode_tick" in r.stdout and "host_sync" in r.stdout
+    from repro_torch.runtime.trace import validate_trace
+    assert validate_trace(json.loads(path.read_text())) == []
+
+
 def test_launcher_defaults_to_cuda_and_raises_without_it():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     r = _launch("--requests", "1")
+    assert r.returncode != 0
+    assert "no CUDA device is available" in r.stderr
+
+
+# ---------------------------------------------------------------------------
+# The serving bench port
+# ---------------------------------------------------------------------------
+
+
+def _bench(*args):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_bench", *args],
+        env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
+
+
+def test_serve_bench_smoke_on_cpu_has_the_references_columns(tmp_path):
+    """The mixed scenario's CSV: the reference's ``_drive`` columns in its
+    order, the gather and kernel rows and their ratio, every request done,
+    and the reference gate's verdict (which the port's copy shares): it
+    passes but for the three scenarios the port lacks."""
+    from benchmarks import check_csv as jcheck
+    from benchmarks.serve_bench import _drive as jdrive
+    from repro_torch.launch import check_csv
+
+    trace = tmp_path / "trace.json"
+    r = _bench("--smoke", "--device", "cpu", "--trace-out", str(trace))
+    assert r.returncode == 0, r.stdout + r.stderr
+    text = r.stdout.strip()
+    lines = text.splitlines()
+    jc, _, jp, _ = _fp32_pair()
+    jeng = JEngine(jc, jp, slots=2, max_len=32, attn_impl="gather")
+    want = list(jdrive(jeng, [JRequest(rid=0, prompt=[1, 2, 3],
+                                       max_new=2)], 50, jc))
+    assert lines[0].split(",") == want
+    rows = [dict(zip(want, line.split(","))) for line in lines[1:]]
+    assert [row["engine"] for row in rows] == [
+        "PagedServingEngine[gather]", "PagedServingEngine[kernel]",
+        "kernel/gather"]
+    assert rows[0]["requests_done"] == rows[1]["requests_done"] == "4"
+    assert rows[0]["sched_exhausted"] == rows[1]["sched_exhausted"] == "0"
+    assert rows[2]["requests_done"] == rows[2]["tokens"] == "0"
+    errors = jcheck.check(text)
+    assert errors == check_csv.check(text) \
+        == check_csv.missing_scenario_errors()
+    from repro_torch.runtime.trace import validate_trace
+    assert validate_trace(json.loads(trace.read_text())) == []
+
+
+def test_serve_bench_defaults_to_cuda_and_raises_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    r = _bench("--smoke")
     assert r.returncode != 0
     assert "no CUDA device is available" in r.stderr
