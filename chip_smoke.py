@@ -57,10 +57,28 @@ Phases, each failing loudly (non-zero exit, no result line):
    near tie); yi-6b, qwen1.5-4b and granite-3-2b at full width and depth
    (their paged and mha shapes against the plain versions, 4 requests of
    16 tokens, launch counts, one capture, peak memory); one
-   ``repro_torch.launch.serve_bench --full`` run, its CSV printed and
-   gated by ``repro_torch.launch.check_csv``.
+   ``repro_torch.launch.serve_bench --full --scenario mixed`` run, its CSV
+   printed and gated by ``repro_torch.launch.check_csv``.
+8. decode policies, the prefix cache, speculative decode (generators of
+   their own): mha with a query offset (0, 1, 15, 16, 37, 512; Sq != Sk -
+   offset) at the serving heads and D 64 in bf16 and fp32, and on peaked
+   inputs where a mask shifted by one key must miss; paged flash-decode at
+   T = 5 and T = 32; the sampler's Threefry keys and bits on the card
+   equal the CPU's, its Gumbel noise within 1e-6 of its plain version;
+   times of the noise kernel, a suffix prefill's mha (beside SDPA with the
+   same mask) and the verify step's paged call. At fp32, full width, 4
+   layers: prefix-cache, n-gram and self-drafting speculative greedy
+   tokens equal the plain engine's; a sampled stream equals itself alone,
+   in a batch and after a forced preemption; one capture a graph; the
+   verify graph's outputs equal its uncaptured body's. At full depth,
+   bf16, the serve phase's 16 requests greedy, with the prefix cache,
+   sampled and speculative (tok/s, TTFT, TPOT, each run's launch counts).
+   ``serve_bench --scenario shared-prefix|speculative|sampling`` at fp32
+   on 4 layers, gated (``tokens_match_greedy`` must pass), then at bf16
+   and full depth for the times.
 
-The line before the last is a JSON ``{"kernels": [...]}`` summary; the last
+The line before the last is a JSON ``{"kernels": [...]}`` summary (the
+seven TPU kernels' counterparts and the sampler's noise kernel); the last
 line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -972,7 +990,8 @@ def run_kernel_bench() -> dict:
         f"their plain versions, worst error at {max(checked):.3g} of its "
         f"limit")
     log(f"kernel bench: kernel launches {counts}")
-    idle = [k for k, n in counts.items() if n == 0]
+    # the sampler's noise kernel serves the decode step, not a bench row
+    idle = [k for k, n in counts.items() if n == 0 and k != "sampler_noise"]
     if idle:
         fail(f"kernel bench: kernels never launched: {idle}")
     return counts
@@ -1132,7 +1151,7 @@ def serve(rng):
     """The main path: qwen2.5-3b, full width, seeded weights on the card,
     paged engine + scheduler, greedy, each decode step a replay of the
     engine's CUDA graph. Returns the kernels' launch counts over this
-    run."""
+    run, the weights and the run's prompts."""
     cfg = get_config("qwen2.5-3b")
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1159,9 +1178,11 @@ def serve(rng):
     tracer.clear()
     system = [int(t) for t in rng.integers(0, cfg.vocab, 32)]
     lengths = rng.integers(64, 601, N_REQ)
-    reqs = [Request(rid=i, prompt=system + [
-        int(t) for t in rng.integers(0, cfg.vocab, int(n) - 32)],
-        max_new=MAX_NEW) for i, n in enumerate(lengths)]
+    traffic = [system + [int(t) for t in rng.integers(0, cfg.vocab,
+                                                       int(n) - 32)]
+               for n in lengths]
+    reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW)
+            for i, p in enumerate(traffic)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
@@ -1193,12 +1214,11 @@ def serve(rng):
     if m["sampling.step_traces"] != 1.0:
         fail(f"serve: {m['sampling.step_traces']} decode graph captures "
              f"after admissions between steps (must be 1)")
-    want = dict.fromkeys(counts, 0)
-    want.update({"paged_attention": cfg.num_layers * steps,
-                 "mha": cfg.num_layers * eng.prefills})
+    want = serving_launches(cfg, eng)
     if counts != want:
         fail(f"serve: launches {counts} != {want} (layers x decode steps, "
-             f"layers x prefills, no other kernel)")
+             f"layers x prefills, a sampler launch a step and a prefill, "
+             f"no other kernel)")
     eng.alloc.check_no_aliasing()
     # the graph against the uncaptured body at full depth: one step, bf16
     own = np.random.default_rng(SEED + 8)
@@ -1209,7 +1229,19 @@ def serve(rng):
              BF16_LOGIT_TOL, logits=True)
     profile_decode(engine, rng, cfg.vocab)
     profile_prefill(engine, rng, cfg.vocab)
-    return counts
+    return counts, params, traffic
+
+
+def serving_launches(cfg, eng) -> dict:
+    """The launches a serve run must count: the paged kernel once a layer
+    a decode step (a replay of either graph), mha once a layer a prefill,
+    the sampler's noise kernel once a step and once a prefill, nothing
+    else."""
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want.update({"paged_attention": cfg.num_layers * eng.decode_steps,
+                 "mha": cfg.num_layers * eng.prefills,
+                 "sampler_noise": eng.decode_steps + eng.prefills})
+    return want
 
 
 def profile_decode(eng_factory, rng, vocab) -> None:
@@ -1382,9 +1414,7 @@ def serve_configs() -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
-        want = dict.fromkeys(counts, 0)
-        want.update({"paged_attention": cfg.num_layers * eng.decode_steps,
-                     "mha": cfg.num_layers * eng.prefills})
+        want = serving_launches(cfg, eng)
         log(f"config {arch}: {cfg.param_count() / 1e9:.2f}B params, "
             f"{cfg.num_layers} layers, H{cfg.num_heads} KV{cfg.kv_heads} "
             f"D{hd}, vocab {cfg.vocab}{', tied' if cfg.tie_embeddings else ''}"
@@ -1414,18 +1444,12 @@ def run_serve_bench() -> None:
     scenarios the port lacks are the only violations allowed)."""
     from repro_torch.launch import check_csv
     t0 = time.perf_counter()
-    r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve_bench", "--full"],
-        cwd=ROOT, capture_output=True, text=True, timeout=600,
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    if r.returncode != 0:
-        fail(f"serve_bench --full exited {r.returncode}:\n{r.stderr[-3000:]}")
-    text = r.stdout.strip()
+    text = bench_csv(["--full", "--scenario", "mixed"])
     log(f"serve_bench --full (qwen2.5-3b, 4 slots, 12 requests, 8 new "
         f"tokens, mixed trace) in {time.perf_counter() - t0:.1f} s:")
     print(text, flush=True)
     errors = check_csv.check(text)
-    if errors != check_csv.missing_scenario_errors():
+    if errors != check_csv.missing_scenario_errors(check_csv.REQUIRED):
         fail(f"serve_bench CSV: {errors}")
     rows = [dict(zip(text.splitlines()[0].split(","), line.split(",")))
             for line in text.splitlines()[1:]]
@@ -1433,7 +1457,426 @@ def run_serve_bench() -> None:
         if row["requests_done"] != "12" or row["sched_exhausted"] != "0":
             fail(f"serve_bench: {row['engine']} did not finish its trace")
     log(f"serve_bench: CSV passes the gate but for the "
-        f"{len(errors)} scenarios the port lacks")
+        f"{len(errors)} equivalence columns its scenario does not carry")
+
+
+def bench_csv(args) -> str:
+    """``launch/serve_bench.py`` with ``args`` in a process of its own;
+    its CSV."""
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve_bench", *args],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    if r.returncode != 0:
+        fail(f"serve_bench {' '.join(args)} exited {r.returncode}:\n"
+             f"{r.stderr[-3000:]}")
+    return r.stdout.strip()
+
+
+# ---------------------------------------------------------------------------
+# phase 8: decode policies, the prefix cache, speculative decode
+# ---------------------------------------------------------------------------
+
+# mha with a query offset (suffix-only prefill against a cached prefix):
+# the offsets a wrong tile skip shows at (not multiples of a tile, and
+# multiples), each against a query count other than Sk - offset
+MHA_OFFSETS = ((0, 77), (1, 128), (15, 1), (16, 300), (37, 64), (512, 200))
+
+
+def check_mha_offsets(rng) -> float:
+    """mha with ``q_offset`` against mha_ref at the serving heads (H16 KV2
+    D128) and at D 64 (H8 KV2), bf16 and fp32: keys run 29 past the last
+    query, so the causal mask at the offset, not Sk, ends every row; then
+    bf16 on inputs peaked on the diagonal at offset 37, where a mask
+    shifted by one key must miss every row. Returns the max abs error."""
+    worst = 0.0
+    for heads in ((H, KV, D), (8, 2, 64)):
+        Hq, KVh, Dh = heads
+        for dtype in (torch.bfloat16, torch.float32):
+            for off, Sq in MHA_OFFSETS:
+                Sk = off + Sq + 29
+
+                def t(*shape):
+                    return torch.tensor(rng.standard_normal(shape),
+                                        dtype=dtype, device="cuda")
+                q, k, v = t(2, Sq, Hq, Dh), t(2, Sk, KVh, Dh), t(2, Sk, KVh,
+                                                                 Dh)
+                got = mha_kernel.mha(q, k, v, causal=True, q_offset=off)
+                torch.cuda.synchronize()
+                want = ref.mha_ref(q, k, v, causal=True, q_offset=off)
+                worst = max(worst, agrees(
+                    f"mha [q_offset {off}, Sq {Sq}, Sk {Sk}, H{Hq} KV{KVh} "
+                    f"D{Dh}, {str(dtype)[6:]}]", got, want))
+    off = 37
+    q, k, v = (torch.tensor(a, dtype=torch.bfloat16, device="cuda")
+               for a in ref.peaked_mha_inputs(rng, 1, 512, H, KV, D))
+    q = q[:, off:].contiguous()
+    got = mha_kernel.mha(q, k, v, causal=True, q_offset=off)
+    torch.cuda.synchronize()
+    want = ref.mha_ref(q, k, v, causal=True, q_offset=off)
+    name = f"mha [peaked on the diagonal, q_offset {off}, Sq {512 - off}]"
+    worst = max(worst, agrees(name, got, want))
+    mask_shift_caught(name, ref.mha_ref(q, k, v, causal=True,
+                                        q_offset=off - 1), want)
+    return worst
+
+
+def check_paged_blocks(rng) -> float:
+    """Paged flash-decode at the verify step's T = 5 (B = 8: 40 query rows
+    a KV head) and the draft model's ingest blocks of T = 32 (256 rows),
+    bf16 and fp32, against its plain version. Returns the max abs
+    error."""
+    worst = 0.0
+    for B, T, lengths in ((SLOTS, 5, [5, 17, 64, 200, 333, 512, 600, 1000]),
+                          (2, 32, [32, 700])):
+        for dt in (torch.bfloat16, torch.float32):
+            args = paged_case(rng, B, T, H, KV, D, PAGE, lengths,
+                              MAX_LEN // PAGE, dt)
+            got = paged_kernel.paged_attention(*args)
+            torch.cuda.synchronize()
+            worst = max(worst, agrees(
+                f"paged_attention [T={T}, B={B}, {str(dt)[6:]}, "
+                f"S={paged_plan(B, T, MAX_LEN // PAGE)}]", got,
+                ref.paged_attention_ref(*args)))
+    return worst
+
+
+def check_sampler(rng) -> float:
+    """The sampler's Threefry on the card against the CPU's, bit for bit
+    (integer arithmetic): the row keys of the plain version on both
+    devices, and the noise kernel's raw bits against the plain version's
+    on the CPU; its Gumbel noise within 1e-6 of the plain version on the
+    card (the same libm log), and within 2e-6 of the CPU's (another log:
+    one ulp of a value in [8, 16) is 9.5e-7). At a serving step's (8,
+    152064). Returns the noise's max abs error on the card."""
+    V = get_config("qwen2.5-3b").vocab
+    n = SLOTS
+    seed, rid, idx = (torch.tensor(rng.integers(0, 2**31, n), dtype=torch.int64)
+                      for _ in range(3))
+    cuda = [x.cuda() for x in (seed, rid, idx)]
+    from repro_torch.runtime.sampling import SAMPLE_DRAW
+    for draw in (0, SAMPLE_DRAW):
+        if not torch.equal(ref.row_keys(seed, rid, idx, draw),
+                           ref.row_keys(*cuda, draw).cpu()):
+            fail(f"sampler: row keys (draw {draw}) differ card vs CPU")
+    bits_cpu = ref.sampler_noise_ref(seed, rid, idx, V, draw=SAMPLE_DRAW,
+                                     bits=True)
+    bits = ops.sampler_noise(*cuda, V, draw=SAMPLE_DRAW, bits=True)
+    if not torch.equal(bits.cpu(), bits_cpu):
+        fail("sampler: the kernel's bits differ from the plain version's")
+    got = ops.sampler_noise(*cuda, V, draw=SAMPLE_DRAW)
+    torch.cuda.synchronize()
+    err = (got - ref.sampler_noise_ref(*cuda, V, draw=SAMPLE_DRAW)
+           ).abs().max().item()
+    err_cpu = (got.cpu() - ref.gumbel_from_bits(bits_cpu)).abs().max().item()
+    log(f"sampler: keys and {n} x {V} bits equal card vs CPU; Gumbel noise "
+        f"max abs err {err:.3g} against the plain version on the card "
+        f"(limit 1e-06), {err_cpu:.3g} against the CPU's (limit 2e-06)")
+    if not (err <= 1e-6 and err_cpu <= 2e-6 and torch.isfinite(got).all()):
+        fail("sampler: the Gumbel noise disagrees with its plain version")
+    return err
+
+
+def time_sampler(rng):
+    """The noise kernel at a serving step's (8, 152064) beside its plain
+    version; the bound counts the one hash an element needs (the three key
+    folds are per row), each 32-bit integer operation against the 67
+    TFLOP/s fp32 rate (the data sheet gives no integer rate, so the bound
+    is low), and the 4.9 MB written."""
+    from repro_torch.runtime.sampling import SAMPLE_DRAW
+    V = get_config("qwen2.5-3b").vocab
+    seed, rid, idx = (torch.tensor(rng.integers(0, 2**31, SLOTS),
+                                   dtype=torch.int64, device="cuda")
+                      for _ in range(3))
+
+    def kernel():
+        ops.sampler_noise(seed, rid, idx, V, draw=SAMPLE_DRAW)
+    ms = cuda_ms(kernel)
+    dev = device_ms(kernel, [()] * 20)
+    plain = cuda_ms(lambda: ref.sampler_noise_ref(seed, rid, idx, V,
+                                                  draw=SAMPLE_DRAW), iters=5)
+    # a Threefry-2x32: 20 rounds of add, rotate, xor, 5 key injections of
+    # 3 adds, 4 more; then the float's 3 operations and two logs
+    ops_per = 20 * 3 + 5 * 3 + 4 + 3 + 2
+    bms, by = bench.bound_ms(SLOTS * V * 4, SLOTS * V * ops_per,
+                             torch.float32)
+    log(f"sampler_noise time [8 x {V}]: {ms:.4f} ms/launch (device "
+        f"{dev:.4f} ms), plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), "
+        f"{bms / ms:.1%} of bound ({bms / dev:.1%} on the device)")
+    return ms, plain, bms, by
+
+
+def time_mha_offset(rng):
+    """A suffix prefill's mha at the serving heads: 512 suffix rows after
+    a 512-token prefix (Sk 1024 = the prefix buffer and the suffix), bf16,
+    beside SDPA with the same mask as a boolean attn_mask."""
+    off, Sq = 512, 512
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.bfloat16,
+                            device="cuda")
+    q, k, v = t(1, Sq, H, D), t(1, off + Sq, KV, D), t(1, off + Sq, KV, D)
+
+    def kernel():
+        mha_kernel.mha(q, k, v, causal=True, q_offset=off)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = (torch.arange(off + Sq, device="cuda")[None, :]
+            <= off + torch.arange(Sq, device="cuda")[:, None])
+
+    def sdpa():
+        torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    ms = cuda_ms(kernel)
+    dev = device_ms(kernel, [()] * 20)
+    plain = cuda_ms(lambda: ref.mha_ref(q, k, v, causal=True, q_offset=off),
+                    iters=5)
+    lib = cuda_ms(sdpa)
+    lib_dev = device_ms(sdpa, [()] * 20)
+    n_bytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
+    flops = 4 * H * D * Sq * (off + (Sq + 1) / 2)
+    bms, by = bench.bound_ms(n_bytes, flops, torch.bfloat16)
+    log(f"mha time [suffix 512 after a 512-token prefix, q_offset 512, "
+        f"bf16]: {ms:.4f} ms/launch (device {dev:.4f} ms), plain "
+        f"{plain:.4f} ms, SDPA with the mask {lib:.4f} ms (device "
+        f"{lib_dev:.4f} ms), bound {bms:.4f} ms ({by}), {bms / ms:.1%} of "
+        f"bound ({bms / dev:.1%} on the device)")
+
+
+def time_paged_t5(rng):
+    """The verify step's paged call at the serving shapes: B = 8, T = 5,
+    contexts of the serve phase's range."""
+    lengths = [int(n) for n in rng.integers(64 + 37, 637, SLOTS)]
+    args = paged_case(rng, SLOTS, 5, H, KV, D, PAGE, lengths,
+                      MAX_LEN // PAGE, torch.bfloat16)
+
+    def kernel():
+        paged_kernel.paged_attention(*args)
+    ms = cuda_ms(kernel)
+    dev = device_ms(kernel, [()] * 20)
+    plain = cuda_ms(lambda: ref.paged_attention_ref(*args), iters=5)
+    q = args[0]
+    n_bytes = sum(lengths) * KV * D * 2 * 2 + 2 * q.numel() * 2 \
+        + SLOTS * (MAX_LEN // PAGE) * 4 + SLOTS * 4
+    flops = 4 * sum(lengths) * 5 * H * D
+    bms, by = bench.bound_ms(n_bytes, flops, torch.bfloat16)
+    log(f"paged_attention time [verify block T=5, B={SLOTS}, contexts "
+        f"{min(lengths)}-{max(lengths)}, S={paged_plan(SLOTS, 5, MAX_LEN // PAGE)}]: "
+        f"{ms:.4f} ms/launch (device {dev:.4f} ms), plain {plain:.4f} ms, "
+        f"bound {bms:.4f} ms ({by}), {bms / ms:.1%} of bound "
+        f"({bms / dev:.1%} on the device)")
+
+
+class UncapturedSpecEngine(PagedServingEngine):
+    """The engine with its verify body run as it is on the card, uncaptured:
+    what the replayed verify graph must reproduce."""
+
+    def _dispatch_spec(self):
+        self._spec_body()
+
+
+def check_policies_exact() -> None:
+    """qwen2.5-3b at full width in fp32 cut to 4 of 36 layers (as phase 7
+    cuts it), on the serve phase's kind of traffic (a 32-token system
+    prompt, so the prefix cache hits whole pages at page 16): the
+    prefix-cache engine's greedy tokens equal the no-share engine's;
+    speculative greedy tokens (n-gram drafts, and the model drafting for
+    itself) equal the T = 1 engine's; a sampled request's stream is the
+    same alone, in a batch with greedy requests, and after a forced
+    preemption; one capture of each graph through those runs; and the
+    verify graph's outputs equal its uncaptured body's, step by step.
+    The KV cache is fp32 here too: a resumed request's re-prefill computes
+    its generated tokens' keys in mha where the first run computed them
+    one decode step at a time, and in a bf16 cache a 1e-6 difference can
+    round to the neighbouring bf16 value (2^-8 of it), which can move a
+    sampled token."""
+    from repro_torch.runtime.drafter import DraftModelDrafter
+    from repro_torch.runtime.sampling import SamplingParams
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=4,
+                              dtype="float32", kv_cache_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    params = api.init_params(cfg, gen, device="cuda")
+    own = np.random.default_rng(SEED + 9)
+    system = [int(t) for t in own.integers(0, cfg.vocab, 32)]
+    prompts = [system + [int(t) for t in own.integers(0, cfg.vocab, int(n))]
+               for n in own.integers(8, 280, 6)]
+
+    def run(prompts, max_new=12, policies=None, rids=None, **kw):
+        eng = PagedServingEngine(cfg, params, slots=4, max_len=MAX_LEN,
+                                 page_size=PAGE, device="cuda", **kw)
+        rids = range(len(prompts)) if rids is None else rids
+        reqs = [Request(rid=rid, prompt=p, max_new=max_new,
+                        params=None if policies is None else policies[i])
+                for i, (rid, p) in enumerate(zip(rids, prompts))]
+        done = eng.run_to_completion(reqs)
+        if len(done) != len(reqs):
+            fail("policies: a request did not finish")
+        eng.check()
+        return [r.generated for r in reqs], eng, reqs
+
+    base, e0, _ = run(prompts)
+    t0 = time.perf_counter()
+    for name, kw in (("prefix cache", {"prefix_cache": True}),
+                     ("spec_k 4, n-gram", {"spec_k": 4}),
+                     ("spec_k 4, self-drafting model",
+                      {"spec_k": 4, "drafter": DraftModelDrafter(
+                          cfg, params, max_len=MAX_LEN, device="cuda")}),
+                     ("spec_k 4, n-gram, prefix cache",
+                      {"spec_k": 4, "prefix_cache": True})):
+        toks, eng, _ = run(prompts, **kw)
+        m = eng.metrics()
+        log(f"policies [{name}] vs T=1 no-share greedy, fp32, 4 layers: "
+            f"tokens equal {toks == base}; hits {m['prefix.hits']:.0f}, "
+            f"prefill saved {m['prefix.prefill_saved_frac']:.3f}, cow "
+            f"{m['prefix.cow_copies']:.0f}, accepted/step "
+            f"{m['spec.accepted_per_step']:.2f}, graph captures "
+            f"{eng.step_traces} step / {eng.spec_traces} verify")
+        if toks != base:
+            fail(f"policies [{name}]: greedy tokens differ from the T=1 "
+                 f"no-share engine's")
+        if (eng.step_traces, eng.spec_traces) != \
+                ((0, 1) if kw.get("spec_k") else (1, 0)):
+            fail(f"policies [{name}]: graph captures are not one")
+        if kw.get("prefix_cache") and not m["prefix.hits"] >= 5:
+            fail(f"policies [{name}]: the system prompt did not hit")
+    sp = SamplingParams(temperature=0.9, top_p=0.95, seed=11)
+    last = len(prompts) - 1
+    alone, _, _ = run([prompts[last]], 24, [sp], [last])
+    mix = [None] * last + [sp]
+    batch, eb, _ = run(prompts, 24, mix)
+    # a pool the batch fills at admission, the oldest request's prompt cut
+    # to whole pages: its first step needs a page, and the youngest (the
+    # sampled request, admitted last) is preempted to free one; it resumes
+    # by re-prefill
+    tight = [p[: len(p) // PAGE * PAGE] if i == 0 else p
+             for i, p in enumerate(prompts[-4:])]
+    pre, ep, reqs = run(tight, 24, mix[-4:],
+                        range(len(prompts) - 4, len(prompts)),
+                        num_pages=sum(-(-len(p) // PAGE) for p in tight))
+    log(f"policies [sampled stream, T 0.9, top-p 0.95]: alone == in a batch "
+        f"{alone[0] == batch[last]}, == after {reqs[-1].preemptions} "
+        f"preemption(s) {alone[0] == pre[-1]}; mixed batch: "
+        f"{eb.sampled_tokens} sampled / {eb.greedy_tokens} greedy tokens, "
+        f"{eb.step_traces} capture(s); {time.perf_counter() - t0:.1f} s")
+    for name, other in (("in a batch", batch[last]),
+                        ("after a preemption", pre[-1])):
+        if other != alone[0]:
+            at = next(i for i, (x, y) in enumerate(zip(alone[0], other))
+                      if x != y)
+            fail(f"policies: the sampled stream {name} parts from its run "
+                 f"alone at token {at}: {alone[0][:at + 2]} vs "
+                 f"{other[:at + 2]}")
+    if reqs[-1].preemptions < 1 or eb.step_traces != 1 \
+            or ep.step_traces != 1 or not eb.sampled_tokens:
+        fail("policies: no forced preemption, or captures are not one")
+    # the verify graph against its uncaptured body, step by step
+    engs = [UncapturedSpecEngine(cfg, params, slots=4, max_len=MAX_LEN,
+                                 page_size=PAGE, spec_k=4, device="cuda"),
+            PagedServingEngine(cfg, params, slots=4, max_len=MAX_LEN,
+                               page_size=PAGE, spec_k=4, device="cuda")]
+    for eng in engs:
+        for i, p in enumerate(prompts[:4]):
+            eng.submit(Request(rid=i, prompt=p, max_new=40,
+                               params=mix[i + 2]))
+    for s in range(8):
+        for eng in engs:
+            eng.step()
+        if not torch.equal(engs[0]._spec_out, engs[1]._spec_out):
+            fail(f"policies: verify step {s}: the graph's accept bits or "
+                 f"tokens differ from the uncaptured body's")
+    log(f"policies: 8 verify steps, the graph's (2, 4, 5) outputs equal the "
+        f"uncaptured body's bit for bit ({engs[1].spec_traces} capture)")
+
+
+def serve_policies(cfg, params, prompts) -> None:
+    """The serve phase's config, weights and 16 requests at full depth,
+    bf16, once each: greedy (as phase 6), with the prefix cache, sampled
+    (temperature 0.9, top-p 0.95) and speculative (spec_k 4, n-gram
+    drafts); each engine warmed (its graph's capture) and reset first, its
+    launch counts read around its run."""
+    from repro_torch.runtime.sampling import SamplingParams
+    sp = SamplingParams(temperature=0.9, top_p=0.95, seed=SEED)
+    for name, kw, pol in (("greedy", {}, None),
+                          ("prefix cache", {"prefix_cache": True}, None),
+                          ("sampled T 0.9 top-p 0.95", {}, sp),
+                          ("spec_k 4, n-gram", {"spec_k": 4}, None)):
+        eng = PagedServingEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                                 page_size=PAGE, device="cuda", **kw)
+        eng.run_to_completion([Request(rid=-1, prompt=list(range(64)),
+                                       max_new=3, params=pol)])
+        eng.reset_metrics()
+        reqs = [Request(rid=i, prompt=p, max_new=MAX_NEW, params=pol)
+                for i, p in enumerate(prompts)]
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = eng.run_to_completion(reqs, max_steps=20 * N_REQ * MAX_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        m = eng.metrics()
+        n_tok = sum(len(r.generated) for r in done)
+        extra = {"greedy": "",
+                 "prefix cache": f", prefill_saved_frac "
+                 f"{m['prefix.prefill_saved_frac']:.4f}, hits "
+                 f"{m['prefix.hits']:.0f}, cow_copies "
+                 f"{m['prefix.cow_copies']:.0f}",
+                 "sampled T 0.9 top-p 0.95": f", sampled_tokens "
+                 f"{m['sampling.sampled_tokens']:.0f}",
+                 "spec_k 4, n-gram": f", accepted_per_step "
+                 f"{m['spec.accepted_per_step']:.4f}, decode_steps "
+                 f"{eng.decode_steps}"}[name]
+        log(f"serve policies [{name}]: {len(done)}/{N_REQ} requests, {n_tok} "
+            f"tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s, ttft p50 "
+            f"{m['latency.ttft_p50_s']:.4f} s, tpot p50 "
+            f"{m['latency.tpot_p50_s']:.4f} s, {eng.prefills} prefills, "
+            f"{eng.decode_steps} steps{extra}")
+        if len(done) != N_REQ or any(len(r.generated) != MAX_NEW
+                                     for r in done):
+            fail(f"serve policies [{name}]: a request did not finish")
+        if counts != serving_launches(cfg, eng):
+            fail(f"serve policies [{name}]: launches {counts} != "
+                 f"{serving_launches(cfg, eng)}")
+        if eng.step_traces + eng.spec_traces != 1:
+            fail(f"serve policies [{name}]: captures are not one")
+        del eng
+        torch.cuda.empty_cache()
+
+
+BENCH_SCENARIOS = ("shared-prefix", "speculative", "sampling")
+
+
+def run_serve_bench_policies() -> None:
+    """``serve_bench`` with the three scenarios this slice ports, each in a
+    process of its own, their CSVs as one sectioned file: on the fp32
+    4-layer cut, gated by ``launch/check_csv.py`` (``tokens_match_greedy``
+    must pass; only the two columns of the scenarios the port lacks may
+    be missing); then at bf16 and full depth for their times, where
+    ``tokens_match_greedy`` is printed and not gated: the verify step
+    scores 5 rows a request where the T = 1 step scores 1, so cuBLAS
+    reduces the bf16 GEMMs in another order, and a near tie between two
+    bf16 logits may part the streams."""
+    from repro_torch.launch import check_csv
+    for label, extra, gated in (
+            ("fp32, 4 layers", ["--layers", "4", "--dtype", "float32"],
+             True),
+            ("bf16, 36 layers", [], False)):
+        t0 = time.perf_counter()
+        text = "\n".join(f"# {sc}\n" + bench_csv(
+            ["--full", "--scenario", sc, *extra]) for sc in BENCH_SCENARIOS)
+        log(f"serve_bench --full --scenario {'/'.join(BENCH_SCENARIOS)} "
+            f"({label}) in {time.perf_counter() - t0:.1f} s:")
+        print(text, flush=True)
+        errors = check_csv.check(text)
+        missing = check_csv.missing_scenario_errors()
+        matches = [line.split(",") for line in text.splitlines()
+                   if "greedy]" in line]
+        log(f"serve_bench ({label}): tokens_match_greedy rows "
+            f"{len(matches)}; gate: "
+            f"{'passes but for the two unported columns' if errors == missing else errors}")
+        if gated and errors != missing:
+            fail(f"serve_bench ({label}) CSV: {errors}")
+        if not gated and not set(missing) <= set(errors):
+            fail(f"serve_bench ({label}) CSV: {errors}")
 
 
 def main() -> None:
@@ -1457,10 +1900,25 @@ def main() -> None:
     layer, err_mha64 = kernel_layer(np.random.default_rng(SEED + 2))
     err_mha = max(err_mha, err_mha64)
     check_model(rng)
-    counts = serve(rng)
+    counts, params, prompts = serve(rng)
     check_graph_and_gather()
     serve_configs()
     run_serve_bench()
+    # phase 8, from generators of its own
+    t8 = time.perf_counter()
+    own = np.random.default_rng(SEED + 20)
+    err_mha = max(err_mha, check_mha_offsets(own))
+    err_paged = max(err_paged, check_paged_blocks(own))
+    err_noise = check_sampler(own)
+    noise_t = time_sampler(own)
+    time_mha_offset(own)
+    time_paged_t5(own)
+    check_policies_exact()
+    serve_policies(get_config("qwen2.5-3b"), params, prompts)
+    del params
+    torch.cuda.empty_cache()
+    run_serve_bench_policies()
+    log(f"phase 8 in {time.perf_counter() - t8:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "paged_attention", "route": "cuda",
@@ -1475,6 +1933,13 @@ def main() -> None:
          "launches": counts["mha"], "max_abs_err": err_mha, "ms": mha_t[0],
          "plain_ms": mha_t[1], "bound_ms": mha_t[2], "bound_by": mha_t[3],
          "library_ms": mha_t[4]},
+        {"name": "sampler_noise", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/sampler.cu",
+         "replaces": "src/repro/runtime/sampling.py:180 (jax.random.gumbel "
+                     "in gumbel_argmax: XLA, no Pallas kernel)",
+         "launches": counts["sampler_noise"], "max_abs_err": err_noise,
+         "ms": noise_t[0], "plain_ms": noise_t[1], "bound_ms": noise_t[2],
+         "bound_by": noise_t[3], "library_ms": None},
     ] + layer}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

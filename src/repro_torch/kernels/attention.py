@@ -2,7 +2,9 @@
 
 The Hopper counterpart of ``repro.kernels.attention``: fused flash attention
 with K in its natural layout, GQA, causal masking by absolute row, a traced
-(B,) ``kv_valid``, fully masked rows -> 0. Same public signature and layouts
+(B,) ``kv_valid``, fully masked rows -> 0, and a host-int ``q_offset`` (the
+absolute position of query row 0: the suffix-only prefill against a cached
+prefix, ``repro.models.layers.flash_attention(q_offset=)``). Same public signature and layouts
 as the JAX ``mha`` (the TPU block sizes ``bq``/``bk`` have no counterpart:
 the CUDA kernels' tiles are fixed). bfloat16 runs on the tensor cores
 (wgmma fed by TMA), float32 on the FMA units (``csrc/mha.cu`` says why),
@@ -25,21 +27,22 @@ F32_WARPS = 8         # warps of an fp32 CTA: row groups x key splits
 F32_TILE_KEYS = 32    # keys of one warp's tile
 
 
-def f32_ctas(B: int, Sq: int, Sk: int, H: int, causal: bool, rg: int
-             ) -> List[List[Tuple[int, int, int, int]]]:
+def f32_ctas(B: int, Sq: int, Sk: int, H: int, causal: bool, rg: int,
+             q_offset: int = 0) -> List[List[Tuple[int, int, int, int]]]:
     """The fp32 kernel's work, CTA by CTA, as ``mha_f32_kernel`` lays it
     out: each CTA's list of (b, h, q block, keys), a q block being 16 * rg
-    query rows and keys the ones its rows sweep: below min(Sk, the block's
-    end) when causal, else all Sk (``kv_valid`` may cut them on the card;
+    query rows and keys the ones its rows sweep: below min(Sk, q_offset +
+    the block's end) when causal, else all Sk (``kv_valid`` may cut them on the card;
     the plan never reads it). Causal, CTA x of a head takes q blocks x and
     n - 1 - x (grid x = ceil(n / 2)), so that each sweeps about as many
-    keys as the others; otherwise block x alone. A model of the layout
-    for checks: the plan counts rounds with ``f32_heaviest``."""
+    keys as the others (an offset adds q_offset keys to every block, so the
+    pairs stay level); otherwise block x alone. A model of the layout for
+    checks: the plan counts rounds with ``f32_heaviest``."""
     bq = 16 * rg
     n = -(-Sq // bq)
 
     def keys(blk: int) -> int:
-        return min(Sk, (blk + 1) * bq) if causal else Sk
+        return min(Sk, q_offset + (blk + 1) * bq) if causal else Sk
     ctas = []
     for b in range(B):
         for h in range(H):
@@ -56,7 +59,8 @@ def f32_rounds(cta: List[Tuple[int, int, int, int]], rg: int) -> int:
     return sum(-(-keys // round_keys) for *_, keys in cta)
 
 
-def f32_heaviest(Sq: int, Sk: int, causal: bool, rg: int) -> int:
+def f32_heaviest(Sq: int, Sk: int, causal: bool, rg: int,
+                 q_offset: int = 0) -> int:
     """Rounds of the heaviest CTA of ``f32_ctas`` (all heads and batches
     alike), from each q block's key count without building the layout:
     causal, the most over the pairs (x, n - 1 - x) and a lone middle
@@ -66,7 +70,7 @@ def f32_heaviest(Sq: int, Sk: int, causal: bool, rg: int) -> int:
     n = -(-Sq // bq)
 
     def rounds(blk: int) -> int:
-        keys = min(Sk, (blk + 1) * bq) if causal else Sk
+        keys = min(Sk, q_offset + (blk + 1) * bq) if causal else Sk
         return -(-keys // round_keys)
     if not causal:
         return rounds(0)
@@ -76,7 +80,7 @@ def f32_heaviest(Sq: int, Sk: int, causal: bool, rg: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def f32_plan(B: int, Sq: int, Sk: int, H: int, D: int, causal: bool,
-             sms: int) -> int:
+             sms: int, q_offset: int = 0) -> int:
     """Row groups of 16 query rows per fp32 CTA, from shapes alone: 4 (8 //
     4 = 2 key splits a round), or 2 (4 key splits) where that takes fewer
     rounds on the busiest SM, counted as ceil(CTAs / SMs) times the
@@ -87,7 +91,8 @@ def f32_plan(B: int, Sq: int, Sk: int, H: int, D: int, causal: bool,
     for rg in (4, 2) if D <= 64 else (4,):
         n = -(-Sq // (16 * rg))
         n_ctas = B * H * ((n + 1) // 2 if causal else n)
-        cost = -(-n_ctas // sms) * f32_heaviest(Sq, Sk, causal, rg)
+        cost = -(-n_ctas // sms) * f32_heaviest(Sq, Sk, causal, rg,
+                                                q_offset)
         if best is None or cost < best[0]:
             best = (cost, rg)
     return best[1]
@@ -100,6 +105,9 @@ def _lib() -> ctypes.CDLL:
     lib.mha_fwd_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, f,
                                    i, p]
     lib.mha_fwd_launch.restype = ctypes.c_int
+    lib.mha_fwd_launch_off.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                       i, f, i, p]
+    lib.mha_fwd_launch_off.restype = ctypes.c_int
     return lib
 
 
@@ -111,11 +119,14 @@ def _require(ok: bool, msg: str, *args) -> None:
 
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-        causal: bool = True, kv_valid=None) -> torch.Tensor:
+        causal: bool = True, kv_valid=None, q_offset: int = 0
+        ) -> torch.Tensor:
     """q: (B, Sq, H, D); k, v: (B, Sk, KV, D), one dtype (float32 or
     bfloat16), contiguous, H % KV == 0, D in (16, 32, 64, 128).
     kv_valid: None (all Sk keys), an int, or a (B,) int32 tensor — only the
-    first kv_valid[b] keys of sequence b attend. Returns (B, Sq, H, D)."""
+    first kv_valid[b] keys of sequence b attend. q_offset: a host int >= 0,
+    the absolute position of q[:, 0] (causal row i sees keys <= q_offset +
+    i; one offset for the whole batch). Returns (B, Sq, H, D)."""
     _require(q.is_cuda, "needs CUDA tensors (CPU tensors go through "
              "repro_torch.kernels.ops)")
     _require(q.dim() == 4 and k.dim() == 4 and k.shape == v.shape,
@@ -130,6 +141,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _require(dtype is not None and k.dtype == q.dtype and v.dtype == q.dtype,
              "dtypes {}/{}/{} (one of float32, bfloat16)", q.dtype, k.dtype,
              v.dtype)
+    _require(isinstance(q_offset, int) and q_offset >= 0,
+             "q_offset must be a host int >= 0, got {!r}", q_offset)
     dev = q.device
     _require(k.device == dev and v.device == dev, "q, k, v on {}, {}, {}",
              dev, k.device, v.device)
@@ -148,13 +161,13 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                     device=dev).expand(B).contiguous()
         valid_ptr = valid.data_ptr()
 
-    rg = f32_plan(B, Sq, Sk, H, D, bool(causal), build.sm_count(dev.index)) \
-        if dtype == 0 else 0
+    rg = f32_plan(B, Sq, Sk, H, D, bool(causal), build.sm_count(dev.index),
+                  q_offset) if dtype == 0 else 0
     out = torch.empty_like(q)
-    err = build.launch_on(dev, _lib().mha_fwd_launch, q.data_ptr(),
+    err = build.launch_on(dev, _lib().mha_fwd_launch_off, q.data_ptr(),
                           k.data_ptr(), v.data_ptr(), valid_ptr,
                           out.data_ptr(), B, Sq, Sk, H, KV, D, dtype,
-                          int(causal), D ** -0.5, rg)
+                          int(causal), q_offset, D ** -0.5, rg)
     if err:
         raise RuntimeError(f"mha kernel launch failed: CUDA error {err}")
     mha.launches += 1

@@ -27,7 +27,7 @@ import torch
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("paged_attention", "mha", "gemm_os", "conv_im2col", "maxpool",
-           "reshuffle")
+           "reshuffle", "sampler")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

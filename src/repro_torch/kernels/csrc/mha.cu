@@ -8,7 +8,12 @@
 // softmax is online in fp32, masked keys get probability exactly 0, P is
 // cast to V's dtype before the PV product (attention.py:68), and the
 // denominator is floored at 1e-30, so fully masked rows come out 0. A null
-// kv_valid means all Sk keys.
+// kv_valid means all Sk keys. q_off (>= 0) is the absolute position of query
+// row 0: causal row i sees keys <= q_off + i, the suffix-only prefill
+// against a cached prefix (the JAX package's layers.flash_attention
+// q_offset); 0 is the TPU kernel's function. It moves each q block's key
+// range, its mask and its tile skips; the summation order of an output stays
+// one.
 //
 // What bounds it on this card: operations. At Sq = Sk = 1024 a causal head
 // does ~128 FLOPs per byte of q/k/v, so the least time is the causal FLOPs
@@ -181,8 +186,8 @@ __device__ __forceinline__ float ex2(float x) {
 // One warp's tile: its 16 query rows against 32 keys from k0. Lane (ty, tx)
 // = (lane / 8, lane % 8) holds S for rows ty + 4i and keys tx + 8j (i, j <
 // 4), and O for rows ty + 4i and columns (8u + tx) VW + e. q_s, k_s and v_s
-// point at the warp's rows and keys, p_s at its P^T; r0 is its first query
-// row.
+// point at the warp's rows and keys, p_s at its P^T; r0 is the absolute
+// position of its first query row (q_off included).
 template <int D, int RG>
 __device__ __forceinline__ void f32_tile(float (&o)[4][D / 8], float (&m)[4], float (&l)[4],
                                          const float* q_s, const float* k_s, const float* v_s,
@@ -295,7 +300,7 @@ template <int D, int RG>
 __global__ void __launch_bounds__(kF32Threads, 1) mha_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int* __restrict__ kv_valid, float* __restrict__ out, int Sq, int Sk, int H, int KV,
-    float scale_log2, int causal) {
+    float scale_log2, int causal, int q_off) {
   using G = F32Geo<D, RG>;
   extern __shared__ __align__(16) float f32_smem[];
   float* q_s = f32_smem;
@@ -323,7 +328,7 @@ __global__ void __launch_bounds__(kF32Threads, 1) mha_f32_kernel(
   const int n_blocks = (Sq + G::BQ - 1) / G::BQ;
   const int first = blockIdx.x, second = causal ? n_blocks - 1 - first : first;
   const int passes = second > first ? 2 : 1;
-  auto block_end = [&](int q0) { return causal ? min(valid, q0 + G::BQ) : valid; };
+  auto block_end = [&](int q0) { return causal ? min(valid, q_off + q0 + G::BQ) : valid; };
   // a pass's Q and first stage are in flight before it starts: the next
   // pass's are issued while this one merges
   copy_rows<D, G::BQ>(q_s, G::QP, qb, q_stride, first * G::BQ, Sq);
@@ -335,6 +340,7 @@ __global__ void __launch_bounds__(kF32Threads, 1) mha_f32_kernel(
     const int kv_end = block_end(q0);
     const int rounds = (kv_end + G::kRoundKeys - 1) / G::kRoundKeys;
     const int r0 = q0 + 16 * rg;  // this warp's first query row
+    const int a0 = q_off + r0;    // and its absolute position
     float o[4][D / 8], m[4], l[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -350,9 +356,9 @@ __global__ void __launch_bounds__(kF32Threads, 1) mha_f32_kernel(
       tc_tile::cp_async_commit();
       const int k0 = r * G::kRoundKeys + ks * kF32Keys;
       const float* st = ring + (r & 1) * G::kStage;
-      if (k0 < kv_end && r0 < Sq && (!causal || k0 <= r0 + 15))
+      if (k0 < kv_end && r0 < Sq && (!causal || k0 <= a0 + 15))
         f32_tile<D, RG>(o, m, l, q_s + 16 * rg * G::QP, st + ks * kF32Keys * G::KP,
-                        st + G::kK + ks * kF32Keys * D, p_s, r0, k0, valid, causal,
+                        st + G::kK + ks * kF32Keys * D, p_s, a0, k0, valid, causal,
                         scale_log2);
     }
 
@@ -420,7 +426,8 @@ __global__ void __launch_bounds__(kF32Threads, 1) mha_f32_kernel(
 
 template <int D, int RG>
 int launch_f32(const void* q, const void* k, const void* v, const int* kv_valid, void* out, int B,
-               int Sq, int Sk, int H, int KV, float scale, int causal, cudaStream_t stream) {
+               int Sq, int Sk, int H, int KV, float scale, int causal, int q_off,
+               cudaStream_t stream) {
   using G = F32Geo<D, RG>;
   static bool attr_set = false;
   if (!attr_set) {
@@ -434,7 +441,8 @@ int launch_f32(const void* q, const void* k, const void* v, const int* kv_valid,
   const dim3 grid(causal ? (n_blocks + 1) / 2 : n_blocks, H, B);
   mha_f32_kernel<D, RG><<<grid, kF32Threads, G::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      kv_valid, static_cast<float*>(out), Sq, Sk, H, KV, scale * 1.4426950408889634f, causal);
+      kv_valid, static_cast<float*>(out), Sq, Sk, H, KV, scale * 1.4426950408889634f, causal,
+      q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -503,7 +511,7 @@ __global__ void __launch_bounds__(kThreads, 2) mha_wgmma_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, const int* __restrict__ kv_valid,
     __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H, int KV, float scale_log2,
-    int causal) {
+    int causal, int q_off) {
   using G = Geo<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* q_s = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
@@ -517,7 +525,8 @@ __global__ void __launch_bounds__(kThreads, 2) mha_wgmma_kernel(
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest causal blocks first
   const int kh = h / (H / KV);
   const int valid = max(kv_valid ? min(kv_valid[b], Sk) : Sk, 0);
-  const int kv_end = causal ? min(valid, q0 + kBQ) : valid;
+  const int a0 = q_off + q0;                          // absolute position of row 0
+  const int kv_end = causal ? min(valid, a0 + kBQ) : valid;
   const int n_tiles = (kv_end + kBK - 1) / kBK;
 
   if (threadIdx.x == 0) {
@@ -577,14 +586,14 @@ __global__ void __launch_bounds__(kThreads, 2) mha_wgmma_kernel(
     // exp2f is exactly 0. A tile wholly inside the visible range (every
     // tile but the causal diagonal and the one holding kv_valid) skips it.
     const int k0 = t * kBK;
-    if (k0 + kBK > valid || (causal && k0 + kBK - 1 > q0)) {
+    if (k0 + kBK > valid || (causal && k0 + kBK - 1 > a0)) {
 #pragma unroll
       for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
         for (int half = 0; half < 2; ++half)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const int kpos = k0 + 8 * j + col0 + e, qpos = q0 + row0 + 8 * half;
+            const int kpos = k0 + 8 * j + col0 + e, qpos = a0 + row0 + 8 * half;
             const bool ok = kpos < valid && (!causal || qpos >= kpos);
             if (!ok) sc[4 * j + 2 * half + e] = -CUDART_INF_F;
           }
@@ -687,7 +696,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D,
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, const int* kv_valid, void* out,
-                 int B, int Sq, int Sk, int H, int KV, float scale, int causal,
+                 int B, int Sq, int Sk, int H, int KV, float scale, int causal, int q_off,
                  cudaStream_t stream) {
   using G = Geo<D>;
   const CUtensorMapSwizzle sw = G::kRow == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -709,7 +718,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int* kv_vali
   const dim3 grid(H, (Sq + kBQ - 1) / kBQ, B);
   mha_wgmma_kernel<D><<<grid, kThreads, G::kSmem, stream>>>(
       qm, km, vm, kv_valid, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV,
-      scale * 1.4426950408889634f, causal);
+      scale * 1.4426950408889634f, causal, q_off);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -718,38 +727,56 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int* kv_vali
 // dtype codes: 0 float32 (FMA kernel), 1 bfloat16 (tensor-core kernel); D in
 // {16, 32, 64, 128} (the tests', the kernel benchmark's and qwen2.5-3b's
 // head dims). kv_valid: a (B,) int32 device array, or null for all Sk keys.
+// q_off: the absolute position of query row 0 (>= 0; causal masking only).
 // rg: float32 only, the row groups of 16 query rows a CTA owns
 // (attention.f32_plan): 4, or 2 for D <= 64. Returns the launch's
 // cudaGetLastError() (0 = launched).
-extern "C" int mha_fwd_launch(const void* q, const void* k, const void* v, const void* kv_valid,
-                              void* out, int B, int Sq, int Sk, int H, int KV, int D, int dtype,
-                              int causal, float scale, int rg, void* stream) {
+extern "C" int mha_fwd_launch_off(const void* q, const void* k, const void* v,
+                                  const void* kv_valid, void* out, int B, int Sq, int Sk, int H,
+                                  int KV, int D, int dtype, int causal, int q_off, float scale,
+                                  int rg, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* valid = static_cast<const int*>(kv_valid);
+  if (q_off < 0) return static_cast<int>(cudaErrorInvalidValue);
+#define MHA_F32(DD, RR) \
+  launch_f32<DD, RR>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, q_off, s)
+#define MHA_BF16(DD) \
+  launch_wgmma<DD>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, q_off, s)
   if (dtype == 0) {
     if (rg == 4) {
       switch (D) {
-        case 16: return launch_f32<16, 4>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
-        case 32: return launch_f32<32, 4>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
-        case 64: return launch_f32<64, 4>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
-        case 128:
-          return launch_f32<128, 4>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
+        case 16: return MHA_F32(16, 4);
+        case 32: return MHA_F32(32, 4);
+        case 64: return MHA_F32(64, 4);
+        case 128: return MHA_F32(128, 4);
       }
     } else if (rg == 2) {
       switch (D) {
-        case 16: return launch_f32<16, 2>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
-        case 32: return launch_f32<32, 2>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
-        case 64: return launch_f32<64, 2>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
+        case 16: return MHA_F32(16, 2);
+        case 32: return MHA_F32(32, 2);
+        case 64: return MHA_F32(64, 2);
       }
     }
   } else if (dtype == 1) {
     switch (D) {
-      case 16: return launch_wgmma<16>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
-      case 32: return launch_wgmma<32>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
-      case 64: return launch_wgmma<64>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
-      case 128:
-        return launch_wgmma<128>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, s);
+      case 16: return MHA_BF16(16);
+      case 32: return MHA_BF16(32);
+      case 64: return MHA_BF16(64);
+      case 128: return MHA_BF16(128);
     }
   }
+#undef MHA_F32
+#undef MHA_BF16
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// mha_fwd_launch_off with q_off = 0: the TPU kernel's function, under the
+// C signature of the trees before the offset (launch/mha_pool_probe.py
+// --port-src launches an older tree's library through it, and so do the
+// host-cost split and the bare-launch tests).
+extern "C" int mha_fwd_launch(const void* q, const void* k, const void* v, const void* kv_valid,
+                              void* out, int B, int Sq, int Sk, int H, int KV, int D, int dtype,
+                              int causal, float scale, int rg, void* stream) {
+  return mha_fwd_launch_off(q, k, v, kv_valid, out, B, Sq, Sk, H, KV, D, dtype, causal, 0, scale,
+                            rg, stream);
 }

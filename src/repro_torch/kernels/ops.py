@@ -18,15 +18,19 @@ from repro_torch.kernels import maxpool as _maxpool
 from repro_torch.kernels import paged_attention as _paged
 from repro_torch.kernels import ref
 from repro_torch.kernels import reshuffle as _reshuffle
+from repro_torch.kernels import sampler as _sampler
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, kv_valid=None) -> torch.Tensor:
-    """Fused flash-MHA (q (B,Sq,H,D), k/v (B,Sk,KV,D)); see
-    ``kernels.attention.mha``."""
+              causal: bool = True, kv_valid=None,
+              q_offset: int = 0) -> torch.Tensor:
+    """Fused flash-MHA (q (B,Sq,H,D), k/v (B,Sk,KV,D)), q[:, 0] at absolute
+    position ``q_offset``; see ``kernels.attention.mha``."""
     if q.device.type == "cpu":
-        return ref.mha_ref(q, k, v, causal=causal, kv_valid=kv_valid)
-    return _attention.mha(q, k, v, causal=causal, kv_valid=kv_valid)
+        return ref.mha_ref(q, k, v, causal=causal, kv_valid=kv_valid,
+                           q_offset=q_offset)
+    return _attention.mha(q, k, v, causal=causal, kv_valid=kv_valid,
+                          q_offset=q_offset)
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -91,6 +95,15 @@ def transpose(x: torch.Tensor) -> torch.Tensor:
     return _reshuffle.tiled_transpose(x)
 
 
+def sampler_noise(seed: torch.Tensor, rid: torch.Tensor, idx: torch.Tensor,
+                  n: int, *, draw: int, bits: bool = False) -> torch.Tensor:
+    """The sampler's Gumbel noise (or its raw bits) for each row's key
+    (seed, rid, idx, draw); see ``kernels.sampler.sampler_noise``."""
+    if seed.device.type == "cpu":
+        return ref.sampler_noise_ref(seed, rid, idx, n, draw=draw, bits=bits)
+    return _sampler.sampler_noise(seed, rid, idx, n, draw=draw, bits=bits)
+
+
 # launch counters, by the name chip_smoke.py reports each kernel under:
 # (function, attribute) — gemm_os counts its two datapaths apart
 _COUNTERS = {
@@ -102,6 +115,7 @@ _COUNTERS = {
     "maxpool": (_maxpool.maxpool2d, "launches"),
     "blocked_layout": (_reshuffle.blocked_layout, "launches"),
     "tiled_transpose": (_reshuffle.tiled_transpose, "launches"),
+    "sampler_noise": (_sampler.sampler_noise, "launches"),
 }
 
 

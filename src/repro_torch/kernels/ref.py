@@ -7,7 +7,8 @@ kernel exists to avoid; ``paged_attention_split_ref`` also follows the
 kernel's split of the pages into ranges and its merge), ``conv2d_ref`` pads
 x and runs a VALID convolution, ``maxpool2d_ref`` takes the largest of
 strided slices, ``blocked_layout_ref`` and ``transpose_ref`` copy through a
-padded, permuted view. ``kernels.ops``
+padded, permuted view, ``sampler_noise_ref`` runs Threefry-2x32 in int64
+arithmetic (32-bit words masked after every add and shift). ``kernels.ops``
 runs them for CPU tensors; the tests and ``chip_smoke.py`` hold the kernels
 against them.
 
@@ -91,11 +92,13 @@ def peaked_mha_inputs(rng: np.random.Generator, B: int, S: int, H: int,
 
 
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-            causal: bool = True, kv_valid=None) -> torch.Tensor:
+            causal: bool = True, kv_valid=None,
+            q_offset: int = 0) -> torch.Tensor:
     """Exact softmax attention with GQA. q: (B, Sq, H, D); k, v: (B, Sk, KV,
     D); kv_valid: None (all Sk keys), an int, or a (B,) tensor — only the
     first kv_valid[b] keys of sequence b are visible. Causal masking compares
-    absolute row and key indices (row i sees keys <= i)."""
+    absolute row and key indices: row i sits at q_offset + i and sees keys
+    <= q_offset + i."""
     B, Sq, H, D = q.shape
     _, Sk, KV, _ = k.shape
     G = H // KV
@@ -105,7 +108,7 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kpos = torch.arange(Sk, device=q.device)
     mask = kpos[None, None, :] < valid[:, None, None]            # (B, 1, Sk)
     if causal:
-        qpos = torch.arange(Sq, device=q.device)
+        qpos = q_offset + torch.arange(Sq, device=q.device)
         mask = mask & (qpos[:, None] >= kpos[None, :])[None]      # (B, Sq, Sk)
     p = _masked_softmax(s, mask[:, None, None])
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
@@ -377,3 +380,89 @@ def sum_order_error(got: torch.Tensor, want: torch.Tensor,
     """The largest ``sum_order_ratio`` over the elements: within the limit
     iff <= 1."""
     return sum_order_ratio(got, want, abs_product, depth).max()
+
+
+# -- the sampler's noise: Threefry-2x32, as jax.random computes it ----------
+#
+# jax's threefry PRNG with ``jax_threefry_partitionable`` on (the default
+# from jax 0.5): a key is two uint32 words; ``random_bits(key, (n,))`` hashes
+# the counters (0, i) and xors the two output words. The words live here in
+# int64 tensors, masked to 32 bits after every add and shift (torch has no
+# uint32 shifts on the CPU), so every result is bit-exact on either device.
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+TINY_F32 = float(np.finfo(np.float32).tiny)
+
+
+def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
+                 x2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 hash (20 rounds) of counter words (x1, x2) under
+    key words (k1, k2): int64 tensors of uint32 values, broadcast together.
+    Returns the two output words, likewise."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    a = (x1 + ks[0]) & _M32
+    b = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            a = (a + b) & _M32
+            b = (((b << r) & _M32) | (b >> (32 - r))) ^ a
+        a = (a + ks[(i + 1) % 3]) & _M32
+        b = (b + ks[(i + 2) % 3] + (i + 1)) & _M32
+    return a, b
+
+
+def fold_in(key: Tuple[torch.Tensor, torch.Tensor], data: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``jax.random.fold_in``: threefry2x32(key, (0, data)), data taken as
+    uint32."""
+    data = data & _M32
+    return threefry2x32(key[0], key[1], torch.zeros_like(data), data)
+
+
+def row_keys(seed: torch.Tensor, rid: torch.Tensor, idx: torch.Tensor,
+             draw: Optional[int] = None) -> torch.Tensor:
+    """The sampler's key of each row, ``fold_in(fold_in(fold_in(key(seed),
+    rid), idx), draw)`` (the last fold only when ``draw`` is given),
+    ``key(seed)`` being the words (0, seed). (R,) int tensors -> (R, 2)
+    int64 key words."""
+    seed = seed.to(torch.int64) & _M32
+    k = fold_in((torch.zeros_like(seed), seed), rid.to(torch.int64))
+    k = fold_in(k, idx.to(torch.int64))
+    if draw is not None:
+        k = fold_in(k, torch.full_like(seed, draw))
+    return torch.stack(k, -1)
+
+
+def random_bits_ref(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.bits(key, (n,), uint32)`` for each row of ``keys`` ((R, 2)
+    int64 key words): (R, n) int64 holding the uint32 values."""
+    i = torch.arange(n, dtype=torch.int64, device=keys.device)
+    a, b = threefry2x32(keys[:, :1], keys[:, 1:], torch.zeros_like(i), i)
+    return a ^ b
+
+
+def bits_to_unit(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 bits (int64) -> float32 in [0, 1): 23 mantissa bits under the
+    exponent of 1.0, minus 1 (``jax.random.uniform``'s construction)."""
+    return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+
+
+def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.gumbel`` (mode "low") from its uint32 bits:
+    -log(-log(u)), u uniform on [tiny, 1) in float32."""
+    u = bits_to_unit(bits) * np.float32(np.float32(1.0) - np.float32(TINY_F32)) \
+        + np.float32(TINY_F32)
+    u = torch.clamp(u, min=TINY_F32)
+    return -torch.log(-torch.log(u))
+
+
+def sampler_noise_ref(seed: torch.Tensor, rid: torch.Tensor,
+                      idx: torch.Tensor, n: int, *, draw: int,
+                      bits: bool = False) -> torch.Tensor:
+    """Plain version of the sampler's noise kernel: for row r,
+    ``jax.random.gumbel(row_keys(seed, rid, idx, draw)[r], (n,), float32)``
+    as (R, n) float32, or with ``bits`` its raw uint32 bits as (R, n)
+    int64."""
+    raw = random_bits_ref(row_keys(seed, rid, idx, draw), n)
+    return raw if bits else gumbel_from_bits(raw)

@@ -73,14 +73,23 @@ def _logits(cfg, params, x: torch.Tensor) -> torch.Tensor:
 
 
 def prefill(cfg, params, tokens: torch.Tensor, *,
-            length: Optional[torch.Tensor] = None):
+            length: Optional[torch.Tensor] = None, prefix_kv=None,
+            prefix_len: int = 0):
     """Run the whole (bucket-padded) prompt. tokens: (B, S) int64; length:
     None or (B,) count of real tokens. Returns (logits (B, Vp) fp32 at
     position length - 1 only, per-layer {"k", "v"} (B, S, KV, D) in the
-    cache dtype, next position (B,) int32)."""
+    cache dtype, next position (B,) int32).
+
+    ``prefix_kv`` (per layer {"k", "v"} (B, Pb, KV, D), cache dtype) and
+    ``prefix_len`` (a host int): suffix-only prefill — ``tokens`` and
+    ``length`` describe only the prompt after a prefix whose KV is reused
+    from the page pools; positions start at prefix_len. The returned k/v
+    are the suffix's and the returned position counts suffix tokens
+    (callers add prefix_len)."""
     B, S = tokens.shape
     x = params["embed"][tokens]
-    x, caches = tfm.stack_apply(cfg, params["blocks"], x)
+    x, caches = tfm.stack_apply(cfg, params["blocks"], x,
+                                prefix_kv=prefix_kv, prefix_len=prefix_len)
     x = norm_apply(params["final_norm"], x, cfg.norm)
     if length is None:
         length = torch.full((B,), S, dtype=torch.int32, device=x.device)

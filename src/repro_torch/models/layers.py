@@ -87,18 +87,37 @@ def _out(p: Params, o: torch.Tensor) -> torch.Tensor:
     return o.flatten(-2) @ p["wo"].reshape(-1, p["wo"].shape[-1])
 
 
-def attention_apply(cfg, p: Params, x: torch.Tensor):
+def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None):
     """Causal self-attention over the whole (bucket-padded) prompt through
     the flash-MHA kernel. Bucket padding sits after every real row, so
     causal masking alone keeps the real rows exact. Returns (out, (k, v))
-    for the caller to build its cache from."""
+    for the caller to build its cache from.
+
+    prefix=(pk, pv, plen): suffix-only prefill against reused KV (the
+    prefix cache). ``x`` holds only the tokens after the shared prefix;
+    pk/pv (B, Pb, KV, D, cache dtype) are the prefix KV gathered from the
+    page pools, valid for their first ``plen`` rows (a host int). The
+    suffix k/v are spliced in at row plen, so buffer index == absolute
+    position for every real token, and the kernel's query offset (q[:, 0]
+    at plen) masks both the prefix buffer's tail and the suffix's bucket
+    padding: those rows sit past every real query. The returned k/v are
+    the suffix's only, what the caller scatters into its pages."""
     S = x.shape[1]
     q, k, v = _qkv(cfg, p, x)
-    positions = torch.arange(S, device=x.device)[None, :]
+    plen = 0 if prefix is None else prefix[2]
+    positions = plen + torch.arange(S, device=x.device)[None, :]
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = ops.attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                        causal=True)
+    if prefix is None:
+        kf, vf = k, v
+    else:
+        pk, pv, _ = prefix
+        kf = torch.cat([kv_dequant(cfg, pk, x.dtype), torch.zeros_like(k)], 1)
+        vf = torch.cat([kv_dequant(cfg, pv, x.dtype), torch.zeros_like(v)], 1)
+        kf[:, plen:plen + S] = k
+        vf[:, plen:plen + S] = v
+    out = ops.attention(q.contiguous(), kf.contiguous(), vf.contiguous(),
+                        causal=True, q_offset=plen)
     return _out(p, out), (k, v)
 
 

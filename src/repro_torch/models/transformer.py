@@ -55,11 +55,13 @@ def layer_kinds(cfg) -> List[str]:
     return kinds
 
 
-def block_apply(cfg, p, x: torch.Tensor):
-    """Full-sequence attn_mlp block. Returns (x, {"k", "v"}) with k/v in the
+def block_apply(cfg, p, x: torch.Tensor, prefix=None):
+    """Full-sequence attn_mlp block (``prefix``: see
+    ``layers.attention_apply``). Returns (x, {"k", "v"}) with k/v in the
     cache storage dtype."""
     a, (k, v) = attention_apply(cfg, p["attn"], norm_apply(p["ln1"], x,
-                                                           cfg.norm))
+                                                           cfg.norm),
+                                prefix=prefix)
     x = x + a
     x = x + mlp_apply(cfg, p["mlp"], norm_apply(p["ln2"], x, cfg.norm))
     return x, {"k": kv_quant(cfg, k), "v": kv_quant(cfg, v)}
@@ -74,11 +76,18 @@ def block_decode(cfg, p, x: torch.Tensor, cache, pos: torch.Tensor,
     return x + mlp_apply(cfg, p["mlp"], norm_apply(p["ln2"], x, cfg.norm))
 
 
-def stack_apply(cfg, blocks, x: torch.Tensor):
-    """Run every layer over the prompt. Returns (x, per-layer {"k","v"})."""
+def stack_apply(cfg, blocks, x: torch.Tensor, *, prefix_kv=None,
+                prefix_len: int = 0):
+    """Run every layer over the prompt. Returns (x, per-layer {"k","v"}).
+    ``prefix_kv`` (per layer {"k", "v"} (B, Pb, KV, D) in the cache dtype)
+    with ``prefix_len`` switches every layer to suffix-only prefill against
+    that reused KV (``layers.attention_apply``); the returned k/v are then
+    the suffix's."""
     caches = []
-    for p in blocks:
-        x, c = block_apply(cfg, p, x)
+    for j, p in enumerate(blocks):
+        pref = None if prefix_kv is None else (
+            prefix_kv[j]["k"], prefix_kv[j]["v"], prefix_len)
+        x, c = block_apply(cfg, p, x, prefix=pref)
         caches.append(c)
     return x, caches
 

@@ -33,6 +33,12 @@ class Scheduler:
         self.exhausted = False          # drain hit its budget with work left
 
     def add(self, req: Request) -> None:
+        # a malformed decode policy (negative temperature, top_p = 0, ...)
+        # fails here, at enqueue, where the caller still sees which request
+        # it was — not mid-tick with other requests in flight
+        params = getattr(req, "params", None)
+        if params is not None:
+            params.validate()
         # stamp arrival at enqueue so TTFT includes queue wait (getattr:
         # stub engines without the metrics mixin drive it too)
         note = getattr(self.engine, "note_arrival", None)

@@ -48,6 +48,9 @@ def test_import_loads_no_jax_and_no_repro_module():
         "[get_config(a) for a in ARCHS]\n"
         "import repro_torch.kernels.conv_im2col, repro_torch.kernels.maxpool\n"
         "import repro_torch.kernels.reshuffle, repro_torch.kernels.build\n"
+        "import repro_torch.kernels.sampler, repro_torch.runtime.sampling\n"
+        "import repro_torch.runtime.prefix_cache, repro_torch.runtime.drafter\n"
+        "import repro_torch.launch.sampler_probe\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"

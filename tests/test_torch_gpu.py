@@ -20,6 +20,8 @@ from repro_torch.kernels import paged_attention as paged_kernel  # noqa: E402
 from repro_torch.kernels import reshuffle as reshuffle_kernel  # noqa: E402
 from repro_torch.launch import kernel_bench  # noqa: E402
 from repro_torch.models import api  # noqa: E402
+from repro_torch.runtime import sampling  # noqa: E402
+from repro_torch.runtime.drafter import DraftModelDrafter  # noqa: E402
 from repro_torch.runtime.scheduler import Scheduler  # noqa: E402
 from repro_torch.runtime.serving import PagedServingEngine, Request  # noqa
 from torch_cases import (BLOCKED_CASES, CONV_SPECS,  # noqa: E402
@@ -543,7 +545,8 @@ def test_cuda_graph_launches_are_counted_per_replay(cuda):
     cfg, params = smoke_fp32()
     _, eng, launched = serve_on(PagedServingEngine, cfg, params, cuda,
                                 preempting_traffic())
-    assert eng._graph_launches == {"paged_attention": cfg.num_layers}
+    assert eng._graph_launches == {"paged_attention": cfg.num_layers,
+                                   "sampler_noise": 1}
     assert launched["paged_attention"] == cfg.num_layers * eng.decode_steps
     steps = eng.decode_steps
     before = ops.launch_counts()["paged_attention"]
@@ -967,10 +970,163 @@ def test_cuda_transpose_matches_plain(cuda, mn, dtype):
 
 @pytest.mark.gpu
 def test_cuda_kernel_bench_smoke_launches_every_kernel(cuda):
+    """The kernel bench launches every kernel of the kernel layer and the
+    serving kernels (the sampler's noise kernel serves the decode step
+    only and is not a row of the bench)."""
     ops.reset_launch_counts()
     rows = kernel_bench.run(smoke=True, device=cuda)
-    assert all(n > 0 for n in ops.launch_counts().values()), \
-        ops.launch_counts()
+    counts = ops.launch_counts()
+    assert counts.pop("sampler_noise") == 0
+    assert all(n > 0 for n in counts.values()), counts
     assert all(isinstance(r["ms"], float) and r["ms"] > 0 for r in rows)
     assert all(r["err_of_limit"] == "" or r["err_of_limit"] <= 1
                for r in rows)
+
+
+# ---------------------------------------------------------------------------
+# Decode policies, the prefix cache, speculative decode
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("heads", [(8, 2, 64), (16, 2, 128)],
+                         ids=["bench", "serve"])
+@pytest.mark.parametrize("offset,Sq", [(0, 77), (1, 128), (15, 1), (16, 300),
+                                       (37, 64), (512, 200)])
+def test_cuda_mha_q_offset_matches_plain(cuda, offset, Sq, heads, dtype):
+    """mha with a query offset (a suffix prefill against a cached prefix),
+    keys running past the last query: per row against its plain version;
+    the plain version with the offset one short misses on some row."""
+    H, KV, D = heads
+    Sk = offset + Sq + 29
+    q, k, v = (torch.from_numpy(x).to(cuda, getattr(torch, dtype))
+               for x in mha_inputs(offset + Sq, 2, Sq, Sk, H, KV, D))
+    got = launched_once(lambda: mha_kernel.mha.launches,
+                        lambda: ops.attention(q, k, v, causal=True,
+                                              q_offset=offset))
+    want = ref.mha_ref(q, k, v, causal=True, q_offset=offset)
+    if dtype == "bfloat16":
+        assert_agrees(got, want)
+    else:
+        assert_rows_agree(got, want)
+    if offset and dtype == "float32":
+        shifted = ref.mha_ref(q, k, v, causal=True, q_offset=offset - 1)
+        assert ref.row_error(shifted, want).max().item() > \
+            ref.ROW_TOL[torch.float32]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,T,lengths", [(8, 5, [5, 17, 64, 200, 333, 512,
+                                                 600, 1000]),
+                                         (2, 32, [32, 700])])
+def test_cuda_paged_verify_and_ingest_blocks_match_plain(cuda, B, T, lengths,
+                                                         dtype):
+    """Paged flash-decode at the verify step's T = 5 and a draft model's
+    ingest block of T = 32, at the serving heads."""
+    q, kp, vp, table, lens = paged_case(B + T, B, T, 16, 2, 128, 16, 64,
+                                        lengths)
+    args = [torch.from_numpy(x).to(cuda) for x in (q, kp, vp, table, lens)]
+    args[:3] = [x.to(getattr(torch, dtype)) for x in args[:3]]
+    got = launched_once(lambda: paged_kernel.paged_attention.launches,
+                        lambda: ops.paged_attention(*args))
+    assert_agrees(got, ref.paged_attention_ref(*args))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 1000, 151936])
+def test_cuda_threefry_equals_cpu(cuda, n):
+    """The sampler's keys and bits on the card equal the CPU's bit for bit
+    (integer arithmetic); the noise kernel's bits too, and its Gumbel noise
+    is within 1e-6 of its plain version on the card."""
+    rng = np.random.default_rng(n)
+    cpu = [torch.from_numpy(rng.integers(0, 2**31, 5)) for _ in range(3)]
+    dev = [x.to(cuda) for x in cpu]
+    assert torch.equal(ref.row_keys(*cpu, 1), ref.row_keys(*dev, 1).cpu())
+    want = ref.sampler_noise_ref(*cpu, n, draw=1, bits=True)
+    assert torch.equal(ops.sampler_noise(*dev, n, draw=1, bits=True).cpu(),
+                       want)
+    got = launched_once(lambda: ops.launch_counts()["sampler_noise"],
+                        lambda: ops.sampler_noise(*dev, n, draw=1))
+    torch.testing.assert_close(got, ref.sampler_noise_ref(*dev, n, draw=1),
+                               atol=1e-6, rtol=0)
+
+
+class UncapturedSpecEngine(PagedServingEngine):
+    """The engine with its verify body run as it is, uncaptured."""
+
+    def _dispatch_spec(self):
+        self._spec_body()
+
+
+MIXED = [None, sampling.SamplingParams(0.9, 0, 0.95),
+         sampling.SamplingParams(1.0, 5, 1.0, 7)]
+
+
+def mixed_traffic(max_new=8):
+    return [Request(rid=i, prompt=[(5 * i + 3 * j) % 97 + 1
+                                   for j in range(7 + i)],
+                    max_new=max_new, params=MIXED[i % 3]) for i in range(5)]
+
+
+@pytest.mark.gpu
+def test_cuda_verify_graph_equals_uncaptured_body(cuda):
+    """fp32: the replayed verify graph's (2, slots, T) accept bits and
+    tokens equal its uncaptured body's at every step of a mixed greedy /
+    sampled run, and their streams are the same."""
+    cfg, params = smoke_fp32()
+    engs = [cls(cfg, tree_to(params, cuda), slots=3, max_len=64,
+                page_size=4, spec_k=3, device=cuda)
+            for cls in (UncapturedSpecEngine, PagedServingEngine)]
+    reqs = [mixed_traffic(), mixed_traffic()]
+    for eng, rs in zip(engs, reqs):
+        for r in rs[:3]:
+            assert eng.submit(r)
+    for _ in range(6):
+        for eng in engs:
+            eng.step()
+        assert torch.equal(engs[0]._spec_out, engs[1]._spec_out)
+    assert [r.generated for r in reqs[0]] == [r.generated for r in reqs[1]]
+    assert (engs[0].spec_traces, engs[1].spec_traces) == (0, 1)
+
+
+ENGINE_KW = {
+    "sampled": dict(),
+    "prefix_cache": dict(prefix_cache=True),
+    "spec_ngram": dict(spec_k=3),
+    "spec_model": dict(spec_k=3, drafter=True),
+    "spec_prefix": dict(spec_k=2, prefix_cache=True, num_pages=10),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(ENGINE_KW))
+def test_cuda_policy_engines_equal_cpu_engine(cuda, case):
+    """fp32 smoke model, mixed greedy / sampled requests on 2 slots: the
+    engine on the card (its steps replayed graphs) emits the CPU engine's
+    tokens with the prefix cache, n-gram and self-drafting speculation,
+    and both together under a small pool; one capture of the graph it
+    uses through the whole run, the launches counted per replay."""
+    cfg, params = smoke_fp32()
+
+    def run(dev):
+        kw = dict(ENGINE_KW[case])
+        if kw.pop("drafter", False):
+            kw["drafter"] = DraftModelDrafter(
+                cfg, tree_to(params, dev), page_size=4, num_pages=64,
+                max_len=64, device=dev)
+        return serve_on(PagedServingEngine, cfg, params, dev,
+                        mixed_traffic(10), **dict(dict(
+                            max_len=64, num_pages=24), **kw))
+
+    want, _, _ = run("cpu")
+    got, eng, launched = run(cuda)
+    assert got == want
+    spec = bool(eng.spec_k)
+    assert (eng.step_traces, eng.spec_traces) == ((0, 1) if spec else (1, 0))
+    assert launched["sampler_noise"] == eng.decode_steps + eng.prefills
+    # the draft model runs the gather baseline (its default): no paged
+    # launch of its own
+    assert launched["paged_attention"] == cfg.num_layers * eng.decode_steps
+    assert eng.sampling_stats()["sampled_requests"] == 3

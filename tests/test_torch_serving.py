@@ -291,14 +291,16 @@ def _bench(*args):
 def test_serve_bench_smoke_on_cpu_has_the_references_columns(tmp_path):
     """The mixed scenario's CSV: the reference's ``_drive`` columns in its
     order, the gather and kernel rows and their ratio, every request done,
-    and the reference gate's verdict (which the port's copy shares): it
-    passes but for the three scenarios the port lacks."""
+    and the reference gate's verdict (which the port's copy shares): alone,
+    it passes but for the three scenarios that carry the equivalence
+    columns."""
     from benchmarks import check_csv as jcheck
     from benchmarks.serve_bench import _drive as jdrive
     from repro_torch.launch import check_csv
 
     trace = tmp_path / "trace.json"
-    r = _bench("--smoke", "--device", "cpu", "--trace-out", str(trace))
+    r = _bench("--smoke", "--device", "cpu", "--scenario", "mixed",
+               "--trace-out", str(trace))
     assert r.returncode == 0, r.stdout + r.stderr
     text = r.stdout.strip()
     lines = text.splitlines()
@@ -316,7 +318,7 @@ def test_serve_bench_smoke_on_cpu_has_the_references_columns(tmp_path):
     assert rows[2]["requests_done"] == rows[2]["tokens"] == "0"
     errors = jcheck.check(text)
     assert errors == check_csv.check(text) \
-        == check_csv.missing_scenario_errors()
+        == check_csv.missing_scenario_errors(check_csv.REQUIRED)
     from repro_torch.runtime.trace import validate_trace
     assert validate_trace(json.loads(trace.read_text())) == []
 
