@@ -76,10 +76,33 @@ Phases, each failing loudly (non-zero exit, no result line):
    ``serve_bench --scenario shared-prefix|speculative|sampling`` at fp32
    on 4 layers, gated (``tokens_match_greedy`` must pass), then at bf16
    and full depth for the times.
+9. hybrid and recurrent stacks (generators of their own): mha with a
+   sliding-window band at recurrentgemma's heads (H16 KV1 D256) and the
+   serving heads, bf16 and fp32, windows 0, 16 and 2048 at 1024 and at a
+   2300-token prompt in a 4096 bucket, and a suffix at q_offset 337; on
+   inputs peaked on each row's oldest band key, a band one key narrower
+   must miss every such row; paged flash-decode at G16 D256, window 2048,
+   T = 1 and 5, contexts 2100-3500 whose recycled entries point at a
+   poisoned page 0; times of both beside their bounds (the band's FLOPs,
+   the live window pages' bytes), plain versions and SDPA with the band
+   as a mask. At fp32, full width (recurrentgemma 6 of 38 layers, window
+   cut to 64; mamba2-2.7b 4 of 64): kernel against gather greedy tokens
+   through a forced preemption, 8 decode-graph replays against the
+   uncaptured body bit for bit, spec_k 4 greedy tokens against plain
+   greedy (n-gram drafts, and drafts that are right in part). At full
+   width and depth, bf16: recurrentgemma-9b (12 prompts of 256-3000
+   tokens, 160 new) and mamba2-2.7b (12 of 128-2048, 64 new) through the
+   scheduler, 8 slots: tok/s, TTFT, TPOT, peak memory, recycled window
+   pages against their bound, state-slot bytes, launches a replay, the
+   device-busy share of a decode window, and a decode step and a prefill
+   by piece (the plain RG-LRU and SSD scans against the kernels). Then
+   ``serve_bench --scenario hybrid`` at full width, 6 layers, window 32,
+   fp32, gated (``tokens_match_hybrid`` must pass).
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary (the
-seven TPU kernels' counterparts and the sampler's noise kernel); the last
-line is ``{"ok": true, "device": {...}}``.
+seven TPU kernels' counterparts, the sampler's noise kernel, and mha and
+paged flash-decode again at the hybrid path's windowed shapes with that
+path's launches); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1233,13 +1256,15 @@ def serve(rng):
 
 
 def serving_launches(cfg, eng) -> dict:
-    """The launches a serve run must count: the paged kernel once a layer
-    a decode step (a replay of either graph), mha once a layer a prefill,
-    the sampler's noise kernel once a step and once a prefill, nothing
-    else."""
+    """The launches a serve run must count: the paged kernel once an
+    attention layer a decode step (a replay of either graph), mha once an
+    attention layer a prefill, the sampler's noise kernel once a step and
+    once a prefill, nothing else."""
+    from repro_torch.models import transformer as tfm
+    n = sum(k not in api.STATE_KINDS for k in tfm.layer_kinds(cfg))
     want = dict.fromkeys(ops.launch_counts(), 0)
-    want.update({"paged_attention": cfg.num_layers * eng.decode_steps,
-                 "mha": cfg.num_layers * eng.prefills,
+    want.update({"paged_attention": n * eng.decode_steps,
+                 "mha": n * eng.prefills,
                  "sampler_noise": eng.decode_steps + eng.prefills})
     return want
 
@@ -1879,6 +1904,615 @@ def run_serve_bench_policies() -> None:
             fail(f"serve_bench ({label}) CSV: {errors}")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: hybrid and recurrent stacks (recurrentgemma-9b, mamba2-2.7b)
+# ---------------------------------------------------------------------------
+
+# recurrentgemma's local attention: 16 query heads over 1 KV head, D 256
+RG_H, RG_KV, RG_D, RG_WINDOW = 16, 1, 256, 2048
+
+
+def check_mha_window(rng) -> float:
+    """mha with a sliding-window band against mha_ref at recurrentgemma's
+    heads (H16 KV1 D256) and the serving heads (H16 KV2 D128), bf16 and
+    fp32: windows 0, 16 and 2048 at Sq = Sk = 1024 and at a 2300-token
+    prompt in a 4096 bucket (kv_valid 2300), and a 300-row suffix at
+    q_offset 337 (no tile multiple) with windows 100 and 2048. Then the
+    teeth: on inputs whose rows peak on the oldest key of their band, the
+    plain version with a band one key narrower must miss every such row
+    (bf16 and fp32, D 256, windows 16 and 2048). Returns the max abs
+    error."""
+    worst = 0.0
+    for heads in ((RG_H, RG_KV, RG_D), (H, KV, D)):
+        Hq, KVh, Dh = heads
+        for dtype in (torch.bfloat16, torch.float32):
+            cases = [(S, S, 0, w, valid) for S, valid in ((1024, None),
+                                                          (4096, 2300))
+                     for w in (0, 16, RG_WINDOW)]
+            cases += [(300, 637, 337, w, None) for w in (100, RG_WINDOW)]
+            for Sq, Sk, off, w, valid in cases:
+                def t(*shape):
+                    return torch.tensor(rng.standard_normal(shape),
+                                        dtype=dtype, device="cuda")
+                q, k, v = t(1, Sq, Hq, Dh), t(1, Sk, KVh, Dh), t(1, Sk, KVh,
+                                                                 Dh)
+                got = ops.attention(q, k, v, causal=True, q_offset=off,
+                                    window=w, kv_valid=valid)
+                torch.cuda.synchronize()
+                want = ref.mha_ref(q, k, v, causal=True, q_offset=off,
+                                   window=w, kv_valid=valid)
+                worst = max(worst, agrees(
+                    f"mha [window {w}, Sq {Sq}, Sk {Sk}, q_offset {off}, "
+                    f"kv_valid {valid}, H{Hq} KV{KVh} D{Dh}, "
+                    f"{str(dtype)[6:]}]", got, want))
+                del q, k, v, got, want
+    for dtype in (torch.bfloat16, torch.float32):
+        for S, w, off in ((1024, 16, 0), (4096, RG_WINDOW, 0),
+                          (2400, RG_WINDOW, 301)):
+            q, k, v = (torch.tensor(a, dtype=dtype, device="cuda")
+                       for a in ref.peaked_mha_inputs(rng, 1, S, RG_H, RG_KV,
+                                                      RG_D, edge=w))
+            q = q[:, off:].contiguous()
+            got = ops.attention(q, k, v, causal=True, q_offset=off, window=w)
+            torch.cuda.synchronize()
+            want = ref.mha_ref(q, k, v, causal=True, q_offset=off, window=w)
+            name = (f"mha [peaked on the band's oldest key, window {w}, Sq "
+                    f"{S - off}, q_offset {off}, D 256, {str(dtype)[6:]}]")
+            worst = max(worst, agrees(name, got, want))
+            rows = slice(w - 1 - off, None)   # the rows with an edge key
+            mask_shift_caught(name, ref.mha_ref(
+                q, k, v, causal=True, q_offset=off, window=w - 1)[:, rows],
+                want[:, rows])
+            del q, k, v, got, want
+    torch.cuda.empty_cache()
+    return worst
+
+
+def window_paged_case(rng, B, T, lengths, dtype, window=RG_WINDOW):
+    """paged_case at recurrentgemma's heads whose table entries below each
+    request's earliest row's window point at scratch page 0 (1e4
+    throughout), as recycling leaves them."""
+    args = paged_case(rng, B, T, RG_H, RG_KV, RG_D, PAGE, lengths,
+                      -(-4096 // PAGE), dtype)
+    table = args[3]
+    for b, n in enumerate(lengths):
+        table[b, : max(0, n - T - window + 1) // PAGE] = 0
+    return args
+
+
+def check_paged_window(rng) -> float:
+    """Paged flash-decode at recurrentgemma's shapes (16 query heads over
+    1 KV head: G 16, D 256, window 2048, page 16), T = 1 and 5, bf16 and
+    fp32, contexts 2100-3500 whose below-window entries point at a
+    poisoned page 0 (1e4): any read of a recycled entry moves a row past
+    the tolerance. Returns the max abs error."""
+    worst = 0.0
+    lengths = [2100, 2500, 2777, 3000, 3100, 3333, 3400, 3500]
+    for T in (1, 5):
+        for dt in (torch.bfloat16, torch.float32):
+            args = window_paged_case(rng, SLOTS, T, lengths, dt)
+            got = ops.paged_attention(*args, window=RG_WINDOW)
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                fail("paged [window]: non-finite output")
+            worst = max(worst, agrees(
+                f"paged_attention [window {RG_WINDOW}, T={T}, B={SLOTS}, "
+                f"G16 D256, contexts {min(lengths)}-{max(lengths)}, "
+                f"recycled entries on a poisoned page 0, {str(dt)[6:]}]",
+                got, ref.paged_attention_ref(*args, window=RG_WINDOW)))
+    return worst
+
+
+def band_pairs(Sq, off, window, valid) -> int:
+    """(query row, key) pairs inside the causal band: the work a windowed
+    mha must do."""
+    n = 0
+    for i in range(Sq):
+        p = off + i
+        n += max(0, min(p + 1, valid) - max(0, p - window + 1))
+    return n
+
+
+def time_mha_window(rng, dtype, Sq=4096, valid=4096):
+    """A windowed prefill's mha at recurrentgemma's heads (B1, Sq = Sk,
+    H16 KV1 D256, window 2048), beside its plain version and SDPA with the
+    band as a boolean attn_mask. The bound counts the band's FLOPs (4 D
+    per visible pair) and the bytes of q, k, v and out."""
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                            device="cuda")
+    q, k, v = t(1, Sq, RG_H, RG_D), t(1, Sq, RG_KV, RG_D), t(1, Sq, RG_KV,
+                                                             RG_D)
+
+    def kernel():
+        ops.attention(q, k, v, causal=True, window=RG_WINDOW)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    pos = torch.arange(Sq, device="cuda")
+    mask = (pos[None, :] <= pos[:, None]) \
+        & (pos[:, None] - pos[None, :] < RG_WINDOW)
+
+    def sdpa():
+        torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    ms = cuda_ms(kernel, iters=10)
+    dev = device_ms(kernel, [()] * 10)
+    plain = cuda_ms(lambda: ref.mha_ref(q, k, v, causal=True,
+                                        window=RG_WINDOW), iters=2,
+                    warmup=1)
+    lib = cuda_ms(sdpa, iters=10)
+    lib_dev = device_ms(sdpa, [()] * 10)
+    size = q.element_size()
+    n_bytes = 2 * q.numel() * size + 2 * k.numel() * size
+    flops = 4 * RG_H * RG_D * band_pairs(Sq, 0, RG_WINDOW, valid)
+    bms, by = bench.bound_ms(n_bytes, flops, dtype)
+    log(f"mha time [window {RG_WINDOW}, B1 Sq=Sk={Sq}, H16 KV1 D256, "
+        f"{str(dtype)[6:]}]: {ms:.4f} ms/launch (device {dev:.4f} ms), "
+        f"plain {plain:.4f} ms, SDPA with the band as a mask {lib:.4f} ms "
+        f"(device {lib_dev:.4f} ms), bound {bms:.4f} ms ({by}), "
+        f"{bms / ms:.1%} of bound ({bms / dev:.1%} on the device)")
+    del q, k, v, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    return ms, plain, bms, by, lib
+
+
+def time_paged_window(rng, T):
+    """The hybrid decode (T = 1) and verify (T = 5) step's paged call at
+    recurrentgemma's shapes: B = 8, contexts 2100-3500, window 2048. The
+    bound counts the bytes of the live window pages each request reads
+    (its earliest row's window and the T new keys), q, out and the
+    table."""
+    lengths = [2100, 2500, 2777, 3000, 3100, 3333, 3400, 3500]
+    args = window_paged_case(rng, SLOTS, T, lengths, torch.bfloat16)
+
+    def kernel():
+        ops.paged_attention(*args, window=RG_WINDOW)
+    ms = cuda_ms(kernel)
+    dev = device_ms(kernel, [()] * 20)
+    plain = cuda_ms(lambda: ref.paged_attention_ref(*args, window=RG_WINDOW),
+                    iters=5)
+    first, last = ref.live_pages(args[4], T, PAGE, args[3].shape[1],
+                                 RG_WINDOW)
+    pages = int((last - first).sum())
+    q = args[0]
+    n_bytes = pages * PAGE * RG_KV * RG_D * 2 * 2 + 2 * q.numel() * 2 \
+        + args[3].numel() * 4 + SLOTS * 4
+    keys = sum(min(n, RG_WINDOW + T - 1) for n in lengths)
+    flops = 4 * keys * T * RG_H * RG_D
+    bms, by = bench.bound_ms(n_bytes, flops, torch.bfloat16)
+    log(f"paged_attention time [window {RG_WINDOW}, T={T}, B={SLOTS}, G16 "
+        f"D256, contexts {min(lengths)}-{max(lengths)}, {pages} live "
+        f"pages]: {ms:.4f} ms/launch (device {dev:.4f} ms), plain "
+        f"{plain:.4f} ms, bound {bms:.4f} ms ({by}), {bms / ms:.1%} of "
+        f"bound ({bms / dev:.1%} on the device)")
+    return ms, plain, bms, by
+
+
+def check_hybrid_exact() -> None:
+    """At fp32 (weights, activations and KV cache), full width: recurrent-
+    gemma cut to 6 of 38 layers (two whole patterns) with its window cut
+    to 64 so that it slides within the run, and mamba2-2.7b cut to 4 of 64
+    layers. The kernel engine's greedy tokens equal the gather engine's on
+    prompts longer than the window, through a forced preemption; 8
+    replays of the decode graph equal its uncaptured body bit for bit; and
+    spec_k 4 greedy tokens (drafts from the plain run's own tokens, so
+    verify steps accept some and reject some) equal plain greedy."""
+    f32 = dict(dtype="float32", kv_cache_dtype="float32")
+    for arch, layers in (("recurrentgemma-9b", 6), ("mamba2-2.7b", 4)):
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  **f32)
+        if cfg.hybrid is not None:
+            cfg = dataclasses.replace(cfg, hybrid=dataclasses.replace(
+                cfg.hybrid, window=64))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+        params = api.init_params(cfg, gen, device="cuda")
+        own = np.random.default_rng(SEED + 30)
+        prompts = [[int(t) for t in own.integers(0, cfg.vocab, int(n))]
+                   for n in (80, 150, 97, 230, 40, 130)]
+        max_new = 24
+        kw = dict(slots=4, max_len=512, page_size=PAGE)
+        if cfg.hybrid is not None:
+            # the first two prompts fill a pool of 9 pages at admission (4
+            # and 5 window pages), so the first step needs a page that only
+            # preempting the younger frees; each alone fits its bound of 6
+            kw["num_pages"] = 9
+
+        def run(**extra):
+            eng = PagedServingEngine(cfg, params, device="cuda",
+                                     **dict(kw, **extra))
+            reqs = [Request(rid=i, prompt=p, max_new=max_new)
+                    for i, p in enumerate(prompts)]
+            from repro_torch.runtime.scheduler import Scheduler
+            sched = Scheduler(eng)
+            for r in reqs:
+                sched.add(r)
+            while sched.pending or eng.has_live():
+                sched.tick()
+                eng.check()
+                if sched.steps > 2000:
+                    fail(f"{arch} exact: the run did not finish")
+            return [r.generated for r in reqs], eng, sched
+
+        t0 = time.perf_counter()
+        kernel, ek, sk = run()
+        gather, eg, sg = run(attn_impl="gather")
+        if arch == "mamba2-2.7b":
+            # no pages, so nothing preempts on its own: evict one request
+            # mid-decode by hand; it resumes by re-prefill
+            eng = PagedServingEngine(cfg, params, device="cuda", **kw)
+            req = Request(rid=0, prompt=prompts[0], max_new=max_new)
+            eng.submit(req)
+            for _ in range(7):
+                eng.step()
+            eng.submit(eng._evict_slot(0))
+            while eng.has_live():
+                eng.step()
+            pre, n_pre = req.generated, req.preemptions
+            if pre != kernel[0]:
+                fail(f"{arch} exact: a preempted request's tokens differ")
+        else:
+            n_pre = sk.preempted
+        log(f"hybrid exact [{arch}, fp32, {layers} layers"
+            f"{', window 64' if cfg.hybrid else ''}]: kernel vs gather "
+            f"greedy tokens equal {kernel == gather} over {len(prompts)} "
+            f"requests x {max_new}; preemptions {n_pre}; recycled window "
+            f"pages {ek.win_recycled_pages} (gather {eg.win_recycled_pages})"
+            f", most live {ek.win_peak_live} of bound "
+            f"{ek.win_pages_bound(ek.max_len) if ek.has_win else 0}; "
+            f"captures {ek.step_traces}; {time.perf_counter() - t0:.1f} s")
+        if kernel != gather:
+            at = next((i, j) for i, (a, b) in enumerate(zip(kernel, gather))
+                      for j, (x, y) in enumerate(zip(a, b)) if x != y)
+            fail(f"{arch} exact: kernel and gather tokens part at request "
+                 f"{at[0]} token {at[1]}")
+        if n_pre < 1 or ek.step_traces != 1:
+            fail(f"{arch} exact: no preemption, or captures are not one")
+        if cfg.hybrid is not None and not (
+                ek.win_recycled_pages > 0
+                and ek.win_recycled_pages == eg.win_recycled_pages):
+            fail(f"{arch} exact: window pages not recycled alike")
+        # the decode graph against its uncaptured body, bit for bit
+        engs = [UncapturedEngine(cfg, params, device="cuda", **kw),
+                PagedServingEngine(cfg, params, device="cuda", **kw)]
+        for eng in engs:
+            for i, p in enumerate(prompts[:4]):
+                eng.submit(Request(rid=i, prompt=p, max_new=40))
+        for s in range(8):
+            for eng in engs:
+                eng.step()
+            # rows live through the step only: dead slots (and the one the
+            # step's top-up preempted) read the scratch page, which several
+            # of them write in one step (garbage by design)
+            live = [i for i, r in enumerate(engs[1].live) if r is not None]
+            if live != [i for i, r in enumerate(engs[0].live)
+                        if r is not None]:
+                fail(f"{arch} exact: decode step {s}: live slots differ")
+            same = torch.equal(engs[0].last_logits[live],
+                               engs[1].last_logits[live]) \
+                and all(torch.equal(a[live], b[live])
+                        for (_, ea), (_, eb) in zip(engs[0]._state,
+                                                    engs[1]._state)
+                        for a, b in zip(ea.values(), eb.values()))
+            if not same:
+                fail(f"{arch} exact: decode step {s}: the graph's logits or "
+                     f"states differ from the uncaptured body's")
+        log(f"hybrid exact [{arch}]: 8 replays of the decode graph equal "
+            f"the uncaptured body bit for bit (logits and every state "
+            f"slot of the live requests, through a preemption)")
+        # speculative greedy: drafts from the plain run's tokens, some
+        # right, some wrong
+        streams = {i: toks for i, toks in enumerate(kernel)}
+
+        class Oracle:
+            kind = "oracle"
+
+            def propose(self, rid, ctx, k):
+                n = len(ctx) - len(prompts[rid])
+                good = streams[rid][n:n + k]
+                return good if n % 2 == 0 else good[:1] + [
+                    (t + 1) % cfg.vocab for t in good[1:]]
+
+            def drop(self, rid):
+                pass
+
+            def stats(self):
+                return {}
+
+        for name, extra in (("n-gram", {}), ("oracle", {"drafter":
+                                                         Oracle()})):
+            spec, es, _ = run(spec_k=4, **extra)
+            log(f"hybrid exact [{arch}, spec_k 4, {name} drafts]: tokens "
+                f"equal plain greedy {spec == kernel}; accepted "
+                f"{es.spec_accepted}/{es.spec_drafted}; {es.state_selects} "
+                f"rollback selects ({es.select_traces} capture), "
+                f"{es.spec_traces} verify capture")
+            if spec != kernel:
+                fail(f"{arch} exact: spec_k 4 ({name}) tokens differ from "
+                     f"plain greedy")
+            if name == "oracle" and not 0 < es.spec_accepted \
+                    < es.spec_drafted:
+                fail(f"{arch} exact: oracle drafts were not accepted in "
+                     f"part")
+        del params
+        torch.cuda.empty_cache()
+
+
+def graph_ms(fn, iters: int = 10) -> float:
+    """CUDA-event ms per replay of ``fn`` captured alone as a CUDA graph (a
+    warm-up run on a side stream first): the device's time for its
+    kernels without the host's launch gaps, which an eager call of a
+    piece this small is made of."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_ms(graph.replay, iters=iters)
+    del graph
+    return ms
+
+
+def piece_times(cfg, params, eng) -> None:
+    """Where a hybrid decode step and prefill spend the card's time, by
+    CUDA events: one decode step as the engine's graph replays it, then
+    each piece captured alone in a graph (``graph_ms``) at the step's
+    shapes (B = 8 rows) times the layers that run it: the recurrent mixers
+    whole and their plain recurrence + conv (``_token_step``), the paged
+    kernel, the MLPs, the head and the sampler; a 2048-token prefill's
+    mixers, their plain scans (the doubling scan, the SSD chunk loop) and
+    causal convs, mha with the band and the MLPs. Every piece is plain
+    PyTorch but the two kernels."""
+    from repro_torch.models import griffin, layers, ssm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.sampling import sample_rows
+    kinds = tfm.layer_kinds(cfg)
+    dt = getattr(torch, cfg.dtype)
+    B, S, d = SLOTS, 2048, cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 42)
+
+    def rand(*shape, dtype=dt):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+    x1, xs = rand(B, 1, d), rand(1, S, d)
+    step = cuda_ms(eng._graph.replay, iters=10)
+    dec, pre = {}, {}
+    for kind in sorted(set(kinds)):
+        n = kinds.count(kind)
+        j = kinds.index(kind)
+        p, c = params["blocks"][j], eng.cache[j]
+        if kind == "rglru":
+            mx = p["mixer"]
+            u = rand(B, griffin.lru_dim(cfg))
+            dec["rglru mixer"] = n * graph_ms(
+                lambda: griffin.rglru_decode(cfg, mx, x1, c))
+            dec["  of which recurrence + conv"] = n * graph_ms(
+                lambda: griffin._token_step(mx, c["h"], c["conv"], u))
+            ur = rand(1, S, griffin.lru_dim(cfg))
+            a, bb = griffin._gates(mx, griffin._conv(mx, ur))
+            pre["rglru mixer"] = n * graph_ms(
+                lambda: griffin.rglru_apply(cfg, mx, xs, return_state=True),
+                iters=5)
+            pre["  of which doubling scan"] = n * graph_ms(
+                lambda: griffin._scan(a, bb), iters=5)
+            pre["  of which causal conv"] = n * graph_ms(
+                lambda: griffin._conv(mx, ur), iters=5)
+        elif kind == "ssm":
+            mx = p["mixer"]
+            zx = rand(B, mx["in_proj"].shape[1])
+            dec["ssm mixer"] = n * graph_ms(
+                lambda: ssm.ssm_decode(cfg, mx, x1, c))
+            dec["  of which recurrence + conv"] = n * graph_ms(
+                lambda: ssm._token_step(cfg, mx, c["ssm"], c["conv"], zx))
+            d_inner, nh, conv_dim = ssm.dims(cfg)
+            sc = cfg.ssm
+            xin = rand(1, S, nh, sc.head_dim)
+            dtv = torch.nn.functional.softplus(rand(1, S, nh,
+                                                    dtype=torch.float32))
+            Bm, Cm = (rand(1, S, sc.num_groups, sc.state_dim)
+                      for _ in range(2))
+            A = -torch.exp(mx["A_log"])
+            raw = rand(1, S, conv_dim)
+            pre["ssm mixer"] = n * graph_ms(
+                lambda: ssm.ssm_apply(cfg, mx, xs, return_state=True),
+                iters=3)
+            pre["  of which SSD chunk scan"] = n * graph_ms(
+                lambda: ssm._ssd_scan(xin, dtv, A, Bm, Cm, sc.chunk),
+                iters=3)
+            pre["  of which causal conv"] = n * graph_ms(
+                lambda: ssm._conv(cfg, mx, raw), iters=3)
+        else:
+            win = cfg.hybrid.window if kind == "local_attn" else 0
+            args = window_paged_case(np.random.default_rng(SEED + 43), B, 1,
+                                     [2100, 2500, 2777, 3000, 3100, 3333,
+                                      3400, 3500], dt, win)
+            dec["paged_attention kernel"] = n * graph_ms(
+                lambda: ops.paged_attention(*args, window=win))
+            qs = rand(1, S, cfg.num_heads, cfg.resolved_head_dim)
+            ks = rand(1, S, cfg.kv_heads, cfg.resolved_head_dim)
+            pre["mha kernel (band)"] = n * graph_ms(
+                lambda: ops.attention(qs, ks, ks, causal=True, window=win),
+                iters=5)
+        if "mlp" in p:
+            mp = p["mlp"]
+            dec["MLPs"] = dec.get("MLPs", 0.0) + n * graph_ms(
+                lambda: layers.mlp_apply(cfg, mp, x1))
+            pre["MLPs"] = pre.get("MLPs", 0.0) + n * graph_ms(
+                lambda: layers.mlp_apply(cfg, mp, xs), iters=5)
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    logits = (x1[:, 0] @ head).float()
+    dec["head"] = graph_ms(lambda: (x1[:, 0] @ head).float())
+    dec["sampler (greedy)"] = graph_ms(
+        lambda: sample_rows(logits[:, : cfg.vocab], eng.pol))
+    log(f"pieces {cfg.name} decode step (B={B}): graph replay "
+        f"{step:.3f} ms; alone: " + ", ".join(
+            f"{k.strip()} {v:.3f} ms ({v / step:.1%})"
+            for k, v in dec.items()))
+    log(f"pieces {cfg.name} prefill of {S} tokens, alone: " + ", ".join(
+        f"{k.strip()} {v:.3f} ms" for k, v in pre.items()))
+
+
+def hybrid_traffic(arch, rng, vocab):
+    """The phase-9 serve traffic: recurrentgemma-9b 12 prompts of 256-3000
+    tokens (4 past the 2048 window, 2 of 1900-2040 that cross it while
+    decoding), 160 new tokens each; mamba2-2.7b 12 prompts of 128-2048
+    tokens, 64 new tokens."""
+    if arch == "recurrentgemma-9b":
+        lengths = [int(n) for n in rng.integers(256, 1900, 6)] \
+            + [int(n) for n in rng.integers(1900, 2041, 2)] \
+            + [int(n) for n in rng.integers(2100, 3001, 4)]
+        max_new = 160
+    else:
+        lengths = [int(n) for n in rng.integers(128, 2049, 12)]
+        max_new = 64
+    rng.shuffle(lengths)
+    return [Request(rid=i, prompt=[int(t) for t in rng.integers(0, vocab,
+                                                                 n)],
+                    max_new=max_new) for i, n in enumerate(lengths)]
+
+
+def serve_hybrid(arch) -> dict:
+    """One arch at full width and depth, bf16, seeded weights on the card,
+    through the paged engine and the scheduler: 8 slots, page 16, max_len
+    4096, one warm-up request (the decode graph's capture) then the
+    reference's reset point, then the traffic of ``hybrid_traffic``.
+    Checks every request finished in the vocabulary, the launch counts,
+    one capture, every slot's live window pages within win_pages_bound at
+    every tick; logs tok/s, TTFT and TPOT p50, peak memory, recycled
+    window pages, the state slots' bytes, the launches a replay holds, the
+    device-busy share of a decode window and the CUDA-event ms of a decode
+    step and of a prefill by model piece (``piece_times``: the plain
+    RG-LRU and SSD pieces against the kernels). Returns the run's launch
+    counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.scheduler import Scheduler
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    params = api.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    log(f"serve {arch}: {cfg.param_count() / 1e9:.2f}B params, "
+        f"{cfg.num_layers} layers, bf16, weights drawn on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+    eng = PagedServingEngine(cfg, params, slots=SLOTS, max_len=4096,
+                             page_size=PAGE, device="cuda")
+    t0 = time.perf_counter()
+    eng.run_to_completion([Request(rid=-1, prompt=list(range(64)),
+                                   max_new=2)])
+    log(f"serve {arch}: warm-up request with the decode graph's capture "
+        f"{time.perf_counter() - t0:.2f} s")
+    eng.reset_metrics()
+    rng = np.random.default_rng(SEED + 41)
+    reqs = hybrid_traffic(arch, rng, cfg.vocab)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    sched = Scheduler(eng)
+    for r in reqs:
+        sched.add(r)
+    bound = eng.win_pages_bound(eng.max_len) if eng.has_win else 0
+    t0 = time.perf_counter()
+    while sched.pending or eng.has_live():
+        sched.tick()
+        if eng.has_win:
+            eng.check()
+        if sched.steps > 5000:
+            fail(f"serve {arch}: the run did not finish")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    m = eng.metrics()
+    n_tok = sum(len(r.generated) for r in reqs)
+    lengths = [len(r.prompt) for r in reqs]
+    log(f"serve {arch}: {sum(r.done for r in reqs)}/{len(reqs)} requests "
+        f"(prompts {min(lengths)}-{max(lengths)} tokens, "
+        f"{sum(n > 2048 for n in lengths)} past 2048), {n_tok} tokens in "
+        f"{wall:.2f} s = {n_tok / wall:.1f} tok/s, ttft p50 "
+        f"{m['latency.ttft_p50_s']:.4f} s, tpot p50 "
+        f"{m['latency.tpot_p50_s']:.4f} s, {eng.decode_steps} decode steps "
+        f"(graph replays), {eng.prefills} prefills, {sched.preempted} "
+        f"preemptions, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"serve {arch}: window pages recycled {eng.win_recycled_pages}, "
+        f"most live window pages a slot held {eng.win_peak_live} of bound "
+        f"{bound}; state slots {eng.state_slot_bytes()} bytes a slot, "
+        f"{eng.state_slot_bytes() * eng.slots} in all; launches {counts}; "
+        f"a decode replay holds {eng._graph_launches}; captures "
+        f"{eng.step_traces}")
+    if any(not r.done or len(r.generated) != r.max_new for r in reqs):
+        fail(f"serve {arch}: not every request finished with max_new "
+             f"tokens")
+    if any(not 0 <= t < cfg.vocab for r in reqs for t in r.generated):
+        fail(f"serve {arch}: a token outside the vocabulary")
+    if eng.step_traces != 1:
+        fail(f"serve {arch}: {eng.step_traces} decode graph captures")
+    want = serving_launches(cfg, eng)
+    if counts != want:
+        fail(f"serve {arch}: launches {counts} != {want}")
+    if eng.has_win and not (eng.win_recycled_pages > 0
+                            and 0 < eng.win_peak_live <= bound):
+        fail(f"serve {arch}: no window page recycled, or a slot over the "
+             f"bound")
+    eng.alloc.check()
+
+    # a decode window: 8 requests of 2048-token prompts, 9 new tokens
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, 2048)]
+               for _ in range(SLOTS)]
+    for i, p in enumerate(prompts):
+        if not eng.submit(Request(rid=100 + i, prompt=p, max_new=9)):
+            fail(f"profile {arch}: admission rejected")
+    eng.step()
+    torch.cuda.synchronize()
+    steps0 = eng.decode_steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while eng.has_live():
+            eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    n = eng.decode_steps - steps0
+    log(f"profile {arch}: {n} decode steps (B={SLOTS}, 2048-token "
+        f"prompts), wall {wall_us / 1e3:.2f} ms, device busy "
+        f"{busy / 1e3:.2f} ms = {busy / max(wall_us, 1):.1%} of the wall "
+        f"(idle {1 - busy / max(wall_us, 1):.1%}), "
+        f"{busy / 1e3 / max(n, 1):.3f} device ms a step")
+    piece_times(cfg, params, eng)
+    del eng, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_serve_bench_hybrid() -> None:
+    """``serve_bench --scenario hybrid`` at recurrentgemma-9b's full width
+    cut to 6 layers and its window to 32 (the trace's 8 prompts of 16-51
+    tokens then straddle it, as the SMOKE config's do its 16), at fp32,
+    gated by ``launch/check_csv.py`` (``tokens_match_hybrid``, gather
+    against kernel, must pass) and by the rows' recycled pages."""
+    from repro_torch.launch import check_csv
+    t0 = time.perf_counter()
+    text = bench_csv(["--full", "--scenario", "hybrid", "--layers", "6",
+                      "--window", "32", "--dtype", "float32", "--slots",
+                      "4", "--max-len", "512", "--requests", "16"])
+    log(f"serve_bench --scenario hybrid (recurrentgemma-9b full width, 6 "
+        f"layers, window 32, fp32) in {time.perf_counter() - t0:.1f} s:")
+    print(text, flush=True)
+    errors = check_csv.check(text)
+    if errors != check_csv.missing_scenario_errors(check_csv.REQUIRED):
+        fail(f"serve_bench hybrid CSV: {errors}")
+    rows = [row for _, rs in check_csv.parse_sections(text) for row in rs]
+    for row in rows[:2]:
+        if row["requests_done"] != "8" or row["tokens_match_hybrid"] != "1" \
+                or not int(row["win_recycled_pages"]) > 0:
+            fail(f"serve_bench hybrid: {row['engine']} did not finish, "
+                 f"match or recycle")
+
+
 def main() -> None:
     smi = card()
     build_kernels()
@@ -1919,6 +2553,20 @@ def main() -> None:
     torch.cuda.empty_cache()
     run_serve_bench_policies()
     log(f"phase 8 in {time.perf_counter() - t8:.1f} s")
+    # phase 9, from generators of its own
+    t9 = time.perf_counter()
+    own = np.random.default_rng(SEED + 50)
+    err_mha_win = check_mha_window(own)
+    err_paged_win = check_paged_window(own)
+    mha_win_t = time_mha_window(own, torch.bfloat16)
+    time_mha_window(own, torch.float32)
+    paged_win_t = time_paged_window(own, 1)
+    time_paged_window(own, 5)
+    check_hybrid_exact()
+    hybrid_counts = serve_hybrid("recurrentgemma-9b")
+    serve_hybrid("mamba2-2.7b")
+    run_serve_bench_hybrid()
+    log(f"phase 9 in {time.perf_counter() - t9:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "paged_attention", "route": "cuda",
@@ -1940,6 +2588,21 @@ def main() -> None:
          "launches": counts["sampler_noise"], "max_abs_err": err_noise,
          "ms": noise_t[0], "plain_ms": noise_t[1], "bound_ms": noise_t[2],
          "bound_by": noise_t[3], "library_ms": None},
+        {"name": "mha[window 2048, D 256, recurrentgemma-9b prefill]",
+         "route": "cuda", "source": "src/repro_torch/kernels/csrc/mha.cu",
+         "replaces": "src/repro/kernels/attention.py:32",
+         "launches": hybrid_counts["mha"], "max_abs_err": err_mha_win,
+         "ms": mha_win_t[0], "plain_ms": mha_win_t[1],
+         "bound_ms": mha_win_t[2], "bound_by": mha_win_t[3],
+         "library_ms": mha_win_t[4]},
+        {"name": "paged_attention[window 2048, G 16, D 256, "
+                 "recurrentgemma-9b decode]", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:78",
+         "launches": hybrid_counts["paged_attention"],
+         "max_abs_err": err_paged_win, "ms": paged_win_t[0],
+         "plain_ms": paged_win_t[1], "bound_ms": paged_win_t[2],
+         "bound_by": paged_win_t[3], "library_ms": None},
     ] + layer}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

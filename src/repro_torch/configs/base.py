@@ -84,8 +84,9 @@ class ModelConfig:
         return self.enc_layers > 0
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + attention/MLP blocks) of a
-        dense decoder-only stack, the only family the port serves."""
+        """Analytic parameter count (embedding + blocks), the JAX package's
+        formula: attention/MLP stacks exactly, the Mamba2 and hybrid
+        families by its approximation."""
         d, dff, v = self.d_model, self.d_ff, self.vocab
         hd = self.resolved_head_dim
         attn = (d * self.num_heads * hd + 2 * d * self.kv_heads * hd
@@ -93,5 +94,23 @@ class ModelConfig:
         if self.qkv_bias:
             attn += (self.num_heads + 2 * self.kv_heads) * hd
         ffn = (3 if self.gated_ffn else 2) * d * dff
-        total = self.num_layers * (attn + ffn)
+        if self.family == "ssm":
+            s = self.ssm
+            d_inner = s.expand * d
+            per_layer = (
+                d * (2 * d_inner + 2 * s.num_groups * s.state_dim
+                     + d_inner // s.head_dim)
+                + d_inner * s.conv_width + d_inner * d
+                + d_inner // s.head_dim)
+            total = self.num_layers * per_layer
+        elif self.family == "hybrid":
+            h = self.hybrid
+            lru = h.lru_dim or d
+            n_attn = sum(1 for b in (h.pattern * self.num_layers)
+                         [: self.num_layers] if b == "local_attn")
+            lru_block = 2 * d * lru + 3 * lru * lru
+            total = (n_attn * (attn + ffn)
+                     + (self.num_layers - n_attn) * (lru_block + ffn))
+        else:
+            total = self.num_layers * (attn + ffn)
         return int(total + v * d * (1 if self.tie_embeddings else 2))

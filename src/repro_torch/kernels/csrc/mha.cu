@@ -15,6 +15,26 @@
 // range, its mask and its tile skips; the summation order of an output stays
 // one.
 //
+// The band (window > 0, causal only; layers.flash_attention(window=), which
+// the Pallas kernel lacks): row qpos sees key kpos iff also qpos - kpos <
+// window, recurrentgemma's local attention (window 2048, head dim 256). Both
+// paths start a q block's key sweep at the tile that holds the first key of
+// its first row's band and mask the tiles the band's lower edge crosses, row
+// by row, as they mask the causal diagonal; a block sweeps about window +
+// its rows keys, not all the keys below it. The fp32 path's plan models the
+// start (attention.f32_ctas) and pairs causal blocks x and n - 1 - x only
+// where no band cuts a block (attention.f32_pairs): with a band most blocks
+// sweep the same keys, and a pair would hold twice a lone block's work.
+// What bounds a windowed prefill: the band's FLOPs, 4 D per visible (row,
+// key) pair, over 989 TFLOP/s in bf16 and 67 TFLOP/s in fp32; at Sq = 4096,
+// window 2048, H 16, D 256 the band holds 6.3 M pairs a head, 103 GFLOP in
+// all: 0.104 ms bf16, 1.54 ms fp32.
+// Head dim 256: Q, two K/V stages and O in registers as at 128 on the
+// tensor cores (O is 128 registers a consumer thread: one CTA an SM); the
+// fp32 path keeps one stage of its ring (F32Geo::kStages). Not tried: the
+// band as a separate kernel over tile ranges, and O split over two consumer
+// warpgroups at D = 256.
+//
 // What bounds it on this card: operations. At Sq = Sk = 1024 a causal head
 // does ~128 FLOPs per byte of q/k/v, so the least time is the causal FLOPs
 // over the tensor cores' 989 TFLOP/s (bf16).
@@ -132,9 +152,12 @@ constexpr int kF32Keys = 32;  // keys of one warp's tile
 // 32 keys; warp (rg, ks) takes row group rg against tile ks. RG is the
 // launcher's plan (attention.f32_plan): 4, or 2 where 64-row blocks leave
 // SMs idle (D <= 64 only: a round of 128 keys at D = 128 would not fit twice
-// in shared memory).
+// in shared memory). At D = 256 one stage of a round (64 keys of K and V,
+// 129 KB) and Q (65 KB) fill the shared memory: the ring has one stage
+// there (kStages), and a round's copy waits for the round before it.
 template <int D, int RG>
 struct F32Geo {
+  static constexpr int kStages = D >= 256 ? 1 : 2;
   static constexpr int KS = kF32Warps / RG;
   static constexpr int BQ = 16 * RG;
   static constexpr int kRoundKeys = KS * kF32Keys;
@@ -147,10 +170,11 @@ struct F32Geo {
   // 4 of lane group ty at 4 ty .. 4 ty + 3; padded so that 8 keys' rows
   // stored at one column cover 32 banks
   static constexpr int PP = 20;
-  // shared: Q, two stages of K and V, then P^T of the 8 warps
+  // shared: Q, the stages of K and V, then P^T of the 8 warps
   static constexpr int kQ = BQ * QP, kK = kRoundKeys * KP, kStage = kK + kRoundKeys * D;
   static constexpr int kP = kF32Keys * PP;
-  static constexpr size_t kSmem = sizeof(float) * (kQ + 2 * kStage + kF32Warps * kP);
+  static constexpr size_t kSmem = sizeof(float) * (kQ + kStages * kStage + kF32Warps * kP);
+  static_assert(kSmem <= 232448, "a CTA's shared memory");
   static_assert(kStage >= KS * BQ * (D + 2), "the merge's partials fit in one stage");
 };
 
@@ -188,11 +212,11 @@ __device__ __forceinline__ float ex2(float x) {
 // 4), and O for rows ty + 4i and columns (8u + tx) VW + e. q_s, k_s and v_s
 // point at the warp's rows and keys, p_s at its P^T; r0 is the absolute
 // position of its first query row (q_off included).
-template <int D, int RG>
+template <int D, int RG, bool BAND>
 __device__ __forceinline__ void f32_tile(float (&o)[4][D / 8], float (&m)[4], float (&l)[4],
                                          const float* q_s, const float* k_s, const float* v_s,
                                          float* p_s, int r0, int k0, int valid, int causal,
-                                         float scale_log2) {
+                                         int window, float scale_log2) {
   using G = F32Geo<D, RG>;
   const int ty = threadIdx.x % 32 / 8, tx = threadIdx.x % 8;
 
@@ -223,14 +247,19 @@ __device__ __forceinline__ void f32_tile(float (&o)[4][D / 8], float (&m)[4], fl
   }
 
   // The kernels' one predicate; masked scores -> -inf, whose exp2f is 0.
-  // A tile wholly visible to all 16 rows skips it.
-  if (k0 + kF32Keys > valid || (causal && k0 + kF32Keys - 1 > r0)) {
+  // A tile wholly visible to all 16 rows skips it. BAND (window > 0,
+  // causal only): row qpos sees keys with qpos - kpos < window; the band's
+  // tests are compiled only into the BAND kernels (the others ran 4-5%
+  // slower with them, launch/mha_pool_probe.py)
+  if (k0 + kF32Keys > valid || (causal && k0 + kF32Keys - 1 > r0) ||
+      (BAND && k0 < r0 + 16 - window)) {
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 8 * j, qpos = r0 + ty + 4 * i;
-        if (kpos >= valid || (causal && qpos < kpos)) s[i][j] = -CUDART_INF_F;
+        if (kpos >= valid || (causal && qpos < kpos) || (BAND && qpos - kpos >= window))
+          s[i][j] = -CUDART_INF_F;
       }
   }
 
@@ -293,19 +322,22 @@ __device__ __forceinline__ void f32_tile(float (&o)[4][D / 8], float (&m)[4], fl
   __syncwarp();  // P^T is read before the warp's next tile writes it
 }
 
-// grid (x, H, B): causal, CTA x takes q blocks x and n - 1 - x (grid x =
-// ceil(n / 2)), so that every CTA sweeps about the same number of keys;
-// otherwise block x alone (grid x = n).
-template <int D, int RG>
+// grid (x, H, B): paired (causal, no band cutting a block), CTA x takes q
+// blocks x and n - 1 - x (grid x = ceil(n / 2)), so that every CTA sweeps
+// about the same number of keys; otherwise block x alone (grid x = n).
+// BAND (window > 0, causal only): a q block's sweep starts at the 32-key
+// tile holding the first key of its first row's band, so it sweeps about
+// window + BQ keys, not all keys below it.
+template <int D, int RG, bool BAND>
 __global__ void __launch_bounds__(kF32Threads, 1) mha_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int* __restrict__ kv_valid, float* __restrict__ out, int Sq, int Sk, int H, int KV,
-    float scale_log2, int causal, int q_off) {
+    float scale_log2, int causal, int q_off, int window, int pair) {
   using G = F32Geo<D, RG>;
   extern __shared__ __align__(16) float f32_smem[];
   float* q_s = f32_smem;
   float* ring = q_s + G::kQ;  // stage s: K at ring + s kStage, V kK further
-  float* p_s = ring + 2 * G::kStage + (threadIdx.x / 32) * G::kP;  // this warp's P^T
+  float* p_s = ring + G::kStages * G::kStage + (threadIdx.x / 32) * G::kP;  // this warp's P^T
 
   const int h = blockIdx.y, b = blockIdx.z, kh = h / (H / KV);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -326,19 +358,29 @@ __global__ void __launch_bounds__(kF32Threads, 1) mha_f32_kernel(
     copy_rows<D, G::kRoundKeys>(dst + G::kK, D, vb, kv_stride, key0, kv_end);
   };
   const int n_blocks = (Sq + G::BQ - 1) / G::BQ;
-  const int first = blockIdx.x, second = causal ? n_blocks - 1 - first : first;
+  const int first = blockIdx.x, second = pair ? n_blocks - 1 - first : first;
   const int passes = second > first ? 2 : 1;
   auto block_end = [&](int q0) { return causal ? min(valid, q_off + q0 + G::BQ) : valid; };
+  // the first key a block sweeps: 0, or with a band the 32-key tile that
+  // holds the first key its first row sees
+  auto block_start = [&](int q0) {
+    return BAND ? max(q_off + q0 - window + 1, 0) / kF32Keys * kF32Keys : 0;
+  };
+  auto load_first = [&](int q0) {
+    if (block_end(q0) > block_start(q0)) load_stage(0, block_start(q0), block_end(q0));
+  };
   // a pass's Q and first stage are in flight before it starts: the next
-  // pass's are issued while this one merges
+  // pass's are issued while this one merges (its stage after the merge, with
+  // one stage)
   copy_rows<D, G::BQ>(q_s, G::QP, qb, q_stride, first * G::BQ, Sq);
-  if (block_end(first * G::BQ) > 0) load_stage(0, 0, block_end(first * G::BQ));
+  load_first(first * G::BQ);
   tc_tile::cp_async_commit();
 
   for (int pass = 0; pass < passes; ++pass) {
     const int q0 = (pass ? second : first) * G::BQ;
-    const int kv_end = block_end(q0);
-    const int rounds = (kv_end + G::kRoundKeys - 1) / G::kRoundKeys;
+    const int kv_end = block_end(q0), kv_start = block_start(q0);
+    const int rounds =
+        kv_end > kv_start ? (kv_end - kv_start + G::kRoundKeys - 1) / G::kRoundKeys : 0;
     const int r0 = q0 + 16 * rg;  // this warp's first query row
     const int a0 = q_off + r0;    // and its absolute position
     float o[4][D / 8], m[4], l[4];
@@ -352,28 +394,37 @@ __global__ void __launch_bounds__(kF32Threads, 1) mha_f32_kernel(
     for (int r = 0; r < rounds; ++r) {
       tc_tile::cp_async_wait<0>();
       __syncthreads();  // round r's stage is in; every warp is done with round r - 1's
-      if (r + 1 < rounds) load_stage((r + 1) & 1, (r + 1) * G::kRoundKeys, kv_end);
+      if (G::kStages == 2 && r + 1 < rounds)
+        load_stage((r + 1) & 1, kv_start + (r + 1) * G::kRoundKeys, kv_end);
       tc_tile::cp_async_commit();
-      const int k0 = r * G::kRoundKeys + ks * kF32Keys;
-      const float* st = ring + (r & 1) * G::kStage;
-      if (k0 < kv_end && r0 < Sq && (!causal || k0 <= a0 + 15))
-        f32_tile<D, RG>(o, m, l, q_s + 16 * rg * G::QP, st + ks * kF32Keys * G::KP,
-                        st + G::kK + ks * kF32Keys * D, p_s, a0, k0, valid, causal,
+      const int k0 = kv_start + r * G::kRoundKeys + ks * kF32Keys;
+      const float* st = ring + (G::kStages == 2 ? (r & 1) : 0) * G::kStage;
+      // a tile wholly past the warp's last row, or wholly below its first
+      // row's band, adds nothing to its rows
+      if (k0 < kv_end && r0 < Sq && (!causal || k0 <= a0 + 15) &&
+          !(BAND && k0 + kF32Keys <= a0 + 1 - window))
+        f32_tile<D, RG, BAND>(o, m, l, q_s + 16 * rg * G::QP, st + ks * kF32Keys * G::KP,
+                        st + G::kK + ks * kF32Keys * D, p_s, a0, k0, valid, causal, window,
                         scale_log2);
+      if (G::kStages == 1) {
+        __syncthreads();  // every warp is done with the one stage
+        if (r + 1 < rounds) load_stage(0, kv_start + (r + 1) * G::kRoundKeys, kv_end);
+        tc_tile::cp_async_commit();
+      }
     }
 
     tc_tile::cp_async_wait<0>();
-    __syncthreads();  // every warp is done with Q and both stages
+    __syncthreads();  // every warp is done with Q and the stages
     if (pass + 1 < passes) {
       copy_rows<D, G::BQ>(q_s, G::QP, qb, q_stride, second * G::BQ, Sq);
-      if (block_end(second * G::BQ) > 0) load_stage(0, 0, block_end(second * G::BQ));
+      if (G::kStages == 2) load_first(second * G::BQ);
     }
     tc_tile::cp_async_commit();
 
-    // merge the KS partials of each row in ascending ks, through stage 1:
-    // one order, so two runs give the same bits
-    float* part = ring + G::kStage;             // KS x BQ x D partial outputs,
-    float* part_ml = part + G::KS * G::BQ * D;  // and (m, l) per partial row
+    // merge the KS partials of each row in ascending ks, through the last
+    // stage: one order, so two runs give the same bits
+    float* part = ring + (G::kStages - 1) * G::kStage;  // KS x BQ x D partial outputs,
+    float* part_ml = part + G::KS * G::BQ * D;          // and (m, l) per partial row
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -419,31 +470,46 @@ __global__ void __launch_bounds__(kF32Threads, 1) mha_f32_kernel(
       *reinterpret_cast<float4*>(ob + (q0 + row) * q_stride + c) =
           make_float4(acc.x / den, acc.y / den, acc.z / den, acc.w / den);
     }
-    // the next pass's first barrier orders these reads of stage 1 before
-    // its copies into it
+    if (G::kStages == 1 && pass + 1 < passes) {
+      __syncthreads();  // the merge's reads of the one stage are done
+      load_first(second * G::BQ);
+      tc_tile::cp_async_commit();
+    }
+    // with two stages, the next pass's first barrier orders these reads of
+    // stage 1 before its copies into it
   }
 }
 
-template <int D, int RG>
-int launch_f32(const void* q, const void* k, const void* v, const int* kv_valid, void* out, int B,
-               int Sq, int Sk, int H, int KV, float scale, int causal, int q_off,
-               cudaStream_t stream) {
+template <int D, int RG, bool BAND>
+int launch_f32_band(const void* q, const void* k, const void* v, const int* kv_valid, void* out, int B,
+               int Sq, int Sk, int H, int KV, float scale, int causal, int q_off, int window,
+               int pair, cudaStream_t stream) {
   using G = F32Geo<D, RG>;
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(mha_f32_kernel<D, RG>,
+    cudaError_t e = cudaFuncSetAttribute(mha_f32_kernel<D, RG, BAND>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)G::kSmem);
     if (e != cudaSuccess) return static_cast<int>(e);
     attr_set = true;
   }
   const int n_blocks = (Sq + G::BQ - 1) / G::BQ;
-  const dim3 grid(causal ? (n_blocks + 1) / 2 : n_blocks, H, B);
-  mha_f32_kernel<D, RG><<<grid, kF32Threads, G::kSmem, stream>>>(
+  const dim3 grid(pair ? (n_blocks + 1) / 2 : n_blocks, H, B);
+  mha_f32_kernel<D, RG, BAND><<<grid, kF32Threads, G::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       kv_valid, static_cast<float*>(out), Sq, Sk, H, KV, scale * 1.4426950408889634f, causal,
-      q_off);
+      q_off, window, pair);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int RG>
+int launch_f32(const void* q, const void* k, const void* v, const int* kv_valid, void* out, int B,
+               int Sq, int Sk, int H, int KV, float scale, int causal, int q_off, int window,
+               int pair, cudaStream_t stream) {
+  return window ? launch_f32_band<D, RG, true>(q, k, v, kv_valid, out, B, Sq, Sk, H, KV, scale,
+                                               causal, q_off, window, pair, stream)
+                : launch_f32_band<D, RG, false>(q, k, v, kv_valid, out, B, Sq, Sk, H, KV, scale,
+                                                causal, q_off, 0, pair, stream);
 }
 
 // ===========================================================================
@@ -470,6 +536,7 @@ struct Geo {
   // Q, then K and V stages, each on a 1024-byte boundary; then the barriers
   static constexpr int kBarOffset = kQBytes + 2 * kStages * kKVBytes;
   static constexpr size_t kSmem = 1024 + kBarOffset + 8 * (1 + 2 * kStages);
+  static_assert(kSmem <= 232448, "a CTA's shared memory");
 };
 
 // S (64 x kBK) = Q (64 x D) K^T for one stage: D/16 wgmma k-steps.
@@ -498,6 +565,12 @@ __device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&p
     if constexpr (D == 32) hopper::wgmma_rs_n32(o, p[kk], b);
     if constexpr (D == 64) hopper::wgmma_rs_n64(o, p[kk], b);
     if constexpr (D == 128) hopper::wgmma_rs_n128(o, p[kk], b);
+    if constexpr (D == 256) {  // two n128 products, one per half of O's columns
+      const uint64_t b_hi = hopper::desc(v_s + 2 * G::kKVBlock + kk * 16 * G::kRow, G::kKVBlock,
+                                         G::kGroup, G::kSwizzle);
+      hopper::wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[0]), p[kk], b);
+      hopper::wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(&o[64]), p[kk], b_hi);
+    }
   }
 }
 
@@ -505,13 +578,18 @@ __device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&p
 // warpgroup: thread (warp w, lane l) holds rows 16w + l/4 (half 0) and
 // 16w + l/4 + 8 (half 1); element 4j + 2*half + e is column 8j + 2(l%4) + e.
 // The S accumulator of keys [16kk, 16kk + 16) is then, pairwise, exactly
-// the A fragment of a k16 step of P V.
+// the A fragment of a k16 step of P V. At D = 256 O takes 128 registers a
+// consumer thread and the CTA 161 KB of shared memory: one CTA an SM, whose
+// threads may take up to 255 registers.
+// window > 0 (causal only): a q block's sweep starts at the 64-key tile
+// holding the first key of its first row's band (t0), so it sweeps about
+// window + 64 keys, not all keys below it.
 template <int D>
-__global__ void __launch_bounds__(kThreads, 2) mha_wgmma_kernel(
+__global__ void __launch_bounds__(kThreads, D >= 256 ? 1 : 2) mha_wgmma_kernel(
     const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
     const __grid_constant__ CUtensorMap v_map, const int* __restrict__ kv_valid,
     __nv_bfloat16* __restrict__ out, int Sq, int Sk, int H, int KV, float scale_log2,
-    int causal, int q_off) {
+    int causal, int q_off, int window) {
   using G = Geo<D>;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* q_s = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
@@ -527,7 +605,8 @@ __global__ void __launch_bounds__(kThreads, 2) mha_wgmma_kernel(
   const int valid = max(kv_valid ? min(kv_valid[b], Sk) : Sk, 0);
   const int a0 = q_off + q0;                          // absolute position of row 0
   const int kv_end = causal ? min(valid, a0 + kBQ) : valid;
-  const int n_tiles = (kv_end + kBK - 1) / kBK;
+  const int t0 = window ? max(a0 - window + 1, 0) / kBK : 0;  // the sweep's first tile
+  const int n_tiles = max((kv_end + kBK - 1) / kBK - t0, 0);   // tiles t0 .. t0 + n_tiles - 1
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(q_full, 1);
@@ -551,8 +630,10 @@ __global__ void __launch_bounds__(kThreads, 2) mha_wgmma_kernel(
         uint8_t* ks = k_s + s * G::kKVBytes;
         uint8_t* vs = v_s + s * G::kKVBytes;
         for (int c = 0; c < G::kBlocks; ++c) {
-          hopper::tma_load_4d(ks + c * G::kKVBlock, &k_map, &full[s], c * G::kBox, kh, t * kBK, b);
-          hopper::tma_load_4d(vs + c * G::kKVBlock, &v_map, &full[s], c * G::kBox, kh, t * kBK, b);
+          hopper::tma_load_4d(ks + c * G::kKVBlock, &k_map, &full[s], c * G::kBox, kh,
+                              (t0 + t) * kBK, b);
+          hopper::tma_load_4d(vs + c * G::kKVBlock, &v_map, &full[s], c * G::kBox, kh,
+                              (t0 + t) * kBK, b);
         }
       }
     }
@@ -584,9 +665,10 @@ __global__ void __launch_bounds__(kThreads, 2) mha_wgmma_kernel(
 
     // Mask with the kernels' one predicate; masked scores -> -inf, whose
     // exp2f is exactly 0. A tile wholly inside the visible range (every
-    // tile but the causal diagonal and the one holding kv_valid) skips it.
-    const int k0 = t * kBK;
-    if (k0 + kBK > valid || (causal && k0 + kBK - 1 > a0)) {
+    // tile but the causal diagonal, the one holding kv_valid and those the
+    // band's lower edge crosses) skips it.
+    const int k0 = (t0 + t) * kBK;
+    if (k0 + kBK > valid || (causal && k0 + kBK - 1 > a0) || (window && k0 < a0 + kBQ - window)) {
 #pragma unroll
       for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
@@ -594,7 +676,8 @@ __global__ void __launch_bounds__(kThreads, 2) mha_wgmma_kernel(
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int kpos = k0 + 8 * j + col0 + e, qpos = a0 + row0 + 8 * half;
-            const bool ok = kpos < valid && (!causal || qpos >= kpos);
+            const bool ok = kpos < valid && (!causal || qpos >= kpos) &&
+                            (!window || qpos - kpos < window);
             if (!ok) sc[4 * j + 2 * half + e] = -CUDART_INF_F;
           }
     }
@@ -697,7 +780,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int D,
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, const int* kv_valid, void* out,
                  int B, int Sq, int Sk, int H, int KV, float scale, int causal, int q_off,
-                 cudaStream_t stream) {
+                 int window, cudaStream_t stream) {
   using G = Geo<D>;
   const CUtensorMapSwizzle sw = G::kRow == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                 : G::kRow == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -718,30 +801,34 @@ int launch_wgmma(const void* q, const void* k, const void* v, const int* kv_vali
   const dim3 grid(H, (Sq + kBQ - 1) / kBQ, B);
   mha_wgmma_kernel<D><<<grid, kThreads, G::kSmem, stream>>>(
       qm, km, vm, kv_valid, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KV,
-      scale * 1.4426950408889634f, causal, q_off);
+      scale * 1.4426950408889634f, causal, q_off, window);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // dtype codes: 0 float32 (FMA kernel), 1 bfloat16 (tensor-core kernel); D in
-// {16, 32, 64, 128} (the tests', the kernel benchmark's and qwen2.5-3b's
-// head dims). kv_valid: a (B,) int32 device array, or null for all Sk keys.
-// q_off: the absolute position of query row 0 (>= 0; causal masking only).
-// rg: float32 only, the row groups of 16 query rows a CTA owns
-// (attention.f32_plan): 4, or 2 for D <= 64. Returns the launch's
-// cudaGetLastError() (0 = launched).
-extern "C" int mha_fwd_launch_off(const void* q, const void* k, const void* v,
+// {16, 32, 64, 128, 256} (the tests', the kernel benchmark's, qwen2.5-3b's
+// and recurrentgemma-9b's head dims). kv_valid: a (B,) int32 device array,
+// or null for all Sk keys. q_off: the absolute position of query row 0 (>=
+// 0; causal masking only). window: 0, or (causal only) row qpos sees keys
+// with qpos - kpos < window. rg, pair: float32 only, the row groups of 16
+// query rows a CTA owns (attention.f32_plan: 4, or 2 for D <= 64) and
+// whether a CTA takes causal q blocks x and n - 1 - x (attention.f32_pairs).
+// Returns the launch's cudaGetLastError() (0 = launched).
+extern "C" int mha_fwd_launch_win(const void* q, const void* k, const void* v,
                                   const void* kv_valid, void* out, int B, int Sq, int Sk, int H,
-                                  int KV, int D, int dtype, int causal, int q_off, float scale,
-                                  int rg, void* stream) {
+                                  int KV, int D, int dtype, int causal, int q_off, int window,
+                                  float scale, int rg, int pair, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* valid = static_cast<const int*>(kv_valid);
-  if (q_off < 0) return static_cast<int>(cudaErrorInvalidValue);
-#define MHA_F32(DD, RR) \
-  launch_f32<DD, RR>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, q_off, s)
+  if (q_off < 0 || window < 0 || (window && !causal) || (pair && !causal))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define MHA_F32(DD, RR)                                                                       \
+  launch_f32<DD, RR>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, q_off, window, pair, \
+                     s)
 #define MHA_BF16(DD) \
-  launch_wgmma<DD>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, q_off, s)
+  launch_wgmma<DD>(q, k, v, valid, out, B, Sq, Sk, H, KV, scale, causal, q_off, window, s)
   if (dtype == 0) {
     if (rg == 4) {
       switch (D) {
@@ -749,6 +836,7 @@ extern "C" int mha_fwd_launch_off(const void* q, const void* k, const void* v,
         case 32: return MHA_F32(32, 4);
         case 64: return MHA_F32(64, 4);
         case 128: return MHA_F32(128, 4);
+        case 256: return MHA_F32(256, 4);
       }
     } else if (rg == 2) {
       switch (D) {
@@ -763,6 +851,7 @@ extern "C" int mha_fwd_launch_off(const void* q, const void* k, const void* v,
       case 32: return MHA_BF16(32);
       case 64: return MHA_BF16(64);
       case 128: return MHA_BF16(128);
+      case 256: return MHA_BF16(256);
     }
   }
 #undef MHA_F32
@@ -770,13 +859,14 @@ extern "C" int mha_fwd_launch_off(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// mha_fwd_launch_off with q_off = 0: the TPU kernel's function, under the
-// C signature of the trees before the offset (launch/mha_pool_probe.py
-// --port-src launches an older tree's library through it, and so do the
-// host-cost split and the bare-launch tests).
+// mha_fwd_launch_win without a query offset or a band, causal blocks
+// paired: the TPU kernel's function, under the C signature of the trees
+// before the offset (launch/mha_pool_probe.py --port-src launches an older
+// tree's library through it, and so do the host-cost split and the
+// bare-launch tests).
 extern "C" int mha_fwd_launch(const void* q, const void* k, const void* v, const void* kv_valid,
                               void* out, int B, int Sq, int Sk, int H, int KV, int D, int dtype,
                               int causal, float scale, int rg, void* stream) {
-  return mha_fwd_launch_off(q, k, v, kv_valid, out, B, Sq, Sk, H, KV, D, dtype, causal, 0, scale,
-                            rg, stream);
+  return mha_fwd_launch_win(q, k, v, kv_valid, out, B, Sq, Sk, H, KV, D, dtype, causal, 0, 0,
+                            scale, rg, causal, stream);
 }

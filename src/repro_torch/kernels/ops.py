@@ -22,15 +22,16 @@ from repro_torch.kernels import sampler as _sampler
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, kv_valid=None,
-              q_offset: int = 0) -> torch.Tensor:
+              causal: bool = True, kv_valid=None, q_offset: int = 0,
+              window: int = 0) -> torch.Tensor:
     """Fused flash-MHA (q (B,Sq,H,D), k/v (B,Sk,KV,D)), q[:, 0] at absolute
-    position ``q_offset``; see ``kernels.attention.mha``."""
+    position ``q_offset``, with a sliding-window band of ``window`` keys
+    when > 0; see ``kernels.attention.mha``."""
     if q.device.type == "cpu":
         return ref.mha_ref(q, k, v, causal=causal, kv_valid=kv_valid,
-                           q_offset=q_offset)
+                           q_offset=q_offset, window=window)
     return _attention.mha(q, k, v, causal=causal, kv_valid=kv_valid,
-                          q_offset=q_offset)
+                          q_offset=q_offset, window=window)
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,

@@ -64,7 +64,8 @@ def row_error(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
 
 
 def peaked_mha_inputs(rng: np.random.Generator, B: int, S: int, H: int,
-                      KV: int, D: int, last_key=None, peak: float = 30.0):
+                      KV: int, D: int, last_key=None, peak: float = 30.0,
+                      edge: int = 0):
     """numpy float32 (q, k, v), (B, S, H, D) and (B, S, KV, D), on which
     every query row's scores peak on one key, ~``peak`` above the rest, so
     that the row's output is nearly that key's value row and a mask off by
@@ -75,7 +76,10 @@ def peaked_mha_inputs(rng: np.random.Generator, B: int, S: int, H: int,
     row i peaks on its own (diagonal) key, which a causal mask shifted by
     one drops. last_key (B,) ints: key last_key[b] is c * u for a direction
     u shared by all of batch b's rows, so every row peaks on that key,
-    which a kv_valid of last_key[b] (one short) drops."""
+    which a kv_valid of last_key[b] (one short) drops. 1 < edge <= S (with
+    last_key None): key j is c * u_{j + edge - 1}, so row i peaks on key i
+    - edge + 1, the oldest key of a band of ``edge`` keys, which a band one
+    key narrower drops (rows i < edge - 1 peak on no key)."""
     G = H // KV
     c = peak / np.sqrt(D)        # |u|^2 ~ D: the peak's score ~ peak
     k = rng.standard_normal((B, S, KV, D)).astype(np.float32)
@@ -83,6 +87,9 @@ def peaked_mha_inputs(rng: np.random.Generator, B: int, S: int, H: int,
     if last_key is None:
         u = rng.standard_normal((B, S, KV, D))
         k = (c * u).astype(np.float32)
+        if 1 < edge <= S:
+            k[:, : S - edge + 1] = k[:, edge - 1:].copy()
+            k[:, S - edge + 1:] = rng.standard_normal((B, edge - 1, KV, D))
     else:
         u = rng.standard_normal((B, 1, KV, D)) * np.ones((1, S, 1, 1))
         for b, L in enumerate(last_key):
@@ -92,13 +99,14 @@ def peaked_mha_inputs(rng: np.random.Generator, B: int, S: int, H: int,
 
 
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-            causal: bool = True, kv_valid=None,
-            q_offset: int = 0) -> torch.Tensor:
+            causal: bool = True, kv_valid=None, q_offset: int = 0,
+            window: int = 0) -> torch.Tensor:
     """Exact softmax attention with GQA. q: (B, Sq, H, D); k, v: (B, Sk, KV,
     D); kv_valid: None (all Sk keys), an int, or a (B,) tensor — only the
     first kv_valid[b] keys of sequence b are visible. Causal masking compares
     absolute row and key indices: row i sits at q_offset + i and sees keys
-    <= q_offset + i."""
+    <= q_offset + i, and with ``window`` > 0 only keys > q_offset + i -
+    window (the band of ``layers.flash_attention(window=)``, causal only)."""
     B, Sq, H, D = q.shape
     _, Sk, KV, _ = k.shape
     G = H // KV
@@ -109,7 +117,10 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = kpos[None, None, :] < valid[:, None, None]            # (B, 1, Sk)
     if causal:
         qpos = q_offset + torch.arange(Sq, device=q.device)
-        mask = mask & (qpos[:, None] >= kpos[None, :])[None]      # (B, Sq, Sk)
+        band = qpos[:, None] >= kpos[None, :]
+        if window:
+            band = band & (qpos[:, None] - kpos[None, :] < window)
+        mask = mask & band[None]                                  # (B, Sq, Sk)
     p = _masked_softmax(s, mask[:, None, None])
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(B, Sq, H, D).to(q.dtype)

@@ -13,8 +13,9 @@ package's side), applied by ``chip_smoke.py`` to the CSV of
   numeric cell, and every ``temporal_util`` must lie in [0, 1].
 
 The port runs the reference's ``mixed``, ``shared-prefix``,
-``speculative`` and ``sampling`` scenarios; ``sampling`` carries
-``tokens_match_greedy``. The scenarios that carry ``tokens_match_tp1``
+``speculative``, ``sampling`` and ``hybrid`` scenarios; ``sampling``
+carries ``tokens_match_greedy``, ``hybrid`` (at fp32) its own
+``tokens_match_hybrid``. The scenarios that carry ``tokens_match_tp1``
 (sharded) and ``tokens_match_unconstrained`` (oversubscribe) are not
 ported, so a full CSV of the port fails those two REQUIRED columns
 (``missing_scenario_errors``) and must pass everything else.

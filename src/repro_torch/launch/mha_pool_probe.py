@@ -9,7 +9,9 @@ mha fp32, causal: the kernel bench's row (B1 S1024 H8 KV2 D64), the
 serving heads (B1 S1024 H16 KV2 D128) and a ragged Sq = Sk = 100 at the
 serving heads; per case the wrapper (its plan, ``attention.f32_plan``) and
 the bare C launch at each layout the kernel builds (rg = 4 or 2 row groups
-of 16 rows a CTA). max-pool, the ResNet-50 stem's 1x112x112x64 3x3/2 in
+of 16 rows a CTA). mha bf16, causal, through the wrapper: the serving
+heads at 512 and 1024, and (a tree whose mha takes ``window``)
+recurrentgemma's prefill, B1 S4096 H16 KV1 D256 with a 2048-key band. max-pool, the ResNet-50 stem's 1x112x112x64 3x3/2 in
 fp32 and bf16 at batch 1 and 8: the wrapper, the kernel's bare C launch,
 ``csrc/maxpool_probe.cu``'s variants (16-byte vectors or one element a
 thread, strips of 1 or 2 outputs) and an empty kernel on the kernel's grid
@@ -80,6 +82,36 @@ def mha_rows(label, B, S, H, KV, D, seed):
         rows.append((f"rg={rg}", device_ms(lambda j, rg=rg: launch(j, rg), n,
                                            SESSIONS)))
     return [f"mha fp32 {label} [{k}]: device {ms:.4f} ms" for k, ms in rows]
+
+
+MHA_BF16_CASES = [  # label, B, S, H, KV, D, window
+    ("serve B1 S512 H16 KV2 D128", 1, 512, 16, 2, 128, 0),
+    ("serve B1 S1024 H16 KV2 D128", 1, 1024, 16, 2, 128, 0),
+    ("recurrentgemma B1 S4096 H16 KV1 D256 window 2048", 1, 4096, 16, 1,
+     256, 2048),
+]
+
+
+def mha_bf16_rows(label, B, S, H, KV, D, window, seed):
+    import inspect
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import attention as mk
+    from repro_torch.launch.gemm_probe import device_ms
+    if window and "window" not in inspect.signature(mk.mha).parameters:
+        return [f"mha bf16 {label}: not built by this tree"]
+    kw = {"window": window} if window else {}
+    rng = np.random.default_rng(seed)
+
+    def make():
+        return tuple(torch.tensor(rng.standard_normal(s), dtype=torch.bfloat16,
+                                  device="cuda")
+                     for s in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+    copies = _copies(make, 2 * B * S * (H + 2 * KV) * D)
+    ms = device_ms(lambda j: mk.mha(*copies[j % len(copies)], causal=True,
+                                    **kw), 2 * len(copies), SESSIONS)
+    return [f"mha bf16 {label} [wrapper]: device {ms:.4f} ms"]
 
 
 def pool_rows(dtype_name, N, seed):
@@ -169,6 +201,8 @@ def main(argv=None) -> None:
     if args.only != "maxpool":
         for i, case in enumerate(MHA_CASES):
             rows += mha_rows(*case, seed=args.seed + i)
+        for i, case in enumerate(MHA_BF16_CASES):
+            rows += mha_bf16_rows(*case, seed=args.seed + 20 + i)
     if args.only != "mha":
         for N in (1, 8):
             for dt in ("float32", "bfloat16"):

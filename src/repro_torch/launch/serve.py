@@ -11,8 +11,9 @@ Weights are drawn on the device from a generator seeded with 0 (a draft
 model's, smoke-sized, with 1). Runs on CUDA by default and raises if there
 is none; ``--device cpu`` runs every kernel's plain PyTorch version
 instead. Prints the JAX launcher's summary lines (prefix cache,
-speculative decode, draft model, decode policy) plus each CUDA kernel's
-launch count and the decode and verify graphs' captures. ``--trace`` records the engine's and scheduler's spans and
+speculative decode, draft model, decode policy, and for the hybrid archs
+the sliding window's recycled pages) plus the recurrent state slots' bytes,
+each CUDA kernel's launch count and the graphs' captures. ``--trace`` records the engine's and scheduler's spans and
 prints the wall time per phase; with a file name it also writes Chrome
 Trace Event JSON (open in Perfetto; ``python -m repro_torch.runtime.trace
 FILE`` validates it).
@@ -28,6 +29,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.kernels import ops
 from repro_torch.models import api
+from repro_torch.models import transformer as tfm
 from repro_torch.runtime.drafter import DraftModelDrafter
 from repro_torch.runtime.sampling import SamplingParams
 from repro_torch.runtime.serving import PagedServingEngine, Request
@@ -132,6 +134,16 @@ def main(argv=None) -> None:
     print(f"[launch.serve] kv pages: peak {st.peak_pages}/{st.num_pages} "
           f"({st.peak_pages * st.page_size} tokens reserved at peak vs "
           f"{st.dense_equiv_tokens} dense)")
+    if eng.has_win:
+        print(f"[launch.serve] sliding window ({eng.window} tokens): "
+              f"{eng.win_recycled_pages} pages recycled as they slid out; "
+              f"most live window pages a request held "
+              f"{eng.win_peak_live}, bound "
+              f"{eng.win_pages_bound(args.max_len)}")
+    if eng.has_state:
+        print(f"[launch.serve] state slots: {eng.state_slot_bytes()} bytes "
+              f"a slot x {eng.slots} slots "
+              f"({eng.state_slot_bytes() * eng.slots} bytes)")
     if eng.prefix is not None:
         ps = eng.prefix_stats()
         print(f"[launch.serve] prefix cache: hit rate "
@@ -166,13 +178,15 @@ def main(argv=None) -> None:
           f"{m['latency.tpot_p50_s']:.4f}s / p95 "
           f"{m['latency.tpot_p95_s']:.4f}s")
     counts = ops.launch_counts()
+    n_attn = sum(k not in api.STATE_KINDS for k in tfm.layer_kinds(cfg))
     print(f"[launch.serve] kernel launches: paged_attention "
           f"{counts['paged_attention']} ({int(m['engine.decode_steps'])} "
-          f"decode steps x {cfg.num_layers} layers), mha {counts['mha']} "
-          f"({eng.prefills} prefills x {cfg.num_layers} layers), "
+          f"decode steps x {n_attn} attention layers), mha {counts['mha']} "
+          f"({eng.prefills} prefills x {n_attn} attention layers), "
           f"sampler_noise {counts['sampler_noise']}, "
-          f"{int(m['sampling.step_traces'])} decode and "
-          f"{int(m['sampling.spec_traces'])} verify graph capture(s)"
+          f"{int(m['sampling.step_traces'])} decode, "
+          f"{int(m['sampling.spec_traces'])} verify and "
+          f"{eng.select_traces} rollback-select graph capture(s)"
           f"{' — CPU: plain versions ran instead' if device.type == 'cpu' else ''}")
     if tracer is not None:
         print("[launch.serve] trace: per-phase wall time")

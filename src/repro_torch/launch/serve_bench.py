@@ -2,11 +2,11 @@
 (``benchmarks/serve_bench.py``) that the port has, through the paged engine.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_bench [--arch ARCH] \
-      [--scenario mixed|shared-prefix|speculative|sampling|all] \
+      [--scenario mixed|shared-prefix|speculative|sampling|hybrid|all] \
       [--smoke | --full] [--layers N] [--dtype float32|bfloat16] \
       [--slots 4] [--max-len 128] [--requests 12] [--max-new 8] \
-      [--sys-len 48] [--spec-k 4] [--seed 0] [--trace-out trace.json] \
-      [--device cuda|cpu]
+      [--sys-len 48] [--spec-k 4] [--window W] [--seed 0] \
+      [--trace-out trace.json] [--device cuda|cpu]
 
 ``mixed``: a mixed-length trace (prompt i holds 3 + 5 i tokens drawn from a
 ``random.Random(seed)``, the reference's ``_trace``) is replayed through
@@ -32,12 +32,22 @@ acceptance, and the ``spec{k}/T=1`` ratio row. ``sampling``: the templated
 trace through three greedy engines (T = 1, n-gram spec, self-drafting
 model spec) whose tokens must be identical (``tokens_match_greedy``),
 then the same three sampled (temperature 0.9, top-p 0.95), with their
-sampled tokens and graph captures. ``all`` runs these four; the
-reference's hybrid, sharded and oversubscribe scenarios are not ported.
+sampled tokens and graph captures. ``hybrid``: the reference's hybrid-stack
+trace (prompts of window / 2 + (5 i mod 2 window) tokens, on both sides of
+the attention window) through recurrentgemma-9b (its SMOKE config, or with
+``--full`` the full-width one), gather and kernel rows with
+``win_recycled_pages``, ``win_page_bound`` and ``peak_kv_tokens``, and
+``tokens_match_hybrid`` (the two rows' greedy tokens equal, at fp32; empty
+in bf16, where the gather path rounds P to bf16 and the kernel does not); the
+reference's ``dense[hybrid]`` row and ``paged/dense[hybrid]`` ratio wait
+for the dense engine and are printed as note rows. ``all`` runs these
+five; the reference's sharded and oversubscribe scenarios are not ported.
 
 The model is the arch's SMOKE config with weights drawn from a generator
 seeded with 0, or with ``--full`` its full-width config (on the card);
-``--layers`` cuts its depth and ``--dtype`` sets its dtype and its KV
+``--layers`` cuts its depth, ``--window`` the hybrid arch's attention
+window (so that a short trace straddles it at full width), and ``--dtype``
+sets its dtype and its KV
 cache's (an fp32 model over a bf16 cache rounds keys that differ by 1e-6
 between two paths to neighbouring bf16 values, which can part greedy
 streams at a near tie).
@@ -102,6 +112,20 @@ def _spec_trace(cfg, n_requests: int, max_new: int, seed: int,
     return [Request(rid=i,
                     prompt=[rng.randrange(cfg.vocab)
                             for _ in range(i % 3)] + motif * reps,
+                    max_new=max_new)
+            for i in range(n_requests)]
+
+
+def _hybrid_trace(cfg, n_requests: int, max_new: int, seed: int,
+                  window: int) -> List[Request]:
+    """Prompts straddling the attention window (some shorter, most
+    longer), so admission, recycling and the window's masking all run in
+    the timed replay (the reference's, token for token)."""
+    rng = random.Random(seed)
+    return [Request(rid=i,
+                    prompt=[rng.randrange(cfg.vocab)
+                            for _ in range(window // 2
+                                           + (5 * i) % (2 * window))],
                     max_new=max_new)
             for i in range(n_requests)]
 
@@ -331,10 +355,46 @@ def _run_sampling(cfg, params, slots, max_len, n_requests, max_new,
     return rows
 
 
+def _run_hybrid(cfg, params, slots, max_len, n_requests, max_new, seed,
+                device) -> List[Dict]:
+    """The hybrid stack's gather and kernel rows (the reference's
+    ``_run_hybrid`` without its dense-engine rows, which are notes here)."""
+    window = cfg.hybrid.window
+
+    def mk(new):
+        return _hybrid_trace(cfg, n_requests, new, seed, window)
+
+    rows: List[Dict] = []
+    toks = []
+    for impl in ("gather", "kernel"):
+        paged = PagedServingEngine(cfg, params, slots=slots,
+                                   max_len=max_len, attn_impl=impl,
+                                   device=device)
+        _warm(paged, mk)
+        reqs = mk(max_new)
+        row = _drive(paged, reqs, 4000, cfg, name=f"paged[{impl},hybrid]")
+        row["win_recycled_pages"] = paged.win_recycled_pages
+        row["win_page_bound"] = paged.win_pages_bound(max_len)
+        rows.append(row)
+        toks.append([list(r.generated) for r in reqs])
+    # at fp32 the two rows are one function (sums in another order): their
+    # greedy tokens must match; in bf16 the gather path rounds P to bf16
+    # before P V and the kernel does not, so a near tie may part them and
+    # the cell stays empty (not a claim there)
+    if cfg.dtype == "float32":
+        for row in rows:
+            row["tokens_match_hybrid"] = int(toks[0] == toks[1])
+    note = "DenseServingEngine is not ported (ROADMAP Queue 1 item 2)"
+    rows += [{"engine": "dense[hybrid]", "skipped": note},
+             {"engine": "paged/dense[hybrid]", "skipped": note}]
+    return rows
+
+
 # the reference's scenarios; those the port has
 SCENARIOS = ("mixed", "shared-prefix", "speculative", "sampling", "hybrid",
              "sharded", "oversubscribe", "all")
-PORTED = ("mixed", "shared-prefix", "speculative", "sampling", "all")
+PORTED = ("mixed", "shared-prefix", "speculative", "sampling", "hybrid",
+          "all")
 
 
 def run(arch: str = "qwen2.5-3b", slots: int = 4, max_len: int = 128,
@@ -342,7 +402,7 @@ def run(arch: str = "qwen2.5-3b", slots: int = 4, max_len: int = 128,
         full: bool = False, seed: int = 0, scenario: str = "all",
         sys_len: int = 48, spec_k: int = 4, layers: Optional[int] = None,
         dtype: Optional[str] = None, trace_out: Optional[str] = None,
-        device="cuda") -> List[Dict]:
+        window: Optional[int] = None, device="cuda") -> List[Dict]:
     if scenario not in PORTED:
         raise ValueError(f"scenario {scenario!r} is not ported (the port "
                          f"has {', '.join(PORTED)})")
@@ -350,13 +410,21 @@ def run(arch: str = "qwen2.5-3b", slots: int = 4, max_len: int = 128,
     if smoke:
         slots, max_len, n_requests, max_new = 2, 128, 4, 24
         sys_len = 24
-    cfg = get_config(arch) if full else get_smoke_config(arch)
-    if layers is not None:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
-    if dtype is not None:
-        cfg = dataclasses.replace(cfg, dtype=dtype, kv_cache_dtype=dtype)
-    params = api.init_params(cfg, torch.Generator(device=device)
-                             .manual_seed(0), device=device)
+
+    def model(name, window=None):
+        cfg = get_config(name) if full else get_smoke_config(name)
+        if window is not None:
+            cfg = dataclasses.replace(cfg, hybrid=dataclasses.replace(
+                cfg.hybrid, window=window))
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        if dtype is not None:
+            cfg = dataclasses.replace(cfg, dtype=dtype, kv_cache_dtype=dtype)
+        return cfg, api.init_params(cfg, torch.Generator(device=device)
+                                    .manual_seed(0), device=device)
+
+    if scenario != "hybrid":
+        cfg, params = model(arch)
     tracer = Tracer(enabled=True) if trace_out else None
     if tracer is not None:
         set_default_tracer(tracer)
@@ -377,6 +445,13 @@ def run(arch: str = "qwen2.5-3b", slots: int = 4, max_len: int = 128,
         if scenario in ("sampling", "all"):
             rows += _run_sampling(cfg, params, slots, max_len, n_requests,
                                   max(max_new, 24), seed, spec_k, device)
+        if scenario in ("hybrid", "all"):
+            # the hybrid stack pins its own arch and a decode tail long
+            # enough to slide past the window
+            cfg, params = model("recurrentgemma-9b", window)
+            rows += _run_hybrid(cfg, params, slots, max_len,
+                                max(4, n_requests // 2), max(max_new, 24),
+                                seed, device)
         return rows
     finally:
         if tracer is not None:
@@ -416,14 +491,18 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0,
                     help="trace seed (same seed -> same trace)")
     ap.add_argument("--scenario", choices=SCENARIOS, default="all",
-                    help="the reference's scenario names; hybrid, sharded "
-                         "and oversubscribe are not ported and raise")
+                    help="the reference's scenario names; sharded and "
+                         "oversubscribe are not ported and raise (hybrid "
+                         "pins recurrentgemma-9b)")
     ap.add_argument("--sys-len", type=int, default=48,
                     help="shared system-prompt length for shared-prefix")
     ap.add_argument("--spec-k", type=int, default=4,
                     help="drafted tokens per verify step")
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the config's depth to N layers")
+    ap.add_argument("--window", type=int, default=None,
+                    help="the hybrid scenario's attention window (default: "
+                         "the config's)")
     ap.add_argument("--dtype", default=None,
                     choices=["float32", "bfloat16"],
                     help="the model's and its KV cache's dtype (default: "
@@ -443,7 +522,8 @@ def main(argv=None) -> None:
                args.max_new, smoke=args.smoke, full=args.full,
                seed=args.seed, scenario=args.scenario, sys_len=args.sys_len,
                spec_k=args.spec_k, layers=args.layers, dtype=args.dtype,
-               trace_out=args.trace_out, device=args.device)
+               trace_out=args.trace_out, window=args.window,
+               device=args.device)
     print(emit(rows))
 
 

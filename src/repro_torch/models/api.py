@@ -4,7 +4,10 @@ Counterpart of the serving half of ``repro.models.api``. Parameters are a
 plain dict: ``embed`` (Vp, d), ``final_norm``, ``head`` (d, Vp) unless the
 embeddings are tied, and ``blocks`` — one dict per layer in order, with the
 JAX package's names and shapes (``repro_torch.convert`` builds it from a JAX
-tree).
+tree). Caches are a list, one entry per layer: page pools for the
+attention layers, per-slot state for the recurrent ones. Moving a state
+slot to the host and back (the reference's ``state_slot_export`` /
+``state_slot_import``) waits for the host tier.
 """
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from repro_torch.models import griffin, ssm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import norm_apply
 
@@ -23,8 +27,10 @@ def _dtype(name: str) -> torch.dtype:
 def init_params(cfg, generator: torch.Generator, *,
                 device="cuda") -> Dict[str, Any]:
     """Random parameters drawn on ``device`` from ``generator`` (which must
-    live on that device), with the JAX ``Maker``'s scales: N(0, 1) * scale in
-    fp32, cast to the model dtype; norms are ones (fp32), biases zeros."""
+    live on that device), with the JAX ``Maker``'s shapes, dtypes and
+    scales: N(0, 1) * scale in fp32, cast to the model dtype; norms are
+    ones (fp32), biases zeros; RG-LRU's ``lam`` and Mamba2's ``A_log``,
+    ``D`` (ones) and ``dt_bias`` (zeros) fp32, as the reference makes them."""
     dt = _dtype(cfg.dtype)
     device = torch.device(device)
 
@@ -33,32 +39,70 @@ def init_params(cfg, generator: torch.Generator, *,
                         dtype=torch.float32)
         return (x * scale).to(dt)
 
-    def zeros(shape):
-        return torch.zeros(shape, dtype=dt, device=device)
+    def full(shape, value, dtype=dt):
+        return torch.full(shape, value, dtype=dtype, device=device)
 
     def norm(d):
-        p = {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+        p = {"scale": full((d,), 1.0, torch.float32)}
         if cfg.norm == "layernorm":
-            p["bias"] = torch.zeros(d, dtype=torch.float32, device=device)
+            p["bias"] = full((d,), 0.0, torch.float32)
         return p
 
     d, h, kv, hd, f = (cfg.d_model, cfg.num_heads, cfg.kv_heads,
                        cfg.resolved_head_dim, cfg.d_ff)
-    vp = tfm.padded_vocab(cfg.vocab)
-    blocks = []
-    for _ in tfm.layer_kinds(cfg):
-        attn = {"wq": normal((d, h, hd), d ** -0.5),
-                "wk": normal((d, kv, hd), d ** -0.5),
-                "wv": normal((d, kv, hd), d ** -0.5),
-                "wo": normal((h, hd, d), (h * hd) ** -0.5)}
+
+    def attn():
+        a = {"wq": normal((d, h, hd), d ** -0.5),
+             "wk": normal((d, kv, hd), d ** -0.5),
+             "wv": normal((d, kv, hd), d ** -0.5),
+             "wo": normal((h, hd, d), (h * hd) ** -0.5)}
         if cfg.qkv_bias:
-            attn.update(bq=zeros((h, hd)), bk=zeros((kv, hd)),
-                        bv=zeros((kv, hd)))
-        mlp = {"wi": normal((d, f), d ** -0.5), "wo": normal((f, d), f ** -0.5)}
+            a.update(bq=full((h, hd), 0.0), bk=full((kv, hd), 0.0),
+                     bv=full((kv, hd), 0.0))
+        return a
+
+    def mlp():
+        m = {"wi": normal((d, f), d ** -0.5), "wo": normal((f, d), f ** -0.5)}
         if cfg.gated_ffn:
-            mlp["wg"] = normal((d, f), d ** -0.5)
-        blocks.append({"ln1": norm(d), "attn": attn, "ln2": norm(d),
-                       "mlp": mlp})
+            m["wg"] = normal((d, f), d ** -0.5)
+        return m
+
+    def rglru():
+        r, w = griffin.lru_dim(cfg), griffin.CONV_WIDTH
+        return {"proj_x": normal((d, r), d ** -0.5),
+                "proj_y": normal((d, r), d ** -0.5),
+                "conv_w": normal((w, r), w ** -0.5),
+                "conv_b": full((r,), 0.0),
+                "gate_a": normal((r, r), r ** -0.5),
+                "gate_a_b": full((r,), 0.0),
+                "gate_x": normal((r, r), r ** -0.5),
+                "gate_x_b": full((r,), 0.0),
+                "lam": full((r,), 1.0, torch.float32),
+                "proj_out": normal((r, d), r ** -0.5)}
+
+    def mamba():
+        sc = cfg.ssm
+        d_inner, nheads, conv_dim = ssm.dims(cfg)
+        in_dim = 2 * d_inner + 2 * sc.num_groups * sc.state_dim + nheads
+        return {"in_proj": normal((d, in_dim), d ** -0.5),
+                "conv_w": normal((sc.conv_width, conv_dim),
+                                 sc.conv_width ** -0.5),
+                "conv_b": full((conv_dim,), 0.0),
+                "A_log": full((nheads,), 1.0, torch.float32),
+                "D": full((nheads,), 1.0, torch.float32),
+                "dt_bias": full((nheads,), 0.0, torch.float32),
+                "norm": {"scale": full((d_inner,), 1.0, torch.float32)},
+                "out_proj": normal((d_inner, d), d_inner ** -0.5)}
+
+    blocks = []
+    for kind in tfm.layer_kinds(cfg):
+        if kind == "ssm":           # a Mamba2 block has no FFN sublayer
+            blocks.append({"ln1": norm(d), "mixer": mamba()})
+            continue
+        mixer = {"mixer": rglru()} if kind == "rglru" else {"attn": attn()}
+        blocks.append({"ln1": norm(d), **mixer, "ln2": norm(d),
+                       "mlp": mlp()})
+    vp = tfm.padded_vocab(cfg.vocab)
     p = {"embed": normal((vp, d), 0.02), "final_norm": norm(d),
          "blocks": blocks}
     if not cfg.tie_embeddings:
@@ -77,19 +121,24 @@ def prefill(cfg, params, tokens: torch.Tensor, *,
             prefix_len: int = 0):
     """Run the whole (bucket-padded) prompt. tokens: (B, S) int64; length:
     None or (B,) count of real tokens. Returns (logits (B, Vp) fp32 at
-    position length - 1 only, per-layer {"k", "v"} (B, S, KV, D) in the
-    cache dtype, next position (B,) int32).
+    position length - 1 only, per-layer cache entries, next position (B,)
+    int32). An attention layer's entry is {"k", "v"} (B, S, KV, D) in the
+    cache dtype (a local_attn layer's too: the engine scatters only the
+    live window blocks); a recurrent layer's is its decode state at
+    position length - 1 ({"h", "conv"} or {"ssm", "conv"}): updates past
+    ``length`` are the identity, so bucket padding never reaches it.
 
     ``prefix_kv`` (per layer {"k", "v"} (B, Pb, KV, D), cache dtype) and
     ``prefix_len`` (a host int): suffix-only prefill — ``tokens`` and
     ``length`` describe only the prompt after a prefix whose KV is reused
     from the page pools; positions start at prefix_len. The returned k/v
     are the suffix's and the returned position counts suffix tokens
-    (callers add prefix_len)."""
+    (callers add prefix_len). Full-attention stacks only."""
     B, S = tokens.shape
     x = params["embed"][tokens]
     x, caches = tfm.stack_apply(cfg, params["blocks"], x,
-                                prefix_kv=prefix_kv, prefix_len=prefix_len)
+                                prefix_kv=prefix_kv, prefix_len=prefix_len,
+                                length=length)
     x = norm_apply(params["final_norm"], x, cfg.norm)
     if length is None:
         length = torch.full((B,), S, dtype=torch.int32, device=x.device)
@@ -102,25 +151,77 @@ def prefill(cfg, params, tokens: torch.Tensor, *,
 
 def decode_step(cfg, params, cache: List[Dict[str, torch.Tensor]],
                 tokens: torch.Tensor, pos: torch.Tensor, *,
-                block_table: torch.Tensor):
+                block_table: torch.Tensor,
+                win_block_table: Optional[torch.Tensor] = None,
+                state_out=None):
     """tokens: (B, T) int64, token t of request b at position pos[b] + t;
-    pos: (B,) int32; block_table: (B, n_blocks) int32 into the page pools
-    of ``paged_cache_init`` (updated in place). Returns (logits, cache):
+    pos: (B,) int32; block_table: (B, n_blocks) int32 into the full-
+    attention page pools of ``paged_cache_init``, win_block_table the same
+    for the local_attn layers' pools (both updated in place). Recurrent
+    layers' state slots change in place for T == 1; a T > 1 verify block
+    writes their checkpointed states into ``state_out`` (``state_buffers``)
+    when given (``transformer.stack_decode``). Returns (logits, cache):
     (B, Vp) fp32 for T == 1, (B, T, Vp) for T > 1."""
+    T = tokens.shape[1]
+    if T > 1 and win_block_table is None \
+            and set(WINDOW_KINDS) & set(tfm.layer_kinds(cfg)):
+        raise ValueError("multi-token decode blocks need win_block_table "
+                         "for the local_attn layers")
     x = params["embed"][tokens]
-    x = tfm.stack_decode(cfg, params["blocks"], x, cache, pos, block_table)
+    x, cache = tfm.stack_decode(cfg, params["blocks"], x, cache, pos,
+                                block_table, win_block_table, state_out)
     x = norm_apply(params["final_norm"], x, cfg.norm)
     logits = _logits(cfg, params, x)
-    return (logits[:, 0] if tokens.shape[1] == 1 else logits), cache
+    return (logits[:, 0] if T == 1 else logits), cache
+
+
+PAGEABLE_KINDS = tfm.PAGEABLE_KINDS      # full-attention page pools
+WINDOW_KINDS = tfm.WINDOW_KINDS          # sliding-window page pools
+STATE_KINDS = tfm.STATE_KINDS            # fixed-size per-slot state
+
+
+def _state_shapes(cfg, kind: str, slots: int):
+    return (ssm.ssm_state_shapes if kind == "ssm"
+            else griffin.rglru_state_shapes)(cfg, slots)
 
 
 def paged_cache_init(cfg, num_pages: int, page_size: int, *,
-                     device="cuda") -> List[Dict[str, torch.Tensor]]:
-    """Per-layer {"k", "v"} page pools (num_pages, page_size, KV, D), zeros —
-    never uninitialized memory: the kernel's invariance to pool garbage
-    (masked keys get probability exactly 0) assumes finite contents."""
+                     slots: int = 1, device="cuda"
+                     ) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer cache entries for paged serving: {"k", "v"} page pools
+    (num_pages, page_size, KV, D) for the attention layers (full and
+    sliding-window alike: the engine recycles the window layers' pages as
+    they slide out of the window), and zeroed per-slot state (slots, ...)
+    for the recurrent layers (``ssm``: {"ssm" fp32, "conv"}; ``rglru``:
+    {"h" fp32, "conv"}). Zeros, never uninitialized memory: the kernel's
+    invariance to pool garbage (masked keys get probability exactly 0)
+    assumes finite contents."""
     dt = _dtype(cfg.kv_cache_dtype)
     shape = (num_pages, page_size, cfg.kv_heads, cfg.resolved_head_dim)
-    return [{"k": torch.zeros(shape, dtype=dt, device=device),
-             "v": torch.zeros(shape, dtype=dt, device=device)}
-            for _ in tfm.layer_kinds(cfg)]
+    out = []
+    for kind in tfm.layer_kinds(cfg):
+        if kind in STATE_KINDS:
+            out.append({name: torch.zeros(sh, dtype=sdt, device=device)
+                        for name, (sh, sdt)
+                        in _state_shapes(cfg, kind, slots).items()})
+        else:
+            out.append({"k": torch.zeros(shape, dtype=dt, device=device),
+                        "v": torch.zeros(shape, dtype=dt, device=device)})
+    return out
+
+
+def state_buffers(cfg, slots: int, T: int, *, device="cuda"
+                  ) -> List[Optional[Dict[str, torch.Tensor]]]:
+    """Fixed (slots, T, ...) buffers for a T-row verify block's
+    checkpointed recurrent states, one dict per recurrent layer (None for
+    the attention layers)."""
+    out: List[Optional[Dict[str, torch.Tensor]]] = []
+    for kind in tfm.layer_kinds(cfg):
+        if kind not in STATE_KINDS:
+            out.append(None)
+            continue
+        out.append({name: torch.zeros((sh[0], T) + sh[1:], dtype=sdt,
+                                      device=device)
+                    for name, (sh, sdt)
+                    in _state_shapes(cfg, kind, slots).items()})
+    return out

@@ -1,7 +1,7 @@
-"""Layer library, attention-only subset: rmsnorm/layernorm, rotary embedding,
-GQA attention for prefill (flash-MHA kernel) and paged decode (flash-decode
-kernel, or the dense-gather baseline through ``attend_decode``), KV-cache
-quantization and the gated MLP.
+"""Layer library: rmsnorm/layernorm, rotary embedding, GQA attention
+(full or sliding-window) for prefill (flash-MHA kernel) and paged decode
+(flash-decode kernel, or the dense-gather baseline through
+``attend_decode``), KV-cache quantization and the gated MLP.
 
 Counterpart of ``repro.models.layers``: plain functions on tensors with
 parameter dicts of the same names and shapes (``wq`` (d, H, hd), ``wo``
@@ -87,11 +87,13 @@ def _out(p: Params, o: torch.Tensor) -> torch.Tensor:
     return o.flatten(-2) @ p["wo"].reshape(-1, p["wo"].shape[-1])
 
 
-def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None):
+def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None,
+                    window: int = 0):
     """Causal self-attention over the whole (bucket-padded) prompt through
     the flash-MHA kernel. Bucket padding sits after every real row, so
-    causal masking alone keeps the real rows exact. Returns (out, (k, v))
-    for the caller to build its cache from.
+    causal masking alone keeps the real rows exact. ``window`` > 0 limits
+    each row to its last ``window`` keys (a local_attn layer). Returns
+    (out, (k, v)) for the caller to build its cache from.
 
     prefix=(pk, pv, plen): suffix-only prefill against reused KV (the
     prefix cache). ``x`` holds only the tokens after the shared prefix;
@@ -117,12 +119,13 @@ def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None):
         kf[:, plen:plen + S] = k
         vf[:, plen:plen + S] = v
     out = ops.attention(q.contiguous(), kf.contiguous(), vf.contiguous(),
-                        causal=True, q_offset=plen)
+                        causal=True, q_offset=plen, window=window)
     return _out(p, out), (k, v)
 
 
 def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
-                     pos: torch.Tensor, block_table: torch.Tensor):
+                     pos: torch.Tensor, block_table: torch.Tensor,
+                     window: int = 0):
     """Paged decode step. x: (B, T, d); pos: (B,) int32 position of the
     first new token; cache {"k", "v"}: (P, page, KV, D) page pools;
     block_table: (B, n_blocks) int32. The T new tokens' k/v are scattered
@@ -132,7 +135,11 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
     ``cfg.paged_attn_impl == "gather"``, a dense gather of the tables'
     pages and ``attend_decode`` instead). The pools are
     updated IN PLACE (``index_put_``), where the JAX package returns new
-    pools: the port never copies a layer's pool. Returns (out, cache)."""
+    pools: the port never copies a layer's pool. ``window`` > 0 (a
+    local_attn layer on its window table): each row sees its last
+    ``window`` keys, and the kernel skips the pages wholly below the
+    earliest row's window, the ones the engine recycles to scratch.
+    Returns (out, cache)."""
     B, T = x.shape[0], x.shape[1]
     q, k, v = _qkv(cfg, p, x)
     pos_t = pos[:, None] + torch.arange(T, device=x.device,
@@ -156,11 +163,11 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
         vg = cv[block_table.long()].flatten(1, 2)
         out = attend_decode(q, kv_dequant(cfg, kg, q.dtype),
                             kv_dequant(cfg, vg, q.dtype), pos,
-                            kv_chunk=cfg.decode_kv_chunk)
+                            window=window, kv_chunk=cfg.decode_kv_chunk)
     else:
         scale = cfg.kv_scale if ck.dtype == torch.int8 else None
         out = ops.paged_attention(q.contiguous(), ck, cv, block_table,
-                                  pos + T, kv_scale=scale)
+                                  pos + T, kv_scale=scale, window=window)
     return _out(p, out), cache
 
 
@@ -169,7 +176,7 @@ def attend_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                   kv_chunk: int = 0) -> torch.Tensor:
     """Decode attention against a contiguous cache whose buffer index is the
     key's absolute position: the reference's ``attend_decode`` with
-    ``ring=False`` (the ring-buffer layout waits for the hybrid stacks).
+    ``ring=False`` (the ring-buffer layout belongs to the dense engine).
     q: (B, Tq, H, D), row t at position pos + t; ck/cv: (B, S, KV, D);
     pos: (B,) position of the first row. Row t attends to keys at
     positions <= pos + t (in-block causal), and with ``window`` > 0 only

@@ -93,7 +93,14 @@ class DraftModelDrafter:
                  num_pages: int = 128, max_len: int = 512,
                  max_ingest: int = 32, attn_impl: str = "gather",
                  device="cuda"):
-        tfm.layer_kinds(cfg)                  # raises on unported kinds
+        kinds = set(tfm.layer_kinds(cfg))     # raises on unported kinds
+        if not kinds <= set(tfm.PAGEABLE_KINDS):
+            raise ValueError(
+                f"draft-model drafter needs an attention-only decoder "
+                f"(kinds within {sorted(tfm.PAGEABLE_KINDS)}); {cfg.name!r} "
+                f"has {sorted(kinds)}: windowed and recurrent draft models "
+                f"would need their own window tables or state slots; use "
+                f"the n-gram drafter for those stacks")
         if page_size < 1 or page_size & (page_size - 1):
             raise ValueError(f"page_size must be a power of two, got "
                              f"{page_size}")

@@ -7,8 +7,11 @@ tables (prefix sharing, copy-on-write, speculative rollback) and pinned by
 the prefix cache. The device pools live in
 ``repro_torch.models.api.paged_cache_init``. Page 0 is the scratch page:
 dead slots and beyond-allocation writes are redirected there, and its
-contents are always masked out on the read side. The sliding-window base
-offsets and the host-tier classes of the JAX allocator are not ported yet.
+contents are always masked out on the read side. A sliding-window table
+(the hybrid stacks' local attention) recycles its lead blocks as they slide
+out of the window and keeps their count as a base offset, so logical block
+j still means positions [j * page, (j + 1) * page). The host-tier classes
+of the JAX allocator are not ported yet.
 """
 from __future__ import annotations
 
@@ -33,6 +36,7 @@ class PageAllocator:
         self._free: List[int] = list(range(num_pages, 0, -1))
         self._tables: Dict[int, List[int]] = {}   # rid -> physical pages
         self._tokens: Dict[int, int] = {}         # rid -> live token count
+        self._base: Dict[int, int] = {}           # rid -> recycled lead blocks
         self._ref: Dict[int, int] = {}            # page -> refcount (> 0)
         self._pinned: Set[int] = set()            # prefix-cache pins (+1 ref)
         self.peak_pages = 0                        # high-water mark
@@ -54,7 +58,10 @@ class PageAllocator:
 
     @property
     def live_tokens(self) -> int:
-        return sum(self._tokens.values())
+        """Tokens resident in live pages (a windowed table's recycled lead
+        blocks hold none)."""
+        return sum(t - self._base.get(r, 0) * self.page_size
+                   for r, t in self._tokens.items())
 
     @property
     def live_requests(self) -> int:
@@ -72,7 +79,14 @@ class PageAllocator:
         return max(1, -(-n_tokens // self.page_size))
 
     def block_table(self, rid: int) -> List[int]:
+        """Live pages of ``rid`` in block order; for a windowed table the
+        suffix from logical block ``base_blocks(rid)``."""
         return list(self._tables[rid])
+
+    def base_blocks(self, rid: int) -> int:
+        """Logical blocks recycled off the front of ``rid``'s table
+        (sliding-window recycling); 0 for ordinary tables."""
+        return self._base.get(rid, 0)
 
     def tokens(self, rid: int) -> int:
         return self._tokens[rid]
@@ -99,10 +113,44 @@ class PageAllocator:
         self._free.append(page)
         return True
 
-    def allocate(self, rid: int, n_tokens: int) -> Optional[List[int]]:
+    def allocate(self, rid: int, n_tokens: int,
+                 base_blocks: int = 0) -> Optional[List[int]]:
         """Admit ``rid`` with ``n_tokens`` live tokens. Returns its block
-        table, or None (state unchanged) if the pool can't cover it."""
-        return self.allocate_shared(rid, n_tokens, [])
+        table, or None (state unchanged) if the pool can't cover it.
+        ``base_blocks`` > 0 admits a sliding-window table whose first
+        ``base_blocks`` logical blocks already lie wholly below the window
+        (a prompt longer than the window): those pages are never
+        allocated, so admission costs O(window) pages."""
+        if base_blocks == 0:
+            return self.allocate_shared(rid, n_tokens, [])
+        if rid in self._tables:
+            raise ValueError(f"rid {rid} already admitted")
+        need = self.pages_for(n_tokens) - base_blocks
+        if need < 1:
+            raise ValueError("base_blocks must leave at least one live block")
+        if need > len(self._free):
+            return None
+        self._tables[rid] = [self._pop_free() for _ in range(need)]
+        self._tokens[rid] = n_tokens
+        self._base[rid] = base_blocks
+        self.peak_pages = max(self.peak_pages, self.allocated_pages)
+        return list(self._tables[rid])
+
+    def release_prefix(self, rid: int, n_blocks: int) -> int:
+        """Sliding-window recycling: drop ``rid``'s reference to its first
+        ``n_blocks`` live blocks (wholly below the window, never read
+        again) and advance its base offset, so logical indexing is kept.
+        At least one block always stays. Returns the pages freed."""
+        table = self._tables[rid]
+        if not 0 <= n_blocks < len(table):
+            raise ValueError(f"release_prefix({n_blocks}) must keep >= 1 of "
+                             f"{len(table)} blocks")
+        freed = 0
+        for p in table[:n_blocks]:
+            freed += self._decref(p)
+        del table[:n_blocks]
+        self._base[rid] = self._base.get(rid, 0) + n_blocks
+        return freed
 
     def allocate_shared(self, rid: int, n_tokens: int,
                         shared: List[int]) -> Optional[List[int]]:
@@ -135,7 +183,7 @@ class PageAllocator:
         most one page per call). Returns the new page id if a page boundary
         was crossed, 0 if the current pages already cover it, or None if
         the pool is exhausted (state unchanged: evict or preempt)."""
-        need = self.pages_for(n_tokens)
+        need = self.pages_for(n_tokens) - self._base.get(rid, 0)
         have = len(self._tables[rid])
         if need > have + 1:
             raise ValueError("extend_to grows by at most one page")
@@ -162,7 +210,10 @@ class PageAllocator:
             raise ValueError(f"truncate_to({n_tokens}) must shrink rid {rid} "
                              f"({self._tokens[rid]} tokens)")
         table = self._tables[rid]
-        keep = self.pages_for(n_tokens)
+        keep = self.pages_for(n_tokens) - self._base.get(rid, 0)
+        if keep < 1:
+            raise ValueError("truncate_to cannot roll a windowed table back "
+                             "past its base")
         dropped = len(table) - keep
         for p in reversed(table[keep:]):   # LIFO: reuse hottest first
             self._decref(p)
@@ -194,6 +245,7 @@ class PageAllocator:
         their other references)."""
         pages = self._tables.pop(rid)
         del self._tokens[rid]
+        self._base.pop(rid, None)
         freed = 0
         for p in reversed(pages):       # LIFO: reuse hottest first
             freed += self._decref(p)
@@ -251,6 +303,11 @@ class PageAllocator:
             assert p in self._ref, f"page {p} in a table but not allocated"
         for p in self._pinned:
             assert p in self._ref, f"pinned page {p} not allocated"
+        for rid, base in self._base.items():
+            assert rid in self._tables and base >= 0, \
+                f"window base for dead rid {rid}"
+            assert self._tokens[rid] >= base * self.page_size, \
+                f"rid {rid}: base {base} past its {self._tokens[rid]} tokens"
         assert len(free) + len(self._ref) == self.num_pages
         assert SCRATCH_PAGE not in free and SCRATCH_PAGE not in self._ref
 

@@ -37,11 +37,20 @@ Counterpart of the core of ``repro.runtime.serving``:
 * ``attn_impl="gather"`` swaps the flash-decode kernel for the reference's
   measured baseline: a dense ``pool[block_table]`` gather and a plain
   online-softmax attention (``layers.attend_decode``), inside the same
-  step body.
+  step body;
+* hybrid and recurrent stacks (recurrentgemma's RG-LRU + local attention,
+  Mamba2): sliding-window layers read a second fixed table, ``win_table``,
+  whose pages are recycled to the free list as they slide wholly below the
+  window (a request holds O(window) pages; a prompt longer than the window
+  is admitted without its pre-window blocks), and recurrent layers keep
+  fixed per-slot state that the prefill writes whole, the decode graph
+  advances in place, and a speculative step rolls back by selecting each
+  slot's accepted row of the verify graph's checkpointed states (a third
+  captured graph over a fixed index buffer).
 
-Sliding windows and recurrent state slots, tensor parallelism and the host
-tier are not ported yet: their ``metrics()`` keys read as the reference's
-do with those subsystems switched off (zeros, ``""``).
+Tensor parallelism and the host tier are not ported yet: their
+``metrics()`` keys read as the reference's do with those subsystems
+switched off (zeros, ``""``).
 """
 from __future__ import annotations
 
@@ -88,6 +97,12 @@ class Request:
     # per-request decode policy (runtime/sampling.py); None = the engine's
     # default
     params: Optional[SamplingParams] = None
+
+
+def _win_rid(rid: int):
+    """Allocator key of a request's sliding-window table (apart from its
+    full-attention table: the two recycle and roll back independently)."""
+    return ("win", rid)
 
 
 def _next_pow2(n: int) -> int:
@@ -261,7 +276,10 @@ class PagedServingEngine(ServingMetricsMixin):
     ``prefix_cache=True`` shares prompt prefixes' pages between requests;
     ``spec_k`` > 0 verifies up to ``spec_k`` drafted tokens a step, drafted
     by ``drafter`` (``runtime/drafter.py``) or, when None, by n-gram lookup
-    over the request's own context (``spec_ngram`` its longest n-gram)."""
+    over the request's own context (``spec_ngram`` its longest n-gram).
+    Stacks with sliding-window or recurrent layers serve too, without the
+    prefix cache (``ValueError``: recurrent state cannot be rebuilt from
+    shared pages, and window pages are recycled per request)."""
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
                  page_size: int = 16, num_pages: Optional[int] = None,
@@ -271,7 +289,21 @@ class PagedServingEngine(ServingMetricsMixin):
                  spec_k: int = 0, spec_ngram: int = 3, drafter=None,
                  tracer: Optional[Tracer] = None, device="cuda"):
         self.device = resolve_device(device)
-        tfm.layer_kinds(cfg)                  # raises on unported kinds
+        # the block kinds split three ways: full-attention layers share one
+        # block table, sliding-window layers a second (recycled) one, and
+        # recurrent layers hold per-slot state beside the pools
+        kinds = tfm.layer_kinds(cfg)          # raises on unported kinds
+        self.has_full = bool(set(kinds) & set(api.PAGEABLE_KINDS))
+        self.has_win = bool(set(kinds) & set(api.WINDOW_KINDS))
+        self.has_state = bool(set(kinds) & set(api.STATE_KINDS))
+        self.window = cfg.hybrid.window if self.has_win else 0
+        if prefix_cache and (self.has_win or self.has_state):
+            raise ValueError(
+                "prefix_cache needs an attention-only stack: recurrent "
+                "state cannot be reconstructed from shared KV pages, and "
+                "window pages are recycled per-request")
+        if self.has_win and self.window < 1:
+            raise ValueError("local_attn layers need cfg.hybrid.window >= 1")
         if page_size < 1 or page_size & (page_size - 1):
             raise ValueError(f"page_size must be a power of two, got "
                              f"{page_size}")
@@ -310,9 +342,13 @@ class PagedServingEngine(ServingMetricsMixin):
         self.prefix: Optional[PrefixCache] = \
             PrefixCache(self.alloc, tracer=self.trace) if prefix_cache \
             else None
-        # pool row 0 is the scratch page -> usable + 1 physical pages
+        # pool row 0 is the scratch page -> usable + 1 physical pages; the
+        # recurrent layers' entries are (slots, ...) state
         self.cache = api.paged_cache_init(self.cfg, usable + 1, page_size,
-                                          device=self.device)
+                                          slots=slots, device=self.device)
+        self._state = [(j, e) for j, (e, k) in enumerate(zip(self.cache,
+                                                             kinds))
+                       if k in api.STATE_KINDS]
 
         def dev(n, dtype, cols=None):
             shape = (n,) if cols is None else (n, cols)
@@ -323,6 +359,10 @@ class PagedServingEngine(ServingMetricsMixin):
         # the host writes it in place between steps, on the same stream.
         # Dead slots hold an all-scratch table at position 0.
         self.block_table = dev(slots, torch.int32, self.max_blocks)
+        # the sliding-window table: logical block j still means positions
+        # [j * page, (j + 1) * page), but entries that slid below the window
+        # are recycled to scratch (the kernel skips them)
+        self.win_table = dev(slots, torch.int32, self.max_blocks)
         self.pos = dev(slots, torch.int32)
         self.cur_tok = dev(slots, torch.int64, 1)
         self.live_mask = dev(slots, torch.bool)
@@ -345,6 +385,13 @@ class PagedServingEngine(ServingMetricsMixin):
         self._n_draft = dev(slots, torch.int64)
         self._spec_out = torch.zeros((2, slots, T), dtype=torch.int64,
                                      device=self.device)  # accept, emit
+        # recurrent rollback: the verify graph checkpoints every row's state
+        # into fixed (slots, T, ...) buffers; after the accept walk a third
+        # graph copies row _accept_idx[s] of each into slot s's state
+        self._ckpt = api.state_buffers(self.cfg, slots, T,
+                                       device=self.device) \
+            if spec_k and self.has_state else None
+        self._accept_idx = dev(slots, torch.int64)
 
         self.live: List[Optional[Request]] = [None] * slots
         self._pos_host = [0] * slots          # mirror of self.pos for live
@@ -361,6 +408,9 @@ class PagedServingEngine(ServingMetricsMixin):
         self.spec_drafted = 0                 # draft tokens proposed
         self.spec_accepted = 0                # draft tokens accepted
         self.spec_slot_steps = 0              # (live slot, verify step) pairs
+        self.win_recycled_pages = 0           # window pages slid out + freed
+        self.win_peak_live = 0                # most live window pages a slot
+        self.state_selects = 0                # rollback selects dispatched
         self.greedy_requests = 0              # requests by effective policy
         self.sampled_requests = 0
         self.greedy_tokens = 0                # emitted tokens by policy
@@ -374,6 +424,8 @@ class PagedServingEngine(ServingMetricsMixin):
         self._graph_launches: Dict[str, int] = {}
         self._spec_graph: Optional[torch.cuda.CUDAGraph] = None
         self._spec_graph_launches: Dict[str, int] = {}
+        self.select_traces = 0
+        self._select_graph: Optional[torch.cuda.CUDAGraph] = None
 
     # -- admission ------------------------------------------------------------
 
@@ -385,6 +437,29 @@ class PagedServingEngine(ServingMetricsMixin):
 
     def _bucket(self, n: int) -> int:
         return min(max(self.page_size, _next_pow2(n)), self.max_len)
+
+    def win_pages_bound(self, n_tokens: int) -> int:
+        """Most live window pages a request holds while serving
+        ``n_tokens``: the window plus one step's write block (spec_k + 1
+        tokens under speculative decode) straddle at most ceil((window +
+        T) / page) + 1 pages; fewer if the request never grows that long."""
+        t_block = self.spec_k + 1
+        return min(self.alloc.pages_for(n_tokens),
+                   -(-(self.window + t_block) // self.page_size) + 1)
+
+    def _worst_case_pages(self, n_tokens: int) -> int:
+        """Pages a request can ever hold at once (admission feasibility)."""
+        need = 0
+        if self.has_full:
+            need += self.alloc.pages_for(n_tokens)
+        if self.has_win:
+            need += self.win_pages_bound(n_tokens)
+        return need
+
+    def state_slot_bytes(self) -> int:
+        """Bytes of one slot's recurrent state over every recurrent layer."""
+        return sum(t[0].numel() * t.element_size()
+                   for _, e in self._state for t in e.values())
 
     def _prefill_for(self, bucket) -> None:
         """Count distinct prefill shapes (a plain bucket, or (suffix
@@ -427,7 +502,7 @@ class PagedServingEngine(ServingMetricsMixin):
         remaining = req.max_new - len(req.generated)
         worst = min(L + remaining, self.max_len)
         if (L >= self.max_len - 1 or remaining <= 0
-                or self.alloc.pages_for(worst) > self.alloc.num_pages):
+                or self._worst_case_pages(worst) > self.alloc.num_pages):
             req.done = True
             self._note_finished(req.rid)
             return True
@@ -453,9 +528,25 @@ class PagedServingEngine(ServingMetricsMixin):
                     keep.add(partial_page)
                 if self.prefix.evictable_count(protect=keep) >= deficit:
                     self._shed_idle_cache(deficit, protect=keep)
-        table = self.alloc.allocate_shared(req.rid, L, shared)
-        if table is None:
-            return False                      # pool full: reject admission
+        table: List[int] = []
+        if self.has_full:
+            table = self.alloc.allocate_shared(req.rid, L, shared)
+            if table is None:
+                return False                  # pool full: reject admission
+        wtable: List[int] = []
+        dead0 = 0
+        if self.has_win:
+            # a prompt longer than the window is admitted with its
+            # pre-window blocks never allocated: every later query sits at a
+            # position >= L and sees only keys > L - window
+            dead0 = min(max(0, L - self.window + 1) // self.page_size,
+                        self.alloc.pages_for(L) - 1)
+            wtable = self.alloc.allocate(_win_rid(req.rid), L,
+                                         base_blocks=dead0)
+            if wtable is None:
+                if self.has_full:
+                    self.alloc.free_request(req.rid)
+                return False                  # pool full: reject admission
         if m is not None:
             # admission is now certain: count the lookup, touch its LRU
             self.prefix.commit(m, L)
@@ -475,12 +566,18 @@ class PagedServingEngine(ServingMetricsMixin):
                                self.seed, dev)
         row = np.zeros((self.max_blocks,), np.int32)
         row[: len(table)] = table
+        # the window row: logical block j of [dead0, dead0 + n) holds
+        # wtable[j - dead0]; recycled lead blocks and the unwritten tail
+        # stay scratch
+        row_win = np.zeros((self.max_blocks,), np.int32)
+        row_win[dead0: dead0 + len(wtable)] = wtable
         tr = self.trace
         if prefix_len == 0:
             bucket = self._bucket(L)
             nb = bucket // self.page_size
             pages = np.full((nb,), SCRATCH_PAGE, np.int64)
             pages[: len(table)] = table
+            pages_win = row_win[:nb].astype(np.int64)
             tok_arr = np.zeros((1, bucket), np.int64)
             tok_arr[0, :L] = toks
             self._prefill_for(bucket)
@@ -490,13 +587,8 @@ class PagedServingEngine(ServingMetricsMixin):
                     self.cfg, self.params, torch.from_numpy(tok_arr).to(dev),
                     length=torch.full((1,), L, dtype=torch.int32,
                                       device=dev))
-                # scatter the prompt's kv blocks into this request's pages
-                # (bucket padding past the allocation lands on scratch)
-                pages_d = torch.from_numpy(pages).to(dev)
-                for pool, e in zip(self.cache, kv):
-                    for name in ("k", "v"):
-                        pool[name][pages_d] = e[name][0].reshape(
-                            (nb, self.page_size) + pool[name].shape[2:])
+                self._scatter_prefill(kv, slot, torch.from_numpy(pages).to(
+                    dev), torch.from_numpy(pages_win).to(dev))
                 tok = sample_rows(logits[:, : self.cfg.vocab], pol1)[0]
             self.prefilled_tokens += L
         else:
@@ -540,6 +632,9 @@ class PagedServingEngine(ServingMetricsMixin):
                 tok = sample_rows(logits[:, : self.cfg.vocab], pol1)[0]
             self.prefilled_tokens += len(suffix)
         self.block_table[slot] = torch.from_numpy(row).to(dev)
+        if self.has_win:
+            self.win_table[slot] = torch.from_numpy(row_win).to(dev)
+            self.win_peak_live = max(self.win_peak_live, len(wtable))
         self.pos[slot] = L
         self.cur_tok[slot, 0] = tok
         self.live_mask[slot] = True
@@ -574,6 +669,24 @@ class PagedServingEngine(ServingMetricsMixin):
             self._finish_slot(slot)
         return True
 
+    def _scatter_prefill(self, kv, slot: int, pages: torch.Tensor,
+                         pages_win: torch.Tensor) -> None:
+        """Write a prefill's cache entries: full-attention k/v blocks into
+        ``pages``, sliding-window ones into ``pages_win`` (whose
+        pre-window blocks and bucket padding are the scratch page), and
+        every leaf of each recurrent layer's state into slot ``slot``, so
+        nothing of the slot's previous request survives."""
+        nb = pages.shape[0]
+        for pool, e, kind in zip(self.cache, kv, tfm.layer_kinds(self.cfg)):
+            if kind in api.STATE_KINDS:
+                for name, t in pool.items():
+                    t[slot].copy_(e[name][0])
+                continue
+            dst = pages_win if kind in api.WINDOW_KINDS else pages
+            for name in ("k", "v"):
+                pool[name][dst] = e[name][0].reshape(
+                    (nb, self.page_size) + pool[name].shape[2:])
+
     def _release_slot(self, slot: int) -> Request:
         """Reclaim a slot's pages; its table becomes all-scratch so a dead
         slot can only ever write to the scratch page, its position 0 so the
@@ -582,8 +695,12 @@ class PagedServingEngine(ServingMetricsMixin):
         req = self.live[slot]
         self.live[slot] = None
         self._policy[slot] = None
-        self.alloc.free_request(req.rid)
-        self.block_table[slot] = SCRATCH_PAGE
+        if self.has_full:
+            self.alloc.free_request(req.rid)
+            self.block_table[slot] = SCRATCH_PAGE
+        if self.has_win:
+            self.alloc.free_request(_win_rid(req.rid))
+            self.win_table[slot] = SCRATCH_PAGE
         self.pos[slot] = 0
         self.live_mask[slot] = False
         self.pol.clear_slot(slot)
@@ -630,14 +747,16 @@ class PagedServingEngine(ServingMetricsMixin):
         preempted.append(self._evict_slot(youngest))
         return True
 
-    def _grow_table(self, rid: int, slot: int, target: int,
-                    preempted: List[Request]) -> None:
+    def _grow_table(self, rid, slot: int, target: int,
+                    preempted: List[Request], table: torch.Tensor) -> None:
         """Grow ``rid``'s table page by page until it covers ``target``
-        tokens, publishing fresh pages to the device table and reclaiming
-        (evict, then preempt the youngest) on pool exhaustion."""
+        tokens, publishing fresh pages to the device ``table`` (the full or
+        the window one) and reclaiming (evict, then preempt the youngest)
+        on pool exhaustion."""
         page = self.page_size
         while True:
-            have = len(self.alloc.block_table(rid)) * page
+            have = (self.alloc.base_blocks(rid)
+                    + len(self.alloc.block_table(rid))) * page
             got = self.alloc.extend_to(rid, min(target, have + page))
             if got is None:
                 if not self._reclaim_one_page(slot, preempted):
@@ -645,14 +764,30 @@ class PagedServingEngine(ServingMetricsMixin):
                         "page pool too small for a single request")
                 continue
             if got:                           # fresh page: publish it
-                self.block_table[slot, have // page] = got
+                table[slot, have // page] = got
             if have + page >= target or not got:
                 break
+
+    def _recycle_win(self, slot: int, rid: int, pos: int) -> None:
+        """Free the slot's window pages that slid wholly below the window:
+        every query from here on sits at a position >= ``pos``, so keys at
+        positions <= pos - window are never read again. Their table
+        entries become the scratch page on the device (the kernel skips
+        them) and their pages go back to the free list (at least one block
+        stays: the one being written)."""
+        wrid = _win_rid(rid)
+        dead = max(0, pos - self.window + 1) // self.page_size
+        base = self.alloc.base_blocks(wrid)
+        n = min(dead - base, len(self.alloc.block_table(wrid)) - 1)
+        if n > 0:
+            self.win_recycled_pages += self.alloc.release_prefix(wrid, n)
+            self.win_table[slot, base:base + n] = SCRATCH_PAGE
 
     def ensure_decode_capacity(self, n_tokens: int = 1) -> List[Request]:
         """Allocate the pages the next step writes into: positions pos ..
         pos + n_tokens - 1 of each live request (a verify block's whole
-        range), capped at max_len, oldest request first. On exhaustion,
+        range), capped at max_len, oldest request first; window tables
+        first recycle the pages that slid below the window. On exhaustion,
         evict idle cached pages, then preempt the youngest until the rest
         fit. Every page the step may write must be private: a shared one
         (another table or the radix tree holds it) is copied on write
@@ -667,7 +802,20 @@ class PagedServingEngine(ServingMetricsMixin):
                 continue
             pos = self._pos_host[slot]
             target = min(pos + n_tokens, self.max_len)
-            self._grow_table(req.rid, slot, target, preempted)
+            if self.has_win:
+                # recycle first: the pages that slid out may be the ones
+                # this top-up needs; recycling is what holds a windowed
+                # request at O(window) pages
+                self._recycle_win(slot, req.rid, pos)
+                self._grow_table(_win_rid(req.rid), slot, target, preempted,
+                                 self.win_table)
+                self._recycle_win(slot, req.rid, pos)
+                self.win_peak_live = max(self.win_peak_live, len(
+                    self.alloc.block_table(_win_rid(req.rid))))
+            if not self.has_full:
+                continue
+            self._grow_table(req.rid, slot, target, preempted,
+                             self.block_table)
             for blk in range(pos // page, (target - 1) // page + 1):
                 while self.alloc.ref(
                         self.alloc.block_table(req.rid)[blk]) > 1:
@@ -696,7 +844,8 @@ class PagedServingEngine(ServingMetricsMixin):
         (slots, Vp) logits (on the card, the graph's output buffer)."""
         logits, _ = api.decode_step(self.cfg, self.params, self.cache,
                                     self.cur_tok, self.pos,
-                                    block_table=self.block_table)
+                                    block_table=self.block_table,
+                                    win_block_table=self._win_arg())
         toks = sample_rows(logits[:, : self.cfg.vocab], self.pol)
         live = self.live_mask
         livei = live.to(torch.int32)
@@ -730,7 +879,9 @@ class PagedServingEngine(ServingMetricsMixin):
         B, T = tb.shape
         logits, _ = api.decode_step(cfg, self.params, self.cache, tb,
                                     self._spec_pos,
-                                    block_table=self.block_table)
+                                    block_table=self.block_table,
+                                    win_block_table=self._win_arg(),
+                                    state_out=self._ckpt)
         z = logits[..., : cfg.vocab].reshape(B * T, cfg.vocab)
         pol = self.pol
 
@@ -764,6 +915,25 @@ class PagedServingEngine(ServingMetricsMixin):
                            greedy_t)
         self._spec_out[0].copy_(accept.reshape(B, T))
         self._spec_out[1].copy_(emit.reshape(B, T))
+
+    def _win_arg(self) -> Optional[torch.Tensor]:
+        return self.win_table if self.has_win else None
+
+    def _select_body(self) -> None:
+        """The recurrent rollback on the device (the reference's
+        ``_make_select``): row ``_accept_idx[s]`` of each checkpointed
+        state (the state after the last accepted row) into slot s's state,
+        in place. Fixed buffers only, as ``_step_body``."""
+        ix = self._accept_idx
+        for j, entry in self._state:
+            for name, t in entry.items():
+                ck = self._ckpt[j][name]
+                idx = ix.view((-1, 1) + (1,) * (ck.dim() - 2)).expand(
+                    (ck.shape[0], 1) + ck.shape[2:])
+                t.copy_(torch.gather(ck, 1, idx)[:, 0])
+
+    def _state_tensors(self) -> List[torch.Tensor]:
+        return [t for _, e in self._state for t in e.values()]
 
     def _capture(self, body, state) -> tuple:
         """Record ``body`` as a CUDA graph; returns (graph, the launches it
@@ -805,8 +975,8 @@ class PagedServingEngine(ServingMetricsMixin):
         if self._graph is None:
             self._graph, self._graph_launches = self._capture(
                 self._step_body,
-                (self.cur_tok, self.pos, self.gen_cnt, self.live_mask,
-                 self.pol.idx, self._step_out))
+                [self.cur_tok, self.pos, self.gen_cnt, self.live_mask,
+                 self.pol.idx, self._step_out] + self._state_tensors())
             self.step_traces += 1
         self._graph.replay()
         ops.add_launch_counts(self._graph_launches)
@@ -823,6 +993,19 @@ class PagedServingEngine(ServingMetricsMixin):
             self.spec_traces += 1
         self._spec_graph.replay()
         ops.add_launch_counts(self._spec_graph_launches)
+
+    def _dispatch_select(self) -> None:
+        """Enqueue the rollback select: a replay of the third captured
+        graph on CUDA (captured at its first use), the body on the CPU."""
+        self.state_selects += 1
+        if self.device.type != "cuda":
+            self._select_body()
+            return
+        if self._select_graph is None:
+            self._select_graph, _ = self._capture(self._select_body,
+                                                  self._state_tensors())
+            self.select_traces += 1
+        self._select_graph.replay()
 
     def _step(self) -> List[Request]:
         """Advance every live slot: one device program, one device->host
@@ -911,6 +1094,7 @@ class PagedServingEngine(ServingMetricsMixin):
         self.decode_steps += 1
         with tr.span("accept_rollback"):
             upd_slot, upd_pos, upd_m, upd_tok = [], [], [], []
+            accept_idx = np.zeros((self.slots,), np.int64)
             for s, r in enumerate(self.live):
                 if r is None:
                     continue
@@ -933,22 +1117,38 @@ class PagedServingEngine(ServingMetricsMixin):
                         finished = True
                         break
                 self.spec_accepted += m - 1
+                accept_idx[s] = m - 1         # recurrent state after row m-1
                 self._count_tokens(self._policy[s], m)
                 self._note_emitted(r.rid, m)
                 if finished:
                     self._finish_slot(s)      # frees every page incl. drafts
                     continue
                 # rollback: disown whole pages past the accept point and
-                # republish their table entries as scratch on the device
-                dropped = self.alloc.truncate_to(r.rid, pos0 + m)
-                if dropped:
-                    keep = len(self.alloc.block_table(r.rid))
-                    self.block_table[s, keep:keep + dropped] = SCRATCH_PAGE
+                # republish their table entries as scratch on the device,
+                # in the full and the window table alike
+                if self.has_full:
+                    dropped = self.alloc.truncate_to(r.rid, pos0 + m)
+                    if dropped:
+                        keep = len(self.alloc.block_table(r.rid))
+                        self.block_table[s, keep:keep + dropped] = \
+                            SCRATCH_PAGE
+                if self.has_win:
+                    wrid = _win_rid(r.rid)
+                    dropped = self.alloc.truncate_to(wrid, pos0 + m)
+                    if dropped:
+                        keep = (self.alloc.base_blocks(wrid)
+                                + len(self.alloc.block_table(wrid)))
+                        self.win_table[s, keep:keep + dropped] = SCRATCH_PAGE
                 self._pos_host[s] = pos0 + m
                 upd_slot.append(s)
                 upd_pos.append(pos0 + m)
                 upd_m.append(m)
                 upd_tok.append(r.generated[-1])
+            if self._ckpt is not None:
+                # the recurrent analogue of the page rollback: each slot's
+                # state becomes its accepted row's checkpoint
+                self._accept_idx.copy_(torch.from_numpy(accept_idx))
+                self._dispatch_select()
             if upd_slot:
                 # device mirrors (pos / gen / cur_tok / draw index) stay in
                 # step, one in-place write per tensor
@@ -1045,6 +1245,9 @@ class PagedServingEngine(ServingMetricsMixin):
         self.spec_drafted = 0
         self.spec_accepted = 0
         self.spec_slot_steps = 0
+        self.win_recycled_pages = 0
+        self.win_peak_live = 0
+        self.state_selects = 0
         self.greedy_requests = 0
         self.sampled_requests = 0
         self.greedy_tokens = 0
@@ -1055,20 +1258,28 @@ class PagedServingEngine(ServingMetricsMixin):
             self.prefix.reset_hit_counters()
 
     def check(self) -> None:
-        """Pool invariants: the allocator's shared-page-aware check plus
-        write exclusivity — the page each live request's next token lands
-        in must not be shared, or the next step would write over another
-        reader's KV."""
+        """Pool invariants: the allocator's shared-page-aware check, write
+        exclusivity — the page each live request's next token lands in
+        must not be shared, or the next step would write over another
+        reader's KV — and no slot holding more live window pages than
+        ``win_pages_bound(max_len)``."""
         self.alloc.check()
         for slot, req in enumerate(self.live):
             if req is None:
                 continue
-            table = self.alloc.block_table(req.rid)
-            blk = self._pos_host[slot] // self.page_size
-            if blk < len(table):
-                assert self.alloc.ref(table[blk]) == 1, (
-                    f"slot {slot}: next-write page {table[blk]} is shared "
-                    f"(ref {self.alloc.ref(table[blk])})")
+            if self.has_full:
+                table = self.alloc.block_table(req.rid)
+                blk = self._pos_host[slot] // self.page_size
+                if blk < len(table):
+                    assert self.alloc.ref(table[blk]) == 1, (
+                        f"slot {slot}: next-write page {table[blk]} is "
+                        f"shared (ref {self.alloc.ref(table[blk])})")
+            if self.has_win:
+                live = len(self.alloc.block_table(_win_rid(req.rid)))
+                bound = self.win_pages_bound(self.max_len)
+                assert live <= bound, (
+                    f"slot {slot}: {live} live window pages exceed the "
+                    f"O(window) bound {bound}: recycling fell behind")
 
     def run_to_completion(self, requests: List[Request],
                           max_steps: int = 10_000) -> List[Request]:

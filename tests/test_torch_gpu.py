@@ -1130,3 +1130,133 @@ def test_cuda_policy_engines_equal_cpu_engine(cuda, case):
     # launch of its own
     assert launched["paged_attention"] == cfg.num_layers * eng.decode_steps
     assert eng.sampling_stats()["sampled_requests"] == 3
+
+
+# ---------------------------------------------------------------------------
+# The hybrid stacks: mha with a band and head dim 256, paged at recurrent-
+# gemma's shapes, the hybrid engines
+# ---------------------------------------------------------------------------
+
+# (B, Sq, Sk, H, KV, D, window, q_offset, kv_valid): recurrentgemma's heads
+# (16 over 1, D 256) and the serving heads at D 128; bands of 1, 16, 100
+# and 2048 keys, a query offset that is no tile multiple, Sk past Sq
+WINDOW_MHA_CASES = [
+    (1, 1024, 1024, 16, 1, 256, 16, 0, None),
+    (1, 1024, 1024, 16, 1, 256, 2048, 0, None),
+    (1, 640, 640, 16, 1, 256, 100, 0, 577),
+    (1, 300, 637, 16, 1, 256, 100, 337, None),
+    (2, 200, 200, 16, 2, 128, 37, 0, None),
+    (1, 129, 400, 8, 2, 64, 1, 271, None),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", WINDOW_MHA_CASES, ids=str)
+def test_cuda_mha_window_matches_plain(cuda, case, dtype):
+    """mha with a band (and head dim 256) against its plain version per
+    row, in both dtypes, on inputs whose rows peak on the oldest key of
+    their band: the plain version with a band one key narrower misses the
+    row tolerance on every row that has such a key, so a kernel whose band
+    is off by one could not pass (a band wider than every row's keys has
+    no such row)."""
+    B, Sq, Sk, H, KV, D, window, off, valid = case
+    dt = getattr(torch, dtype)
+    q, k, v = ref.peaked_mha_inputs(np.random.default_rng(Sq + window), B,
+                                    Sk, H, KV, D, edge=window)
+    q, k, v = (torch.from_numpy(x).to(cuda, dt)
+               for x in (q[:, off:off + Sq], k, v))
+    got = launched_once(lambda: mha_kernel.mha.launches,
+                        lambda: ops.attention(q, k, v, causal=True,
+                                              q_offset=off, window=window,
+                                              kv_valid=valid))
+    want = ref.mha_ref(q, k, v, causal=True, q_offset=off, window=window,
+                       kv_valid=valid)
+    assert_rows_agree(got, want)
+    if 1 < window <= Sk:
+        rows = slice(max(window - 1 - off, 0),
+                     None if valid is None else valid - off - window)
+        narrower = ref.mha_ref(q, k, v, causal=True, q_offset=off,
+                               window=window - 1, kv_valid=valid)
+        assert ref.row_error(narrower, want)[:, rows].min().item() > \
+            ref.ROW_TOL[dt]
+
+
+@pytest.mark.gpu
+def test_cuda_mha_refuses_what_it_cannot_take(cuda):
+    """No fallback: a head dim the kernel lacks and a band without causal
+    masking raise."""
+    q = torch.zeros(1, 8, 2, 96, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        mha_kernel.mha(q, q, q)
+    q = torch.zeros(1, 8, 2, 256, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="window"):
+        mha_kernel.mha(q, q, q, causal=False, window=4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("T", [1, 5])
+def test_cuda_paged_window_d256_never_reads_recycled_entries(cuda, T, dtype):
+    """Paged flash-decode at recurrentgemma's shapes (16 query heads over
+    1 KV head, D 256, window 2048, page 16) with contexts 2100-3500 whose
+    entries below the earliest row's window point at scratch page 0,
+    filled with 1e4: any read of a recycled entry would move the output
+    past the tolerance."""
+    B, page, H, KV, D, window = 4, 16, 16, 1, 256, 2048
+    lengths = [2100, 2777, 3000, 3500]
+    nb = -(-max(lengths) // page)
+    q, kp, vp, table, lens = paged_case(T, B, T, H, KV, D, page, nb, lengths,
+                                        poison=True)
+    for b, n in enumerate(lengths):
+        table[b, : max(0, n - T - window + 1) // page] = 0
+    dt = getattr(torch, dtype)
+    q, kp, vp = (torch.from_numpy(x).to(cuda, dt) for x in (q, kp, vp))
+    table, lens = (torch.from_numpy(x).to(cuda) for x in (table, lens))
+    got = launched_once(lambda: paged_kernel.paged_attention.launches,
+                        lambda: ops.paged_attention(q, kp, vp, table, lens,
+                                                    window=window))
+    assert torch.isfinite(got).all()
+    assert_agrees(got, ref.paged_attention_ref(q, kp, vp, table, lens,
+                                               window=window))
+
+
+def smoke_hybrid(arch):
+    over = dict(dtype="float32", kv_cache_dtype="float32")
+    cfg = dataclasses.replace(get_smoke_config(arch), **over)
+    return cfg, api.init_params(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+
+
+def hybrid_traffic():
+    return [Request(rid=0, prompt=[5, 4, 3, 2, 1, 6, 7] * 4, max_new=20),
+            Request(rid=1, prompt=[1, 2, 3, 4, 5, 6], max_new=20),
+            Request(rid=2, prompt=[9, 8] * 12, max_new=20)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec_k", [0, 3])
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-2.7b"])
+def test_cuda_hybrid_engine_kernel_tokens_equal_gather(cuda, arch, spec_k):
+    """fp32 SMOKE hybrid stacks (window 16) on the card, prompts past the
+    window, a pool that forces preemption: the kernel engine (replayed
+    graphs, the paged kernel through the window table) emits the gather
+    engine's and the CPU engine's greedy tokens, launches the paged kernel
+    once per local_attn layer a step and mha once per local_attn layer a
+    prefill, and captures each graph once."""
+    cfg, params = smoke_hybrid(arch)
+    kw = dict(slots=2, max_len=64, page_size=4, num_pages=8, spec_k=spec_k)
+    want, _, _ = serve_on(PagedServingEngine, cfg, params, "cpu",
+                          hybrid_traffic(), **kw)
+    gather, _, _ = serve_on(PagedServingEngine, cfg, params, cuda,
+                            hybrid_traffic(), attn_impl="gather", **kw)
+    got, eng, launched = serve_on(PagedServingEngine, cfg, params, cuda,
+                                  hybrid_traffic(), **kw)
+    assert got == gather == want
+    n_win = sum(k == "local_attn" for k in
+                api.tfm.layer_kinds(cfg))
+    assert launched["paged_attention"] == n_win * eng.decode_steps
+    assert launched["mha"] == n_win * eng.prefills
+    assert (eng.step_traces, eng.spec_traces) == \
+        ((0, 1) if spec_k else (1, 0))
+    assert eng.select_traces == (1 if spec_k else 0)

@@ -245,6 +245,43 @@ def test_f32_mha_plan_from_shapes_alone():
                     ((2, 4) if D <= 64 else (4,))
 
 
+@pytest.mark.parametrize("rg", [2, 4])
+def test_f32_mha_windowed_plan_sweeps_about_the_window(rg):
+    """With a band cutting the q blocks, the fp32 layout (``f32_ctas``)
+    covers every block once, one block a CTA (no pairs), and each block
+    sweeps at most window + its rows + a tile of keys, not all keys below
+    it; the heaviest CTA (``f32_heaviest``) matches the layout."""
+    bq = 16 * rg
+    for B, Sq, H, window, off in ((1, 4096, 2, 2048, 0), (2, 1000, 3, 16, 0),
+                                  (1, 300, 4, 100, 337), (1, 97, 1, 1, 5)):
+        Sk = Sq + off
+        assert not mha_kernel.f32_pairs(Sq, True, off, window)
+        ctas = mha_kernel.f32_ctas(B, Sq, Sk, H, True, rg, off, window)
+        n = -(-Sq // bq)
+        assert sorted((b, h, blk) for cta in ctas for b, h, blk, _ in cta) \
+            == [(b, h, i) for b in range(B) for h in range(H)
+                for i in range(n)]
+        assert all(len(cta) == 1 for cta in ctas)
+        assert max(keys for cta in ctas for *_, keys in cta) \
+            <= window + bq + 32
+        want = max(mha_kernel.f32_rounds(cta, rg) for cta in ctas)
+        assert mha_kernel.f32_heaviest(Sq, Sk, True, rg, off, window) == want
+        plan = mha_kernel.f32_plan(B, Sq, Sk, H, 256, True, 132, off, window)
+        assert plan == 4
+
+
+def test_f32_mha_pairs_where_the_band_cuts_no_block():
+    """A window at or past every row's position leaves the causal pairs
+    (and the plan) as without one; non-causal never pairs."""
+    assert mha_kernel.f32_pairs(1024, True, 0, 1024)
+    assert mha_kernel.f32_pairs(1024, True, 0, 0)
+    assert not mha_kernel.f32_pairs(1024, True, 0, 1023)
+    assert not mha_kernel.f32_pairs(1024, False, 0, 0)
+    for rg in (2, 4):
+        assert mha_kernel.f32_ctas(1, 1024, 1024, 8, True, rg, 0, 1024) \
+            == mha_kernel.f32_ctas(1, 1024, 1024, 8, True, rg)
+
+
 def test_plain_paged_ignores_pool_garbage():
     """Poisoning the scratch page and every row past each length must not
     move the output at all."""
