@@ -99,10 +99,30 @@ Phases, each failing loudly (non-zero exit, no result line):
    ``serve_bench --scenario hybrid`` at full width, 6 layers, window 32,
    fp32, gated (``tokens_match_hybrid`` must pass).
 
+10. the host tier (generators of their own): at fp32, full width,
+   reduced depth (qwen2.5-3b 4 layers, recurrentgemma-9b 6 with window
+   64, mamba2-2.7b 4), the tiered kernel engine over a pool capped at 0.4
+   of the traffic's worst case (mamba2: a swap every 5 ticks) emits the
+   uncapped engine's greedy tokens with every swap-out swapped back in,
+   no token prefilled twice and an empty store at the end; the copy-
+   stream race (swap out, prefill another request into the freed pages
+   at once, swap back in through a prefetch and through a demand fetch:
+   the next 8 tokens equal the unswapped run's); at bf16, 36 layers, a
+   sampled stream through a swap equals it alone (and whether one through
+   an evict-only preemption does is logged), and the top-2 logit gap
+   where spec_k 4 greedy parts from plain greedy; the serve phase's
+   traffic at full width and depth, bf16, for qwen2.5-3b,
+   recurrentgemma-9b and mamba2-2.7b: uncapped, evict@cap, tiered@cap
+   (tok/s, TTFT, TPOT, the tier's counters), one request's swap-out and
+   swap-in times beside a pinned ``copy_`` of its bytes, and the decode
+   window's idle share with the tier on and off (qwen); then
+   ``serve_bench --scenario oversubscribe`` at 4 layers, fp32, gated.
+
 The line before the last is a JSON ``{"kernels": [...]}`` summary (the
-seven TPU kernels' counterparts, the sampler's noise kernel, and mha and
+seven TPU kernels' counterparts, the sampler's noise kernel, mha and
 paged flash-decode again at the hybrid path's windowed shapes with that
-path's launches); the last line is ``{"ok": true, "device": {...}}``.
+path's launches, and both again with the host tier path's launches); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1874,7 +1894,7 @@ def run_serve_bench_policies() -> None:
     """``serve_bench`` with the three scenarios this slice ports, each in a
     process of its own, their CSVs as one sectioned file: on the fp32
     4-layer cut, gated by ``launch/check_csv.py`` (``tokens_match_greedy``
-    must pass; only the two columns of the scenarios the port lacks may
+    must pass; only the columns of the scenarios not in these CSVs may
     be missing); then at bf16 and full depth for their times, where
     ``tokens_match_greedy`` is printed and not gated: the verify step
     scores 5 rows a request where the T = 1 step scores 1, so cuBLAS
@@ -1892,12 +1912,13 @@ def run_serve_bench_policies() -> None:
             f"({label}) in {time.perf_counter() - t0:.1f} s:")
         print(text, flush=True)
         errors = check_csv.check(text)
-        missing = check_csv.missing_scenario_errors()
+        missing = check_csv.missing_scenario_errors(
+            ("tokens_match_tp1", "tokens_match_unconstrained"))
         matches = [line.split(",") for line in text.splitlines()
                    if "greedy]" in line]
         log(f"serve_bench ({label}): tokens_match_greedy rows "
             f"{len(matches)}; gate: "
-            f"{'passes but for the two unported columns' if errors == missing else errors}")
+            f"{'passes but for the two columns of other scenarios' if errors == missing else errors}")
         if gated and errors != missing:
             fail(f"serve_bench ({label}) CSV: {errors}")
         if not gated and not set(missing) <= set(errors):
@@ -2513,6 +2534,521 @@ def run_serve_bench_hybrid() -> None:
                  f"match or recycle")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the host tier (pinned host pages, side-stream copies, swaps)
+# ---------------------------------------------------------------------------
+
+
+def tier_drive(eng, reqs, preempt_every=0):
+    """``reqs`` through a Scheduler on ``eng``, ``check()`` after every
+    tick. ``preempt_every`` k > 0 also preempts the youngest live request
+    every k ticks when two or more are live (swap-out with the tier on,
+    evict without): mamba2 holds no pages, so no pool cap preempts it.
+    Returns the scheduler."""
+    from repro_torch.runtime.scheduler import Scheduler
+    sched = Scheduler(eng)
+    for r in reqs:
+        sched.add(r)
+    while sched.pending or eng.has_live():
+        sched.tick()
+        live = [s for s, r in enumerate(eng.live) if r is not None]
+        if preempt_every and sched.steps % preempt_every == 0 \
+                and len(live) >= 2:
+            s = max(live, key=lambda s: eng._admit_seq[s])
+            back = eng._swap_out_slot(s) if eng.tier is not None \
+                else eng._evict_slot(s)
+            sched.pending.appendleft(back)
+            sched.preempted += 1
+        eng.check()
+        if sched.steps > 20000:
+            fail("host tier: a run did not finish")
+    return sched
+
+
+def tier_cap(reqs, eng) -> int:
+    """The oversubscribe scenario's pool cap (``serve_bench._pool_cap``:
+    0.4 of the trace's worst-case pages, floored one page above the
+    largest request); for a windowed stack each request's worst case is
+    its window bound."""
+    need = [eng._worst_case_pages(min(len(r.prompt) + r.max_new,
+                                      eng.max_len)) for r in reqs]
+    return max(int(sum(need) * 0.4), max(need) + 1)
+
+
+def check_tier_exact() -> None:
+    """At fp32 (weights, activations, KV cache), full width, reduced depth
+    (qwen2.5-3b 4 of 36 layers; recurrentgemma-9b 6 of 38, window 64;
+    mamba2-2.7b 4 of 64): the tiered kernel engine over a pool capped at
+    0.4 of the traffic's worst case (mamba2: a swap every 5 ticks, as it
+    holds no pages) emits the uncapped kernel engine's greedy tokens,
+    swaps back in every swap-out (more than 0), prefills exactly what the
+    uncapped engine prefills, and ends with an empty store (but for the
+    capped archive of slid-out window pages); the evict-only engine on the
+    same cap re-prefills."""
+    f32 = dict(dtype="float32", kv_cache_dtype="float32")
+    for arch, layers, window in (("qwen2.5-3b", 4, None),
+                                 ("recurrentgemma-9b", 6, 64),
+                                 ("mamba2-2.7b", 4, None)):
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  **f32)
+        if window is not None:
+            cfg = dataclasses.replace(cfg, hybrid=dataclasses.replace(
+                cfg.hybrid, window=window))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 60)
+        params = api.init_params(cfg, gen, device="cuda")
+        own = np.random.default_rng(SEED + 60)
+        prompts = [[int(t) for t in own.integers(0, cfg.vocab, int(n))]
+                   for n in (80, 150, 97, 230, 40, 130)]
+        every = 5 if arch == "mamba2-2.7b" else 0
+
+        def run(**kw):
+            eng = PagedServingEngine(cfg, params, slots=4, max_len=512,
+                                     page_size=PAGE, device="cuda", **kw)
+            reqs = [Request(rid=i, prompt=p, max_new=24)
+                    for i, p in enumerate(prompts)]
+            sched = tier_drive(eng, reqs,
+                               every if "num_pages" in kw else 0)
+            return [r.generated for r in reqs], eng, sched
+
+        want, base, _ = run()
+        cap = tier_cap([Request(rid=0, prompt=p, max_new=24)
+                        for p in prompts], base)
+        evict, ee, es = run(num_pages=cap)
+        got, eng, sched = run(num_pages=cap, host_tier=True)
+        t = eng.tier
+        archived = sum(len(v) for v in t._win_archive.values())
+        log(f"host tier exact [{arch}, fp32, {layers} layers"
+            f"{f', window {window}' if window else ''}]: pool {cap} of "
+            f"{base.alloc.num_pages} pages; tiered@cap == uncapped "
+            f"{got == want} (evict@cap {evict == want}); swap-outs "
+            f"{t.swap_outs} / swap-ins {t.swap_ins}, prefetch hits "
+            f"{t.stream.prefetch_hits} / demand {t.stream.demand_fetches}; "
+            f"prefilled {eng.prefilled_tokens} vs uncapped "
+            f"{base.prefilled_tokens} vs evict@cap {ee.prefilled_tokens} "
+            f"({es.preempted} preemptions); store {len(t.store)} blobs "
+            f"({archived} archived window blobs, "
+            f"{t.win_archived_pages:.0f} pages); "
+            f"{time.perf_counter() - t0:.1f} s")
+        if got != want or not t.swap_ins == t.swap_outs > 0 \
+                or eng.prefilled_tokens != base.prefilled_tokens \
+                or len(t.store) != archived or t.swapped_rids() \
+                or eng.alloc.allocated_pages:
+            fail(f"host tier exact [{arch}]: tokens, swaps, prefill or the "
+                 f"store's end state differ")
+        if evict != want or not ee.prefilled_tokens > base.prefilled_tokens:
+            fail(f"host tier exact [{arch}]: evict@cap tokens differ or it "
+                 f"re-prefilled nothing")
+        if eng.step_traces != 1:
+            fail(f"host tier exact [{arch}]: {eng.step_traces} captures")
+        del params, base, ee, eng
+        torch.cuda.empty_cache()
+
+
+def swap_race(cfg, params, prefetch, steps=6, after=8):
+    """The copy-stream race: request A decodes ``steps`` tokens, is swapped
+    out (its D2H copies left pending on the side stream), request B is
+    prefilled at once into the pages A freed (the free list is LIFO), then
+    A is swapped back in through a prefetch (``prefetch`` True: the hit
+    path) or a demand fetch (False), and both decode ``after`` more steps.
+    ``prefetch`` None runs the same schedule without the swap. Returns
+    the two requests' tokens and the engine."""
+    own = np.random.default_rng(SEED + 61)
+    pa = [int(t) for t in own.integers(0, cfg.vocab, 300)]
+    pb = [int(t) for t in own.integers(0, cfg.vocab, 260)]
+    eng = PagedServingEngine(cfg, params, slots=2, max_len=MAX_LEN,
+                             page_size=PAGE, host_tier=prefetch is not None,
+                             device="cuda")
+    a = Request(rid=0, prompt=pa, max_new=steps + after + 1)
+    b = Request(rid=1, prompt=pb, max_new=after + 1)
+    if not eng.submit(a):
+        fail("swap race: admission rejected")
+    for _ in range(steps):
+        eng.step()
+    if prefetch is not None:
+        freed = eng.alloc.block_table(a.rid)
+        eng._swap_out_slot(0)
+        if not eng.tier.store.pending:
+            fail("swap race: the swap-out's copies were not left pending")
+        eng.submit(b)
+        if not set(eng.alloc.block_table(b.rid)) & set(freed):
+            fail("swap race: B's prefill did not reuse A's pages")
+        if prefetch:
+            eng.prefetch_pending([a])
+        if not eng.submit(a):
+            fail("swap race: swap-in rejected")
+    else:
+        eng.submit(b)
+    for _ in range(after):
+        eng.step()
+    torch.cuda.synchronize()
+    return [list(a.generated), list(b.generated)], eng
+
+
+def check_swap_race() -> None:
+    """qwen2.5-3b, full width, 4 layers, fp32 with an fp32 KV cache:
+    ``swap_race`` through the prefetch hit path and through a demand
+    fetch; the resumed request's next 8 tokens, and the other's, equal
+    the run without the swap."""
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=4,
+                              dtype="float32", kv_cache_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    params = api.init_params(cfg, gen, device="cuda")
+    want, _ = swap_race(cfg, params, None)
+    for prefetch in (True, False):
+        got, eng = swap_race(cfg, params, prefetch)
+        s = eng.tier.stream
+        log(f"swap race [{'prefetch hit' if prefetch else 'demand fetch'}]:"
+            f" resumed tokens equal the unswapped run's {got == want} "
+            f"(A {got[0][-8:]}, B {got[1][-8:]}); hits {s.prefetch_hits}, "
+            f"demand fetches {s.demand_fetches}")
+        if got != want or s.prefetch_hits != int(prefetch) \
+                or s.demand_fetches != int(not prefetch):
+            fail(f"swap race [{prefetch}]: tokens differ after the swap, or "
+                 f"the copy took the wrong path")
+    del params
+    torch.cuda.empty_cache()
+
+
+def check_bf16_swap_stream(cfg, params) -> None:
+    """ROADMAP Queue 3 check 2 on the card: qwen2.5-3b at full depth, bf16
+    weights and KV cache, two sampled requests (temperature 0.9, top-p
+    0.95) through a pool their prompts fill at admission (the older one's
+    cut to whole pages, so its first step needs a page and the younger is
+    preempted). Alone, then evict-only (resume by re-prefill), then with
+    the tier (resume by swap-in). The tiered stream must equal the stream
+    alone bit for bit (nothing is re-prefilled); whether the evict-only
+    stream does is logged."""
+    from repro_torch.runtime.sampling import SamplingParams
+    sp = SamplingParams(temperature=0.9, top_p=0.95, seed=11)
+    own = np.random.default_rng(SEED + 62)
+    prompts = [[int(t) for t in own.integers(0, cfg.vocab, n)]
+               for n in (16 * 14, 201)]
+
+    def run(idx, **kw):
+        eng = PagedServingEngine(cfg, params, slots=2, max_len=MAX_LEN,
+                                 page_size=PAGE, device="cuda", **kw)
+        reqs = [Request(rid=i, prompt=prompts[i], max_new=24, params=sp)
+                for i in idx]
+        sched = tier_drive(eng, reqs)
+        return [r.generated for r in reqs], sched
+
+    alone = [run([i])[0][0] for i in range(2)]
+    pages = sum(-(-len(p) // PAGE) for p in prompts)
+    ev, es = run([0, 1], num_pages=pages)
+    ti, ts = run([0, 1], num_pages=pages, host_tier=True)
+
+    def parts(x, y):
+        return next((i for i, (u, v) in enumerate(zip(x, y)) if u != v),
+                    None)
+
+    log(f"bf16 sampled stream through a preemption (36 layers, bf16 KV): "
+        f"evict-only {es.preempted} preemption(s), equal to alone "
+        f"{ev == alone} (parts at {[parts(a, b) for a, b in zip(alone, ev)]}"
+        f"); tiered {ts.preempted} swap(s), equal to alone {ti == alone}")
+    if ti != alone or ts.preempted < 1:
+        fail("bf16 sampled stream: the tiered stream parts from the stream "
+             "alone, or nothing was swapped")
+
+
+def check_spec_gap(cfg, params) -> None:
+    """ROADMAP Queue 3 check 1: the serve bench's sampling-scenario trace
+    (``_spec_trace``: 12 templated requests, 24 new, 4 slots, max_len 128)
+    at bf16 and full depth, plain greedy against spec_k 4 n-gram greedy.
+    At the first token where a request's streams part, the plain decode
+    step's logits (the graph's output row) give the gap between its two
+    largest logits and between the two streams' tokens, in units of
+    bf16's spacing at the top logit (the head matmul's output is bf16).
+    Logged, not gated."""
+    from repro_torch.launch.serve_bench import _spec_trace
+    parted = {}
+
+    def engine(cls=PagedServingEngine, **kw):
+        return cls(cfg, params, slots=4, max_len=128, page_size=PAGE,
+                   device="cuda", **kw)
+
+    spec = _spec_trace(cfg, 12, 24, SEED)
+    engine(spec_k=4).run_to_completion(spec)
+
+    class Probe(PagedServingEngine):
+        """Notes, per request, the first decode step whose token parts
+        from its spec stream after an equal prefix, with that step's
+        logits row."""
+
+        def _step(self):
+            before = [(i, r, len(r.generated))
+                      for i, r in enumerate(self.live) if r is not None]
+            out = super()._step()
+            for i, r, n in before:
+                sg = spec[r.rid].generated
+                if r.rid in parted or len(r.generated) != n + 1 \
+                        or n >= len(sg) or r.generated[:n] != sg[:n] \
+                        or r.generated[n] == sg[n]:
+                    continue
+                parted[r.rid] = (n, self.last_logits[i, : cfg.vocab]
+                                 .float().cpu(), sg[n])
+            return out
+
+    plain = _spec_trace(cfg, 12, 24, SEED)
+    engine(Probe).run_to_completion(plain)
+    same = sum(r.generated == s.generated for r, s in zip(plain, spec))
+    log(f"spec gap (bf16, 36 layers): plain and spec_k 4 n-gram greedy "
+        f"streams equal on {same}/12 requests; {len(parted)} part at a "
+        f"decode step")
+    for rid, (i, z, tok_spec) in sorted(parted.items())[:4]:
+        top = torch.topk(z, 2)
+        z1, z2 = float(top.values[0]), float(top.values[1])
+        ulp = 2.0 ** (np.floor(np.log2(abs(z1))) - 7)
+        a = plain[rid].generated[i]
+        log(f"spec gap: request {rid} parts at token {i}: plain {a} "
+            f"(logit {float(z[a]):.5f}), spec {tok_spec} (logit "
+            f"{float(z[tok_spec]):.5f}); top-2 gap {z1 - z2:.5f} = "
+            f"{(z1 - z2) / ulp:.2f} bf16 spacings at {z1:.4f} (spacing "
+            f"{ulp:.5f}); plain minus spec token "
+            f"{(float(z[a]) - float(z[tok_spec])) / ulp:.2f} spacings")
+
+
+def tier_traffic(prompts, vocab):
+    return [Request(rid=i, prompt=[t % vocab for t in p], max_new=MAX_NEW)
+            for i, p in enumerate(prompts)]
+
+
+def pinned_copy_ms(nbytes: int):
+    """The link's yardstick: CUDA-event ms of one pinned ``copy_`` of
+    ``nbytes`` each way (least of 3)."""
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    out = []
+    for src, dst in ((dev, host), (host, dev)):
+        best = float("inf")
+        for _ in range(3):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            dst.copy_(src, non_blocking=True)
+            b.record()
+            b.synchronize()
+            best = min(best, a.elapsed_time(b))
+        out.append(best)
+    return out
+
+
+def time_swap(eng, req) -> None:
+    """One live request's swap through the engine's tier: swap-out (gather
+    + D2H) to its copies' completion, swap-in by demand fetch (H2D +
+    scatter) and, after a prefetch that has landed, the swap-in's scatter
+    alone; host wall to a device sync (least of 3), beside a pinned copy
+    of the same bytes each way."""
+    tier = eng.tier
+    outs, ins, hits = [], [], []
+    nbytes = 0
+    for _ in range(3):
+        slot = next(s for s, r in enumerate(eng.live) if r is req)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng._swap_out_slot(slot)
+        tier.drain()
+        torch.cuda.synchronize()
+        outs.append(time.perf_counter() - t0)
+        nbytes = tier.store.bytes_stored
+        t0 = time.perf_counter()
+        if not eng.submit(req):
+            fail("swap timing: swap-in rejected")
+        torch.cuda.synchronize()
+        ins.append(time.perf_counter() - t0)
+        slot = next(s for s, r in enumerate(eng.live) if r is req)
+        eng._swap_out_slot(slot)
+        tier.drain()
+        eng.prefetch_pending([req])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.submit(req)
+        torch.cuda.synchronize()
+        hits.append(time.perf_counter() - t0)
+    d2h, h2d = pinned_copy_ms(nbytes)
+    o, i, h = min(outs) * 1e3, min(ins) * 1e3, min(hits) * 1e3
+    log(f"  swap of one request ({nbytes} B): out {o:.3f} ms = "
+        f"{nbytes / o / 1e6:.2f} GB/s (pinned copy_ D2H {d2h:.3f} ms = "
+        f"{nbytes / d2h / 1e6:.2f} GB/s: {d2h / o:.1%}); in, demand fetch "
+        f"{i:.3f} ms = {nbytes / i / 1e6:.2f} GB/s (pinned copy_ H2D "
+        f"{h2d:.3f} ms = {nbytes / h2d / 1e6:.2f} GB/s: {h2d / i:.1%}); "
+        f"in after a landed prefetch (scatter only) {h:.3f} ms")
+
+
+def decode_window(eng, prompts, vocab, profiled: bool):
+    """A decode window of 8 requests (the given prompts, 16 new tokens):
+    after its first step, the host wall ms per step over the other 15
+    (``profiled`` False) or the device's idle share of them from
+    ``torch.profiler`` (True)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for i, p in enumerate(prompts):
+        if not eng.submit(Request(rid=1000 + i, prompt=[t % vocab for t in p],
+                                  max_new=17)):
+            fail("decode window: admission rejected")
+    eng.step()
+    torch.cuda.synchronize()
+
+    def run():
+        t0 = time.perf_counter()
+        n = 0
+        while eng.has_live():
+            eng.step()
+            n += 1
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e6, n
+
+    if not profiled:
+        wall_us, n = run()
+        return wall_us / 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_us, _ = run()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+    return 1 - busy / max(wall_us, 1)
+
+
+def serve_tier(arch, prompts) -> dict:
+    """One arch at full width and depth, bf16, seeded weights, the serve
+    phase's traffic (16 requests of 64-600 tokens, 32 new, token ids
+    modulo the arch's vocab), 8 slots: uncapped, evict@cap and tiered@cap
+    with the pool at 0.4 of the traffic's worst case (mamba2, which holds
+    no pages: a preemption every 8 ticks instead, the same for both rows),
+    each engine warmed (its capture) and reset first. Logs tok/s, TTFT
+    and TPOT p50, preemptions, the prefill spent again, the tier's
+    counters, one request's swap times against a pinned copy, and (qwen)
+    the decode window's idle share with the tier on and off. Every capped
+    row must emit the uncapped tokens. Returns the tiered row's launches
+    (qwen; counts set to 0 just before its run, read just after)."""
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 63)
+    params = api.init_params(cfg, gen, device="cuda")
+    every = 8 if arch == "mamba2-2.7b" else 0
+    launches, want, cap = {}, None, None
+    base_prefilled = 0
+    for name, kw in (("uncapped", {}), ("evict@cap", {}),
+                     ("tiered@cap", {"host_tier": True})):
+        if name != "uncapped" and not every:
+            kw["num_pages"] = cap
+        eng = PagedServingEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                                 page_size=PAGE, device="cuda", **kw)
+        eng.run_to_completion([Request(rid=-1, prompt=list(range(64)),
+                                       max_new=2)])
+        eng.reset_metrics()
+        reqs = tier_traffic(prompts, cfg.vocab)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        sched = tier_drive(eng, reqs, every if name != "uncapped" else 0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if name == "tiered@cap":
+            launches = ops.launch_counts()
+        m = eng.metrics()
+        toks = [r.generated for r in reqs]
+        n_tok = sum(len(t) for t in toks)
+        if name == "uncapped":
+            want, base_prefilled = toks, eng.prefilled_tokens
+            cap = tier_cap(reqs, eng)
+        line = (f"host tier serve [{arch}, {name}, pool "
+                f"{eng.alloc.num_pages} pages]: {n_tok} tokens in "
+                f"{wall:.2f} s = {n_tok / wall:.1f} tok/s, ttft p50 "
+                f"{m['latency.ttft_p50_s']:.4f} s, tpot p50 "
+                f"{m['latency.tpot_p50_s']:.4f} s, {sched.preempted} "
+                f"preemptions, re-prefilled "
+                f"{eng.prefilled_tokens - base_prefilled} tokens")
+        if eng.tier is not None:
+            ts = eng.tier_stats()
+            line += (f"; swap-outs {ts['swap_outs']:.0f} / ins "
+                     f"{ts['swap_ins']:.0f}, reprefill_tokens_saved "
+                     f"{ts['reprefill_tokens_saved']:.0f}, prefetch_hit_rate "
+                     f"{ts['prefetch_hit_rate']:.3f}, copy_stall_ticks "
+                     f"{ts['copy_stall_ticks']:.0f}, host_bytes_peak "
+                     f"{ts['host_bytes_peak']:.0f}")
+        log(line)
+        if any(len(t) != MAX_NEW for t in toks):
+            fail(f"host tier serve [{arch}, {name}]: a request did not "
+                 f"finish")
+        if name != "uncapped":
+            if not sched.preempted:
+                fail(f"host tier serve [{arch}, {name}]: nothing preempted")
+            # bf16: a re-prefill rounds its keys anew, so only the tiered
+            # row is held to the uncapped tokens
+            if name == "tiered@cap" and toks != want:
+                fail(f"host tier serve [{arch}, tiered@cap]: tokens differ "
+                     f"from the uncapped run's")
+            if name == "evict@cap":
+                log(f"  evict@cap tokens equal the uncapped run's: "
+                    f"{toks == want}")
+        if name == "tiered@cap":
+            # a long request's swap timed by hand on the same engine
+            big = max(reqs, key=lambda r: len(r.prompt))
+            req = Request(rid=500, prompt=list(big.prompt), max_new=64)
+            if not eng.submit(req):
+                fail("swap timing: admission rejected")
+            eng.step()
+            time_swap(eng, req)
+            while eng.has_live():
+                eng.step()
+        del eng
+    if arch == "qwen2.5-3b":
+        # what drain() costs when nothing is pending: two uncapped engines,
+        # tier off and on, their decode windows in turns (off, on, on, off,
+        # off, on: host ms a step without the profiler; then the same turns
+        # for the idle share with it, so no window follows a profiled one
+        # of the other engine more often)
+        pair = [PagedServingEngine(cfg, params, slots=SLOTS,
+                                   max_len=MAX_LEN, page_size=PAGE,
+                                   host_tier=on, device="cuda")
+                for on in (False, True)]
+        turns = (0, 1, 1, 0, 0, 1)
+        got = {False: [[], []], True: [[], []]}
+        for profiled in (False, True):
+            for k in turns:
+                got[profiled][k].append(decode_window(
+                    pair[k], prompts[:SLOTS], cfg.vocab, profiled))
+        for k, label in enumerate(("tier off", "tier on, nothing pending")):
+            ms, idle = got[False][k], got[True][k]
+            log(f"  decode window (15 steps, B=8), {label}: host ms a step "
+                f"{', '.join(f'{x:.3f}' for x in ms)} (median "
+                f"{sorted(ms)[1]:.3f}); idle share "
+                f"{', '.join(f'{x:.1%}' for x in idle)} (median "
+                f"{sorted(idle)[1]:.1%})")
+        del pair
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_serve_bench_oversubscribe() -> None:
+    """``serve_bench --scenario oversubscribe`` at full width, 4 layers,
+    fp32 (fp32 KV cache), the hybrid pair's window cut to 32: its CSV gated
+    by ``launch/check_csv.py`` (every capped row's
+    ``tokens_match_unconstrained`` must be 1; the columns of the sharded
+    and sampling scenarios, not in this CSV, are the only ones missing)."""
+    from repro_torch.launch import check_csv
+    t0 = time.perf_counter()
+    text = bench_csv(["--full", "--scenario", "oversubscribe", "--layers",
+                      "4", "--dtype", "float32", "--window", "32"])
+    log(f"serve_bench --scenario oversubscribe (full width, 4 layers, "
+        f"fp32) in {time.perf_counter() - t0:.1f} s:")
+    print(text, flush=True)
+    errors = check_csv.check(text)
+    if errors != check_csv.missing_scenario_errors(
+            ("tokens_match_tp1", "tokens_match_greedy")):
+        fail(f"serve_bench oversubscribe CSV: {errors}")
+    rows = [row for _, rs in check_csv.parse_sections(text) for row in rs]
+    for row in rows:
+        if "tiered@cap" in row["engine"] and "prefix" not in row["engine"] \
+                and "hybrid" not in row["engine"] \
+                and row["reprefill_tokens"] != "0":
+            fail(f"serve_bench oversubscribe: {row['engine']} re-prefilled")
+    log("serve_bench oversubscribe: CSV passes the gate "
+        "(tokens_match_unconstrained on every capped row)")
+
+
 def main() -> None:
     smi = card()
     build_kernels()
@@ -2567,6 +3103,24 @@ def main() -> None:
     serve_hybrid("mamba2-2.7b")
     run_serve_bench_hybrid()
     log(f"phase 9 in {time.perf_counter() - t9:.1f} s")
+    # phase 10: the host tier
+    t10 = time.perf_counter()
+    check_tier_exact()
+    check_swap_race()
+    cfg = get_config("qwen2.5-3b")
+    params = api.init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(SEED), device="cuda")
+    check_bf16_swap_stream(cfg, params)
+    check_spec_gap(cfg, params)
+    del params
+    tier_counts = serve_tier("qwen2.5-3b", prompts)
+    for k in ("paged_attention", "mha", "sampler_noise"):
+        if not tier_counts.get(k):
+            fail(f"host tier: the tiered run launched no {k}")
+    serve_tier("recurrentgemma-9b", prompts)
+    serve_tier("mamba2-2.7b", prompts)
+    run_serve_bench_oversubscribe()
+    log(f"phase 10 in {time.perf_counter() - t10:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "paged_attention", "route": "cuda",
@@ -2603,6 +3157,20 @@ def main() -> None:
          "max_abs_err": err_paged_win, "ms": paged_win_t[0],
          "plain_ms": paged_win_t[1], "bound_ms": paged_win_t[2],
          "bound_by": paged_win_t[3], "library_ms": None},
+        {"name": "paged_attention[host tier, qwen2.5-3b tiered@cap]",
+         "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:78",
+         "launches": tier_counts["paged_attention"],
+         "max_abs_err": err_paged, "ms": paged_t[0],
+         "plain_ms": paged_t[1], "bound_ms": paged_t[2],
+         "bound_by": paged_t[3], "library_ms": None},
+        {"name": "mha[host tier, qwen2.5-3b tiered@cap]", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/mha.cu",
+         "replaces": "src/repro/kernels/attention.py:32",
+         "launches": tier_counts["mha"], "max_abs_err": err_mha,
+         "ms": mha_t[0], "plain_ms": mha_t[1], "bound_ms": mha_t[2],
+         "bound_by": mha_t[3], "library_ms": mha_t[4]},
     ] + layer}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

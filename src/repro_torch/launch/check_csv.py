@@ -13,12 +13,12 @@ package's side), applied by ``chip_smoke.py`` to the CSV of
   numeric cell, and every ``temporal_util`` must lie in [0, 1].
 
 The port runs the reference's ``mixed``, ``shared-prefix``,
-``speculative``, ``sampling`` and ``hybrid`` scenarios; ``sampling``
-carries ``tokens_match_greedy``, ``hybrid`` (at fp32) its own
-``tokens_match_hybrid``. The scenarios that carry ``tokens_match_tp1``
-(sharded) and ``tokens_match_unconstrained`` (oversubscribe) are not
-ported, so a full CSV of the port fails those two REQUIRED columns
-(``missing_scenario_errors``) and must pass everything else.
+``speculative``, ``sampling``, ``hybrid`` and ``oversubscribe`` scenarios;
+``sampling`` carries ``tokens_match_greedy``, ``oversubscribe``
+``tokens_match_unconstrained``, ``hybrid`` (at fp32) its own
+``tokens_match_hybrid``. The scenario that carries ``tokens_match_tp1``
+(sharded) is not ported, so a full CSV of the port fails that one REQUIRED
+column (``missing_scenario_errors``) and must pass everything else.
 
   python -m repro_torch.launch.check_csv bench.csv
 """
@@ -130,12 +130,14 @@ def check(text: str) -> List[str]:
 
 
 # the REQUIRED columns whose scenarios the port has not ported
-UNPORTED = ("tokens_match_tp1", "tokens_match_unconstrained")
+UNPORTED = ("tokens_match_tp1",)
 
 
 def missing_scenario_errors(cols=UNPORTED) -> List[str]:
     """The violations ``check`` reports for a CSV without the scenarios
-    that carry ``cols`` (by default the two the port lacks)."""
+    that carry ``cols`` (by default the one the port lacks), in
+    ``REQUIRED``'s order."""
+    cols = [c for c in REQUIRED if c in cols]
     return [f"required equivalence column {col!r} never passed "
             f"(missing column or every leg skipped) — the scenario "
             f"that enforces it did not run" for col in cols]

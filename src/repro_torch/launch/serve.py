@@ -3,14 +3,14 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2.5-3b \
       [--smoke] [--slots 4] [--requests 8] [--max-new 12] [--max-len 128] \
       [--temperature 0.8 --top-k 20 --top-p 0.95] [--prefix-cache] \
-      [--spec-k 3 [--draft-model ARCH]] \
+      [--spec-k 3 [--draft-model ARCH]] [--host-tier] \
       [--page-size 16] [--num-pages N] [--paged-attn kernel|gather] \
       [--trace [trace.json]] [--device cuda|cpu]
 
 Weights are drawn on the device from a generator seeded with 0 (a draft
 model's, smoke-sized, with 1). Runs on CUDA by default and raises if there
 is none; ``--device cpu`` runs every kernel's plain PyTorch version
-instead. Prints the JAX launcher's summary lines (prefix cache,
+instead. Prints the JAX launcher's summary lines (prefix cache, host tier,
 speculative decode, draft model, decode policy, and for the hybrid archs
 the sliding window's recycled pages) plus the recurrent state slots' bytes,
 each CUDA kernel's launch count and the graphs' captures. ``--trace`` records the engine's and scheduler's spans and
@@ -64,6 +64,11 @@ def main(argv=None) -> None:
     ap.add_argument("--draft-model", default=None, metavar="ARCH",
                     help="draft with a second model (smoke-sized) instead "
                          "of n-gram prompt lookup; needs --spec-k > 0")
+    ap.add_argument("--host-tier", action="store_true",
+                    help="two-tier KV: demote idle and preempted pages (and "
+                         "recurrent state) to pinned host RAM and bring "
+                         "them back through a prefetch stream instead of "
+                         "evict + re-prefill")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=None,
                     help="usable KV pages (default: slots*max_len/page)")
@@ -110,7 +115,8 @@ def main(argv=None) -> None:
                              attn_impl=args.paged_attn,
                              prefix_cache=args.prefix_cache,
                              spec_k=args.spec_k, drafter=drafter,
-                             tracer=tracer, device=device)
+                             host_tier=args.host_tier, tracer=tracer,
+                             device=device)
     print(f"[launch.serve] engine: {type(eng).__name__}[{eng.attn_impl}]")
     # every request opens with the same system prompt, tails vary in length
     sys_prompt = [(5 * j + 2) % cfg.vocab for j in range(2 * args.page_size)]
@@ -151,6 +157,15 @@ def main(argv=None) -> None:
               f"prompt tokens served from cache, "
               f"{ps['prefill_tokens_saved']:.0f} prefill tokens saved, "
               f"{ps['cow_copies']:.0f} CoW copies")
+    if eng.tier is not None:
+        ts = eng.tier_stats()
+        print(f"[launch.serve] host tier: {ts['swap_outs']:.0f} swap-"
+              f"outs / {ts['swap_ins']:.0f} swap-ins, "
+              f"{ts['demoted_pages']:.0f} pages demoted / "
+              f"{ts['promoted_pages']:.0f} promoted, "
+              f"{ts['reprefill_tokens_saved']:.0f} re-prefill tokens "
+              f"saved, prefetch hit rate {ts['prefetch_hit_rate']:.2f}, "
+              f"{ts['host_bytes_peak']:.0f} host bytes at peak")
     if eng.spec_k:
         ss = eng.spec_stats()
         print(f"[launch.serve] speculative (K={eng.spec_k}, drafter "

@@ -2,7 +2,8 @@
 (``benchmarks/serve_bench.py``) that the port has, through the paged engine.
 
   PYTHONPATH=src python -m repro_torch.launch.serve_bench [--arch ARCH] \
-      [--scenario mixed|shared-prefix|speculative|sampling|hybrid|all] \
+      [--scenario mixed|shared-prefix|speculative|sampling|hybrid|
+                  oversubscribe|all] \
       [--smoke | --full] [--layers N] [--dtype float32|bfloat16] \
       [--slots 4] [--max-len 128] [--requests 12] [--max-new 8] \
       [--sys-len 48] [--spec-k 4] [--window W] [--seed 0] \
@@ -40,8 +41,18 @@ the attention window) through recurrentgemma-9b (its SMOKE config, or with
 ``tokens_match_hybrid`` (the two rows' greedy tokens equal, at fp32; empty
 in bf16, where the gather path rounds P to bf16 and the kernel does not); the
 reference's ``dense[hybrid]`` row and ``paged/dense[hybrid]`` ratio wait
-for the dense engine and are printed as note rows. ``all`` runs these
-five; the reference's sharded and oversubscribe scenarios are not ported.
+for the dense engine and are printed as note rows. ``oversubscribe``: the
+mixed trace (a decode tail of at least 24 tokens) through an uncapped
+engine, then through engines whose pool is capped at 0.4 of the trace's
+worst-case footprint (``_pool_cap``), evict-only (resume by re-prefill) and
+with ``host_tier`` (resume by swap-in), for both attention impls; every
+capped row must emit the uncapped tokens (``tokens_match_unconstrained``),
+``reprefill_tokens`` counts the prefill the capped row spent again and
+``reprefill_tokens_saved`` what the tier did not, beside the tier's
+counters; then a prefix-cache pair (the shared-prefix trace: idle nodes
+demote, hits promote) and a hybrid pair (recurrentgemma, whose state swaps
+with its window pages). ``all`` runs these six; the reference's sharded
+scenario is not ported.
 
 The model is the arch's SMOKE config with weights drawn from a generator
 seeded with 0, or with ``--full`` its full-width config (on the card);
@@ -390,11 +401,126 @@ def _run_hybrid(cfg, params, slots, max_len, n_requests, max_new, seed,
     return rows
 
 
+def _pool_cap(reqs: List[Request], max_len: int, page_size: int,
+              frac: float = 0.4) -> int:
+    """Device-pool cap (in pages) of the oversubscribe scenario: ``frac``
+    of the trace's worst-case KV footprint, floored one page above the
+    largest request (below that the engine rejects the request as
+    infeasible rather than thrashing). The reference's."""
+    need = [-(-min(len(r.prompt) + r.max_new, max_len) // page_size)
+            for r in reqs]
+    return max(int(sum(need) * frac), max(need) + 1)
+
+
+def _run_oversubscribe(cfg, params, hybrid, slots, max_len, n_requests,
+                       max_new, seed, sys_len, device) -> List[Dict]:
+    """The working set far above the device pool (the reference's
+    ``_run_oversubscribe``): uncapped, evict@cap and tiered@cap rows per
+    attention impl, the prefix-cache pair and the hybrid pair (``hybrid``
+    = (cfg, params) of recurrentgemma). A capped row may change when tokens
+    are computed, never which (``tokens_match_unconstrained``)."""
+    rows: List[Dict] = []
+
+    def mk(new):
+        return _trace(cfg, n_requests, new, seed)
+
+    def engine(c, p, **kw):
+        return PagedServingEngine(c, p, slots=slots, max_len=max_len,
+                                  device=device, **kw)
+
+    def capped(eng, c, mk_trace, new, name, cap, base_toks):
+        _warm(eng, mk_trace)
+        reqs = mk_trace(new)
+        row = _drive(eng, reqs, 8000, c, name=name)
+        row["pool_pages"] = cap
+        row["preemptions"] = sum(r.preemptions for r in reqs)
+        row["tokens_match_unconstrained"] = \
+            int([list(r.generated) for r in reqs] == base_toks)
+        return row
+
+    def uncapped(eng, c, mk_trace, new, name):
+        _warm(eng, mk_trace)
+        reqs = mk_trace(new)
+        row = _drive(eng, reqs, 8000, c, name=name)
+        row["pool_pages"] = eng.alloc.num_pages
+        return row, [list(r.generated) for r in reqs], eng.prefilled_tokens
+
+    for impl in ("gather", "kernel"):
+        base = engine(cfg, params, attn_impl=impl)
+        cap = _pool_cap(mk(max_new), max_len, base.page_size)
+        row, base_toks, base_prefilled = uncapped(
+            base, cfg, mk, max_new, f"paged[{impl},uncapped]")
+        rows.append(row)
+        evict_reprefill = 0
+        for tier, name in ((False, f"paged[{impl},evict@cap]"),
+                           (True, f"paged[{impl},tiered@cap]")):
+            eng = engine(cfg, params, attn_impl=impl, num_pages=cap,
+                         host_tier=tier)
+            row = capped(eng, cfg, mk, max_new, name, cap, base_toks)
+            # prefill spent again on preemption-resume
+            row["reprefill_tokens"] = eng.prefilled_tokens - base_prefilled
+            if not tier:
+                evict_reprefill = row["reprefill_tokens"]
+            else:
+                ts = eng.tier_stats()
+                row["reprefill_tokens_saved"] = \
+                    evict_reprefill - row["reprefill_tokens"]
+                for k in ("swap_outs", "swap_ins", "demoted_pages",
+                          "promoted_pages", "prefetch_hit_rate",
+                          "copy_stall_ticks", "host_bytes_peak"):
+                    row[k] = ts[k]
+            rows.append(row)
+
+    # prefix-cache pair: idle radix nodes demote before LRU eviction, hits
+    # on host nodes promote (prefetched a tick ahead)
+    def mk_shared(new):
+        return _shared_trace(cfg, n_requests, new, seed, sys_len)
+
+    base = engine(cfg, params, attn_impl="kernel", prefix_cache=True)
+    cap = _pool_cap(mk_shared(max_new), max_len, base.page_size)
+    row, base_toks, _ = uncapped(base, cfg, mk_shared, max_new,
+                                 "paged[kernel,prefix,uncapped]")
+    rows.append(row)
+    eng = engine(cfg, params, attn_impl="kernel", prefix_cache=True,
+                 num_pages=cap, host_tier=True)
+    row = capped(eng, cfg, mk_shared, max_new,
+                 "paged[kernel,prefix,tiered@cap]", cap, base_toks)
+    ts = eng.tier_stats()
+    for k in ("cache_demotions", "cache_promotions", "prefetch_hit_rate",
+              "copy_stall_ticks", "host_bytes_peak"):
+        row[k] = ts[k]
+    rows.append(row)
+
+    # hybrid pair: a preempted recurrentgemma request swaps its recurrent
+    # state and its window pages
+    hcfg, hparams = hybrid
+    hn, hnew = max(4, n_requests // 2), max(max_new, 24)
+
+    def mk_hybrid(new):
+        return _hybrid_trace(hcfg, hn, new, seed, hcfg.hybrid.window)
+
+    base = engine(hcfg, hparams, attn_impl="gather")
+    cap = _pool_cap(mk_hybrid(hnew), max_len, base.page_size)
+    row, base_toks, _ = uncapped(base, hcfg, mk_hybrid, hnew,
+                                 "paged[hybrid,uncapped]")
+    rows.append(row)
+    eng = engine(hcfg, hparams, attn_impl="gather", num_pages=cap,
+                 host_tier=True)
+    row = capped(eng, hcfg, mk_hybrid, hnew, "paged[hybrid,tiered@cap]",
+                 cap, base_toks)
+    ts = eng.tier_stats()
+    for k in ("swap_outs", "swap_ins", "win_archived_pages",
+              "prefetch_hit_rate", "copy_stall_ticks", "host_bytes_peak"):
+        row[k] = ts[k]
+    rows.append(row)
+    return rows
+
+
 # the reference's scenarios; those the port has
 SCENARIOS = ("mixed", "shared-prefix", "speculative", "sampling", "hybrid",
              "sharded", "oversubscribe", "all")
 PORTED = ("mixed", "shared-prefix", "speculative", "sampling", "hybrid",
-          "all")
+          "oversubscribe", "all")
 
 
 def run(arch: str = "qwen2.5-3b", slots: int = 4, max_len: int = 128,
@@ -452,6 +578,15 @@ def run(arch: str = "qwen2.5-3b", slots: int = 4, max_len: int = 128,
             rows += _run_hybrid(cfg, params, slots, max_len,
                                 max(4, n_requests // 2), max(max_new, 24),
                                 seed, device)
+        if scenario in ("oversubscribe", "all"):
+            # a preemption story: decode tails long enough that capped
+            # pools must preempt mid-generation
+            if scenario == "all":
+                cfg, params = model(arch)
+            rows += _run_oversubscribe(
+                cfg, params, model("recurrentgemma-9b", window), slots,
+                max_len, n_requests, max(max_new, 24), seed, sys_len,
+                device)
         return rows
     finally:
         if tracer is not None:
@@ -491,9 +626,9 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0,
                     help="trace seed (same seed -> same trace)")
     ap.add_argument("--scenario", choices=SCENARIOS, default="all",
-                    help="the reference's scenario names; sharded and "
-                         "oversubscribe are not ported and raise (hybrid "
-                         "pins recurrentgemma-9b)")
+                    help="the reference's scenario names; sharded is "
+                         "not ported and raises (hybrid pins "
+                         "recurrentgemma-9b; oversubscribe adds it)")
     ap.add_argument("--sys-len", type=int, default=48,
                     help="shared system-prompt length for shared-prefix")
     ap.add_argument("--spec-k", type=int, default=4,

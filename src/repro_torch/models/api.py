@@ -5,9 +5,9 @@ plain dict: ``embed`` (Vp, d), ``final_norm``, ``head`` (d, Vp) unless the
 embeddings are tied, and ``blocks`` — one dict per layer in order, with the
 JAX package's names and shapes (``repro_torch.convert`` builds it from a JAX
 tree). Caches are a list, one entry per layer: page pools for the
-attention layers, per-slot state for the recurrent ones. Moving a state
-slot to the host and back (the reference's ``state_slot_export`` /
-``state_slot_import``) waits for the host tier.
+attention layers, per-slot state for the recurrent ones;
+``state_slot_export`` / ``state_slot_import`` move one slot's state out and
+back (the host tier's swap of a hybrid request).
 """
 from __future__ import annotations
 
@@ -225,3 +225,29 @@ def state_buffers(cfg, slots: int, T: int, *, device="cuda"
                     for name, (sh, sdt)
                     in _state_shapes(cfg, kind, slots).items()})
     return out
+
+
+def state_slot_export(cfg, cache: List[Dict[str, torch.Tensor]], slot: int
+                      ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """One slot's recurrent state, every ``ssm``/``rglru`` layer of a
+    ``paged_cache_init`` list, as detached copies keyed by layer index
+    (``{str(j): {name: (...)}}``; attention layers are left out): the
+    swap-out half of the host tier (``runtime/host_tier.py``), so a
+    preempted hybrid request carries its state instead of re-prefilling."""
+    return {str(j): {name: t[slot].detach().clone()
+                     for name, t in e.items()}
+            for j, (e, kind) in enumerate(zip(cache, tfm.layer_kinds(cfg)))
+            if kind in STATE_KINDS}
+
+
+def state_slot_import(cfg, cache: List[Dict[str, torch.Tensor]], slot: int,
+                      state: Dict[str, Dict[str, torch.Tensor]]
+                      ) -> List[Dict[str, torch.Tensor]]:
+    """Write a ``state_slot_export`` tree back into ``slot``, in place (a
+    captured graph's addresses stay valid), each leaf cast to its entry's
+    storage dtype: the swap-in half. Returns ``cache``."""
+    for j, (e, kind) in enumerate(zip(cache, tfm.layer_kinds(cfg))):
+        if kind in STATE_KINDS:
+            for name, t in e.items():
+                t[slot].copy_(state[str(j)][name].to(t.dtype))
+    return cache

@@ -10,8 +10,11 @@ dead slots and beyond-allocation writes are redirected there, and its
 contents are always masked out on the read side. A sliding-window table
 (the hybrid stacks' local attention) recycles its lead blocks as they slide
 out of the window and keeps their count as a base offset, so logical block
-j still means positions [j * page, (j + 1) * page). The host-tier classes
-of the JAX allocator are not ported yet.
+j still means positions [j * page, (j + 1) * page). A host-resident table
+(the host tier, ``runtime/host_tier.py``) is a third class, neither live nor
+freed: ``demote`` drops its device pages and keeps its token count and
+window base, so ``promote`` can rebuild it from fresh pages and the engine
+can scatter the host copy of its contents back.
 """
 from __future__ import annotations
 
@@ -39,8 +42,12 @@ class PageAllocator:
         self._base: Dict[int, int] = {}           # rid -> recycled lead blocks
         self._ref: Dict[int, int] = {}            # page -> refcount (> 0)
         self._pinned: Set[int] = set()            # prefix-cache pins (+1 ref)
+        # rid -> (tokens, base_blocks) of a demoted (host-resident) table
+        self._host: Dict[int, Tuple[int, int]] = {}
         self.peak_pages = 0                        # high-water mark
         self.share_events = 0                      # table refs to shared pages
+        self.demote_events = 0                     # tables demoted to host
+        self.promote_events = 0                    # tables promoted back
 
     # -- queries ----------------------------------------------------------
     @property
@@ -77,6 +84,9 @@ class PageAllocator:
     def pages_for(self, n_tokens: int) -> int:
         """Pages needed to hold ``n_tokens`` (>= 1 page once admitted)."""
         return max(1, -(-n_tokens // self.page_size))
+
+    def can_admit(self, n_tokens: int) -> bool:
+        return self.pages_for(n_tokens) <= len(self._free)
 
     def block_table(self, rid: int) -> List[int]:
         """Live pages of ``rid`` in block order; for a windowed table the
@@ -251,6 +261,64 @@ class PageAllocator:
             freed += self._decref(p)
         return freed
 
+    # -- host tier (host-resident tables) ---------------------------------
+    def host_resident(self, rid: int) -> bool:
+        return rid in self._host
+
+    def host_tokens(self, rid: int) -> int:
+        return self._host[rid][0]
+
+    def host_base_blocks(self, rid: int) -> int:
+        return self._host[rid][1]
+
+    def host_pages_needed(self, rid: int) -> int:
+        """Device pages ``promote(rid)`` would allocate."""
+        tokens, base = self._host[rid]
+        return self.pages_for(tokens) - base
+
+    def demote(self, rid: int) -> List[int]:
+        """Move ``rid``'s table to the host-resident class: drop its
+        reference to every device page (shared and pinned pages survive
+        their other references) and keep its token count and window base
+        for ``promote``. Returns the old block table; the caller must have
+        enqueued the gather of those pages' contents before any later write
+        to them."""
+        if rid in self._host:
+            raise ValueError(f"rid {rid} already host-resident")
+        pages = self._tables.pop(rid)
+        tokens = self._tokens.pop(rid)
+        base = self._base.pop(rid, 0)
+        self._host[rid] = (tokens, base)
+        for p in reversed(pages):       # LIFO: reuse hottest first
+            self._decref(p)
+        self.demote_events += 1
+        return pages
+
+    def promote(self, rid: int) -> Optional[List[int]]:
+        """Rebuild a host-resident table from fresh device pages. Returns
+        the new block table, for the caller to scatter the host contents
+        into, or None (state unchanged) if the free list can't cover it.
+        Shared prefix pages are not re-shared: the promoted table is wholly
+        private."""
+        tokens, base = self._host[rid]
+        need = self.pages_for(tokens) - base
+        if need > len(self._free):
+            return None
+        del self._host[rid]
+        pages = [self._pop_free() for _ in range(need)]
+        self._tables[rid] = pages
+        self._tokens[rid] = tokens
+        if base:
+            self._base[rid] = base
+        self.promote_events += 1
+        self.peak_pages = max(self.peak_pages, self.allocated_pages)
+        return list(pages)
+
+    def drop_host(self, rid: int) -> None:
+        """Forget a host-resident table (finished or abandoned while
+        swapped out)."""
+        del self._host[rid]
+
     # -- prefix-cache pins -------------------------------------------------
     def alloc_pinned_page(self) -> Optional[int]:
         """Allocate one page whose only reference is a prefix-cache pin (no
@@ -283,7 +351,7 @@ class PageAllocator:
         """Every allocated page's refcount equals its table occurrences plus
         its cache pin; no page is both free and referenced; scratch is
         never handed out; free plus allocated covers exactly the usable
-        pages."""
+        pages; host-resident tables are disjoint from the live ones."""
         occurrences: Dict[int, int] = {}
         for rid, pages in self._tables.items():
             assert len(set(pages)) == len(pages), \
@@ -308,6 +376,15 @@ class PageAllocator:
                 f"window base for dead rid {rid}"
             assert self._tokens[rid] >= base * self.page_size, \
                 f"rid {rid}: base {base} past its {self._tokens[rid]} tokens"
+        for rid, (tokens, base) in self._host.items():
+            assert rid not in self._tables, \
+                f"rid {rid} is both live and host-resident"
+            assert tokens >= 1 and base >= 0, \
+                f"host rid {rid}: bad record ({tokens}, {base})"
+            assert tokens >= base * self.page_size, \
+                f"host rid {rid}: base {base} past its {tokens} tokens"
+            assert self.pages_for(tokens) - base >= 1, \
+                f"host rid {rid}: promotion would rebuild an empty table"
         assert len(free) + len(self._ref) == self.num_pages
         assert SCRATCH_PAGE not in free and SCRATCH_PAGE not in self._ref
 

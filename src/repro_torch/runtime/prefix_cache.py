@@ -1,8 +1,8 @@
 """Prefix-sharing KV cache: a radix tree over page-aligned token chunks.
 
 A copy of ``repro.runtime.prefix_cache`` (the port imports nothing of the
-JAX package). The host-tier half (``demote_node``/``promote_node``) is kept
-for the copy's sake; the port's engine has no host tier yet.
+JAX package). The host-tier half (``demotable``, ``demote_node``,
+``promote_node``) serves the engine's ``host_tier=True``.
 
 The serving-level continuation of the paper's shared-memory argument
 (PAPER.md, Sec. II-C): Voltra wins its temporal-utilization gain by letting
@@ -266,9 +266,10 @@ class PrefixCache:
     def demote_node(self, node: _Node, handle) -> int:
         """Move ``node`` to the host tier: drop its pin (freeing the
         device page) and remember the host-store ``handle``. The caller
-        must have dispatched the page-content gather BEFORE calling this
-        (gather-then-free is safe under JAX dispatch ordering). Returns
-        the freed page id."""
+        must have enqueued the page-content gather BEFORE calling this
+        (gather-then-free is safe because any later write to the page is
+        enqueued after it on the same stream). Returns the freed page
+        id."""
         page = node.page
         assert page is not None and node.host is None
         del self._by_page[page]

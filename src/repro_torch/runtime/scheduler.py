@@ -1,11 +1,13 @@
 """Request scheduler: admission control + prefill/decode interleaving.
 
 Counterpart of ``repro.runtime.scheduler``. Each tick admits as many pending
-requests as slots, pages and ``max_admits_per_step`` allow (prefill), then
+requests as slots, pages and ``max_admits_per_step`` allow (prefill), hands
+the engine's host-tier streamer the queue (``prefetch_pending``: the copies
+that the next tick's admissions take start under this tick's decode), then
 advances every live request one token (decode); the engine's step tops up
 pages itself and reports whom it had to preempt, and those re-enter the
 queue ahead of fresh arrivals and resume by re-prefilling prompt +
-generated-so-far.
+generated-so-far, or by swap-in with the host tier on.
 """
 from __future__ import annotations
 
@@ -62,12 +64,16 @@ class Scheduler:
                 budget -= 1
 
     def tick(self) -> None:
-        """One scheduling round: admit, then decode."""
+        """One scheduling round: admit, prefetch, decode."""
         tr = getattr(self.engine, "trace", NULL_TRACER)
         with tr.span("tick", tid="sched",
                      args={"pending": len(self.pending)} if tr else None):
             with tr.span("admit_loop", tid="sched"):
                 self._admit()
+            prefetch = getattr(self.engine, "prefetch_pending", None)
+            if prefetch is not None:
+                with tr.span("prefetch", tid="sched"):
+                    prefetch(list(self.pending))
             evicted = self.engine.step() or []
             if evicted:
                 self.preempted += len(evicted)

@@ -33,7 +33,11 @@ Counterpart of the core of ``repro.runtime.serving``:
   captured graph over fixed buffers; the host walks the accept bits and
   rolls pages back;
 * on pool exhaustion the youngest live request is preempted and later
-  resumes by re-prefilling its prompt plus what it generated;
+  resumes by re-prefilling its prompt plus what it generated, or, with
+  ``host_tier=True`` (``runtime/host_tier.py``), swaps its pages and
+  recurrent state out to pinned host RAM and resumes by swapping them back
+  in, with no re-prefill; the tier also demotes idle prefix-cache pages
+  instead of evicting them and archives slid-out window pages;
 * ``attn_impl="gather"`` swaps the flash-decode kernel for the reference's
   measured baseline: a dense ``pool[block_table]`` gather and a plain
   online-softmax attention (``layers.attend_decode``), inside the same
@@ -48,9 +52,8 @@ Counterpart of the core of ``repro.runtime.serving``:
   slot's accepted row of the verify graph's checkpointed states (a third
   captured graph over a fixed index buffer).
 
-Tensor parallelism and the host tier are not ported yet: their
-``metrics()`` keys read as the reference's do with those subsystems
-switched off (zeros, ``""``).
+Tensor parallelism is not ported yet: its ``metrics()`` keys read as the
+reference's do with it switched off (``model_shards`` 1, ``""``).
 """
 from __future__ import annotations
 
@@ -66,8 +69,9 @@ from repro_torch.kernels import ops
 from repro_torch.models import api
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime.drafter import ngram_propose
+from repro_torch.runtime.host_tier import HostTier, SwapRecord, _tree_nbytes
 from repro_torch.runtime.kv_cache import SCRATCH_PAGE, PageAllocator, PoolStats
-from repro_torch.runtime.prefix_cache import PrefixCache
+from repro_torch.runtime.prefix_cache import PrefixCache, PrefixMatch
 from repro_torch.runtime.sampling import (ACCEPT_DRAW, NEG_FILTER, SAMPLE_DRAW,
                                           PolicyBuffers, SamplingParams,
                                           draw_keys, fold_keys, gumbel_noise,
@@ -76,14 +80,6 @@ from repro_torch.runtime.sampling import (ACCEPT_DRAW, NEG_FILTER, SAMPLE_DRAW,
 from repro_torch.runtime.trace import Tracer, default_tracer, percentile
 
 ATTN_IMPLS = ("kernel", "gather")
-# the reference's HostTier.STAT_KEYS: reported as zeros until the host tier
-# is ported
-TIER_STAT_KEYS = (
-    "demoted_pages", "promoted_pages", "cache_demotions", "cache_promotions",
-    "swap_outs", "swap_ins", "refused_demotions", "reprefill_tokens_saved",
-    "prefetch_starts", "prefetch_hits", "copy_stall_ticks",
-    "prefetch_hit_rate", "host_bytes", "host_bytes_peak",
-    "win_archived_pages", "win_archive_drops")
 
 
 @dataclasses.dataclass
@@ -279,7 +275,10 @@ class PagedServingEngine(ServingMetricsMixin):
     over the request's own context (``spec_ngram`` its longest n-gram).
     Stacks with sliding-window or recurrent layers serve too, without the
     prefix cache (``ValueError``: recurrent state cannot be rebuilt from
-    shared pages, and window pages are recycled per request)."""
+    shared pages, and window pages are recycled per request).
+    ``host_tier=True`` backs the pool with pinned host RAM: preemption
+    swaps out instead of destroying work, idle cached pages demote instead
+    of being evicted."""
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
                  page_size: int = 16, num_pages: Optional[int] = None,
@@ -287,12 +286,14 @@ class PagedServingEngine(ServingMetricsMixin):
                  sampling: Optional[SamplingParams] = None,
                  attn_impl: str = "kernel", prefix_cache: bool = False,
                  spec_k: int = 0, spec_ngram: int = 3, drafter=None,
+                 host_tier: bool = False,
                  tracer: Optional[Tracer] = None, device="cuda"):
         self.device = resolve_device(device)
         # the block kinds split three ways: full-attention layers share one
         # block table, sliding-window layers a second (recycled) one, and
         # recurrent layers hold per-slot state beside the pools
         kinds = tfm.layer_kinds(cfg)          # raises on unported kinds
+        self._kinds = kinds
         self.has_full = bool(set(kinds) & set(api.PAGEABLE_KINDS))
         self.has_win = bool(set(kinds) & set(api.WINDOW_KINDS))
         self.has_state = bool(set(kinds) & set(api.STATE_KINDS))
@@ -342,6 +343,11 @@ class PagedServingEngine(ServingMetricsMixin):
         self.prefix: Optional[PrefixCache] = \
             PrefixCache(self.alloc, tracer=self.trace) if prefix_cache \
             else None
+        # the host tier: a pinned host page store and its copy stream
+        # (runtime/host_tier.py); off by default, since demoted blobs hold
+        # host RAM that a caller metering memory opts into
+        self.tier: Optional[HostTier] = \
+            HostTier(tracer=self.trace) if host_tier else None
         # pool row 0 is the scratch page -> usable + 1 physical pages; the
         # recurrent layers' entries are (slots, ...) state
         self.cache = api.paged_cache_init(self.cfg, usable + 1, page_size,
@@ -497,6 +503,12 @@ class PagedServingEngine(ServingMetricsMixin):
         slot = self._free_slot()
         if slot is None:
             return False
+        if self.tier is not None and self.tier.has_swap(req.rid):
+            # swapped out: resume from the host tier, no re-prefill. Before
+            # the guard below on purpose: a request live when preempted
+            # always passes it, and its footprint math describes a prefill
+            with self.trace.span("swap_in"):
+                return self._swap_in(req, slot)
         toks = list(req.prompt) + list(req.generated)   # resume-on-preempt
         L = len(toks)
         remaining = req.max_new - len(req.generated)
@@ -514,6 +526,12 @@ class PagedServingEngine(ServingMetricsMixin):
             # cap at L - 1: at least one token is prefilled, whose logits
             # pick the next token
             m = self.prefix.match(toks, max_tokens=L - 1)
+            if self.tier is not None:
+                # hits on host-resident nodes: promote them to device pages
+                # (H2D, prefetched a tick ahead when the scheduler showed
+                # this request) rather than let the match shrink
+                with self.trace.span("promote_match"):
+                    m = self._promote_match(m)
             shared = m.pages
             partial_page, partial_tokens = m.partial_page, m.partial_tokens
             deficit = self.alloc.pages_for(L) - len(shared) \
@@ -522,11 +540,16 @@ class PagedServingEngine(ServingMetricsMixin):
                 # shed idle cached pages only if that covers the deficit
                 # (flushing matchable prefixes ahead of a rejection that
                 # happens anyway buys nothing); the match's pages are not
-                # refcounted yet, so shield them
+                # refcounted yet, so shield them. With the tier on, shedding
+                # demotes (the node stays matchable) and any idle node
+                # qualifies, not only leaves
                 keep = set(shared)
                 if partial_page is not None:
                     keep.add(partial_page)
-                if self.prefix.evictable_count(protect=keep) >= deficit:
+                can = (self.prefix.demotable_count(keep)
+                       if self.tier is not None
+                       else self.prefix.evictable_count(protect=keep))
+                if can >= deficit:
                     self._shed_idle_cache(deficit, protect=keep)
         table: List[int] = []
         if self.has_full:
@@ -687,26 +710,28 @@ class PagedServingEngine(ServingMetricsMixin):
                 pool[name][dst] = e[name][0].reshape(
                     (nb, self.page_size) + pool[name].shape[2:])
 
-    def _release_slot(self, slot: int) -> Request:
-        """Reclaim a slot's pages; its table becomes all-scratch so a dead
-        slot can only ever write to the scratch page, its position 0 so the
-        decode kernel walks one scratch page for it, and its policy row
-        greedy."""
+    def _release_slot(self, slot: int, demote: bool = False) -> Request:
+        """Reclaim a slot's pages (``demote``: move its tables to the
+        allocator's host-resident class instead of freeing them); its table
+        becomes all-scratch so a dead slot can only ever write to the
+        scratch page, its position 0 so the decode kernel walks one scratch
+        page for it, and its policy row greedy."""
         req = self.live[slot]
         self.live[slot] = None
         self._policy[slot] = None
+        release = self.alloc.demote if demote else self.alloc.free_request
         if self.has_full:
-            self.alloc.free_request(req.rid)
+            release(req.rid)
             self.block_table[slot] = SCRATCH_PAGE
         if self.has_win:
-            self.alloc.free_request(_win_rid(req.rid))
+            release(_win_rid(req.rid))
             self.win_table[slot] = SCRATCH_PAGE
         self.pos[slot] = 0
         self.live_mask[slot] = False
         self.pol.clear_slot(slot)
         if self.drafter is not None:
             # the drafter's context cache for this request is stale from
-            # here (a resumed request re-ingests)
+            # here (a resumed or swapped-in request re-ingests)
             self.drafter.drop(req.rid)
         return req
 
@@ -716,26 +741,211 @@ class PagedServingEngine(ServingMetricsMixin):
         self._note_finished(req.rid)
 
     def _evict_slot(self, slot: int) -> Request:
-        """Preempt: reclaim pages, return the request for re-admission (it
-        resumes by re-prefilling prompt + generated-so-far)."""
+        """Preempt destructively: reclaim pages, return the request for
+        re-admission (it resumes by re-prefilling prompt + generated-so-
+        far). With the host tier on, ``_swap_out_slot`` is the path and
+        this its fallback when the store refuses the bytes."""
         req = self._release_slot(slot)
         req.preemptions += 1
         return req
 
+    # -- host tier: demote / promote / swap ---------------------------------
+
+    def _gather_pages(self, kinds_ok, pages: List[int]):
+        """``pages``' rows of every pool whose layer kind is in
+        ``kinds_ok``, as a fresh tensor tree ``{str(layer): {"k", "v"}}``,
+        enqueued on the current stream (so before any later write to those
+        pages). The reference pads the page list to a power of two to bound
+        its traces; nothing is traced here, so the blob holds the pages
+        alone."""
+        idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
+        return {str(j): {name: t.index_select(0, idx)
+                         for name, t in pool.items()}
+                for j, (pool, kind) in enumerate(zip(self.cache, self._kinds))
+                if kind in kinds_ok}
+
+    def _scatter_pages(self, pages: List[int], blob) -> None:
+        """Write a gathered blob into ``pages`` of the pools it names, in
+        place on the current stream (ordered before the next replay)."""
+        idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
+        for j, entry in blob.items():
+            for name, t in self.cache[int(j)].items():
+                t.index_copy_(0, idx, entry[name].to(t.dtype))
+
     def _shed_idle_cache(self, n_pages: int,
                          protect: Optional[set] = None) -> int:
-        """Free up to ``n_pages`` idle prefix-cache pages (LRU, leaves
-        first). Returns the pages freed."""
+        """Free up to ``n_pages`` device pages of the idle prefix cache.
+        Tier off: LRU eviction, leaves first. Tier on: demote first — gather
+        the page (a one-page blob: the page-granular half of the streamer),
+        hand it to the host store and free the device page while the node
+        stays matchable — and evict only what the store refuses. Returns
+        the pages freed."""
         if self.prefix is None:
             return 0
-        return self.prefix.evict(n_pages, protect=protect)
+        if self.tier is None:
+            return self.prefix.evict(n_pages, protect=protect)
+        freed = 0
+        for node in self.prefix.demotable(protect):
+            if freed >= n_pages:
+                break
+            blob = self._gather_pages(api.PAGEABLE_KINDS, [node.page])
+            if not self.tier.can_accept(_tree_nbytes(blob)):
+                break                         # store full: evict the rest
+            self.prefix.demote_node(node, self.tier.store.put(blob))
+            self.tier.cache_demotions += 1
+            self.tier.demoted_pages += 1
+            freed += 1
+        if freed < n_pages:
+            freed += self.prefix.evict(n_pages - freed, protect=protect)
+        return freed
+
+    def _promote_match(self, m: PrefixMatch) -> PrefixMatch:
+        """Promote every host-resident node on a match's path to a fresh
+        pinned device page (H2D through the copy stream: a hit when the
+        scheduler's prefetch hook saw this prompt a tick ahead). If the
+        pool runs dry mid-path the match is cut at that node: the pages
+        below the cut are promoted and used, the rest is prefilled."""
+        for i, node in enumerate(m.path):
+            if node.page is not None:
+                m.pages[i] = node.page        # promoted by an earlier caller
+                continue
+            page = self.alloc.alloc_pinned_page()
+            if page is None:
+                return PrefixMatch(
+                    m.pages[:i], i * self.page_size,
+                    node=m.path[i - 1] if i else None, path=m.path[:i])
+            handle = node.host
+            self._scatter_pages([page], self.tier.stream.take(handle))
+            self.tier.store.pop(handle)
+            self.prefix.promote_node(node, page)
+            self.tier.cache_promotions += 1
+            self.tier.promoted_pages += 1
+            m.pages[i] = page
+        return m
+
+    def _swap_out_slot(self, slot: int) -> Request:
+        """Preempt without destroying work: gather the slot's full and
+        window tables into blobs (request-granular), export its recurrent
+        state, hand them to the host store, then demote the allocator's
+        tables and free the pages (gather-then-free: the gathers are
+        enqueued before any later write to those pages). Falls back to
+        destructive eviction when the store refuses the bytes."""
+        req = self.live[slot]
+        tier = self.tier
+        rec = SwapRecord(rid=req.rid, pos=self._pos_host[slot])
+        blobs = {}
+        if self.has_full:
+            table = self.alloc.block_table(req.rid)
+            rec.full_pages = len(table)
+            blobs["full"] = self._gather_pages(api.PAGEABLE_KINDS, table)
+        if self.has_win:
+            wrid = _win_rid(req.rid)
+            wtable = self.alloc.block_table(wrid)
+            rec.win_pages = len(wtable)
+            rec.win_base = self.alloc.base_blocks(wrid)
+            blobs["win"] = self._gather_pages(api.WINDOW_KINDS, wtable)
+        if self.has_state:
+            blobs["state"] = api.state_slot_export(self.cfg, self.cache, slot)
+        if not tier.can_accept(sum(_tree_nbytes(b) for b in blobs.values())):
+            return self._evict_slot(slot)
+        for name, blob in blobs.items():
+            setattr(rec, name, tier.store.put(blob))
+        self._release_slot(slot, demote=True)
+        tier.demoted_pages += rec.full_pages + rec.win_pages
+        tier.record_swap(rec)
+        req.preemptions += 1
+        return req
+
+    def _swap_in(self, req: Request, slot: int) -> bool:
+        """Resume a swapped-out request: promote its allocator tables,
+        scatter the host blobs into the fresh pages (in flight already when
+        the prefetch hook fired), import its recurrent state, and rebuild
+        the slot where the preemption left it: position, current token,
+        the remaining budget, its policy row and draw index, its admission
+        order. Nothing is prefilled and no token is emitted. False (the
+        request waits) if the pool cannot hold it yet: a swap-in never
+        preempts anyone."""
+        tier = self.tier
+        rec = tier.peek_swap(req.rid)
+        need = 0
+        if self.has_full:
+            need += self.alloc.host_pages_needed(req.rid)
+        if self.has_win:
+            need += self.alloc.host_pages_needed(_win_rid(req.rid))
+        deficit = need - self.alloc.free_pages
+        if deficit > 0:
+            self._shed_idle_cache(deficit)
+            if need > self.alloc.free_pages:
+                return False
+        table: List[int] = []
+        if self.has_full:
+            table = self.alloc.promote(req.rid)
+        wtable: List[int] = []
+        if self.has_win:
+            wtable = self.alloc.promote(_win_rid(req.rid))
+        if rec.full is not None:
+            self._scatter_pages(table, tier.stream.take(rec.full))
+        if rec.win is not None:
+            self._scatter_pages(wtable, tier.stream.take(rec.win))
+        if rec.state is not None:
+            api.state_slot_import(self.cfg, self.cache, slot,
+                                  tier.stream.take(rec.state))
+        tier.promoted_pages += len(table) + len(wtable)
+        dev = self.device
+        row = np.zeros((self.max_blocks,), np.int32)
+        row[: len(table)] = table
+        self.block_table[slot] = torch.from_numpy(row).to(dev)
+        if self.has_win:
+            row_win = np.zeros((self.max_blocks,), np.int32)
+            row_win[rec.win_base: rec.win_base + len(wtable)] = wtable
+            self.win_table[slot] = torch.from_numpy(row_win).to(dev)
+            self.win_peak_live = max(self.win_peak_live, len(wtable))
+        self.pos[slot] = rec.pos
+        self.cur_tok[slot, 0] = int(req.generated[-1])
+        self.live_mask[slot] = True
+        # gen restarts at 1 with a rebased budget, the re-prefill resume's
+        # accounting: done when the total generated reaches max_new
+        self.gen_cnt[slot] = 1
+        self.max_new_arr[slot] = req.max_new - len(req.generated) + 1
+        pol_req = request_params(req, self.default_params)
+        # the next draw decides generated-token index len(generated): the
+        # one the unpreempted run would have drawn there
+        self.pol.set_slot(slot, pol_req, req.rid, len(req.generated),
+                          self.seed)
+        self.live[slot] = req
+        self._pos_host[slot] = rec.pos
+        self._policy[slot] = pol_req
+        self._admit_counter += 1
+        self._admit_seq[slot] = self._admit_counter
+        tier.pop_swap(req.rid)
+        return True
+
+    def prefetch_pending(self, pending: List[Request]) -> None:
+        """The streamer's look-ahead (``Scheduler.tick`` calls it with the
+        queue between admission and decode): start the H2D copies that the
+        next tick's admissions will take — a swapped-out request's whole
+        swap set, or the host-resident radix nodes a prompt's match crosses
+        — so they overlap this tick's decode step."""
+        if self.tier is None:
+            return
+        for req in pending:
+            if self.tier.has_swap(req.rid):
+                for h in self.tier.peek_swap(req.rid).handles():
+                    self.tier.stream.prefetch(h)
+            elif self.prefix is not None:
+                toks = list(req.prompt) + list(req.generated)
+                m = self.prefix.match(toks, max_tokens=len(toks) - 1)
+                for node in m.path:
+                    if node.page is None:
+                        self.tier.stream.prefetch(node.host)
 
     def _reclaim_one_page(self, keep_slot: int,
                           preempted: List[Request]) -> bool:
         """Free at least one page for ``keep_slot``: shed an idle cached
-        page first (it costs at most a future re-prefill), only then
-        preempt the youngest other live request. False if neither has
-        anything left."""
+        page first (demote or evict: it costs at most a future promotion or
+        re-prefill), only then preempt the youngest other live request
+        (swap it out when the tier is on). False if neither has anything
+        left."""
         if self._shed_idle_cache(1):
             return True
         victims = [s for s, r in enumerate(self.live)
@@ -743,8 +953,12 @@ class PagedServingEngine(ServingMetricsMixin):
         if not victims:
             return False
         youngest = max(victims, key=lambda s: self._admit_seq[s])
-        self.trace.instant("preempt")
-        preempted.append(self._evict_slot(youngest))
+        if self.tier is not None:
+            with self.trace.span("swap_out"):
+                preempted.append(self._swap_out_slot(youngest))
+        else:
+            self.trace.instant("preempt")
+            preempted.append(self._evict_slot(youngest))
         return True
 
     def _grow_table(self, rid, slot: int, target: int,
@@ -780,6 +994,14 @@ class PagedServingEngine(ServingMetricsMixin):
         base = self.alloc.base_blocks(wrid)
         n = min(dead - base, len(self.alloc.block_table(wrid)) - 1)
         if n > 0:
+            if self.tier is not None:
+                # demotion source 3: archive the slid-out blocks (capped),
+                # gathered while the pages are live, freed right after
+                pages = self.alloc.block_table(wrid)[:n]
+                blob = self._gather_pages(api.WINDOW_KINDS, pages)
+                if self.tier.can_accept(_tree_nbytes(blob)):
+                    self.tier.archive_window(rid, base, n,
+                                             self.tier.store.put(blob))
             self.win_recycled_pages += self.alloc.release_prefix(wrid, n)
             self.win_table[slot, base:base + n] = SCRATCH_PAGE
 
@@ -1014,11 +1236,16 @@ class PagedServingEngine(ServingMetricsMixin):
         pages first and returns the requests that top-up preempted, for
         the caller to resubmit. (Callers use ``step()``, the mixin's timed
         wrapper.)"""
+        tr = self.trace
+        if self.tier is not None:
+            # the copy stream's visibility point: pending D2H copies are
+            # finalized once per decode tick
+            with tr.span("tier_drain"):
+                self.tier.drain()
         if not self.has_live():
             return []
         if self.spec_k:
             return self._step_speculative()
-        tr = self.trace
         with tr.span("ensure_capacity"):
             evicted = self.ensure_decode_capacity()
         t0 = time.perf_counter()
@@ -1205,8 +1432,10 @@ class PagedServingEngine(ServingMetricsMixin):
         return d
 
     def tier_stats(self) -> Dict[str, float]:
-        d = {"host_tier": 0.0}
-        d.update(dict.fromkeys(TIER_STAT_KEYS, 0.0))
+        """Host-tier telemetry, the same keys with the tier off (zeros)."""
+        d: Dict[str, float] = {"host_tier": float(self.tier is not None)}
+        d.update(self.tier.stats() if self.tier is not None
+                 else HostTier.zero_stats())
         return d
 
     def shard_stats(self) -> Dict[str, object]:
@@ -1235,9 +1464,10 @@ class PagedServingEngine(ServingMetricsMixin):
         return d
 
     def _reset_subsystem_counters(self) -> None:
-        """reset_metrics() tail: the engine's own rates and the prefix
-        cache's hit counters; the allocator's peak rebases to the current
-        allocation (the radix tree's contents stay)."""
+        """reset_metrics() tail: the engine's own rates, the prefix cache's
+        hit counters and the tier's; the allocator's peak rebases to the
+        current allocation (the radix tree's and the store's contents
+        stay)."""
         self.prefills = 0
         self.prompt_tokens = 0
         self.prefilled_tokens = 0
@@ -1256,14 +1486,29 @@ class PagedServingEngine(ServingMetricsMixin):
         self.alloc.share_events = 0
         if self.prefix is not None:
             self.prefix.reset_hit_counters()
+        if self.tier is not None:
+            self.tier.reset_counters()
 
     def check(self) -> None:
         """Pool invariants: the allocator's shared-page-aware check, write
         exclusivity — the page each live request's next token lands in
         must not be shared, or the next step would write over another
-        reader's KV — and no slot holding more live window pages than
-        ``win_pages_bound(max_len)``."""
+        reader's KV — no slot holding more live window pages than
+        ``win_pages_bound(max_len)``, and every swapped-out request
+        host-resident in the allocator (each of its tables) and in no
+        slot."""
         self.alloc.check()
+        if self.tier is not None:
+            live = {r.rid for r in self.live if r is not None}
+            for rid in self.tier.swapped_rids():
+                assert rid not in live, f"rid {rid} is live and swapped out"
+                if self.has_full:
+                    assert self.alloc.host_resident(rid), \
+                        f"swapped-out rid {rid} has no host-resident table"
+                if self.has_win:
+                    assert self.alloc.host_resident(_win_rid(rid)), \
+                        f"swapped-out rid {rid} has no host window table"
+
         for slot, req in enumerate(self.live):
             if req is None:
                 continue

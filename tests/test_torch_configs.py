@@ -52,6 +52,7 @@ def test_import_loads_no_jax_and_no_repro_module():
         "import repro_torch.runtime.prefix_cache, repro_torch.runtime.drafter\n"
         "import repro_torch.launch.sampler_probe\n"
         "import repro_torch.models.griffin, repro_torch.models.ssm\n"
+        "import repro_torch.runtime.host_tier, repro_torch.checkpoint.ckpt\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"

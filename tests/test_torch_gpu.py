@@ -1260,3 +1260,160 @@ def test_cuda_hybrid_engine_kernel_tokens_equal_gather(cuda, arch, spec_k):
     assert (eng.step_traces, eng.spec_traces) == \
         ((0, 1) if spec_k else (1, 0))
     assert eng.select_traces == (1 if spec_k else 0)
+
+
+# ---------------------------------------------------------------------------
+# The host tier on the card: pinned round trips, the copy stream's ordering,
+# the tiered kernel engine against the uncapped one
+# ---------------------------------------------------------------------------
+
+
+def tier_traffic(n=3, max_new=8):
+    # prompt + max_new <= 16 tokens = 4 pages: a 4-page pool holds one
+    # request at a time, so decode must swap
+    return [Request(rid=i, prompt=[(7 * i + 3 * j) % 256
+                                   for j in range(3 + 2 * i)],
+                    max_new=max_new)
+            for i in range(n)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "recurrentgemma-9b"])
+def test_cuda_tiered_kernel_engine_equals_uncapped(cuda, arch):
+    """fp32 SMOKE: a pool capped below the working set with the tier on
+    (pinned host blobs, side-stream copies, scatters between replays)
+    emits the uncapped kernel engine's tokens and the CPU tiered engine's,
+    swaps out and back in as often, prefills nothing again, ends with an
+    empty store, and still captures its decode graph once."""
+    if arch == "qwen2.5-3b":
+        cfg, params = smoke_fp32(arch)
+        pages, traffic = 4, tier_traffic
+    else:
+        # prompts on both sides of half the window: 6 pages hold one
+        # request's window pages at a time, not two
+        cfg, params = smoke_hybrid(arch)
+        w = cfg.hybrid.window
+        pages = 6
+
+        def traffic():
+            return [Request(rid=i, prompt=[(5 * i + j) % cfg.vocab
+                                           for j in range(w // 2 + 5 * i)],
+                            max_new=8) for i in range(3)]
+    base, beng, _ = serve_on(PagedServingEngine, cfg, params, cuda,
+                             traffic(), num_pages=32)
+    cpu, ceng, _ = serve_on(PagedServingEngine, cfg, params, "cpu",
+                            traffic(), num_pages=pages, host_tier=True)
+    got, eng, launched = serve_on(PagedServingEngine, cfg, params, cuda,
+                                  traffic(), num_pages=pages,
+                                  host_tier=True)
+    assert got == base == cpu
+    t = eng.tier
+    assert t.swap_outs == t.swap_ins == ceng.tier.swap_outs > 0
+    assert eng.prefilled_tokens == beng.prefilled_tokens
+    assert len(t.store) == sum(len(v) for v in t._win_archive.values())
+    assert eng.step_traces == 1
+    assert launched["paged_attention"] > 0
+    eng.check()
+
+
+def swap_race(cfg, params, dev, prefetch, steps=6, after=8, **kw):
+    """The copy-stream race: request A decodes ``steps`` tokens, is swapped
+    out (its D2H copies left pending), request B is prefilled at once into
+    the pages A just freed (the free list is LIFO), then A is swapped back
+    in — through a prefetch (the hit path) or a demand fetch — and both
+    decode ``after`` more steps. Returns (A's and B's tokens, the engine);
+    ``prefetch=None`` runs the same schedule without the swap."""
+    kw = dict(dict(slots=2, max_len=64, page_size=4, num_pages=24), **kw)
+    eng = PagedServingEngine(cfg, tree_to(params, dev), device=dev,
+                             host_tier=prefetch is not None, **kw)
+    a = Request(rid=0, prompt=[5, 4, 3, 2, 1, 6, 7, 9, 9, 2, 8],
+                max_new=steps + after + 1)
+    b = Request(rid=1, prompt=[3, 1, 4, 1, 5, 9, 2, 6, 5, 3],
+                max_new=after + 1)
+    assert eng.submit(a)
+    for _ in range(steps):
+        eng.step()
+    if prefetch is not None:
+        freed = eng.alloc.block_table(a.rid)
+        assert eng._swap_out_slot(0) is a
+        assert eng.tier.store.pending > 0      # D2H not yet finalized
+        assert eng.submit(b)
+        assert set(eng.alloc.block_table(b.rid)) & set(freed)
+        if prefetch:
+            eng.prefetch_pending([a])
+        assert eng.submit(a)
+    else:
+        assert eng.submit(b)
+    for _ in range(after):
+        eng.step()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    return [list(a.generated), list(b.generated)], eng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("prefetch", [True, False])
+def test_cuda_swap_race_resumes_exactly(cuda, prefetch):
+    """Swap out, prefill another request into the freed pages at once,
+    swap back in: the resumed request's next 8 tokens (and the other's)
+    equal the run without the swap, through the prefetch hit path and
+    through a demand fetch."""
+    cfg, params = smoke_fp32()
+    want, _ = swap_race(cfg, params, cuda, None)
+    got, eng = swap_race(cfg, params, cuda, prefetch)
+    assert got == want
+    assert eng.tier.stream.prefetch_hits == int(prefetch)
+    assert eng.tier.stream.demand_fetches == int(not prefetch)
+    assert eng.tier.swap_ins == 1 and len(eng.tier.store) == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8", "float32"])
+@pytest.mark.parametrize("prefetch", [True, False])
+def test_cuda_store_round_trips_pinned(cuda, dtype, prefetch):
+    """A device blob through the pinned store and back to the card, bit
+    for bit: the host copy is pinned, finalized by ``drain``, and the
+    device copy comes back through a prefetch or a demand fetch."""
+    from repro_torch.runtime.host_tier import HostTier
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(64, 16, 2, 32, generator=g, device=cuda) * 40
+    x = x.to(getattr(torch, dtype))
+    tier = HostTier()
+    h = tier.store.put({"0": {"k": x[torch.arange(0, 64, 3,
+                                                  device=cuda)]}})
+    want = x[torch.arange(0, 64, 3, device=cuda)].clone()
+    x.zero_()                                # a later write to the source
+    assert tier.drain() == 1
+    host = tier.store.get(h)["0"]["k"]
+    assert host.device.type == "cpu" and host.is_pinned()
+    assert torch.equal(host.view(torch.uint8), want.cpu().view(torch.uint8))
+    if prefetch:
+        tier.stream.prefetch(h)
+    back = tier.stream.take(h)["0"]["k"]
+    assert back.device.type == "cuda"
+    assert torch.equal(back.view(torch.uint8), want.view(torch.uint8))
+    assert tier.stream.prefetch_hits == int(prefetch)
+
+
+@pytest.mark.gpu
+def test_cuda_drain_waits_only_when_a_copy_is_pending(cuda):
+    """``drain()`` with nothing pending returns at once while the card is
+    busy (no sync); with a copy pending behind busy work it waits for
+    it."""
+    import time
+    from repro_torch.runtime.host_tier import HostTier
+    tier = HostTier()
+    busy = torch.cuda.Event()
+    torch.cuda._sleep(1 << 28)                # ~0.1 s of device time
+    busy.record()
+    t0 = time.perf_counter()
+    assert tier.drain() == 0
+    assert time.perf_counter() - t0 < 0.01
+    assert not busy.query()                   # the device is still busy
+    torch.cuda.synchronize()
+    x = torch.ones(1024, device=cuda)
+    torch.cuda._sleep(1 << 28)
+    h = tier.store.put({"k": x})              # behind the sleep
+    assert tier.store.pending == 1
+    assert tier.drain() == 1                  # waited for the copy
+    assert tier.store.get(h)["k"].sum().item() == 1024
