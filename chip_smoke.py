@@ -117,12 +117,28 @@ Phases, each failing loudly (non-zero exit, no result line):
    swap-in times beside a pinned ``copy_`` of its bytes, and the decode
    window's idle share with the tier on and off (qwen); then
    ``serve_bench --scenario oversubscribe`` at 4 layers, fp32, gated.
+11. MoE and vlm stacks (generators of their own): paged flash-decode at
+   T = 1 and 5 and mha (causal 1024, ragged 300, a 300-row suffix at
+   q_offset 512) at dbrx-132b's, llama4-maverick's and internvl2-2b's
+   heads, read from their configs (G 6, 5 and 2, D 128), bf16 and fp32,
+   against their plain versions, and timed; dbrx at full width, 2 of 40
+   layers, fp32: kernel against gather greedy tokens through a forced
+   preemption (the routed slots each prefill bucket drops logged from
+   the routing helper), two 8-slot runs whose slots die mid-run token
+   for token, 8 decode-graph replays with dead slots against the
+   uncaptured body bit for bit (llama4 too, bf16, 2 layers, and its
+   gather against kernel); an internvl2 prefill of 256 x 2048 patch
+   embeddings; then the serve phase's 16 requests on 8 slots, bf16, on
+   dbrx (8 of 40 layers), llama4 (2 of 48) and internvl2 (whole): tok/s,
+   TTFT, TPOT, peak memory, launches, one capture, and a decode step by
+   piece with the expert GEMMs beside their byte bound.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary (the
 seven TPU kernels' counterparts, the sampler's noise kernel, mha and
 paged flash-decode again at the hybrid path's windowed shapes with that
-path's launches, and both again with the host tier path's launches); the
-last line is ``{"ok": true, "device": {...}}``.
+path's launches, both again with the host tier path's launches, and
+both at each MoE and vlm arch's heads with its serve run's launches);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -268,9 +284,11 @@ def mask_shift_caught(name, shifted, want) -> None:
         fail(f"{name}: the tolerance lets a one-key mask shift pass")
 
 
-def paged_plan(B, T, n_blocks, page=PAGE) -> int:
-    """The split plan of the paged wrapper at serving heads on this card."""
-    return paged_kernel.split_plan(B, KV, n_blocks, page, T * (H // KV),
+def paged_plan(B, T, n_blocks, page=PAGE, heads=(H, KV, D)) -> int:
+    """The split plan of the paged wrapper on this card, at ``heads`` =
+    (query heads, KV heads, head dim), the serving heads by default."""
+    Hq, KVh, _ = heads
+    return paged_kernel.split_plan(B, KVh, n_blocks, page, T * (Hq // KVh),
                                    build.sm_count(0))
 
 
@@ -495,15 +513,17 @@ def host_split(seed: int) -> None:
             f"{route} {us:.1f}" for route, us in routes.items()))
 
 
-def time_paged(rng, B, lengths, label):
-    """Times at (B, lengths): a pool per layer, cycled through so that the
-    pools together exceed the 50 MB L2 cache, as the serving path's 36
-    layers do; CUDA-event and profiler device ms, the split plan."""
+def time_paged(rng, B, lengths, label, heads=(H, KV, D), T=1):
+    """Times at (B, lengths), T query rows a request, ``heads`` = (query
+    heads, KV heads, head dim): a pool per layer, cycled through so that
+    the pools together exceed the 50 MB L2 cache, as the serving path's
+    36 layers do; CUDA-event and profiler device ms, the split plan."""
+    Hq, KVh, Dh = heads
     n_blocks = MAX_LEN // PAGE if max(lengths) <= MAX_LEN else \
         -(-max(lengths) // PAGE)
-    live = sum(lengths) * KV * D * 2 * 2          # K and V, bf16
+    live = sum(lengths) * KVh * Dh * 2 * 2        # K and V, bf16
     n_pools = max(2, int(np.ceil(3 * 50e6 / live)))
-    layers = [paged_case(rng, B, 1, H, KV, D, PAGE, lengths, n_blocks,
+    layers = [paged_case(rng, B, T, Hq, KVh, Dh, PAGE, lengths, n_blocks,
                          torch.bfloat16) for _ in range(n_pools)]
     it = {"i": 0}
 
@@ -520,20 +540,23 @@ def time_paged(rng, B, lengths, label):
     host = host_us(lambda: paged_kernel.paged_attention(*layers[0]))
     q = layers[0][0]
     n_bytes = live + 2 * q.numel() * q.element_size() + B * n_blocks * 4 + B * 4
-    flops = 4 * sum(lengths) * H * D
+    flops = 4 * sum(lengths) * T * Hq * Dh
     bms, by = bench.bound_ms(n_bytes, flops, torch.bfloat16)
-    log(f"paged_attention time [{label}, S={paged_plan(B, 1, n_blocks)}]: "
+    log(f"paged_attention time [{label}, "
+        f"S={paged_plan(B, T, n_blocks, heads=heads)}]: "
         f"{ms:.4f} ms/launch (device {dev:.4f} ms, host {host:.1f} us/call), "
         f"plain {plain:.4f} ms, bound {bms:.4f} ms ({by}), {bms / ms:.1%} "
         f"of bound ({bms / dev:.1%} on the device)")
     return ms, plain, bms, by
 
 
-def time_mha(rng, Sq, label):
+def time_mha(rng, Sq, label, heads=(H, KV, D)):
+    Hq, KVh, Dh = heads
+
     def t(*shape):
         return torch.tensor(rng.standard_normal(shape), dtype=torch.bfloat16,
                             device="cuda")
-    q, k, v = t(1, Sq, H, D), t(1, Sq, KV, D), t(1, Sq, KV, D)
+    q, k, v = t(1, Sq, Hq, Dh), t(1, Sq, KVh, Dh), t(1, Sq, KVh, Dh)
     def kernel():
         mha_kernel.mha(q, k, v, causal=True)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -548,7 +571,7 @@ def time_mha(rng, Sq, label):
     lib_dev = device_ms(sdpa, [()] * 20)
     host = host_us(kernel)
     n_bytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
-    flops = 4 * H * D * Sq * (Sq + 1) / 2
+    flops = 4 * Hq * Dh * Sq * (Sq + 1) / 2
     bms, by = bench.bound_ms(n_bytes, flops, torch.bfloat16)
     log(f"mha time [{label}]: {ms:.4f} ms/launch (device {dev:.4f} ms, host "
         f"{host:.1f} us/call), plain {plain:.4f} ms, SDPA {lib:.4f} ms "
@@ -3049,6 +3072,434 @@ def run_serve_bench_oversubscribe() -> None:
         "(tokens_match_unconstrained on every capped row)")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: MoE and vlm stacks (dbrx-132b, llama4-maverick, internvl2-2b)
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("dbrx-132b", "llama4-maverick-400b-a17b")
+NEW_ARCHS = MOE_ARCHS + ("internvl2-2b",)
+# depth the card holds at full width in bf16 (widths are never cut): dbrx's
+# 40 layers are ~6.5 GB each, llama4's MoE layers ~32.5 GB each
+SERVE_LAYERS = {"dbrx-132b": 8, "llama4-maverick-400b-a17b": 2,
+                "internvl2-2b": 24}
+
+
+def heads_of(arch):
+    """(query heads, KV heads, head dim) of ``arch``, from its config."""
+    cfg = get_config(arch)
+    return cfg.num_heads, cfg.kv_heads, cfg.resolved_head_dim
+
+
+def check_moe_kernels(rng):
+    """The two kernels of the MoE and vlm path at those stacks' heads, read
+    from their configs: paged flash-decode at T = 1 and at the verify
+    step's T = 5, bf16 and fp32 (fp32 also against its split structure),
+    B = 8 over contexts of the serve traffic's range; mha causal at a
+    1024 bucket (fp32 with the one-key mask shift and two runs bit for
+    bit), a ragged 300, and a 300-row suffix at q_offset 512, bf16 and
+    fp32. Returns (paged, mha) max abs error per arch."""
+    errs = {}
+    for arch in NEW_ARCHS:
+        heads = heads_of(arch)
+        Hq, KVh, Dh = heads
+        err_p = 0.0
+        lengths = [int(n) for n in rng.integers(97, 640, SLOTS)]
+        for T in (1, 5):
+            for dt in (torch.bfloat16, torch.float32):
+                args = paged_case(rng, SLOTS, T, Hq, KVh, Dh, PAGE, lengths,
+                                  MAX_LEN // PAGE, dt)
+                S = paged_plan(SLOTS, T, MAX_LEN // PAGE, heads=heads)
+                got = paged_kernel.paged_attention(*args)
+                torch.cuda.synchronize()
+                name = (f"paged_attention [{arch} H{Hq} KV{KVh} "
+                        f"G{Hq // KVh}, T={T}, {str(dt)[6:]}, S={S}]")
+                err_p = max(err_p, agrees(name, got,
+                                          ref.paged_attention_ref(*args)))
+                if dt == torch.float32:
+                    split = ref.paged_attention_split_ref(*args, splits=S)
+                    worst = ref.row_error(got, split).max().item()
+                    log(f"{name}: worst row {worst:.3g} against the split "
+                        f"reference (limit 1e-05)")
+                    if not worst <= 1e-5:
+                        fail(f"{name}: disagrees with its split structure")
+        cases = [("prefill 1024, causal", 1, 1024, 1024, True, None,
+                  torch.bfloat16),
+                 ("prefill 1024, causal, fp32", 1, 1024, 1024, True, None,
+                  torch.float32),
+                 ("ragged 300, causal", 1, 300, 300, True, None,
+                  torch.bfloat16)]
+        err_m = check_mha(rng, [(f"{arch} {c[0]}",) + c[1:] for c in cases],
+                          heads)
+        off, Sq = 512, 300
+        for dt in (torch.bfloat16, torch.float32):
+            def t(*shape):
+                return torch.tensor(rng.standard_normal(shape), dtype=dt,
+                                    device="cuda")
+            q, k, v = t(1, Sq, Hq, Dh), t(1, off + Sq, KVh, Dh), \
+                t(1, off + Sq, KVh, Dh)
+            got = mha_kernel.mha(q, k, v, causal=True, q_offset=off)
+            torch.cuda.synchronize()
+            err_m = max(err_m, agrees(
+                f"mha [{arch} H{Hq} KV{KVh}, suffix {Sq} at q_offset {off}, "
+                f"{str(dt)[6:]}]", got,
+                ref.mha_ref(q, k, v, causal=True, q_offset=off)))
+        errs[arch] = (err_p, err_m)
+    return errs
+
+
+def time_moe_kernels(rng):
+    """Both kernels timed at each new stack's heads: paged flash-decode at
+    B = 8 over the serve traffic's contexts (T = 1, and T = 5 for the MoE
+    heads' verify block), mha at a 1024 bucket beside SDPA. Returns
+    {arch: (paged times, mha times)}."""
+    out = {}
+    for arch in NEW_ARCHS:
+        heads = heads_of(arch)
+        lengths = [int(n) for n in rng.integers(97, 640, SLOTS)]
+        label = (f"{arch} H{heads[0]} KV{heads[1]} G{heads[0] // heads[1]}: "
+                 f"B={SLOTS}, contexts {min(lengths)}-{max(lengths)}")
+        paged_t = time_paged(rng, SLOTS, lengths, label, heads)
+        if arch in MOE_ARCHS:
+            time_paged(rng, SLOTS, lengths, label + ", verify T=5", heads,
+                       T=5)
+        mha_t = time_mha(rng, 1024, f"{arch} H{heads[0]} KV{heads[1]}: B=1, "
+                         f"Sq=Sk=1024 bucket", heads)
+        out[arch] = (paged_t, mha_t)
+    return out
+
+
+class PrefillDrops:
+    """Counts the routed slots the MoE layers drop in each prefill bucket,
+    from the routing helper (``layers.moe_route``) called again beside
+    ``moe_apply`` on a prefill's input (batch 1), never inside a capture:
+    the counts stay on the card until ``read``, so nothing syncs while the
+    engine runs."""
+
+    def __init__(self):
+        from repro_torch.models import transformer as tfm
+        self.tfm = tfm
+        self.apply = tfm.moe_apply
+        self.seen = []
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        def counted(cfg, p, x):
+            capturing = torch.cuda.is_current_stream_capturing()
+            if x.shape[0] == 1 and not capturing:
+                keep = layers.moe_route(cfg, p, x)[3]
+                self.seen.append((x.shape[1], keep.numel() - keep.sum()))
+            return self.apply(cfg, p, x)
+        self.tfm.moe_apply = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.tfm.moe_apply = self.apply
+
+    def read(self):
+        return [(rows, int(n)) for rows, n in self.seen]
+
+
+def staggered_traffic(rng, vocab, n, lo=2, hi=40):
+    """n requests of 16-300 tokens whose budgets run from ``lo`` to ``hi``
+    tokens: slots die at different steps while others decode."""
+    return [(([int(t) for t in rng.integers(0, vocab, int(L))]), int(b))
+            for L, b in zip(rng.integers(16, 300, n), rng.integers(lo, hi, n))]
+
+
+def drive(eng, traffic, check=False):
+    from repro_torch.runtime.scheduler import Scheduler
+    reqs = [Request(rid=i, prompt=list(p), max_new=b)
+            for i, (p, b) in enumerate(traffic)]
+    sched = Scheduler(eng)
+    for r in reqs:
+        sched.add(r)
+    while sched.pending or eng.has_live():
+        sched.tick()
+        if check:
+            eng.check()
+        if sched.steps > 5000:
+            fail(f"{eng.cfg.name}: the run did not finish")
+    return [r.generated for r in reqs], sched
+
+
+def replays_equal_body(name, cfg, params, traffic) -> None:
+    """8 decode steps of the captured graph against the uncaptured body on
+    the same traffic, 8 slots, budgets that end some requests within the
+    8 steps (dead rows in the step beside live ones): the live rows'
+    logits must be equal bit for bit; whether the dead rows' are too is
+    logged (their pool writes go through the last-writer write)."""
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, device="cuda")
+    engs = [UncapturedEngine(cfg, params, **kw),
+            PagedServingEngine(cfg, params, **kw)]
+    for eng in engs:
+        for i, (p, b) in enumerate(traffic):
+            if not eng.submit(Request(rid=i, prompt=list(p), max_new=b)):
+                fail(f"{name}: admission rejected")
+    dead_same = True
+    for s in range(8):
+        for eng in engs:
+            eng.step()
+        live = [i for i, r in enumerate(engs[1].live) if r is not None]
+        if live != [i for i, r in enumerate(engs[0].live) if r is not None]:
+            fail(f"{name}: decode step {s}: live slots differ")
+        a, b = engs[0].last_logits, engs[1].last_logits
+        if not torch.equal(a[live], b[live]):
+            fail(f"{name}: decode step {s}: the graph's logits differ from "
+                 f"the uncaptured body's on live rows")
+        dead_same = dead_same and torch.equal(a, b)
+    log(f"{name}: 8 replays of the decode graph equal the uncaptured body "
+        f"bit for bit on the live rows ({SLOTS} slots, "
+        f"{SLOTS - len(live)} dead after the last step); dead rows equal "
+        f"too: {dead_same}; captures {engs[1].step_traces}")
+    if engs[1].step_traces != 1 or len(live) == SLOTS:
+        fail(f"{name}: captures are not one, or no slot died")
+
+
+def check_moe_exact() -> None:
+    """dbrx-132b at full width, 2 of 40 layers, fp32 (weights, activations
+    and KV cache): the kernel engine's greedy tokens equal the gather
+    engine's through a forced preemption (4 slots over 16 pages), with the
+    routed slots each prefill bucket drops logged from the routing helper;
+    two serve runs at 8 slots with staggered budgets emit identical
+    tokens; 8 graph replays with dead slots equal the uncaptured body.
+    Then llama4-maverick at full width, 2 of 48 layers (one attn_mlp, one
+    attn_moe), bf16: its 8 replays, and gather against kernel over 8
+    steps (greedy tokens equal, or parting on a near tie)."""
+    f32 = dict(dtype="float32", kv_cache_dtype="float32")
+    cfg = dataclasses.replace(get_config("dbrx-132b"), num_layers=2, **f32)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 70)
+    params = api.init_params(cfg, gen, device="cuda")
+    own = np.random.default_rng(SEED + 70)
+    prompts = [([int(t) for t in own.integers(0, cfg.vocab, n)], 24)
+               for n in (80, 150, 97, 230, 40, 130)]
+    kw = dict(slots=4, max_len=512, page_size=PAGE, device="cuda")
+    t0 = time.perf_counter()
+    with PrefillDrops() as drops:
+        kernel, sk = drive(PagedServingEngine(cfg, params, num_pages=16,
+                                              **kw), prompts, check=True)
+    gather, _ = drive(PagedServingEngine(cfg, params, num_pages=16,
+                                         attn_impl="gather", **kw), prompts,
+                      check=True)
+    log(f"moe exact [dbrx-132b, fp32, 2 layers]: kernel vs gather greedy "
+        f"tokens equal {kernel == gather} over {len(prompts)} requests x "
+        f"24; preemptions {sk.preempted}; routed slots dropped in the "
+        f"prefill buckets (rows, dropped), each MoE layer: {drops.read()}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if kernel != gather:
+        fail("moe exact: kernel and gather tokens differ")
+    if sk.preempted < 1:
+        fail("moe exact: nothing was preempted")
+    traffic = staggered_traffic(own, cfg.vocab, 2 * SLOTS)
+    runs = [drive(PagedServingEngine(cfg, params, slots=SLOTS,
+                                     max_len=MAX_LEN, page_size=PAGE,
+                                     device="cuda"), traffic)[0]
+            for _ in range(2)]
+    lens = sorted(len(t) for t in runs[0])
+    log(f"moe exact [dbrx-132b, fp32, 2 layers, {SLOTS} slots, budgets "
+        f"{lens[0]}-{lens[-1]}]: two serve runs with slots dying mid-run "
+        f"emit identical tokens: {runs[0] == runs[1]}")
+    if runs[0] != runs[1]:
+        fail("moe exact: two identical dbrx runs emitted different tokens")
+    replays_equal_body("moe exact [dbrx-132b, fp32, 2 layers]", cfg, params,
+                       staggered_traffic(own, cfg.vocab, SLOTS, 3, 12))
+    del params
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("llama4-maverick-400b-a17b"),
+                              num_layers=2)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 71)
+    params = api.init_params(cfg, gen, device="cuda")
+    replays_equal_body("moe exact [llama4-maverick, bf16, 2 layers]", cfg,
+                       params, staggered_traffic(own, cfg.vocab, SLOTS, 3, 12))
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, page_size=PAGE, device="cuda")
+    lockstep("gather vs kernel, llama4-maverick, bf16, 2 layers",
+             PagedServingEngine(cfg, params, attn_impl="gather", **kw),
+             PagedServingEngine(cfg, params, **kw),
+             [p for p, _ in staggered_traffic(own, cfg.vocab, 4)], 8,
+             BF16_LOGIT_TOL)
+    del params
+    torch.cuda.empty_cache()
+
+
+def check_vlm_prefill() -> None:
+    """internvl2-2b at full width and depth, bf16: a prefill of 256 x 2048
+    patch embeddings (the frontend stub's) before 64 tokens gives finite
+    logits at the last position, caches of 320 rows, launches mha once a
+    layer, and logits the patches move."""
+    cfg = get_config("internvl2-2b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 72)
+    params = api.init_params(cfg, gen, device="cuda")
+    emb = torch.randn((1, cfg.frontend_tokens, cfg.d_model), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (1, 64), generator=gen, device="cuda")
+    before = ops.launch_counts()["mha"]
+    logits, caches, pos = api.prefill(cfg, params, toks,
+                                      frontend_embeds=emb)
+    torch.cuda.synchronize()
+    n_mha = ops.launch_counts()["mha"] - before
+    plain, _, _ = api.prefill(cfg, params, toks)
+    moved = (logits - plain).abs().max().item()
+    finite = bool(torch.isfinite(logits).all())
+    log(f"internvl2-2b prefill with {cfg.frontend_tokens} x {cfg.d_model} "
+        f"patch embeddings + 64 tokens: logits {tuple(logits.shape)} finite "
+        f"{finite}, next position {int(pos[0])}, cache rows "
+        f"{caches[0]['k'].shape[1]}, mha launches {n_mha} for "
+        f"{cfg.num_layers} layers; logits moved by the patches {moved:.3g}")
+    if not finite or n_mha != cfg.num_layers or int(pos[0]) != 320 \
+            or caches[0]["k"].shape[1] != 320 or not moved > 0:
+        fail("internvl2-2b: the patch prefill is wrong")
+    del params
+    torch.cuda.empty_cache()
+
+
+def moe_piece_times(cfg, params, eng) -> None:
+    """Where an MoE decode step spends the card's time (B = 8 rows, one
+    dispatch group): one step as the engine's graph replays it, then each
+    piece captured alone in a graph (``graph_ms``) times the layers that
+    run it: the paged kernel, routing + dispatch + combine, the expert
+    GEMMs, the shared expert, the dense MLPs, the head and the sampler.
+    The expert GEMMs beside their byte bound: the dispatch runs every
+    expert at capacity C, so a step reads every expert's weights."""
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.sampling import sample_rows
+    kinds = tfm.layer_kinds(cfg)
+    dt = getattr(torch, cfg.dtype)
+    B, d = SLOTS, cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 73)
+    x1 = torch.randn((B, 1, d), generator=gen, device="cuda").to(dt)
+    step = cuda_ms(eng._graph.replay, iters=10)
+    n_attn, n_moe = len(kinds), kinds.count("attn_moe")
+    heads = (cfg.num_heads, cfg.kv_heads, cfg.resolved_head_dim)
+    lengths = [int(n) for n in np.random.default_rng(SEED + 74).integers(
+        97, 640, B)]
+    args = paged_case(np.random.default_rng(SEED + 74), B, 1, *heads, PAGE,
+                      lengths, MAX_LEN // PAGE, dt)
+    dec = {"paged_attention kernel": n_attn * graph_ms(
+        lambda: ops.paged_attention(*args))}
+    shape = f"B={B}"
+    if n_moe:
+        G, C = layers.moe_capacity(cfg, B)
+        shape += f", {G} dispatch group, C={C}"
+        mp = params["blocks"][kinds.index("attn_moe")]["moe"]
+        buf = layers.moe_dispatch(cfg, x1, layers.moe_route(cfg, mp, x1)[2])
+        eo = layers.moe_experts(mp, buf)
+
+        def route_dispatch_combine():
+            g, _, f, k = layers.moe_route(cfg, mp, x1)
+            layers.moe_dispatch(cfg, x1, f)
+            layers.moe_combine(cfg, eo, g, f, k, x1)
+        dec["router + dispatch + combine"] = n_moe * graph_ms(
+            route_dispatch_combine)
+        dec["expert GEMMs"] = n_moe * graph_ms(
+            lambda: layers.moe_experts(mp, buf))
+        if cfg.moe.shared_expert:
+            dec["shared expert"] = n_moe * graph_ms(
+                lambda: layers.mlp_apply(cfg, mp["shared"], x1))
+    if "attn_mlp" in kinds:
+        mlp = params["blocks"][kinds.index("attn_mlp")]["mlp"]
+        dec["MLPs"] = kinds.count("attn_mlp") * graph_ms(
+            lambda: layers.mlp_apply(cfg, mlp, x1))
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    dec["head + sampler"] = graph_ms(lambda: sample_rows(
+        (x1[:, 0] @ head).float()[:, : cfg.vocab], eng.pol))
+    line = (f"pieces {cfg.name} ({cfg.num_layers} layers) decode step "
+            f"({shape}): graph replay {step:.3f} ms; alone: " + ", ".join(
+                f"{k} {v:.3f} ms ({v / step:.1%})" for k, v in dec.items()))
+    if n_moe:
+        m = cfg.moe
+        n_bytes = n_moe * m.num_experts * 3 * d * cfg.d_ff * 2
+        bms, _ = bench.bound_ms(n_bytes, 0, dt)
+        line += (f"; the expert GEMMs read {n_bytes / 1e9:.2f} GB of "
+                 f"weights a step, bound {bms:.3f} ms at 3.35 TB/s, "
+                 f"{bms / dec['expert GEMMs']:.1%} of it reached")
+    log(line)
+
+
+def serve_moe(arch, prompts) -> dict:
+    """One new arch at full width, bf16, seeded weights on the card, depth
+    cut to what the card holds (``SERVE_LAYERS``), the serve phase's 16
+    requests (token ids modulo the arch's vocab, 32 new) on 8 slots
+    through the scheduler, after a warm-up request (the capture) and
+    ``reset_metrics``. Checks every request finished, the launch counts
+    and one capture; logs tok/s, TTFT and TPOT p50, peak memory, the
+    launches and a decode step by piece (``moe_piece_times``). Returns
+    the run's launch counts (set to 0 just before it, read just after)."""
+    cfg = dataclasses.replace(get_config(arch),
+                              num_layers=SERVE_LAYERS[arch])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 75)
+    params = api.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    log(f"serve {arch}: {cfg.param_count() / 1e9:.2f}B params "
+        f"({cfg.active_param_count() / 1e9:.2f}B active), "
+        f"{cfg.num_layers} of {get_config(arch).num_layers} layers, bf16, "
+        f"weights drawn on the card in {time.perf_counter() - t0:.1f} s")
+    eng = PagedServingEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                             page_size=PAGE, device="cuda")
+    eng.run_to_completion([Request(rid=-1, prompt=list(range(64)),
+                                   max_new=2)])
+    eng.reset_metrics()
+    reqs = tier_traffic(prompts, cfg.vocab)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.run_to_completion(reqs, max_steps=20 * N_REQ * MAX_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    m = eng.metrics()
+    n_tok = sum(len(r.generated) for r in reqs)
+    log(f"serve {arch}: {sum(r.done for r in reqs)}/{len(reqs)} requests, "
+        f"{n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s, ttft "
+        f"p50 {m['latency.ttft_p50_s']:.4f} s, tpot p50 "
+        f"{m['latency.tpot_p50_s']:.4f} s, {eng.decode_steps} decode steps "
+        f"(graph replays), {eng.prefills} prefills, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{counts}; a replay holds {eng._graph_launches}; captures "
+        f"{eng.step_traces}")
+    if any(not r.done or len(r.generated) != MAX_NEW for r in reqs):
+        fail(f"serve {arch}: not every request finished with max_new tokens")
+    if any(not 0 <= t < cfg.vocab for r in reqs for t in r.generated):
+        fail(f"serve {arch}: a token outside the vocabulary")
+    if eng.step_traces != 1:
+        fail(f"serve {arch}: {eng.step_traces} decode graph captures")
+    want = serving_launches(cfg, eng)
+    if counts != want:
+        fail(f"serve {arch}: launches {counts} != {want}")
+    eng.alloc.check()
+    moe_piece_times(cfg, params, eng)
+    del eng, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def moe_kernel_entries(errs, times, counts) -> list:
+    """The JSON entries of the new stacks' kernel calls: each arch's paged
+    flash-decode and mha, at its heads, with its serve run's launches."""
+    out = []
+    for arch in NEW_ARCHS:
+        Hq, KVh, Dh = heads_of(arch)
+        (pm, pp, pb, pby), (mm, mp, mb, mby, ml) = times[arch]
+        out += [
+            {"name": f"paged_attention[G {Hq // KVh}, H{Hq} KV{KVh} D{Dh}, "
+                     f"{arch} decode]", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+             "replaces": "src/repro/kernels/paged_attention.py:78",
+             "launches": counts[arch]["paged_attention"],
+             "max_abs_err": errs[arch][0], "ms": pm, "plain_ms": pp,
+             "bound_ms": pb, "bound_by": pby, "library_ms": None},
+            {"name": f"mha[H{Hq} KV{KVh} D{Dh}, {arch} prefill]",
+             "route": "cuda", "source": "src/repro_torch/kernels/csrc/mha.cu",
+             "replaces": "src/repro/kernels/attention.py:32",
+             "launches": counts[arch]["mha"], "max_abs_err": errs[arch][1],
+             "ms": mm, "plain_ms": mp, "bound_ms": mb, "bound_by": mby,
+             "library_ms": ml}]
+    return out
+
+
 def main() -> None:
     smi = card()
     build_kernels()
@@ -3121,6 +3572,19 @@ def main() -> None:
     serve_tier("mamba2-2.7b", prompts)
     run_serve_bench_oversubscribe()
     log(f"phase 10 in {time.perf_counter() - t10:.1f} s")
+    # phase 11: MoE and vlm stacks, from generators of their own
+    t11 = time.perf_counter()
+    own = np.random.default_rng(SEED + 80)
+    moe_errs = check_moe_kernels(own)
+    moe_times = time_moe_kernels(own)
+    check_moe_exact()
+    check_vlm_prefill()
+    moe_counts = {arch: serve_moe(arch, prompts) for arch in NEW_ARCHS}
+    for arch, c in moe_counts.items():
+        for k in ("paged_attention", "mha", "sampler_noise"):
+            if not c.get(k):
+                fail(f"serve {arch}: the run launched no {k}")
+    log(f"phase 11 in {time.perf_counter() - t11:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "paged_attention", "route": "cuda",
@@ -3171,7 +3635,8 @@ def main() -> None:
          "launches": tier_counts["mha"], "max_abs_err": err_mha,
          "ms": mha_t[0], "plain_ms": mha_t[1], "bound_ms": mha_t[2],
          "bound_by": mha_t[3], "library_ms": mha_t[4]},
-    ] + layer}), flush=True)
+    ] + moe_kernel_entries(moe_errs, moe_times, moe_counts) + layer}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

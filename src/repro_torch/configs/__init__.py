@@ -1,9 +1,8 @@
 """Architecture registry of the archs the port serves.
 
 ``get_config("<arch-id>")`` / ``get_smoke_config`` as in the JAX package;
-only the archs whose layers the port has are listed (the dense ``attn_mlp``
-archs, the Mamba2 stack and the RG-LRU / local-attention hybrid of the JAX
-package's registry, in its order).
+only the archs whose layers the port has are listed: every arch of the JAX
+package's registry but the encoder-decoder one, in its order.
 """
 from __future__ import annotations
 
@@ -12,7 +11,8 @@ from typing import List
 
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
-ARCHS: List[str] = ["yi-6b", "qwen1.5-4b", "qwen2.5-3b", "granite-3-2b",
+ARCHS: List[str] = ["dbrx-132b", "llama4-maverick-400b-a17b", "yi-6b",
+                    "qwen1.5-4b", "qwen2.5-3b", "granite-3-2b", "internvl2-2b",
                     "mamba2-2.7b", "recurrentgemma-9b"]
 
 

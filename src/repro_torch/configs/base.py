@@ -85,8 +85,9 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks), the JAX package's
-        formula: attention/MLP stacks exactly, the Mamba2 and hybrid
-        families by its approximation."""
+        formula: attention/MLP and MoE stacks exactly (an MoE layer every
+        ``moe_every``-th: its experts, router and shared expert), the
+        Mamba2 and hybrid families by its approximation."""
         d, dff, v = self.d_model, self.d_ff, self.vocab
         hd = self.resolved_head_dim
         attn = (d * self.num_heads * hd + 2 * d * self.kv_heads * hd
@@ -112,5 +113,36 @@ class ModelConfig:
             total = (n_attn * (attn + ffn)
                      + (self.num_layers - n_attn) * (lru_block + ffn))
         else:
-            total = self.num_layers * (attn + ffn)
+            total = sum(attn + self._ffn_params(layer, ffn)
+                        for layer in range(self.num_layers))
         return int(total + v * d * (1 if self.tie_embeddings else 2))
+
+    def _is_moe_layer(self, layer: int) -> bool:
+        m = self.moe
+        return (m is not None and m.num_experts > 0
+                and layer % m.moe_every == m.moe_every - 1)
+
+    def _ffn_params(self, layer: int, ffn: int) -> int:
+        """FFN parameters of ``layer``: every expert, the router and the
+        shared expert on an MoE layer, else one dense MLP."""
+        if not self._is_moe_layer(layer):
+            return ffn
+        m = self.moe
+        return (m.num_experts * ffn + self.d_model * m.num_experts
+                + (ffn if m.shared_expert else 0))
+
+    def active_param_count(self) -> int:
+        """Parameters a token runs through: the total for a dense stack;
+        on an MoE layer top_k experts (and the shared one) instead of all
+        of them, the router left out, as the JAX package counts."""
+        if self.moe is None or self.moe.num_experts == 0:
+            return self.param_count()
+        d, hd = self.d_model, self.resolved_head_dim
+        attn = (d * self.num_heads * hd + 2 * d * self.kv_heads * hd
+                + self.num_heads * hd * d)
+        ffn = (3 if self.gated_ffn else 2) * d * self.d_ff
+        m = self.moe
+        moe_ffn = m.top_k * ffn + (ffn if m.shared_expert else 0)
+        total = sum(attn + (moe_ffn if self._is_moe_layer(layer) else ffn)
+                    for layer in range(self.num_layers))
+        return int(total + self.vocab * d * (1 if self.tie_embeddings else 2))

@@ -7,8 +7,11 @@
 The caller converts the JAX arrays to numpy; the port never sees a JAX
 array. The JAX tree stacks each pattern position's block parameters along a
 leading layer axis (``blocks.scan["<j>"]``) plus a list of tail blocks; the
-port wants one dict per layer in layer order, so the bridge unstacks them.
-Both packages then compute the same function.
+port wants one dict per layer in layer order, so the bridge unstacks them
+(a two-kind period such as llama4's ``attn_mlp`` / ``attn_moe`` pair
+interleaves its positions back into layer order; an MoE block's ``moe``
+leaves unstack like any other, its fp32 router staying fp32). Both packages
+then compute the same function.
 """
 from __future__ import annotations
 

@@ -30,14 +30,23 @@ def init_params(cfg, generator: torch.Generator, *,
     live on that device), with the JAX ``Maker``'s shapes, dtypes and
     scales: N(0, 1) * scale in fp32, cast to the model dtype; norms are
     ones (fp32), biases zeros; RG-LRU's ``lam`` and Mamba2's ``A_log``,
-    ``D`` (ones) and ``dt_bias`` (zeros) fp32, as the reference makes them."""
+    ``D`` (ones) and ``dt_bias`` (zeros) fp32, and an MoE block's router
+    (d, E) fp32, as the reference makes them. Expert tensors (E, d, f) are
+    drawn one expert at a time, so the fp32 draw never holds more than one
+    expert's matrix (llama4's ``wi`` alone is 5.37 G values)."""
     dt = _dtype(cfg.dtype)
     device = torch.device(device)
 
-    def normal(shape, scale):
+    def normal(shape, scale, dtype=dt):
         x = torch.randn(shape, generator=generator, device=device,
                         dtype=torch.float32)
-        return (x * scale).to(dt)
+        return (x * scale).to(dtype)
+
+    def experts(shape, scale):
+        out = torch.empty(shape, dtype=dt, device=device)
+        for e in range(shape[0]):
+            out[e] = normal(shape[1:], scale)
+        return out
 
     def full(shape, value, dtype=dt):
         return torch.full(shape, value, dtype=dtype, device=device)
@@ -65,6 +74,16 @@ def init_params(cfg, generator: torch.Generator, *,
         m = {"wi": normal((d, f), d ** -0.5), "wo": normal((f, d), f ** -0.5)}
         if cfg.gated_ffn:
             m["wg"] = normal((d, f), d ** -0.5)
+        return m
+
+    def moe():
+        e = cfg.moe.num_experts
+        m = {"router": normal((d, e), d ** -0.5, torch.float32),
+             "wi": experts((e, d, f), d ** -0.5),
+             "wg": experts((e, d, f), d ** -0.5),
+             "wo": experts((e, f, d), f ** -0.5)}
+        if cfg.moe.shared_expert:
+            m["shared"] = mlp()
         return m
 
     def rglru():
@@ -100,8 +119,8 @@ def init_params(cfg, generator: torch.Generator, *,
             blocks.append({"ln1": norm(d), "mixer": mamba()})
             continue
         mixer = {"mixer": rglru()} if kind == "rglru" else {"attn": attn()}
-        blocks.append({"ln1": norm(d), **mixer, "ln2": norm(d),
-                       "mlp": mlp()})
+        ffn = {"moe": moe()} if kind == "attn_moe" else {"mlp": mlp()}
+        blocks.append({"ln1": norm(d), **mixer, "ln2": norm(d), **ffn})
     vp = tfm.padded_vocab(cfg.vocab)
     p = {"embed": normal((vp, d), 0.02), "final_norm": norm(d),
          "blocks": blocks}
@@ -118,7 +137,8 @@ def _logits(cfg, params, x: torch.Tensor) -> torch.Tensor:
 
 def prefill(cfg, params, tokens: torch.Tensor, *,
             length: Optional[torch.Tensor] = None, prefix_kv=None,
-            prefix_len: int = 0):
+            prefix_len: int = 0,
+            frontend_embeds: Optional[torch.Tensor] = None):
     """Run the whole (bucket-padded) prompt. tokens: (B, S) int64; length:
     None or (B,) count of real tokens. Returns (logits (B, Vp) fp32 at
     position length - 1 only, per-layer cache entries, next position (B,)
@@ -133,9 +153,19 @@ def prefill(cfg, params, tokens: torch.Tensor, *,
     ``length`` describe only the prompt after a prefix whose KV is reused
     from the page pools; positions start at prefix_len. The returned k/v
     are the suffix's and the returned position counts suffix tokens
-    (callers add prefix_len). Full-attention stacks only."""
-    B, S = tokens.shape
+    (callers add prefix_len). Full-attention stacks only.
+
+    ``frontend_embeds`` (B, F, d), a ``frontend="patch"`` stack's
+    precomputed patch embeddings (the vlm stub), go before the token
+    embeddings, as the reference's ``forward_hidden`` puts them; ``length``
+    and the returned position then count them too. The serving engine
+    passes none: it serves tokens only, as the reference's does."""
     x = params["embed"][tokens]
+    if frontend_embeds is not None:
+        if cfg.frontend != "patch":
+            raise ValueError(f"{cfg.name} has no patch frontend")
+        x = torch.cat([frontend_embeds.to(x.dtype), x], 1)
+    B, S = x.shape[0], x.shape[1]
     x, caches = tfm.stack_apply(cfg, params["blocks"], x,
                                 prefix_kv=prefix_kv, prefix_len=prefix_len,
                                 length=length)

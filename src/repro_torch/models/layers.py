@@ -1,7 +1,8 @@
 """Layer library: rmsnorm/layernorm, rotary embedding, GQA attention
 (full or sliding-window) for prefill (flash-MHA kernel) and paged decode
 (flash-decode kernel, or the dense-gather baseline through
-``attend_decode``), KV-cache quantization and the gated MLP.
+``attend_decode``), KV-cache quantization, the gated MLP and the
+token-dropping MoE FFN (``moe_apply``).
 
 Counterpart of ``repro.models.layers``: plain functions on tensors with
 parameter dicts of the same names and shapes (``wq`` (d, H, hd), ``wo``
@@ -123,15 +124,39 @@ def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None,
     return _out(p, out), (k, v)
 
 
+def paged_rows(block_table: torch.Tensor, pos: torch.Tensor, T: int,
+               page: int):
+    """Where a T-row decode block writes its k/v: (phys, off, last), each
+    (B, T). Token t of request b goes to page block_table[b, (pos + t) //
+    page], row (pos + t) % page; rows past the table go to scratch page 0.
+    ``last`` (``last_writer``) names, for each row, the last row in (b, t)
+    order that writes the same pool row: dead slots (all-scratch tables)
+    and rows past the table share scratch rows, and a row takes the last
+    writer's value there, the JAX engine's scatter order, so the pool ends
+    the same whatever order the device applies the writes in. The same
+    for every layer on one table: ``transformer.stack_decode`` computes it
+    once a step."""
+    pos_t = pos[:, None] + torch.arange(T, device=pos.device,
+                                        dtype=pos.dtype)[None, :]
+    n_blk = block_table.shape[1]
+    blk = (pos_t // page).long()
+    phys = torch.gather(block_table, 1, blk.clamp(max=n_blk - 1)).long()
+    phys = torch.where(blk < n_blk, phys, torch.zeros_like(phys))
+    off = (pos_t % page).long()
+    return phys, off, last_writer(phys * page + off).view_as(phys)
+
+
 def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
-                     pos: torch.Tensor, block_table: torch.Tensor,
+                     pos: torch.Tensor, block_table: torch.Tensor, rows,
                      window: int = 0):
     """Paged decode step. x: (B, T, d); pos: (B,) int32 position of the
     first new token; cache {"k", "v"}: (P, page, KV, D) page pools;
-    block_table: (B, n_blocks) int32. The T new tokens' k/v are scattered
-    token by token to page block_table[b, (pos+t) // page], row
-    (pos+t) % page — rows past the table go to scratch page 0 — and the
-    flash-decode kernel then attends through the block table (with
+    block_table: (B, n_blocks) int32; rows: ``paged_rows(block_table, pos,
+    T, page)``, the same for every layer on the table. The T new tokens'
+    k/v are scattered token by token to page block_table[b, (pos+t) //
+    page], row (pos+t) % page — rows past the table go to scratch page 0,
+    and rows that share a pool row write its last writer's value — and
+    the flash-decode kernel then attends through the block table (with
     ``cfg.paged_attn_impl == "gather"``, a dense gather of the tables'
     pages and ``attend_decode`` instead). The pools are
     updated IN PLACE (``index_put_``), where the JAX package returns new
@@ -147,14 +172,9 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
     q = rope(q, pos_t, cfg.rope_theta)
     k = rope(k, pos_t, cfg.rope_theta)
     ck, cv = cache["k"], cache["v"]
-    page = ck.shape[1]
-    n_blk = block_table.shape[1]
-    blk = (pos_t // page).long()
-    phys = torch.gather(block_table, 1, blk.clamp(max=n_blk - 1)).long()
-    phys = torch.where(blk < n_blk, phys, torch.zeros_like(phys))
-    off = (pos_t % page).long()
-    ck.index_put_((phys, off), kv_quant(cfg, k))
-    cv.index_put_((phys, off), kv_quant(cfg, v))
+    phys, off, last = rows
+    ck.index_put_((phys, off), kv_quant(cfg, k).flatten(0, 1)[last])
+    cv.index_put_((phys, off), kv_quant(cfg, v).flatten(0, 1)[last])
     if cfg.paged_attn_impl == "gather":
         # the reference's baseline: every request's whole table gathered
         # into a dense (B, n_blocks * page, KV, D) copy, then plain
@@ -169,6 +189,19 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
         out = ops.paged_attention(q.contiguous(), ck, cv, block_table,
                                   pos + T, kv_scale=scale, window=window)
     return _out(p, out), cache
+
+
+def last_writer(target: torch.Tensor) -> torch.Tensor:
+    """For each of ``target``'s n elements (flattened, any shape), the index
+    of the last element with the same value: a scatter that writes element
+    i's value from ``last_writer(target)[i]`` leaves every target the value
+    of its last writer in index order, however the device orders the
+    duplicate writes. An (n, n) comparison on the device, no host sync:
+    meant for the few dozen rows of a decode or verify step."""
+    t = target.reshape(-1)
+    ix = torch.arange(t.numel(), device=t.device)
+    same = t[:, None] == t[None, :]
+    return torch.where(same, ix[None, :], -1).amax(1)
 
 
 def attend_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
@@ -230,3 +263,105 @@ def mlp_apply(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
             return F.gelu(t, approximate="tanh")
     h = act(x @ p["wg"]) * h if cfg.gated_ffn else act(h)
     return h @ p["wo"]
+
+
+def moe_capacity(cfg, T: int):
+    """(G, C) for ``T`` routed rows: dispatch groups (``dispatch_groups``
+    when it divides T, else 1) and each expert's capacity in a group. C is
+    the JAX package's expression copied as written: the two minus signs
+    cancel, so it FLOORS, max(4, floor(Tg * cf * K / E))."""
+    m = cfg.moe
+    G = m.dispatch_groups if T % max(m.dispatch_groups, 1) == 0 else 1
+    Tg = T // G
+    C = int(max(4, -(-Tg * m.capacity_factor * m.top_k) // m.num_experts))
+    return G, C
+
+
+def moe_route(cfg, p: Params, x: torch.Tensor):
+    """The routing half of ``moe_apply``. x: (B, S, d). Every one of the T =
+    B * S rows is routed (bucket padding and dead decode slots take
+    capacity, as in the JAX package). Returns (gate_w (T, K) fp32, the
+    renormalised top-K probabilities; gate_i (T, K) int64 experts; flat (G,
+    K * Tg) int64, each routed slot's row e * C + pos of the (E * C + 1)-row
+    dispatch buffer, E * C for a dropped slot; keep (G, K * Tg) bool). The
+    router runs in fp32; ties go to the lower expert index, as
+    ``jax.lax.top_k`` breaks them; slots are ranked slot-major in their
+    group (all first choices, then all second choices, ...). No host sync
+    and no data-dependent shape, so it runs inside a captured graph."""
+    B, S, d = x.shape
+    m = cfg.moe
+    E, K = m.num_experts, m.top_k
+    T = B * S
+    G, C = moe_capacity(cfg, T)
+    Tg = T // G
+    logits = x.reshape(T, d).float() @ p["router"].float()
+    probs = torch.softmax(logits, -1)
+    gate_w, gate_i = torch.sort(probs, dim=-1, descending=True,
+                                stable=True)
+    gate_w, gate_i = gate_w[:, :K], gate_i[:, :K]
+    gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    eidx = gate_i.reshape(G, Tg, K).transpose(1, 2).reshape(G, K * Tg)
+    oh = (eidx[..., None] == torch.arange(E, device=x.device)).to(torch.int32)
+    pos = torch.gather(torch.cumsum(oh, 1) - 1, 2, eidx[..., None])[..., 0]
+    keep = pos < C
+    flat = torch.where(keep, eidx * C + pos, torch.full_like(eidx, E * C))
+    return gate_w, gate_i, flat, keep
+
+
+def moe_dispatch(cfg, x: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    """The (G, E, C, d) expert buffer: each kept routed slot's row copied to
+    its one row e * C + pos of its group (a dropped slot to the discarded
+    row E * C, cut off here); rows no slot fills stay zero. No accumulating
+    scatter: every kept row has one writer, so two runs give the same
+    bits."""
+    B, S, d = x.shape
+    m = cfg.moe
+    E, K = m.num_experts, m.top_k
+    G, C = moe_capacity(cfg, B * S)
+    Tg = B * S // G
+    xrep = x.reshape(G, 1, Tg, d).expand(G, K, Tg, d).reshape(G, K * Tg, d)
+    buf = x.new_zeros((G, E * C + 1, d))
+    buf.scatter_(1, flat[..., None].expand(G, K * Tg, d), xrep)
+    return buf[:, : E * C].reshape(G, E, C, d)
+
+
+def moe_experts(p: Params, buf: torch.Tensor) -> torch.Tensor:
+    """Every expert's gated MLP over its rows of each group: silu(buf @ wg)
+    * (buf @ wi) @ wo, (G, E, C, d) -> (G, E, C, d). Plain ``einsum``, as
+    the reference's expert products are plain jnp."""
+    h = torch.einsum("gecd,edf->gecf", buf, p["wi"])
+    g = torch.einsum("gecd,edf->gecf", buf, p["wg"])
+    return torch.einsum("gecf,efd->gecd", F.silu(g) * h, p["wo"])
+
+
+def moe_combine(cfg, eo: torch.Tensor, gate_w: torch.Tensor,
+                flat: torch.Tensor, keep: torch.Tensor,
+                x: torch.Tensor) -> torch.Tensor:
+    """Each row's output sum_k w_k * keep_k * (its k-th slot's expert row),
+    in x's dtype (a dropped slot reads the zero row E * C). -> x's shape."""
+    B, S, d = x.shape
+    G, E, C = eo.shape[0], eo.shape[1], eo.shape[2]
+    K = cfg.moe.top_k
+    Tg = B * S // G
+    eo_flat = torch.cat([eo.reshape(G, E * C, d), eo.new_zeros((G, 1, d))], 1)
+    got = torch.gather(eo_flat, 1, flat[..., None].expand(G, K * Tg, d))
+    w = (gate_w.reshape(G, Tg, K).transpose(1, 2)
+         * keep.reshape(G, K, Tg)).to(x.dtype)
+    return torch.einsum("gkt,gktd->gtd", w,
+                        got.reshape(G, K, Tg, d)).reshape(B, S, d)
+
+
+def moe_apply(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Token-dropping MoE FFN with grouped dispatch, after the JAX
+    package's ``layers.moe_apply``: ``moe_route``, ``moe_dispatch``,
+    ``moe_experts`` (the expert products stay plain PyTorch, as they stay
+    jnp in the reference), ``moe_combine``, plus the shared expert's MLP
+    where the config has one. The auxiliary losses (load balance, router
+    z-loss) are not computed: they belong to training, which is not
+    ported. x: (B, S, d) -> (B, S, d)."""
+    gate_w, _, flat, keep = moe_route(cfg, p, x)
+    eo = moe_experts(p, moe_dispatch(cfg, x, flat))
+    out = moe_combine(cfg, eo, gate_w, flat, keep, x)
+    if cfg.moe.shared_expert:
+        out = out + mlp_apply(cfg, p["shared"], x)
+    return out

@@ -1,11 +1,12 @@
 """Decoder stack: embedding -> a Python loop over blocks -> norm -> head.
 
 Counterpart of ``repro.models.transformer`` for the stacks the paged engine
-serves: full attention (``attn_mlp``), sliding-window attention
-(``local_attn``), Mamba2 (``ssm``) and RG-LRU (``rglru``) blocks, in any
-pattern. Where the JAX package stacks each pattern position's parameters
-and runs ``lax.scan`` over super-blocks, the port keeps one parameter dict
-per layer, in layer order, and loops over them.
+serves: full attention with a dense MLP (``attn_mlp``) or a token-dropping
+MoE FFN (``attn_moe``), sliding-window attention (``local_attn``), Mamba2
+(``ssm``) and RG-LRU (``rglru``) blocks, in any pattern. Where the JAX
+package stacks each pattern position's parameters and runs ``lax.scan``
+over super-blocks, the port keeps one parameter dict per layer, in layer
+order, and loops over them.
 """
 from __future__ import annotations
 
@@ -15,10 +16,11 @@ import torch
 
 from repro_torch.models import griffin, ssm
 from repro_torch.models.layers import (attention_apply, attention_decode,
-                                       kv_quant, mlp_apply, norm_apply)
+                                       kv_quant, mlp_apply, moe_apply,
+                                       norm_apply, paged_rows)
 
 VOCAB_PAD = 256
-PAGEABLE_KINDS = ("attn_mlp",)          # full-attention page pools
+PAGEABLE_KINDS = ("attn_mlp", "attn_moe")   # full-attention page pools
 WINDOW_KINDS = ("local_attn",)          # sliding-window page pools
 STATE_KINDS = ("ssm", "rglru")          # fixed-size per-slot state
 SERVABLE_KINDS = PAGEABLE_KINDS + WINDOW_KINDS + STATE_KINDS
@@ -68,7 +70,8 @@ def block_apply(cfg, kind: str, p, x: torch.Tensor, prefix=None,
     (``prefix``: see ``layers.attention_apply``), the decode state for the
     recurrent ones, whose updates past ``length`` (real tokens of a
     right-padded bucket) are the identity. ``ssm`` blocks have no FFN
-    sublayer."""
+    sublayer; ``attn_moe`` blocks route every row, bucket padding too,
+    through ``moe_apply``."""
     h = norm_apply(p["ln1"], x, cfg.norm)
     if kind == "ssm":
         a, cache = ssm.ssm_apply(cfg, p["mixer"], h, return_state=True,
@@ -83,18 +86,29 @@ def block_apply(cfg, kind: str, p, x: torch.Tensor, prefix=None,
                                     window=window)
         cache = {"k": kv_quant(cfg, k), "v": kv_quant(cfg, v)}
     x = x + a
-    x = x + mlp_apply(cfg, p["mlp"], norm_apply(p["ln2"], x, cfg.norm))
-    return x, cache
+    return x + ffn_apply(cfg, kind, p, norm_apply(p["ln2"], x, cfg.norm)), \
+        cache
+
+
+def ffn_apply(cfg, kind: str, p, h: torch.Tensor) -> torch.Tensor:
+    """The FFN sublayer: ``moe_apply`` on an ``attn_moe`` block, else the
+    dense MLP."""
+    if kind == "attn_moe":
+        return moe_apply(cfg, p["moe"], h)
+    return mlp_apply(cfg, p["mlp"], h)
 
 
 def block_decode(cfg, kind: str, p, x: torch.Tensor, cache,
                  pos: torch.Tensor, block_table: torch.Tensor,
-                 win_block_table: Optional[torch.Tensor] = None):
+                 win_block_table: Optional[torch.Tensor], rows, win_rows):
     """Decode step of one block. Attention kinds write their pools in place
-    (``local_attn`` through ``win_block_table``, with the window) and
-    return (x, None); recurrent kinds read their state and return (x, new
-    state): plain for T == 1, checkpointed for T > 1 (see
-    ``griffin.rglru_decode``, ``ssm.ssm_decode``)."""
+    (``local_attn`` through ``win_block_table``, with the window; ``rows``
+    / ``win_rows``: ``layers.paged_rows`` of the two tables, None for a
+    table the stack has no layer on) and return (x, None); recurrent kinds
+    read their state and return (x, new state): plain for T == 1,
+    checkpointed for T > 1 (see ``griffin.rglru_decode``,
+    ``ssm.ssm_decode``). An ``attn_moe`` block routes every row of the
+    step, dead slots' too, as the JAX package's step does."""
     h = norm_apply(p["ln1"], x, cfg.norm)
     new = None
     if kind == "ssm":
@@ -104,11 +118,13 @@ def block_decode(cfg, kind: str, p, x: torch.Tensor, cache,
         a, new = griffin.rglru_decode(cfg, p["mixer"], h, cache)
     elif kind == "local_attn":
         a, _ = attention_decode(cfg, p["attn"], h, cache, pos,
-                                win_block_table, window=cfg.hybrid.window)
+                                win_block_table, win_rows,
+                                window=cfg.hybrid.window)
     else:
-        a, _ = attention_decode(cfg, p["attn"], h, cache, pos, block_table)
+        a, _ = attention_decode(cfg, p["attn"], h, cache, pos, block_table,
+                                rows)
     x = x + a
-    return x + mlp_apply(cfg, p["mlp"], norm_apply(p["ln2"], x, cfg.norm)), \
+    return x + ffn_apply(cfg, kind, p, norm_apply(p["ln2"], x, cfg.norm)), \
         new
 
 
@@ -145,10 +161,19 @@ def stack_decode(cfg, blocks, x: torch.Tensor, caches, pos: torch.Tensor,
     with a T > 1 block's checkpointed states in place of the recurrent
     layers' when no ``state_out`` takes them)."""
     T = x.shape[1]
+    kinds = layer_kinds(cfg)
+    # where the step's rows write, once for each table (every layer on a
+    # table writes the same pool rows)
+    rows = win_rows = None
+    for kind, c in zip(kinds, caches):
+        if kind in PAGEABLE_KINDS and rows is None:
+            rows = paged_rows(block_table, pos, T, c["k"].shape[1])
+        if kind in WINDOW_KINDS and win_rows is None:
+            win_rows = paged_rows(win_block_table, pos, T, c["k"].shape[1])
     out = list(caches)
-    for j, (kind, p, c) in enumerate(zip(layer_kinds(cfg), blocks, caches)):
+    for j, (kind, p, c) in enumerate(zip(kinds, blocks, caches)):
         x, new = block_decode(cfg, kind, p, x, c, pos, block_table,
-                              win_block_table)
+                              win_block_table, rows, win_rows)
         if new is None:
             continue
         dst = c if T == 1 else (None if state_out is None else state_out[j])

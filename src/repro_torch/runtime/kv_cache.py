@@ -6,8 +6,11 @@ of pages, one block table per request, refcounted pages shared between
 tables (prefix sharing, copy-on-write, speculative rollback) and pinned by
 the prefix cache. The device pools live in
 ``repro_torch.models.api.paged_cache_init``. Page 0 is the scratch page:
-dead slots and beyond-allocation writes are redirected there, and its
-contents are always masked out on the read side. A sliding-window table
+dead slots' writes, bucket padding and beyond-allocation writes land there.
+No live row reads it (every key it could show a live row is masked); a dead
+row, whose table is all scratch, reads nothing else, and its output is
+thrown away (on an MoE stack its routing still takes expert capacity,
+which is why the engine keeps a dead row's inputs the reference's). A sliding-window table
 (the hybrid stacks' local attention) recycles its lead blocks as they slide
 out of the window and keeps their count as a base offset, so logical block
 j still means positions [j * page, (j + 1) * page). A host-resident table

@@ -101,6 +101,15 @@ def _win_rid(rid: int):
     return ("win", rid)
 
 
+def last_occurrences(target: np.ndarray) -> np.ndarray:
+    """Ascending indices of the last occurrence of each value of the 1-D
+    ``target``: writing only those rows leaves each target its last
+    writer's value, the order the JAX engine's scatter leaves, where a CUDA
+    scatter with duplicate indices leaves any one of them."""
+    _, first_rev = np.unique(target[::-1], return_index=True)
+    return np.sort(len(target) - 1 - first_rev)
+
+
 def _next_pow2(n: int) -> int:
     p = 1
     while p < n:
@@ -363,7 +372,10 @@ class PagedServingEngine(ServingMetricsMixin):
         # device-side slot state, allocated once: the step bodies read and
         # advance it in place (a captured graph holds these addresses) and
         # the host writes it in place between steps, on the same stream.
-        # Dead slots hold an all-scratch table at position 0.
+        # A dead slot holds an all-scratch table and keeps the position and
+        # token it died with, as the reference's does: its row still runs
+        # through the step (an MoE router sees it), reading and writing only
+        # the scratch page.
         self.block_table = dev(slots, torch.int32, self.max_blocks)
         # the sliding-window table: logical block j still means positions
         # [j * page, (j + 1) * page), but entries that slid below the window
@@ -610,8 +622,7 @@ class PagedServingEngine(ServingMetricsMixin):
                     self.cfg, self.params, torch.from_numpy(tok_arr).to(dev),
                     length=torch.full((1,), L, dtype=torch.int32,
                                       device=dev))
-                self._scatter_prefill(kv, slot, torch.from_numpy(pages).to(
-                    dev), torch.from_numpy(pages_win).to(dev))
+                self._scatter_prefill(kv, slot, pages, pages_win)
                 tok = sample_rows(logits[:, : self.cfg.vocab], pol1)[0]
             self.prefilled_tokens += L
         else:
@@ -647,11 +658,15 @@ class PagedServingEngine(ServingMetricsMixin):
                     length=torch.full((1,), len(suffix), dtype=torch.int32,
                                       device=dev),
                     prefix_kv=prefix_kv, prefix_len=prefix_len)
-                phys_d = torch.from_numpy(phys).to(dev)
-                rows_d = torch.from_numpy(rows).to(dev)
+                # bucket padding lands on scratch rows, several tokens on
+                # one row: write each row's last token only
+                last = last_occurrences(phys * self.page_size + rows)
+                phys_d = torch.from_numpy(phys[last]).to(dev)
+                rows_d = torch.from_numpy(rows[last]).to(dev)
+                last_d = torch.from_numpy(last).to(dev)
                 for pool, e in zip(self.cache, kv):
                     for name in ("k", "v"):
-                        pool[name][phys_d, rows_d] = e[name][0]
+                        pool[name][phys_d, rows_d] = e[name][0][last_d]
                 tok = sample_rows(logits[:, : self.cfg.vocab], pol1)[0]
             self.prefilled_tokens += len(suffix)
         self.block_table[slot] = torch.from_numpy(row).to(dev)
@@ -692,30 +707,39 @@ class PagedServingEngine(ServingMetricsMixin):
             self._finish_slot(slot)
         return True
 
-    def _scatter_prefill(self, kv, slot: int, pages: torch.Tensor,
-                         pages_win: torch.Tensor) -> None:
+    def _scatter_prefill(self, kv, slot: int, pages: np.ndarray,
+                         pages_win: np.ndarray) -> None:
         """Write a prefill's cache entries: full-attention k/v blocks into
-        ``pages``, sliding-window ones into ``pages_win`` (whose
-        pre-window blocks and bucket padding are the scratch page), and
-        every leaf of each recurrent layer's state into slot ``slot``, so
-        nothing of the slot's previous request survives."""
+        ``pages``, sliding-window ones into ``pages_win`` (host arrays;
+        bucket padding and pre-window blocks are the scratch page, which
+        gets the last of its blocks, as the reference's scatter leaves it),
+        and every leaf of each recurrent layer's state into slot ``slot``,
+        so nothing of the slot's previous request survives."""
         nb = pages.shape[0]
+        dev = self.device
+        dst = {}
+        for name, pg in (("full", pages), ("win", pages_win)):
+            last = last_occurrences(pg)
+            dst[name] = (torch.from_numpy(pg[last]).to(dev),
+                         torch.from_numpy(last).to(dev))
         for pool, e, kind in zip(self.cache, kv, tfm.layer_kinds(self.cfg)):
             if kind in api.STATE_KINDS:
                 for name, t in pool.items():
                     t[slot].copy_(e[name][0])
                 continue
-            dst = pages_win if kind in api.WINDOW_KINDS else pages
+            pg, last = dst["win" if kind in api.WINDOW_KINDS else "full"]
             for name in ("k", "v"):
-                pool[name][dst] = e[name][0].reshape(
-                    (nb, self.page_size) + pool[name].shape[2:])
+                pool[name][pg] = e[name][0].reshape(
+                    (nb, self.page_size) + pool[name].shape[2:])[last]
 
     def _release_slot(self, slot: int, demote: bool = False) -> Request:
         """Reclaim a slot's pages (``demote``: move its tables to the
-        allocator's host-resident class instead of freeing them); its table
-        becomes all-scratch so a dead slot can only ever write to the
-        scratch page, its position 0 so the decode kernel walks one scratch
-        page for it, and its policy row greedy."""
+        allocator's host-resident class instead of freeing them); its tables
+        become all-scratch so a dead slot can only ever read and write the
+        scratch page, and its policy row greedy. Its position and token
+        stay what they were, as in the reference: the dead row still runs
+        through every step, and on an MoE stack it takes expert capacity,
+        so it must compute what the reference's dead row computes."""
         req = self.live[slot]
         self.live[slot] = None
         self._policy[slot] = None
@@ -726,7 +750,6 @@ class PagedServingEngine(ServingMetricsMixin):
         if self.has_win:
             release(_win_rid(req.rid))
             self.win_table[slot] = SCRATCH_PAGE
-        self.pos[slot] = 0
         self.live_mask[slot] = False
         self.pol.clear_slot(slot)
         if self.drafter is not None:
@@ -1290,7 +1313,9 @@ class PagedServingEngine(ServingMetricsMixin):
         t0 = time.perf_counter()
         tok_block = np.zeros((self.slots, T), np.int64)
         n_draft = np.zeros((self.slots,), np.int64)
-        spec_pos = np.zeros((self.slots,), np.int32)
+        # a dead slot's block is zeros at its last position, the
+        # reference's dead row
+        spec_pos = np.asarray(self._pos_host, np.int32)
         with tr.span("draft"):
             for s, r in enumerate(self.live):
                 if r is None:
@@ -1305,7 +1330,6 @@ class PagedServingEngine(ServingMetricsMixin):
                                       max_ngram=self.spec_ngram)
                 tok_block[s, 1:1 + len(d)] = d
                 n_draft[s] = len(d)
-                spec_pos[s] = self._pos_host[s]
                 self.spec_drafted += len(d)
                 self.spec_slot_steps += 1
         with tr.span("device_dispatch"):

@@ -32,6 +32,20 @@ def test_param_count_matches_jax():
                 == jconfigs.get_config(arch).param_count())
 
 
+def test_active_param_count_matches_jax():
+    """Per-token active parameters: the routed subset on the MoE configs
+    (dbrx's top-4 of 16 experts, llama4's top-1 of 128 plus the shared
+    expert every second layer), the total elsewhere; full and SMOKE."""
+    for arch in tconfigs.ARCHS:
+        for getter in ("get_config", "get_smoke_config"):
+            mine = getattr(tconfigs, getter)(arch)
+            want = getattr(jconfigs, getter)(arch)
+            assert mine.active_param_count() == want.active_param_count()
+            assert mine.param_count() == want.param_count()
+    dbrx = tconfigs.get_config("dbrx-132b")
+    assert dbrx.active_param_count() < dbrx.param_count() / 3
+
+
 def test_import_loads_no_jax_and_no_repro_module():
     code = (
         "import sys\n"
@@ -41,6 +55,7 @@ def test_import_loads_no_jax_and_no_repro_module():
         "import repro_torch.launch.kernel_bench, repro_torch.kernels.gemm_os\n"
         "import repro_torch.launch.host_cost, repro_torch.launch.gemm_probe\n"
         "import repro_torch.launch.paged_probe\n"
+        "import repro_torch.launch.step_probe\n"
         "import repro_torch.launch.mha_pool_probe\n"
         "import repro_torch.runtime.trace, repro_torch.launch.serve_bench\n"
         "import repro_torch.launch.check_csv, repro_torch.models.layers\n"

@@ -26,6 +26,7 @@ from repro_torch.runtime.scheduler import Scheduler  # noqa: E402
 from repro_torch.runtime.serving import PagedServingEngine, Request  # noqa
 from torch_cases import (BLOCKED_CASES, CONV_SPECS,  # noqa: E402
                          EPILOGUE_EDGES, F32, GEMM_SHAPES, MASK_PROBES,
+                         dying_traffic,
                          MHA_CASES, PAGED_CASES, POOL_SPECS, QUANT_SCALES,
                          STEM_SPEC, TC_GEMM_SHAPES, TRANSPOSE_SHAPES,
                          epilogue_inputs, gemm_inputs, int8_extremes,
@@ -463,7 +464,9 @@ def serve_on(cls, cfg, params, dev, reqs, **kw):
 @pytest.mark.gpu
 @pytest.mark.parametrize("attn_impl", ["kernel", "gather"])
 @pytest.mark.parametrize("arch", ["yi-6b", "qwen1.5-4b", "qwen2.5-3b",
-                                  "granite-3-2b"])
+                                  "granite-3-2b", "dbrx-132b",
+                                  "llama4-maverick-400b-a17b",
+                                  "internvl2-2b"])
 def test_cuda_engine_tokens_equal_cpu_engine(cuda, arch, attn_impl):
     """fp32 smoke model: the engine on the card (its decode step a replayed
     CUDA graph) emits the CPU engine's greedy tokens (plain versions),
@@ -513,6 +516,75 @@ def test_cuda_graph_replay_equals_uncaptured_body(cuda, attn_impl, max_len,
                            **kw)
     assert ref_eng.step_traces == 0 and eng.step_traces == 1
     assert got == want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b",
+                                  "internvl2-2b"])
+def test_cuda_moe_vlm_graph_replay_equals_uncaptured_body(cuda, arch):
+    """The MoE and vlm stacks' replayed graph (routing, dispatch, experts
+    and combine captured with the step) emits the tokens of the same step
+    body run uncaptured on the card, through admissions, finishes and a
+    preemption, with one capture."""
+    cfg, params = smoke_fp32(arch)
+
+    def traffic():
+        return [Request(rid=i, prompt=[(3 * i + 5 * j) % cfg.vocab
+                                       for j in range(7 - i)], max_new=8 + i)
+                for i in range(3)]
+
+    want, ref_eng, _ = serve_on(UncapturedEngine, cfg, params, cuda,
+                                traffic())
+    got, eng, _ = serve_on(PagedServingEngine, cfg, params, cuda, traffic())
+    assert ref_eng.step_traces == 0 and eng.step_traces == 1
+    assert got == want
+
+
+def dying_requests(slots, vocab):
+    return [Request(rid=i, prompt=p, max_new=b)
+            for i, (p, b) in enumerate(dying_traffic(slots, vocab))]
+
+
+@pytest.mark.gpu
+def test_cuda_dbrx_dying_slots_equal_cpu_and_repeat(cuda):
+    """dbrx SMOKE at 8 slots, where decode capacity binds with dead rows
+    in the step: the card's graph emits the CPU engine's tokens (which
+    tests/test_torch_moe.py holds against the JAX engine's), and a second
+    run on the card emits them again: dead rows write the scratch page
+    through the last-writer write, so nothing depends on the order the
+    card applies duplicate writes in."""
+    cfg, params = smoke_fp32("dbrx-132b")
+    kw = dict(slots=8, num_pages=None)
+    want, _, _ = serve_on(PagedServingEngine, cfg, params, "cpu",
+                          dying_requests(8, cfg.vocab), **kw)
+    runs = [serve_on(PagedServingEngine, cfg, params, cuda,
+                     dying_requests(8, cfg.vocab), **kw)[0]
+            for _ in range(2)]
+    assert runs[0] == runs[1] == want
+
+
+@pytest.mark.gpu
+def test_cuda_last_writer_write_leaves_the_last_rows_value(cuda):
+    """Three dead rows at one position write one scratch row in the same
+    step on the card: it holds the last row's k/v (the row alone, written
+    to a fresh pool), whatever order the card applies the writes in."""
+    from repro_torch.models import layers
+    cfg, params = smoke_fp32("dbrx-132b")
+    attn = tree_to(params["blocks"][0]["attn"], cuda)
+    x = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (3, 1, cfg.d_model)).astype(np.float32)).to(cuda)
+    table = torch.zeros((3, 2), dtype=torch.int32, device=cuda)
+    pos = torch.full((3,), 5, dtype=torch.int32, device=cuda)
+    rows = layers.paged_rows(table, pos, 1, 4)
+    rows_alone = layers.paged_rows(table[2:], pos[2:], 1, 4)
+    for _ in range(3):
+        pool = api.paged_cache_init(cfg, 3, 4, device=cuda)[0]
+        layers.attention_decode(cfg, attn, x, pool, pos, table, rows)
+        alone = api.paged_cache_init(cfg, 3, 4, device=cuda)[0]
+        layers.attention_decode(cfg, attn, x[2:], alone, pos[2:], table[2:],
+                                rows_alone)
+        assert torch.equal(pool["k"][0, 1], alone["k"][0, 1])
+        assert torch.equal(pool["v"][0, 1], alone["v"][0, 1])
 
 
 @pytest.mark.gpu

@@ -557,6 +557,26 @@ def test_tiered_engine_matches_jax_and_unconstrained(impl):
     _assert_tier_done(eng, base.prefilled_tokens)
 
 
+def test_tiered_dbrx_engine_matches_jax_and_unconstrained():
+    """An MoE stack (dbrx SMOKE) through swap-out / swap-in: a swapped-out
+    slot is a dead row of the steps it misses, at the position it was
+    swapped at, as in the reference, so the tokens equal the JAX tiered
+    engine's and the uncapped run's."""
+    jc, tc, jp, tp = _pair("dbrx-132b")
+    jeng = JEngine(jc, jp, slots=2, max_len=32, page_size=4, num_pages=4,
+                   attn_impl="gather", host_tier=True)
+    want = _jax_drain(jeng, _mixed(cls=JRequest))
+    base = PagedServingEngine(tc, tp, slots=2, max_len=32, page_size=4,
+                              num_pages=32, attn_impl="kernel", device="cpu")
+    assert _drain(base, _mixed()) == want
+    eng = PagedServingEngine(tc, tp, slots=2, max_len=32, page_size=4,
+                             num_pages=4, attn_impl="kernel", host_tier=True,
+                             device="cpu")
+    assert _drain(eng, _mixed()) == want
+    assert eng.tier.swap_outs == jeng.tier.swap_outs > 0
+    _assert_tier_done(eng, base.prefilled_tokens)
+
+
 def test_evict_only_engine_reprefills_what_the_tier_does_not():
     """The same capped pool without the tier: the same tokens, at the cost
     of re-prefilling each preempted request; the tiered engine prefills

@@ -381,3 +381,31 @@ def test_prefix_cache_saves_peak_pages(pair):
     pref.reset_metrics()
     m = pref.metrics()
     assert m["prefix.hits"] == 0 and m["prefix.cached_pages"] >= 4
+
+
+@pytest.fixture(scope="module")
+def dbrx_pair():
+    jc = dataclasses.replace(jcfg("dbrx-132b"), dtype="float32")
+    tc = dataclasses.replace(tcfg("dbrx-132b"), dtype="float32")
+    jp = japi.init_params(jc, jax.random.key(0))
+    tp = params_from_jax(tc, jax.tree.map(np.asarray, jp), device="cpu")
+    return jc, tc, jp, tp
+
+
+@pytest.mark.parametrize("attn_impl", ["kernel", "gather"])
+def test_engine_prefix_cache_dbrx_tokens_equal_jax(dbrx_pair, attn_impl):
+    """An MoE stack (dbrx SMOKE) under the prefix cache, through
+    preemption: a suffix prefill routes only the suffix bucket's rows, as
+    the reference's does, so the tokens equal the JAX prefix-cache
+    engine's (gather)."""
+    jc, tc, jp, tp = dbrx_pair
+    kw, max_new, _ = CASES["preemption"]
+    base = dict(max_len=32, page_size=4, **kw)
+    want, _ = _run(JEngine(jc, jp, attn_impl="gather", prefix_cache=True,
+                           **base), _mk_shared(JRequest, max_new),
+                   JScheduler)
+    eng = PagedServingEngine(tc, tp, attn_impl=attn_impl, prefix_cache=True,
+                             device="cpu", **base)
+    got, sched = _run(eng, _mk_shared(Request, max_new), Scheduler)
+    assert got == want
+    assert eng.prefix_stats()["hits"] >= 2 and sched.preempted >= 1

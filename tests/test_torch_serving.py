@@ -84,12 +84,14 @@ def _fp32_pair(arch="qwen2.5-3b"):
     return jc, tc, jp, tp
 
 
-# every arch of the port's registry under both decode attention impls
-# (qwen2.5-3b's cases keep their ids: "kernel", "gather")
+# every attention arch of the port's registry under both decode attention
+# impls (qwen2.5-3b's cases keep their ids: "kernel", "gather"); the MoE and
+# vlm stacks take the same path, the MoE router seeing every slot's row
 ENGINE_CASES = [pytest.param(arch, impl, id=impl if arch == "qwen2.5-3b"
                              else f"{arch}-{impl}")
                 for arch in ("qwen2.5-3b", "yi-6b", "qwen1.5-4b",
-                             "granite-3-2b")
+                             "granite-3-2b", "dbrx-132b",
+                             "llama4-maverick-400b-a17b", "internvl2-2b")
                 for impl in ("kernel", "gather")]
 
 
@@ -144,9 +146,10 @@ def test_engine_counts_and_drops_unservable_requests():
     m = eng.metrics()
     assert m["latency.requests"] == 2.0 and m["engine.prefill_traces"] == 1
     assert eng.alloc.allocated_pages == 0
-    # released slots: all-scratch tables at position 0 (one scratch page
-    # for the decode kernel to walk)
-    assert eng.pos.tolist() == [0, 0]
+    # released slots: all-scratch tables, each at the position it died at
+    # (rid 0 at 15; rid 2 finished at its prefill, position 1), as the
+    # reference's dead slots keep theirs
+    assert eng.pos.tolist() == [15, 1]
     assert not eng.block_table.any()
 
 

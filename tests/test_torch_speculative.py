@@ -250,3 +250,28 @@ def test_drafter_requires_spec_k(pair):
         PagedServingEngine(tc, tp, drafter=NgramDrafter(), device="cpu")
     with pytest.raises(ValueError, match="spec_k"):
         PagedServingEngine(tc, tp, spec_k=-1, device="cpu")
+
+
+def test_spec_dbrx_tokens_equal_jax_spec():
+    """An MoE stack (dbrx SMOKE) with spec_k 3 through preemption: the
+    verify block routes slots x (spec_k + 1) rows, dead slots' blocks of
+    zeros at their last position among them, so its capacity and drops are
+    the verify step's own; the tokens equal the JAX speculative engine's
+    (gather, n-gram drafts)."""
+    jc = dataclasses.replace(jcfg("dbrx-132b"), dtype="float32")
+    tc = dataclasses.replace(tcfg("dbrx-132b"), dtype="float32")
+    jp = japi.init_params(jc, jax.random.key(0))
+    tp = params_from_jax(tc, jax.tree.map(np.asarray, jp), device="cpu")
+    kw = dict(slots=3, max_len=32, page_size=4, num_pages=7)
+
+    def mk(cls):
+        return [cls(rid=i, prompt=[2 + i, 9, 4, 1 + i, 7, 2 + i, 9][:7 - i],
+                    max_new=4 + 3 * i) for i in range(5)]
+
+    want, _ = _run(JEngine(jc, jp, attn_impl="gather", spec_k=3, **kw),
+                   mk(JRequest), JScheduler)
+    eng = PagedServingEngine(tc, tp, device="cpu", spec_k=3, **kw)
+    got, sched = _run(eng, mk(Request), Scheduler)
+    assert got == want
+    assert eng.spec_stats()["spec_drafted"] > 0 and sched.preempted >= 1
+    assert eng.alloc.allocated_pages == 0

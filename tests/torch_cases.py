@@ -218,3 +218,15 @@ def pool_input(seed, H, W, C, *, nan=False):
         x[0, H // 2, W // 2, 1] = np.nan
         x[1, 0, 0, 0] = np.nan
     return x
+
+
+def dying_traffic(slots, vocab):
+    """(prompt, max_new) of slots + 4 requests of 3-11 tokens with budgets
+    of 2-11 tokens: decode slots die at different steps while others
+    decode, and the queue refills them (the MoE engine tests' traffic, on
+    the CPU against the JAX engine and on the card)."""
+    rng = np.random.default_rng(7)
+    n = slots + 4
+    lens, budgets = rng.integers(3, 12, n), rng.integers(2, 12, n)
+    return [([int(t) for t in rng.integers(1, vocab, L)], int(b))
+            for L, b in zip(lens, budgets)]
