@@ -132,12 +132,36 @@ Phases, each failing loudly (non-zero exit, no result line):
    dbrx (8 of 40 layers), llama4 (2 of 48) and internvl2 (whole): tok/s,
    TTFT, TPOT, peak memory, launches, one capture, and a decode step by
    piece with the expert GEMMs beside their byte bound.
+12. the dense-slot engine and the encoder-decoder stack (generators of
+   their own): mha at this path's shapes, bf16 and fp32, against its
+   plain version: seamless's encoder (B 2, Sq = Sk = 1024, non-causal,
+   H16 KV16 D64) and cross prefill (128 rows against 1024 frames), the
+   dense lanes' decode row (B 8, Sq 1, a device kv_valid 1..1024) at
+   qwen2.5-3b's and seamless's heads (bf16 also replayed in a graph after
+   the counts change), the cross decode, and a window ring's count min(pos
+   + 1, W) at recurrentgemma's heads; each timed beside SDPA and its
+   bound. At fp32, full width: qwen2.5-3b at 4 layers, the dense engine's
+   greedy tokens equal the paged kernel and gather engines', 8 dense graph
+   replays equal the uncaptured body bit for bit; recurrentgemma-9b at 3
+   layers, window 2048, the dense ring lanes' tokens equal the paged
+   engine's on prompts of 1990-3400 tokens with 80 new. At full depth,
+   bf16: qwen2.5-3b's serve traffic through the dense and the paged
+   engine in turns (P D D P): tok/s, TTFT, TPOT, peak memory, launches,
+   captures and ``kernel/dense``. seamless-m4t-large-v2 at 2 + 2 layers,
+   fp32: prefill and 4 decode steps on the card against the CPU plain
+   path; whole, bf16: a prefill of 8 x 128 tokens over 8 x 1024 frames
+   and 32 greedy decode steps on its dense lanes, eager and as one graph
+   (prefill ms, ms a step, peak memory, mha launches, equal tokens); the
+   factory picks the dense engine for it and serving through it raises
+   for the missing enc_embeds.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary (the
 seven TPU kernels' counterparts, the sampler's noise kernel, mha and
 paged flash-decode again at the hybrid path's windowed shapes with that
-path's launches, both again with the host tier path's launches, and
-both at each MoE and vlm arch's heads with its serve run's launches);
+path's launches, both again with the host tier path's launches,
+both at each MoE and vlm arch's heads with its serve run's launches, and
+mha at the dense decode row and at seamless's encoder with those runs'
+launches);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -169,10 +193,13 @@ from repro_torch.launch import kernel_bench as bench  # noqa: E402
 from repro_torch.launch.host_cost import host_us  # noqa: E402
 from repro_torch.launch.kernel_bench import cuda_ms  # noqa: E402
 from repro_torch.models import api  # noqa: E402
-from repro_torch.runtime.serving import PagedServingEngine, Request  # noqa: E402
+from repro_torch.runtime.serving import (DenseServingEngine,  # noqa: E402
+                                         PagedServingEngine, Request,
+                                         capture_graph)
 from repro_torch.runtime.trace import Tracer  # noqa: E402
 
 SEED = 0
+PHASE6 = {}         # phase 6's serve tok/s, which phase 12 compares with
 
 # serving configuration of phase 6 (and the shapes phase 4 times at)
 SLOTS, MAX_LEN, PAGE, MAX_NEW, N_REQ = 8, 1024, 16, 32, 16
@@ -1260,6 +1287,7 @@ def serve(rng):
     m = eng.metrics()
     n_tok = sum(len(r.generated) for r in done)
     steps = eng.decode_steps
+    PHASE6["tok_s"] = n_tok / wall
     log(f"serve: {len(done)}/{N_REQ} requests (prompts "
         f"{int(lengths.min())}-{int(lengths.max())} tokens), {n_tok} tokens "
         f"in {wall:.2f} s = {n_tok / wall:.1f} tok/s, ttft p50 "
@@ -1521,7 +1549,7 @@ def run_serve_bench() -> None:
         fail(f"serve_bench CSV: {errors}")
     rows = [dict(zip(text.splitlines()[0].split(","), line.split(",")))
             for line in text.splitlines()[1:]]
-    for row in rows[:2]:
+    for row in rows[:3]:        # the dense, gather and kernel engines
         if row["requests_done"] != "12" or row["sched_exhausted"] != "0":
             fail(f"serve_bench: {row['engine']} did not finish its trace")
     log(f"serve_bench: CSV passes the gate but for the "
@@ -2536,8 +2564,9 @@ def run_serve_bench_hybrid() -> None:
     """``serve_bench --scenario hybrid`` at recurrentgemma-9b's full width
     cut to 6 layers and its window to 32 (the trace's 8 prompts of 16-51
     tokens then straddle it, as the SMOKE config's do its 16), at fp32,
-    gated by ``launch/check_csv.py`` (``tokens_match_hybrid``, gather
-    against kernel, must pass) and by the rows' recycled pages."""
+    gated by ``launch/check_csv.py`` (``tokens_match_hybrid``, the dense
+    ring lanes, gather and kernel equal, must pass) and by the paged
+    rows' recycled pages."""
     from repro_torch.launch import check_csv
     t0 = time.perf_counter()
     text = bench_csv(["--full", "--scenario", "hybrid", "--layers", "6",
@@ -2550,9 +2579,10 @@ def run_serve_bench_hybrid() -> None:
     if errors != check_csv.missing_scenario_errors(check_csv.REQUIRED):
         fail(f"serve_bench hybrid CSV: {errors}")
     rows = [row for _, rs in check_csv.parse_sections(text) for row in rs]
-    for row in rows[:2]:
+    for row in rows[:3]:
+        paged = row["engine"].startswith("paged[")
         if row["requests_done"] != "8" or row["tokens_match_hybrid"] != "1" \
-                or not int(row["win_recycled_pages"]) > 0:
+                or (paged and not int(row["win_recycled_pages"]) > 0):
             fail(f"serve_bench hybrid: {row['engine']} did not finish, "
                  f"match or recycle")
 
@@ -3500,6 +3530,478 @@ def moe_kernel_entries(errs, times, counts) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the dense-slot engine and the encoder-decoder stack
+# ---------------------------------------------------------------------------
+
+SEAMLESS = "seamless-m4t-large-v2"
+DENSE_HEADS = {"qwen2.5-3b": (H, KV, D), SEAMLESS: (16, 16, 64)}
+
+
+def dense_mha_cases(rng):
+    """mha at the dense and encoder-decoder path's shapes, (label, q, k, v,
+    causal, kv_valid) on the card, fresh from ``rng`` in ``dtype``: the
+    encoder (B 2, Sq = Sk = 1024, non-causal), the cross prefill (B 8, 128
+    prompt rows against 1024 frames), the dense lanes' decode (B 8, one
+    row a slot, a device kv_valid from 1 up to the 1024-row lane) at
+    qwen2.5-3b's and seamless's heads, the cross decode (all 1024 frames),
+    and a window ring's count min(pos + 1, W) at recurrentgemma's heads
+    (W 2048, positions on both sides of it)."""
+    def cases(dtype):
+        def t(*shape):
+            return torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                                device="cuda")
+
+        def valid(vals):
+            return torch.tensor(vals, dtype=torch.int32, device="cuda")
+        sh, skv, sd = DENSE_HEADS[SEAMLESS]
+        out = [("seamless encoder, B2 Sq=Sk=1024", t(2, 1024, sh, sd),
+                t(2, 1024, skv, sd), t(2, 1024, skv, sd), False, None),
+               ("seamless cross prefill, B8 Sq128 x Sk1024",
+                t(8, 128, sh, sd), t(8, 1024, skv, sd), t(8, 1024, skv, sd),
+                False, None)]
+        lane = [1, 2, 77, 256, 511, 700, 1023, 1024]
+        for arch, (hq, hkv, hd) in DENSE_HEADS.items():
+            out.append((f"{arch} dense decode, B8 Sq1, lane 1024, kv_valid "
+                        f"1..1024", t(8, 1, hq, hd), t(8, 1024, hkv, hd),
+                        t(8, 1024, hkv, hd), False, valid(lane)))
+        out.append(("seamless cross decode, B8 Sq1 x 1024 frames",
+                    t(8, 1, sh, sd), t(8, 1024, skv, sd), t(8, 1024, skv, sd),
+                    False, None))
+        rq, rkv, rd = heads_of("recurrentgemma-9b")
+        W = get_config("recurrentgemma-9b").hybrid.window
+        pos = [0, 5, 1500, 2046, 2047, 2048, 2600, 3499]
+        out.append((f"recurrentgemma ring decode, B8 Sq1, W {W}, n = min("
+                    f"pos + 1, W) at pos {pos[0]}..{pos[-1]}",
+                    t(8, 1, rq, rd), t(8, W, rkv, rd), t(8, W, rkv, rd),
+                    False, valid([min(p + 1, W) for p in pos])))
+        return out
+    return cases
+
+
+def check_dense_mha(rng) -> float:
+    """Each of ``dense_mha_cases`` in bf16 and fp32 against ``ref.mha_ref``
+    on the same inputs (bf16 per row within ``ref.ROW_TOL``, fp32 too);
+    the decode rows with kv_valid also inside a captured CUDA graph,
+    replayed after the counts change in place. Returns the max abs
+    error."""
+    make = dense_mha_cases(rng)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, q, k, v, causal, valid in make(dtype):
+            got = mha_kernel.mha(q, k, v, causal=causal, kv_valid=valid)
+            torch.cuda.synchronize()
+            want = ref.mha_ref(q, k, v, causal=causal, kv_valid=valid)
+            worst = max(worst, agrees(f"mha [{label}, {str(dtype)[6:]}]",
+                                      got, want))
+            if valid is None or dtype != torch.bfloat16:
+                continue
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = mha_kernel.mha(q, k, v, causal=causal, kv_valid=valid)
+            valid.copy_(valid.flip(0))
+            graph.replay()
+            torch.cuda.synchronize()
+            worst = max(worst, agrees(
+                f"mha [{label}, bf16, in a graph, kv_valid reversed]", out,
+                ref.mha_ref(q, k, v, causal=causal, kv_valid=valid)))
+    return worst
+
+
+def time_dense_mha(rng) -> dict:
+    """bf16 times of ``dense_mha_cases``: CUDA-event ms a
+    launch (inputs cycled past the L2 cache where one call's are smaller),
+    profiler device ms, the plain version, SDPA (a kv_valid as a boolean
+    mask) and the bound: the valid K/V rows, q and the output once over
+    3.35 TB/s, against 4 Sq D H flops a valid key. Returns {label: (ms,
+    plain, bound, by, sdpa)}."""
+    out = {}
+    for label, q, k, v, causal, valid in dense_mha_cases(rng)(
+            torch.bfloat16):
+        B, Sq, Hq, Dh = q.shape
+        Sk, KVh = k.shape[1], k.shape[2]
+        keys = B * Sk if valid is None else int(valid.sum())
+        n_bytes = 2 * q.numel() * 2 + 2 * keys * KVh * Dh * 2
+        flops = 4 * Sq * Hq * Dh * keys
+        bms, by = bench.bound_ms(n_bytes, flops, torch.bfloat16)
+        copies = bench.cold_copies((q, k, v), n_bytes)
+
+        def kernel(q, k, v, valid=valid):
+            mha_kernel.mha(q, k, v, causal=causal, kv_valid=valid)
+        ms = bench.cold_ms(kernel, copies)
+        dev = device_ms(kernel, copies)
+        plain = cuda_ms(lambda: ref.mha_ref(q, k, v, causal=causal,
+                                            kv_valid=valid), iters=3)
+        mask = None if valid is None else (
+            torch.arange(Sk, device="cuda")[None, :] < valid[:, None]
+        )[:, None, None, :]
+        tr = [tuple(x.transpose(1, 2).contiguous() for x in c)
+              for c in copies]
+
+        def sdpa(qt, kt, vt):
+            torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        lib = bench.cold_ms(sdpa, tr)
+        lib_dev = device_ms(sdpa, tr)
+        masked = " with the mask" if mask is not None else ""
+        log(f"mha time [{label}, bf16]: {ms:.4f} ms/launch (device "
+            f"{dev:.4f} ms), plain {plain:.4f} ms, SDPA{masked} "
+            f"{lib:.4f} ms (device {lib_dev:.4f} ms), bound {bms:.4f} ms "
+            f"({by}), {bms / ms:.1%} of bound ({bms / dev:.1%} on the "
+            f"device)")
+        out[label] = (ms, plain, bms, by, lib)
+    return out
+
+
+class UncapturedDense(DenseServingEngine):
+    """The dense engine with its step body run as it is, uncaptured."""
+
+    def _dispatch(self):
+        self._step_body()
+
+
+def dense_replays_equal_body(name, cfg, params, traffic) -> None:
+    """8 steps of the dense engine's graph against its uncaptured body, 8
+    slots, budgets that end some requests within them: every row's logits
+    equal bit for bit, dead rows too (a dead row's lane write and its
+    sampled token are the reference's, deterministic)."""
+    engs = [cls(cfg, params, slots=SLOTS, max_len=MAX_LEN, device="cuda")
+            for cls in (UncapturedDense, DenseServingEngine)]
+    for eng in engs:
+        for i, (p, b) in enumerate(traffic):
+            if not eng.submit(Request(rid=i, prompt=list(p), max_new=b)):
+                fail(f"{name}: admission rejected")
+    for s in range(8):
+        for eng in engs:
+            eng.step()
+        if not torch.equal(engs[0].last_logits, engs[1].last_logits):
+            fail(f"{name}: decode step {s}: the graph's logits differ from "
+                 f"the uncaptured body's")
+    dead = sum(r is None for r in engs[1].live)
+    log(f"{name}: 8 replays of the dense decode graph equal the uncaptured "
+        f"body bit for bit on every row ({SLOTS} slots, {dead} dead after "
+        f"the last step); captures {engs[1].step_traces}")
+    if engs[1].step_traces != 1 or dead == 0:
+        fail(f"{name}: captures are not one, or no slot died")
+
+
+def check_dense_exact() -> None:
+    """fp32 (weights, activations, KV cache), full width. qwen2.5-3b cut to
+    4 of 36 layers: the dense engine's greedy tokens equal the paged kernel
+    engine's and the gather engine's (4 slots, 10 requests whose budgets
+    end at different steps), and 8 dense graph replays equal the
+    uncaptured body. recurrentgemma-9b cut to 3 of 38 layers (one
+    pattern), window 2048 as configured: the dense engine's ring lanes
+    emit the paged engine's tokens on prompts of 1990-3400 tokens whose
+    generations run past the window."""
+    f32 = dict(dtype="float32", kv_cache_dtype="float32")
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=4, **f32)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 90)
+    params = api.init_params(cfg, gen, device="cuda")
+    own = np.random.default_rng(SEED + 90)
+    traffic = staggered_traffic(own, cfg.vocab, 10, 3, 24)
+    kw = dict(slots=4, max_len=512, device="cuda")
+    t0 = time.perf_counter()
+    dense = drive(DenseServingEngine(cfg, params, **kw), traffic)[0]
+    kernel = drive(PagedServingEngine(cfg, params, page_size=PAGE, **kw),
+                   traffic)[0]
+    gather = drive(PagedServingEngine(cfg, params, page_size=PAGE,
+                                      attn_impl="gather", **kw), traffic)[0]
+    log(f"dense exact [qwen2.5-3b, fp32, 4 layers, 4 slots, 10 requests]: "
+        f"dense = kernel tokens {dense == kernel}, dense = gather "
+        f"{dense == gather}; {time.perf_counter() - t0:.1f} s")
+    if not dense == kernel == gather:
+        fail("dense exact: the dense, kernel and gather tokens differ")
+    dense_replays_equal_body("dense exact [qwen2.5-3b, fp32, 4 layers]",
+                             cfg, params,
+                             staggered_traffic(own, cfg.vocab, SLOTS, 3, 12))
+    del params
+    torch.cuda.empty_cache()
+    arch = "recurrentgemma-9b"
+    cfg = dataclasses.replace(get_config(arch), num_layers=3, **f32)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 91)
+    params = api.init_params(cfg, gen, device="cuda")
+    lengths = (1990, 2100, 2700, 3400)
+    traffic = [([int(t) for t in own.integers(0, cfg.vocab, n)], 80)
+               for n in lengths]
+    kw = dict(slots=4, max_len=3520, device="cuda")
+    t0 = time.perf_counter()
+    dense = drive(DenseServingEngine(cfg, params, **kw), traffic)[0]
+    paged = drive(PagedServingEngine(cfg, params, page_size=PAGE, **kw),
+                  traffic)[0]
+    log(f"dense exact [{arch}, fp32, 3 layers, window "
+        f"{cfg.hybrid.window}, prompts {lengths}, 80 new]: ring lanes = "
+        f"paged kernel tokens {dense == paged}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if dense != paged:
+        fail(f"dense exact [{arch}]: the ring lanes' tokens differ from the "
+             f"paged engine's")
+    del params
+    torch.cuda.empty_cache()
+
+
+def dense_serving_launches(cfg, eng) -> dict:
+    """The launches a dense serve run must count: mha once an attention
+    layer a decode step (a graph replay) and a prefill, the sampler's
+    noise kernel once a step and a prefill, nothing else."""
+    from repro_torch.models import transformer as tfm
+    n = sum(k not in api.STATE_KINDS for k in tfm.layer_kinds(cfg))
+    want = dict.fromkeys(ops.launch_counts(), 0)
+    want.update({"mha": n * (eng.decode_steps + eng.prefills),
+                 "sampler_noise": eng.decode_steps + eng.prefills})
+    return want
+
+
+def serve_dense(prompts) -> dict:
+    """qwen2.5-3b at full width and depth, bf16: the serve phase's 16
+    requests (32 new) on 8 slots through the dense engine and the paged
+    kernel engine on the same weights, each warmed (its capture) and
+    reset, timed in turns paged, dense, dense, paged. Logs tok/s, decode
+    tok/s (decoded tokens over the decode steps' wall), TTFT and TPOT p50,
+    peak memory, launches and captures of each dense run, and the
+    ``kernel/dense`` ratios (paged over dense, means of the turns). Checks
+    every request finished with its 32 tokens, one capture and the
+    launches. Returns the launch counts of the first dense run (set to 0
+    just before it, read just after)."""
+    cfg = get_config("qwen2.5-3b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = api.init_params(cfg, gen, device="cuda")
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, device="cuda")
+    engines = {"dense": DenseServingEngine(cfg, params, **kw),
+               "paged": PagedServingEngine(cfg, params, page_size=PAGE,
+                                           **kw)}
+    for eng in engines.values():
+        eng.run_to_completion([Request(rid=-1, prompt=list(range(64)),
+                                       max_new=2)])
+    rows = {"dense": [], "paged": []}
+    counts = None
+    for kind in ("paged", "dense", "dense", "paged"):
+        eng = engines[kind]
+        eng.reset_metrics()
+        reqs = tier_traffic(prompts, cfg.vocab)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.run_to_completion(reqs, max_steps=20 * N_REQ * MAX_NEW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run_counts = ops.launch_counts()
+        m = eng.metrics()
+        n_tok = sum(len(r.generated) for r in reqs)
+        row = (n_tok / wall, eng.decoded_tokens / eng.step_wall_s,
+               m["latency.ttft_p50_s"], m["latency.tpot_p50_s"])
+        rows[kind].append(row)
+        log(f"serve {kind} [qwen2.5-3b, 36 layers, bf16]: "
+            f"{sum(r.done for r in reqs)}/{len(reqs)} requests, {n_tok} "
+            f"tokens in {wall:.2f} s = {row[0]:.1f} tok/s, decode "
+            f"{row[1]:.1f} tok/s, ttft p50 {row[2]:.4f} s, tpot p50 "
+            f"{row[3]:.4f} s, {eng.decode_steps} decode steps, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, cache "
+            f"{eng.shard_stats()['pool_bytes_per_shard'] / 2**30:.3f} GiB; "
+            f"launches {run_counts}; captures {eng.step_traces}")
+        if any(not r.done or len(r.generated) != MAX_NEW for r in reqs):
+            fail(f"serve {kind}: not every request finished with max_new "
+                 f"tokens")
+        if kind == "dense":
+            want = dense_serving_launches(cfg, eng)
+            if run_counts != want:
+                fail(f"serve dense: launches {run_counts} != {want}")
+            if eng.step_traces != 1:
+                fail(f"serve dense: {eng.step_traces} captures")
+            counts = counts or run_counts
+    mean = {k: np.mean(np.asarray(v), axis=0) for k, v in rows.items()}
+    log(f"kernel/dense [qwen2.5-3b, serve traffic, means of 2 turns]: "
+        f"tok/s {mean['paged'][0] / mean['dense'][0]:.4f}, decode tok/s "
+        f"{mean['paged'][1] / mean['dense'][1]:.4f}, TTFT p50 dense/paged "
+        f"{mean['dense'][2] / mean['paged'][2]:.4f}, TPOT p50 dense/paged "
+        f"{mean['dense'][3] / mean['paged'][3]:.4f}; against phase 6's "
+        f"paged run {PHASE6['tok_s']:.1f} tok/s: "
+        f"{PHASE6['tok_s'] / mean['dense'][0]:.4f}")
+    del engines, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_seamless_fp32() -> None:
+    """seamless-m4t at full width cut to 2 + 2 layers, fp32: the card's
+    prefill (2 prompts of 64 tokens over 512 frames) and 4 greedy decode
+    steps against the CPU plain path on the same weights: logits within
+    F32_LOGIT_TOL of the largest, equal tokens."""
+    cfg = dataclasses.replace(get_config(SEAMLESS), num_layers=2,
+                              enc_layers=2, dtype="float32",
+                              kv_cache_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 92)
+    params = api.init_params(cfg, gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (2, 64), generator=gen, device="cuda")
+    enc = torch.randn((2, 512, cfg.d_model), generator=gen, device="cuda")
+
+    def cpu(tree):
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [cpu(v) for v in tree]
+        return tree.cpu()
+    out = {}
+    with bench.fp32_exact():
+        for dev, p in (("cuda", params), ("cpu", cpu(params))):
+            logits, cache, pos = api.prefill(cfg, p, toks.to(dev),
+                                             enc_embeds=enc.to(dev),
+                                             max_len=128)
+            seq, ts = [logits.cpu()], []
+            for _ in range(4):
+                t = logits[:, : cfg.vocab].argmax(-1)[:, None]
+                ts.append(t.cpu())
+                logits, cache = api.decode_step(cfg, p, cache, t, pos)
+                pos = pos + 1
+                seq.append(logits.cpu())
+            out[dev] = (torch.stack(seq), torch.cat(ts, 1))
+    err = ((out["cuda"][0] - out["cpu"][0]).abs().max()
+           / out["cpu"][0].abs().max()).item()
+    same = torch.equal(out["cuda"][1], out["cpu"][1])
+    log(f"seamless exact [fp32, full width, 2 + 2 layers, 2 x 64 tokens "
+        f"over 512 frames, prefill + 4 decode steps]: card vs CPU plain "
+        f"logits within {err:.3g} of the largest (limit {F32_LOGIT_TOL:g}), "
+        f"tokens equal {same}")
+    if not (err <= F32_LOGIT_TOL and same):
+        fail("seamless: the card's logits disagree with the CPU plain path")
+    del params
+    torch.cuda.empty_cache()
+
+
+def run_seamless() -> dict:
+    """seamless-m4t-large-v2 whole (24 + 24 layers), bf16, seeded weights:
+    ``api.prefill`` of 8 prompts of 128 tokens over 8 x 1024 seeded frame
+    embeddings (the frames stub's ``enc_embeds``), then 32 greedy
+    ``api.decode_step``s on its dense lanes, eagerly (a warm-up call of
+    each first). Logs prefill ms, decode ms a step, peak memory and mha
+    launches (counts set to 0 just before the timed prefill, read after
+    the last step: 24 + 2 x 24 in the prefill, 2 x 24 a step); checks
+    finite logits and tokens in the vocabulary. The same steps again as
+    one captured graph on a fresh prefill: equal tokens, ms a replay.
+    Then the factory picks the
+    dense engine for it, and serving through that raises as the
+    reference's does. Returns the launch counts."""
+    from repro_torch.runtime.serving import ServingEngine
+    cfg = get_config(SEAMLESS)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 93)
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    log(f"seamless: {cfg.param_count() / 1e9:.3f}B params, "
+        f"{cfg.enc_layers} + {cfg.num_layers} layers, bf16, weights drawn "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+    B, S, S_enc, steps = 8, 128, 1024, 32
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
+    enc = torch.randn((B, S_enc, cfg.d_model), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    max_len = S + steps
+    logits, cache, pos = api.prefill(cfg, params, toks, enc_embeds=enc,
+                                     max_len=max_len)
+    api.decode_step(cfg, params, cache, logits[:, : cfg.vocab].argmax(
+        -1)[:, None], pos)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache, pos = api.prefill(cfg, params, toks, enc_embeds=enc,
+                                     max_len=max_len)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    finite = bool(torch.isfinite(logits).all())
+    n_prefill = ops.launch_counts()["mha"]
+    step_ms, out = [], []
+    for _ in range(steps):
+        t = logits[:, : cfg.vocab].argmax(-1)[:, None]
+        out.append(t)
+        t0 = time.perf_counter()
+        logits, cache = api.decode_step(cfg, params, cache, t, pos)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        pos = pos + 1
+        finite = finite and bool(torch.isfinite(logits).all())
+    counts = ops.launch_counts()
+    toks_out = torch.cat(out, 1)
+    log(f"seamless [whole, bf16, {B} x {S} tokens over {B} x {S_enc} "
+        f"frames]: prefill {prefill_ms:.2f} ms, {steps} eager decode steps "
+        f"median {np.median(step_ms):.2f} ms (min {min(step_ms):.2f}, max "
+        f"{max(step_ms):.2f}), peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, mha launches "
+        f"{counts['mha']} ({n_prefill} in the prefill), logits finite "
+        f"{finite}, {len(set(toks_out.flatten().tolist()))} distinct "
+        f"tokens, first row's first {toks_out[0, :8].tolist()}")
+    n_layers = cfg.enc_layers + 2 * cfg.num_layers
+    if not finite or n_prefill != n_layers \
+            or counts["mha"] != n_layers + 2 * cfg.num_layers * steps \
+            or not bool(((toks_out >= 0) & (toks_out < cfg.vocab)).all()):
+        fail("seamless: non-finite logits, wrong launches or tokens out of "
+             "the vocabulary")
+    # the same greedy steps as one captured graph over fixed token and
+    # position buffers, on a fresh prefill: its tokens must be the eager
+    # run's, and a replay's time is the step's device time
+    logits, cache, pos = api.prefill(cfg, params, toks, enc_embeds=enc,
+                                     max_len=max_len)
+    tok = logits[:, : cfg.vocab].argmax(-1)[:, None]
+
+    def body():
+        lg, _ = api.decode_step(cfg, params, cache, tok, pos)
+        tok.copy_(lg[:, : cfg.vocab].argmax(-1)[:, None])
+        pos.add_(1)
+    graph, held = capture_graph(torch.device("cuda"), body, [tok, pos])
+    replayed = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        graph.replay()
+        replayed.append(tok.clone())
+    end.record()
+    torch.cuda.synchronize()
+    same = torch.equal(torch.cat(replayed[:-1], 1), toks_out[:, 1:])
+    replay_ms = start.elapsed_time(end) / steps
+    log(f"seamless decode step as one CUDA graph: {replay_ms:.3f} ms a "
+        f"replay ({steps} replays), the graph holds {held}; its tokens "
+        f"equal the eager steps' {same}")
+    if not same or held.get("mha") != 2 * cfg.num_layers:
+        fail("seamless: the decode graph's tokens or launches are wrong")
+    eng = ServingEngine(cfg, params, slots=2, max_len=64, device="cuda")
+    try:
+        eng.submit(Request(rid=0, prompt=[1, 2, 3], max_new=2))
+    except ValueError as e:
+        raised = "enc_embeds" in str(e)
+    else:
+        raised = False
+    log(f"seamless: the factory picks {type(eng).__name__}; serving through "
+        f"it raises a ValueError naming enc_embeds: {raised} (the "
+        f"reference's raises KeyError('enc_embeds'))")
+    if not isinstance(eng, DenseServingEngine) or not raised:
+        fail("seamless: the factory or the engine's refusal is wrong")
+    del eng, params, cache, graph
+    torch.cuda.empty_cache()
+    return counts
+
+
+def dense_kernel_entries(err, times, dense_counts, seamless_counts) -> list:
+    """The JSON entries of mha on the dense and encoder-decoder path: the
+    dense lanes' decode row at qwen2.5-3b's heads with the dense serve
+    run's launches, and the seamless encoder with the seamless run's."""
+    def entry(name, label, launches):
+        ms, plain, bms, by, lib = times[label]
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/mha.cu",
+                "replaces": "src/repro/kernels/attention.py:32",
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                "library_ms": lib}
+    return [
+        entry("mha[Sq 1, device kv_valid, dense decode, qwen2.5-3b lanes]",
+              "qwen2.5-3b dense decode, B8 Sq1, lane 1024, kv_valid 1..1024",
+              dense_counts["mha"]),
+        entry("mha[non-causal, seamless-m4t encoder, H16 KV16 D64]",
+              "seamless encoder, B2 Sq=Sk=1024", seamless_counts["mha"])]
+
+
 def main() -> None:
     smi = card()
     build_kernels()
@@ -3585,6 +4087,22 @@ def main() -> None:
             if not c.get(k):
                 fail(f"serve {arch}: the run launched no {k}")
     log(f"phase 11 in {time.perf_counter() - t11:.1f} s")
+    # phase 12: the dense-slot engine and seamless, generators of their own
+    t12 = time.perf_counter()
+    own = np.random.default_rng(SEED + 90)
+    err_dense = check_dense_mha(own)
+    dense_times = time_dense_mha(own)
+    check_dense_exact()
+    dense_counts = serve_dense(prompts)
+    check_seamless_fp32()
+    seamless_counts = run_seamless()
+    for name, c in (("dense serve", dense_counts),
+                    ("seamless", seamless_counts)):
+        for k in ("mha", "sampler_noise") if name == "dense serve" \
+                else ("mha",):
+            if not c.get(k):
+                fail(f"{name}: the run launched no {k}")
+    log(f"phase 12 in {time.perf_counter() - t12:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "paged_attention", "route": "cuda",
@@ -3635,7 +4153,9 @@ def main() -> None:
          "launches": tier_counts["mha"], "max_abs_err": err_mha,
          "ms": mha_t[0], "plain_ms": mha_t[1], "bound_ms": mha_t[2],
          "bound_by": mha_t[3], "library_ms": mha_t[4]},
-    ] + moe_kernel_entries(moe_errs, moe_times, moe_counts) + layer}),
+    ] + moe_kernel_entries(moe_errs, moe_times, moe_counts)
+        + dense_kernel_entries(err_dense, dense_times, dense_counts,
+                               seamless_counts) + layer}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,7 @@
 """Architecture registry of the archs the port serves.
 
-``get_config("<arch-id>")`` / ``get_smoke_config`` as in the JAX package;
-only the archs whose layers the port has are listed: every arch of the JAX
-package's registry but the encoder-decoder one, in its order.
+``get_config("<arch-id>")`` / ``get_smoke_config`` as in the JAX package,
+every arch of the JAX package's registry, in its order.
 """
 from __future__ import annotations
 
@@ -11,8 +10,9 @@ from typing import List
 
 from repro_torch.configs.base import ModelConfig  # noqa: F401
 
-ARCHS: List[str] = ["dbrx-132b", "llama4-maverick-400b-a17b", "yi-6b",
-                    "qwen1.5-4b", "qwen2.5-3b", "granite-3-2b", "internvl2-2b",
+ARCHS: List[str] = ["dbrx-132b", "llama4-maverick-400b-a17b",
+                    "seamless-m4t-large-v2", "yi-6b", "qwen1.5-4b",
+                    "qwen2.5-3b", "granite-3-2b", "internvl2-2b",
                     "mamba2-2.7b", "recurrentgemma-9b"]
 
 

@@ -86,8 +86,9 @@ class ModelConfig:
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks), the JAX package's
         formula: attention/MLP and MoE stacks exactly (an MoE layer every
-        ``moe_every``-th: its experts, router and shared expert), the
-        Mamba2 and hybrid families by its approximation."""
+        ``moe_every``-th: its experts, router and shared expert; an
+        encoder-decoder's encoder layers and cross-attention), the Mamba2
+        and hybrid families by its approximation."""
         d, dff, v = self.d_model, self.d_ff, self.vocab
         hd = self.resolved_head_dim
         attn = (d * self.num_heads * hd + 2 * d * self.kv_heads * hd
@@ -115,6 +116,11 @@ class ModelConfig:
         else:
             total = sum(attn + self._ffn_params(layer, ffn)
                         for layer in range(self.num_layers))
+            if self.is_encdec:
+                # the encoder's self-attention + MLP layers, and each
+                # decoder layer's cross-attention
+                total += self.enc_layers * (attn + ffn)
+                total += self.num_layers * attn
         return int(total + v * d * (1 if self.tie_embeddings else 2))
 
     def _is_moe_layer(self, layer: int) -> bool:

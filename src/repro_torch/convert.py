@@ -10,8 +10,10 @@ leading layer axis (``blocks.scan["<j>"]``) plus a list of tail blocks; the
 port wants one dict per layer in layer order, so the bridge unstacks them
 (a two-kind period such as llama4's ``attn_mlp`` / ``attn_moe`` pair
 interleaves its positions back into layer order; an MoE block's ``moe``
-leaves unstack like any other, its fp32 router staying fp32). Both packages
-then compute the same function.
+leaves unstack like any other, its fp32 router staying fp32). An
+encoder-decoder's ``enc`` subtree stacks its ``enc`` blocks the same way
+(``enc.blocks.scan["0"]``) beside the encoder's ``final_norm``. Both
+packages then compute the same function.
 """
 from __future__ import annotations
 
@@ -39,20 +41,30 @@ def _map(tree, fn):
     return fn(tree)
 
 
+def _unstack(stack: Dict[str, Any], n_super: int, n_kinds: int,
+             n_tail: int, device):
+    """A JAX ``{"scan": {"<j>": stacked}, "tail": [...]}`` block tree ->
+    one dict per layer, in layer order."""
+    blocks = [_map(stack["scan"][str(j)], lambda a, s=s: _tensor(a[s], device))
+              for s in range(n_super) for j in range(n_kinds)]
+    return blocks + [_map(t, lambda a: _tensor(a, device))
+                     for t in stack["tail"][:n_tail]]
+
+
 def params_from_jax(cfg, tree: Dict[str, Any], *,
                     device="cuda") -> Dict[str, Any]:
     """The port's parameters on ``device`` (CUDA unless the caller asks for
     the CPU; raises when CUDA is asked for and absent)."""
     device = resolve_device(device)
-    kinds = tfm.pattern_for(cfg)
     n_super, tail = tfm.layer_plan(cfg)
-    tfm.layer_kinds(cfg)                       # raises on unported kinds
-    scan = tree["blocks"]["scan"]
-    blocks = [_map(scan[str(j)], lambda a, s=s: _tensor(a[s], device))
-              for s in range(n_super) for j in range(len(kinds))]
-    blocks += [_map(t, lambda a: _tensor(a, device))
-               for t in tree["blocks"]["tail"][:len(tail)]]
     out = {k: _map(v, lambda a: _tensor(a, device))
-           for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = blocks
+           for k, v in tree.items() if k not in ("blocks", "enc")}
+    out["blocks"] = _unstack(tree["blocks"], n_super,
+                             len(tfm.pattern_for(cfg)), len(tail), device)
+    if cfg.is_encdec:
+        enc = tree["enc"]
+        out["enc"] = {
+            "blocks": _unstack(enc["blocks"], cfg.enc_layers, 1, 0, device),
+            "final_norm": _map(enc["final_norm"],
+                               lambda a: _tensor(a, device))}
     return out

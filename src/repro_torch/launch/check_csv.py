@@ -16,7 +16,10 @@ The port runs the reference's ``mixed``, ``shared-prefix``,
 ``speculative``, ``sampling``, ``hybrid`` and ``oversubscribe`` scenarios;
 ``sampling`` carries ``tokens_match_greedy``, ``oversubscribe``
 ``tokens_match_unconstrained``, ``hybrid`` (at fp32) its own
-``tokens_match_hybrid``. The scenario that carries ``tokens_match_tp1``
+``tokens_match_hybrid`` over its dense, gather and kernel rows; the dense
+engine's rows and the ``kernel/dense`` and ``paged/dense[hybrid]`` ratio
+rows are gated like any other (their metrics cells parse, their
+``temporal_util`` lies in [0, 1]). The scenario that carries ``tokens_match_tp1``
 (sharded) is not ported, so a full CSV of the port fails that one REQUIRED
 column (``missing_scenario_errors``) and must pass everything else.
 

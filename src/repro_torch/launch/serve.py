@@ -4,13 +4,17 @@
       [--smoke] [--slots 4] [--requests 8] [--max-new 12] [--max-len 128] \
       [--temperature 0.8 --top-k 20 --top-p 0.95] [--prefix-cache] \
       [--spec-k 3 [--draft-model ARCH]] [--host-tier] \
-      [--page-size 16] [--num-pages N] [--paged-attn kernel|gather] \
-      [--trace [trace.json]] [--device cuda|cpu]
+      [--engine auto|paged|dense] [--page-size 16] [--num-pages N] \
+      [--paged-attn kernel|gather] [--trace [trace.json]] \
+      [--device cuda|cpu]
 
-Weights are drawn on the device from a generator seeded with 0 (a draft
-model's, smoke-sized, with 1). Runs on CUDA by default and raises if there
-is none; ``--device cpu`` runs every kernel's plain PyTorch version
-instead. Prints the JAX launcher's summary lines (prefix cache, host tier,
+``--engine``: ``auto`` (the default) goes through the ``ServingEngine``
+factory (the paged engine for every stack it can host, the dense-slot
+engine otherwise, with a warning naming the paged knobs it drops);
+``paged`` and ``dense`` force one. Weights are drawn on the device from a
+generator seeded with 0 (a draft model's, smoke-sized, with 1). Runs on
+CUDA by default and raises if there is none; ``--device cpu`` runs every
+kernel's plain PyTorch version instead. Prints the JAX launcher's summary lines (prefix cache, host tier,
 speculative decode, draft model, decode policy, and for the hybrid archs
 the sliding window's recycled pages) plus the recurrent state slots' bytes,
 each CUDA kernel's launch count and the graphs' captures. ``--trace`` records the engine's and scheduler's spans and
@@ -32,7 +36,9 @@ from repro_torch.models import api
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime.drafter import DraftModelDrafter
 from repro_torch.runtime.sampling import SamplingParams
-from repro_torch.runtime.serving import PagedServingEngine, Request
+from repro_torch.runtime.serving import (DenseServingEngine,
+                                         PagedServingEngine, Request,
+                                         ServingEngine)
 from repro_torch.runtime.trace import Tracer
 
 
@@ -69,6 +75,10 @@ def main(argv=None) -> None:
                          "recurrent state) to pinned host RAM and bring "
                          "them back through a prefetch stream instead of "
                          "evict + re-prefill")
+    ap.add_argument("--engine", choices=["auto", "paged", "dense"],
+                    default="auto",
+                    help="auto: the ServingEngine factory; paged or dense "
+                         "force one engine")
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--num-pages", type=int, default=None,
                     help="usable KV pages (default: slots*max_len/page)")
@@ -109,15 +119,21 @@ def main(argv=None) -> None:
         print(f"[launch.serve] draft model: {dcfg.name} "
               f"({dcfg.param_count()/1e6:.1f}M params)")
     tracer = Tracer(enabled=True) if args.trace is not None else None
-    eng = PagedServingEngine(cfg, params, slots=args.slots,
-                             max_len=args.max_len, page_size=args.page_size,
-                             num_pages=args.num_pages, sampling=sampling,
-                             attn_impl=args.paged_attn,
-                             prefix_cache=args.prefix_cache,
-                             spec_k=args.spec_k, drafter=drafter,
-                             host_tier=args.host_tier, tracer=tracer,
-                             device=device)
-    print(f"[launch.serve] engine: {type(eng).__name__}[{eng.attn_impl}]")
+    common = dict(slots=args.slots, max_len=args.max_len, sampling=sampling,
+                  tracer=tracer, device=device)
+    paged_kw = dict(page_size=args.page_size, num_pages=args.num_pages,
+                    attn_impl=args.paged_attn,
+                    prefix_cache=args.prefix_cache, spec_k=args.spec_k,
+                    drafter=drafter, host_tier=args.host_tier)
+    if args.engine == "dense":
+        eng = DenseServingEngine(cfg, params, **common)
+    else:
+        builder = PagedServingEngine if args.engine == "paged" \
+            else ServingEngine
+        eng = builder(cfg, params, **paged_kw, **common)
+    paged = isinstance(eng, PagedServingEngine)
+    print(f"[launch.serve] engine: {type(eng).__name__}"
+          f"{f'[{eng.attn_impl}]' if paged else ''}")
     # every request opens with the same system prompt, tails vary in length
     sys_prompt = [(5 * j + 2) % cfg.vocab for j in range(2 * args.page_size)]
     reqs = [Request(rid=i,
@@ -137,6 +153,12 @@ def main(argv=None) -> None:
           f"{toks/dt:.1f} tok/s, {int(m['engine.prefill_traces'])} prefill "
           f"traces")
     st = eng.pool_stats()
+    if not paged:
+        print(f"[launch.serve] dense lanes: {st.dense_equiv_tokens} tokens "
+              f"reserved ({eng.slots} slots x {eng.max_len}), "
+              f"{eng.shard_stats()['pool_bytes_per_shard']:.0f} bytes")
+        _report_latency_and_launches(cfg, eng, m, tracer, args, device)
+        return
     print(f"[launch.serve] kv pages: peak {st.peak_pages}/{st.num_pages} "
           f"({st.peak_pages * st.page_size} tokens reserved at peak vs "
           f"{st.dense_equiv_tokens} dense)")
@@ -188,21 +210,37 @@ def main(argv=None) -> None:
               f"sampled tokens, "
               f"{m['sampling.step_traces'] + m['sampling.spec_traces']:.0f} "
               f"graph captures (policy-mix invariant)")
+    _report_latency_and_launches(cfg, eng, m, tracer, args, device)
+
+
+def _report_latency_and_launches(cfg, eng, m, tracer, args, device) -> None:
+    """The summary's tail: latency percentiles, each kernel's launches and
+    the graphs' captures, and the tracer's per-phase walls."""
     print(f"[launch.serve] latency: ttft p50 {m['latency.ttft_p50_s']:.4f}s "
           f"/ p95 {m['latency.ttft_p95_s']:.4f}s, tpot p50 "
           f"{m['latency.tpot_p50_s']:.4f}s / p95 "
           f"{m['latency.tpot_p95_s']:.4f}s")
     counts = ops.launch_counts()
     n_attn = sum(k not in api.STATE_KINDS for k in tfm.layer_kinds(cfg))
-    print(f"[launch.serve] kernel launches: paged_attention "
-          f"{counts['paged_attention']} ({int(m['engine.decode_steps'])} "
-          f"decode steps x {n_attn} attention layers), mha {counts['mha']} "
-          f"({eng.prefills} prefills x {n_attn} attention layers), "
-          f"sampler_noise {counts['sampler_noise']}, "
-          f"{int(m['sampling.step_traces'])} decode, "
-          f"{int(m['sampling.spec_traces'])} verify and "
-          f"{eng.select_traces} rollback-select graph capture(s)"
-          f"{' — CPU: plain versions ran instead' if device.type == 'cpu' else ''}")
+    steps = int(m["engine.decode_steps"])
+    cpu = " — CPU: plain versions ran instead" if device.type == "cpu" \
+        else ""
+    if isinstance(eng, PagedServingEngine):
+        print(f"[launch.serve] kernel launches: paged_attention "
+              f"{counts['paged_attention']} ({steps} decode steps x "
+              f"{n_attn} attention layers), mha {counts['mha']} "
+              f"({eng.prefills} prefills x {n_attn} attention layers), "
+              f"sampler_noise {counts['sampler_noise']}, "
+              f"{int(m['sampling.step_traces'])} decode, "
+              f"{int(m['sampling.spec_traces'])} verify and "
+              f"{eng.select_traces} rollback-select graph capture(s){cpu}")
+    else:
+        print(f"[launch.serve] kernel launches: mha {counts['mha']} "
+              f"(({steps} decode steps + {eng.prefills} prefills) x "
+              f"{n_attn} attention layers), sampler_noise "
+              f"{counts['sampler_noise']}, "
+              f"{int(m['sampling.step_traces'])} decode graph "
+              f"capture(s){cpu}")
     if tracer is not None:
         print("[launch.serve] trace: per-phase wall time")
         print(tracer.format_phase_walls())

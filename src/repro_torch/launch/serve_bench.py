@@ -11,17 +11,17 @@
 
 ``mixed``: a mixed-length trace (prompt i holds 3 + 5 i tokens drawn from a
 ``random.Random(seed)``, the reference's ``_trace``) is replayed through
-``PagedServingEngine(attn_impl="gather")`` (the dense ``pool[block_table]``
-gather baseline) and ``PagedServingEngine(attn_impl="kernel")`` (flash-
-decode through the block tables). Each engine is warmed first over the
-trace's prompt lengths with two new tokens (every prefill bucket runs, the
-decode graph is captured), then ``reset_metrics``, then timed. The CSV has
-the reference's columns (``decode_tok_s`` = decoded tokens / decode-step
-wall, ``trace_tok_s``, TTFT / TPOT percentiles, ``temporal_util``,
-``prefill_traces``, ``peak_kv_tokens``, ``kv_util_vs_dense``,
-``attn_peak_live_bytes``) and the ``kernel/gather`` ratio row. The dense
-engine's row and the ``kernel/dense`` ratio wait for the port of the dense
-engine.
+``DenseServingEngine`` (one ``max_len`` lane a slot, the "separated
+memory" baseline), ``PagedServingEngine(attn_impl="gather")`` (the dense
+``pool[block_table]`` gather baseline) and
+``PagedServingEngine(attn_impl="kernel")`` (flash-decode through the block
+tables). Each engine is warmed first over the trace's prompt lengths with
+two new tokens (every prefill shape runs, the decode graph is captured),
+then ``reset_metrics``, then timed. The CSV has the reference's columns
+(``decode_tok_s`` = decoded tokens / decode-step wall, ``trace_tok_s``,
+TTFT / TPOT percentiles, ``temporal_util``, ``prefill_traces``,
+``peak_kv_tokens``, ``kv_util_vs_dense``, ``attn_peak_live_bytes``) and the
+``kernel/gather`` and ``kernel/dense`` ratio rows.
 
 ``shared-prefix``: every request is one ``--sys-len``-token system prompt
 plus a short tail; the engine without and with ``prefix_cache``, their
@@ -36,12 +36,12 @@ then the same three sampled (temperature 0.9, top-p 0.95), with their
 sampled tokens and graph captures. ``hybrid``: the reference's hybrid-stack
 trace (prompts of window / 2 + (5 i mod 2 window) tokens, on both sides of
 the attention window) through recurrentgemma-9b (its SMOKE config, or with
-``--full`` the full-width one), gather and kernel rows with
-``win_recycled_pages``, ``win_page_bound`` and ``peak_kv_tokens``, and
-``tokens_match_hybrid`` (the two rows' greedy tokens equal, at fp32; empty
-in bf16, where the gather path rounds P to bf16 and the kernel does not); the
-reference's ``dense[hybrid]`` row and ``paged/dense[hybrid]`` ratio wait
-for the dense engine and are printed as note rows. ``oversubscribe``: the
+``--full`` the full-width one): the dense engine's ``dense[hybrid]`` row
+(window rings and state slots), gather and kernel rows with
+``win_recycled_pages``, ``win_page_bound`` and ``peak_kv_tokens``, the
+``paged/dense[hybrid]`` ratio row, and ``tokens_match_hybrid`` (the three
+engines' greedy tokens equal, at fp32; empty in bf16, where the gather
+path rounds P to bf16 and the kernels do not). ``oversubscribe``: the
 mixed trace (a decode tail of at least 24 tokens) through an uncapped
 engine, then through engines whose pool is capped at 0.4 of the trace's
 worst-case footprint (``_pool_cap``), evict-only (resume by re-prefill) and
@@ -84,7 +84,8 @@ from repro_torch.models import api
 from repro_torch.runtime.drafter import DraftModelDrafter
 from repro_torch.runtime.sampling import SamplingParams
 from repro_torch.runtime.scheduler import Scheduler
-from repro_torch.runtime.serving import PagedServingEngine, Request
+from repro_torch.runtime.serving import (DenseServingEngine,
+                                         PagedServingEngine, Request)
 from repro_torch.runtime.trace import (NULL_TRACER, Tracer,
                                        set_default_tracer)
 
@@ -153,15 +154,22 @@ def _warm(engine, mk_trace) -> None:
 
 
 def _attn_peak_live_bytes(cfg, engine) -> int:
-    """Peak live bytes of a layer's decode-attention KV working set: one K
-    and one V page tile a kernel program (in the pool's dtype), or the
-    gather's whole (slots, max_len, KV, D) K and V in a 2-byte activation
-    dtype, as the reference counts them."""
+    """Peak live bytes of a layer's decode-attention KV working set, as the
+    reference counts them: one K and one V page tile a kernel program (in
+    the pool's dtype); else the whole (slots, lane, KV, D) K and V in a
+    2-byte activation dtype, the lane being max_len (the gather's table,
+    a dense lane), or the window for a dense engine whose attention is all
+    sliding-window (its rings)."""
     kv, hd = cfg.kv_heads, cfg.resolved_head_dim
-    if engine.attn_impl == "kernel":
+    paged = isinstance(engine, PagedServingEngine)
+    if paged and engine.attn_impl == "kernel":
         itemsize = 1 if cfg.kv_cache_dtype == "int8" else 2
         return 2 * engine.page_size * kv * hd * itemsize
-    return 2 * engine.slots * engine.max_len * kv * hd * 2
+    seq = engine.max_len
+    if not paged and cfg.hybrid is not None \
+            and not set(cfg.hybrid.pattern) & set(api.PAGEABLE_KINDS):
+        seq = min(seq, cfg.hybrid.window)
+    return 2 * engine.slots * seq * kv * hd * 2
 
 
 def _drive(engine, reqs: List[Request], max_steps: int, cfg,
@@ -178,8 +186,15 @@ def _drive(engine, reqs: List[Request], max_steps: int, cfg,
     toks = sum(len(r.generated) for r in done)
     m = engine.metrics()
     st = engine.pool_stats()
+    paged = isinstance(engine, PagedServingEngine)
+    if name is None:
+        name = type(engine).__name__
+        if paged:
+            name += f"[{engine.attn_impl}]"
+    # the dense engine reserves every lane: its peak is the reservation
+    peak = st.peak_pages * st.page_size if paged else st.dense_equiv_tokens
     return {
-        "engine": name or f"{type(engine).__name__}[{engine.attn_impl}]",
+        "engine": name,
         "requests_done": len(done),
         "tokens": toks,
         "wall_s": wall,
@@ -194,9 +209,8 @@ def _drive(engine, reqs: List[Request], max_steps: int, cfg,
         "temporal_util": m["util.temporal"],
         "prefill_traces": engine.prefill_traces,
         "sched_exhausted": int(sched.exhausted),
-        "peak_kv_tokens": st.peak_pages * st.page_size,
-        "kv_util_vs_dense": (st.peak_pages * st.page_size
-                             / st.dense_equiv_tokens),
+        "peak_kv_tokens": peak,
+        "kv_util_vs_dense": peak / st.dense_equiv_tokens,
         "attn_peak_live_bytes": _attn_peak_live_bytes(cfg, engine),
     }
 
@@ -207,28 +221,39 @@ def _run_mixed(cfg, params, slots, max_len, n_requests, max_new, seed,
         return _trace(cfg, n_requests, new, seed)
 
     rows = []
+    dense = DenseServingEngine(cfg, params, slots=slots, max_len=max_len,
+                               device=device)
+    _warm(dense, mk)
+    rows.append(_drive(dense, mk(max_new), 4000, cfg))
     for impl in ("gather", "kernel"):
         paged = PagedServingEngine(cfg, params, slots=slots,
                                    max_len=max_len, attn_impl=impl,
                                    device=device)
         _warm(paged, mk)
         rows.append(_drive(paged, mk(max_new), 4000, cfg))
-    g, k = rows
-    rows.append({
-        "engine": "kernel/gather",
-        "requests_done": k["requests_done"] - g["requests_done"],
-        "tokens": k["tokens"] - g["tokens"],
-        "wall_s": g["wall_s"] / k["wall_s"],
-        "decode_tok_s": k["decode_tok_s"] / g["decode_tok_s"],
-        "trace_tok_s": k["trace_tok_s"] / g["trace_tok_s"],
-        "ttft_mean_s": g["ttft_mean_s"] / k["ttft_mean_s"]
-        if k["ttft_mean_s"] else 0.0,
-        "prefill_traces": k["prefill_traces"] - g["prefill_traces"],
-        "peak_kv_tokens": k["peak_kv_tokens"] - g["peak_kv_tokens"],
-        "kv_util_vs_dense": k["kv_util_vs_dense"],
-        "attn_peak_live_bytes": k["attn_peak_live_bytes"]
-        / g["attn_peak_live_bytes"],
-    })
+    d, g, k = rows
+
+    def ratio_row(name: str, base: Dict) -> Dict:
+        """The kernel engine against ``base``: counts as deltas, times and
+        bytes as base / kernel speedups or kernel / base footprints."""
+        return {
+            "engine": name,
+            "requests_done": k["requests_done"] - base["requests_done"],
+            "tokens": k["tokens"] - base["tokens"],
+            "wall_s": base["wall_s"] / k["wall_s"],
+            "decode_tok_s": k["decode_tok_s"] / base["decode_tok_s"],
+            "trace_tok_s": k["trace_tok_s"] / base["trace_tok_s"],
+            "ttft_mean_s": base["ttft_mean_s"] / k["ttft_mean_s"]
+            if k["ttft_mean_s"] else 0.0,
+            "prefill_traces": k["prefill_traces"] - base["prefill_traces"],
+            "peak_kv_tokens": k["peak_kv_tokens"] - base["peak_kv_tokens"],
+            "kv_util_vs_dense": k["kv_util_vs_dense"],
+            "attn_peak_live_bytes": k["attn_peak_live_bytes"]
+            / base["attn_peak_live_bytes"],
+        }
+
+    rows.append(ratio_row("kernel/gather", g))
+    rows.append(ratio_row("kernel/dense", d))
     return rows
 
 
@@ -368,8 +393,8 @@ def _run_sampling(cfg, params, slots, max_len, n_requests, max_new,
 
 def _run_hybrid(cfg, params, slots, max_len, n_requests, max_new, seed,
                 device) -> List[Dict]:
-    """The hybrid stack's gather and kernel rows (the reference's
-    ``_run_hybrid`` without its dense-engine rows, which are notes here)."""
+    """The hybrid stack's dense, gather and kernel rows and the
+    ``paged/dense[hybrid]`` ratio (the reference's ``_run_hybrid``)."""
     window = cfg.hybrid.window
 
     def mk(new):
@@ -377,6 +402,12 @@ def _run_hybrid(cfg, params, slots, max_len, n_requests, max_new, seed,
 
     rows: List[Dict] = []
     toks = []
+    dense = DenseServingEngine(cfg, params, slots=slots, max_len=max_len,
+                               device=device)
+    _warm(dense, mk)
+    reqs = mk(max_new)
+    rows.append(_drive(dense, reqs, 4000, cfg, name="dense[hybrid]"))
+    toks.append([list(r.generated) for r in reqs])
     for impl in ("gather", "kernel"):
         paged = PagedServingEngine(cfg, params, slots=slots,
                                    max_len=max_len, attn_impl=impl,
@@ -388,16 +419,30 @@ def _run_hybrid(cfg, params, slots, max_len, n_requests, max_new, seed,
         row["win_page_bound"] = paged.win_pages_bound(max_len)
         rows.append(row)
         toks.append([list(r.generated) for r in reqs])
-    # at fp32 the two rows are one function (sums in another order): their
+    # at fp32 the three rows are one function (sums in another order): their
     # greedy tokens must match; in bf16 the gather path rounds P to bf16
-    # before P V and the kernel does not, so a near tie may part them and
+    # before P V and the kernels do not, so a near tie may part them and
     # the cell stays empty (not a claim there)
     if cfg.dtype == "float32":
         for row in rows:
-            row["tokens_match_hybrid"] = int(toks[0] == toks[1])
-    note = "DenseServingEngine is not ported (ROADMAP Queue 1 item 2)"
-    rows += [{"engine": "dense[hybrid]", "skipped": note},
-             {"engine": "paged/dense[hybrid]", "skipped": note}]
+            row["tokens_match_hybrid"] = int(toks[0] == toks[1] == toks[2])
+    d, k = rows[0], rows[2]
+    rows.append({
+        "engine": "paged/dense[hybrid]",
+        "requests_done": k["requests_done"] - d["requests_done"],
+        "tokens": k["tokens"] - d["tokens"],
+        "wall_s": d["wall_s"] / k["wall_s"] if k["wall_s"] else 0.0,
+        "decode_tok_s": k["decode_tok_s"] / d["decode_tok_s"]
+        if d["decode_tok_s"] else 0.0,
+        "trace_tok_s": k["trace_tok_s"] / d["trace_tok_s"]
+        if d["trace_tok_s"] else 0.0,
+        # the headline: peak physical KV, O(window)-recycled pages against
+        # the dense engine's slots * max_len reservation
+        "peak_kv_tokens": k["peak_kv_tokens"] - d["peak_kv_tokens"],
+        "kv_util_vs_dense": k["kv_util_vs_dense"],
+        "win_recycled_pages": k["win_recycled_pages"],
+        "win_page_bound": k["win_page_bound"],
+    })
     return rows
 
 

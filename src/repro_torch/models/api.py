@@ -1,10 +1,12 @@
-"""Model API for serving: init / prefill / decode_step / paged_cache_init.
+"""Model API for serving: init / prefill / decode_step / the caches.
 
 Counterpart of the serving half of ``repro.models.api``. Parameters are a
 plain dict: ``embed`` (Vp, d), ``final_norm``, ``head`` (d, Vp) unless the
-embeddings are tied, and ``blocks`` — one dict per layer in order, with the
+embeddings are tied, ``blocks`` — one dict per layer in order, with the
 JAX package's names and shapes (``repro_torch.convert`` builds it from a JAX
-tree). Caches are a list, one entry per layer: page pools for the
+tree) — and for an encoder-decoder ``enc`` ({"blocks", "final_norm"}).
+Caches are a list, one entry per layer: page pools
+(``paged_cache_init``) or one dense lane a slot (``cache_init``) for the
 attention layers, per-slot state for the recurrent ones;
 ``state_slot_export`` / ``state_slot_import`` move one slot's state out and
 back (the host tier's swap of a hybrid request).
@@ -33,7 +35,9 @@ def init_params(cfg, generator: torch.Generator, *,
     ``D`` (ones) and ``dt_bias`` (zeros) fp32, and an MoE block's router
     (d, E) fp32, as the reference makes them. Expert tensors (E, d, f) are
     drawn one expert at a time, so the fp32 draw never holds more than one
-    expert's matrix (llama4's ``wi`` alone is 5.37 G values)."""
+    expert's matrix (llama4's ``wi`` alone is 5.37 G values). An
+    encoder-decoder's ``dec`` blocks add ``lnx`` and a ``cross`` attention,
+    and ``enc`` holds the encoder's blocks and its ``final_norm``."""
     dt = _dtype(cfg.dtype)
     device = torch.device(device)
 
@@ -113,19 +117,23 @@ def init_params(cfg, generator: torch.Generator, *,
                 "norm": {"scale": full((d_inner,), 1.0, torch.float32)},
                 "out_proj": normal((d_inner, d), d_inner ** -0.5)}
 
-    blocks = []
-    for kind in tfm.layer_kinds(cfg):
+    def block(kind):
         if kind == "ssm":           # a Mamba2 block has no FFN sublayer
-            blocks.append({"ln1": norm(d), "mixer": mamba()})
-            continue
+            return {"ln1": norm(d), "mixer": mamba()}
         mixer = {"mixer": rglru()} if kind == "rglru" else {"attn": attn()}
+        if kind == "dec":           # + cross-attention to the encoder
+            mixer.update(lnx=norm(d), cross=attn())
         ffn = {"moe": moe()} if kind == "attn_moe" else {"mlp": mlp()}
-        blocks.append({"ln1": norm(d), **mixer, "ln2": norm(d), **ffn})
+        return {"ln1": norm(d), **mixer, "ln2": norm(d), **ffn}
+
     vp = tfm.padded_vocab(cfg.vocab)
     p = {"embed": normal((vp, d), 0.02), "final_norm": norm(d),
-         "blocks": blocks}
+         "blocks": [block(kind) for kind in tfm.layer_kinds(cfg)]}
     if not cfg.tie_embeddings:
         p["head"] = normal((d, vp), d ** -0.5)
+    if cfg.is_encdec:
+        p["enc"] = {"blocks": [block("enc") for _ in range(cfg.enc_layers)],
+                    "final_norm": norm(d)}
     return p
 
 
@@ -135,10 +143,23 @@ def _logits(cfg, params, x: torch.Tensor) -> torch.Tensor:
     return (x @ w).float()
 
 
+def encode(cfg, params, enc_embeds: torch.Tensor) -> torch.Tensor:
+    """The encoder: its ``enc`` blocks (non-causal self-attention with RoPE
+    at 0.. S_enc - 1, then the MLP) over ``enc_embeds`` (B, S_enc, d), then
+    its ``final_norm``. -> (B, S_enc, d) in the model dtype."""
+    x = enc_embeds.to(params["embed"].dtype)
+    enc = params["enc"]
+    x, _ = tfm.stack_apply(cfg, enc["blocks"], x,
+                           kinds=["enc"] * len(enc["blocks"]))
+    return norm_apply(enc["final_norm"], x, cfg.norm)
+
+
 def prefill(cfg, params, tokens: torch.Tensor, *,
             length: Optional[torch.Tensor] = None, prefix_kv=None,
             prefix_len: int = 0,
-            frontend_embeds: Optional[torch.Tensor] = None):
+            frontend_embeds: Optional[torch.Tensor] = None,
+            enc_embeds: Optional[torch.Tensor] = None,
+            max_len: Optional[int] = None):
     """Run the whole (bucket-padded) prompt. tokens: (B, S) int64; length:
     None or (B,) count of real tokens. Returns (logits (B, Vp) fp32 at
     position length - 1 only, per-layer cache entries, next position (B,)
@@ -159,7 +180,25 @@ def prefill(cfg, params, tokens: torch.Tensor, *,
     precomputed patch embeddings (the vlm stub), go before the token
     embeddings, as the reference's ``forward_hidden`` puts them; ``length``
     and the returned position then count them too. The serving engine
-    passes none: it serves tokens only, as the reference's does."""
+    passes none: it serves tokens only, as the reference's does.
+
+    ``enc_embeds`` (B, S_enc, d), the ``frames`` frontend stub's
+    precomputed frame embeddings, are what an encoder-decoder's encoder
+    reads (``encode``); its ``dec`` layers' entries add the cross lanes
+    {"xk", "xv"} (B, S_enc, KV, D). Such a stack without them raises
+    ``ValueError`` (the reference raises ``KeyError('enc_embeds')``): the
+    serving engines pass none, so serving it fails, as in the reference.
+
+    ``max_len``: the dense engine's layout — full-attention k/v padded to
+    max_len rows, a local_attn layer's k/v folded into its window ring
+    (slot = position % window); the prompt then must be unpadded."""
+    enc_out = None
+    if cfg.is_encdec:
+        if enc_embeds is None:
+            raise ValueError(
+                f"{cfg.name} is an encoder-decoder: prefill needs "
+                f"enc_embeds, the encoder's frame embeddings (B, S_enc, d)")
+        enc_out = encode(cfg, params, enc_embeds)
     x = params["embed"][tokens]
     if frontend_embeds is not None:
         if cfg.frontend != "patch":
@@ -168,7 +207,8 @@ def prefill(cfg, params, tokens: torch.Tensor, *,
     B, S = x.shape[0], x.shape[1]
     x, caches = tfm.stack_apply(cfg, params["blocks"], x,
                                 prefix_kv=prefix_kv, prefix_len=prefix_len,
-                                length=length)
+                                length=length, enc_out=enc_out,
+                                max_len=max_len)
     x = norm_apply(params["final_norm"], x, cfg.norm)
     if length is None:
         length = torch.full((B,), S, dtype=torch.int32, device=x.device)
@@ -181,22 +221,37 @@ def prefill(cfg, params, tokens: torch.Tensor, *,
 
 def decode_step(cfg, params, cache: List[Dict[str, torch.Tensor]],
                 tokens: torch.Tensor, pos: torch.Tensor, *,
-                block_table: torch.Tensor,
+                block_table: Optional[torch.Tensor] = None,
                 win_block_table: Optional[torch.Tensor] = None,
                 state_out=None):
     """tokens: (B, T) int64, token t of request b at position pos[b] + t;
-    pos: (B,) int32; block_table: (B, n_blocks) int32 into the full-
+    pos: (B,) int32. block_table: (B, n_blocks) int32 into the full-
     attention page pools of ``paged_cache_init``, win_block_table the same
-    for the local_attn layers' pools (both updated in place). Recurrent
-    layers' state slots change in place for T == 1; a T > 1 verify block
-    writes their checkpointed states into ``state_out`` (``state_buffers``)
-    when given (``transformer.stack_decode``). Returns (logits, cache):
-    (B, Vp) fp32 for T == 1, (B, T, Vp) for T > 1."""
+    for the local_attn layers' pools (both updated in place); a table left
+    None means the dense lanes of ``cache_init`` for those layers (a
+    local_attn lane is its window ring), written in place, single-token:
+    a T > 1 block there raises the reference's ``ValueError`` naming the
+    layer kinds. Recurrent layers' state slots change in place for T ==
+    1; a T > 1 verify block writes their checkpointed states into
+    ``state_out`` (``state_buffers``) when given
+    (``transformer.stack_decode``). Returns (logits, cache): (B, Vp) fp32
+    for T == 1, (B, T, Vp) for T > 1."""
     T = tokens.shape[1]
-    if T > 1 and win_block_table is None \
-            and set(WINDOW_KINDS) & set(tfm.layer_kinds(cfg)):
-        raise ValueError("multi-token decode blocks need win_block_table "
-                         "for the local_attn layers")
+    if T > 1:
+        present = dict.fromkeys(tfm.layer_kinds(cfg))
+        bad = [k for k, need in
+               (("attn_mlp", block_table), ("attn_moe", block_table),
+                ("local_attn", win_block_table))
+               if k in present and need is None]
+        bad += [k for k in ("dec", "enc") if k in present]
+        if bad:
+            raise ValueError(
+                f"multi-token decode blocks (T={T}) need every attention "
+                f"layer on a paged cache layout, but layer kind(s) {bad} "
+                f"have none: pass block_table for full attention and "
+                f"win_block_table for local_attn (the dense ring buffer "
+                f"is single-token — it has already overwritten the keys "
+                f"older block rows attend to)")
     x = params["embed"][tokens]
     x, cache = tfm.stack_decode(cfg, params["blocks"], x, cache, pos,
                                 block_table, win_block_table, state_out)
@@ -215,6 +270,29 @@ def _state_shapes(cfg, kind: str, slots: int):
             else griffin.rglru_state_shapes)(cfg, slots)
 
 
+def cache_init(cfg, slots: int, max_len: int, *, device="cuda"
+               ) -> List[Dict[str, torch.Tensor]]:
+    """Per-layer cache entries of the dense engine, zeros: one lane a slot.
+    Full attention {"k", "v"} (slots, max_len, KV, D) and a ``dec`` layer's
+    four lanes {"k", "v", "xk", "xv"} of that shape, in the cache dtype; a
+    local_attn layer's {"k", "v"} ring (slots, window, KV, D); a recurrent
+    layer's state (``paged_cache_init``'s)."""
+    dt = _dtype(cfg.kv_cache_dtype)
+    kv, hd = cfg.kv_heads, cfg.resolved_head_dim
+    out = []
+    for kind in tfm.layer_kinds(cfg):
+        if kind in STATE_KINDS:
+            out.append({name: torch.zeros(sh, dtype=sdt, device=device)
+                        for name, (sh, sdt)
+                        in _state_shapes(cfg, kind, slots).items()})
+            continue
+        S = cfg.hybrid.window if kind in WINDOW_KINDS else max_len
+        names = ("k", "v", "xk", "xv") if kind == "dec" else ("k", "v")
+        out.append({name: torch.zeros((slots, S, kv, hd), dtype=dt,
+                                      device=device) for name in names})
+    return out
+
+
 def paged_cache_init(cfg, num_pages: int, page_size: int, *,
                      slots: int = 1, device="cuda"
                      ) -> List[Dict[str, torch.Tensor]]:
@@ -225,11 +303,18 @@ def paged_cache_init(cfg, num_pages: int, page_size: int, *,
     for the recurrent layers (``ssm``: {"ssm" fp32, "conv"}; ``rglru``:
     {"h" fp32, "conv"}). Zeros, never uninitialized memory: the kernel's
     invariance to pool garbage (masked keys get probability exactly 0)
-    assumes finite contents."""
+    assumes finite contents. Raises ``ValueError`` for a kind the pages
+    cannot host (the encoder-decoder's), as the reference does."""
+    kinds = tfm.layer_kinds(cfg)
+    unpageable = [k for k in kinds if k not in tfm.SERVABLE_KINDS]
+    if unpageable:
+        raise ValueError(
+            f"paged cache cannot host block kind(s) {unpageable}; "
+            f"servable kinds are {tfm.SERVABLE_KINDS}")
     dt = _dtype(cfg.kv_cache_dtype)
     shape = (num_pages, page_size, cfg.kv_heads, cfg.resolved_head_dim)
     out = []
-    for kind in tfm.layer_kinds(cfg):
+    for kind in kinds:
         if kind in STATE_KINDS:
             out.append({name: torch.zeros(sh, dtype=sdt, device=device)
                         for name, (sh, sdt)

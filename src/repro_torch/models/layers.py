@@ -1,8 +1,9 @@
 """Layer library: rmsnorm/layernorm, rotary embedding, GQA attention
-(full or sliding-window) for prefill (flash-MHA kernel) and paged decode
-(flash-decode kernel, or the dense-gather baseline through
-``attend_decode``), KV-cache quantization, the gated MLP and the
-token-dropping MoE FFN (``moe_apply``).
+(full or sliding-window, causal or not, self or cross) for prefill
+(flash-MHA kernel), paged decode (flash-decode kernel, or the dense-gather
+baseline through ``attend_decode``) and dense-lane decode (flash-MHA at one
+query row with a device ``kv_valid``), KV-cache quantization, the gated MLP
+and the token-dropping MoE FFN (``moe_apply``).
 
 Counterpart of ``repro.models.layers``: plain functions on tensors with
 parameter dicts of the same names and shapes (``wq`` (d, H, hd), ``wo``
@@ -83,18 +84,33 @@ def _qkv(cfg, p: Params, x: torch.Tensor):
     return q, k, v
 
 
+def cross_kv(cfg, p: Params, enc: torch.Tensor):
+    """A decoder layer's cross-attention k/v from the encoder output enc
+    (B, S_enc, d): its ``cross`` weights' projections (plus ``bk`` /
+    ``bv``), no RoPE. -> (k, v), each (B, S_enc, KV, D)."""
+    k, v = _proj(enc, p["wk"]), _proj(enc, p["wv"])
+    if cfg.qkv_bias:
+        k, v = k + p["bk"], v + p["bv"]
+    return k, v
+
+
 def _out(p: Params, o: torch.Tensor) -> torch.Tensor:
     """o (B, S, H, hd) @ wo (H, hd, d) -> (B, S, d)."""
     return o.flatten(-2) @ p["wo"].reshape(-1, p["wo"].shape[-1])
 
 
 def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None,
-                    window: int = 0):
-    """Causal self-attention over the whole (bucket-padded) prompt through
-    the flash-MHA kernel. Bucket padding sits after every real row, so
-    causal masking alone keeps the real rows exact. ``window`` > 0 limits
-    each row to its last ``window`` keys (a local_attn layer). Returns
-    (out, (k, v)) for the caller to build its cache from.
+                    window: int = 0, causal: bool = True, cross_kv=None):
+    """Self-attention over the whole (bucket-padded) prompt through the
+    flash-MHA kernel, RoPE at positions 0.. S - 1. Bucket padding sits
+    after every real row, so causal masking alone keeps the real rows
+    exact. ``window`` > 0 limits each row to its last ``window`` keys (a
+    local_attn layer). ``causal=False``: every row sees every key (the
+    encoder). Returns (out, (k, v)) for the caller to build its cache from.
+
+    cross_kv=(k, v) (B, S_enc, KV, D): encoder-decoder cross-attention. q
+    is x's projection (plus ``bq``), k/v the encoder's, no RoPE, not
+    causal; returns (out, None).
 
     prefix=(pk, pv, plen): suffix-only prefill against reused KV (the
     prefix cache). ``x`` holds only the tokens after the shared prefix;
@@ -105,6 +121,13 @@ def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None,
     at plen) masks both the prefix buffer's tail and the suffix's bucket
     padding: those rows sit past every real query. The returned k/v are
     the suffix's only, what the caller scatters into its pages."""
+    if cross_kv is not None:
+        q = _proj(x, p["wq"])
+        if cfg.qkv_bias:
+            q = q + p["bq"]
+        out = ops.attention(q.contiguous(), cross_kv[0].contiguous(),
+                            cross_kv[1].contiguous(), causal=False)
+        return _out(p, out), None
     S = x.shape[1]
     q, k, v = _qkv(cfg, p, x)
     plen = 0 if prefix is None else prefix[2]
@@ -120,7 +143,7 @@ def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None,
         kf[:, plen:plen + S] = k
         vf[:, plen:plen + S] = v
     out = ops.attention(q.contiguous(), kf.contiguous(), vf.contiguous(),
-                        causal=True, q_offset=plen, window=window)
+                        causal=causal, q_offset=plen, window=window)
     return _out(p, out), (k, v)
 
 
@@ -146,25 +169,62 @@ def paged_rows(block_table: torch.Tensor, pos: torch.Tensor, T: int,
     return phys, off, last_writer(phys * page + off).view_as(phys)
 
 
+def dense_rows(pos: torch.Tensor, S: int, ring: bool):
+    """Where a dense-lane decode step writes and what it attends, the same
+    for every layer on lanes of length ``S``: (b, slot, n), each (B,).
+    slot: ``pos % S`` on a window ring, ``min(pos, S - 1)`` on a
+    contiguous lane (the reference's write slots); n (int32, contiguous:
+    the mha kernel's ``kv_valid`` as it is, nothing allocated or read from
+    the host inside a captured graph): ``min(pos + 1, S)``, the rows that
+    hold keys (a ring holds its last S positions, a contiguous lane
+    positions 0..pos). ``transformer.stack_decode`` computes it once a
+    step for each lane length."""
+    slot = (pos % S if ring else pos.clamp(max=S - 1)).long()
+    n = (pos + 1).clamp(max=S).to(torch.int32).contiguous()
+    return torch.arange(pos.shape[0], device=pos.device), slot, n
+
+
 def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
-                     pos: torch.Tensor, block_table: torch.Tensor, rows,
-                     window: int = 0):
-    """Paged decode step. x: (B, T, d); pos: (B,) int32 position of the
-    first new token; cache {"k", "v"}: (P, page, KV, D) page pools;
-    block_table: (B, n_blocks) int32; rows: ``paged_rows(block_table, pos,
-    T, page)``, the same for every layer on the table. The T new tokens'
-    k/v are scattered token by token to page block_table[b, (pos+t) //
-    page], row (pos+t) % page — rows past the table go to scratch page 0,
-    and rows that share a pool row write its last writer's value — and
-    the flash-decode kernel then attends through the block table (with
-    ``cfg.paged_attn_impl == "gather"``, a dense gather of the tables'
-    pages and ``attend_decode`` instead). The pools are
-    updated IN PLACE (``index_put_``), where the JAX package returns new
-    pools: the port never copies a layer's pool. ``window`` > 0 (a
-    local_attn layer on its window table): each row sees its last
-    ``window`` keys, and the kernel skips the pages wholly below the
-    earliest row's window, the ones the engine recycles to scratch.
+                     pos: torch.Tensor, block_table=None, rows=None,
+                     window: int = 0, cross: bool = False):
+    """Decode step. x: (B, T, d); pos: (B,) int32 position of the first
+    new token. Three modes, as the reference's ``attention_decode``:
+
+    * paged (``block_table`` (B, n_blocks) int32; cache {"k", "v"}: (P,
+      page, KV, D) page pools; rows: ``paged_rows(block_table, pos, T,
+      page)``, the same for every layer on the table). The T new tokens'
+      k/v are scattered token by token to page block_table[b, (pos+t) //
+      page], row (pos+t) % page — rows past the table go to scratch page
+      0, and rows that share a pool row write its last writer's value —
+      and the flash-decode kernel then attends through the block table
+      (with ``cfg.paged_attn_impl == "gather"``, a dense gather of the
+      tables' pages and ``attend_decode`` instead). ``window`` > 0 (a
+      local_attn layer on its window table): each row sees its last
+      ``window`` keys, and the kernel skips the pages wholly below the
+      earliest row's window, the ones the engine recycles to scratch.
+    * dense (``block_table`` None; cache {"k", "v"}: (B, S, KV, D), one
+      lane a slot; rows: ``dense_rows(pos, S, window > 0)``; T == 1). The
+      new k/v go to lane row ``slot`` (a window ring's ``pos % S``, else
+      ``min(pos, S - 1)``): the values of the reference's one-hot write.
+      Then flash-MHA with one query row a slot, not causal, over the
+      lane's first ``n = min(pos + 1, S)`` rows (a device ``kv_valid``):
+      what ``attend_decode`` (``ring=`` for a window) computes.
+    * cross (``cross=True``; cache {"k", "v"}: a (B, S_enc, KV, D) lane of
+      encoder k/v): q from x (plus ``bq``), no RoPE, attending every row
+      of the lane, which stays as it is.
+
+    The pools and lanes are updated IN PLACE (``index_put_``), where the
+    JAX package returns new ones: the port never copies a layer's cache.
     Returns (out, cache)."""
+    if cross:
+        q = _proj(x, p["wq"])
+        if cfg.qkv_bias:
+            q = q + p["bq"]
+        out = ops.attention(q.contiguous(),
+                            kv_dequant(cfg, cache["k"], q.dtype).contiguous(),
+                            kv_dequant(cfg, cache["v"], q.dtype).contiguous(),
+                            causal=False)
+        return _out(p, out), cache
     B, T = x.shape[0], x.shape[1]
     q, k, v = _qkv(cfg, p, x)
     pos_t = pos[:, None] + torch.arange(T, device=x.device,
@@ -172,6 +232,18 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
     q = rope(q, pos_t, cfg.rope_theta)
     k = rope(k, pos_t, cfg.rope_theta)
     ck, cv = cache["k"], cache["v"]
+    if block_table is None:
+        if T != 1:
+            raise ValueError(f"dense-lane decode is single-token, got a "
+                             f"T={T} block")
+        b, slot, n = rows
+        ck.index_put_((b, slot), kv_quant(cfg, k[:, 0]))
+        cv.index_put_((b, slot), kv_quant(cfg, v[:, 0]))
+        out = ops.attention(q.contiguous(),
+                            kv_dequant(cfg, ck, q.dtype).contiguous(),
+                            kv_dequant(cfg, cv, q.dtype).contiguous(),
+                            causal=False, kv_valid=n)
+        return _out(p, out), cache
     phys, off, last = rows
     ck.index_put_((phys, off), kv_quant(cfg, k).flatten(0, 1)[last])
     cv.index_put_((phys, off), kv_quant(cfg, v).flatten(0, 1)[last])
@@ -205,15 +277,22 @@ def last_writer(target: torch.Tensor) -> torch.Tensor:
 
 
 def attend_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
-                  pos: torch.Tensor, *, window: int = 0,
+                  pos: torch.Tensor, *, window: int = 0, ring: bool = False,
                   kv_chunk: int = 0) -> torch.Tensor:
-    """Decode attention against a contiguous cache whose buffer index is the
-    key's absolute position: the reference's ``attend_decode`` with
-    ``ring=False`` (the ring-buffer layout belongs to the dense engine).
+    """Decode attention against a cache, the reference's ``attend_decode``.
     q: (B, Tq, H, D), row t at position pos + t; ck/cv: (B, S, KV, D);
-    pos: (B,) position of the first row. Row t attends to keys at
-    positions <= pos + t (in-block causal), and with ``window`` > 0 only
-    to the last ``window`` of them. The keys go in chunks of ``kv_chunk``
+    pos: (B,) position of the first row. Two layouts:
+
+    * ``ring=False``: buffer index == the key's absolute position. Row t
+      attends to keys at positions <= pos + t (in-block causal), and with
+      ``window`` > 0 only to the last ``window`` of them.
+    * ``ring=True``: a window-sized ring buffer (slot = position % S) that
+      holds only the last S positions, so the first min(pos + 1, S) slots
+      are valid. Single-token: a Tq > 1 block raises ``ValueError``, as
+      in the reference. This is the plain oracle of the dense engine's
+      decode (``attention_decode`` with ``block_table=None``).
+
+    The keys go in chunks of ``kv_chunk``
     (one chunk if 0 or if it does not divide S) through an online
     softmax, scores and sums in fp32, P cast to the cache dtype before the
     P V product, as in the reference. Returns q's shape and dtype."""
@@ -222,8 +301,18 @@ def attend_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     G = H // KV
     dev = q.device
     qg = q.reshape(B, Tq, KV, G, D).float()
-    nvalid = (pos[:, None] + torch.arange(Tq, device=dev)[None, :]
-              + 1)                                         # (B, Tq)
+    if ring:
+        if Tq != 1:
+            raise ValueError(
+                f"ring-buffer windowed decode is single-token (got a "
+                f"Tq={Tq} query block): the ring has already overwritten "
+                f"positions the block's older rows would attend to — use "
+                f"the paged window layout (ring=False) for multi-token "
+                f"blocks")
+        nvalid = torch.clamp(pos + 1, max=S)[:, None]       # slot count
+    else:
+        nvalid = (pos[:, None] + torch.arange(Tq, device=dev)[None, :]
+                  + 1)                                     # (B, Tq)
     c = S if kv_chunk <= 0 else min(kv_chunk, S)
     if S % c:
         c = S
@@ -235,7 +324,7 @@ def attend_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
         s = torch.einsum("btkgd,bckd->bkgtc", qg, kb.float()) * D ** -0.5
         slots = i + torch.arange(c, device=dev)
         mask = slots[None, None, :] < nvalid[:, :, None]    # (B, Tq, c)
-        if window:
+        if window and not ring:
             mask = mask & (slots[None, None, :]
                            > nvalid[:, :, None] - 1 - window)
         mask = mask[:, None, None]                 # over (b, k, g, t, c)

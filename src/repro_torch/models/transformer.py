@@ -1,28 +1,42 @@
-"""Decoder stack: embedding -> a Python loop over blocks -> norm -> head.
+"""Decoder stack (+ optional encoder): embedding -> a Python loop over
+blocks -> norm -> head.
 
-Counterpart of ``repro.models.transformer`` for the stacks the paged engine
-serves: full attention with a dense MLP (``attn_mlp``) or a token-dropping
-MoE FFN (``attn_moe``), sliding-window attention (``local_attn``), Mamba2
-(``ssm``) and RG-LRU (``rglru``) blocks, in any pattern. Where the JAX
-package stacks each pattern position's parameters and runs ``lax.scan``
-over super-blocks, the port keeps one parameter dict per layer, in layer
-order, and loops over them.
+Counterpart of ``repro.models.transformer``: full attention with a dense
+MLP (``attn_mlp``) or a token-dropping MoE FFN (``attn_moe``),
+sliding-window attention (``local_attn``), Mamba2 (``ssm``) and RG-LRU
+(``rglru``) blocks, in any pattern, and the encoder-decoder kinds: ``enc``
+(non-causal self-attention + MLP) and ``dec`` (causal self-attention,
+cross-attention to the encoder output, MLP). Where the JAX package stacks
+each pattern position's parameters and runs ``lax.scan`` over
+super-blocks, the port keeps one parameter dict per layer, in layer order,
+and loops over them.
+
+Two cache layouts, as the reference's: the paged engine's (page pools and
+block tables; prefill returns each attention layer's exact-length k/v for
+the engine to scatter) and the dense engine's (one lane a slot: prefill
+pads full attention to ``max_len`` (``_grow``) and folds a window layer
+into its ring (``_window_cache``)). The encoder-decoder kinds have the
+dense layout only: cross-attention KV is per request, not paged.
 """
 from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.models import griffin, ssm
 from repro_torch.models.layers import (attention_apply, attention_decode,
-                                       kv_quant, mlp_apply, moe_apply,
-                                       norm_apply, paged_rows)
+                                       cross_kv, dense_rows, kv_quant,
+                                       mlp_apply, moe_apply, norm_apply,
+                                       paged_rows)
 
 VOCAB_PAD = 256
 PAGEABLE_KINDS = ("attn_mlp", "attn_moe")   # full-attention page pools
 WINDOW_KINDS = ("local_attn",)          # sliding-window page pools
 STATE_KINDS = ("ssm", "rglru")          # fixed-size per-slot state
+# every kind the paged engine can host (the encoder-decoder kinds stay on
+# the dense engine, as in the reference)
 SERVABLE_KINDS = PAGEABLE_KINDS + WINDOW_KINDS + STATE_KINDS
 
 
@@ -51,27 +65,54 @@ def layer_plan(cfg) -> Tuple[int, Tuple[str, ...]]:
 
 
 def layer_kinds(cfg) -> List[str]:
-    """Block kind of every layer in order (super-blocks, then the tail);
-    raises for a kind the port has no layers for yet."""
+    """Block kind of every decoder layer in order (super-blocks, then the
+    tail); the encoder's layers are ``cfg.enc_layers`` ``enc`` blocks."""
     n_super, tail = layer_plan(cfg)
-    kinds = list(pattern_for(cfg)) * n_super + list(tail)
-    bad = sorted(set(kinds) - set(SERVABLE_KINDS))
-    if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: block kind(s) {bad} are not ported yet (the port "
-            f"has {SERVABLE_KINDS})")
-    return kinds
+    return list(pattern_for(cfg)) * n_super + list(tail)
+
+
+def _grow(cfg, k: torch.Tensor, v: torch.Tensor, max_len: Optional[int]):
+    """A full-attention prefill's k/v (B, S, KV, D) in the cache storage
+    dtype, padded with zeros to ``max_len`` rows when given (the dense
+    engine's lane)."""
+    k, v = kv_quant(cfg, k), kv_quant(cfg, v)
+    pad = max(0, (max_len or 0) - k.shape[1])
+    if pad:
+        k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (k, v))
+    return {"k": k, "v": v}
+
+
+def _window_cache(cfg, k: torch.Tensor, v: torch.Tensor, w: int):
+    """The ring buffer (slot = position % w) of a local_attn layer from its
+    prefill's k/v: the last w positions, zeros where the prompt is
+    shorter."""
+    k, v = kv_quant(cfg, k), kv_quant(cfg, v)
+    S = k.shape[1]
+    if S <= w:
+        return {"k": F.pad(k, (0, 0, 0, 0, 0, w - S)),
+                "v": F.pad(v, (0, 0, 0, 0, 0, w - S))}
+    pos = torch.arange(S - w, S, device=k.device)
+    out = {}
+    for name, t in (("k", k), ("v", v)):
+        ring = t.new_zeros((t.shape[0], w) + t.shape[2:])
+        ring[:, pos % w] = t[:, pos]
+        out[name] = ring
+    return out
 
 
 def block_apply(cfg, kind: str, p, x: torch.Tensor, prefix=None,
-                length=None):
-    """Full-sequence block of ``kind``. Returns (x, cache entry): {"k",
-    "v"} (B, S, KV, D) in the cache storage dtype for the attention kinds
-    (``prefix``: see ``layers.attention_apply``), the decode state for the
-    recurrent ones, whose updates past ``length`` (real tokens of a
-    right-padded bucket) are the identity. ``ssm`` blocks have no FFN
-    sublayer; ``attn_moe`` blocks route every row, bucket padding too,
-    through ``moe_apply``."""
+                length=None, enc_out=None, max_len=None):
+    """Full-sequence block of ``kind``. Returns (x, cache entry). The
+    attention kinds' entry is {"k", "v"} in the cache storage dtype:
+    exact-length (B, S, KV, D) for the paged engine (``prefix``: see
+    ``layers.attention_apply``), or with ``max_len`` the dense engine's
+    lane (padded to max_len; a ``local_attn`` layer's window ring). A
+    ``dec`` block adds its cross-attention lane {"xk", "xv"} (B, S_enc,
+    KV, D) from ``enc_out``; an ``enc`` block has no entry (None). The
+    recurrent kinds' entry is their decode state, whose updates past
+    ``length`` (real tokens of a right-padded bucket) are the identity.
+    ``ssm`` blocks have no FFN sublayer; ``attn_moe`` blocks route every
+    row, bucket padding too, through ``moe_apply``."""
     h = norm_apply(p["ln1"], x, cfg.norm)
     if kind == "ssm":
         a, cache = ssm.ssm_apply(cfg, p["mixer"], h, return_state=True,
@@ -80,12 +121,22 @@ def block_apply(cfg, kind: str, p, x: torch.Tensor, prefix=None,
     if kind == "rglru":
         a, cache = griffin.rglru_apply(cfg, p["mixer"], h, return_state=True,
                                        length=length)
+    elif kind == "enc":
+        a, _ = attention_apply(cfg, p["attn"], h, causal=False)
+        cache = None
     else:
         window = cfg.hybrid.window if kind == "local_attn" else 0
         a, (k, v) = attention_apply(cfg, p["attn"], h, prefix=prefix,
                                     window=window)
-        cache = {"k": kv_quant(cfg, k), "v": kv_quant(cfg, v)}
+        cache = _window_cache(cfg, k, v, window) \
+            if window and max_len is not None else _grow(cfg, k, v, max_len)
     x = x + a
+    if kind == "dec":
+        hx = norm_apply(p["lnx"], x, cfg.norm)
+        ck, cv = cross_kv(cfg, p["cross"], enc_out)
+        a, _ = attention_apply(cfg, p["cross"], hx, cross_kv=(ck, cv))
+        x = x + a
+        cache.update(xk=kv_quant(cfg, ck), xv=kv_quant(cfg, cv))
     return x + ffn_apply(cfg, kind, p, norm_apply(p["ln2"], x, cfg.norm)), \
         cache
 
@@ -99,14 +150,17 @@ def ffn_apply(cfg, kind: str, p, h: torch.Tensor) -> torch.Tensor:
 
 
 def block_decode(cfg, kind: str, p, x: torch.Tensor, cache,
-                 pos: torch.Tensor, block_table: torch.Tensor,
+                 pos: torch.Tensor, block_table: Optional[torch.Tensor],
                  win_block_table: Optional[torch.Tensor], rows, win_rows):
-    """Decode step of one block. Attention kinds write their pools in place
-    (``local_attn`` through ``win_block_table``, with the window; ``rows``
-    / ``win_rows``: ``layers.paged_rows`` of the two tables, None for a
-    table the stack has no layer on) and return (x, None); recurrent kinds
-    read their state and return (x, new state): plain for T == 1,
-    checkpointed for T > 1 (see ``griffin.rglru_decode``,
+    """Decode step of one block. Attention kinds write their cache in place
+    and return (x, None): through ``block_table`` (``local_attn`` through
+    ``win_block_table``, with the window) on page pools, or, where the
+    table is None, into the slot's dense lane (a ``local_attn`` lane is a
+    ring); ``rows`` / ``win_rows``: ``layers.paged_rows`` or
+    ``layers.dense_rows`` of each, None for one the stack has no layer on.
+    A ``dec`` block then attends its cross lane {"xk", "xv"}, unchanged.
+    Recurrent kinds read their state and return (x, new state): plain for
+    T == 1, checkpointed for T > 1 (see ``griffin.rglru_decode``,
     ``ssm.ssm_decode``). An ``attn_moe`` block routes every row of the
     step, dead slots' too, as the JAX package's step does."""
     h = norm_apply(p["ln1"], x, cfg.norm)
@@ -124,20 +178,29 @@ def block_decode(cfg, kind: str, p, x: torch.Tensor, cache,
         a, _ = attention_decode(cfg, p["attn"], h, cache, pos, block_table,
                                 rows)
     x = x + a
+    if kind == "dec":
+        hx = norm_apply(p["lnx"], x, cfg.norm)
+        a, _ = attention_decode(cfg, p["cross"], hx,
+                                {"k": cache["xk"], "v": cache["xv"]}, pos,
+                                cross=True)
+        x = x + a
     return x + ffn_apply(cfg, kind, p, norm_apply(p["ln2"], x, cfg.norm)), \
         new
 
 
 def stack_apply(cfg, blocks, x: torch.Tensor, *, prefix_kv=None,
-                prefix_len: int = 0, length=None):
+                prefix_len: int = 0, length=None, enc_out=None,
+                max_len=None, kinds=None):
     """Run every layer over the prompt. Returns (x, per-layer cache
     entries). ``prefix_kv`` (per layer {"k", "v"} (B, Pb, KV, D) in the
     cache dtype) with ``prefix_len`` switches every layer to suffix-only
     prefill against that reused KV (``layers.attention_apply``; full
     attention stacks only); the returned k/v are then the suffix's.
     ``length``: real tokens of a right-padded bucket, for the recurrent
-    blocks' states."""
-    kinds = layer_kinds(cfg)
+    blocks' states. ``enc_out``: the encoder's output, for ``dec`` blocks.
+    ``max_len``: build the dense engine's lanes (see ``block_apply``).
+    ``kinds``: the blocks' kinds (default the decoder's)."""
+    kinds = layer_kinds(cfg) if kinds is None else kinds
     if prefix_kv is not None and set(kinds) - set(PAGEABLE_KINDS):
         raise ValueError(f"prefix reuse needs an attention-only stack, got "
                          f"{sorted(set(kinds))}")
@@ -145,31 +208,37 @@ def stack_apply(cfg, blocks, x: torch.Tensor, *, prefix_kv=None,
     for j, (kind, p) in enumerate(zip(kinds, blocks)):
         pref = None if prefix_kv is None else (
             prefix_kv[j]["k"], prefix_kv[j]["v"], prefix_len)
-        x, c = block_apply(cfg, kind, p, x, prefix=pref, length=length)
+        x, c = block_apply(cfg, kind, p, x, prefix=pref, length=length,
+                           enc_out=enc_out, max_len=max_len)
         caches.append(c)
     return x, caches
 
 
 def stack_decode(cfg, blocks, x: torch.Tensor, caches, pos: torch.Tensor,
-                 block_table: torch.Tensor,
+                 block_table: Optional[torch.Tensor] = None,
                  win_block_table: Optional[torch.Tensor] = None,
                  state_out=None):
-    """One decode step through every layer. Pools change in place. A
-    recurrent layer's new state goes, in place, into its cache entry (T ==
-    1) or, for a T > 1 verify block, into ``state_out[j]`` (fixed (B, T,
-    ...) buffers) when given. Returns (x, per-layer entries: the caches,
-    with a T > 1 block's checkpointed states in place of the recurrent
-    layers' when no ``state_out`` takes them)."""
+    """One decode step through every layer. Pools and lanes change in
+    place; a None table means the dense lanes. A recurrent layer's new
+    state goes, in place, into its cache entry (T == 1) or, for a T > 1
+    verify block, into ``state_out[j]`` (fixed (B, T, ...) buffers) when
+    given. Returns (x, per-layer entries: the caches, with a T > 1 block's
+    checkpointed states in place of the recurrent layers' when no
+    ``state_out`` takes them)."""
     T = x.shape[1]
     kinds = layer_kinds(cfg)
-    # where the step's rows write, once for each table (every layer on a
-    # table writes the same pool rows)
+    # where the step's rows write, once for each table or lane length
+    # (every layer on it writes the same rows)
     rows = win_rows = None
     for kind, c in zip(kinds, caches):
-        if kind in PAGEABLE_KINDS and rows is None:
-            rows = paged_rows(block_table, pos, T, c["k"].shape[1])
+        if kind in PAGEABLE_KINDS + ("dec",) and rows is None:
+            S = c["k"].shape[1]
+            rows = dense_rows(pos, S, False) if block_table is None \
+                else paged_rows(block_table, pos, T, S)
         if kind in WINDOW_KINDS and win_rows is None:
-            win_rows = paged_rows(win_block_table, pos, T, c["k"].shape[1])
+            S = c["k"].shape[1]
+            win_rows = dense_rows(pos, S, True) if win_block_table is None \
+                else paged_rows(win_block_table, pos, T, S)
     out = list(caches)
     for j, (kind, p, c) in enumerate(zip(kinds, blocks, caches)):
         x, new = block_decode(cfg, kind, p, x, c, pos, block_table,

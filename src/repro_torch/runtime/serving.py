@@ -1,4 +1,5 @@
-"""Paged serving engine: continuous batching over a shared KV page pool.
+"""Serving engines: continuous batching over a shared KV page pool, the
+dense-slot baseline, and the factory that picks between them.
 
 Counterpart of the core of ``repro.runtime.serving``:
 
@@ -52,6 +53,13 @@ Counterpart of the core of ``repro.runtime.serving``:
   slot's accepted row of the verify graph's checkpointed states (a third
   captured graph over a fixed index buffer).
 
+``DenseServingEngine`` is the reference's seed engine, kept as the measured
+baseline: one dense ``max_len`` lane a slot (a window ring on local_attn
+layers), prefill at each prompt's exact length, its decode step one
+captured graph too. ``ServingEngine`` returns the paged engine for every
+stack it can host and the dense one otherwise (the encoder-decoder, which
+neither engine can then serve: its prefill needs ``enc_embeds``).
+
 Tensor parallelism is not ported yet: its ``metrics()`` keys read as the
 reference's do with it switched off (``model_shards`` 1, ``""``).
 """
@@ -59,6 +67,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -115,6 +124,38 @@ def _next_pow2(n: int) -> int:
     while p < n:
         p *= 2
     return p
+
+
+def capture_graph(device, body, state) -> tuple:
+    """Record ``body`` as a CUDA graph; returns (graph, the launches it
+    holds). A warm-up run first, on a side stream: it builds the
+    kernels and raises their shared-memory limits (neither may happen
+    inside a capture) and lets cuBLAS pick its kernels. The warm-up
+    must not advance the engine, so ``state`` (the tensors the body
+    advances) is snapshotted before it and restored after; its pool
+    writes land where the first replay writes the same values. The
+    capture launches nothing, so the wrappers' counters are set back
+    to their values before the warm-up, and the launches the graph
+    holds are added on each replay instead. Any failure raises: there
+    is no eager fallback."""
+    saved = [t.clone() for t in state]
+    before = ops.launch_counts()
+    main = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        body()
+    main.wait_stream(side)
+    for t, s in zip(state, saved):
+        t.copy_(s)
+    warm = ops.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    held = {k: n - warm[k] for k, n in ops.launch_counts().items()}
+    ops.add_launch_counts({k: before[k] - n
+                           for k, n in ops.launch_counts().items()})
+    return graph, {k: n for k, n in held.items() if n}
 
 
 class ServingMetricsMixin:
@@ -264,6 +305,35 @@ class ServingMetricsMixin:
     def _reset_subsystem_counters(self) -> None:
         pass
 
+    # -- shared by both engines ----------------------------------------------
+
+    def _free_slot(self) -> Optional[int]:
+        for i, r in enumerate(self.live):
+            if r is None:
+                return i
+        return None
+
+    def has_live(self) -> bool:
+        return any(r is not None for r in self.live)
+
+    def _count_tokens(self, pol: Optional[SamplingParams], n: int) -> None:
+        """Attribute ``n`` emitted tokens to the greedy or sampled count."""
+        if pol is None or pol.is_greedy:
+            self.greedy_tokens += n
+        else:
+            self.sampled_tokens += n
+
+    def run_to_completion(self, requests: List[Request],
+                          max_steps: int = 10_000) -> List[Request]:
+        """Drive ``requests`` through a Scheduler until all finish (raises
+        SchedulerExhausted if ``max_steps`` ticks are not enough)."""
+        from repro_torch.runtime.scheduler import Scheduler
+        sched = Scheduler(self)
+        for r in requests:
+            sched.add(r)
+        sched.drain(max_steps=max_steps)
+        return [r for r in requests if r.done]
+
 
 class PagedServingEngine(ServingMetricsMixin):
     """Continuous batching over a paged KV cache with bucketed prefill.
@@ -298,10 +368,14 @@ class PagedServingEngine(ServingMetricsMixin):
                  host_tier: bool = False,
                  tracer: Optional[Tracer] = None, device="cuda"):
         self.device = resolve_device(device)
+        if not _pageable(cfg):
+            raise ValueError(f"paged serving cannot host pattern "
+                             f"{tfm.pattern_for(cfg)}; use "
+                             f"DenseServingEngine")
         # the block kinds split three ways: full-attention layers share one
         # block table, sliding-window layers a second (recycled) one, and
         # recurrent layers hold per-slot state beside the pools
-        kinds = tfm.layer_kinds(cfg)          # raises on unported kinds
+        kinds = tfm.layer_kinds(cfg)
         self._kinds = kinds
         self.has_full = bool(set(kinds) & set(api.PAGEABLE_KINDS))
         self.has_win = bool(set(kinds) & set(api.WINDOW_KINDS))
@@ -447,12 +521,6 @@ class PagedServingEngine(ServingMetricsMixin):
 
     # -- admission ------------------------------------------------------------
 
-    def _free_slot(self) -> Optional[int]:
-        for i, r in enumerate(self.live):
-            if r is None:
-                return i
-        return None
-
     def _bucket(self, n: int) -> int:
         return min(max(self.page_size, _next_pow2(n)), self.max_len)
 
@@ -485,13 +553,6 @@ class PagedServingEngine(ServingMetricsMixin):
         if bucket not in self._seen_buckets:
             self._seen_buckets.add(bucket)
             self.prefill_traces += 1
-
-    def _count_tokens(self, pol: Optional[SamplingParams], n: int) -> None:
-        """Attribute ``n`` emitted tokens to the greedy or sampled count."""
-        if pol is None or pol.is_greedy:
-            self.greedy_tokens += n
-        else:
-            self.sampled_tokens += n
 
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy-on-write on the device: page ``src`` -> ``dst`` in every
@@ -1180,37 +1241,6 @@ class PagedServingEngine(ServingMetricsMixin):
     def _state_tensors(self) -> List[torch.Tensor]:
         return [t for _, e in self._state for t in e.values()]
 
-    def _capture(self, body, state) -> tuple:
-        """Record ``body`` as a CUDA graph; returns (graph, the launches it
-        holds). A warm-up run first, on a side stream: it builds the
-        kernels and raises their shared-memory limits (neither may happen
-        inside a capture) and lets cuBLAS pick its kernels. The warm-up
-        must not advance the engine, so ``state`` (the tensors the body
-        advances) is snapshotted before it and restored after; its pool
-        writes land where the first replay writes the same values. The
-        capture launches nothing, so the wrappers' counters are set back
-        to their values before the warm-up, and the launches the graph
-        holds are added on each replay instead. Any failure raises: there
-        is no eager fallback."""
-        saved = [t.clone() for t in state]
-        before = ops.launch_counts()
-        main = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            body()
-        main.wait_stream(side)
-        for t, s in zip(state, saved):
-            t.copy_(s)
-        warm = ops.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            body()
-        held = {k: n - warm[k] for k, n in ops.launch_counts().items()}
-        ops.add_launch_counts({k: before[k] - n
-                               for k, n in ops.launch_counts().items()})
-        return graph, {k: n for k, n in held.items() if n}
-
     def _dispatch(self) -> None:
         """Enqueue one step body: a replay of the captured graph on CUDA
         (captured at the first call), the body itself on the CPU."""
@@ -1218,8 +1248,8 @@ class PagedServingEngine(ServingMetricsMixin):
             self._step_body()
             return
         if self._graph is None:
-            self._graph, self._graph_launches = self._capture(
-                self._step_body,
+            self._graph, self._graph_launches = capture_graph(
+                self.device, self._step_body,
                 [self.cur_tok, self.pos, self.gen_cnt, self.live_mask,
                  self.pol.idx, self._step_out] + self._state_tensors())
             self.step_traces += 1
@@ -1233,8 +1263,8 @@ class PagedServingEngine(ServingMetricsMixin):
             self._spec_body()
             return
         if self._spec_graph is None:
-            self._spec_graph, self._spec_graph_launches = self._capture(
-                self._spec_body, (self._spec_out,))
+            self._spec_graph, self._spec_graph_launches = capture_graph(
+                self.device, self._spec_body, (self._spec_out,))
             self.spec_traces += 1
         self._spec_graph.replay()
         ops.add_launch_counts(self._spec_graph_launches)
@@ -1247,8 +1277,8 @@ class PagedServingEngine(ServingMetricsMixin):
             self._select_body()
             return
         if self._select_graph is None:
-            self._select_graph, _ = self._capture(self._select_body,
-                                                  self._state_tensors())
+            self._select_graph, _ = capture_graph(
+                self.device, self._select_body, self._state_tensors())
             self.select_traces += 1
         self._select_graph.replay()
 
@@ -1415,9 +1445,6 @@ class PagedServingEngine(ServingMetricsMixin):
 
     # -- queries --------------------------------------------------------------
 
-    def has_live(self) -> bool:
-        return any(r is not None for r in self.live)
-
     def pool_stats(self) -> PoolStats:
         return PoolStats.of(self.alloc, self.slots, self.max_len)
 
@@ -1550,13 +1577,313 @@ class PagedServingEngine(ServingMetricsMixin):
                     f"slot {slot}: {live} live window pages exceed the "
                     f"O(window) bound {bound}: recycling fell behind")
 
-    def run_to_completion(self, requests: List[Request],
-                          max_steps: int = 10_000) -> List[Request]:
-        """Drive ``requests`` through a Scheduler until all finish (raises
-        SchedulerExhausted if ``max_steps`` ticks are not enough)."""
-        from repro_torch.runtime.scheduler import Scheduler
-        sched = Scheduler(self)
-        for r in requests:
-            sched.add(r)
-        sched.drain(max_steps=max_steps)
-        return [r for r in requests if r.done]
+
+# ===========================================================================
+# The engine factory and the dense-slot engine
+# ===========================================================================
+
+# the paged engine's feature kwargs and their defaults: what the factory
+# drops when it falls back to the dense engine
+_PAGED_DEFAULTS = {"page_size": 16, "num_pages": None, "attn_impl": "kernel",
+                   "prefix_cache": False, "spec_k": 0, "spec_ngram": 3,
+                   "drafter": None, "mesh": None, "host_tier": False}
+
+
+def _pageable(cfg) -> bool:
+    """Whether the paged engine can host the stack: full attention,
+    sliding-window attention and recurrent state all can; only an
+    encoder-decoder stack falls back to the dense engine."""
+    return set(tfm.pattern_for(cfg)) <= set(tfm.SERVABLE_KINDS)
+
+
+def ServingEngine(cfg, params, **kwargs):
+    """Engine factory (the reference's ``ServingEngine``): the paged engine
+    for every stack it can host, else ``DenseServingEngine``. The dense
+    engine cannot honour the paged feature kwargs: each dropped one whose
+    value differs from the paged default is named in a warning; a truthy
+    ``spec_k`` and any ``drafter`` raise ``ValueError`` (they change what a
+    step returns); kwargs at their defaults drop quietly (launchers pass
+    the whole knob set on every call)."""
+    if _pageable(cfg):
+        return PagedServingEngine(cfg, params, **kwargs)
+    pattern = tfm.pattern_for(cfg)
+    dropped = []
+    for k, default in _PAGED_DEFAULTS.items():
+        if k not in kwargs:
+            continue
+        v = kwargs.pop(k)
+        if k == "spec_k" and v:
+            raise ValueError(
+                f"spec_k={v} requested, but {cfg.name!r} (pattern "
+                f"{pattern}) is not servable by the paged engine and the "
+                f"dense fallback has no speculative decode — drop spec_k "
+                f"or serve a paged-servable stack")
+        if k == "drafter" and v is not None:
+            raise ValueError(
+                f"a drafter was passed, but {cfg.name!r} (pattern "
+                f"{pattern}) is not servable by the paged engine and the "
+                f"dense fallback has no speculative verify step to feed it "
+                f"— drop the drafter or serve a paged-servable stack")
+        if v != default:
+            dropped.append(f"{k}={v!r}")
+    if dropped:
+        warnings.warn(
+            f"{cfg.name!r} (pattern {pattern}) falls back to "
+            f"DenseServingEngine, which ignores the paged-engine kwarg(s) "
+            f"{dropped} — the features they configure will NOT be active",
+            stacklevel=2)
+    return DenseServingEngine(cfg, params, **kwargs)
+
+
+class DenseServingEngine(ServingMetricsMixin):
+    """Fixed-slot batch, the reference's ``DenseServingEngine``: each slot
+    owns a dense ``max_len`` lane in every attention layer (a window-sized
+    ring in a local_attn layer) and its recurrent state: the "separated
+    memory" baseline the paged engine is measured against.
+
+    Admission prefills the prompt alone (B = 1, its exact length: one
+    prefill shape a distinct length, ``prefill_traces``) and copies the
+    result into the slot's lanes. The decode step is one device program
+    over every slot, as the paged engine's: the stack on the dense lanes
+    (flash-MHA at one query row a slot, ``kv_valid`` on the device), the
+    policy draw and the position bookkeeping, over tensors allocated once;
+    on CUDA the first ``step()`` captures it as a CUDA graph and every step
+    replays it, on the CPU it runs as it is. One host copy a step (the
+    reference syncs once a live slot; the values are the same).
+
+    Dead slots compute what the reference's compute: every row's current
+    token becomes the token its row sampled (a dead row's greedy), while
+    only live rows advance their position; a lane never used starts at
+    position 0, token 0, zero lanes. On an MoE stack a dead row routes and
+    takes expert capacity. Requests are done at ``eos_id``, at ``max_new``
+    tokens or at position ``max_len - 1``, checked after each decode step
+    only (a request's first token never finishes it, as in the
+    reference). An encoder-decoder stack cannot be served:
+    ``api.prefill`` raises for the missing ``enc_embeds``, as the
+    reference's does."""
+
+    def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
+                 eos_id: int = -1, temperature: float = 0.0, seed: int = 0,
+                 sampling: Optional[SamplingParams] = None,
+                 tracer: Optional[Tracer] = None, device="cuda"):
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed'].device}, the "
+                             f"engine on {self.device}")
+        self.cfg, self.params = cfg, params
+        self.slots, self.max_len, self.eos_id = slots, max_len, eos_id
+        self.default_params = (
+            sampling if sampling is not None
+            else SamplingParams(temperature=temperature)).validate()
+        self.temperature = self.default_params.temperature
+        self.seed = int(seed) & 0x7FFFFFFF
+        self._init_metrics(tracer)
+        self.cache = api.cache_init(cfg, slots, max_len, device=self.device)
+        self._state = [t for e, k in zip(self.cache, tfm.layer_kinds(cfg))
+                       if k in api.STATE_KINDS for t in e.values()]
+        dev = self.device
+        # device-side slot state, allocated once: the step body reads and
+        # advances it in place (a captured graph holds these addresses)
+        self.pos = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        self.cur_tok = torch.zeros((slots, 1), dtype=torch.int64, device=dev)
+        self.live_mask = torch.zeros((slots,), dtype=torch.bool, device=dev)
+        self.pol = PolicyBuffers(slots, dev)          # dead rows: greedy
+        self._step_out = torch.zeros((slots,), dtype=torch.int64, device=dev)
+        self.last_logits: Optional[torch.Tensor] = None
+        self.live: List[Optional[Request]] = [None] * slots
+        self._policy: List[Optional[SamplingParams]] = [None] * slots
+        self._pos_host = [0] * slots
+        self._seen_lengths: set = set()
+        self.prefills = 0
+        self.prompt_tokens = 0
+        self.prefilled_tokens = 0     # == prompt_tokens (no sharing here)
+        self.greedy_requests = 0
+        self.sampled_requests = 0
+        self.greedy_tokens = 0
+        self.sampled_tokens = 0
+        # captures of the decode graph (1 on the card once used, 0 on the
+        # CPU); the dense engine has no verify step
+        self.step_traces = 0
+        self.spec_traces = 0
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_launches: Dict[str, int] = {}
+
+    @property
+    def prefill_traces(self) -> int:
+        """Distinct prompt lengths prefilled (the reference retraces its
+        prefill for each)."""
+        return len(self._seen_lengths)
+
+    def _submit(self, req: Request) -> bool:
+        """Prefill ``req`` (its prompt, at its exact length) and install it
+        into a free slot. False if no slot is free. A prompt of max_len - 1
+        tokens or more, or a request with no budget left, is done at once
+        with what it has: the paged engine's guard, so that both engines
+        serve the same requests."""
+        slot = self._free_slot()
+        if slot is None:
+            return False
+        if (len(req.prompt) >= self.max_len - 1
+                or req.max_new - len(req.generated) <= 0):
+            req.done = True
+            self._note_finished(req.rid)
+            return True
+        L = len(req.prompt)
+        self._seen_lengths.add(L)
+        dev = self.device
+        pol_req = request_params(req, self.default_params)
+        pol1 = policy_operands([pol_req], [req.rid], [len(req.generated)],
+                               self.seed, dev)
+        tr = self.trace
+        with tr.span("prefill_dispatch", args={"len": L} if tr else None):
+            toks = torch.tensor([req.prompt], dtype=torch.int64, device=dev)
+            logits, cache1, _ = api.prefill(self.cfg, self.params, toks,
+                                            max_len=self.max_len)
+            tok = sample_rows(logits[:, : self.cfg.vocab], pol1)[0]
+            # the B = 1 lanes into slot ``slot``: every lane row, so nothing
+            # of the slot's previous request survives
+            for lanes, one in zip(self.cache, cache1):
+                for name, t in lanes.items():
+                    t[slot].copy_(one[name][0])
+        self.pos[slot] = L
+        self.cur_tok[slot, 0] = tok
+        self.live_mask[slot] = True
+        # repro-lint: disable=host-sync — admission reads its first token
+        t = int(tok.item())
+        first = req.rid not in self.first_token_at
+        req.generated.append(t)
+        self.pol.set_slot(slot, pol_req, req.rid, len(req.generated),
+                          self.seed)
+        self._policy[slot] = pol_req
+        self._pos_host[slot] = L
+        self.live[slot] = req
+        if first:
+            if pol_req.is_greedy:
+                self.greedy_requests += 1
+            else:
+                self.sampled_requests += 1
+        self._count_tokens(pol_req, 1)
+        self.prefills += 1
+        self.prompt_tokens += L
+        self.prefilled_tokens += L
+        self._note_emitted(req.rid)
+        return True
+
+    def _step_body(self) -> None:
+        """One decode step on the device: the stack over every slot's lanes,
+        the policy draw, then every row's current token becomes its draw
+        and live rows advance their position and draw index, in place, on
+        tensors the constructor allocated (so a CUDA graph of it stays
+        valid). ``last_logits`` is the step's (slots, Vp) logits."""
+        logits, _ = api.decode_step(self.cfg, self.params, self.cache,
+                                    self.cur_tok, self.pos)
+        toks = sample_rows(logits[:, : self.cfg.vocab], self.pol)
+        livei = self.live_mask.to(torch.int32)
+        self.pos.add_(livei)
+        self.cur_tok.copy_(toks[:, None])
+        self.pol.idx.add_(livei)
+        self._step_out.copy_(toks)
+        self.last_logits = logits
+
+    def _dispatch(self) -> None:
+        """Enqueue one step body: a replay of the captured graph on CUDA
+        (captured at the first call), the body itself on the CPU."""
+        if self.device.type != "cuda":
+            self._step_body()
+            return
+        if self._graph is None:
+            self._graph, self._graph_launches = capture_graph(
+                self.device, self._step_body,
+                [self.cur_tok, self.pos, self.pol.idx, self._step_out]
+                + self._state)
+            self.step_traces += 1
+        self._graph.replay()
+        ops.add_launch_counts(self._graph_launches)
+
+    def _step(self) -> List[Request]:
+        """Advance every live slot one token: one device program, one
+        device->host copy. Returns [] (lanes are reserved: nothing is ever
+        preempted). Callers use ``step()``, the mixin's timed wrapper."""
+        if not self.has_live():
+            return []
+        tr = self.trace
+        t0 = time.perf_counter()
+        with tr.span("device_dispatch"):
+            self._dispatch()
+        with tr.span("host_sync"):
+            # repro-lint: disable=host-sync — the step's one host copy
+            host = self._step_out.cpu().numpy()
+        self.step_wall_s += time.perf_counter() - t0
+        self.decode_steps += 1
+        for i, r in enumerate(self.live):
+            if r is None:
+                continue
+            t = int(host[i])
+            r.generated.append(t)
+            self._pos_host[i] += 1
+            self.decoded_tokens += 1
+            self._count_tokens(self._policy[i], 1)
+            self._note_emitted(r.rid)
+            if (t == self.eos_id or len(r.generated) >= r.max_new
+                    or self._pos_host[i] >= self.max_len - 1):
+                r.done = True
+                self.live[i] = None
+                self._policy[i] = None
+                self.live_mask[i] = False
+                self.pol.clear_slot(i)
+                self._note_finished(r.rid)
+        return []
+
+    # -- stats: the paged key sets, zero-filled ------------------------------
+
+    def pool_stats(self) -> PoolStats:
+        """No pool: zeros under the paged keys, and ``dense_equiv_tokens``
+        the reservation a pool is measured against."""
+        return PoolStats(page_size=0, num_pages=0, allocated_pages=0,
+                         peak_pages=0, live_tokens=0, utilization=0.0,
+                         dense_equiv_tokens=self.slots * self.max_len)
+
+    def spec_stats(self) -> Dict[str, object]:
+        return {"spec_k": 0.0, "spec_drafted": 0.0, "spec_accepted": 0.0,
+                "accept_rate": 0.0, "accepted_per_step": 1.0,
+                "drafter": "none"}
+
+    def sampling_stats(self) -> Dict[str, float]:
+        return {"greedy_requests": float(self.greedy_requests),
+                "sampled_requests": float(self.sampled_requests),
+                "greedy_tokens": float(self.greedy_tokens),
+                "sampled_tokens": float(self.sampled_tokens),
+                "step_traces": float(self.step_traces),
+                "spec_traces": float(self.spec_traces),
+                "draft_proposed": 0.0, "draft_ingested_tokens": 0.0,
+                "draft_decode_calls": 0.0, "draft_pool_rejects": 0.0}
+
+    def prefix_stats(self) -> Dict[str, float]:
+        d = {"prompt_tokens": float(self.prompt_tokens),
+             "prefilled_tokens": float(self.prefilled_tokens),
+             "prefill_tokens_saved": 0.0, "prefill_saved_frac": 0.0,
+             "cow_copies": 0.0}
+        d.update(PrefixCache.zero_stats())
+        return d
+
+    def tier_stats(self) -> Dict[str, float]:
+        d: Dict[str, float] = {"host_tier": 0.0}
+        d.update(HostTier.zero_stats())
+        return d
+
+    def shard_stats(self) -> Dict[str, object]:
+        """``pool_bytes_per_shard``: every lane's and state's bytes."""
+        nbytes = sum(t.numel() * t.element_size()
+                     for e in self.cache for t in e.values())
+        return {"model_shards": 1.0, "sharded_axes": "",
+                "peak_pages_per_shard": 0.0,
+                "pool_bytes_per_shard": float(nbytes)}
+
+    def _reset_subsystem_counters(self) -> None:
+        self.prefills = 0
+        self.prompt_tokens = 0
+        self.prefilled_tokens = 0
+        self.greedy_requests = 0
+        self.sampled_requests = 0
+        self.greedy_tokens = 0
+        self.sampled_tokens = 0

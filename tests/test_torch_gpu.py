@@ -23,7 +23,8 @@ from repro_torch.models import api  # noqa: E402
 from repro_torch.runtime import sampling  # noqa: E402
 from repro_torch.runtime.drafter import DraftModelDrafter  # noqa: E402
 from repro_torch.runtime.scheduler import Scheduler  # noqa: E402
-from repro_torch.runtime.serving import PagedServingEngine, Request  # noqa
+from repro_torch.runtime.serving import (DenseServingEngine,  # noqa: E402
+                                         PagedServingEngine, Request)
 from torch_cases import (BLOCKED_CASES, CONV_SPECS,  # noqa: E402
                          EPILOGUE_EDGES, F32, GEMM_SHAPES, MASK_PROBES,
                          dying_traffic,
@@ -1489,3 +1490,168 @@ def test_cuda_drain_waits_only_when_a_copy_is_pending(cuda):
     assert tier.store.pending == 1
     assert tier.drain() == 1                  # waited for the copy
     assert tier.store.get(h)["k"].sum().item() == 1024
+
+
+# ---------------------------------------------------------------------------
+# The dense-slot engine and the encoder-decoder stack: mha at their shapes
+# ---------------------------------------------------------------------------
+
+# (query heads, KV heads, head dim): qwen2.5-3b's and seamless-m4t's
+DENSE_HEADS = [(16, 2, 128), (16, 16, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("heads", DENSE_HEADS, ids=["qwen", "seamless"])
+def test_cuda_mha_decode_row_with_device_kv_valid(cuda, heads, dtype):
+    """The dense lanes' decode attention: one query row a slot (B 8) against
+    a 256-row lane, non-causal, with a (B,) int32 kv_valid on the device
+    running from 1 to the lane length (a ring's min(pos + 1, W) among
+    them), per row within the plain version's tolerance; then the same
+    call captured in a CUDA graph and replayed after kv_valid's contents
+    change in place: the replay reads the new counts."""
+    Hq, KVh, Dh = heads
+    dt = getattr(torch, dtype)
+    B, S = 8, 256
+    q, k, v = (torch.from_numpy(x).to(cuda, dt)
+               for x in mha_inputs(Hq + Dh, B, 1, S, Hq, KVh, Dh))
+    valid = torch.tensor([1, 2, 17, 64, 129, 255, 256, 100],
+                         dtype=torch.int32, device=cuda)
+    got = launched_once(lambda: mha_kernel.mha.launches,
+                        lambda: ops.attention(q, k, v, causal=False,
+                                              kv_valid=valid))
+    assert_rows_agree(got, ref.mha_ref(q, k, v, causal=False,
+                                       kv_valid=valid))
+    ops.attention(q, k, v, causal=False, kv_valid=valid)     # warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.attention(q, k, v, causal=False, kv_valid=valid)
+    valid.copy_(torch.tensor([256, 3, 1, 200, 32, 5, 77, 256],
+                             dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert_rows_agree(out, ref.mha_ref(q, k, v, causal=False,
+                                       kv_valid=valid))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("Sq,Sk", [(128, 1024), (1024, 1024), (77, 300)])
+def test_cuda_mha_non_causal_at_seamless_heads(cuda, Sq, Sk, dtype):
+    """seamless-m4t's attention shapes (H16 KV16 D64, G = 1), non-causal:
+    the encoder (Sq = Sk), the cross-attention prefill (prompt rows
+    against encoder frames, Sq != Sk), per row within tolerance."""
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.from_numpy(x).to(cuda, dt)
+               for x in mha_inputs(Sq + Sk, 2, Sq, Sk, 16, 16, 64))
+    got = launched_once(lambda: mha_kernel.mha.launches,
+                        lambda: ops.attention(q, k, v, causal=False))
+    assert_rows_agree(got, ref.mha_ref(q, k, v, causal=False))
+
+
+class UncapturedDenseEngine(DenseServingEngine):
+    """The dense engine with its step body run as it is, uncaptured."""
+
+    def _dispatch(self):
+        self._step_body()
+
+
+def dense_traffic(vocab):
+    """Budgets of 3-9 tokens on 3 slots, more requests than slots: slots
+    die while others decode and are refilled."""
+    rng = np.random.default_rng(11)
+    return [([int(t) for t in rng.integers(1, vocab, int(n))], int(b))
+            for n, b in zip(rng.integers(3, 14, 6), rng.integers(3, 10, 6))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "recurrentgemma-9b",
+                                  "dbrx-132b"])
+def test_cuda_dense_graph_replays_equal_uncaptured_body(cuda, arch):
+    """fp32 smoke model with an fp32 KV cache on 3 slots: every replay of
+    the dense engine's decode graph gives the uncaptured body's logits bit
+    for bit, dead rows too, while slots die and are refilled; one
+    capture."""
+    cfg, params = smoke_fp32(arch)
+    cfg = dataclasses.replace(cfg, kv_cache_dtype="float32")
+    params = tree_to(params, cuda)
+    engs = [cls(cfg, params, slots=3, max_len=48, device=cuda)
+            for cls in (UncapturedDenseEngine, DenseServingEngine)]
+    queues = [[Request(rid=i, prompt=p, max_new=b)
+               for i, (p, b) in enumerate(dense_traffic(cfg.vocab))]
+              for _ in engs]
+    for _ in range(12):
+        for eng, q in zip(engs, queues):
+            while q and eng.submit(q[0]):
+                q.pop(0)
+            eng.step()
+        assert torch.equal(engs[0].last_logits, engs[1].last_logits)
+        assert torch.equal(engs[0].cur_tok, engs[1].cur_tok)
+    assert (engs[0].step_traces, engs[1].step_traces) == (0, 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "recurrentgemma-9b",
+                                  "mamba2-2.7b"])
+def test_cuda_dense_tokens_equal_paged_tokens(cuda, arch):
+    """fp32 smoke model, fp32 KV cache: the dense engine on the card (its
+    steps graph replays, its attention flash-MHA with a device kv_valid)
+    emits the paged kernel engine's greedy tokens and the CPU dense
+    engine's, with prompts and generations past recurrentgemma's window of
+    16; the dense run launches mha once an attention layer a step and a
+    prefill, and no paged kernel."""
+    from repro_torch.models import transformer as tfm
+    cfg, params = smoke_fp32(arch)
+    cfg = dataclasses.replace(cfg, kv_cache_dtype="float32")
+    traffic = [(p + p + p, b + 12) for p, b in dense_traffic(cfg.vocab)]
+
+    def run(cls, dev, **kw):
+        eng = cls(cfg, tree_to(params, dev), slots=3, max_len=64,
+                  device=dev, **kw)
+        reqs = [Request(rid=i, prompt=p, max_new=b)
+                for i, (p, b) in enumerate(traffic)]
+        ops.reset_launch_counts()
+        eng.run_to_completion(reqs, max_steps=500)
+        return [r.generated for r in reqs], eng, ops.launch_counts()
+    dense, eng, counts = run(DenseServingEngine, cuda)
+    assert dense == run(PagedServingEngine, cuda, page_size=4)[0]
+    assert dense == run(DenseServingEngine, torch.device("cpu"))[0]
+    n_attn = sum(k not in api.STATE_KINDS for k in tfm.layer_kinds(cfg))
+    assert counts["mha"] == n_attn * (eng.decode_steps + eng.prefills)
+    assert counts["paged_attention"] == 0
+    assert counts["sampler_noise"] == eng.decode_steps + eng.prefills
+
+
+@pytest.mark.gpu
+def test_cuda_seamless_prefill_and_decode_equal_cpu(cuda):
+    """seamless-m4t SMOKE in fp32: the encoder, the cross prefill and 6
+    greedy decode steps on the dense lanes, on the card against the CPU
+    plain path: logits within 1e-4 of the largest, equal tokens, one mha
+    launch a self- or cross-attention layer a call (plus the encoder's at
+    prefill)."""
+    cfg, params = smoke_fp32("seamless-m4t-large-v2")
+    cfg = dataclasses.replace(cfg, kv_cache_dtype="float32")
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 9)))
+    enc = torch.from_numpy(rng.standard_normal(
+        (2, 13, cfg.d_model)).astype(np.float32))
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        p = tree_to(params, dev)
+        before = mha_kernel.mha.launches
+        logits, cache, pos = api.prefill(cfg, p, toks.to(dev),
+                                         enc_embeds=enc.to(dev), max_len=32)
+        seq, ts = [logits.cpu()], []
+        for _ in range(6):
+            t = logits[:, : cfg.vocab].argmax(-1)[:, None]
+            ts.append(t.cpu())
+            logits, cache = api.decode_step(cfg, p, cache, t, pos)
+            pos = pos + 1
+            seq.append(logits.cpu())
+        out[dev.type] = (torch.stack(seq), torch.cat(ts, 1),
+                         mha_kernel.mha.launches - before)
+    (want, wt, _), (got, gt, n) = out["cpu"], out["cuda"]
+    assert torch.equal(gt, wt)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    assert n == cfg.enc_layers + 2 * cfg.num_layers * 7

@@ -246,9 +246,9 @@ def test_launcher_serves_the_hybrid_archs_on_the_cpu(arch):
 
 
 def test_serve_bench_hybrid_scenario_rows():
-    """The reference's hybrid scenario at fp32: the gather and kernel rows
-    with their recycled pages and window bound, their greedy tokens equal,
-    and the dense rows as notes (the dense engine is not ported)."""
+    """The reference's hybrid scenario at fp32: the dense engine's row, the
+    gather and kernel rows with their recycled pages and window bound, the
+    three engines' greedy tokens equal, and the paged/dense ratio row."""
     from repro_torch.launch import check_csv
     r = _module("repro_torch.launch.serve_bench", "--smoke", "--device",
                 "cpu", "--scenario", "hybrid", "--dtype", "float32")
@@ -256,12 +256,15 @@ def test_serve_bench_hybrid_scenario_rows():
     rows = [row for _, rs in check_csv.parse_sections(r.stdout)
             for row in rs]
     names = [row["engine"] for row in rows]
-    assert names[:2] == ["paged[gather,hybrid]", "paged[kernel,hybrid]"]
-    for row in rows[:2]:
+    assert names == ["dense[hybrid]", "paged[gather,hybrid]",
+                     "paged[kernel,hybrid]", "paged/dense[hybrid]"]
+    for row in rows[1:3]:
         assert int(row["win_recycled_pages"]) > 0
         assert int(row["win_page_bound"]) > 0
+    for row in rows[:3]:
         assert row["tokens_match_hybrid"] == "1"
         assert row["requests_done"] == "4"
-    assert names[2:] == ["dense[hybrid]", "paged/dense[hybrid]"]
+    # the dense engine reserves every lane; the paged ones hold fewer
+    assert int(rows[3]["peak_kv_tokens"]) < 0
     assert check_csv.check(r.stdout) == check_csv.missing_scenario_errors(
         check_csv.REQUIRED)

@@ -293,7 +293,8 @@ def _bench(*args):
 
 def test_serve_bench_smoke_on_cpu_has_the_references_columns(tmp_path):
     """The mixed scenario's CSV: the reference's ``_drive`` columns in its
-    order, the gather and kernel rows and their ratio, every request done,
+    order, the dense, gather and kernel rows and the kernel engine's two
+    ratio rows, every request done,
     and the reference gate's verdict (which the port's copy shares): alone,
     it passes but for the three scenarios that carry the equivalence
     columns."""
@@ -314,11 +315,16 @@ def test_serve_bench_smoke_on_cpu_has_the_references_columns(tmp_path):
     assert lines[0].split(",") == want
     rows = [dict(zip(want, line.split(","))) for line in lines[1:]]
     assert [row["engine"] for row in rows] == [
-        "PagedServingEngine[gather]", "PagedServingEngine[kernel]",
-        "kernel/gather"]
-    assert rows[0]["requests_done"] == rows[1]["requests_done"] == "4"
-    assert rows[0]["sched_exhausted"] == rows[1]["sched_exhausted"] == "0"
-    assert rows[2]["requests_done"] == rows[2]["tokens"] == "0"
+        "DenseServingEngine", "PagedServingEngine[gather]",
+        "PagedServingEngine[kernel]", "kernel/gather", "kernel/dense"]
+    for row in rows[:3]:
+        assert row["requests_done"] == "4"
+        assert row["sched_exhausted"] == "0"
+    for row in rows[3:]:
+        assert row["requests_done"] == row["tokens"] == "0"
+    # the dense row reserves slots x max_len, as the reference's counts it
+    assert rows[0]["peak_kv_tokens"] == str(2 * 128)
+    assert rows[0]["kv_util_vs_dense"] == "1"
     errors = jcheck.check(text)
     assert errors == check_csv.check(text) \
         == check_csv.missing_scenario_errors(check_csv.REQUIRED)
