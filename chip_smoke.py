@@ -154,14 +154,27 @@ Phases, each failing loudly (non-zero exit, no result line):
    (prefill ms, ms a step, peak memory, mha launches, equal tokens); the
    factory picks the dense engine for it and serving through it raises
    for the missing enc_embeds.
+13. tensor-parallel paged serving and the replica router (generators of
+   their own): paged flash-decode and mha at a rank's heads at 2 shards
+   (H8 KV1 D128, G 8), fp32 and bf16, against their plain versions, and
+   timed at fp32; qwen2.5-3b at full width, 4 of 36 layers, fp32 with an
+   fp32 KV cache, 8 of phase 6's prompts with 16 new tokens: the plain
+   engine's greedy tokens, equalled by ``make_replicas(replicas=1)``, by
+   a spawned world of 1 over NCCL (``mesh=``, the decode graph captured,
+   no all-reduce) and by two spawned ranks sharing cuda:0 over gloo (KV 1
+   and H 8 a rank, half the pool bytes, bodies uncaptured, two all-reduces
+   a layer a step and a prefill), every rank alike, each rank's launches
+   the serve formula's. The card has one GPU, so no tensor-parallel time
+   is taken: two ranks on one card are a correctness run.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary (the
 seven TPU kernels' counterparts, the sampler's noise kernel, mha and
 paged flash-decode again at the hybrid path's windowed shapes with that
 path's launches, both again with the host tier path's launches,
-both at each MoE and vlm arch's heads with its serve run's launches, and
+both at each MoE and vlm arch's heads with its serve run's launches,
 mha at the dense decode row and at seamless's encoder with those runs'
-launches);
+launches, and both at a tensor-parallel rank's heads with one rank's
+launches in the two-rank run);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -540,18 +553,21 @@ def host_split(seed: int) -> None:
             f"{route} {us:.1f}" for route, us in routes.items()))
 
 
-def time_paged(rng, B, lengths, label, heads=(H, KV, D), T=1):
+def time_paged(rng, B, lengths, label, heads=(H, KV, D), T=1,
+               dtype=torch.bfloat16):
     """Times at (B, lengths), T query rows a request, ``heads`` = (query
-    heads, KV heads, head dim): a pool per layer, cycled through so that
-    the pools together exceed the 50 MB L2 cache, as the serving path's
-    36 layers do; CUDA-event and profiler device ms, the split plan."""
+    heads, KV heads, head dim), q and pools in ``dtype``: a pool per layer,
+    cycled through so that the pools together exceed the 50 MB L2 cache,
+    as the serving path's 36 layers do; CUDA-event and profiler device ms,
+    the split plan."""
     Hq, KVh, Dh = heads
     n_blocks = MAX_LEN // PAGE if max(lengths) <= MAX_LEN else \
         -(-max(lengths) // PAGE)
-    live = sum(lengths) * KVh * Dh * 2 * 2        # K and V, bf16
+    size = torch.empty((), dtype=dtype).element_size()
+    live = sum(lengths) * KVh * Dh * 2 * size     # K and V
     n_pools = max(2, int(np.ceil(3 * 50e6 / live)))
     layers = [paged_case(rng, B, T, Hq, KVh, Dh, PAGE, lengths, n_blocks,
-                         torch.bfloat16) for _ in range(n_pools)]
+                         dtype) for _ in range(n_pools)]
     it = {"i": 0}
 
     def run(fn):
@@ -568,7 +584,7 @@ def time_paged(rng, B, lengths, label, heads=(H, KV, D), T=1):
     q = layers[0][0]
     n_bytes = live + 2 * q.numel() * q.element_size() + B * n_blocks * 4 + B * 4
     flops = 4 * sum(lengths) * T * Hq * Dh
-    bms, by = bench.bound_ms(n_bytes, flops, torch.bfloat16)
+    bms, by = bench.bound_ms(n_bytes, flops, dtype)
     log(f"paged_attention time [{label}, "
         f"S={paged_plan(B, T, n_blocks, heads=heads)}]: "
         f"{ms:.4f} ms/launch (device {dev:.4f} ms, host {host:.1f} us/call), "
@@ -577,11 +593,11 @@ def time_paged(rng, B, lengths, label, heads=(H, KV, D), T=1):
     return ms, plain, bms, by
 
 
-def time_mha(rng, Sq, label, heads=(H, KV, D)):
+def time_mha(rng, Sq, label, heads=(H, KV, D), dtype=torch.bfloat16):
     Hq, KVh, Dh = heads
 
     def t(*shape):
-        return torch.tensor(rng.standard_normal(shape), dtype=torch.bfloat16,
+        return torch.tensor(rng.standard_normal(shape), dtype=dtype,
                             device="cuda")
     q, k, v = t(1, Sq, Hq, Dh), t(1, Sq, KVh, Dh), t(1, Sq, KVh, Dh)
     def kernel():
@@ -597,9 +613,9 @@ def time_mha(rng, Sq, label, heads=(H, KV, D)):
     lib = cuda_ms(sdpa)
     lib_dev = device_ms(sdpa, [()] * 20)
     host = host_us(kernel)
-    n_bytes = 2 * q.numel() * 2 + 2 * k.numel() * 2
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     flops = 4 * Hq * Dh * Sq * (Sq + 1) / 2
-    bms, by = bench.bound_ms(n_bytes, flops, torch.bfloat16)
+    bms, by = bench.bound_ms(n_bytes, flops, dtype)
     log(f"mha time [{label}]: {ms:.4f} ms/launch (device {dev:.4f} ms, host "
         f"{host:.1f} us/call), plain {plain:.4f} ms, SDPA {lib:.4f} ms "
         f"(device {lib_dev:.4f} ms), bound {bms:.4f} ms ({by}), "
@@ -3214,12 +3230,12 @@ class PrefillDrops:
     def __enter__(self):
         from repro_torch.models import layers
 
-        def counted(cfg, p, x):
+        def counted(cfg, p, x, *rules):
             capturing = torch.cuda.is_current_stream_capturing()
             if x.shape[0] == 1 and not capturing:
                 keep = layers.moe_route(cfg, p, x)[3]
                 self.seen.append((x.shape[1], keep.numel() - keep.sum()))
-            return self.apply(cfg, p, x)
+            return self.apply(cfg, p, x, *rules)
         self.tfm.moe_apply = counted
         return self
 
@@ -4002,6 +4018,216 @@ def dense_kernel_entries(err, times, dense_counts, seamless_counts) -> list:
               "seamless encoder, B2 Sq=Sk=1024", seamless_counts["mha"])]
 
 
+# ---------------------------------------------------------------------------
+# phase 13: tensor-parallel paged serving and the replica router
+# ---------------------------------------------------------------------------
+
+# qwen2.5-3b at full width, fp32 with an fp32 KV cache (the sharded
+# engine's exactness contract), cut to 4 of 36 layers as phase 7 cuts it;
+# 8 of phase 6's prompts, 16 new tokens each
+TP_LAYERS, TP_REQ, TP_NEW = 4, 8, 16
+TP_HEADS = (H // 2, KV // 2, D)        # a rank's heads at 2 shards: H8 KV1
+
+
+def tp_config():
+    return dataclasses.replace(get_config("qwen2.5-3b"), num_layers=TP_LAYERS,
+                               dtype="float32", kv_cache_dtype="float32")
+
+
+def tp_params():
+    return api.init_params(tp_config(), torch.Generator(device="cuda")
+                           .manual_seed(SEED + 130), device="cuda")
+
+
+def tp_engine(cfg, params, **kw):
+    return PagedServingEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                              page_size=PAGE, device="cuda", **kw)
+
+
+def tp_serve(driver, prompts) -> list:
+    """``prompts`` through an engine or a router; their greedy tokens (None
+    if a request did not finish)."""
+    reqs = [Request(rid=i, prompt=p, max_new=TP_NEW)
+            for i, p in enumerate(prompts)]
+    done = driver.run_to_completion(reqs, max_steps=40 * len(reqs) * TP_NEW)
+    return [r.generated for r in reqs] if len(done) == len(reqs) else None
+
+
+def tp_timed(eng, prompts) -> dict:
+    """A warm-up request (the decode graph's capture where there is one),
+    ``reset_metrics``, then ``prompts`` with the launch counters zeroed:
+    the tokens, launches (and the serve formula's), all-reduces issued,
+    and the decode step's host-clock ms (the step wall over the decode
+    steps, ``metrics()``) and tok/s."""
+    eng.run_to_completion([Request(rid=-1, prompt=list(range(64)),
+                                   max_new=2)])
+    eng.reset_metrics()
+    ops.reset_launch_counts()
+    rules = eng._model_rules
+    reduces = getattr(rules, "reduces", 0)
+    t0 = time.perf_counter()
+    toks = tp_serve(eng, prompts)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = eng.metrics()
+    return {"tokens": toks, "counts": ops.launch_counts(),
+            "want": serving_launches(eng.cfg, eng), "wall": wall,
+            "tok_s": sum(map(len, toks or [])) / wall,
+            "step_ms": m["util.step_wall_s"] / eng.decode_steps * 1e3,
+            "steps": eng.decode_steps, "prefills": eng.prefills,
+            "captures": m["sampling.step_traces"],
+            "reduces": getattr(rules, "reduces", 0) - reduces}
+
+
+def tp_rank(rank: int, prompts) -> dict:
+    """One rank of a phase-13 world (spawned; every rank on cuda:0): the
+    engine on this rank's part of a mesh as wide as the world, serving
+    ``prompts`` after a warm-up (``tp_timed``). Returns what the parent
+    checks: ``tp_timed``'s, and the rank's shard stats, plan and pool and
+    query heads."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    torch.cuda.set_device(0)
+    world = dist.get_world_size()
+    cfg = tp_config()
+    mesh = make_host_mesh(world, devices=["cuda:0"] * world)
+    eng = tp_engine(cfg, tp_params(), mesh=mesh)
+    torch.cuda.empty_cache()
+    return dict(tp_timed(eng, prompts), shard=eng.shard_stats(),
+                contract=sorted(eng._model_rules.contract_axes),
+                backend=mesh.backend,
+                pool_heads=int(eng.cache[0]["k"].shape[2]),
+                q_heads=int(eng.params["blocks"][0]["attn"]["wq"].shape[1]))
+
+
+def check_tp_kernels(rng, lengths):
+    """Paged flash-decode and mha at a rank's heads at 2 shards (H8 KV1
+    D128, G 8), fp32 (the phase's path) and bf16, against their plain
+    versions: the decode step's batch at these contexts, and a prefill
+    bucket of 512 (causal, and a 300-token prompt's kv_valid). Returns
+    (paged error, mha error)."""
+    Hq, KVh, Dh = TP_HEADS
+    err_paged = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        args = paged_case(rng, len(lengths), 1, Hq, KVh, Dh, PAGE, lengths,
+                          MAX_LEN // PAGE, dtype)
+        got = paged_kernel.paged_attention(*args)
+        torch.cuda.synchronize()
+        err_paged = max(err_paged, agrees(
+            f"paged_attention [tp2 shard heads H{Hq} KV{KVh} D{Dh}, B="
+            f"{len(lengths)}, {str(dtype)[6:]}]", got,
+            ref.paged_attention_ref(*args)))
+    cases = [(f"tp2 shard heads, prefill bucket 512, {name}"
+              f"{'' if causal else ', kv_valid 300'}", 1, 512, 512, causal,
+              valid, dt)
+             for dt, name in ((torch.float32, "fp32"),
+                              (torch.bfloat16, "bf16"))
+             for causal, valid in ((True, None), (False, [300]))]
+    return err_paged, check_mha(rng, cases, heads=TP_HEADS)
+
+
+def serve_tp(prompts) -> dict:
+    """The sharded engine at full width: the plain engine's tokens, then
+    ``make_replicas(replicas=1)`` (no world), a world of 1 over NCCL
+    (``mesh=``, the decode graph captured, nothing to contract), and two
+    ranks sharing cuda:0 over gloo (KV 1 and H 8 a rank, the bodies
+    uncaptured, an all-reduce at each out- and down-projection): each must
+    emit the plain engine's greedy tokens, every rank alike. Returns a
+    rank's kernel launches in the two-rank run."""
+    import tempfile
+
+    from repro_torch.launch.mesh import run_world
+    from repro_torch.runtime.router import make_replicas
+    cfg = tp_config()
+    params = tp_params()
+    plain = tp_engine(cfg, params)
+    base = tp_timed(plain, prompts)
+    want = base["tokens"]
+    if want is None:
+        fail("tp: the plain engine did not finish its requests")
+    full_bytes = plain.shard_stats()["pool_bytes_per_shard"]
+    del plain
+    router = make_replicas(cfg, params, replicas=1, devices=["cuda:0"],
+                           slots=SLOTS, max_len=MAX_LEN, page_size=PAGE)
+    if tp_serve(router, prompts) != want:
+        fail("tp: make_replicas(replicas=1) emits other tokens")
+    if router.stats()["routed"] != [len(prompts)]:
+        fail(f"tp: routed {router.stats()['routed']}")
+    del router, params
+    torch.cuda.empty_cache()
+    log(f"tp: plain engine and make_replicas(replicas=1): equal greedy "
+        f"tokens ({len(prompts)} requests x {TP_NEW}, qwen2.5-3b full "
+        f"width, {TP_LAYERS} layers, fp32); the plain engine's decode step "
+        f"{base['step_ms']:.3f} ms (host clock, graph replay + its one "
+        f"copy), {base['tok_s']:.1f} tok/s")
+    runs = {}
+    for world, backend in ((1, "nccl"), (2, "gloo")):
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            runs[world] = run_world(tp_rank, world, backend=backend,
+                                    init_file=os.path.join(tmp, "rdv"),
+                                    args=(prompts,), timeout=600)
+        for r, res in enumerate(runs[world]):
+            if res["tokens"] != want:
+                fail(f"tp: world of {world} ({backend}), rank {r}: greedy "
+                     f"tokens differ from the plain engine's")
+            if res["counts"] != res["want"]:
+                fail(f"tp: world of {world}, rank {r}: launches "
+                     f"{res['counts']} != {res['want']}")
+        first = runs[world][0]
+        log(f"tp: world of {world} over {backend}: "
+            f"{time.perf_counter() - t0:.1f} s with spawning; rank 0 served "
+            f"in {first['wall']:.2f} s ({first['tok_s']:.1f} tok/s, decode "
+            f"step {first['step_ms']:.3f} ms against the plain engine's "
+            f"{base['step_ms']:.3f}), {first['steps']} decode steps, "
+            f"{first['prefills']} prefills; launches a rank "
+            f"{first['counts']}; shard {first['shard']}; "
+            f"{first['reduces']} all-reduces over {first['contract']}, "
+            f"{first['captures']:.0f} decode graph capture(s); equal "
+            f"tokens on every rank")
+    one, two = runs[1][0], runs[2]
+    if one["captures"] != 1.0 or one["reduces"] != 0 or one["contract"]:
+        fail(f"tp: the world of 1 must capture its decode graph and launch "
+             f"no collective: {one['captures']} captures, {one['reduces']} "
+             f"all-reduces")
+    for res in two:
+        n_sums = 2 * TP_LAYERS * (res["steps"] + res["prefills"])
+        if (res["backend"] != "gloo" or res["captures"] != 0.0
+                or res["reduces"] != n_sums
+                or res["contract"] != ["ffn", "heads"]
+                or (res["pool_heads"], res["q_heads"]) != (KV // 2, H // 2)
+                or 2 * res["shard"]["pool_bytes_per_shard"] != full_bytes
+                or res["shard"]["model_shards"] != 2.0):
+            fail(f"tp: a gloo rank ran another plan: {res}")
+    log(f"tp: 2 ranks on one card over gloo: KV {two[0]['pool_heads']} and "
+        f"H {two[0]['q_heads']} a rank, pool bytes a rank "
+        f"{two[0]['shard']['pool_bytes_per_shard']:.0f} of "
+        f"{full_bytes:.0f}; a correctness run, not a TP time (both ranks "
+        f"share one card, their sums cross the host)")
+    return two[0]["counts"]
+
+
+def tp_kernel_entries(errs, times, counts) -> list:
+    """The JSON entries of paged flash-decode and mha at a rank's heads in
+    the two-rank run, with that run's launches (one rank's)."""
+    (err_paged, err_mha), (paged_t, mha_t) = errs, times
+    return [
+        {"name": "paged_attention[tp2 on one card, KV 1 per shard]",
+         "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+         "replaces": "src/repro/kernels/paged_attention.py:78",
+         "launches": counts["paged_attention"], "max_abs_err": err_paged,
+         "ms": paged_t[0], "plain_ms": paged_t[1], "bound_ms": paged_t[2],
+         "bound_by": paged_t[3], "library_ms": None},
+        {"name": "mha[tp2 prefill, H 8 KV 1]", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/mha.cu",
+         "replaces": "src/repro/kernels/attention.py:32",
+         "launches": counts["mha"], "max_abs_err": err_mha, "ms": mha_t[0],
+         "plain_ms": mha_t[1], "bound_ms": mha_t[2], "bound_by": mha_t[3],
+         "library_ms": mha_t[4]}]
+
+
 def main() -> None:
     smi = card()
     build_kernels()
@@ -4103,6 +4329,24 @@ def main() -> None:
             if not c.get(k):
                 fail(f"{name}: the run launched no {k}")
     log(f"phase 12 in {time.perf_counter() - t12:.1f} s")
+    # phase 13: tensor parallelism and the router, generators of their own
+    t13 = time.perf_counter()
+    own = np.random.default_rng(SEED + 130)
+    tp_prompts = prompts[:TP_REQ]
+    tp_lengths = [len(p) for p in tp_prompts]
+    tp_errs = check_tp_kernels(own, tp_lengths)
+    tp_times = (
+        time_paged(own, len(tp_lengths), tp_lengths,
+                   f"tp2 shard heads H8 KV1 D128, B={len(tp_lengths)}, "
+                   f"contexts {min(tp_lengths)}-{max(tp_lengths)}, fp32",
+                   heads=TP_HEADS, dtype=torch.float32),
+        time_mha(own, 512, "tp2 shard heads H8 KV1 D128, prefill bucket "
+                 "512, fp32", heads=TP_HEADS, dtype=torch.float32))
+    tp_counts = serve_tp(tp_prompts)
+    for k in ("paged_attention", "mha", "sampler_noise"):
+        if not tp_counts.get(k):
+            fail(f"tp: the two-rank run launched no {k}")
+    log(f"phase 13 in {time.perf_counter() - t13:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "paged_attention", "route": "cuda",
@@ -4155,7 +4399,8 @@ def main() -> None:
          "bound_by": mha_t[3], "library_ms": mha_t[4]},
     ] + moe_kernel_entries(moe_errs, moe_times, moe_counts)
         + dense_kernel_entries(err_dense, dense_times, dense_counts,
-                               seamless_counts) + layer}),
+                               seamless_counts)
+        + tp_kernel_entries(tp_errs, tp_times, tp_counts) + layer}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,9 +19,9 @@ The port runs the reference's ``mixed``, ``shared-prefix``,
 ``tokens_match_hybrid`` over its dense, gather and kernel rows; the dense
 engine's rows and the ``kernel/dense`` and ``paged/dense[hybrid]`` ratio
 rows are gated like any other (their metrics cells parse, their
-``temporal_util`` lies in [0, 1]). The scenario that carries ``tokens_match_tp1``
-(sharded) is not ported, so a full CSV of the port fails that one REQUIRED
-column (``missing_scenario_errors``) and must pass everything else.
+``temporal_util`` lies in [0, 1]); ``sharded`` carries ``tokens_match_tp1``
+on every shard count that ran (a count beyond the devices is a note row
+with no cells to gate). A full CSV of the port must pass every rule.
 
   python -m repro_torch.launch.check_csv bench.csv
 """
@@ -132,13 +132,13 @@ def check(text: str) -> List[str]:
     return errors
 
 
-# the REQUIRED columns whose scenarios the port has not ported
-UNPORTED = ("tokens_match_tp1",)
+# the REQUIRED columns whose scenarios the port has not ported: none
+UNPORTED: Tuple[str, ...] = ()
 
 
 def missing_scenario_errors(cols=UNPORTED) -> List[str]:
     """The violations ``check`` reports for a CSV without the scenarios
-    that carry ``cols`` (by default the one the port lacks), in
+    that carry ``cols`` (by default those the port lacks: none), in
     ``REQUIRED``'s order."""
     cols = [c for c in REQUIRED if c in cols]
     return [f"required equivalence column {col!r} never passed "

@@ -6,6 +6,7 @@
       [--spec-k 3 [--draft-model ARCH]] [--host-tier] \
       [--engine auto|paged|dense] [--page-size 16] [--num-pages N] \
       [--paged-attn kernel|gather] [--trace [trace.json]] \
+      [--shards M] [--replicas R] [--route hash|least_loaded] \
       [--device cuda|cpu]
 
 ``--engine``: ``auto`` (the default) goes through the ``ServingEngine``
@@ -21,10 +22,21 @@ each CUDA kernel's launch count and the graphs' captures. ``--trace`` records th
 prints the wall time per phase; with a file name it also writes Chrome
 Trace Event JSON (open in Perfetto; ``python -m repro_torch.runtime.trace
 FILE`` validates it).
+
+``--shards M`` shards each paged engine over M ranks (tensor parallelism:
+KV-head pools, attention and MLP weights, an all-reduce at the out- and
+down-projections); ``--replicas R`` puts R engines behind a router
+(``--route``). With M x R > 1 the launcher starts a world of M x R ranks
+itself (``launch.mesh.run_world``): NCCL over the first M x R CUDA devices
+(one each; raises when there are fewer), gloo over M x R CPU ranks with
+``--device cpu``. Every rank serves the same requests in lockstep; rank 0
+prints, and adds the reference's shard line for each replica.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 import time
 
 import torch
@@ -32,9 +44,11 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import make_host_mesh, run_world, visible_devices
 from repro_torch.models import api
 from repro_torch.models import transformer as tfm
 from repro_torch.runtime.drafter import DraftModelDrafter
+from repro_torch.runtime.router import make_replicas
 from repro_torch.runtime.sampling import SamplingParams
 from repro_torch.runtime.serving import (DenseServingEngine,
                                          PagedServingEngine, Request,
@@ -91,15 +105,59 @@ def main(argv=None) -> None:
                     help="record per-tick spans and print the per-phase "
                          "wall breakdown; with a file name, also export "
                          "Chrome Trace Event JSON (open in Perfetto)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="tensor-parallel shards per engine: KV pools and "
+                         "attn/mlp weights shard over this many ranks "
+                         "(paged engine only)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="data-parallel engine replicas behind a router "
+                         "(each --shards ranks wide; paged engine only)")
+    ap.add_argument("--route", choices=["hash", "least_loaded"],
+                    default="hash", help="replica routing policy")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a CUDA device) or "
                          "cpu (plain PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
-
     device = resolve_device(args.device)
+    world = args.shards * args.replicas
+    if world > 1 and args.engine == "dense":
+        raise SystemExit("--shards and --replicas need the paged engine")
+    if world == 1:
+        _serve(args, device, 0)
+        return
+    if device.type == "cuda" and world > torch.cuda.device_count():
+        raise SystemExit(f"--shards x --replicas = {world} ranks need "
+                         f"{world} CUDA devices, one each; have "
+                         f"{torch.cuda.device_count()}")
+    backend = "gloo" if device.type == "cpu" else "nccl"
+    with tempfile.TemporaryDirectory() as tmp:
+        run_world(_serve_rank, world, backend=backend,
+                  init_file=os.path.join(tmp, "rendezvous"), args=(args,))
+
+
+def _serve_rank(rank: int, args) -> None:
+    """One rank of a ``--shards`` / ``--replicas`` world."""
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+    _serve(args, device, rank)
+
+
+def _quiet(*_args, **_kwargs) -> None:
+    pass
+
+
+def _serve(args, device: torch.device, rank: int) -> None:
+    """Build the model, the engine (or this rank's replica) and the
+    traffic, serve it and print the summary (rank 0 only)."""
+    say = print if rank == 0 else _quiet
+    world = args.shards * args.replicas
+    devs = (["cpu"] * world if device.type == "cpu"
+            else visible_devices()) if world > 1 else [device]
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    print(f"[launch.serve] {cfg.name}: {cfg.param_count()/1e6:.1f}M params, "
-          f"{args.slots} slots, device {device}")
+    say(f"[launch.serve] {cfg.name}: {cfg.param_count()/1e6:.1f}M params, "
+        f"{args.slots} slots, device {device}")
     gen = torch.Generator(device=device).manual_seed(0)
     params = api.init_params(cfg, gen, device=device)
     sampling = SamplingParams(temperature=args.temperature,
@@ -116,8 +174,8 @@ def main(argv=None) -> None:
         dparams = api.init_params(dcfg, dgen, device=device)
         drafter = DraftModelDrafter(dcfg, dparams, max_len=args.max_len,
                                     attn_impl=args.paged_attn, device=device)
-        print(f"[launch.serve] draft model: {dcfg.name} "
-              f"({dcfg.param_count()/1e6:.1f}M params)")
+        say(f"[launch.serve] draft model: {dcfg.name} "
+            f"({dcfg.param_count()/1e6:.1f}M params)")
     tracer = Tracer(enabled=True) if args.trace is not None else None
     common = dict(slots=args.slots, max_len=args.max_len, sampling=sampling,
                   tracer=tracer, device=device)
@@ -125,15 +183,26 @@ def main(argv=None) -> None:
                     attn_impl=args.paged_attn,
                     prefix_cache=args.prefix_cache, spec_k=args.spec_k,
                     drafter=drafter, host_tier=args.host_tier)
-    if args.engine == "dense":
+    router = None
+    if args.replicas > 1:
+        router = make_replicas(cfg, params, replicas=args.replicas,
+                               model=args.shards, devices=devs,
+                               policy=args.route, **paged_kw, **common)
+        eng = next(e for e in router.engines if e is not None)
+        say(f"[launch.serve] router: {args.replicas} replica(s) x "
+            f"{args.shards} shard(s) over {world} rank(s), policy "
+            f"{args.route}")
+    elif args.engine == "dense":
         eng = DenseServingEngine(cfg, params, **common)
     else:
+        mesh = make_host_mesh(args.shards, devices=devs) \
+            if args.shards > 1 else None
         builder = PagedServingEngine if args.engine == "paged" \
             else ServingEngine
-        eng = builder(cfg, params, **paged_kw, **common)
+        eng = builder(cfg, params, mesh=mesh, **paged_kw, **common)
     paged = isinstance(eng, PagedServingEngine)
-    print(f"[launch.serve] engine: {type(eng).__name__}"
-          f"{f'[{eng.attn_impl}]' if paged else ''}")
+    say(f"[launch.serve] engine: {type(eng).__name__}"
+        f"{f'[{eng.attn_impl}]' if paged else ''}")
     # every request opens with the same system prompt, tails vary in length
     sys_prompt = [(5 * j + 2) % cfg.vocab for j in range(2 * args.page_size)]
     reqs = [Request(rid=i,
@@ -143,90 +212,107 @@ def main(argv=None) -> None:
             for i in range(args.requests)]
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    done = eng.run_to_completion(reqs, max_steps=5000)
+    driver = router if router is not None else eng
+    done = driver.run_to_completion(reqs, max_steps=5000)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     toks = sum(len(r.generated) for r in done)
     m = eng.metrics()
-    print(f"[launch.serve] {len(done)}/{len(reqs)} requests, {toks} tokens, "
-          f"{toks/dt:.1f} tok/s, {int(m['engine.prefill_traces'])} prefill "
-          f"traces")
+    say(f"[launch.serve] {len(done)}/{len(reqs)} requests, {toks} tokens, "
+        f"{toks/dt:.1f} tok/s, {int(m['engine.prefill_traces'])} prefill "
+        f"traces")
+    if router is not None:
+        rs = router.stats()
+        say(f"[launch.serve] routed per replica: {rs['routed']}, peak "
+            f"pages per replica: "
+            f"{[int(p) for p in rs['peak_pages_per_replica']]}, "
+            f"preemptions: {rs['preempted']}")
     st = eng.pool_stats()
     if not paged:
-        print(f"[launch.serve] dense lanes: {st.dense_equiv_tokens} tokens "
-              f"reserved ({eng.slots} slots x {eng.max_len}), "
-              f"{eng.shard_stats()['pool_bytes_per_shard']:.0f} bytes")
-        _report_latency_and_launches(cfg, eng, m, tracer, args, device)
+        say(f"[launch.serve] dense lanes: {st.dense_equiv_tokens} tokens "
+            f"reserved ({eng.slots} slots x {eng.max_len}), "
+            f"{eng.shard_stats()['pool_bytes_per_shard']:.0f} bytes")
+        _report_latency_and_launches(cfg, eng, m, tracer, args, device, say)
         return
-    print(f"[launch.serve] kv pages: peak {st.peak_pages}/{st.num_pages} "
-          f"({st.peak_pages * st.page_size} tokens reserved at peak vs "
-          f"{st.dense_equiv_tokens} dense)")
+    shards = router.replica_shard_stats() if router is not None \
+        else [eng.shard_stats()]
+    for e_i, ss in enumerate(shards):
+        if ss["model_shards"] > 1:
+            say(f"[launch.serve] replica {e_i}: "
+                f"{int(ss['model_shards'])} shards "
+                f"({ss['sharded_axes']}), peak "
+                f"{int(ss['peak_pages_per_shard'])} pages/shard, "
+                f"{int(ss['pool_bytes_per_shard'])} pool bytes/shard")
+    say(f"[launch.serve] kv pages: peak {st.peak_pages}/{st.num_pages} "
+        f"({st.peak_pages * st.page_size} tokens reserved at peak vs "
+        f"{st.dense_equiv_tokens} dense)")
     if eng.has_win:
-        print(f"[launch.serve] sliding window ({eng.window} tokens): "
-              f"{eng.win_recycled_pages} pages recycled as they slid out; "
-              f"most live window pages a request held "
-              f"{eng.win_peak_live}, bound "
-              f"{eng.win_pages_bound(args.max_len)}")
+        say(f"[launch.serve] sliding window ({eng.window} tokens): "
+            f"{eng.win_recycled_pages} pages recycled as they slid out; "
+            f"most live window pages a request held "
+            f"{eng.win_peak_live}, bound "
+            f"{eng.win_pages_bound(args.max_len)}")
     if eng.has_state:
-        print(f"[launch.serve] state slots: {eng.state_slot_bytes()} bytes "
-              f"a slot x {eng.slots} slots "
-              f"({eng.state_slot_bytes() * eng.slots} bytes)")
+        say(f"[launch.serve] state slots: {eng.state_slot_bytes()} bytes "
+            f"a slot x {eng.slots} slots "
+            f"({eng.state_slot_bytes() * eng.slots} bytes)")
     if eng.prefix is not None:
         ps = eng.prefix_stats()
-        print(f"[launch.serve] prefix cache: hit rate "
-              f"{ps['hit_rate']:.2f}, {ps['shared_token_frac']:.0%} of "
-              f"prompt tokens served from cache, "
-              f"{ps['prefill_tokens_saved']:.0f} prefill tokens saved, "
-              f"{ps['cow_copies']:.0f} CoW copies")
+        say(f"[launch.serve] prefix cache: hit rate "
+            f"{ps['hit_rate']:.2f}, {ps['shared_token_frac']:.0%} of "
+            f"prompt tokens served from cache, "
+            f"{ps['prefill_tokens_saved']:.0f} prefill tokens saved, "
+            f"{ps['cow_copies']:.0f} CoW copies")
     if eng.tier is not None:
         ts = eng.tier_stats()
-        print(f"[launch.serve] host tier: {ts['swap_outs']:.0f} swap-"
-              f"outs / {ts['swap_ins']:.0f} swap-ins, "
-              f"{ts['demoted_pages']:.0f} pages demoted / "
-              f"{ts['promoted_pages']:.0f} promoted, "
-              f"{ts['reprefill_tokens_saved']:.0f} re-prefill tokens "
-              f"saved, prefetch hit rate {ts['prefetch_hit_rate']:.2f}, "
-              f"{ts['host_bytes_peak']:.0f} host bytes at peak")
+        say(f"[launch.serve] host tier: {ts['swap_outs']:.0f} swap-"
+            f"outs / {ts['swap_ins']:.0f} swap-ins, "
+            f"{ts['demoted_pages']:.0f} pages demoted / "
+            f"{ts['promoted_pages']:.0f} promoted, "
+            f"{ts['reprefill_tokens_saved']:.0f} re-prefill tokens "
+            f"saved, prefetch hit rate {ts['prefetch_hit_rate']:.2f}, "
+            f"{ts['host_bytes_peak']:.0f} host bytes at peak")
     if eng.spec_k:
         ss = eng.spec_stats()
-        print(f"[launch.serve] speculative (K={eng.spec_k}, drafter "
-              f"{ss['drafter']}): "
-              f"{ss['accepted_per_step']:.2f} tokens/request/step, "
-              f"accept rate {ss['accept_rate']:.2f} "
-              f"({ss['spec_accepted']:.0f}/{ss['spec_drafted']:.0f} "
-              f"drafts)")
+        say(f"[launch.serve] speculative (K={eng.spec_k}, drafter "
+            f"{ss['drafter']}): "
+            f"{ss['accepted_per_step']:.2f} tokens/request/step, "
+            f"accept rate {ss['accept_rate']:.2f} "
+            f"({ss['spec_accepted']:.0f}/{ss['spec_drafted']:.0f} "
+            f"drafts)")
         if drafter is not None:
             ds = drafter.stats()
-            print(f"[launch.serve] draft model: "
-                  f"{ds['draft_proposed']:.0f} tokens proposed over "
-                  f"{ds['draft_decode_calls']:.0f} decode calls, "
-                  f"{ds['draft_ingested_tokens']:.0f} tokens ingested, "
-                  f"{ds['draft_pool_rejects']:.0f} pool rejects")
+            say(f"[launch.serve] draft model: "
+                f"{ds['draft_proposed']:.0f} tokens proposed over "
+                f"{ds['draft_decode_calls']:.0f} decode calls, "
+                f"{ds['draft_ingested_tokens']:.0f} tokens ingested, "
+                f"{ds['draft_pool_rejects']:.0f} pool rejects")
     if not sampling.is_greedy:
-        print(f"[launch.serve] decode policy: temperature "
-              f"{sampling.temperature}, top_k {sampling.top_k}, top_p "
-              f"{sampling.top_p} — {m['sampling.sampled_tokens']:.0f} "
-              f"sampled tokens, "
-              f"{m['sampling.step_traces'] + m['sampling.spec_traces']:.0f} "
-              f"graph captures (policy-mix invariant)")
-    _report_latency_and_launches(cfg, eng, m, tracer, args, device)
+        say(f"[launch.serve] decode policy: temperature "
+            f"{sampling.temperature}, top_k {sampling.top_k}, top_p "
+            f"{sampling.top_p} — {m['sampling.sampled_tokens']:.0f} "
+            f"sampled tokens, "
+            f"{m['sampling.step_traces'] + m['sampling.spec_traces']:.0f} "
+            f"graph captures (policy-mix invariant)")
+    _report_latency_and_launches(cfg, eng, m, tracer, args, device, say)
 
 
-def _report_latency_and_launches(cfg, eng, m, tracer, args, device) -> None:
+def _report_latency_and_launches(cfg, eng, m, tracer, args, device,
+                                 say) -> None:
     """The summary's tail: latency percentiles, each kernel's launches and
     the graphs' captures, and the tracer's per-phase walls."""
-    print(f"[launch.serve] latency: ttft p50 {m['latency.ttft_p50_s']:.4f}s "
-          f"/ p95 {m['latency.ttft_p95_s']:.4f}s, tpot p50 "
-          f"{m['latency.tpot_p50_s']:.4f}s / p95 "
-          f"{m['latency.tpot_p95_s']:.4f}s")
+    say(f"[launch.serve] latency: ttft p50 {m['latency.ttft_p50_s']:.4f}s "
+        f"/ p95 {m['latency.ttft_p95_s']:.4f}s, tpot p50 "
+        f"{m['latency.tpot_p50_s']:.4f}s / p95 "
+        f"{m['latency.tpot_p95_s']:.4f}s")
     counts = ops.launch_counts()
     n_attn = sum(k not in api.STATE_KINDS for k in tfm.layer_kinds(cfg))
     steps = int(m["engine.decode_steps"])
     cpu = " — CPU: plain versions ran instead" if device.type == "cpu" \
         else ""
     if isinstance(eng, PagedServingEngine):
-        print(f"[launch.serve] kernel launches: paged_attention "
+        say(f"[launch.serve] kernel launches: paged_attention "
               f"{counts['paged_attention']} ({steps} decode steps x "
               f"{n_attn} attention layers), mha {counts['mha']} "
               f"({eng.prefills} prefills x {n_attn} attention layers), "
@@ -235,20 +321,20 @@ def _report_latency_and_launches(cfg, eng, m, tracer, args, device) -> None:
               f"{int(m['sampling.spec_traces'])} verify and "
               f"{eng.select_traces} rollback-select graph capture(s){cpu}")
     else:
-        print(f"[launch.serve] kernel launches: mha {counts['mha']} "
+        say(f"[launch.serve] kernel launches: mha {counts['mha']} "
               f"(({steps} decode steps + {eng.prefills} prefills) x "
               f"{n_attn} attention layers), sampler_noise "
               f"{counts['sampler_noise']}, "
               f"{int(m['sampling.step_traces'])} decode graph "
               f"capture(s){cpu}")
     if tracer is not None:
-        print("[launch.serve] trace: per-phase wall time")
-        print(tracer.format_phase_walls())
-        if args.trace:
+        say("[launch.serve] trace: per-phase wall time")
+        say(tracer.format_phase_walls())
+        if args.trace and say is print:
             tracer.export(args.trace)
-            print(f"[launch.serve] wrote {args.trace}: "
-                  f"{len(tracer.events())} events "
-                  f"({tracer.dropped_events} dropped) — open in Perfetto")
+            say(f"[launch.serve] wrote {args.trace}: "
+                f"{len(tracer.events())} events "
+                f"({tracer.dropped_events} dropped) — open in Perfetto")
 
 
 if __name__ == "__main__":

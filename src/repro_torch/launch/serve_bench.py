@@ -3,11 +3,11 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve_bench [--arch ARCH] \
       [--scenario mixed|shared-prefix|speculative|sampling|hybrid|
-                  oversubscribe|all] \
+                  sharded|oversubscribe|all] \
       [--smoke | --full] [--layers N] [--dtype float32|bfloat16] \
       [--slots 4] [--max-len 128] [--requests 12] [--max-new 8] \
       [--sys-len 48] [--spec-k 4] [--window W] [--seed 0] \
-      [--trace-out trace.json] [--device cuda|cpu]
+      [--trace-out trace.json] [--device cuda|cpu] [--cpu-shards 4]
 
 ``mixed``: a mixed-length trace (prompt i holds 3 + 5 i tokens drawn from a
 ``random.Random(seed)``, the reference's ``_trace``) is replayed through
@@ -51,8 +51,18 @@ capped row must emit the uncapped tokens (``tokens_match_unconstrained``),
 ``reprefill_tokens_saved`` what the tier did not, beside the tier's
 counters; then a prefix-cache pair (the shared-prefix trace: idle nodes
 demote, hits promote) and a hybrid pair (recurrentgemma, whose state swaps
-with its window pages). ``all`` runs these six; the reference's sharded
-scenario is not ported.
+with its window pages). ``sharded``: the mixed trace through the
+``paged[kernel]`` engine at 1, 2 and 4 tensor-parallel shards, each count
+a world of its own (``launch.mesh.run_world``: NCCL over the visible CUDA
+devices, one a rank; with ``--device cpu`` gloo over ``--cpu-shards``
+CPU ranks); 1 shard is the engine without a mesh, the baseline whose
+greedy tokens every sharded row must emit (``tokens_match_tp1``, from
+rank 0; every rank's tokens must agree too). Per-shard columns come from
+``shard_stats()``: ``model_shards``, ``sharded_axes``,
+``peak_pages_per_shard`` (the allocator's peak: pages are allocated on the
+host, the same on every rank) and ``pool_bytes_per_shard`` (what tensor
+parallelism divides). A shard count beyond the devices becomes a note row
+(``skipped``), never a silent drop. ``all`` runs these seven.
 
 The model is the arch's SMOKE config with weights drawn from a generator
 seeded with 0, or with ``--full`` its full-width config (on the card);
@@ -71,8 +81,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import random
 import sys
+import tempfile
 import time
 from typing import Dict, Iterable, List, Optional
 
@@ -80,6 +92,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.launch.mesh import make_host_mesh, run_world, visible_devices
 from repro_torch.models import api
 from repro_torch.runtime.drafter import DraftModelDrafter
 from repro_torch.runtime.sampling import SamplingParams
@@ -446,6 +459,65 @@ def _run_hybrid(cfg, params, slots, max_len, n_requests, max_new, seed,
     return rows
 
 
+def _sharded_rank(rank: int, spec: Dict, shards: int):
+    """One rank of the sharded scenario's world of ``shards``: the model
+    (from ``spec``, the ``run`` arguments that make it), the mixed trace
+    through the kernel engine on this rank's part of a ``shards``-wide
+    mesh (none at 1 shard), warmed then timed. Returns (rank's row, its
+    greedy tokens)."""
+    cpu = spec["device"] == "cpu"
+    device = torch.device("cpu") if cpu else torch.device("cuda", rank)
+    if not cpu:
+        torch.cuda.set_device(device)
+    cfg, params = _model(spec["arch"], spec, device)
+    mesh = make_host_mesh(shards, devices=["cpu"] * shards if cpu
+                          else visible_devices()[:shards]) \
+        if shards > 1 else None
+
+    def mk(new):
+        return _trace(cfg, spec["n_requests"], new, spec["seed"])
+
+    eng = PagedServingEngine(cfg, params, slots=spec["slots"],
+                             max_len=spec["max_len"], attn_impl="kernel",
+                             mesh=mesh, device=device)
+    _warm(eng, mk)
+    reqs = mk(spec["max_new"])
+    row = _drive(eng, reqs, 4000, cfg, name=f"paged[kernel,tp{shards}]")
+    st = eng.shard_stats()
+    row["model_shards"] = int(st["model_shards"])
+    row["sharded_axes"] = st["sharded_axes"] or "-"
+    row["peak_pages_per_shard"] = int(st["peak_pages_per_shard"])
+    row["pool_bytes_per_shard"] = int(st["pool_bytes_per_shard"])
+    return row, [r.generated for r in reqs]
+
+
+def _run_sharded(spec: Dict, n_dev: int) -> List[Dict]:
+    """Tensor-parallel rows at 1, 2 and 4 shards (the reference's
+    ``_run_sharded``), each count a world of spawned ranks; counts beyond
+    ``n_dev`` devices are note rows."""
+    backend = "gloo" if spec["device"] == "cpu" else "nccl"
+    rows: List[Dict] = []
+    baseline = None
+    for s in (1, 2, 4):
+        if s > n_dev:
+            rows.append({"engine": f"paged[kernel,tp{s}]",
+                         "model_shards": s, "skipped":
+                         f"needs {s} devices, have {n_dev}"})
+            continue
+        with tempfile.TemporaryDirectory() as tmp:
+            out = run_world(_sharded_rank, s, backend=backend,
+                            init_file=os.path.join(tmp, "rendezvous"),
+                            args=(spec, s))
+        row, toks = out[0]
+        if baseline is None:
+            baseline = toks
+        # every shard count must emit the single-shard tokens, on every
+        # rank: a row that did not is a fault, and the CSV says so
+        row["tokens_match_tp1"] = int(all(t == baseline for _, t in out))
+        rows.append(row)
+    return rows
+
+
 def _pool_cap(reqs: List[Request], max_len: int, page_size: int,
               frac: float = 0.4) -> int:
     """Device-pool cap (in pages) of the oversubscribe scenario: ``frac``
@@ -561,11 +633,26 @@ def _run_oversubscribe(cfg, params, hybrid, slots, max_len, n_requests,
     return rows
 
 
-# the reference's scenarios; those the port has
+# the reference's scenarios, all ported
 SCENARIOS = ("mixed", "shared-prefix", "speculative", "sampling", "hybrid",
              "sharded", "oversubscribe", "all")
-PORTED = ("mixed", "shared-prefix", "speculative", "sampling", "hybrid",
-          "oversubscribe", "all")
+
+
+def _model(name: str, spec: Dict, device, window=None):
+    """The config ``name`` as ``spec`` sizes it (``full``, ``layers``,
+    ``dtype``; ``window`` for the hybrid arch) and its weights, drawn on
+    ``device`` from a generator seeded with 0."""
+    cfg = get_config(name) if spec["full"] else get_smoke_config(name)
+    if window is not None:
+        cfg = dataclasses.replace(cfg, hybrid=dataclasses.replace(
+            cfg.hybrid, window=window))
+    if spec["layers"] is not None:
+        cfg = dataclasses.replace(cfg, num_layers=spec["layers"])
+    if spec["dtype"] is not None:
+        cfg = dataclasses.replace(cfg, dtype=spec["dtype"],
+                                  kv_cache_dtype=spec["dtype"])
+    return cfg, api.init_params(cfg, torch.Generator(device=device)
+                                .manual_seed(0), device=device)
 
 
 def run(arch: str = "qwen2.5-3b", slots: int = 4, max_len: int = 128,
@@ -573,28 +660,23 @@ def run(arch: str = "qwen2.5-3b", slots: int = 4, max_len: int = 128,
         full: bool = False, seed: int = 0, scenario: str = "all",
         sys_len: int = 48, spec_k: int = 4, layers: Optional[int] = None,
         dtype: Optional[str] = None, trace_out: Optional[str] = None,
-        window: Optional[int] = None, device="cuda") -> List[Dict]:
-    if scenario not in PORTED:
-        raise ValueError(f"scenario {scenario!r} is not ported (the port "
-                         f"has {', '.join(PORTED)})")
+        window: Optional[int] = None, device="cuda",
+        cpu_shards: int = 4) -> List[Dict]:
+    if scenario not in SCENARIOS:
+        raise ValueError(f"unknown scenario {scenario!r}: one of "
+                         f"{', '.join(SCENARIOS)}")
     device = resolve_device(device)
     if smoke:
         slots, max_len, n_requests, max_new = 2, 128, 4, 24
         sys_len = 24
+    spec = dict(arch=arch, full=full, layers=layers, dtype=dtype,
+                slots=slots, max_len=max_len, n_requests=n_requests,
+                max_new=max_new, seed=seed, device=device.type)
 
     def model(name, window=None):
-        cfg = get_config(name) if full else get_smoke_config(name)
-        if window is not None:
-            cfg = dataclasses.replace(cfg, hybrid=dataclasses.replace(
-                cfg.hybrid, window=window))
-        if layers is not None:
-            cfg = dataclasses.replace(cfg, num_layers=layers)
-        if dtype is not None:
-            cfg = dataclasses.replace(cfg, dtype=dtype, kv_cache_dtype=dtype)
-        return cfg, api.init_params(cfg, torch.Generator(device=device)
-                                    .manual_seed(0), device=device)
+        return _model(name, spec, device, window)
 
-    if scenario != "hybrid":
+    if scenario not in ("hybrid", "sharded"):
         cfg, params = model(arch)
     tracer = Tracer(enabled=True) if trace_out else None
     if tracer is not None:
@@ -623,6 +705,9 @@ def run(arch: str = "qwen2.5-3b", slots: int = 4, max_len: int = 128,
             rows += _run_hybrid(cfg, params, slots, max_len,
                                 max(4, n_requests // 2), max(max_new, 24),
                                 seed, device)
+        if scenario in ("sharded", "all"):
+            rows += _run_sharded(spec, cpu_shards if device.type == "cpu"
+                                 else torch.cuda.device_count())
         if scenario in ("oversubscribe", "all"):
             # a preemption story: decode tails long enough that capped
             # pools must preempt mid-generation
@@ -671,8 +756,7 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0,
                     help="trace seed (same seed -> same trace)")
     ap.add_argument("--scenario", choices=SCENARIOS, default="all",
-                    help="the reference's scenario names; sharded is "
-                         "not ported and raises (hybrid pins "
+                    help="the reference's scenario names (hybrid pins "
                          "recurrentgemma-9b; oversubscribe adds it)")
     ap.add_argument("--sys-len", type=int, default=48,
                     help="shared system-prompt length for shared-prefix")
@@ -697,13 +781,17 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a CUDA device) or "
                          "cpu (plain PyTorch versions of the kernels)")
+    ap.add_argument("--cpu-shards", type=int, default=4,
+                    help="the sharded scenario's devices with --device cpu: "
+                         "this many gloo ranks (on CUDA: the visible "
+                         "devices)")
     args = ap.parse_args(argv)
     rows = run(args.arch, args.slots, args.max_len, args.requests,
                args.max_new, smoke=args.smoke, full=args.full,
                seed=args.seed, scenario=args.scenario, sys_len=args.sys_len,
                spec_k=args.spec_k, layers=args.layers, dtype=args.dtype,
                trace_out=args.trace_out, window=args.window,
-               device=args.device)
+               device=args.device, cpu_shards=args.cpu_shards)
     print(emit(rows))
 
 

@@ -20,10 +20,136 @@ import torch
 from repro_torch.models import griffin, ssm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import norm_apply
+from repro_torch.parallel.sharding import NO_RULES, Rules
 
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
+
+
+class _Maker:
+    """Makes each parameter leaf of ``_build``'s tree from (shape, logical
+    axes, how to fill it), as the reference's ``Maker`` does: in mode
+    ``"init"`` the tensor, drawn on ``device`` from ``generator``; in
+    ``"axes"`` the reference's logical-axes string; in ``"shape"`` the
+    shape."""
+
+    def __init__(self, mode: str, generator=None, device=None, dtype=None):
+        self.mode, self.generator = mode, generator
+        self.device, self.dtype = device, dtype
+
+    def normal(self, shape, axes: str, scale: float, dtype=None):
+        if self.mode != "init":
+            return axes if self.mode == "axes" else torch.Size(shape)
+        x = torch.randn(shape, generator=self.generator, device=self.device,
+                        dtype=torch.float32)
+        return (x * scale).to(dtype or self.dtype)
+
+    def experts(self, shape, axes: str, scale: float):
+        """(E, ...) drawn one expert at a time."""
+        if self.mode != "init":
+            return axes if self.mode == "axes" else torch.Size(shape)
+        out = torch.empty(shape, dtype=self.dtype, device=self.device)
+        for e in range(shape[0]):
+            out[e] = self.normal(shape[1:], axes, scale)
+        return out
+
+    def full(self, shape, axes: str, value: float, dtype=None):
+        if self.mode != "init":
+            return axes if self.mode == "axes" else torch.Size(shape)
+        return torch.full(shape, value, dtype=dtype or self.dtype,
+                          device=self.device)
+
+
+def _build(cfg, mk: _Maker) -> Dict[str, Any]:
+    """The parameter tree, leaf by leaf through ``mk``."""
+    f32 = torch.float32
+
+    def norm(d):
+        p = {"scale": mk.full((d,), "", 1.0, f32)}
+        if cfg.norm == "layernorm":
+            p["bias"] = mk.full((d,), "", 0.0, f32)
+        return p
+
+    d, h, kv, hd, f = (cfg.d_model, cfg.num_heads, cfg.kv_heads,
+                       cfg.resolved_head_dim, cfg.d_ff)
+
+    def attn():
+        a = {"wq": mk.normal((d, h, hd), "wembed,wheads", d ** -0.5),
+             "wk": mk.normal((d, kv, hd), "wembed,wkv_heads", d ** -0.5),
+             "wv": mk.normal((d, kv, hd), "wembed,wkv_heads", d ** -0.5),
+             "wo": mk.normal((h, hd, d), "wheads,,wembed",
+                             (h * hd) ** -0.5)}
+        if cfg.qkv_bias:
+            a.update(bq=mk.full((h, hd), "wheads", 0.0),
+                     bk=mk.full((kv, hd), "wkv_heads", 0.0),
+                     bv=mk.full((kv, hd), "wkv_heads", 0.0))
+        return a
+
+    def mlp():
+        m = {"wi": mk.normal((d, f), "wembed,wff", d ** -0.5),
+             "wo": mk.normal((f, d), "wff,wembed", f ** -0.5)}
+        if cfg.gated_ffn:
+            m["wg"] = mk.normal((d, f), "wembed,wff", d ** -0.5)
+        return m
+
+    def moe():
+        e = cfg.moe.num_experts
+        m = {"router": mk.normal((d, e), "wembed,wexperts", d ** -0.5, f32),
+             "wi": mk.experts((e, d, f), "wexperts,wembed,wff", d ** -0.5),
+             "wg": mk.experts((e, d, f), "wexperts,wembed,wff", d ** -0.5),
+             "wo": mk.experts((e, f, d), "wexperts,wff,wembed", f ** -0.5)}
+        if cfg.moe.shared_expert:
+            m["shared"] = mlp()
+        return m
+
+    def rglru():
+        r, w = griffin.lru_dim(cfg), griffin.CONV_WIDTH
+        return {"proj_x": mk.normal((d, r), "wembed,wff", d ** -0.5),
+                "proj_y": mk.normal((d, r), "wembed,wff", d ** -0.5),
+                "conv_w": mk.normal((w, r), "", w ** -0.5),
+                "conv_b": mk.full((r,), "", 0.0),
+                "gate_a": mk.normal((r, r), "wff,", r ** -0.5),
+                "gate_a_b": mk.full((r,), "", 0.0),
+                "gate_x": mk.normal((r, r), "wff,", r ** -0.5),
+                "gate_x_b": mk.full((r,), "", 0.0),
+                "lam": mk.full((r,), "ffn", 1.0, f32),
+                "proj_out": mk.normal((r, d), "wff,wembed", r ** -0.5)}
+
+    def mamba():
+        sc = cfg.ssm
+        d_inner, nheads, conv_dim = ssm.dims(cfg)
+        in_dim = 2 * d_inner + 2 * sc.num_groups * sc.state_dim + nheads
+        return {"in_proj": mk.normal((d, in_dim), "wembed,wff", d ** -0.5),
+                "conv_w": mk.normal((sc.conv_width, conv_dim), "",
+                                    sc.conv_width ** -0.5),
+                "conv_b": mk.full((conv_dim,), "", 0.0),
+                "A_log": mk.full((nheads,), "heads", 1.0, f32),
+                "D": mk.full((nheads,), "heads", 1.0, f32),
+                "dt_bias": mk.full((nheads,), "heads", 0.0, f32),
+                "norm": {"scale": mk.full((d_inner,), "", 1.0, f32)},
+                "out_proj": mk.normal((d_inner, d), "wff,wembed",
+                                      d_inner ** -0.5)}
+
+    def block(kind):
+        if kind == "ssm":           # a Mamba2 block has no FFN sublayer
+            return {"ln1": norm(d), "mixer": mamba()}
+        mixer = {"mixer": rglru()} if kind == "rglru" else {"attn": attn()}
+        if kind == "dec":           # + cross-attention to the encoder
+            mixer.update(lnx=norm(d), cross=attn())
+        ffn = {"moe": moe()} if kind == "attn_moe" else {"mlp": mlp()}
+        return {"ln1": norm(d), **mixer, "ln2": norm(d), **ffn}
+
+    vp = tfm.padded_vocab(cfg.vocab)
+    p = {"embed": mk.normal((vp, d), "wvocab,wembed", 0.02),
+         "final_norm": norm(d),
+         "blocks": [block(kind) for kind in tfm.layer_kinds(cfg)]}
+    if not cfg.tie_embeddings:
+        p["head"] = mk.normal((d, vp), "wembed,wvocab", d ** -0.5)
+    if cfg.is_encdec:
+        p["enc"] = {"blocks": [block("enc") for _ in range(cfg.enc_layers)],
+                    "final_norm": norm(d)}
+    return p
 
 
 def init_params(cfg, generator: torch.Generator, *,
@@ -38,103 +164,22 @@ def init_params(cfg, generator: torch.Generator, *,
     expert's matrix (llama4's ``wi`` alone is 5.37 G values). An
     encoder-decoder's ``dec`` blocks add ``lnx`` and a ``cross`` attention,
     and ``enc`` holds the encoder's blocks and its ``final_norm``."""
-    dt = _dtype(cfg.dtype)
-    device = torch.device(device)
+    return _build(cfg, _Maker("init", generator, torch.device(device),
+                              _dtype(cfg.dtype)))
 
-    def normal(shape, scale, dtype=dt):
-        x = torch.randn(shape, generator=generator, device=device,
-                        dtype=torch.float32)
-        return (x * scale).to(dtype)
 
-    def experts(shape, scale):
-        out = torch.empty(shape, dtype=dt, device=device)
-        for e in range(shape[0]):
-            out[e] = normal(shape[1:], scale)
-        return out
+def param_axes(cfg) -> Dict[str, Any]:
+    """``init_params``' tree with each leaf's logical axes (the reference's
+    ``param_axes`` strings: ``wq`` "wembed,wheads", ``wk`` / ``wv``
+    "wembed,wkv_heads", ``wo`` "wheads,,wembed"; an MLP's ``wi`` / ``wg``
+    "wembed,wff" and ``wo`` "wff,wembed"; ...), what the tensor-parallel
+    plan (``parallel/tp.py``) shards by."""
+    return _build(cfg, _Maker("axes"))
 
-    def full(shape, value, dtype=dt):
-        return torch.full(shape, value, dtype=dtype, device=device)
 
-    def norm(d):
-        p = {"scale": full((d,), 1.0, torch.float32)}
-        if cfg.norm == "layernorm":
-            p["bias"] = full((d,), 0.0, torch.float32)
-        return p
-
-    d, h, kv, hd, f = (cfg.d_model, cfg.num_heads, cfg.kv_heads,
-                       cfg.resolved_head_dim, cfg.d_ff)
-
-    def attn():
-        a = {"wq": normal((d, h, hd), d ** -0.5),
-             "wk": normal((d, kv, hd), d ** -0.5),
-             "wv": normal((d, kv, hd), d ** -0.5),
-             "wo": normal((h, hd, d), (h * hd) ** -0.5)}
-        if cfg.qkv_bias:
-            a.update(bq=full((h, hd), 0.0), bk=full((kv, hd), 0.0),
-                     bv=full((kv, hd), 0.0))
-        return a
-
-    def mlp():
-        m = {"wi": normal((d, f), d ** -0.5), "wo": normal((f, d), f ** -0.5)}
-        if cfg.gated_ffn:
-            m["wg"] = normal((d, f), d ** -0.5)
-        return m
-
-    def moe():
-        e = cfg.moe.num_experts
-        m = {"router": normal((d, e), d ** -0.5, torch.float32),
-             "wi": experts((e, d, f), d ** -0.5),
-             "wg": experts((e, d, f), d ** -0.5),
-             "wo": experts((e, f, d), f ** -0.5)}
-        if cfg.moe.shared_expert:
-            m["shared"] = mlp()
-        return m
-
-    def rglru():
-        r, w = griffin.lru_dim(cfg), griffin.CONV_WIDTH
-        return {"proj_x": normal((d, r), d ** -0.5),
-                "proj_y": normal((d, r), d ** -0.5),
-                "conv_w": normal((w, r), w ** -0.5),
-                "conv_b": full((r,), 0.0),
-                "gate_a": normal((r, r), r ** -0.5),
-                "gate_a_b": full((r,), 0.0),
-                "gate_x": normal((r, r), r ** -0.5),
-                "gate_x_b": full((r,), 0.0),
-                "lam": full((r,), 1.0, torch.float32),
-                "proj_out": normal((r, d), r ** -0.5)}
-
-    def mamba():
-        sc = cfg.ssm
-        d_inner, nheads, conv_dim = ssm.dims(cfg)
-        in_dim = 2 * d_inner + 2 * sc.num_groups * sc.state_dim + nheads
-        return {"in_proj": normal((d, in_dim), d ** -0.5),
-                "conv_w": normal((sc.conv_width, conv_dim),
-                                 sc.conv_width ** -0.5),
-                "conv_b": full((conv_dim,), 0.0),
-                "A_log": full((nheads,), 1.0, torch.float32),
-                "D": full((nheads,), 1.0, torch.float32),
-                "dt_bias": full((nheads,), 0.0, torch.float32),
-                "norm": {"scale": full((d_inner,), 1.0, torch.float32)},
-                "out_proj": normal((d_inner, d), d_inner ** -0.5)}
-
-    def block(kind):
-        if kind == "ssm":           # a Mamba2 block has no FFN sublayer
-            return {"ln1": norm(d), "mixer": mamba()}
-        mixer = {"mixer": rglru()} if kind == "rglru" else {"attn": attn()}
-        if kind == "dec":           # + cross-attention to the encoder
-            mixer.update(lnx=norm(d), cross=attn())
-        ffn = {"moe": moe()} if kind == "attn_moe" else {"mlp": mlp()}
-        return {"ln1": norm(d), **mixer, "ln2": norm(d), **ffn}
-
-    vp = tfm.padded_vocab(cfg.vocab)
-    p = {"embed": normal((vp, d), 0.02), "final_norm": norm(d),
-         "blocks": [block(kind) for kind in tfm.layer_kinds(cfg)]}
-    if not cfg.tie_embeddings:
-        p["head"] = normal((d, vp), d ** -0.5)
-    if cfg.is_encdec:
-        p["enc"] = {"blocks": [block("enc") for _ in range(cfg.enc_layers)],
-                    "final_norm": norm(d)}
-    return p
+def param_shapes(cfg) -> Dict[str, Any]:
+    """``init_params``' tree with each leaf's shape, nothing allocated."""
+    return _build(cfg, _Maker("shape"))
 
 
 def _logits(cfg, params, x: torch.Tensor) -> torch.Tensor:
@@ -143,14 +188,15 @@ def _logits(cfg, params, x: torch.Tensor) -> torch.Tensor:
     return (x @ w).float()
 
 
-def encode(cfg, params, enc_embeds: torch.Tensor) -> torch.Tensor:
+def encode(cfg, params, enc_embeds: torch.Tensor, *,
+           rules: Rules = NO_RULES) -> torch.Tensor:
     """The encoder: its ``enc`` blocks (non-causal self-attention with RoPE
     at 0.. S_enc - 1, then the MLP) over ``enc_embeds`` (B, S_enc, d), then
     its ``final_norm``. -> (B, S_enc, d) in the model dtype."""
     x = enc_embeds.to(params["embed"].dtype)
     enc = params["enc"]
     x, _ = tfm.stack_apply(cfg, enc["blocks"], x,
-                           kinds=["enc"] * len(enc["blocks"]))
+                           kinds=["enc"] * len(enc["blocks"]), rules=rules)
     return norm_apply(enc["final_norm"], x, cfg.norm)
 
 
@@ -159,7 +205,7 @@ def prefill(cfg, params, tokens: torch.Tensor, *,
             prefix_len: int = 0,
             frontend_embeds: Optional[torch.Tensor] = None,
             enc_embeds: Optional[torch.Tensor] = None,
-            max_len: Optional[int] = None):
+            max_len: Optional[int] = None, rules: Rules = NO_RULES):
     """Run the whole (bucket-padded) prompt. tokens: (B, S) int64; length:
     None or (B,) count of real tokens. Returns (logits (B, Vp) fp32 at
     position length - 1 only, per-layer cache entries, next position (B,)
@@ -191,14 +237,18 @@ def prefill(cfg, params, tokens: torch.Tensor, *,
 
     ``max_len``: the dense engine's layout — full-attention k/v padded to
     max_len rows, a local_attn layer's k/v folded into its window ring
-    (slot = position % window); the prompt then must be unpadded."""
+    (slot = position % window); the prompt then must be unpadded.
+
+    ``rules``: the tensor-parallel hooks (``parallel.sharding``; a rank's
+    ``ManualRules`` sums the attention out-projection and the MLP
+    down-projection over its ``model`` group). ``NO_RULES``: none."""
     enc_out = None
     if cfg.is_encdec:
         if enc_embeds is None:
             raise ValueError(
                 f"{cfg.name} is an encoder-decoder: prefill needs "
                 f"enc_embeds, the encoder's frame embeddings (B, S_enc, d)")
-        enc_out = encode(cfg, params, enc_embeds)
+        enc_out = encode(cfg, params, enc_embeds, rules=rules)
     x = params["embed"][tokens]
     if frontend_embeds is not None:
         if cfg.frontend != "patch":
@@ -208,7 +258,7 @@ def prefill(cfg, params, tokens: torch.Tensor, *,
     x, caches = tfm.stack_apply(cfg, params["blocks"], x,
                                 prefix_kv=prefix_kv, prefix_len=prefix_len,
                                 length=length, enc_out=enc_out,
-                                max_len=max_len)
+                                max_len=max_len, rules=rules)
     x = norm_apply(params["final_norm"], x, cfg.norm)
     if length is None:
         length = torch.full((B,), S, dtype=torch.int32, device=x.device)
@@ -223,7 +273,7 @@ def decode_step(cfg, params, cache: List[Dict[str, torch.Tensor]],
                 tokens: torch.Tensor, pos: torch.Tensor, *,
                 block_table: Optional[torch.Tensor] = None,
                 win_block_table: Optional[torch.Tensor] = None,
-                state_out=None):
+                state_out=None, rules: Rules = NO_RULES):
     """tokens: (B, T) int64, token t of request b at position pos[b] + t;
     pos: (B,) int32. block_table: (B, n_blocks) int32 into the full-
     attention page pools of ``paged_cache_init``, win_block_table the same
@@ -234,8 +284,8 @@ def decode_step(cfg, params, cache: List[Dict[str, torch.Tensor]],
     layer kinds. Recurrent layers' state slots change in place for T ==
     1; a T > 1 verify block writes their checkpointed states into
     ``state_out`` (``state_buffers``) when given
-    (``transformer.stack_decode``). Returns (logits, cache): (B, Vp) fp32
-    for T == 1, (B, T, Vp) for T > 1."""
+    (``transformer.stack_decode``). ``rules``: as ``prefill``'s. Returns
+    (logits, cache): (B, Vp) fp32 for T == 1, (B, T, Vp) for T > 1."""
     T = tokens.shape[1]
     if T > 1:
         present = dict.fromkeys(tfm.layer_kinds(cfg))
@@ -254,7 +304,8 @@ def decode_step(cfg, params, cache: List[Dict[str, torch.Tensor]],
                 f"older block rows attend to)")
     x = params["embed"][tokens]
     x, cache = tfm.stack_decode(cfg, params["blocks"], x, cache, pos,
-                                block_table, win_block_table, state_out)
+                                block_table, win_block_table, state_out,
+                                rules=rules)
     x = norm_apply(params["final_norm"], x, cfg.norm)
     logits = _logits(cfg, params, x)
     return (logits[:, 0] if T == 1 else logits), cache
@@ -323,6 +374,15 @@ def paged_cache_init(cfg, num_pages: int, page_size: int, *,
             out.append({"k": torch.zeros(shape, dtype=dt, device=device),
                         "v": torch.zeros(shape, dtype=dt, device=device)})
     return out
+
+
+def paged_cache_axes(cfg) -> List[Dict[str, str]]:
+    """``paged_cache_init``'s list with each leaf's logical axes, the
+    reference's ``paged_cache_axes``: a page pool (P, page, KV, D) shards
+    its KV-head dim (",,kv_heads"); recurrent state slots replicate ("")."""
+    return [{name: "" for name in _state_shapes(cfg, kind, 1)}
+            if kind in STATE_KINDS else {"k": ",,kv_heads", "v": ",,kv_heads"}
+            for kind in tfm.layer_kinds(cfg)]
 
 
 def state_buffers(cfg, slots: int, T: int, *, device="cuda"

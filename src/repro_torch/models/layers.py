@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.parallel.sharding import NO_RULES, Rules
 
 Params = Dict[str, torch.Tensor]
 
@@ -100,7 +101,8 @@ def _out(p: Params, o: torch.Tensor) -> torch.Tensor:
 
 
 def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None,
-                    window: int = 0, causal: bool = True, cross_kv=None):
+                    window: int = 0, causal: bool = True, cross_kv=None,
+                    rules: Rules = NO_RULES):
     """Self-attention over the whole (bucket-padded) prompt through the
     flash-MHA kernel, RoPE at positions 0.. S - 1. Bucket padding sits
     after every real row, so causal masking alone keeps the real rows
@@ -120,14 +122,17 @@ def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None,
     position for every real token, and the kernel's query offset (q[:, 0]
     at plen) masks both the prefix buffer's tail and the suffix's bucket
     padding: those rows sit past every real query. The returned k/v are
-    the suffix's only, what the caller scatters into its pages."""
+    the suffix's only, what the caller scatters into its pages.
+
+    The out-projection contracts "heads": ``rules.contract`` (a rank's
+    all-reduce over its ``model`` group under tensor parallelism)."""
     if cross_kv is not None:
         q = _proj(x, p["wq"])
         if cfg.qkv_bias:
             q = q + p["bq"]
         out = ops.attention(q.contiguous(), cross_kv[0].contiguous(),
                             cross_kv[1].contiguous(), causal=False)
-        return _out(p, out), None
+        return rules.contract(_out(p, out), "heads"), None
     S = x.shape[1]
     q, k, v = _qkv(cfg, p, x)
     plen = 0 if prefix is None else prefix[2]
@@ -144,7 +149,7 @@ def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None,
         vf[:, plen:plen + S] = v
     out = ops.attention(q.contiguous(), kf.contiguous(), vf.contiguous(),
                         causal=causal, q_offset=plen, window=window)
-    return _out(p, out), (k, v)
+    return rules.contract(_out(p, out), "heads"), (k, v)
 
 
 def paged_rows(block_table: torch.Tensor, pos: torch.Tensor, T: int,
@@ -186,7 +191,8 @@ def dense_rows(pos: torch.Tensor, S: int, ring: bool):
 
 def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
                      pos: torch.Tensor, block_table=None, rows=None,
-                     window: int = 0, cross: bool = False):
+                     window: int = 0, cross: bool = False,
+                     rules: Rules = NO_RULES):
     """Decode step. x: (B, T, d); pos: (B,) int32 position of the first
     new token. Three modes, as the reference's ``attention_decode``:
 
@@ -215,7 +221,8 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
 
     The pools and lanes are updated IN PLACE (``index_put_``), where the
     JAX package returns new ones: the port never copies a layer's cache.
-    Returns (out, cache)."""
+    The out-projection contracts "heads" (``rules.contract``), in every
+    mode. Returns (out, cache)."""
     if cross:
         q = _proj(x, p["wq"])
         if cfg.qkv_bias:
@@ -224,7 +231,7 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
                             kv_dequant(cfg, cache["k"], q.dtype).contiguous(),
                             kv_dequant(cfg, cache["v"], q.dtype).contiguous(),
                             causal=False)
-        return _out(p, out), cache
+        return rules.contract(_out(p, out), "heads"), cache
     B, T = x.shape[0], x.shape[1]
     q, k, v = _qkv(cfg, p, x)
     pos_t = pos[:, None] + torch.arange(T, device=x.device,
@@ -243,7 +250,7 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
                             kv_dequant(cfg, ck, q.dtype).contiguous(),
                             kv_dequant(cfg, cv, q.dtype).contiguous(),
                             causal=False, kv_valid=n)
-        return _out(p, out), cache
+        return rules.contract(_out(p, out), "heads"), cache
     phys, off, last = rows
     ck.index_put_((phys, off), kv_quant(cfg, k).flatten(0, 1)[last])
     cv.index_put_((phys, off), kv_quant(cfg, v).flatten(0, 1)[last])
@@ -260,7 +267,7 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
         scale = cfg.kv_scale if ck.dtype == torch.int8 else None
         out = ops.paged_attention(q.contiguous(), ck, cv, block_table,
                                   pos + T, kv_scale=scale, window=window)
-    return _out(p, out), cache
+    return rules.contract(_out(p, out), "heads"), cache
 
 
 def last_writer(target: torch.Tensor) -> torch.Tensor:
@@ -340,10 +347,12 @@ def attend_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     return o.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, D).to(q.dtype)
 
 
-def mlp_apply(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(cfg, p: Params, x: torch.Tensor,
+              rules: Rules = NO_RULES) -> torch.Tensor:
     """Gated MLP as the JAX package writes it: the activation goes on the
     ``wg`` branch and multiplies ``wi`` — act(x @ wg) * (x @ wi) — then
-    ``wo``. Ungated: act(x @ wi) @ wo."""
+    ``wo``. Ungated: act(x @ wi) @ wo. The down-projection contracts "ffn"
+    (``rules.contract``)."""
     h = x @ p["wi"]
     if cfg.act == "silu":
         act = F.silu
@@ -351,7 +360,7 @@ def mlp_apply(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
         def act(t):
             return F.gelu(t, approximate="tanh")
     h = act(x @ p["wg"]) * h if cfg.gated_ffn else act(h)
-    return h @ p["wo"]
+    return rules.contract(h @ p["wo"], "ffn")
 
 
 def moe_capacity(cfg, T: int):
@@ -440,17 +449,20 @@ def moe_combine(cfg, eo: torch.Tensor, gate_w: torch.Tensor,
                         got.reshape(G, K, Tg, d)).reshape(B, S, d)
 
 
-def moe_apply(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+def moe_apply(cfg, p: Params, x: torch.Tensor,
+              rules: Rules = NO_RULES) -> torch.Tensor:
     """Token-dropping MoE FFN with grouped dispatch, after the JAX
     package's ``layers.moe_apply``: ``moe_route``, ``moe_dispatch``,
     ``moe_experts`` (the expert products stay plain PyTorch, as they stay
     jnp in the reference), ``moe_combine``, plus the shared expert's MLP
     where the config has one. The auxiliary losses (load balance, router
     z-loss) are not computed: they belong to training, which is not
-    ported. x: (B, S, d) -> (B, S, d)."""
+    ported. The shared expert gets ``rules`` (a tensor-parallel plan never
+    shards an MoE stack's "ffn", so its contract is the identity there).
+    x: (B, S, d) -> (B, S, d)."""
     gate_w, _, flat, keep = moe_route(cfg, p, x)
     eo = moe_experts(p, moe_dispatch(cfg, x, flat))
     out = moe_combine(cfg, eo, gate_w, flat, keep, x)
     if cfg.moe.shared_expert:
-        out = out + mlp_apply(cfg, p["shared"], x)
+        out = out + mlp_apply(cfg, p["shared"], x, rules)
     return out

@@ -30,6 +30,7 @@ from repro_torch.models.layers import (attention_apply, attention_decode,
                                        cross_kv, dense_rows, kv_quant,
                                        mlp_apply, moe_apply, norm_apply,
                                        paged_rows)
+from repro_torch.parallel.sharding import NO_RULES, Rules
 
 VOCAB_PAD = 256
 PAGEABLE_KINDS = ("attn_mlp", "attn_moe")   # full-attention page pools
@@ -101,7 +102,8 @@ def _window_cache(cfg, k: torch.Tensor, v: torch.Tensor, w: int):
 
 
 def block_apply(cfg, kind: str, p, x: torch.Tensor, prefix=None,
-                length=None, enc_out=None, max_len=None):
+                length=None, enc_out=None, max_len=None,
+                rules: Rules = NO_RULES):
     """Full-sequence block of ``kind``. Returns (x, cache entry). The
     attention kinds' entry is {"k", "v"} in the cache storage dtype:
     exact-length (B, S, KV, D) for the paged engine (``prefix``: see
@@ -112,7 +114,8 @@ def block_apply(cfg, kind: str, p, x: torch.Tensor, prefix=None,
     recurrent kinds' entry is their decode state, whose updates past
     ``length`` (real tokens of a right-padded bucket) are the identity.
     ``ssm`` blocks have no FFN sublayer; ``attn_moe`` blocks route every
-    row, bucket padding too, through ``moe_apply``."""
+    row, bucket padding too, through ``moe_apply``. ``rules``: the
+    tensor-parallel hooks, passed to the attention and the FFN."""
     h = norm_apply(p["ln1"], x, cfg.norm)
     if kind == "ssm":
         a, cache = ssm.ssm_apply(cfg, p["mixer"], h, return_state=True,
@@ -122,36 +125,39 @@ def block_apply(cfg, kind: str, p, x: torch.Tensor, prefix=None,
         a, cache = griffin.rglru_apply(cfg, p["mixer"], h, return_state=True,
                                        length=length)
     elif kind == "enc":
-        a, _ = attention_apply(cfg, p["attn"], h, causal=False)
+        a, _ = attention_apply(cfg, p["attn"], h, causal=False, rules=rules)
         cache = None
     else:
         window = cfg.hybrid.window if kind == "local_attn" else 0
         a, (k, v) = attention_apply(cfg, p["attn"], h, prefix=prefix,
-                                    window=window)
+                                    window=window, rules=rules)
         cache = _window_cache(cfg, k, v, window) \
             if window and max_len is not None else _grow(cfg, k, v, max_len)
     x = x + a
     if kind == "dec":
         hx = norm_apply(p["lnx"], x, cfg.norm)
         ck, cv = cross_kv(cfg, p["cross"], enc_out)
-        a, _ = attention_apply(cfg, p["cross"], hx, cross_kv=(ck, cv))
+        a, _ = attention_apply(cfg, p["cross"], hx, cross_kv=(ck, cv),
+                               rules=rules)
         x = x + a
         cache.update(xk=kv_quant(cfg, ck), xv=kv_quant(cfg, cv))
-    return x + ffn_apply(cfg, kind, p, norm_apply(p["ln2"], x, cfg.norm)), \
-        cache
+    return x + ffn_apply(cfg, kind, p, norm_apply(p["ln2"], x, cfg.norm),
+                         rules), cache
 
 
-def ffn_apply(cfg, kind: str, p, h: torch.Tensor) -> torch.Tensor:
+def ffn_apply(cfg, kind: str, p, h: torch.Tensor,
+              rules: Rules = NO_RULES) -> torch.Tensor:
     """The FFN sublayer: ``moe_apply`` on an ``attn_moe`` block, else the
     dense MLP."""
     if kind == "attn_moe":
-        return moe_apply(cfg, p["moe"], h)
-    return mlp_apply(cfg, p["mlp"], h)
+        return moe_apply(cfg, p["moe"], h, rules)
+    return mlp_apply(cfg, p["mlp"], h, rules)
 
 
 def block_decode(cfg, kind: str, p, x: torch.Tensor, cache,
                  pos: torch.Tensor, block_table: Optional[torch.Tensor],
-                 win_block_table: Optional[torch.Tensor], rows, win_rows):
+                 win_block_table: Optional[torch.Tensor], rows, win_rows,
+                 rules: Rules = NO_RULES):
     """Decode step of one block. Attention kinds write their cache in place
     and return (x, None): through ``block_table`` (``local_attn`` through
     ``win_block_table``, with the window) on page pools, or, where the
@@ -162,7 +168,8 @@ def block_decode(cfg, kind: str, p, x: torch.Tensor, cache,
     Recurrent kinds read their state and return (x, new state): plain for
     T == 1, checkpointed for T > 1 (see ``griffin.rglru_decode``,
     ``ssm.ssm_decode``). An ``attn_moe`` block routes every row of the
-    step, dead slots' too, as the JAX package's step does."""
+    step, dead slots' too, as the JAX package's step does. ``rules``: as
+    ``block_apply``'s."""
     h = norm_apply(p["ln1"], x, cfg.norm)
     new = None
     if kind == "ssm":
@@ -173,24 +180,24 @@ def block_decode(cfg, kind: str, p, x: torch.Tensor, cache,
     elif kind == "local_attn":
         a, _ = attention_decode(cfg, p["attn"], h, cache, pos,
                                 win_block_table, win_rows,
-                                window=cfg.hybrid.window)
+                                window=cfg.hybrid.window, rules=rules)
     else:
         a, _ = attention_decode(cfg, p["attn"], h, cache, pos, block_table,
-                                rows)
+                                rows, rules=rules)
     x = x + a
     if kind == "dec":
         hx = norm_apply(p["lnx"], x, cfg.norm)
         a, _ = attention_decode(cfg, p["cross"], hx,
                                 {"k": cache["xk"], "v": cache["xv"]}, pos,
-                                cross=True)
+                                cross=True, rules=rules)
         x = x + a
-    return x + ffn_apply(cfg, kind, p, norm_apply(p["ln2"], x, cfg.norm)), \
-        new
+    return x + ffn_apply(cfg, kind, p, norm_apply(p["ln2"], x, cfg.norm),
+                         rules), new
 
 
 def stack_apply(cfg, blocks, x: torch.Tensor, *, prefix_kv=None,
                 prefix_len: int = 0, length=None, enc_out=None,
-                max_len=None, kinds=None):
+                max_len=None, kinds=None, rules: Rules = NO_RULES):
     """Run every layer over the prompt. Returns (x, per-layer cache
     entries). ``prefix_kv`` (per layer {"k", "v"} (B, Pb, KV, D) in the
     cache dtype) with ``prefix_len`` switches every layer to suffix-only
@@ -199,7 +206,8 @@ def stack_apply(cfg, blocks, x: torch.Tensor, *, prefix_kv=None,
     ``length``: real tokens of a right-padded bucket, for the recurrent
     blocks' states. ``enc_out``: the encoder's output, for ``dec`` blocks.
     ``max_len``: build the dense engine's lanes (see ``block_apply``).
-    ``kinds``: the blocks' kinds (default the decoder's)."""
+    ``kinds``: the blocks' kinds (default the decoder's). ``rules``: the
+    tensor-parallel hooks (``block_apply``)."""
     kinds = layer_kinds(cfg) if kinds is None else kinds
     if prefix_kv is not None and set(kinds) - set(PAGEABLE_KINDS):
         raise ValueError(f"prefix reuse needs an attention-only stack, got "
@@ -209,7 +217,7 @@ def stack_apply(cfg, blocks, x: torch.Tensor, *, prefix_kv=None,
         pref = None if prefix_kv is None else (
             prefix_kv[j]["k"], prefix_kv[j]["v"], prefix_len)
         x, c = block_apply(cfg, kind, p, x, prefix=pref, length=length,
-                           enc_out=enc_out, max_len=max_len)
+                           enc_out=enc_out, max_len=max_len, rules=rules)
         caches.append(c)
     return x, caches
 
@@ -217,14 +225,14 @@ def stack_apply(cfg, blocks, x: torch.Tensor, *, prefix_kv=None,
 def stack_decode(cfg, blocks, x: torch.Tensor, caches, pos: torch.Tensor,
                  block_table: Optional[torch.Tensor] = None,
                  win_block_table: Optional[torch.Tensor] = None,
-                 state_out=None):
+                 state_out=None, rules: Rules = NO_RULES):
     """One decode step through every layer. Pools and lanes change in
     place; a None table means the dense lanes. A recurrent layer's new
     state goes, in place, into its cache entry (T == 1) or, for a T > 1
     verify block, into ``state_out[j]`` (fixed (B, T, ...) buffers) when
     given. Returns (x, per-layer entries: the caches, with a T > 1 block's
     checkpointed states in place of the recurrent layers' when no
-    ``state_out`` takes them)."""
+    ``state_out`` takes them). ``rules``: the tensor-parallel hooks."""
     T = x.shape[1]
     kinds = layer_kinds(cfg)
     # where the step's rows write, once for each table or lane length
@@ -242,7 +250,7 @@ def stack_decode(cfg, blocks, x: torch.Tensor, caches, pos: torch.Tensor,
     out = list(caches)
     for j, (kind, p, c) in enumerate(zip(kinds, blocks, caches)):
         x, new = block_decode(cfg, kind, p, x, c, pos, block_table,
-                              win_block_table, rows, win_rows)
+                              win_block_table, rows, win_rows, rules)
         if new is None:
             continue
         dst = c if T == 1 else (None if state_out is None else state_out[j])

@@ -1,0 +1,151 @@
+"""Logical-axis sharding rules with divisibility fallbacks.
+
+A copy of ``repro.parallel.sharding`` for the port (which imports nothing
+of the JAX package). Models name each tensor dim with a *logical* axis
+(comma-separated strings, one name per dim, ``""``/missing = replicated);
+``Rules`` maps those names onto the axes of a ``launch.mesh.Mesh``, falling
+back to replication when a dim does not divide the mapped mesh axis (e.g.
+llama4's 40 heads on a 16-way ``model`` axis), loudly: the first fallback
+per (instance, logical axis) warns, naming the axis.
+
+``spec`` returns, per dim, the mesh axis that dim shards over (a name, a
+tuple of names for composed axes) or None, trailing Nones dropped: the
+reference's ``PartitionSpec`` as a plain tuple.
+
+``ManualRules`` is the per-rank variant (the reference's ``shard_map``
+body): each rank holds its shard of the weights, so ``cons`` is the
+identity, and a contraction over a logical axis that actually sharded
+needs an explicit sum over the ``model`` group: ``contract`` all-reduces
+there, in place, and is the identity for every other axis (an axis that
+fell back to replication must NOT be summed, or the output is multiplied
+by the shard count).
+"""
+from __future__ import annotations
+
+import warnings
+from typing import Dict, FrozenSet, Iterable, Optional, Tuple, Union
+
+import torch
+import torch.distributed as dist
+
+Phys = Union[str, Tuple[str, ...], None]
+
+# logical axis -> mesh axis (tuples compose axes)
+DEFAULT_TABLE: Dict[str, Phys] = {
+    # activations
+    "batch": ("pod", "data"),
+    "seq": None,
+    "seq_sp": "model",          # sequence parallelism (opt-in)
+    "embed": None,
+    "heads": "model",
+    "kv_heads": "model",
+    "ffn": "model",
+    "vocab": "model",
+    "experts": "model",
+    "state": None,
+    # weights (FSDP axis)
+    "wembed": ("pod", "data"),
+    "wff": "model",             # tensor-parallel weight dim
+    "wvocab": "model",
+    "wheads": "model",
+    "wkv_heads": "model",
+    "wexperts": "model",
+    "layers": None,
+}
+
+
+class Rules:
+    """Maps logical-axes strings to per-dim mesh axes for a concrete mesh
+    (``launch.mesh.Mesh``, or None: everything replicated)."""
+
+    def __init__(self, mesh=None, table: Optional[Dict[str, Phys]] = None):
+        self.mesh = mesh
+        self.table = dict(DEFAULT_TABLE)
+        if table:
+            self.table.update(table)
+        self._warned_axes: set = set()   # one fallback warning per axis
+
+    def _axis_size(self, phys: Phys) -> int:
+        if self.mesh is None or phys is None:
+            return 1
+        n = 1
+        for a in (phys if isinstance(phys, tuple) else (phys,)):
+            n *= self.mesh.shape[a]
+        return n
+
+    def spec(self, shape: Tuple[int, ...], axes: str) -> tuple:
+        """Per dim of ``shape``, the mesh axis it shards over (None:
+        replicated), given its comma-separated logical names; trailing
+        Nones dropped."""
+        if self.mesh is None:
+            return ()
+        names = [a.strip() for a in axes.split(",")] if axes else []
+        names += [""] * (len(shape) - len(names))
+        out, used = [], set()
+        for dim, name in zip(shape, names):
+            phys = self.table.get(name)
+            if phys is None:
+                out.append(None)
+                continue
+            pt = tuple(a for a in (phys if isinstance(phys, tuple)
+                                   else (phys,))
+                       if a in self.mesh.shape)    # drop absent axes (pod)
+            if not pt or any(a in used for a in pt):
+                out.append(None)            # absent-axis / conflict fallback
+                continue
+            if dim % self._axis_size(pt) != 0:
+                # divisibility fallback: replicate, and say so once per
+                # (instance, logical axis)
+                if name not in self._warned_axes:
+                    self._warned_axes.add(name)
+                    warnings.warn(
+                        f"logical axis {name!r} (dim {dim}) is not "
+                        f"divisible by mesh axis {'x'.join(pt)} (size "
+                        f"{self._axis_size(pt)}); replicating this dim "
+                        f"instead of sharding it", stacklevel=3)
+                out.append(None)
+                continue
+            out.append(pt if len(pt) > 1 else pt[0])
+            used.update(pt)
+        while out and out[-1] is None:
+            out.pop()
+        return tuple(out)
+
+    def cons(self, x: torch.Tensor, axes: str) -> torch.Tensor:
+        """A layout hint in the reference (GSPMD); the identity here: a
+        rank's tensors are its own."""
+        return x
+
+    def contract(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Hook at a contraction over logical ``axis`` (the attention
+        out-projection contracts "heads", the MLP down-projection "ffn").
+        The identity; ``ManualRules`` sums over the model group."""
+        return x
+
+
+class ManualRules(Rules):
+    """Per-rank rules: ``contract`` all-reduces ``x`` in place over
+    ``group`` (the mesh's ``model`` group) for exactly the axes in
+    ``contract_axes``, and is the identity for the rest. ``reduces``
+    counts the all-reduces issued (in a captured graph: the ones
+    recorded). Without a group (a mesh made outside a world) the rules
+    can be read but a contraction raises."""
+
+    def __init__(self, contract_axes: Iterable[str] = (), group=None):
+        super().__init__(None)
+        self.contract_axes: FrozenSet[str] = frozenset(contract_axes)
+        self.group = group
+        self.reduces = 0
+
+    def contract(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        if axis in self.contract_axes:
+            if self.group is None:
+                raise RuntimeError(
+                    f"contracting {axis!r} needs the model axis's process "
+                    f"group: make the mesh inside a torch.distributed world")
+            dist.all_reduce(x, group=self.group)
+            self.reduces += 1
+        return x
+
+
+NO_RULES = Rules(None)

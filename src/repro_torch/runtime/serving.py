@@ -60,8 +60,14 @@ captured graph too. ``ServingEngine`` returns the paged engine for every
 stack it can host and the dense one otherwise (the encoder-decoder, which
 neither engine can then serve: its prefill needs ``enc_embeds``).
 
-Tensor parallelism is not ported yet: its ``metrics()`` keys read as the
-reference's do with it switched off (``model_shards`` 1, ``""``).
+Tensor parallelism (``mesh=``, ``parallel/tp.py``): one process a shard
+of a ``launch.mesh`` mesh's ``model`` axis, every rank running this same
+host logic on the same inputs (scheduler, allocator, prefix cache,
+sampler keys), so the ranks stay in lockstep with no host traffic of
+their own. A rank holds its KV heads' slice of every page and its part of
+the attention and MLP weights; the model all-reduces over the ``model``
+group at the attention out-projection and the MLP down-projection, so
+every rank's logits, and so its tokens, are the same.
 """
 from __future__ import annotations
 
@@ -72,11 +78,14 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import api
 from repro_torch.models import transformer as tfm
+from repro_torch.parallel import tp
+from repro_torch.parallel.sharding import NO_RULES
 from repro_torch.runtime.drafter import ngram_propose
 from repro_torch.runtime.host_tier import HostTier, SwapRecord, _tree_nbytes
 from repro_torch.runtime.kv_cache import SCRATCH_PAGE, PageAllocator, PoolStats
@@ -357,7 +366,20 @@ class PagedServingEngine(ServingMetricsMixin):
     shared pages, and window pages are recycled per request).
     ``host_tier=True`` backs the pool with pinned host RAM: preemption
     swaps out instead of destroying work, idle cached pages demote instead
-    of being evicted."""
+    of being evicted.
+
+    ``mesh`` (``launch.mesh.make_host_mesh``, made inside the world of
+    ranks that serve together) shards the engine over its ``model`` axis
+    (``parallel.tp.tp_plan``): this rank keeps its part of the attention
+    and MLP weights (``shard_params``) and allocates the pools at KV/m
+    heads when attention shards (the window pools too); every body runs
+    with the plan's rules. ``params`` are the full tensors. With the host
+    tier it raises ``ValueError``, as the reference does. On a CUDA device
+    the decode, verify and select bodies are captured as graphs when the
+    plan contracts nothing or its ``model`` group is NCCL (the all-reduces
+    go inside the graph; one eager all-reduce first creates the
+    communicator); over a gloo group they run uncaptured, as on the CPU:
+    gloo's collectives cannot be captured."""
 
     def __init__(self, cfg, params, *, slots: int = 4, max_len: int = 256,
                  page_size: int = 16, num_pages: Optional[int] = None,
@@ -365,9 +387,14 @@ class PagedServingEngine(ServingMetricsMixin):
                  sampling: Optional[SamplingParams] = None,
                  attn_impl: str = "kernel", prefix_cache: bool = False,
                  spec_k: int = 0, spec_ngram: int = 3, drafter=None,
-                 host_tier: bool = False,
+                 mesh=None, host_tier: bool = False,
                  tracer: Optional[Tracer] = None, device="cuda"):
         self.device = resolve_device(device)
+        if host_tier and mesh is not None:
+            raise ValueError(
+                "host_tier=True is single-shard only: swap blobs would "
+                "have to gather/scatter each shard's KV-head slice — TP + "
+                "tiering is an open item")
         if not _pageable(cfg):
             raise ValueError(f"paged serving cannot host pattern "
                              f"{tfm.pattern_for(cfg)}; use "
@@ -406,6 +433,22 @@ class PagedServingEngine(ServingMetricsMixin):
         # the reference
         self.cfg = dataclasses.replace(cfg, paged_attn_impl=attn_impl)
         self.attn_impl = attn_impl
+        # tensor parallelism: the plan (None without a mesh) decides what
+        # shards; this rank keeps its part of the sharded weights
+        self.tp = tp.tp_plan(self.cfg, mesh)
+        self._model_rules = self.tp.rules if self.tp is not None \
+            else NO_RULES
+        if self.tp is not None:
+            if mesh.device.type != self.device.type:
+                raise ValueError(f"the mesh puts this rank on "
+                                 f"{mesh.device}, the engine on "
+                                 f"{self.device}")
+            if self._model_rules.contract_axes and mesh.group is None:
+                raise ValueError(
+                    f"a model axis of {self.tp.model_shards} needs its "
+                    f"process group: make the mesh inside a "
+                    f"torch.distributed world (launch.mesh.run_world)")
+            params = tp.shard_params(params, self.tp, mesh.model_rank)
         self.params = params
         self.page_size = page_size
         self.max_len = -(-max_len // page_size) * page_size
@@ -432,9 +475,16 @@ class PagedServingEngine(ServingMetricsMixin):
         self.tier: Optional[HostTier] = \
             HostTier(tracer=self.trace) if host_tier else None
         # pool row 0 is the scratch page -> usable + 1 physical pages; the
-        # recurrent layers' entries are (slots, ...) state
-        self.cache = api.paged_cache_init(self.cfg, usable + 1, page_size,
-                                          slots=slots, device=self.device)
+        # recurrent layers' entries are (slots, ...) state; a sharded
+        # rank's pools hold its KV heads only
+        if self.tp is None:
+            self.cache = api.paged_cache_init(self.cfg, usable + 1,
+                                              page_size, slots=slots,
+                                              device=self.device)
+        else:
+            self.cache = tp.paged_cache_init(self.tp, self.cfg, usable + 1,
+                                             page_size, slots=slots,
+                                             device=self.device)
         self._state = [(j, e) for j, (e, k) in enumerate(zip(self.cache,
                                                              kinds))
                        if k in api.STATE_KINDS]
@@ -682,7 +732,7 @@ class PagedServingEngine(ServingMetricsMixin):
                 logits, kv, _ = api.prefill(
                     self.cfg, self.params, torch.from_numpy(tok_arr).to(dev),
                     length=torch.full((1,), L, dtype=torch.int32,
-                                      device=dev))
+                                      device=dev), rules=self._model_rules)
                 self._scatter_prefill(kv, slot, pages, pages_win)
                 tok = sample_rows(logits[:, : self.cfg.vocab], pol1)[0]
             self.prefilled_tokens += L
@@ -718,7 +768,8 @@ class PagedServingEngine(ServingMetricsMixin):
                     self.cfg, self.params, torch.from_numpy(tok_arr).to(dev),
                     length=torch.full((1,), len(suffix), dtype=torch.int32,
                                       device=dev),
-                    prefix_kv=prefix_kv, prefix_len=prefix_len)
+                    prefix_kv=prefix_kv, prefix_len=prefix_len,
+                    rules=self._model_rules)
                 # bucket padding lands on scratch rows, several tokens on
                 # one row: write each row's last token only
                 last = last_occurrences(phys * self.page_size + rows)
@@ -1151,7 +1202,8 @@ class PagedServingEngine(ServingMetricsMixin):
         logits, _ = api.decode_step(self.cfg, self.params, self.cache,
                                     self.cur_tok, self.pos,
                                     block_table=self.block_table,
-                                    win_block_table=self._win_arg())
+                                    win_block_table=self._win_arg(),
+                                    rules=self._model_rules)
         toks = sample_rows(logits[:, : self.cfg.vocab], self.pol)
         live = self.live_mask
         livei = live.to(torch.int32)
@@ -1187,7 +1239,8 @@ class PagedServingEngine(ServingMetricsMixin):
                                     self._spec_pos,
                                     block_table=self.block_table,
                                     win_block_table=self._win_arg(),
-                                    state_out=self._ckpt)
+                                    state_out=self._ckpt,
+                                    rules=self._model_rules)
         z = logits[..., : cfg.vocab].reshape(B * T, cfg.vocab)
         pol = self.pol
 
@@ -1241,15 +1294,36 @@ class PagedServingEngine(ServingMetricsMixin):
     def _state_tensors(self) -> List[torch.Tensor]:
         return [t for _, e in self._state for t in e.values()]
 
+    def _eager(self) -> bool:
+        """Whether the bodies run as they are rather than as graphs: on the
+        CPU, and on a rank whose plan contracts over a gloo group (its
+        collectives cannot be captured). A branch on the group's backend,
+        not a fallback: an NCCL group's all-reduces are captured."""
+        if self.device.type != "cuda":
+            return True
+        rules = self._model_rules
+        return bool(self.tp is not None and rules.contract_axes
+                    and "nccl" not in dist.get_backend(rules.group))
+
+    def _capture(self, body, state) -> tuple:
+        """``capture_graph`` of ``body``; on an NCCL rank one eager
+        all-reduce over the model group first, so its communicator exists
+        before a capture records the body's."""
+        rules = self._model_rules
+        if self.tp is not None and rules.contract_axes:
+            dist.all_reduce(torch.zeros(1, device=self.device),
+                            group=rules.group)
+        return capture_graph(self.device, body, state)
+
     def _dispatch(self) -> None:
         """Enqueue one step body: a replay of the captured graph on CUDA
-        (captured at the first call), the body itself on the CPU."""
-        if self.device.type != "cuda":
+        (captured at the first call), the body itself where ``_eager``."""
+        if self._eager():
             self._step_body()
             return
         if self._graph is None:
-            self._graph, self._graph_launches = capture_graph(
-                self.device, self._step_body,
+            self._graph, self._graph_launches = self._capture(
+                self._step_body,
                 [self.cur_tok, self.pos, self.gen_cnt, self.live_mask,
                  self.pol.idx, self._step_out] + self._state_tensors())
             self.step_traces += 1
@@ -1258,27 +1332,28 @@ class PagedServingEngine(ServingMetricsMixin):
 
     def _dispatch_spec(self) -> None:
         """Enqueue one verify body: a replay of the second captured graph
-        on CUDA, the body itself on the CPU."""
-        if self.device.type != "cuda":
+        on CUDA, the body itself where ``_eager``."""
+        if self._eager():
             self._spec_body()
             return
         if self._spec_graph is None:
-            self._spec_graph, self._spec_graph_launches = capture_graph(
-                self.device, self._spec_body, (self._spec_out,))
+            self._spec_graph, self._spec_graph_launches = self._capture(
+                self._spec_body, (self._spec_out,))
             self.spec_traces += 1
         self._spec_graph.replay()
         ops.add_launch_counts(self._spec_graph_launches)
 
     def _dispatch_select(self) -> None:
         """Enqueue the rollback select: a replay of the third captured
-        graph on CUDA (captured at its first use), the body on the CPU."""
+        graph on CUDA (captured at its first use), the body where
+        ``_eager``."""
         self.state_selects += 1
-        if self.device.type != "cuda":
+        if self._eager():
             self._select_body()
             return
         if self._select_graph is None:
-            self._select_graph, _ = capture_graph(
-                self.device, self._select_body, self._state_tensors())
+            self._select_graph, _ = self._capture(
+                self._select_body, self._state_tensors())
             self.select_traces += 1
         self._select_graph.replay()
 
@@ -1490,9 +1565,19 @@ class PagedServingEngine(ServingMetricsMixin):
         return d
 
     def shard_stats(self) -> Dict[str, object]:
+        """Per-shard telemetry, the reference's four keys. Pages are
+        allocated on the host, the same on every rank, so
+        ``peak_pages_per_shard`` is the allocator's peak; what tensor
+        parallelism divides is each page's bytes: ``pool_bytes_per_shard``
+        counts this rank's pools (a sharded pool at 1/m of its bytes) and
+        state slots."""
         nbytes = sum(t.numel() * t.element_size()
                      for pool in self.cache for t in pool.values())
-        return {"model_shards": 1.0, "sharded_axes": "",
+        return {"model_shards": float(self.tp.model_shards
+                                      if self.tp is not None else 1),
+                # "+"-joined, not ","-joined: this string lands in CSV cells
+                "sharded_axes": "+".join(sorted(self.tp.sharded_axes))
+                if self.tp is not None else "",
                 "peak_pages_per_shard": float(self.alloc.peak_pages),
                 "pool_bytes_per_shard": float(nbytes)}
 
