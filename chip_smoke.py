@@ -75,7 +75,7 @@ Phases, each failing loudly (non-zero exit, no result line):
    sampled and speculative (tok/s, TTFT, TPOT, each run's launch counts).
    ``serve_bench --scenario shared-prefix|speculative|sampling`` at fp32
    on 4 layers, gated (``tokens_match_greedy`` must pass), then at bf16
-   and full depth for the times.
+   on 12 of 36 layers for the times.
 9. hybrid and recurrent stacks (generators of their own): mha with a
    sliding-window band at recurrentgemma's heads (H16 KV1 D256) and the
    serving heads, bf16 and fp32, windows 0, 16 and 2048 at 1024 and at a
@@ -166,6 +166,23 @@ Phases, each failing loudly (non-zero exit, no result line):
    a layer a step and a prefill), every rank alike, each rank's launches
    the serve formula's. The card has one GPU, so no tensor-parallel time
    is taken: two ranks on one card are a correctness run.
+14. single-device training (generators of their own): (a) the qwen2.5-3b,
+   dbrx-132b and recurrentgemma-9b SMOKE configs at fp32, from one state:
+   step 1's loss, aux losses and every parameter leaf's gradient on the
+   card against the CPU's (present, finite, non-zero wherever the CPU's
+   is, within 1e-3 of the leaf's largest), then 3 ``make_train_step``
+   steps whose losses agree within rtol 1e-4; the mha, paged and sampler
+   wrappers refuse a grad-requiring input under grad mode. (b) qwen2.5-3b
+   at full width and depth, bf16 params, fp32 moments, remat "full", 8 x
+   1024 tokens of the synthetic stream a step, the reference launcher's
+   optimizer: one warm-up step and 5 timed ones (ms a step, split into
+   forward + backward and the optimizer; tokens/s; model FLOP/s, 6 N
+   tokens, against the 989 TFLOP/s bf16 peak; peak memory; finite
+   losses); no kernel may launch there (the training forward attends
+   through the plain ``flash_attention``). (c) qwen2.5-3b full width, 4 of
+   36 layers, fp32: 2 train steps on the card, then ``api.prefill``'s
+   last-position logits (the mha kernel) against ``api.forward``'s (plain
+   attention) on 4 prompts of 512 tokens, within 1e-4 of the logit scale.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary (the
 seven TPU kernels' counterparts, the sampler's noise kernel, mha and
@@ -173,8 +190,9 @@ paged flash-decode again at the hybrid path's windowed shapes with that
 path's launches, both again with the host tier path's launches,
 both at each MoE and vlm arch's heads with its serve run's launches,
 mha at the dense decode row and at seamless's encoder with those runs'
-launches, and both at a tensor-parallel rank's heads with one rank's
-launches in the two-rank run);
+launches, both at a tensor-parallel rank's heads with one rank's
+launches in the two-rank run, and mha at phase 14's train-to-serve
+prefill with its launches there);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -189,6 +207,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -200,12 +219,16 @@ from repro_torch.kernels import gemm_os as gemm_kernel  # noqa: E402
 from repro_torch.kernels import maxpool as pool_kernel  # noqa: E402
 from repro_torch.kernels import paged_attention as paged_kernel  # noqa: E402
 from repro_torch.kernels import reshuffle as reshuffle_kernel  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import sampler as sampler_kernel  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.data.synthetic import DataConfig, SyntheticDataset  # noqa
 from repro_torch.launch import host_cost  # noqa: E402
 from repro_torch.launch import kernel_bench as bench  # noqa: E402
 from repro_torch.launch.host_cost import host_us  # noqa: E402
 from repro_torch.launch.kernel_bench import cuda_ms  # noqa: E402
 from repro_torch.models import api  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.runtime import trainer  # noqa: E402
 from repro_torch.runtime.serving import (DenseServingEngine,  # noqa: E402
                                          PagedServingEngine, Request,
                                          capture_graph)
@@ -593,13 +616,13 @@ def time_paged(rng, B, lengths, label, heads=(H, KV, D), T=1,
     return ms, plain, bms, by
 
 
-def time_mha(rng, Sq, label, heads=(H, KV, D), dtype=torch.bfloat16):
+def time_mha(rng, Sq, label, heads=(H, KV, D), dtype=torch.bfloat16, B=1):
     Hq, KVh, Dh = heads
 
     def t(*shape):
         return torch.tensor(rng.standard_normal(shape), dtype=dtype,
                             device="cuda")
-    q, k, v = t(1, Sq, Hq, Dh), t(1, Sq, KVh, Dh), t(1, Sq, KVh, Dh)
+    q, k, v = t(B, Sq, Hq, Dh), t(B, Sq, KVh, Dh), t(B, Sq, KVh, Dh)
     def kernel():
         mha_kernel.mha(q, k, v, causal=True)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -614,7 +637,7 @@ def time_mha(rng, Sq, label, heads=(H, KV, D), dtype=torch.bfloat16):
     lib_dev = device_ms(sdpa, [()] * 20)
     host = host_us(kernel)
     n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    flops = 4 * Hq * Dh * Sq * (Sq + 1) / 2
+    flops = 4 * B * Hq * Dh * Sq * (Sq + 1) / 2
     bms, by = bench.bound_ms(n_bytes, flops, dtype)
     log(f"mha time [{label}]: {ms:.4f} ms/launch (device {dev:.4f} ms, host "
         f"{host:.1f} us/call), plain {plain:.4f} ms, SDPA {lib:.4f} ms "
@@ -1962,16 +1985,19 @@ def run_serve_bench_policies() -> None:
     process of its own, their CSVs as one sectioned file: on the fp32
     4-layer cut, gated by ``launch/check_csv.py`` (``tokens_match_greedy``
     must pass; only the columns of the scenarios not in these CSVs may
-    be missing); then at bf16 and full depth for their times, where
+    be missing); then at bf16 on 12 of 36 layers for their times, where
     ``tokens_match_greedy`` is printed and not gated: the verify step
     scores 5 rows a request where the T = 1 step scores 1, so cuBLAS
     reduces the bf16 GEMMs in another order, and a near tie between two
-    bf16 logits may part the streams."""
+    bf16 logits may part the streams. The bf16 depth is cut to keep the
+    script within half its time limit: the self-drafting rows decode their
+    draft model eagerly, 134 of the 211 s the bf16 run took at 36 layers
+    on an H100."""
     from repro_torch.launch import check_csv
     for label, extra, gated in (
             ("fp32, 4 layers", ["--layers", "4", "--dtype", "float32"],
              True),
-            ("bf16, 36 layers", [], False)):
+            ("bf16, 12 layers", ["--layers", "12"], False)):
         t0 = time.perf_counter()
         text = "\n".join(f"# {sc}\n" + bench_csv(
             ["--full", "--scenario", sc, *extra]) for sc in BENCH_SCENARIOS)
@@ -3230,12 +3256,12 @@ class PrefillDrops:
     def __enter__(self):
         from repro_torch.models import layers
 
-        def counted(cfg, p, x, *rules):
+        def counted(cfg, p, x, *args, **kw):
             capturing = torch.cuda.is_current_stream_capturing()
             if x.shape[0] == 1 and not capturing:
                 keep = layers.moe_route(cfg, p, x)[3]
                 self.seen.append((x.shape[1], keep.numel() - keep.sum()))
-            return self.apply(cfg, p, x, *rules)
+            return self.apply(cfg, p, x, *args, **kw)
         self.tfm.moe_apply = counted
         return self
 
@@ -4228,6 +4254,279 @@ def tp_kernel_entries(errs, times, counts) -> list:
          "library_ms": mha_t[4]}]
 
 
+# ---------------------------------------------------------------------------
+# phase 14: single-device training
+# ---------------------------------------------------------------------------
+
+TRAIN_EXACT_ARCHS = ("qwen2.5-3b", "dbrx-132b", "recurrentgemma-9b")
+TRAIN_B, TRAIN_S, TRAIN_TIMED = 8, 1024, 5    # the full-width step
+SERVE_B, SERVE_S = 4, 512                     # the train -> serve check
+BF16_PEAK = 989e12
+
+
+def on(device, tree):
+    return pytree.tree_map(lambda t: t.to(device), tree)
+
+
+def batch_on(device, b):
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def launch_opt(steps, cfg):
+    """The reference launcher's optimizer for a run of ``steps`` steps."""
+    return adamw.AdamWConfig(lr=3e-3, warmup_steps=max(5, steps // 10),
+                             total_steps=steps,
+                             moment_dtype=cfg.moment_dtype)
+
+
+def wrappers_refuse_grad() -> None:
+    """mha, paged flash-decode and the sampler on CUDA tensors: a
+    grad-requiring input under grad mode raises before the launch (the
+    sampler's inputs are integers, which cannot require grad: a float
+    stand-in shows the order of its checks)."""
+    z = torch.zeros
+    x = z(1, 4, 2, 16, device="cuda", requires_grad=True)
+    i64 = z(1, dtype=torch.int64, device="cuda")
+    calls = {
+        "mha": lambda: mha_kernel.mha(x, z(1, 4, 2, 16, device="cuda"),
+                                      z(1, 4, 2, 16, device="cuda")),
+        "paged_attention": lambda: paged_kernel.paged_attention(
+            x, z(2, 4, 2, 16, device="cuda"), z(2, 4, 2, 16, device="cuda"),
+            z(1, 1, dtype=torch.int32, device="cuda"), [4]),
+        "sampler": lambda: sampler_kernel.sampler_noise(
+            x.reshape(-1)[:1], i64, i64, 8, draw=0),
+    }
+    before = ops.launch_counts()
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if "has no backward" not in str(e):
+                fail(f"{name} wrapper: {e}")
+            continue
+        fail(f"{name} wrapper took a grad-requiring input under grad mode")
+    if ops.launch_counts() != before:
+        fail("a wrapper launched its kernel on a grad-requiring input")
+    log("train: the mha, paged and sampler wrappers refuse a grad-requiring "
+        "input under grad mode")
+
+
+def check_train_exact() -> None:
+    """Phase 14 (a): each SMOKE config at fp32 from one state on the CPU
+    and on the card. Step 1's loss and aux losses within rtol 1e-4, every
+    gradient leaf present, finite, non-zero wherever the CPU's is, and
+    within 1e-3 of the leaf's largest CPU value (fp32 summed in other
+    orders); then 3 ``make_train_step`` steps, losses within rtol 1e-4."""
+    for arch in TRAIN_EXACT_ARCHS:
+        cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+        opt = launch_opt(30, cfg)
+        gen = torch.Generator().manual_seed(SEED + 140)
+        states = {"cpu": trainer.init_state(cfg, opt, gen, device="cpu")}
+        states["cuda"] = on("cuda", states["cpu"])
+        ds = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                         global_batch=4, seed=SEED + 140))
+        batches = [ds.next_batch() for _ in range(3)]
+        ops.reset_launch_counts()
+        got = {dev: trainer.loss_and_grads(cfg, st["params"],
+                                           batch_on(dev, batches[0]))
+               for dev, st in states.items()}
+        (lc, ac, gc), (lg, ag, gg) = got["cpu"], got["cuda"]
+        for name, a, b in [("loss", lg, lc)] + [(k, ag[k], ac[k])
+                                                for k in ac]:
+            if not abs(a.item() - b.item()) <= 1e-4 * abs(b.item()) + 1e-7:
+                fail(f"train {arch}: step 1 {name} {a.item()} on the card, "
+                     f"{b.item()} on the CPU")
+        worst = 0.0
+        for (path, g), c in zip(pytree.tree_flatten_with_path(gg)[0],
+                                pytree.tree_leaves(gc)):
+            key = pytree.keystr(path)
+            g = g.cpu()
+            if not torch.isfinite(g).all():
+                fail(f"train {arch}: gradient {key} not finite on the card")
+            if ((c != 0) & (g == 0)).any():
+                fail(f"train {arch}: gradient {key} is zero on the card "
+                     f"where the CPU's is not")
+            err = ((g - c).abs().max() / c.abs().max().clamp(min=1e-30))
+            worst = max(worst, err.item())
+        if worst > 1e-3:
+            fail(f"train {arch}: a gradient leaf on the card is "
+                 f"{worst:.3g} of its scale from the CPU's")
+        step = trainer.make_train_step(cfg, opt)
+        losses = {"cpu": [], "cuda": []}
+        for b in batches:
+            for dev in states:
+                states[dev], m = step(states[dev], batch_on(dev, b))
+                losses[dev].append(m["loss"].item())
+        for a, b in zip(losses["cuda"], losses["cpu"]):
+            if not abs(a - b) <= 1e-4 * abs(b):
+                fail(f"train {arch}: losses {losses['cuda']} on the card, "
+                     f"{losses['cpu']} on the CPU")
+        if any(ops.launch_counts().values()):
+            fail(f"train {arch}: the training step launched a kernel: "
+                 f"{ops.launch_counts()}")
+        aux = ", ".join(f"{k} {ag[k].item():.6f} / {ac[k].item():.6f}"
+                        for k in ("lb_loss", "z_loss")) \
+            if cfg.moe is not None else "no MoE"
+        log(f"train exact [{arch} SMOKE fp32]: step 1 loss "
+            f"{lg.item():.7f} card / {lc.item():.7f} CPU ({aux}); "
+            f"{len(pytree.tree_leaves(gg))} gradient leaves, worst "
+            f"{worst:.3g} of their scale; 3 steps' losses card "
+            f"{[round(x, 6) for x in losses['cuda']]}, CPU "
+            f"{[round(x, 6) for x in losses['cpu']]}")
+
+
+def train_full_width() -> None:
+    """Phase 14 (b): qwen2.5-3b whole (36 layers, d 2048, 16 query heads
+    over 2 KV heads, d_ff 11008, vocab 151936, untied), bf16 params, fp32
+    moments, remat "full"; batches of 8 x 1024 from the synthetic stream.
+    One warm-up step, 5 timed (host clock around a synchronised step),
+    then 2 more split by CUDA events into ``loss_and_grads`` and
+    ``adamw.apply``, and one profiled (``profile_train_step``). No kernel
+    may launch."""
+    cfg = get_config("qwen2.5-3b")
+    if cfg.remat != "full" or cfg.dtype != "bfloat16" \
+            or cfg.moment_dtype != "float32":
+        fail(f"train: qwen2.5-3b is {cfg.remat} / {cfg.dtype} / "
+             f"{cfg.moment_dtype}, not full / bfloat16 / float32")
+    steps = 1 + TRAIN_TIMED
+    opt = launch_opt(steps, cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()     # what earlier phases still hold
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 141)
+    state = trainer.init_state(cfg, opt, gen, device="cuda")
+    static = sum(t.nbytes for t in pytree.tree_leaves(state))
+    ds = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                     global_batch=TRAIN_B, seed=SEED + 141))
+    step = trainer.make_train_step(cfg, opt)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    state, m = step(state, batch_on("cuda", ds.next_batch()))
+    losses = [m["loss"].item()]
+    warm = time.perf_counter() - t0
+    times = []
+    for _ in range(TRAIN_TIMED):
+        b = batch_on("cuda", ds.next_batch())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"].item())
+    peak = torch.cuda.max_memory_allocated() - held
+    fb, upd = [], []
+    for _ in range(2):
+        b = batch_on("cuda", ds.next_batch())
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        _, _, grads = trainer.loss_and_grads(cfg, state["params"], b)
+        ev[1].record()
+        adamw.apply(opt, grads, state["opt"], state["params"])
+        ev[2].record()
+        torch.cuda.synchronize()
+        fb.append(ev[0].elapsed_time(ev[1]))
+        upd.append(ev[1].elapsed_time(ev[2]))
+        del grads
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        fail(f"train: the training step launched a kernel: {counts}")
+    if not all(np.isfinite(losses)):
+        fail(f"train: losses not finite: {losses}")
+    profile_train_step(step, state, batch_on("cuda", ds.next_batch()))
+    ms = 1e3 * float(np.mean(times))
+    tokens = TRAIN_B * TRAIN_S
+    flops = 6 * cfg.param_count() * tokens
+    log(f"train full width [qwen2.5-3b, {cfg.num_layers} layers, d "
+        f"{cfg.d_model}, bf16 params, fp32 moments, remat full, {TRAIN_B} x "
+        f"{TRAIN_S} tokens]: warm-up step "
+        f"{warm:.3f} s; {ms:.1f} ms a step over {TRAIN_TIMED} steps (each "
+        f"{', '.join(f'{1e3 * t:.1f}' for t in times)}); forward + backward "
+        f"{np.mean(fb):.1f} ms, optimizer {np.mean(upd):.1f} ms (CUDA "
+        f"events, 2 more steps); {tokens / (ms / 1e3):.0f} tokens/s; model "
+        f"FLOP/s (6 x {cfg.param_count()} x tokens, recompute not counted) "
+        f"{flops / (ms / 1e3) / 1e12:.1f} TFLOP/s = "
+        f"{flops / (ms / 1e3) / BF16_PEAK:.1%} of the 989 TFLOP/s bf16 "
+        f"peak; memory: params + moments {static / 2**30:.2f} GiB, peak "
+        f"{peak / 2**30:.2f} GiB (above the {held / 2**30:.2f} GiB held "
+        f"before); losses {[round(x, 4) for x in losses]}")
+    del state
+    torch.cuda.empty_cache()
+
+
+def profile_train_step(step, state, b) -> None:
+    """One more full-width step under torch.profiler: the card's busy
+    share of the step's wall, the matmul kernels' share (names with
+    "gemm", "xmma" or "cutlass") and the top kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, b)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(t for t, _, _ in rows)
+    if busy <= 0:
+        log("train profile: no device time in the trace (not measured)")
+        return
+    mm = sum(t for t, _, k in rows
+             if any(w in k.lower() for w in ("gemm", "xmma", "cutlass")))
+    log(f"train profile: one step, wall {wall_us / 1e3:.1f} ms under the "
+        f"profiler, device busy {busy / 1e3:.1f} ms ({busy / wall_us:.1%}; "
+        f"idle {1 - busy / wall_us:.1%}); matmul kernels {mm / 1e3:.1f} ms "
+        f"({mm / busy:.1%} of busy), {sum(c for _, c, _ in rows)} kernel "
+        f"launches")
+    for t, c, key in sorted(rows, reverse=True)[:10]:
+        log(f"train profile:   {t / 1e3:8.2f} ms {t / busy:6.1%} x{c:<6d} "
+            f"{key[:80]}")
+
+
+def check_train_serve(rng) -> dict:
+    """Phase 14 (c): qwen2.5-3b full width, 4 of 36 layers, fp32; 2 train
+    steps on the card (batches of 4 x 512), then, under no_grad, the last
+    logits of ``api.prefill`` (the mha kernel, one launch a layer) against
+    ``api.forward``'s (the plain ``flash_attention``) on 4 prompts of 512
+    tokens, within 1e-4 of the logit scale. Returns the prefill's launch
+    counts."""
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=4,
+                              dtype="float32")
+    opt = launch_opt(30, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 142)
+    state = trainer.init_state(cfg, opt, gen, device="cuda")
+    ds = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=SERVE_S,
+                                     global_batch=SERVE_B, seed=SEED + 142))
+    step = trainer.make_train_step(cfg, opt)
+    losses = []
+    for _ in range(2):
+        state, m = step(state, batch_on("cuda", ds.next_batch()))
+        losses.append(m["loss"].item())
+    prompts = torch.tensor(rng.integers(0, cfg.vocab, (SERVE_B, SERVE_S)),
+                           device="cuda")
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        got, _, _ = api.prefill(cfg, state["params"], prompts)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        logits, _ = api.forward(cfg, state["params"], {"tokens": prompts})
+        want = logits[:, -1]
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"train -> serve [qwen2.5-3b full width, 4 layers, fp32]: losses "
+        f"{[round(x, 5) for x in losses]}; prefill (mha kernel, "
+        f"{counts['mha']} launches) against forward (plain attention), "
+        f"{SERVE_B} x {SERVE_S}: max err {err:.3g} of the logit scale "
+        f"(limit 1e-4)")
+    if counts["mha"] != cfg.num_layers:
+        fail(f"train -> serve: prefill launched mha {counts['mha']} times, "
+             f"not once a layer")
+    if not err <= 1e-4 or not torch.isfinite(got).all():
+        fail("train -> serve: prefill logits disagree with forward's")
+    return counts
+
+
 def main() -> None:
     smi = card()
     build_kernels()
@@ -4347,6 +4646,23 @@ def main() -> None:
         if not tp_counts.get(k):
             fail(f"tp: the two-rank run launched no {k}")
     log(f"phase 13 in {time.perf_counter() - t13:.1f} s")
+    # phase 14: single-device training, generators of their own
+    t14 = time.perf_counter()
+    own = np.random.default_rng(SEED + 140)
+    wrappers_refuse_grad()
+    with bench.fp32_exact():
+        check_train_exact()
+    train_full_width()
+    serve_case = [(f"train -> serve prefill B{SERVE_B} S{SERVE_S}, causal, "
+                   f"fp32", SERVE_B, SERVE_S, SERVE_S, True, None,
+                   torch.float32)]
+    err_train_mha = check_mha(own, serve_case)
+    train_mha_t = time_mha(own, SERVE_S, f"train -> serve prefill, B="
+                           f"{SERVE_B}, Sq=Sk={SERVE_S}, fp32",
+                           dtype=torch.float32, B=SERVE_B)
+    with bench.fp32_exact():
+        train_counts = check_train_serve(own)
+    log(f"phase 14 in {time.perf_counter() - t14:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "paged_attention", "route": "cuda",
@@ -4400,7 +4716,15 @@ def main() -> None:
     ] + moe_kernel_entries(moe_errs, moe_times, moe_counts)
         + dense_kernel_entries(err_dense, dense_times, dense_counts,
                                seamless_counts)
-        + tp_kernel_entries(tp_errs, tp_times, tp_counts) + layer}),
+        + tp_kernel_entries(tp_errs, tp_times, tp_counts)
+        + [{"name": f"mha[train -> serve prefill, qwen2.5-3b 4 layers, "
+                    f"B{SERVE_B} S{SERVE_S} fp32]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mha.cu",
+            "replaces": "src/repro/kernels/attention.py:32",
+            "launches": train_counts["mha"], "max_abs_err": err_train_mha,
+            "ms": train_mha_t[0], "plain_ms": train_mha_t[1],
+            "bound_ms": train_mha_t[2], "bound_by": train_mha_t[3],
+            "library_ms": train_mha_t[4]}] + layer}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

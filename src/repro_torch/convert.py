@@ -68,3 +68,20 @@ def params_from_jax(cfg, tree: Dict[str, Any], *,
             "final_norm": _map(enc["final_norm"],
                                lambda a: _tensor(a, device))}
     return out
+
+
+def state_from_jax(cfg, state: Dict[str, Any], *,
+                   device="cuda") -> Dict[str, Any]:
+    """A JAX train state (``repro.runtime.trainer.init_state``'s tree, as
+    numpy: params, ``opt`` {"m", "v", "step"} and, with compression,
+    ``err``) as the port's (``repro_torch.runtime.trainer``'s): the moments
+    and the error tree are shaped like the params and unstack as they do;
+    the step is a 0-dim int32 tensor."""
+    opt = state["opt"]
+    out = {"params": params_from_jax(cfg, state["params"], device=device),
+           "opt": {"m": params_from_jax(cfg, opt["m"], device=device),
+                   "v": params_from_jax(cfg, opt["v"], device=device),
+                   "step": _tensor(opt["step"], resolve_device(device))}}
+    if "err" in state:
+        out["err"] = params_from_jax(cfg, state["err"], device=device)
+    return out

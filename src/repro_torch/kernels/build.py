@@ -138,3 +138,21 @@ def launch_on(device, fn, *args) -> int:
         return fn(*args, torch.cuda.current_stream().cuda_stream)
     with torch.cuda.device(device):
         return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise when autograd would record through ``kernel``: its wrapper
+    writes into a fresh tensor that has no ``grad_fn``, so a loss through it
+    would run its backward without error and give the kernel's inputs no
+    gradient. Checked first in every wrapper, before the device check, so
+    the refusal shows on any device; serving is unaffected, since its
+    parameters do not require grad. Training attends through the plain
+    ``models.layers.flash_attention`` instead."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} kernel: an input requires grad, but the kernel has no "
+            f"backward; differentiate through its plain version (training "
+            f"attends through models.layers.flash_attention) or call it "
+            f"under torch.no_grad()")
+

@@ -34,6 +34,8 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(name: str, x: torch.Tensor, dims: int) -> None:
+    build.refuse_grad(name, x)
+
     def require(ok, msg):
         if not ok:
             raise ValueError(f"{name} kernel: {msg}")

@@ -1,6 +1,9 @@
-"""Model API for serving: init / prefill / decode_step / the caches.
+"""Model API: init / forward / loss / prefill / decode_step / the caches.
 
-Counterpart of the serving half of ``repro.models.api``. Parameters are a
+Counterpart of ``repro.models.api``. Training goes ``loss_fn`` ->
+``forward_hidden`` -> ``transformer.stack_train`` (plain attention that
+autograd differentiates, no cache), then a blockwise cross-entropy; serving
+goes ``prefill`` / ``decode_step`` through the kernels. Parameters are a
 plain dict: ``embed`` (Vp, d), ``final_norm``, ``head`` (d, Vp) unless the
 embeddings are tied, ``blocks`` — one dict per layer in order, with the
 JAX package's names and shapes (``repro_torch.convert`` builds it from a JAX
@@ -16,6 +19,8 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils import checkpoint
 
 from repro_torch.models import griffin, ssm
 from repro_torch.models import transformer as tfm
@@ -189,15 +194,107 @@ def _logits(cfg, params, x: torch.Tensor) -> torch.Tensor:
 
 
 def encode(cfg, params, enc_embeds: torch.Tensor, *,
-           rules: Rules = NO_RULES) -> torch.Tensor:
+           rules: Rules = NO_RULES, train: bool = False) -> torch.Tensor:
     """The encoder: its ``enc`` blocks (non-causal self-attention with RoPE
     at 0.. S_enc - 1, then the MLP) over ``enc_embeds`` (B, S_enc, d), then
-    its ``final_norm``. -> (B, S_enc, d) in the model dtype."""
+    its ``final_norm``. ``train``: through ``transformer.stack_train`` (the
+    training forward, single-device: ``rules`` unused). -> (B, S_enc, d)
+    in the model dtype."""
     x = enc_embeds.to(params["embed"].dtype)
     enc = params["enc"]
-    x, _ = tfm.stack_apply(cfg, enc["blocks"], x,
-                           kinds=["enc"] * len(enc["blocks"]), rules=rules)
+    kinds = ["enc"] * len(enc["blocks"])
+    if train:
+        x, _ = tfm.stack_train(cfg, enc["blocks"], x, kinds=kinds)
+    else:
+        x, _ = tfm.stack_apply(cfg, enc["blocks"], x, kinds=kinds,
+                               rules=rules)
     return norm_apply(enc["final_norm"], x, cfg.norm)
+
+
+def _need_enc(cfg, enc_embeds) -> None:
+    if cfg.is_encdec and enc_embeds is None:
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder: it needs enc_embeds, the "
+            f"encoder's frame embeddings (B, S_enc, d)")
+
+
+def forward_hidden(cfg, params, batch: Dict[str, torch.Tensor]):
+    """The training forward, the reference's ``forward_hidden`` without a
+    cache. batch: {"tokens" (B, S) [, "frontend_embeds" (B, F, d) |
+    "enc_embeds" (B, S_enc, d)]}; a patch frontend's embeddings go before
+    the token embeddings; an encoder-decoder's frames go through
+    ``encode``. Every layer goes through ``transformer.stack_train``, whose
+    attention is the plain ``layers.flash_attention`` on every device, so
+    autograd differentiates the whole forward and no kernel is reached.
+    Returns (hidden (B, F + S, d) after the final norm, {"lb_loss",
+    "z_loss"} summed over the MoE layers)."""
+    _need_enc(cfg, batch.get("enc_embeds"))
+    x = params["embed"][batch["tokens"]]
+    if cfg.frontend == "patch" and "frontend_embeds" in batch:
+        x = torch.cat([batch["frontend_embeds"].to(x.dtype), x], 1)
+    enc_out = encode(cfg, params, batch["enc_embeds"], train=True) \
+        if cfg.is_encdec else None
+    x, aux = tfm.stack_train(cfg, params["blocks"], x, enc_out=enc_out)
+    return norm_apply(params["final_norm"], x, cfg.norm), aux
+
+
+def forward(cfg, params, batch: Dict[str, torch.Tensor]):
+    """Full-sequence logits (B, F + S, Vp) fp32 and the aux losses, through
+    ``forward_hidden`` (small models and tests: training uses ``loss_fn``'s
+    blockwise cross-entropy, which never holds all the logits)."""
+    x, aux = forward_hidden(cfg, params, batch)
+    return _logits(cfg, params, x), aux
+
+
+CE_CHUNK = 512
+
+
+def _ce_chunk(cfg, w: torch.Tensor, x: torch.Tensor, labels: torch.Tensor):
+    """(sum of the cross-entropies, count of labels >= 0) over one sequence
+    chunk; its (B, c, Vp) fp32 logits live only in here. Padded vocab rows
+    are -1e30."""
+    logits = (x @ w).float()
+    vp = logits.shape[-1]
+    if vp > cfg.vocab:
+        logits = torch.where(torch.arange(vp, device=x.device) < cfg.vocab,
+                             logits, -1e30)
+    mask = (labels >= 0).float()
+    lab = labels.clamp(min=0).long()
+    lse = torch.logsumexp(logits, -1)
+    ll = torch.gather(logits, -1, lab[..., None])[..., 0]
+    return ((lse - ll) * mask).sum(), mask.sum()
+
+
+def loss_fn(cfg, params, batch: Dict[str, torch.Tensor]):
+    """Next-token cross-entropy (labels[t] is the target of position t;
+    labels < 0 carry no loss), as the reference's ``loss_fn``: blockwise
+    over ``CE_CHUNK``-token chunks, the last padded, each chunk recomputed
+    in the backward pass (``torch.utils.checkpoint``), so no more than one
+    chunk's (B, 512, Vp) fp32 logits ever exist. A vlm's loss covers the
+    text positions only (the last ``labels.shape[1]``). MoE stacks add
+    0.01 · lb_loss + 0.001 · z_loss. Returns (loss, {"ce", "lb_loss",
+    "z_loss"}), 0-dim fp32."""
+    x, aux = forward_hidden(cfg, params, batch)
+    labels = batch["labels"]
+    if x.shape[1] != labels.shape[1]:    # frontend positions carry no loss
+        x = x[:, -labels.shape[1]:]
+    S = x.shape[1]
+    c = min(CE_CHUNK, S)
+    pad = (-S) % c
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, S + pad, c):
+        t, n = checkpoint.checkpoint(_ce_chunk, cfg, w, x[:, i:i + c],
+                                     labels[:, i:i + c], use_reentrant=False)
+        tot, cnt = tot + t, cnt + n
+    ce = tot / cnt.clamp(min=1.0)
+    loss = ce
+    if cfg.moe is not None and cfg.moe.num_experts > 0:
+        loss = loss + 0.01 * aux["lb_loss"] + 0.001 * aux["z_loss"]
+    return loss, {"ce": ce, **aux}
 
 
 def prefill(cfg, params, tokens: torch.Tensor, *,
@@ -242,13 +339,9 @@ def prefill(cfg, params, tokens: torch.Tensor, *,
     ``rules``: the tensor-parallel hooks (``parallel.sharding``; a rank's
     ``ManualRules`` sums the attention out-projection and the MLP
     down-projection over its ``model`` group). ``NO_RULES``: none."""
-    enc_out = None
-    if cfg.is_encdec:
-        if enc_embeds is None:
-            raise ValueError(
-                f"{cfg.name} is an encoder-decoder: prefill needs "
-                f"enc_embeds, the encoder's frame embeddings (B, S_enc, d)")
-        enc_out = encode(cfg, params, enc_embeds, rules=rules)
+    _need_enc(cfg, enc_embeds)
+    enc_out = encode(cfg, params, enc_embeds, rules=rules) \
+        if cfg.is_encdec else None
     x = params["embed"][tokens]
     if frontend_embeds is not None:
         if cfg.frontend != "patch":

@@ -2,8 +2,10 @@
 (full or sliding-window, causal or not, self or cross) for prefill
 (flash-MHA kernel), paged decode (flash-decode kernel, or the dense-gather
 baseline through ``attend_decode``) and dense-lane decode (flash-MHA at one
-query row with a device ``kv_valid``), KV-cache quantization, the gated MLP
-and the token-dropping MoE FFN (``moe_apply``).
+query row with a device ``kv_valid``), the training forward's plain chunked
+attention (``flash_attention``, which autograd differentiates), KV-cache
+quantization, the gated MLP and the token-dropping MoE FFN (``moe_apply``,
+with its auxiliary losses for training).
 
 Counterpart of ``repro.models.layers``: plain functions on tensors with
 parameter dicts of the same names and shapes (``wq`` (d, H, hd), ``wo``
@@ -11,11 +13,15 @@ parameter dicts of the same names and shapes (``wq`` (d, H, hd), ``wo``
 (``repro_torch.convert``) drives both packages through the same function.
 The attention products go through ``kernels.ops`` (CUDA kernel on a CUDA
 tensor, plain version on a CPU tensor); matmuls, norms and RoPE stay plain
-PyTorch, as they stay plain jnp in the JAX package.
+PyTorch, as they stay plain jnp in the JAX package. The kernels have no
+backward (their wrappers refuse a grad-requiring input), so training
+attends through ``flash_attention`` on every device, as the reference
+trains through its jnp ``flash_attention`` and never through a Pallas
+kernel: the caller chooses it (``attention_apply(train=True)``).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +79,79 @@ def kv_dequant(cfg, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return (x.float() * (cfg.kv_scale / 127.0)).to(dtype)
 
 
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    kv_valid: Optional[int] = None, q_chunk: int = 256,
+                    kv_chunk: int = 512, chunked: bool = True
+                    ) -> torch.Tensor:
+    """The reference's jnp ``layers.flash_attention`` in plain PyTorch, the
+    attention of the training forward: autograd runs through it on every
+    device. q: (B, Sq, H, D); k, v: (B, Sk, KV, D), GQA by head groups.
+    ``causal``: row i sees keys <= i; ``window`` > 0 also limits it to keys
+    > i - window. ``kv_valid`` (a host int): only the first kv_valid keys
+    are real. ``chunked``: q in chunks of ``q_chunk`` rows against k/v in
+    chunks of ``kv_chunk`` through an online softmax (fp32 max, sum and
+    accumulator), both padded to whole chunks, so no (Sq, Sk) score matrix
+    is made; else one softmax over all keys. Scores and P V products are
+    fp32 from the inputs' values (the reference's
+    ``preferred_element_type``), P cast to v's dtype first; masked scores
+    are -1e30. Returns (B, Sq, H, D) in q's dtype."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = D ** -0.5
+    kv_lim = Sk if kv_valid is None else kv_valid
+    dev = q.device
+
+    def mask_of(qpos, kpos):
+        mask = (kpos < kv_lim)[None, :]
+        if causal:
+            band = qpos[:, None] >= kpos[None, :]
+            if window:
+                band = band & (qpos[:, None] - kpos[None, :] < window)
+            mask = mask & band
+        return mask                       # (Sq or qc, Sk or kc)
+
+    if not chunked:
+        qg = q.reshape(B, Sq, KV, G, D).float()
+        s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+        mask = mask_of(torch.arange(Sq, device=dev),
+                       torch.arange(Sk, device=dev))
+        p = torch.softmax(torch.where(mask, s, -1e30), -1)
+        o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(),
+                         v.float())
+        return o.reshape(B, Sq, H, D).to(q.dtype)
+    qc, kc = min(q_chunk, Sq), min(kv_chunk, Sk)
+    pq, pk = (-Sq) % qc, (-Sk) % kc
+    qp = F.pad(q, (0, 0, 0, 0, 0, pq)).reshape(B, -1, qc, KV, G, D)
+    kp = F.pad(k, (0, 0, 0, 0, 0, pk)).reshape(B, -1, kc, KV, D)
+    vp = F.pad(v, (0, 0, 0, 0, 0, pk)).reshape(B, -1, kc, KV, D)
+    outs = []
+    for qi in range(qp.shape[1]):
+        qb = qp[:, qi].float()
+        qpos = qi * qc + torch.arange(qc, device=dev)
+        m = torch.full((B, KV, G, qc), -torch.inf, device=dev)
+        l = torch.zeros((B, KV, G, qc), device=dev)
+        o = torch.zeros((B, KV, G, qc, D), device=dev)
+        for ki in range(kp.shape[1]):
+            kb, vb = kp[:, ki], vp[:, ki]
+            s = torch.einsum("bqkgd,bckd->bkgqc", qb, kb.float()) * scale
+            s = torch.where(
+                mask_of(qpos, ki * kc + torch.arange(kc, device=dev)), s,
+                -1e30)
+            m2 = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m2[..., None])
+            corr = torch.exp(m - m2)
+            l = l * corr + p.sum(-1)
+            o = o * corr[..., None] + torch.einsum(
+                "bkgqc,bckd->bkgqd", p.to(vb.dtype).float(), vb.float())
+            m = m2
+        o = o / l[..., None].clamp(min=1e-30)
+        outs.append(o.permute(0, 3, 1, 2, 4))        # (B, qc, KV, G, D)
+    out = torch.cat(outs, 1).reshape(B, -1, H, D)
+    return out[:, :Sq].to(q.dtype)
+
+
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (B, S, d) @ w (d, H, hd) -> (B, S, H, hd), as one matmul."""
     return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
@@ -102,7 +181,7 @@ def _out(p: Params, o: torch.Tensor) -> torch.Tensor:
 
 def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None,
                     window: int = 0, causal: bool = True, cross_kv=None,
-                    rules: Rules = NO_RULES):
+                    rules: Rules = NO_RULES, train: bool = False):
     """Self-attention over the whole (bucket-padded) prompt through the
     flash-MHA kernel, RoPE at positions 0.. S - 1. Bucket padding sits
     after every real row, so causal masking alone keeps the real rows
@@ -124,14 +203,22 @@ def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None,
     padding: those rows sit past every real query. The returned k/v are
     the suffix's only, what the caller scatters into its pages.
 
+    ``train``: the training forward's choice, attention through
+    ``flash_attention`` (chunked per ``cfg.flash_chunking``; cross-attention
+    always chunked, as in the reference), which autograd differentiates, in
+    place of the kernel; no prefix.
+
     The out-projection contracts "heads": ``rules.contract`` (a rank's
     all-reduce over its ``model`` group under tensor parallelism)."""
     if cross_kv is not None:
         q = _proj(x, p["wq"])
         if cfg.qkv_bias:
             q = q + p["bq"]
-        out = ops.attention(q.contiguous(), cross_kv[0].contiguous(),
-                            cross_kv[1].contiguous(), causal=False)
+        if train:
+            out = flash_attention(q, cross_kv[0], cross_kv[1], causal=False)
+        else:
+            out = ops.attention(q.contiguous(), cross_kv[0].contiguous(),
+                                cross_kv[1].contiguous(), causal=False)
         return rules.contract(_out(p, out), "heads"), None
     S = x.shape[1]
     q, k, v = _qkv(cfg, p, x)
@@ -139,6 +226,12 @@ def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None,
     positions = plen + torch.arange(S, device=x.device)[None, :]
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    if train:
+        if prefix is not None:
+            raise ValueError("the training forward takes no prefix")
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              chunked=cfg.flash_chunking)
+        return rules.contract(_out(p, out), "heads"), (k, v)
     if prefix is None:
         kf, vf = k, v
     else:
@@ -386,6 +479,12 @@ def moe_route(cfg, p: Params, x: torch.Tensor):
     ``jax.lax.top_k`` breaks them; slots are ranked slot-major in their
     group (all first choices, then all second choices, ...). No host sync
     and no data-dependent shape, so it runs inside a captured graph."""
+    return _route(cfg, p, x)[2:]
+
+
+def _route(cfg, p: Params, x: torch.Tensor):
+    """``moe_route``'s work, with the router's fp32 logits (T, E) and
+    probabilities first: (logits, probs, gate_w, gate_i, flat, keep)."""
     B, S, d = x.shape
     m = cfg.moe
     E, K = m.num_experts, m.top_k
@@ -403,7 +502,22 @@ def moe_route(cfg, p: Params, x: torch.Tensor):
     pos = torch.gather(torch.cumsum(oh, 1) - 1, 2, eidx[..., None])[..., 0]
     keep = pos < C
     flat = torch.where(keep, eidx * C + pos, torch.full_like(eidx, E * C))
-    return gate_w, gate_i, flat, keep
+    return logits, probs, gate_w, gate_i, flat, keep
+
+
+def moe_aux(cfg, logits: torch.Tensor, probs: torch.Tensor,
+            gate_i: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The reference's auxiliary losses over all T routed rows:
+    ``lb_loss`` (Switch load balance: E · sum_e mean_prob_e · share_e, the
+    share of the T · K choices that went to expert e; no gradient through
+    the choices) and ``z_loss`` (the mean squared logsumexp of the router
+    logits)."""
+    E = cfg.moe.num_experts
+    share = (gate_i.reshape(-1, 1) == torch.arange(E, device=gate_i.device)
+             ).sum(0).float() / gate_i.numel()
+    lb = E * torch.sum(probs.mean(0) * share)
+    z = torch.mean(torch.logsumexp(logits, -1).square())
+    return {"lb_loss": lb, "z_loss": z}
 
 
 def moe_dispatch(cfg, x: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
@@ -450,19 +564,18 @@ def moe_combine(cfg, eo: torch.Tensor, gate_w: torch.Tensor,
 
 
 def moe_apply(cfg, p: Params, x: torch.Tensor,
-              rules: Rules = NO_RULES) -> torch.Tensor:
+              rules: Rules = NO_RULES, aux: bool = False):
     """Token-dropping MoE FFN with grouped dispatch, after the JAX
     package's ``layers.moe_apply``: ``moe_route``, ``moe_dispatch``,
     ``moe_experts`` (the expert products stay plain PyTorch, as they stay
     jnp in the reference), ``moe_combine``, plus the shared expert's MLP
-    where the config has one. The auxiliary losses (load balance, router
-    z-loss) are not computed: they belong to training, which is not
-    ported. The shared expert gets ``rules`` (a tensor-parallel plan never
-    shards an MoE stack's "ffn", so its contract is the identity there).
-    x: (B, S, d) -> (B, S, d)."""
-    gate_w, _, flat, keep = moe_route(cfg, p, x)
+    where the config has one. The shared expert gets ``rules`` (a
+    tensor-parallel plan never shards an MoE stack's "ffn", so its contract
+    is the identity there). x: (B, S, d) -> (B, S, d); with ``aux`` (the
+    training forward) -> (out, ``moe_aux``'s {"lb_loss", "z_loss"})."""
+    logits, probs, gate_w, gate_i, flat, keep = _route(cfg, p, x)
     eo = moe_experts(p, moe_dispatch(cfg, x, flat))
     out = moe_combine(cfg, eo, gate_w, flat, keep, x)
     if cfg.moe.shared_expert:
         out = out + mlp_apply(cfg, p["shared"], x, rules)
-    return out
+    return (out, moe_aux(cfg, logits, probs, gate_i)) if aux else out

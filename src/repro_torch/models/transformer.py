@@ -17,13 +17,21 @@ the engine to scatter) and the dense engine's (one lane a slot: prefill
 pads full attention to ``max_len`` (``_grow``) and folds a window layer
 into its ring (``_window_cache``)). The encoder-decoder kinds have the
 dense layout only: cross-attention KV is per request, not paged.
+
+Training runs ``stack_train`` / ``block_train``: no cache, attention
+through the plain ``layers.flash_attention`` (autograd), the MoE blocks'
+auxiliary losses summed over the layers, each layer rematerialised per
+``cfg.remat`` (the reference's ``_remat``); one device, no tensor-parallel
+hooks (their sum is an in-place all-reduce, not differentiated).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import functools
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils import checkpoint
 
 from repro_torch.models import griffin, ssm
 from repro_torch.models.layers import (attention_apply, attention_decode,
@@ -220,6 +228,84 @@ def stack_apply(cfg, blocks, x: torch.Tensor, *, prefix_kv=None,
                            enc_out=enc_out, max_len=max_len, rules=rules)
         caches.append(c)
     return x, caches
+
+
+def block_train(cfg, kind: str, p, x: torch.Tensor, enc_out=None):
+    """The training forward of one block (the reference's ``block_apply``
+    without a cache): the same sublayers as ``block_apply``, attention
+    through ``layers.flash_attention`` (``attention_apply(train=True)``),
+    recurrent mixers without their decode state. Returns (x, aux): an
+    ``attn_moe`` block's {"lb_loss", "z_loss"}, else {}."""
+    h = norm_apply(p["ln1"], x, cfg.norm)
+    if kind == "ssm":
+        return x + ssm.ssm_apply(cfg, p["mixer"], h), {}
+    if kind == "rglru":
+        a = griffin.rglru_apply(cfg, p["mixer"], h)
+    else:
+        window = cfg.hybrid.window if kind == "local_attn" else 0
+        a, _ = attention_apply(cfg, p["attn"], h, window=window,
+                               causal=kind != "enc", train=True)
+    x = x + a
+    if kind == "dec":
+        hx = norm_apply(p["lnx"], x, cfg.norm)
+        a, _ = attention_apply(cfg, p["cross"], hx,
+                               cross_kv=cross_kv(cfg, p["cross"], enc_out),
+                               train=True)
+        x = x + a
+    h = norm_apply(p["ln2"], x, cfg.norm)
+    if kind == "attn_moe":
+        f, aux = moe_apply(cfg, p["moe"], h, aux=True)
+        return x + f, aux
+    return x + mlp_apply(cfg, p["mlp"], h), {}
+
+
+_MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_plain_matmuls(ctx, op, *args, **kwargs):
+    """The ``dots`` policy, after ``jax.checkpoint_policies.
+    dots_with_no_batch_dims_saveable``: keep the outputs of 2-D matmuls
+    (the projections and MLPs: ``x @ w`` folds its leading dims into one
+    ``mm``), recompute everything else, the batched attention products
+    (``bmm``) among it."""
+    return (checkpoint.CheckpointPolicy.MUST_SAVE if op in _MM
+            else checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(cfg, fn):
+    """``fn`` rematerialised per ``cfg.remat``: "none" as it is; "full"
+    keeps only its inputs and recomputes it in the backward pass; "dots"
+    also keeps its plain matmuls' outputs (``_save_plain_matmuls``)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint.checkpoint, fn,
+                                 use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                checkpoint.create_selective_checkpoint_contexts,
+                _save_plain_matmuls))
+    raise ValueError(f"remat {cfg.remat!r} is not none, full or dots")
+
+
+def stack_train(cfg, blocks, x: torch.Tensor, *, kinds=None,
+                enc_out=None):
+    """The training forward of every layer (``block_train``), each
+    rematerialised per ``cfg.remat``. ``kinds``: the blocks' kinds (default
+    the decoder's); ``enc_out``: the encoder's output, for ``dec`` blocks.
+    Returns (x, {"lb_loss", "z_loss"}: fp32 sums over the MoE layers, zero
+    without any), as the reference's ``stack_apply`` sums them."""
+    kinds = layer_kinds(cfg) if kinds is None else kinds
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux: Dict[str, torch.Tensor] = {"lb_loss": zero, "z_loss": zero}
+    layer = _remat(cfg, block_train)
+    for kind, p in zip(kinds, blocks):
+        x, a = layer(cfg, kind, p, x, enc_out)
+        for name, v in a.items():
+            aux[name] = aux[name] + v
+    return x, aux
 
 
 def stack_decode(cfg, blocks, x: torch.Tensor, caches, pos: torch.Tensor,

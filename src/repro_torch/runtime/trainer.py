@@ -1,0 +1,241 @@
+"""Training runtime: the train step and the fault-tolerant loop, the
+port's counterpart of ``repro.runtime.trainer`` on one device.
+
+* ``loss_and_grads``: ``api.loss_fn`` and its gradients by
+  ``torch.autograd.grad``, in the parameters' dtypes;
+* ``make_train_step``: gradient accumulation over micro-batches (fp32
+  sums), optional int8 compression with error feedback, then AdamW, which
+  updates the state in place;
+* ``Trainer``: async atomic checkpoints off the critical path, resume from
+  the newest ``step_*`` checkpoint with the data cursor, and a straggler
+  monitor (an EWMA of step time that flags slow steps: the hook a cluster
+  scheduler would use to replace a slow host).
+
+The training forward reaches no CUDA kernel: its attention is the plain
+``layers.flash_attention``, as the reference trains through its jnp one
+(the kernels' wrappers raise if autograd would record through them).
+Model-parallel training (the reference's ``rules=`` with a mesh) is not
+here: the port's tensor-parallel sum is an in-place all-reduce, which
+autograd does not differentiate.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Any, Callable, Dict, Hashable, Optional
+
+import torch
+from torch.utils import _pytree as pytree
+
+from repro_torch import resolve_device
+from repro_torch.checkpoint import ckpt
+from repro_torch.models import api
+from repro_torch.models import transformer as tfm
+from repro_torch.optim import adamw
+from repro_torch.parallel import compression
+
+
+# ---------------------------------------------------------------------------
+# The train step
+# ---------------------------------------------------------------------------
+
+
+def loss_and_grads(cfg, params, batch: Dict[str, torch.Tensor]):
+    """(loss, aux, grads): ``api.loss_fn`` at ``params`` (left as they are)
+    and its gradient with respect to every leaf, a tree like ``params`` in
+    their dtypes."""
+    flat, spec = pytree.tree_flatten(params)
+    leaves = [t.detach().requires_grad_() for t in flat]
+    with torch.enable_grad():
+        loss, aux = api.loss_fn(cfg, pytree.tree_unflatten(leaves, spec),
+                                batch)
+        grads = torch.autograd.grad(loss, leaves)
+    return (loss.detach(), {k: v.detach() for k, v in aux.items()},
+            pytree.tree_unflatten(list(grads), spec))
+
+
+def stack_group(cfg) -> Callable[[tuple], Hashable]:
+    """A leaf's key path in the port's parameter tree -> the name of the
+    reference leaf it is part of. The reference stacks each pattern
+    position's parameters over the super-blocks (and an encoder's blocks)
+    along a layer axis, so layers j, j + P, j + 2P, ... of a period P (all
+    the encoder's) are one leaf there, leaf name by leaf name; tail layers
+    and the other leaves stand alone. What shares a reference leaf shares
+    its compression scale."""
+    n_super, _ = tfm.layer_plan(cfg)
+    period = len(tfm.pattern_for(cfg))
+
+    def name(path):
+        keys = tuple(getattr(k, "key", getattr(k, "idx", None))
+                     for k in path)
+        if keys[0] == "blocks" and keys[1] < n_super * period:
+            return ("blocks", keys[1] % period) + keys[2:]
+        if keys[:2] == ("enc", "blocks"):
+            return ("enc",) + keys[3:]
+        return keys
+
+    return name
+
+
+def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
+                    grad_accum: int = 1, compress_grads: bool = False):
+    """Returns step(state, batch) -> (state, metrics). state: {"params",
+    "opt" [, "err"]}, updated in place; batch: {"tokens", "labels", ...}
+    tensors on the state's device. With ``grad_accum`` > 1 the batch splits
+    into that many micro-batches (rows [i·b, (i+1)·b)), whose gradients are
+    summed in fp32 and divided, and whose losses are averaged. With
+    ``compress_grads`` the gradients go through int8 with error feedback
+    (``state["err"]``), a scale per reference leaf (``stack_group``).
+    metrics: {"loss", "grad_norm", "lr" [, "ce" when grad_accum == 1]},
+    0-dim tensors; nothing syncs with the host."""
+    group = stack_group(cfg)
+
+    def step(state, batch):
+        params = state["params"]
+        if grad_accum == 1:
+            loss, aux, grads = loss_and_grads(cfg, params, batch)
+        else:
+            micro = {k: v.reshape((grad_accum, v.shape[0] // grad_accum)
+                                  + tuple(v.shape[1:]))
+                     for k, v in batch.items()}
+            grads = pytree.tree_map(
+                lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                      device=p.device), params)
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=micro["tokens"].device)
+            for i in range(grad_accum):
+                li, _, gi = loss_and_grads(
+                    cfg, params, {k: v[i] for k, v in micro.items()})
+                pytree.tree_map(torch.Tensor.add_, grads, gi)
+                loss = loss + li
+            grads = pytree.tree_map(lambda g: g / grad_accum, grads)
+            loss = loss / grad_accum
+            aux = {}
+        if compress_grads:
+            grads, state["err"] = compression.compress_tree(
+                grads, state["err"], group)
+        metrics = {"loss": loss,
+                   **adamw.apply(opt_cfg, grads, state["opt"], params)}
+        if "ce" in aux:
+            metrics["ce"] = aux["ce"]
+        return state, metrics
+
+    return step
+
+
+def init_state(cfg, opt_cfg: adamw.AdamWConfig, generator: torch.Generator,
+               *, device="cuda", compress_grads: bool = False
+               ) -> Dict[str, Any]:
+    """{"params": ``api.init_params`` drawn on ``device`` from
+    ``generator`` (which lives there), "opt": ``adamw.init`` [, "err": the
+    compression's zero error tree]}."""
+    params = api.init_params(cfg, generator, device=device)
+    state = {"params": params, "opt": adamw.init(opt_cfg, params)}
+    if compress_grads:
+        state["err"] = compression.init_error_tree(params)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Fault-tolerant loop
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class StragglerMonitor:
+    """EWMA step-time monitor; flags steps slower than ``threshold`` x EWMA.
+
+    On a cluster the flag feeds the controller that drains or replaces the
+    slow host; here it is surfaced in the trainer's log."""
+    alpha: float = 0.1
+    threshold: float = 2.0
+    ewma: Optional[float] = None
+    slow_steps: int = 0
+
+    def observe(self, dt: float) -> bool:
+        slow = self.ewma is not None and dt > self.threshold * self.ewma
+        self.ewma = dt if self.ewma is None else (
+            (1 - self.alpha) * self.ewma + self.alpha * dt)
+        if slow:
+            self.slow_steps += 1
+        return slow
+
+
+class Trainer:
+    """The loop: batches from ``dataset`` (``data.synthetic``), one
+    ``make_train_step`` step each, a checkpoint every ``save_every`` steps
+    and at the end of ``run`` (``ckpt.AsyncCheckpointer``), resuming from
+    the newest one under ``ckpt_dir`` (state, step and data cursor). The
+    state starts from ``init_state`` with a generator seeded ``seed`` on
+    ``device`` (CUDA unless the caller asks for the CPU)."""
+
+    def __init__(self, cfg, opt_cfg, dataset, *,
+                 ckpt_dir: Optional[str] = None, save_every: int = 50,
+                 grad_accum: int = 1,
+                 compress_grads: bool = False, seed: int = 0,
+                 log_every: int = 10, log_fn: Callable[[str], None] = print,
+                 device="cuda"):
+        self.cfg, self.opt_cfg, self.dataset = cfg, opt_cfg, dataset
+        self.device = resolve_device(device)
+        self.ckpt_dir, self.save_every = ckpt_dir, save_every
+        self.log_every, self.log = log_every, log_fn
+        self.monitor = StragglerMonitor()
+        self.checkpointer = ckpt.AsyncCheckpointer()
+        self.step_fn = make_train_step(cfg, opt_cfg, grad_accum=grad_accum,
+                                       compress_grads=compress_grads)
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.state = init_state(cfg, opt_cfg, gen, device=self.device,
+                                compress_grads=compress_grads)
+        self.step = 0
+        self.history: list = []
+        if ckpt_dir:
+            self._maybe_resume()
+
+    # -- fault tolerance -------------------------------------------------
+    def _maybe_resume(self):
+        path = ckpt.latest_step_dir(self.ckpt_dir)
+        if path is None:
+            return
+        self.state, extra = ckpt.restore(path, self.state, device=self.device)
+        self.step = int(extra["step"])
+        self.dataset.load_state_dict(extra["data"])
+        self.log(f"[trainer] resumed from {path} at step {self.step}")
+
+    def save(self):
+        if not self.ckpt_dir:
+            return
+        path = os.path.join(self.ckpt_dir, f"step_{self.step:08d}")
+        self.checkpointer.save(
+            path, self.state,
+            extra={"step": self.step, "data": self.dataset.state_dict()})
+
+    # -- loop --------------------------------------------------------------
+    def run(self, num_steps: int) -> Dict[str, Any]:
+        it = iter(self.dataset)
+        last_metrics: Dict[str, Any] = {}
+        for _ in range(num_steps):
+            batch = {k: torch.from_numpy(v).to(self.device)
+                     for k, v in next(it).items()}
+            t0 = time.perf_counter()
+            self.state, metrics = self.step_fn(self.state, batch)
+            # repro-lint: disable=host-sync — step timing needs the sync
+            metrics["loss"].item()
+            dt = time.perf_counter() - t0
+            slow = self.monitor.observe(dt)
+            self.step += 1
+            if slow:
+                self.log(f"[straggler] step {self.step} took {dt:.3f}s "
+                         f"(ewma {self.monitor.ewma:.3f}s)")
+            if self.step % self.log_every == 0:
+                last_metrics = {k: float(v) for k, v in metrics.items()}
+                self.history.append({"step": self.step, **last_metrics,
+                                     "dt": dt})
+                self.log(f"[train] step {self.step} "
+                         f"loss {last_metrics['loss']:.4f} dt {dt*1e3:.1f}ms")
+            if self.save_every and self.step % self.save_every == 0:
+                self.save()
+        if self.ckpt_dir:
+            self.save()
+            self.checkpointer.wait()
+        return last_metrics

@@ -18,9 +18,12 @@ from repro_torch.kernels import maxpool as pool_kernel  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.kernels import paged_attention as paged_kernel  # noqa: E402
 from repro_torch.kernels import reshuffle as reshuffle_kernel  # noqa: E402
+from repro_torch.kernels import sampler as sampler_kernel  # noqa: E402
 from repro_torch.launch import kernel_bench  # noqa: E402
 from repro_torch.models import api  # noqa: E402
-from repro_torch.runtime import sampling  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.runtime import sampling, trainer  # noqa: E402
+from repro_torch.data.synthetic import DataConfig, SyntheticDataset  # noqa
 from repro_torch.runtime.drafter import DraftModelDrafter  # noqa: E402
 from repro_torch.runtime.scheduler import Scheduler  # noqa: E402
 from repro_torch.runtime.serving import (DenseServingEngine,  # noqa: E402
@@ -1655,3 +1658,99 @@ def test_cuda_seamless_prefill_and_decode_equal_cpu(cuda):
     assert torch.equal(gt, wt)
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
     assert n == cfg.enc_layers + 2 * cfg.num_layers * 7
+
+
+# ---------------------------------------------------------------------------
+# training (chip_smoke.py phase 14 (a)): the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "dbrx-132b",
+                                  "recurrentgemma-9b"])
+def test_cuda_train_step_equals_cpu(fp32_exact, arch):
+    """fp32 SMOKE config from one state on both devices: step 1's loss and
+    aux losses within rtol 1e-4, every gradient leaf present, finite,
+    non-zero wherever the CPU's is and within 1e-3 of the leaf's largest
+    CPU value (fp32 in other summation orders), then 3 steps' losses
+    within rtol 1e-4; no kernel launches (the training forward attends
+    through the plain flash_attention)."""
+    tree = torch.utils._pytree
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=30,
+                            moment_dtype=cfg.moment_dtype)
+    cpu = trainer.init_state(cfg, opt, torch.Generator().manual_seed(0),
+                             device="cpu")
+    card = tree.tree_map(lambda t: t.cuda(), cpu)
+    ds = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                     global_batch=4))
+    batches = [ds.next_batch() for _ in range(3)]
+
+    def on(dev, b):
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+
+    ops.reset_launch_counts()
+    lc, ac, gc = trainer.loss_and_grads(cfg, cpu["params"],
+                                        on("cpu", batches[0]))
+    lg, ag, gg = trainer.loss_and_grads(cfg, card["params"],
+                                        on("cuda", batches[0]))
+    for a, b in [(lg, lc)] + [(ag[k], ac[k]) for k in ac]:
+        assert abs(a.item() - b.item()) <= 1e-4 * abs(b.item()) + 1e-7
+    for g, c in zip(tree.tree_leaves(gg), tree.tree_leaves(gc)):
+        g = g.cpu()
+        assert torch.isfinite(g).all()
+        assert not ((c != 0) & (g == 0)).any()
+        assert (g - c).abs().max() <= 1e-3 * c.abs().max()
+    if cfg.moe is not None:
+        assert ag["lb_loss"].item() > 0 and ag["z_loss"].item() > 0
+    step = trainer.make_train_step(cfg, opt)
+    for b in batches:
+        cpu, mc = step(cpu, on("cpu", b))
+        card, mg = step(card, on("cuda", b))
+        assert abs(mg["loss"].item() - mc["loss"].item()) <= \
+            1e-4 * abs(mc["loss"].item())
+    assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["mha", "paged_attention", "sampler",
+                                  "gemm_os", "conv_im2col", "maxpool",
+                                  "blocked_layout", "tiled_transpose"])
+def test_cuda_wrappers_refuse_grad(cuda, name):
+    """A grad-requiring CUDA input under grad mode raises before the launch
+    (the sampler's inputs are integers, which cannot require grad: a float
+    stand-in shows the order of its checks); under no_grad the same call
+    launches."""
+    z = torch.zeros
+    f = dict(device=cuda)
+    i64 = z(1, dtype=torch.int64, **f)
+    calls = {
+        "mha": lambda x: mha_kernel.mha(x, z(1, 4, 2, 16, **f),
+                                        z(1, 4, 2, 16, **f)),
+        "paged_attention": lambda x: paged_kernel.paged_attention(
+            x, z(2, 4, 2, 16, **f), z(2, 4, 2, 16, **f),
+            z(1, 1, dtype=torch.int32, **f), [4]),
+        "sampler": lambda x: sampler_kernel.sampler_noise(
+            x.reshape(-1)[:1] if torch.is_grad_enabled() else i64, i64, i64,
+            8,
+            draw=0),
+        "gemm_os": lambda x: gemm_kernel.gemm_os(x.reshape(8, 16),
+                                                 z(16, 8, **f)),
+        "conv_im2col": lambda x: conv_kernel.conv2d(
+            x.reshape(1, 2, 4, 16), z(3, 3, 16, 8, **f)),
+        "maxpool": lambda x: pool_kernel.maxpool2d(x.reshape(1, 2, 4, 16)),
+        "blocked_layout": lambda x: reshuffle_kernel.blocked_layout(
+            x.reshape(2, 4, 16)),
+        "tiled_transpose": lambda x: reshuffle_kernel.tiled_transpose(
+            x.reshape(8, 16)),
+    }
+    x = z(1, 4, 2, 16, requires_grad=True, **f)
+    before = ops.launch_counts()
+    with pytest.raises(RuntimeError, match="has no backward"):
+        calls[name](x)
+    assert ops.launch_counts() == before
+    with torch.no_grad():
+        calls[name](x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() != before
+

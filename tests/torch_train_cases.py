@@ -1,0 +1,116 @@
+"""Shared inputs of the port's training tests on the CPU
+(``tests/test_torch_train_*.py``): fp32 SMOKE configs of both packages with
+the JAX package's params moved over by ``repro_torch.convert``, and numpy
+batches made from a seed, so both packages see the same numbers;
+``one_thread``, the autouse fixture each training test module imports.
+
+Tolerances (the same fp32 arithmetic, summed in other orders): a loss, its
+``ce`` and the MoE aux losses within rtol 1e-5 of JAX's; every gradient
+leaf within 1e-4 of that leaf's largest JAX magnitude, plus 1e-7 for a
+leaf whose gradient is all but zero.
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+from torch.utils import _pytree as pytree
+
+import jax
+import jax.numpy as jnp
+
+from repro.configs import get_smoke_config as jcfg
+from repro.models import api as japi
+from repro_torch.configs import get_smoke_config as tcfg
+from repro_torch.convert import params_from_jax
+from repro_torch.runtime.trainer import loss_and_grads
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The SMOKE steps are hundreds of tiny ops: one intra-op thread runs
+    them as fast alone and keeps them from spinning against the threads of
+    other test workers on the same cores (tens of times slower there with
+    torch's default thread count)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+LOSS_RTOL = 1e-5
+GRAD_REL, GRAD_ABS = 1e-4, 1e-7
+
+_PAIRS = {}
+
+
+def pair(arch, **over):
+    """(jax cfg, port cfg, jax params, port params on the CPU), fp32, the
+    configs with ``over`` replaced; made once per (arch, over)."""
+    key = (arch, tuple(sorted(over.items())))
+    if key not in _PAIRS:
+        jc = dataclasses.replace(jcfg(arch), dtype="float32", **over)
+        tc = dataclasses.replace(tcfg(arch), dtype="float32", **over)
+        jp = japi.init_params(jc, jax.random.key(0))
+        _PAIRS[key] = (jc, tc, jp, params_from_jax(
+            tc, jax.tree.map(np.asarray, jp), device="cpu"))
+    return _PAIRS[key]
+
+
+def batch(cfg, B, S, seed=0):
+    """numpy {"tokens", "labels"} (a few labels -1, carrying no loss), plus
+    a vlm's 4 frontend embeddings or an encoder-decoder's 24 frames."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32),
+           "labels": rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)}
+    out["labels"][0, :3] = -1
+    if cfg.frontend == "patch":
+        out["frontend_embeds"] = rng.standard_normal(
+            (B, 4, cfg.d_model)).astype(np.float32)
+    if cfg.is_encdec:
+        out["enc_embeds"] = rng.standard_normal(
+            (B, 24, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def jax_loss_and_grads(jc, jp, b):
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    (loss, aux), g = jax.jit(jax.value_and_grad(
+        lambda p, x: japi.loss_fn(jc, p, x), has_aux=True))(jp, jb)
+    return loss, aux, g
+
+
+def torch_batch(b, device="cpu"):
+    return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+
+def leaves_close(tc, got, want_jax, rel=GRAD_REL, abs_=GRAD_ABS):
+    """Every leaf of the port tree ``got`` within rel * max|want| + abs_ of
+    the JAX tree ``want_jax`` (moved over like params). Returns the worst
+    error over its limit."""
+    want = params_from_jax(tc, jax.tree.map(np.asarray, want_jax),
+                           device="cpu")
+    want_of = dict(pytree.tree_flatten_with_path(want)[0])
+    worst = 0.0
+    for path, a in pytree.tree_flatten_with_path(got)[0]:
+        b = want_of[path]
+        assert a.shape == b.shape, path
+        lim = rel * b.abs().max().item() + abs_
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= lim, (pytree.keystr(path), err, lim)
+        worst = max(worst, err / lim)
+    return worst
+
+
+def check_loss_and_grads(arch, B, S, **over):
+    jc, tc, jp, tp = pair(arch, **over)
+    b = batch(jc, B, S)
+    jl, jaux, jg = jax_loss_and_grads(jc, jp, b)
+    loss, aux, grads = loss_and_grads(tc, tp, torch_batch(b))
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=LOSS_RTOL)
+    assert set(aux) == set(jaux) == {"ce", "lb_loss", "z_loss"}
+    for k in aux:
+        np.testing.assert_allclose(aux[k].item(), float(jaux[k]),
+                                   rtol=LOSS_RTOL, atol=1e-7)
+    leaves_close(tc, grads, jg)
+    return aux
