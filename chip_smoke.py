@@ -75,7 +75,7 @@ Phases, each failing loudly (non-zero exit, no result line):
    sampled and speculative (tok/s, TTFT, TPOT, each run's launch counts).
    ``serve_bench --scenario shared-prefix|speculative|sampling`` at fp32
    on 4 layers, gated (``tokens_match_greedy`` must pass), then at bf16
-   on 12 of 36 layers for the times.
+   on 6 of 36 layers for the times.
 9. hybrid and recurrent stacks (generators of their own): mha with a
    sliding-window band at recurrentgemma's heads (H16 KV1 D256) and the
    serving heads, bf16 and fp32, windows 0, 16 and 2048 at 1024 and at a
@@ -165,7 +165,13 @@ Phases, each failing loudly (non-zero exit, no result line):
    and H 8 a rank, half the pool bytes, bodies uncaptured, two all-reduces
    a layer a step and a prefill), every rank alike, each rank's launches
    the serve formula's. The card has one GPU, so no tensor-parallel time
-   is taken: two ranks on one card are a correctness run.
+   is taken: two ranks on one card are a correctness run. Then a world
+   of 1 over NCCL whose serving ``ManualRules`` contracts "heads" and
+   "ffn" anyway (a sum over one rank is a copy): the decode, verify and
+   select graphs captured with the NCCL all-reduces inside, greedy and
+   spec_k 4 tokens equal to the plain engine's, 8 decode and 8 verify
+   replays equal to their uncaptured bodies bit for bit, recurrentgemma
+   at 6 layers spec_k 4 equal to its plain greedy tokens.
 14. single-device training (generators of their own): (a) the qwen2.5-3b,
    dbrx-132b and recurrentgemma-9b SMOKE configs at fp32, from one state:
    step 1's loss, aux losses and every parameter leaf's gradient on the
@@ -183,6 +189,18 @@ Phases, each failing loudly (non-zero exit, no result line):
    36 layers, fp32: 2 train steps on the card, then ``api.prefill``'s
    last-position logits (the mha kernel) against ``api.forward``'s (plain
    attention) on 4 prompts of 512 tokens, within 1e-4 of the logit scale.
+15. model-parallel training: (a) a spawned world of 1 over NCCL whose
+   ``tp.train_plan`` contracts "heads" and "ffn" anyway, qwen2.5-3b whole
+   as in phase 14 (bf16, remat full, 8 x 1024 tokens): a warm-up and two
+   timed steps after the same steps on one device in the same process,
+   losses and every parameter leaf equal bit for bit, 5 all-reduces a
+   layer a step, ms a step beside the plain step's. (b) two spawned gloo
+   ranks sharing cuda:0, qwen2.5-3b at full width cut to 4 layers, fp32:
+   3 steps plain and 3 with ``compress_grads`` (attention and MLP
+   sharded), held to the same steps on one device on the card by the CPU
+   tests' bounds, every rank's losses equal; ``compressed_psum`` over the
+   pair equal to the plain formula bit for bit; ``gpipe`` at 2 stages on
+   CUDA tensors, or gloo's refusal, logged. No kernel launches in either.
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary (the
 seven TPU kernels' counterparts, the sampler's noise kernel, mha and
@@ -228,6 +246,7 @@ from repro_torch.launch.host_cost import host_us  # noqa: E402
 from repro_torch.launch.kernel_bench import cuda_ms  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.parallel.sharding import NO_RULES  # noqa: E402
 from repro_torch.runtime import trainer  # noqa: E402
 from repro_torch.runtime.serving import (DenseServingEngine,  # noqa: E402
                                          PagedServingEngine, Request,
@@ -1985,19 +2004,19 @@ def run_serve_bench_policies() -> None:
     process of its own, their CSVs as one sectioned file: on the fp32
     4-layer cut, gated by ``launch/check_csv.py`` (``tokens_match_greedy``
     must pass; only the columns of the scenarios not in these CSVs may
-    be missing); then at bf16 on 12 of 36 layers for their times, where
+    be missing); then at bf16 on 6 of 36 layers for their times, where
     ``tokens_match_greedy`` is printed and not gated: the verify step
     scores 5 rows a request where the T = 1 step scores 1, so cuBLAS
     reduces the bf16 GEMMs in another order, and a near tie between two
     bf16 logits may part the streams. The bf16 depth is cut to keep the
-    script within half its time limit: the self-drafting rows decode their
+    script near half its time limit: the self-drafting rows decode their
     draft model eagerly, 134 of the 211 s the bf16 run took at 36 layers
-    on an H100."""
+    on an H100 (81.1 s at 12 layers)."""
     from repro_torch.launch import check_csv
     for label, extra, gated in (
             ("fp32, 4 layers", ["--layers", "4", "--dtype", "float32"],
              True),
-            ("bf16, 12 layers", ["--layers", "12"], False)):
+            ("bf16, 6 layers", ["--layers", "6"], False)):
         t0 = time.perf_counter()
         text = "\n".join(f"# {sc}\n" + bench_csv(
             ["--full", "--scenario", sc, *extra]) for sc in BENCH_SCENARIOS)
@@ -4127,6 +4146,140 @@ def tp_rank(rank: int, prompts) -> dict:
                 q_heads=int(eng.params["blocks"][0]["attn"]["wq"].shape[1]))
 
 
+def force_contract(eng, rules):
+    """The engine's plan with ``rules`` in place of its own (before its
+    first step, so every graph it captures records their sums)."""
+    eng.tp = dataclasses.replace(eng.tp, rules=rules)
+    eng._model_rules = rules
+    return eng
+
+
+def forced_rank(rank: int, prompts) -> dict:
+    """The spawned world of 1 over NCCL of Queue 3 check 1 (cuda:0): the
+    serving ``ManualRules`` contracts "heads" and "ffn" anyway over the
+    world (a sum over one rank is a copy), so the decode, verify and
+    select graphs are captured with NCCL all-reduces inside, after the
+    eager one that creates the communicator. qwen2.5-3b as the rest of
+    phase 13 (4 layers, fp32): greedy tokens plain-captured and spec_k 4;
+    8 decode replays and 8 verify replays against their uncaptured bodies
+    bit for bit. recurrentgemma-9b at 6 layers, window 64, fp32: spec_k 4
+    greedy tokens against its plain engine's (the select graph). Returns
+    what the parent checks."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import ManualRules
+    torch.cuda.set_device(0)
+    mesh = make_host_mesh(1, devices=["cuda:0"])
+    rules = ManualRules(("heads", "ffn"), dist.group.WORLD)
+    out = {"backend": dist.get_backend(dist.group.WORLD)}
+
+    def mk(cls, cfg, params, **kw):
+        return force_contract(cls(cfg, params, mesh=mesh, device="cuda",
+                                  **kw), rules)
+
+    cfg, params = tp_config(), tp_params()
+    kw = dict(slots=SLOTS, max_len=MAX_LEN, page_size=PAGE)
+    eng = mk(PagedServingEngine, cfg, params, **kw)
+    out["eager"] = eng._eager()
+    r0 = rules.reduces
+    out["tokens"] = tp_serve(eng, prompts)
+    out["captures"] = (eng.step_traces, eng.spec_traces)
+    out["recorded"] = rules.reduces - r0
+    del eng
+    spec = mk(PagedServingEngine, cfg, params, spec_k=4, **kw)
+    out["spec_tokens"] = tp_serve(spec, prompts)
+    out["spec_captures"] = (spec.step_traces, spec.spec_traces)
+    del spec
+    # 8 decode replays and 8 verify replays against their bodies
+    same = {"decode": True, "verify": True}
+    for name, (a_cls, extra) in {
+            "decode": (UncapturedEngine, {}),
+            "verify": (UncapturedSpecEngine, {"spec_k": 4})}.items():
+        engs = [mk(a_cls, cfg, params, **kw, **extra),
+                mk(PagedServingEngine, cfg, params, **kw, **extra)]
+        for e in engs:
+            for i, pr in enumerate(prompts[:SLOTS]):
+                e.submit(Request(rid=i, prompt=pr, max_new=40))
+        for _ in range(8):
+            for e in engs:
+                e.step()
+            a, b = ((engs[0].last_logits, engs[1].last_logits)
+                    if name == "decode" else
+                    (engs[0]._spec_out, engs[1]._spec_out))
+            same[name] = same[name] and torch.equal(a, b)
+        same[name + "_captures"] = (engs[1].step_traces,
+                                    engs[1].spec_traces)
+        del engs
+    out["replays_equal"] = same
+    del params
+    torch.cuda.empty_cache()
+    # the select graph: a hybrid stack with spec_k
+    rg = dataclasses.replace(get_config("recurrentgemma-9b"), num_layers=6,
+                             dtype="float32", kv_cache_dtype="float32")
+    rg = dataclasses.replace(rg, hybrid=dataclasses.replace(rg.hybrid,
+                                                            window=64))
+    rp = api.init_params(rg, torch.Generator(device="cuda")
+                         .manual_seed(SEED + 131), device="cuda")
+    own = np.random.default_rng(SEED + 131)
+    rprompts = [[int(t) for t in own.integers(0, rg.vocab, int(n))]
+                for n in (80, 150, 97, 130)]
+
+    def serve_rg(eng):
+        reqs = [Request(rid=i, prompt=pr, max_new=24)
+                for i, pr in enumerate(rprompts)]
+        done = eng.run_to_completion(reqs, max_steps=2000)
+        return [r.generated for r in reqs] if len(done) == len(reqs) \
+            else None
+
+    rkw = dict(slots=4, max_len=512, page_size=PAGE)
+    out["rg_plain"] = serve_rg(PagedServingEngine(rg, rp, device="cuda",
+                                                  **rkw))
+    eng = mk(PagedServingEngine, rg, rp, spec_k=4, **rkw)
+    r0 = rules.reduces
+    out["rg_spec"] = serve_rg(eng)
+    out["rg_captures"] = (eng.step_traces, eng.spec_traces,
+                          eng.select_traces)
+    out["rg_recorded"] = rules.reduces - r0
+    return out
+
+
+def check_forced_nccl(prompts, want) -> None:
+    """Queue 3 check 1 (``forced_rank``): tokens equal the plain engine's
+    (``want``), one capture a graph, all-reduces recorded in them, replays
+    equal their bodies."""
+    import tempfile
+
+    from repro_torch.launch.mesh import run_world
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run_world(forced_rank, 1, backend="nccl",
+                        init_file=os.path.join(tmp, "rdv"),
+                        args=(prompts,), timeout=600)[0]
+    rep = res["replays_equal"]
+    log(f"tp: a world of 1 over NCCL ({res['backend']}) contracting heads "
+        f"and ffn anyway: {time.perf_counter() - t0:.1f} s with spawning; "
+        f"greedy tokens equal the plain engine's {res['tokens'] == want}, "
+        f"spec_k 4 {res['spec_tokens'] == want}; captures (step, verify) "
+        f"{res['captures']} / {res['spec_captures']}, all-reduces recorded "
+        f"or run {res['recorded']}; 8 decode replays equal the uncaptured "
+        f"body {rep['decode']}, 8 verify replays {rep['verify']}; "
+        f"recurrentgemma 6 layers spec_k 4 tokens equal plain "
+        f"{res['rg_spec'] == res['rg_plain']}, captures (step, verify, "
+        f"select) {res['rg_captures']}, all-reduces {res['rg_recorded']}")
+    if res["tokens"] != want or res["spec_tokens"] != want:
+        fail("tp: the forced-contract NCCL engine's tokens differ from the "
+             "plain engine's")
+    if res["eager"] or res["captures"] != (1, 0) \
+            or res["spec_captures"] != (0, 1) \
+            or res["rg_captures"] != (0, 1, 1) or not res["recorded"] \
+            or not res["rg_recorded"]:
+        fail(f"tp: forced-contract captures or all-reduces: {res}")
+    if not (rep["decode"] and rep["verify"]) \
+            or res["rg_plain"] is None or res["rg_spec"] != res["rg_plain"]:
+        fail(f"tp: forced-contract replays or recurrentgemma tokens: {res}")
+
+
 def check_tp_kernels(rng, lengths):
     """Paged flash-decode and mha at a rank's heads at 2 shards (H8 KV1
     D128, G 8), fp32 (the phase's path) and bf16, against their plain
@@ -4212,6 +4365,7 @@ def serve_tp(prompts) -> dict:
             f"{first['reduces']} all-reduces over {first['contract']}, "
             f"{first['captures']:.0f} decode graph capture(s); equal "
             f"tokens on every rank")
+    check_forced_nccl(prompts, want)
     one, two = runs[1][0], runs[2]
     if one["captures"] != 1.0 or one["reduces"] != 0 or one["contract"]:
         fail(f"tp: the world of 1 must capture its decode graph and launch "
@@ -4375,14 +4529,14 @@ def check_train_exact() -> None:
             f"{[round(x, 6) for x in losses['cpu']]}")
 
 
-def train_full_width() -> None:
+def train_full_width():
     """Phase 14 (b): qwen2.5-3b whole (36 layers, d 2048, 16 query heads
     over 2 KV heads, d_ff 11008, vocab 151936, untied), bf16 params, fp32
     moments, remat "full"; batches of 8 x 1024 from the synthetic stream.
     One warm-up step, 5 timed (host clock around a synchronised step),
     then 2 more split by CUDA events into ``loss_and_grads`` and
     ``adamw.apply``, and one profiled (``profile_train_step``). No kernel
-    may launch."""
+    may launch. Returns the profiled step's busy ms (None unmeasured)."""
     cfg = get_config("qwen2.5-3b")
     if cfg.remat != "full" or cfg.dtype != "bfloat16" \
             or cfg.moment_dtype != "float32":
@@ -4433,7 +4587,7 @@ def train_full_width() -> None:
         fail(f"train: the training step launched a kernel: {counts}")
     if not all(np.isfinite(losses)):
         fail(f"train: losses not finite: {losses}")
-    profile_train_step(step, state, batch_on("cuda", ds.next_batch()))
+    busy = profile_train_step(step, state, batch_on("cuda", ds.next_batch()))
     ms = 1e3 * float(np.mean(times))
     tokens = TRAIN_B * TRAIN_S
     flops = 6 * cfg.param_count() * tokens
@@ -4452,12 +4606,14 @@ def train_full_width() -> None:
         f"before); losses {[round(x, 4) for x in losses]}")
     del state
     torch.cuda.empty_cache()
+    return busy
 
 
-def profile_train_step(step, state, b) -> None:
+def profile_train_step(step, state, b):
     """One more full-width step under torch.profiler: the card's busy
     share of the step's wall, the matmul kernels' share (names with
-    "gemm", "xmma" or "cutlass") and the top kernels by device time."""
+    "gemm", "xmma" or "cutlass") and the top kernels by device time.
+    Returns the busy ms (None without device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -4472,7 +4628,7 @@ def profile_train_step(step, state, b) -> None:
     busy = sum(t for t, _, _ in rows)
     if busy <= 0:
         log("train profile: no device time in the trace (not measured)")
-        return
+        return None
     mm = sum(t for t, _, k in rows
              if any(w in k.lower() for w in ("gemm", "xmma", "cutlass")))
     log(f"train profile: one step, wall {wall_us / 1e3:.1f} ms under the "
@@ -4483,6 +4639,7 @@ def profile_train_step(step, state, b) -> None:
     for t, c, key in sorted(rows, reverse=True)[:10]:
         log(f"train profile:   {t / 1e3:8.2f} ms {t / busy:6.1%} x{c:<6d} "
             f"{key[:80]}")
+    return busy / 1e3
 
 
 def check_train_serve(rng) -> dict:
@@ -4525,6 +4682,384 @@ def check_train_serve(rng) -> dict:
     if not err <= 1e-4 or not torch.isfinite(got).all():
         fail("train -> serve: prefill logits disagree with forward's")
     return counts
+
+
+# ---------------------------------------------------------------------------
+# phase 15: model-parallel training
+# ---------------------------------------------------------------------------
+
+PAIR_LAYERS, PAIR_B, PAIR_S = 4, 4, 256       # phase 15 (b)'s steps
+
+
+def leaf_items(tree):
+    return [(pytree.keystr(p), t) for p, t in
+            pytree.tree_flatten_with_path(tree)[0]]
+
+
+def timed_steps(step, state, batches) -> tuple:
+    """Each batch through ``step``: (losses, ms of each step after the
+    first, host clock around a synchronised step)."""
+    losses, times = [], []
+    for i, b in enumerate(batches):
+        b = batch_on("cuda", b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        if i:
+            times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(m["loss"].item())
+    return losses, times
+
+
+def profiled_step(step, state, b) -> dict:
+    """One step under torch.profiler (device activity only, which keeps
+    the trace's processing short): its loss, wall ms, the card's busy
+    ms, the NCCL kernels' ms and the kernel launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, m = step(state, b)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return {"loss": m["loss"].item(), "wall": wall,
+            "busy": sum(t for t, _, _ in rows) / 1e3,
+            "nccl": sum(t for t, _, k in rows if "nccl" in k.lower()) / 1e3,
+            "launches": sum(c for _, c, _ in rows)}
+
+
+def train_world1_rank(rank: int) -> dict:
+    """Phase 15 (a), a spawned world of 1 over NCCL on cuda:0: qwen2.5-3b
+    whole (bf16, remat full, 8 x 1024 tokens a step), one warm-up step,
+    two timed ones and one profiled, first on one device
+    (``make_train_step``), then from
+    the same seed through ``tp.train_plan`` with rules that sum "heads"
+    and "ffn" anyway (over a world of one rank: copies). The two states do
+    not fit together, so the plain run's parameters are kept as host
+    copies and compared leaf by leaf."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import tp
+    from repro_torch.parallel.sharding import TrainRules
+    torch.cuda.set_device(0)
+    cfg = get_config("qwen2.5-3b")
+    opt = launch_opt(3, cfg)
+    ds = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                     global_batch=TRAIN_B, seed=SEED + 150))
+    batches = [ds.next_batch() for _ in range(4)]    # the 4th profiled
+    out = {"backend": dist.get_backend()}
+    ops.reset_launch_counts()
+
+    def run(plan):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 150)
+        state = trainer.init_state(cfg, opt, gen, device="cuda", plan=plan)
+        rules = plan.rules if plan is not None else NO_RULES
+        step = trainer.make_train_step(cfg, opt, rules=rules)
+        r0 = getattr(rules, "reduces", 0)
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = timed_steps(step, state, batches[:3])
+        reduces = getattr(rules, "reduces", 0) - r0
+        peak = torch.cuda.max_memory_allocated()
+        if plan is None:
+            state, m = step(state, batch_on("cuda", batches[3]))
+            losses.append(m["loss"].item())
+            prof = None
+        else:
+            prof = profiled_step(step, state, batch_on("cuda", batches[3]))
+            losses.append(prof.pop("loss"))
+        return state, losses, times, reduces, peak, prof
+
+    state, out["plain_losses"], out["plain_ms"], _, _, _ = run(None)
+    host = [(k, t.cpu()) for k, t in leaf_items(state["params"])]
+    del state
+    torch.cuda.empty_cache()
+    # a mesh of 1 contracts nothing: the plan's rules sum anyway, over the
+    # world (a sum over one rank is a copy)
+    plan = tp.train_plan(cfg, make_host_mesh(1, devices=["cuda:0"]))
+    plan = dataclasses.replace(plan, rules=TrainRules(
+        ("heads", "ffn"), dist.group.WORLD))
+    (state, out["mp_losses"], out["mp_ms"], out["reduces"],
+     out["peak"], out["mp_prof"]) = run(plan)
+    out["contract"] = sorted(plan.rules.contract_axes)
+    diff = []
+    for (k, a), (k2, b) in zip(host, leaf_items(state["params"])):
+        if k != k2 or not torch.equal(a, b.cpu()):
+            diff.append((k, (a.float() - b.cpu().float()).abs().max()
+                         .item()))
+    out["leaves"], out["diff"] = len(host), diff
+    out["launches"] = ops.launch_counts()
+    del state, host
+    torch.cuda.empty_cache()
+    # the sums alone: 180 of the step's (8, 1024, 2048) bf16 sums back to
+    # back, beside 180 clones, host clock over the loop and CUDA events
+    x = torch.randn(TRAIN_B, TRAIN_S, cfg.d_model, device="cuda",
+                    dtype=torch.bfloat16)
+    for name, fn in (("clone", lambda: x.clone()),
+                     ("sum", lambda: plan.rules.contract(x, "heads"))):
+        fn()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        for _ in range(180):
+            fn()
+        ev[1].record()
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        out[name + "_alone"] = (1e3 * host_s / 180,
+                                ev[0].elapsed_time(ev[1]) / 180)
+    return out
+
+
+def train_world1_nccl(plain_busy) -> float:
+    """Phase 15 (a): ``train_world1_rank`` spawned, checked and logged
+    beside phase 14's profiled plain step (``plain_busy`` ms, None
+    unmeasured). Returns its ms a step."""
+    import tempfile
+
+    from repro_torch.launch.mesh import run_world
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run_world(train_world1_rank, 1, backend="nccl",
+                        init_file=os.path.join(tmp, "rdv"), timeout=900)[0]
+    cfg = get_config("qwen2.5-3b")
+    sums = 2 * 2 + 1        # a layer: 2 forward + 2 backward + 1 recompute
+    ms = float(np.mean(res["mp_ms"]))
+    log(f"train model-parallel [world of 1 over NCCL ({res['backend']}), "
+        f"contracting {res['contract']} anyway; qwen2.5-3b whole, bf16, "
+        f"remat full, {TRAIN_B} x {TRAIN_S} tokens]: "
+        f"{time.perf_counter() - t0:.1f} s with spawning; losses "
+        f"{res['mp_losses']} against the plain step's "
+        f"{res['plain_losses']}; {len(res['diff'])} of {res['leaves']} "
+        f"parameter leaves differ from the plain run's "
+        f"{res['diff'][:4]}; {res['reduces'] / 3:.0f} all-reduces a step "
+        f"({sums} a layer x {cfg.num_layers} layers = "
+        f"{sums * cfg.num_layers}); ms a step {ms:.1f} (each "
+        f"{', '.join(f'{t:.1f}' for t in res['mp_ms'])}) against the plain "
+        f"step's {np.mean(res['plain_ms']):.1f} (each "
+        f"{', '.join(f'{t:.1f}' for t in res['plain_ms'])}) in the same "
+        f"process; peak {res['peak'] / 2**30:.2f} GiB")
+    p = res["mp_prof"]
+    if p["busy"] > 0:
+        log(f"train model-parallel: a profiled fourth step, world of 1: "
+            f"wall {p['wall']:.1f} ms, card busy {p['busy']:.1f} ms (NCCL "
+            f"kernels {p['nccl']:.1f} ms), {p['launches']} launches; phase "
+            f"14's profiled plain step: card busy "
+            + ("not measured" if plain_busy is None
+               else f"{plain_busy:.1f} ms"))
+    else:
+        log("train model-parallel: no device time in the trace (not "
+            "measured)")
+    log(f"train model-parallel: alone, 180 back to back: a sum "
+        f"({TRAIN_B}, {TRAIN_S}, {cfg.d_model}) bf16 "
+        f"{res['sum_alone'][0]:.3f} ms of host clock, "
+        f"{res['sum_alone'][1]:.3f} ms of CUDA events; a clone "
+        f"{res['clone_alone'][0]:.3f} / {res['clone_alone'][1]:.3f} ms")
+    if res["mp_losses"] != res["plain_losses"] or res["diff"]:
+        fail("train model-parallel: the world of 1 parts from the plain "
+             "step")
+    if res["reduces"] != 3 * sums * cfg.num_layers:
+        fail(f"train model-parallel: {res['reduces']} all-reduces in 3 "
+             f"steps")
+    if any(res["launches"].values()):
+        fail(f"train model-parallel: a kernel launched: {res['launches']}")
+    return ms
+
+
+def _bounded(got, want, losses_got, losses_want, lrs) -> dict:
+    """Phase 15 (b)'s CPU bounds: losses within rtol 1e-4 at every step;
+    every parameter within 2 lr a step, at most 1e-3 of the elements more
+    than 1e-5 apart. Returns {"ok", "words"} (run on a rank: the parent
+    fails)."""
+    ok = all(abs(a - b) <= 1e-4 * abs(b)
+             for a, b in zip(losses_got, losses_want))
+    worst, over, n = 0.0, 0, 0
+    for (k, a), (k2, b) in zip(got, want):
+        if k != k2 or a.shape != b.shape:
+            return {"ok": False, "words": f"leaf {k} against {k2}"}
+        d = (a.to(b.device) - b).abs()
+        worst = max(worst, d.max().item())
+        over += int((d > 1e-5).sum())
+        n += d.numel()
+    ok = ok and worst <= 2 * sum(lrs)
+    return {"ok": ok and over <= 1e-3 * n, "ok_but_share": ok,
+            "over": over, "words": (
+        f"losses {[round(x, 6) for x in losses_got]} / "
+        f"{[round(x, 6) for x in losses_want]}, parameters within "
+        f"{worst:.3g} (bound {2 * sum(lrs):.3g}), {over} of {n} elements "
+        f"past 1e-5")}
+
+
+def train_pair_rank(rank: int) -> dict:
+    """Phase 15 (b), one of two gloo ranks sharing cuda:0: qwen2.5-3b at
+    full width cut to 4 layers, fp32, remat full; 3 steps plain and 3
+    with ``compress_grads`` on the mesh (attention and MLP sharded),
+    their parameters gathered on rank 0, which also runs the same steps
+    on one device and holds the two to the CPU bounds; ``compressed_psum``
+    over the pair against the plain formula; ``gpipe`` at 2 stages on CUDA
+    tensors."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import compression, pipeline, tp
+    torch.cuda.set_device(0)
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"),
+                              num_layers=PAIR_LAYERS, dtype="float32")
+    opt = launch_opt(30, cfg)
+    ds = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=PAIR_S,
+                                     global_batch=PAIR_B, seed=SEED + 151))
+    batches = [ds.next_batch() for _ in range(3)]
+    mesh = make_host_mesh(2, devices=["cuda:0"] * 2)
+    plan = tp.train_plan(cfg, mesh)
+    out = {"contract": sorted(plan.rules.contract_axes)}
+    ops.reset_launch_counts()
+
+    def run(compress, p, accum=1):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 151)
+        state = trainer.init_state(cfg, opt, gen, device="cuda",
+                                   compress_grads=compress, plan=p,
+                                   rank=mesh.model_rank)
+        rules = NO_RULES if p is None else p.rules
+        step = trainer.make_train_step(cfg, opt, rules=rules,
+                                       grad_accum=accum,
+                                       compress_grads=compress)
+        losses, times = timed_steps(step, state, batches)
+        if p is None:                 # kept on the card for the comparison
+            return losses, times, leaf_items(state["params"])
+        params = tp.gather_tree(state["params"], p.param_specs(cfg),
+                                p.rules.group)
+        return losses, times, None if params is None else leaf_items(params)
+
+    lrs = [float(adamw.schedule(opt, torch.tensor(i + 1))) for i in range(3)]
+    with bench.fp32_exact():
+        for compress in (False, True):
+            name = "compress" if compress else "plain"
+            one = ctl = None
+            if rank == 0:
+                one = run(compress, None)
+                torch.cuda.empty_cache()
+                # the control: the same step on one device with its
+                # gradient summed in another order (2 micro-batches)
+                ctl = run(compress, None, accum=2)
+                torch.cuda.empty_cache()
+            dist.barrier()
+            mp = run(compress, plan)
+            torch.cuda.empty_cache()
+            out[name] = {"losses": mp[0], "ms": mp[1]}
+            if rank == 0:           # held here: the leaves stay on rank 0
+                out[name].update(
+                    one_losses=one[0], one_ms=one[1],
+                    held=_bounded(mp[2], one[2], mp[0], one[0], lrs),
+                    control=_bounded(ctl[2], one[2], ctl[0], one[0], lrs))
+            del one, ctl, mp
+    out["launches"] = ops.launch_counts()
+    # compressed_psum over the pair against the plain formula
+    xs = [torch.randn(1 << 20, generator=torch.Generator().manual_seed(
+        SEED + 152 + r)).cuda() * (r + 1) for r in range(2)]
+    got = compression.compressed_psum(xs[rank])
+    s = torch.stack([x.abs().max() for x in xs]).max().clamp(
+        min=1e-12) / 127.0
+    want = sum(torch.clamp(torch.round(x / s), -127, 127).to(torch.int32)
+               for x in xs).float() * s
+    out["psum_equal"] = bool(torch.equal(got, want))
+    # gpipe at 2 stages on CUDA tensors over gloo
+    w = torch.randn(2, 64, 64, generator=torch.Generator().manual_seed(
+        SEED + 154)).cuda() * 0.2
+    xs = torch.randn(4, 2, 64, generator=torch.Generator().manual_seed(
+        SEED + 155)).cuda()
+
+    def stage_fn(p, x):
+        return torch.tanh(x @ p)
+
+    run = pipeline.gpipe(stage_fn)
+    try:
+        run(w[rank], xs)
+        out["gpipe_cuda"] = "ran"
+    except RuntimeError as e:      # the refusal, logged
+        out["gpipe_cuda"] = f"refused: {e}"
+    # the same pipeline on host tensors, which gloo's ring hop takes
+    w, xs = w.cpu(), xs.cpu()
+    seq = torch.tanh(torch.tanh(xs @ w[0]) @ w[1])
+    out["gpipe_cpu_err"] = (run(w[rank], xs) - seq).abs().max().item()
+    return out
+
+
+def gloo_cuda_p2p_rank(rank: int) -> str:
+    """A bare gloo send / receive of CUDA tensors between 2 ranks on cuda:0
+    (what ``gpipe`` refuses before it gets there): what gloo does."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    y = torch.zeros(4, device="cuda")
+    try:
+        for w in dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, x, 1 - rank),
+                dist.P2POp(dist.irecv, y, 1 - rank)]):
+            w.wait()
+        torch.cuda.synchronize()
+        return f"ran, received {y.tolist()}"
+    except RuntimeError as e:
+        return f"raised: {str(e)[:200]}"
+
+
+def train_gloo_pair() -> None:
+    """Phase 15 (b): ``train_pair_rank`` on 2 spawned gloo ranks, checked
+    and logged."""
+    import tempfile
+
+    from repro_torch.launch.mesh import WorldError, run_world
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run_world(train_pair_rank, 2, backend="gloo",
+                        init_file=os.path.join(tmp, "rdv"), timeout=900)
+    first = res[0]
+    if first["contract"] != ["ffn", "heads"]:
+        fail(f"train pair: the plan contracts {first['contract']}")
+    for name in ("plain", "compress"):
+        r = first[name]
+        held, ctl = r["held"], r["control"]
+        log(f"train pair [qwen2.5-3b full width, {PAIR_LAYERS} layers, "
+            f"fp32, 2 gloo ranks on cuda:0, {name}] against one device on "
+            f"the card: {held['words']}; the control (one device, the "
+            f"gradient over 2 micro-batches) against one device: "
+            f"{ctl['words']}; ms a step (host clock, correctness only) "
+            f"{np.mean(r['ms']):.1f} on the pair, "
+            f"{np.mean(r['one_ms']):.1f} on one device")
+        if res[1][name]["losses"] != r["losses"]:
+            fail(f"train pair [{name}]: the ranks' losses differ")
+        # the CPU bounds; past the share of elements, only as far as the
+        # control, two correct single-device runs, part from each other
+        if not (held["ok"] or (held["ok_but_share"]
+                               and held["over"] <= 2 * ctl["over"])):
+            fail(f"train pair [{name}]: outside the CPU bounds")
+    if not all(r["psum_equal"] for r in res):
+        fail("train pair: compressed_psum differs from the plain formula")
+    if any(any(r["launches"].values()) for r in res):
+        fail(f"train pair: a kernel launched: {[r['launches'] for r in res]}")
+    if not all(r["gpipe_cuda"].startswith("refused: gpipe: gloo") and
+               r["gpipe_cpu_err"] <= 1e-5 for r in res):
+        fail(f"train pair: gpipe: "
+             f"{[(r['gpipe_cuda'], r['gpipe_cpu_err']) for r in res]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            bare = run_world(gloo_cuda_p2p_rank, 2, backend="gloo",
+                             init_file=os.path.join(tmp, "rdv"), timeout=120)
+        except WorldError as e:
+            bare = [f"the world failed: {str(e)[:300]}"]
+    log(f"train pair: compressed_psum over the pair equals the plain "
+        f"formula bit for bit (2 x 2^20 fp32); gpipe at 2 stages on CUDA "
+        f"tensors over gloo: {first['gpipe_cuda']}; on the same pair's "
+        f"host tensors it equals the sequential stack to "
+        f"{max(r['gpipe_cpu_err'] for r in res):.3g}; a bare gloo send / "
+        f"receive of CUDA tensors on a pair of its own: {bare}; "
+        f"{time.perf_counter() - t0:.1f} s with spawning")
 
 
 def main() -> None:
@@ -4652,7 +5187,7 @@ def main() -> None:
     wrappers_refuse_grad()
     with bench.fp32_exact():
         check_train_exact()
-    train_full_width()
+    plain_busy = train_full_width()
     serve_case = [(f"train -> serve prefill B{SERVE_B} S{SERVE_S}, causal, "
                    f"fp32", SERVE_B, SERVE_S, SERVE_S, True, None,
                    torch.float32)]
@@ -4663,6 +5198,11 @@ def main() -> None:
     with bench.fp32_exact():
         train_counts = check_train_serve(own)
     log(f"phase 14 in {time.perf_counter() - t14:.1f} s")
+    # phase 15: model-parallel training
+    t15 = time.perf_counter()
+    train_world1_nccl(plain_busy)
+    train_gloo_pair()
+    log(f"phase 15 in {time.perf_counter() - t15:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "paged_attention", "route": "cuda",

@@ -2,23 +2,33 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
       --smoke --steps 30 [--ckpt-dir DIR] [--grad-accum 2] \\
-      [--compress-grads] [--device cpu]
+      [--compress-grads] [--model-parallel M] [--device cpu]
 
 The flags are the reference launcher's (``repro.launch.train``), plus
 ``--device``: CUDA by default, which raises without a card (nothing falls
 back to the CPU); ``--device cpu`` runs the same loop on the CPU.
 ``--smoke`` takes the reduced same-family config; without it the full one
 (its memory is the card's to hold). A second call with the same
-``--ckpt-dir`` resumes from the newest checkpoint there. Model-parallel
-training (``--model-parallel`` > 1) is not ported and raises.
+``--ckpt-dir`` resumes from the newest checkpoint there.
+
+``--model-parallel M`` > 1 spawns M ranks (``launch.mesh.run_world``), a
+``model`` axis of M (``Trainer(mesh=)``): NCCL over the first M CUDA
+devices, one a rank (fewer than M raises, naming the count), or gloo with
+``--device cpu``. Rank 0 prints; a checkpoint holds the full leaves, so a
+resume may take another M.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
+
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.data.synthetic import DataConfig, SyntheticDataset
+from repro_torch.launch.mesh import make_host_mesh, run_world
 from repro_torch.optim import adamw
 from repro_torch.runtime.trainer import Trainer
 
@@ -38,14 +48,50 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1: model-parallel training is not ported "
-            "(ROADMAP Queue 1 item 3b)")
     device = resolve_device(args.device)
+    m = args.model_parallel
+    if m == 1:
+        _train(args, device, 0)
+        return
+    if m < 1:
+        raise SystemExit(f"--model-parallel {m}: needs 1 or more ranks")
+    if device.type == "cuda" and m > torch.cuda.device_count():
+        raise SystemExit(f"--model-parallel {m} needs {m} CUDA devices, one "
+                         f"a rank; have {torch.cuda.device_count()}")
+    backend = "gloo" if device.type == "cpu" else "nccl"
+    with tempfile.TemporaryDirectory() as tmp:
+        run_world(_train_rank, m, backend=backend,
+                  init_file=os.path.join(tmp, "rendezvous"), args=(args,),
+                  timeout=24 * 3600.0)
+
+
+def _train_rank(rank: int, args) -> None:
+    """One rank of a ``--model-parallel`` world."""
+    device = resolve_device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+    _train(args, device, rank)
+
+
+def _quiet(*_args, **_kwargs) -> None:
+    pass
+
+
+def _train(args, device: torch.device, rank: int) -> None:
+    """Build the config, data and trainer (this rank's part on a mesh),
+    run it and print the summary (rank 0 only)."""
+    say = print if rank == 0 else _quiet
+    m = args.model_parallel
+    mesh = None
+    if m > 1:
+        devs = ["cpu"] * m if device.type == "cpu" \
+            else [torch.device("cuda", i) for i in range(m)]
+        mesh = make_host_mesh(m, devices=devs)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    print(f"[launch.train] {cfg.name}: {cfg.param_count()/1e6:.1f}M params "
-          f"on {device}")
+    say(f"[launch.train] {cfg.name}: {cfg.param_count()/1e6:.1f}M params "
+        f"on {device}" + (f", model-parallel over {m} ranks" if m > 1
+                          else ""))
     ds = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                      global_batch=args.batch))
     opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=max(5, args.steps // 10),
@@ -54,10 +100,10 @@ def main(argv=None) -> None:
     tr = Trainer(cfg, opt, ds, ckpt_dir=args.ckpt_dir,
                  save_every=args.save_every, grad_accum=args.grad_accum,
                  compress_grads=args.compress_grads, log_every=10,
-                 device=device)
+                 log_fn=say, device=device, mesh=mesh)
     tr.run(args.steps)
-    print(f"[launch.train] done at step {tr.step}; "
-          f"{tr.monitor.slow_steps} straggler-flagged steps")
+    say(f"[launch.train] done at step {tr.step}; "
+        f"{tr.monitor.slow_steps} straggler-flagged steps")
 
 
 if __name__ == "__main__":

@@ -198,13 +198,14 @@ def encode(cfg, params, enc_embeds: torch.Tensor, *,
     """The encoder: its ``enc`` blocks (non-causal self-attention with RoPE
     at 0.. S_enc - 1, then the MLP) over ``enc_embeds`` (B, S_enc, d), then
     its ``final_norm``. ``train``: through ``transformer.stack_train`` (the
-    training forward, single-device: ``rules`` unused). -> (B, S_enc, d)
-    in the model dtype."""
+    training forward). ``rules``: the tensor-parallel hooks. -> (B, S_enc,
+    d) in the model dtype."""
     x = enc_embeds.to(params["embed"].dtype)
     enc = params["enc"]
     kinds = ["enc"] * len(enc["blocks"])
     if train:
-        x, _ = tfm.stack_train(cfg, enc["blocks"], x, kinds=kinds)
+        x, _ = tfm.stack_train(cfg, enc["blocks"], x, kinds=kinds,
+                               rules=rules)
     else:
         x, _ = tfm.stack_apply(cfg, enc["blocks"], x, kinds=kinds,
                                rules=rules)
@@ -218,7 +219,8 @@ def _need_enc(cfg, enc_embeds) -> None:
             f"encoder's frame embeddings (B, S_enc, d)")
 
 
-def forward_hidden(cfg, params, batch: Dict[str, torch.Tensor]):
+def forward_hidden(cfg, params, batch: Dict[str, torch.Tensor], *,
+                   rules: Rules = NO_RULES):
     """The training forward, the reference's ``forward_hidden`` without a
     cache. batch: {"tokens" (B, S) [, "frontend_embeds" (B, F, d) |
     "enc_embeds" (B, S_enc, d)]}; a patch frontend's embeddings go before
@@ -226,15 +228,18 @@ def forward_hidden(cfg, params, batch: Dict[str, torch.Tensor]):
     ``encode``. Every layer goes through ``transformer.stack_train``, whose
     attention is the plain ``layers.flash_attention`` on every device, so
     autograd differentiates the whole forward and no kernel is reached.
+    ``rules``: the tensor-parallel hooks (``parallel.sharding.TrainRules``
+    on a rank of a mesh; the embeddings, norms and head replicate).
     Returns (hidden (B, F + S, d) after the final norm, {"lb_loss",
     "z_loss"} summed over the MoE layers)."""
     _need_enc(cfg, batch.get("enc_embeds"))
     x = params["embed"][batch["tokens"]]
     if cfg.frontend == "patch" and "frontend_embeds" in batch:
         x = torch.cat([batch["frontend_embeds"].to(x.dtype), x], 1)
-    enc_out = encode(cfg, params, batch["enc_embeds"], train=True) \
-        if cfg.is_encdec else None
-    x, aux = tfm.stack_train(cfg, params["blocks"], x, enc_out=enc_out)
+    enc_out = encode(cfg, params, batch["enc_embeds"], rules=rules,
+                     train=True) if cfg.is_encdec else None
+    x, aux = tfm.stack_train(cfg, params["blocks"], x, enc_out=enc_out,
+                             rules=rules)
     return norm_apply(params["final_norm"], x, cfg.norm), aux
 
 
@@ -265,16 +270,18 @@ def _ce_chunk(cfg, w: torch.Tensor, x: torch.Tensor, labels: torch.Tensor):
     return ((lse - ll) * mask).sum(), mask.sum()
 
 
-def loss_fn(cfg, params, batch: Dict[str, torch.Tensor]):
+def loss_fn(cfg, params, batch: Dict[str, torch.Tensor], *,
+            rules: Rules = NO_RULES):
     """Next-token cross-entropy (labels[t] is the target of position t;
     labels < 0 carry no loss), as the reference's ``loss_fn``: blockwise
     over ``CE_CHUNK``-token chunks, the last padded, each chunk recomputed
     in the backward pass (``torch.utils.checkpoint``), so no more than one
     chunk's (B, 512, Vp) fp32 logits ever exist. A vlm's loss covers the
     text positions only (the last ``labels.shape[1]``). MoE stacks add
-    0.01 · lb_loss + 0.001 · z_loss. Returns (loss, {"ce", "lb_loss",
-    "z_loss"}), 0-dim fp32."""
-    x, aux = forward_hidden(cfg, params, batch)
+    0.01 · lb_loss + 0.001 · z_loss. ``rules``: as ``forward_hidden``'s
+    (every rank of a mesh computes the same loss). Returns (loss, {"ce",
+    "lb_loss", "z_loss"}), 0-dim fp32."""
+    x, aux = forward_hidden(cfg, params, batch, rules=rules)
     labels = batch["labels"]
     if x.shape[1] != labels.shape[1]:    # frontend positions carry no loss
         x = x[:, -labels.shape[1]:]

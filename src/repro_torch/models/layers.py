@@ -164,10 +164,12 @@ def _qkv(cfg, p: Params, x: torch.Tensor):
     return q, k, v
 
 
-def cross_kv(cfg, p: Params, enc: torch.Tensor):
+def cross_kv(cfg, p: Params, enc: torch.Tensor, rules: Rules = NO_RULES):
     """A decoder layer's cross-attention k/v from the encoder output enc
     (B, S_enc, d): its ``cross`` weights' projections (plus ``bk`` /
-    ``bv``), no RoPE. -> (k, v), each (B, S_enc, KV, D)."""
+    ``bv``), no RoPE. -> (k, v), each (B, S_enc, KV, D). ``enc`` enters a
+    sublayer that contracts "heads" (``rules.enter``)."""
+    enc = rules.enter(enc, "heads")
     k, v = _proj(enc, p["wk"]), _proj(enc, p["wv"])
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
@@ -209,7 +211,9 @@ def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None,
     place of the kernel; no prefix.
 
     The out-projection contracts "heads": ``rules.contract`` (a rank's
-    all-reduce over its ``model`` group under tensor parallelism)."""
+    all-reduce over its ``model`` group under tensor parallelism); ``x``
+    enters through ``rules.enter`` (the gradient's sum in training)."""
+    x = rules.enter(x, "heads")
     if cross_kv is not None:
         q = _proj(x, p["wq"])
         if cfg.qkv_bias:
@@ -445,7 +449,8 @@ def mlp_apply(cfg, p: Params, x: torch.Tensor,
     """Gated MLP as the JAX package writes it: the activation goes on the
     ``wg`` branch and multiplies ``wi`` — act(x @ wg) * (x @ wi) — then
     ``wo``. Ungated: act(x @ wi) @ wo. The down-projection contracts "ffn"
-    (``rules.contract``)."""
+    (``rules.contract``); ``x`` enters through ``rules.enter``."""
+    x = rules.enter(x, "ffn")
     h = x @ p["wi"]
     if cfg.act == "silu":
         act = F.silu

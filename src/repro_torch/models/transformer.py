@@ -144,7 +144,7 @@ def block_apply(cfg, kind: str, p, x: torch.Tensor, prefix=None,
     x = x + a
     if kind == "dec":
         hx = norm_apply(p["lnx"], x, cfg.norm)
-        ck, cv = cross_kv(cfg, p["cross"], enc_out)
+        ck, cv = cross_kv(cfg, p["cross"], enc_out, rules)
         a, _ = attention_apply(cfg, p["cross"], hx, cross_kv=(ck, cv),
                                rules=rules)
         x = x + a
@@ -230,12 +230,15 @@ def stack_apply(cfg, blocks, x: torch.Tensor, *, prefix_kv=None,
     return x, caches
 
 
-def block_train(cfg, kind: str, p, x: torch.Tensor, enc_out=None):
+def block_train(cfg, kind: str, p, x: torch.Tensor, enc_out=None,
+                rules: Rules = NO_RULES):
     """The training forward of one block (the reference's ``block_apply``
     without a cache): the same sublayers as ``block_apply``, attention
     through ``layers.flash_attention`` (``attention_apply(train=True)``),
-    recurrent mixers without their decode state. Returns (x, aux): an
-    ``attn_moe`` block's {"lb_loss", "z_loss"}, else {}."""
+    recurrent mixers without their decode state. ``rules``: the
+    tensor-parallel hooks (``parallel.sharding.TrainRules`` on a rank).
+    Returns (x, aux): an ``attn_moe`` block's {"lb_loss", "z_loss"}, else
+    {}."""
     h = norm_apply(p["ln1"], x, cfg.norm)
     if kind == "ssm":
         return x + ssm.ssm_apply(cfg, p["mixer"], h), {}
@@ -244,19 +247,21 @@ def block_train(cfg, kind: str, p, x: torch.Tensor, enc_out=None):
     else:
         window = cfg.hybrid.window if kind == "local_attn" else 0
         a, _ = attention_apply(cfg, p["attn"], h, window=window,
-                               causal=kind != "enc", train=True)
+                               causal=kind != "enc", rules=rules,
+                               train=True)
     x = x + a
     if kind == "dec":
         hx = norm_apply(p["lnx"], x, cfg.norm)
-        a, _ = attention_apply(cfg, p["cross"], hx,
-                               cross_kv=cross_kv(cfg, p["cross"], enc_out),
-                               train=True)
+        a, _ = attention_apply(
+            cfg, p["cross"], hx,
+            cross_kv=cross_kv(cfg, p["cross"], enc_out, rules), rules=rules,
+            train=True)
         x = x + a
     h = norm_apply(p["ln2"], x, cfg.norm)
     if kind == "attn_moe":
-        f, aux = moe_apply(cfg, p["moe"], h, aux=True)
+        f, aux = moe_apply(cfg, p["moe"], h, rules, aux=True)
         return x + f, aux
-    return x + mlp_apply(cfg, p["mlp"], h), {}
+    return x + mlp_apply(cfg, p["mlp"], h, rules), {}
 
 
 _MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -291,10 +296,12 @@ def _remat(cfg, fn):
 
 
 def stack_train(cfg, blocks, x: torch.Tensor, *, kinds=None,
-                enc_out=None):
+                enc_out=None, rules: Rules = NO_RULES):
     """The training forward of every layer (``block_train``), each
-    rematerialised per ``cfg.remat``. ``kinds``: the blocks' kinds (default
-    the decoder's); ``enc_out``: the encoder's output, for ``dec`` blocks.
+    rematerialised per ``cfg.remat`` (the recompute runs a layer's
+    all-reduces again, in the same order on every rank). ``kinds``: the
+    blocks' kinds (default the decoder's); ``enc_out``: the encoder's
+    output, for ``dec`` blocks; ``rules``: the tensor-parallel hooks.
     Returns (x, {"lb_loss", "z_loss"}: fp32 sums over the MoE layers, zero
     without any), as the reference's ``stack_apply`` sums them."""
     kinds = layer_kinds(cfg) if kinds is None else kinds
@@ -302,7 +309,7 @@ def stack_train(cfg, blocks, x: torch.Tensor, *, kinds=None,
     aux: Dict[str, torch.Tensor] = {"lb_loss": zero, "z_loss": zero}
     layer = _remat(cfg, block_train)
     for kind, p in zip(kinds, blocks):
-        x, a = layer(cfg, kind, p, x, enc_out)
+        x, a = layer(cfg, kind, p, x, enc_out, rules)
         for name, v in a.items():
             aux[name] = aux[name] + v
     return x, aux

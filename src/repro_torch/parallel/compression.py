@@ -1,5 +1,5 @@
 """Gradient compression, int8 with error feedback: the port's counterpart
-of ``repro.parallel.compression`` for the single-device trainer.
+of ``repro.parallel.compression``.
 
 ``compress_tree`` quantizes each gradient leaf (plus its error-feedback
 residual, carried in the train state) to int8 with a max-abs scale and
@@ -9,15 +9,20 @@ reference stacks a pattern position's layers into one leaf, so the port's
 per-layer leaves of one stack share a scale (``group``; the trainer's
 ``stack_group``). ``torch.round`` rounds half to even, as
 ``jnp.round`` does, so the port's int8 values are the reference's bit for
-bit. The reference's ``compressed_psum`` (the int8 all-reduce of a
-shard_map data-parallel sync) belongs to model-parallel training and is not
-here.
+bit. On a model-parallel rank a group that holds a sharded leaf takes
+the max over every rank's part (a MAX all-reduce), so its scale is the
+whole leaf's, as on one device.
+
+``compressed_psum`` is the int8 all-reduce of a data-parallel sync (the
+reference's ``shard_map`` one): one scale for all ranks (a MAX
+all-reduce), int8 values summed in int32, then dequantized.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Hashable, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 
@@ -40,26 +45,58 @@ def compress(x: torch.Tensor, err: torch.Tensor
 
 
 def compress_tree(grads, err_tree,
-                  group: Optional[Callable[[tuple], Hashable]] = None):
+                  group: Optional[Callable[[tuple], Hashable]] = None, *,
+                  sharded: Optional[Callable[[tuple], bool]] = None,
+                  process_group=None):
     """(dequantized grads, each leaf in its gradient's dtype; the new error
     tree, fp32, like ``grads``). ``err_tree`` pairs with ``grads`` by key
     path. ``group`` maps a leaf's key path to the name of its scale group:
     leaves of one name share one scale, the max-abs over all of them;
-    default one a leaf."""
+    default one a leaf. ``sharded`` (a leaf's key path -> whether the tree
+    holds a rank's part of it): a group holding such a leaf takes its max
+    over ``process_group`` too (one MAX all-reduce for all of them)."""
     flat, spec = pytree.tree_flatten_with_path(grads)
     err_of = dict(pytree.tree_flatten_with_path(err_tree)[0])
     groups: Dict[Hashable, List[int]] = {}
     for i, (path, _) in enumerate(flat):
         groups.setdefault(i if group is None else group(path), []).append(i)
+
+    def xf(i):
+        return flat[i][1].float() + err_of[flat[i][0]]
+
+    grps = list(groups.values())
+    peak = [torch.stack([xf(i).abs().max() for i in g]).max() for g in grps]
+    split = [j for j, g in enumerate(grps) if sharded is not None
+             and any(sharded(flat[i][0]) for i in g)]
+    if split:
+        across = torch.stack([peak[j] for j in split])
+        dist.all_reduce(across, op=dist.ReduceOp.MAX, group=process_group)
+        for j, v in zip(split, across):
+            peak[j] = v
     out_g, out_e = [None] * len(flat), [None] * len(flat)
-    for grp in groups.values():
-        xf = [flat[i][1].float() + err_of[flat[i][0]] for i in grp]
-        s = _qparams(torch.stack([x.abs().max() for x in xf]))
-        for i, x in zip(grp, xf):
-            q, out_e[i] = _quantize(x, s)
+    for grp, mx in zip(grps, peak):
+        s = torch.clamp(mx, min=1e-12) / 127.0
+        for i in grp:
+            q, out_e[i] = _quantize(xf(i), s)
             out_g[i] = (q.float() * s).to(flat[i][1].dtype)
     return (pytree.tree_unflatten(out_g, spec),
             pytree.tree_unflatten(out_e, spec))
+
+
+def compressed_psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (default: the world)
+    in int8: the scale is the MAX over the ranks of each one's max|x| /
+    127, ``x`` is rounded (half to even, as ``jnp.round``) to int8 at it,
+    the int8 values are summed in int32, and the sum is dequantized to
+    ``x``'s dtype. The integer sum is exact, so every order of the
+    reduction gives the same bits."""
+    xf = x.float()
+    s = _qparams(xf)
+    dist.all_reduce(s, op=dist.ReduceOp.MAX, group=group)
+    q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+    total = q.to(torch.int32)
+    dist.all_reduce(total, group=group)
+    return (total.float() * s).to(x.dtype)
 
 
 def init_error_tree(params):

@@ -19,6 +19,18 @@ needs an explicit sum over the ``model`` group: ``contract`` all-reduces
 there, in place, and is the identity for every other axis (an axis that
 fell back to replication must NOT be summed, or the output is multiplied
 by the shard count).
+
+``TrainRules`` is its training variant, which autograd differentiates.
+A sharded sublayer's input is replicated and its output a per-rank partial
+sum, so two functions over the ``model`` group bracket it, for the axes in
+``contract_axes`` only: ``contract`` (the out- and down-projection) sums
+the partials in forward, out of place, and passes the gradient through
+unchanged in backward (the gradient downstream is the same on every rank);
+``enter`` (the sublayer's input) is the identity in forward and sums the
+gradient in backward (each rank's input gradient holds only its shard's
+share). ``torch.distributed.nn.functional.all_reduce`` at the contraction
+alone would sum the gradient in backward too, and hand each rank M times
+it.
 """
 from __future__ import annotations
 
@@ -122,6 +134,12 @@ class Rules:
         The identity; ``ManualRules`` sums over the model group."""
         return x
 
+    def enter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Hook at the input of a sublayer that contracts ``axis`` at its
+        end. The identity; ``TrainRules`` sums its gradient over the model
+        group."""
+        return x
+
 
 class ManualRules(Rules):
     """Per-rank rules: ``contract`` all-reduces ``x`` in place over
@@ -137,15 +155,74 @@ class ManualRules(Rules):
         self.group = group
         self.reduces = 0
 
+    def _check(self, axis: str) -> bool:
+        """Whether ``axis`` is summed (raises without a group)."""
+        if axis not in self.contract_axes:
+            return False
+        if self.group is None:
+            raise RuntimeError(
+                f"contracting {axis!r} needs the model axis's process "
+                f"group: make the mesh inside a torch.distributed world")
+        return True
+
     def contract(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        if axis in self.contract_axes:
-            if self.group is None:
-                raise RuntimeError(
-                    f"contracting {axis!r} needs the model axis's process "
-                    f"group: make the mesh inside a torch.distributed world")
+        if self._check(axis):
             dist.all_reduce(x, group=self.group)
             self.reduces += 1
         return x
+
+
+class _SumForward(torch.autograd.Function):
+    """All-reduce over ``rules.group`` in forward (into a new tensor),
+    the identity in backward."""
+
+    @staticmethod
+    def forward(ctx, x, rules):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=rules.group)
+        rules.reduces += 1
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """The identity in forward, an all-reduce of the gradient over
+    ``rules.group`` in backward."""
+
+    @staticmethod
+    def forward(ctx, x, rules):
+        ctx.rules = rules
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.rules.group)
+        ctx.rules.reduces += 1
+        return g, None
+
+
+class TrainRules(ManualRules):
+    """Per-rank rules of the training forward: ``contract`` and ``enter``
+    as the module doc says, for exactly the axes in ``contract_axes``.
+    ``reduces`` counts both kinds as they run: forward, recompute (remat)
+    and backward. ``sharded``: the paths (``tp.path_key``) of the
+    parameter leaves split over ``group``, whose gradients' squares and
+    compression scales the train step reduces over it."""
+
+    def __init__(self, contract_axes: Iterable[str] = (), group=None,
+                 sharded: FrozenSet = frozenset()):
+        super().__init__(contract_axes, group)
+        self.sharded = frozenset(sharded)
+
+    def contract(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        return _SumForward.apply(x, self) if self._check(axis) else x
+
+    def enter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        return _SumBackward.apply(x, self) if self._check(axis) else x
 
 
 NO_RULES = Rules(None)

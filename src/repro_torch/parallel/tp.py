@@ -29,6 +29,17 @@ The counterpart of the reference's ``put``: ``shard_params`` slices each
 sharded leaf to the rank's part (``.contiguous()``, so the full tensors
 can be freed), and ``paged_cache_init`` allocates the pools at the rank's
 KV/m heads.
+
+Training (``train_plan``) shards the same leaves, an encoder-decoder's
+cross-attention with the rest of attention, and hooks
+``sharding.TrainRules`` into the forward, whose sums autograd
+differentiates. A train state's moments and error tree shard like the
+parameters (``state_specs``); ``gather_tree`` puts the full leaves back
+together on one rank (a checkpoint in the single-device format), and
+``shard_tree`` cuts a full tree for any other model width (a restore).
+The embeddings, the head and MoE blocks replicate, where the reference's
+GSPMD rules shard "vocab" and "experts": the same numbers, more memory a
+rank.
 """
 from __future__ import annotations
 
@@ -37,16 +48,19 @@ import warnings
 from typing import Any, FrozenSet, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models import api
-from repro_torch.parallel.sharding import DEFAULT_TABLE, ManualRules, Rules
+from repro_torch.parallel.sharding import (DEFAULT_TABLE, ManualRules, Rules,
+                                           TrainRules)
 
 # logical axes that may shard over "model" under the serving TP plan
 _ATTN_AXES = ("heads", "kv_heads", "wheads", "wkv_heads")
 _FFN_AXES = ("ffn", "wff")
 # param subtrees whose weights take part in TP; everything outside
-# (embed / head / norms, "mixer", "moe", "cross") replicates
-_SHARDED_SUBTREES = ("attn", "mlp")
+# (embed / head / norms, "mixer", "moe") replicates. "cross" (an
+# encoder-decoder's cross-attention) contracts "heads" like "attn"
+_SHARDED_SUBTREES = ("attn", "cross", "mlp")
 
 
 def _tree_map(fn, *trees, path=()):
@@ -155,9 +169,85 @@ def shard_params(params, plan: TPPlan, rank: int):
     """Rank ``rank``'s parameters (``rank``: its place on the ``model``
     axis): each sharded leaf sliced to its part, a ``.contiguous()`` tensor
     on the leaf's device; replicated leaves are the caller's tensors."""
-    m = plan.model_shards
-    return _tree_map(lambda _, t, spec: _part(t, spec, m, rank), params,
-                     plan.param_specs(plan.cfg))
+    return shard_tree(params, plan.param_specs(plan.cfg), plan.model_shards,
+                      rank)
+
+
+def shard_tree(tree, specs, m: int, rank: int):
+    """``shard_params`` for any tree with a spec tree of its structure."""
+    return _tree_map(lambda _, t, spec: _part(t, spec, m, rank), tree, specs)
+
+
+def state_specs(plan: TPPlan, state) -> Any:
+    """A spec tree for a train state ({"params", "opt": {"m", "v", "step"}
+    [, "err"]}): the moments and the error tree shard like the
+    parameters, the step replicates."""
+    ps = plan.param_specs(plan.cfg)
+    out = {"params": ps, "opt": {"m": ps, "v": ps, "step": ()}}
+    if "err" in state:
+        out["err"] = ps
+    return out
+
+
+def sharded_paths(specs) -> FrozenSet[tuple]:
+    """The paths (``path_key``) of the leaves a spec tree splits."""
+    out: set = set()
+
+    def visit(path, spec):
+        if "model" in spec:
+            out.add(path)
+    _tree_map(visit, specs)
+    return frozenset(out)
+
+
+def path_key(path) -> tuple:
+    """A ``torch.utils._pytree`` key path as this module's paths spell it:
+    dict keys, and list indices as strings."""
+    return tuple(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
+
+
+def train_plan(cfg, mesh) -> TPPlan:
+    """``tp_plan``'s shards for the training forward, its rules a
+    ``TrainRules`` over the mesh's ``model`` group (the sums autograd
+    differentiates, and the sharded leaves the train step reduces
+    over)."""
+    plan = tp_plan(cfg, mesh)
+    rules = TrainRules(plan.rules.contract_axes, mesh.group,
+                       sharded_paths(plan.param_specs(cfg)))
+    return dataclasses.replace(plan, rules=rules)
+
+
+def gather_tree(tree, specs, group):
+    """The full leaves of a tree sharded over ``group`` (None: nothing is
+    split) as host tensors on the group's first rank, which gets the tree
+    (every other rank gets None): each sharded leaf's parts gathered in
+    rank order (host copies, so any backend that moves CPU tensors will
+    do) and joined along their sharded dim; replicated leaves copied.
+    Collective: every rank of the group calls it, with its own part."""
+    first = group is None or dist.get_rank(group) == 0
+    dst = 0 if group is None else dist.get_global_rank(group, 0)
+    m = 1 if group is None else dist.get_world_size(group)
+
+    def full(_, t, spec):
+        host = t.detach().cpu()
+        if "model" not in spec or m == 1:
+            return host if first else None
+        parts = [torch.empty_like(host) for _ in range(m)] if first else None
+        dist.gather(host, parts, dst=dst, group=group)
+        return torch.cat(parts, spec.index("model")) if first else None
+
+    out = _tree_map(full, tree, specs)
+    return out if first else None
+
+
+def full_like(tree, specs, m: int):
+    """Meta tensors of the full shapes and dtypes of a tree sharded ``m``
+    ways (``ckpt.restore``'s ``like``)."""
+    def meta(_, t, spec):
+        shape = tuple(n * m if i < len(spec) and spec[i] == "model" else n
+                      for i, n in enumerate(t.shape))
+        return torch.empty(shape, dtype=t.dtype, device="meta")
+    return _tree_map(meta, tree, specs)
 
 
 def paged_cache_init(plan: TPPlan, cfg, num_pages: int, page_size: int, *,

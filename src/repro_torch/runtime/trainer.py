@@ -14,9 +14,18 @@ port's counterpart of ``repro.runtime.trainer`` on one device.
 The training forward reaches no CUDA kernel: its attention is the plain
 ``layers.flash_attention``, as the reference trains through its jnp one
 (the kernels' wrappers raise if autograd would record through them).
-Model-parallel training (the reference's ``rules=`` with a mesh) is not
-here: the port's tensor-parallel sum is an in-place all-reduce, which
-autograd does not differentiate.
+
+Model parallelism (the reference's ``rules=`` with a mesh): one process a
+rank of a ``launch.mesh`` mesh's ``model`` axis. ``tp.train_plan`` decides
+what shards; each rank keeps its part of the state, and ``rules`` (a
+``sharding.TrainRules``) sums the sharded sublayers' outputs in forward
+and their inputs' gradients in backward. Two reductions of the step cross
+the shards: the gradient norm (the sharded leaves' squares summed over
+the group, each replicated leaf counted once) and each compression
+group's max-abs scale (a MAX over the group). On a mesh the trainer saves
+full leaves in the single-device format (one rank writes) and restores at
+any model width. Only the ``model`` axis is ported: a mesh with ``data``
+> 1 raises.
 """
 from __future__ import annotations
 
@@ -28,12 +37,15 @@ from typing import Any, Callable, Dict, Hashable, Optional
 import torch
 from torch.utils import _pytree as pytree
 
+import torch.distributed as dist
+
 from repro_torch import resolve_device
 from repro_torch.checkpoint import ckpt
 from repro_torch.models import api
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw
-from repro_torch.parallel import compression
+from repro_torch.parallel import compression, tp
+from repro_torch.parallel.sharding import NO_RULES, Rules
 
 
 # ---------------------------------------------------------------------------
@@ -41,15 +53,17 @@ from repro_torch.parallel import compression
 # ---------------------------------------------------------------------------
 
 
-def loss_and_grads(cfg, params, batch: Dict[str, torch.Tensor]):
+def loss_and_grads(cfg, params, batch: Dict[str, torch.Tensor], *,
+                   rules: Rules = NO_RULES):
     """(loss, aux, grads): ``api.loss_fn`` at ``params`` (left as they are)
     and its gradient with respect to every leaf, a tree like ``params`` in
-    their dtypes."""
+    their dtypes. On a rank (``rules`` a ``TrainRules``): the rank's part
+    of each sharded leaf's gradient, the whole of each replicated one."""
     flat, spec = pytree.tree_flatten(params)
     leaves = [t.detach().requires_grad_() for t in flat]
     with torch.enable_grad():
         loss, aux = api.loss_fn(cfg, pytree.tree_unflatten(leaves, spec),
-                                batch)
+                                batch, rules=rules)
         grads = torch.autograd.grad(loss, leaves)
     return (loss.detach(), {k: v.detach() for k, v in aux.items()},
             pytree.tree_unflatten(list(grads), spec))
@@ -79,7 +93,8 @@ def stack_group(cfg) -> Callable[[tuple], Hashable]:
 
 
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
-                    grad_accum: int = 1, compress_grads: bool = False):
+                    rules: Rules = NO_RULES, grad_accum: int = 1,
+                    compress_grads: bool = False):
     """Returns step(state, batch) -> (state, metrics). state: {"params",
     "opt" [, "err"]}, updated in place; batch: {"tokens", "labels", ...}
     tensors on the state's device. With ``grad_accum`` > 1 the batch splits
@@ -87,14 +102,24 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
     summed in fp32 and divided, and whose losses are averaged. With
     ``compress_grads`` the gradients go through int8 with error feedback
     (``state["err"]``), a scale per reference leaf (``stack_group``).
+    ``rules``: a rank's ``TrainRules`` (``tp.train_plan``), its state the
+    rank's part (``init_state(plan=)``); the whole batch on every rank.
     metrics: {"loss", "grad_norm", "lr" [, "ce" when grad_accum == 1]},
-    0-dim tensors; nothing syncs with the host."""
+    0-dim tensors, the same on every rank; nothing syncs with the host."""
     group = stack_group(cfg)
+    split = getattr(rules, "sharded", frozenset())
+    pg = getattr(rules, "group", None)
+
+    def sharded(path) -> bool:
+        return tp.path_key(path) in split
+
+    reduce = dict(sharded=sharded, process_group=pg) if split else {}
 
     def step(state, batch):
         params = state["params"]
         if grad_accum == 1:
-            loss, aux, grads = loss_and_grads(cfg, params, batch)
+            loss, aux, grads = loss_and_grads(cfg, params, batch,
+                                              rules=rules)
         else:
             micro = {k: v.reshape((grad_accum, v.shape[0] // grad_accum)
                                   + tuple(v.shape[1:]))
@@ -106,7 +131,8 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
                                device=micro["tokens"].device)
             for i in range(grad_accum):
                 li, _, gi = loss_and_grads(
-                    cfg, params, {k: v[i] for k, v in micro.items()})
+                    cfg, params, {k: v[i] for k, v in micro.items()},
+                    rules=rules)
                 pytree.tree_map(torch.Tensor.add_, grads, gi)
                 loss = loss + li
             grads = pytree.tree_map(lambda g: g / grad_accum, grads)
@@ -114,9 +140,9 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
             aux = {}
         if compress_grads:
             grads, state["err"] = compression.compress_tree(
-                grads, state["err"], group)
-        metrics = {"loss": loss,
-                   **adamw.apply(opt_cfg, grads, state["opt"], params)}
+                grads, state["err"], group, **reduce)
+        metrics = {"loss": loss, **adamw.apply(opt_cfg, grads, state["opt"],
+                                               params, **reduce)}
         if "ce" in aux:
             metrics["ce"] = aux["ce"]
         return state, metrics
@@ -125,12 +151,18 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
 
 
 def init_state(cfg, opt_cfg: adamw.AdamWConfig, generator: torch.Generator,
-               *, device="cuda", compress_grads: bool = False
+               *, device="cuda", compress_grads: bool = False,
+               plan: Optional[tp.TPPlan] = None, rank: int = 0
                ) -> Dict[str, Any]:
     """{"params": ``api.init_params`` drawn on ``device`` from
     ``generator`` (which lives there), "opt": ``adamw.init`` [, "err": the
-    compression's zero error tree]}."""
+    compression's zero error tree]}. With a ``plan``: rank ``rank``'s part
+    (its place on the ``model`` axis), cut from the whole parameters that
+    every rank draws alike; the moments and error tree at the part's
+    shapes."""
     params = api.init_params(cfg, generator, device=device)
+    if plan is not None:
+        params = tp.shard_params(params, plan, rank)
     state = {"params": params, "opt": adamw.init(opt_cfg, params)}
     if compress_grads:
         state["err"] = compression.init_error_tree(params)
@@ -168,36 +200,68 @@ class Trainer:
     and at the end of ``run`` (``ckpt.AsyncCheckpointer``), resuming from
     the newest one under ``ckpt_dir`` (state, step and data cursor). The
     state starts from ``init_state`` with a generator seeded ``seed`` on
-    ``device`` (CUDA unless the caller asks for the CPU)."""
+    ``device`` (CUDA unless the caller asks for the CPU).
+
+    ``mesh`` (``launch.mesh.make_host_mesh(model=M)``, made inside the
+    world, ``data`` 1): this rank's part of a model-parallel trainer on
+    ``mesh.device`` (``tp.train_plan``). Every rank reads the same batches
+    and ``ckpt_dir``; a checkpoint holds the full leaves (the single-device
+    format, written by the group's first rank), and a resume at any model
+    width cuts its part from them."""
 
     def __init__(self, cfg, opt_cfg, dataset, *,
                  ckpt_dir: Optional[str] = None, save_every: int = 50,
                  grad_accum: int = 1,
                  compress_grads: bool = False, seed: int = 0,
                  log_every: int = 10, log_fn: Callable[[str], None] = print,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.cfg, self.opt_cfg, self.dataset = cfg, opt_cfg, dataset
+        self.mesh = mesh
+        self.plan = None
+        if mesh is not None:
+            if mesh.shape.get("data", 1) != 1:
+                raise ValueError(
+                    f"a mesh of {mesh.shape}: only the model axis is "
+                    f"ported (data-parallel training is not)")
+            self.plan = tp.train_plan(cfg, mesh)
+            device = mesh.device
         self.device = resolve_device(device)
+        rules = NO_RULES if self.plan is None else self.plan.rules
         self.ckpt_dir, self.save_every = ckpt_dir, save_every
         self.log_every, self.log = log_every, log_fn
         self.monitor = StragglerMonitor()
         self.checkpointer = ckpt.AsyncCheckpointer()
-        self.step_fn = make_train_step(cfg, opt_cfg, grad_accum=grad_accum,
+        self.step_fn = make_train_step(cfg, opt_cfg, rules=rules,
+                                       grad_accum=grad_accum,
                                        compress_grads=compress_grads)
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        self.state = init_state(cfg, opt_cfg, gen, device=self.device,
-                                compress_grads=compress_grads)
+        self.state = init_state(
+            cfg, opt_cfg, gen, device=self.device,
+            compress_grads=compress_grads, plan=self.plan,
+            rank=0 if mesh is None else mesh.model_rank)
         self.step = 0
         self.history: list = []
         if ckpt_dir:
             self._maybe_resume()
+
+    def _specs(self):
+        return tp.state_specs(self.plan, self.state)
 
     # -- fault tolerance -------------------------------------------------
     def _maybe_resume(self):
         path = ckpt.latest_step_dir(self.ckpt_dir)
         if path is None:
             return
-        self.state, extra = ckpt.restore(path, self.state, device=self.device)
+        if self.plan is None:
+            self.state, extra = ckpt.restore(path, self.state,
+                                             device=self.device)
+        else:
+            m, specs = self.plan.model_shards, self._specs()
+            full, extra = ckpt.restore(path,
+                                       tp.full_like(self.state, specs, m))
+            self.state = pytree.tree_map(
+                lambda t: t.to(self.device),
+                tp.shard_tree(full, specs, m, self.mesh.model_rank))
         self.step = int(extra["step"])
         self.dataset.load_state_dict(extra["data"])
         self.log(f"[trainer] resumed from {path} at step {self.step}")
@@ -206,8 +270,14 @@ class Trainer:
         if not self.ckpt_dir:
             return
         path = os.path.join(self.ckpt_dir, f"step_{self.step:08d}")
+        state = self.state
+        if self.plan is not None:
+            state = tp.gather_tree(self.state, self._specs(),
+                                   self.plan.rules.group)
+            if state is None:           # another rank of the group writes
+                return
         self.checkpointer.save(
-            path, self.state,
+            path, state,
             extra={"step": self.step, "data": self.dataset.state_dict()})
 
     # -- loop --------------------------------------------------------------
@@ -238,4 +308,7 @@ class Trainer:
         if self.ckpt_dir:
             self.save()
             self.checkpointer.wait()
+            if self.mesh is not None and self.plan.rules.group is not None:
+                # the writer is done before any rank may read the directory
+                dist.barrier(group=self.plan.rules.group)
         return last_metrics

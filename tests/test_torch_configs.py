@@ -72,6 +72,7 @@ def test_import_loads_no_jax_and_no_repro_module():
         "import repro_torch.launch.mesh, repro_torch.runtime.router\n"
         "import repro_torch.data.synthetic, repro_torch.optim.adamw\n"
         "import repro_torch.parallel.compression\n"
+        "import repro_torch.parallel.pipeline\n"
         "import repro_torch.runtime.trainer, repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"

@@ -1754,3 +1754,91 @@ def test_cuda_wrappers_refuse_grad(cuda, name):
     torch.cuda.synchronize()
     assert ops.launch_counts() != before
 
+
+
+# ---------------------------------------------------------------------------
+# a world of 1 over NCCL whose plan contracts anyway (chip_smoke.py phases
+# 13 and 15): a sum over one rank is a copy, so the collectives run and
+# the numbers must not move
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def nccl_world(cuda, tmp_path):
+    """This process as a world of 1 (``cpu:gloo,cuda:nccl``, as
+    ``launch.mesh.run_world`` makes it), torn down after the test."""
+    import torch.distributed as dist
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method=f"file://{tmp_path / 'rdv'}",
+                            rank=0, world_size=1)
+    try:
+        yield dist
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_cuda_mesh_serving_nccl_contract_equals_plain(nccl_world):
+    """The paged engine on a mesh of 1 whose serving ``ManualRules`` sums
+    "heads" and "ffn" over the world: its decode graph is captured with
+    the NCCL all-reduces inside (after an eager one), and its greedy
+    tokens equal the plain engine's (fp32 SMOKE, fp32 KV cache)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.sharding import ManualRules
+    cfg = dataclasses.replace(get_smoke_config("qwen2.5-3b"),
+                              dtype="float32", kv_cache_dtype="float32")
+    params = api.init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(0), device="cuda")
+    kw = dict(slots=3, max_len=64, page_size=8, device="cuda")
+
+    def serve(eng):
+        reqs = [Request(rid=i, prompt=[1 + i, 7, 3 + i, 9, 2], max_new=8)
+                for i in range(4)]
+        eng.run_to_completion(reqs)
+        return [r.generated for r in reqs]
+
+    want = serve(PagedServingEngine(cfg, params, **kw))
+    rules = ManualRules(("heads", "ffn"), nccl_world.group.WORLD)
+    eng = PagedServingEngine(cfg, params,
+                             mesh=make_host_mesh(1, devices=["cuda:0"]),
+                             **kw)
+    eng.tp = dataclasses.replace(eng.tp, rules=rules)
+    eng._model_rules = rules
+    assert not eng._eager()
+    assert serve(eng) == want
+    assert eng.step_traces == 1 and rules.reduces > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compress", [False, True])
+def test_cuda_model_parallel_step_world_of_one_equals_plain(nccl_world,
+                                                            compress):
+    """``make_train_step(rules=)`` with ``TrainRules`` that sum "heads" and
+    "ffn" over a world of 1 over NCCL: 2 fp32 SMOKE steps from the plain
+    step's state give its losses and parameters bit for bit, with 5
+    all-reduces a layer a step (2 forward, 2 backward, the attention's in
+    the recompute)."""
+    from repro_torch.parallel.sharding import TrainRules
+    tree = torch.utils._pytree
+    cfg = dataclasses.replace(get_smoke_config("qwen2.5-3b"),
+                              dtype="float32")
+    opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=30)
+    plain = trainer.init_state(cfg, opt, torch.Generator(device="cuda")
+                               .manual_seed(0), device="cuda",
+                               compress_grads=compress)
+    state = tree.tree_map(torch.clone, plain)
+    rules = TrainRules(("heads", "ffn"), nccl_world.group.WORLD)
+    ds = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                     global_batch=4))
+    steps = [trainer.make_train_step(cfg, opt, compress_grads=compress),
+             trainer.make_train_step(cfg, opt, rules=rules,
+                                     compress_grads=compress)]
+    for _ in range(2):
+        b = {k: torch.from_numpy(v).cuda()
+             for k, v in ds.next_batch().items()}
+        plain, mp = steps[0](plain, b)
+        state, mm = steps[1](state, b)
+        assert mm["loss"].item() == mp["loss"].item()
+    for a, c in zip(tree.tree_leaves(state), tree.tree_leaves(plain)):
+        assert torch.equal(a, c)
+    assert rules.reduces == 2 * cfg.num_layers * 5

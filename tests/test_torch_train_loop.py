@@ -244,9 +244,11 @@ def test_launch_train_refuses_a_missing_card_and_model_parallel():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.main(["--arch", "qwen2.5-3b", "--smoke", "--steps",
                            "1"])
-    with pytest.raises(NotImplementedError, match="3b"):
+    # --model-parallel runs (tests/test_torch_train_parallel.py), and on
+    # CUDA needs the card as much as one rank does
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         launch_train.main(["--arch", "qwen2.5-3b", "--smoke",
-                           "--model-parallel", "2", "--device", "cpu"])
+                           "--model-parallel", "2"])
 
 
 def test_trainer_logs_and_state_dtypes():

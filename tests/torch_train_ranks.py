@@ -1,0 +1,280 @@
+"""Rank-side scenarios of tests/test_torch_train_parallel.py: model-parallel
+training of the port on the CPU, in spawned gloo worlds
+(``repro_torch.launch.mesh.run_world``). Imports neither jax nor the JAX
+package: the ranks read their inputs (the JAX package's initial states
+moved over by ``repro_torch.convert``, the batches, the pipeline's
+inputs) from a ``torch.save`` file.
+
+``run_scenarios(rank, inputs_file, ckpt_dir, names)`` runs each named
+scenario in the world and returns {name: result or {"error": traceback}},
+tensors as numpy arrays.
+A sharded leaf comes back as the rank's part with its spec, or gathered
+on the group's first rank (``tp.gather_tree``), which the test process
+compares with the whole.
+"""
+import dataclasses
+import os
+import sys
+import traceback
+import warnings
+
+import torch
+import torch.distributed as dist
+from torch.utils import _pytree as pytree
+
+from repro_torch.checkpoint import ckpt
+from repro_torch.configs import get_smoke_config
+from repro_torch.data.synthetic import DataConfig, SyntheticDataset
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import api
+from repro_torch.models import transformer as tfm
+from repro_torch.optim import adamw
+from repro_torch.parallel import compression, pipeline, tp
+from repro_torch.parallel.sharding import NO_RULES, TrainRules
+from repro_torch.runtime import trainer
+
+QWEN = "qwen2.5-3b"
+# the reference launcher's optimizer at --steps 30
+OPT = dict(lr=3e-3, warmup_steps=5, total_steps=30)
+# (arch, grad_accum, compress_grads) of each training case, by name
+TRAIN_CASES = {
+    "plain": (QWEN, 1, False),
+    "accum4": (QWEN, 4, False),
+    "compress": (QWEN, 1, True),
+    "rgemma": ("recurrentgemma-9b", 1, False),
+    "dbrx": ("dbrx-132b", 1, False),
+}
+STEPS = 3
+RESUME_AT, RESUME_STEPS = 4, 8        # the cross-mesh resume's schedule
+
+
+def cfg_of(arch, **over):
+    return dataclasses.replace(get_smoke_config(arch), dtype="float32",
+                               **over)
+
+
+# ---------------------------------------------------------------------------
+# one block, whole against shard by shard
+# ---------------------------------------------------------------------------
+
+# (config, block kind): attention + MLP with both sharded at worlds 2 and
+# 4 (qwen2.5-3b SMOKE at 4 KV heads), and seamless's decoder block, whose
+# cross-attention takes the encoder output as a second input
+BLOCKS = {
+    "attn_mlp": (QWEN, dict(kv_heads=4), "attn_mlp"),
+    "dec": ("seamless-m4t-large-v2", {}, "dec"),
+}
+
+
+class NaiveRules(TrainRules):
+    """The contraction through ``torch.distributed.nn.functional.
+    all_reduce``, no entry hook: its backward sums the gradient too."""
+
+    def contract(self, x, axis):
+        from torch.distributed.nn.functional import all_reduce
+        return all_reduce(x, group=self.group) if self._check(axis) else x
+
+    def enter(self, x, axis):
+        return x
+
+
+def _block_grads(cfg, kind, p, inputs, rules):
+    """(output, grads of every leaf of ``p``, grads of ``inputs``) of
+    ``block_train`` under a fixed linear read-out of its output."""
+    leaves, spec = pytree.tree_flatten(p)
+    leaves = [t.detach().requires_grad_() for t in leaves]
+    ins = [t.detach().requires_grad_() for t in inputs]
+    with torch.enable_grad():
+        y, _ = tfm.block_train(cfg, kind, pytree.tree_unflatten(leaves, spec),
+                               ins[0], ins[1] if len(ins) > 1 else None,
+                               rules)
+        w = torch.linspace(-1.0, 1.0, y.numel()).reshape(y.shape)
+        g = torch.autograd.grad((y * w).sum(), leaves + ins)
+    return (y.detach(), pytree.tree_unflatten(list(g[:len(leaves)]), spec),
+            list(g[len(leaves):]))
+
+
+def block(mesh, name):
+    """One block whole (no rules) and as this rank's shard (``TrainRules``
+    of ``tp.train_plan``, and ``NaiveRules`` for the control): outputs,
+    the rank's gradients (its part of each sharded leaf) and the specs."""
+    arch, over, kind = BLOCKS[name]
+    cfg = cfg_of(arch, **over)
+    params = api.init_params(cfg, torch.Generator().manual_seed(3),
+                             device="cpu")
+    j = tfm.layer_kinds(cfg).index(kind)
+    p = params["blocks"][j]
+    gen = torch.Generator().manual_seed(4)
+    inputs = [torch.randn(2, 8, cfg.d_model, generator=gen)]
+    if kind == "dec":
+        inputs.append(torch.randn(2, 6, cfg.d_model, generator=gen))
+    plan = tp.train_plan(cfg, mesh)
+    specs = plan.param_specs(cfg)["blocks"][j]
+    part = tp.shard_tree(p, specs, plan.model_shards, mesh.model_rank)
+    out = {"whole": _block_grads(cfg, kind, p, inputs, NO_RULES),
+           "shard": _block_grads(cfg, kind, part, inputs, plan.rules),
+           "specs": specs, "contract": sorted(plan.rules.contract_axes),
+           "reduces": plan.rules.reduces}
+    naive = NaiveRules(plan.rules.contract_axes, plan.rules.group)
+    out["naive"] = _block_grads(cfg, kind, part, inputs, naive)
+    return out
+
+
+def block_attn_mlp(mesh, inputs, ckpt_dir):
+    return block(mesh, "attn_mlp")
+
+
+def block_dec(mesh, inputs, ckpt_dir):
+    return block(mesh, "dec")
+
+
+# ---------------------------------------------------------------------------
+# three train steps from the JAX package's initial state
+# ---------------------------------------------------------------------------
+
+
+def train_case(mesh, inputs, name):
+    """``STEPS`` model-parallel steps of case ``name`` from the moved-over
+    JAX state: each step's metrics, the all-reduces of the first step,
+    the plan, and the final parameters gathered on the first rank."""
+    arch, accum, compress = TRAIN_CASES[name]
+    cfg = cfg_of(arch)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # the fallbacks warn
+        plan = tp.train_plan(cfg, mesh)
+    state = inputs["states"][name]
+    specs = tp.state_specs(plan, state)
+    state = tp.shard_tree(state, specs, plan.model_shards, mesh.model_rank)
+    step = trainer.make_train_step(cfg, adamw.AdamWConfig(**OPT),
+                                   rules=plan.rules, grad_accum=accum,
+                                   compress_grads=compress)
+    metrics, reduces = [], []
+    for b in inputs["batches"][name]:
+        r0 = plan.rules.reduces
+        state, m = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+        reduces.append(plan.rules.reduces - r0)
+        metrics.append({k: v.item() for k, v in m.items()})
+    return {"metrics": metrics, "reduces": reduces,
+            "contract": sorted(plan.rules.contract_axes),
+            "n_sharded": len(plan.rules.sharded),
+            "params": tp.gather_tree(state["params"], specs["params"],
+                                     plan.rules.group)}
+
+
+def _train(name):
+    def scenario(mesh, inputs, ckpt_dir):
+        return train_case(mesh, inputs, name)
+    scenario.__name__ = f"train_{name}"
+    return scenario
+
+
+# ---------------------------------------------------------------------------
+# compressed_psum, gpipe
+# ---------------------------------------------------------------------------
+
+
+def psum(mesh, inputs, ckpt_dir):
+    """``compressed_psum`` of this rank's row of ``inputs["psum"]``."""
+    return compression.compressed_psum(
+        inputs["psum"][dist.get_rank()].clone())
+
+
+def gpipe(mesh, inputs, ckpt_dir):
+    """The pipeline of ``inputs["gpipe"]`` (a stage a rank): the outputs
+    on this rank."""
+    pp = inputs["gpipe"]
+    r = dist.get_rank()
+
+    def stage_fn(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    return pipeline.gpipe(stage_fn)({"w": pp["w"][r], "b": pp["b"][r]},
+                                    pp["xs"])
+
+
+# ---------------------------------------------------------------------------
+# checkpoints across meshes
+# ---------------------------------------------------------------------------
+
+
+def _trainer(mesh, ckpt_dir, log):
+    cfg = cfg_of(QWEN)
+    ds = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=16,
+                                     global_batch=8))
+    return trainer.Trainer(cfg, adamw.AdamWConfig(**OPT), ds,
+                           ckpt_dir=ckpt_dir, save_every=0, log_every=1,
+                           log_fn=log.append, device="cpu", mesh=mesh)
+
+
+def _losses(tr):
+    return [h["loss"] for h in tr.history]
+
+
+def ckpt_save(mesh, inputs, ckpt_dir):
+    """At this world: a bf16 (8, 8) leaf split over its columns saved
+    through ``gather_tree`` (one rank writes); a trainer run of
+    ``RESUME_AT`` steps that saves at its end, and an uninterrupted run of
+    ``RESUME_STEPS`` without a checkpoint directory."""
+    w = torch.arange(64.0, dtype=torch.bfloat16).reshape(8, 8)
+    m = mesh.shape["model"]
+    spec = {"w": (None, "model")}
+    full = tp.gather_tree(tp.shard_tree({"w": w}, spec, m, mesh.model_rank),
+                          spec, mesh.group)
+    if full is not None:
+        ckpt.save(os.path.join(ckpt_dir, "elastic", "step_00000001"), full,
+                  extra={"step": 1})
+    dist.barrier()
+    log = []
+    tr = _trainer(mesh, os.path.join(ckpt_dir, "train"), log)
+    tr.run(RESUME_AT)
+    whole = _trainer(mesh, None, [])
+    whole.run(RESUME_STEPS)
+    return {"cut": _losses(tr), "whole": _losses(whole), "log": log}
+
+
+def ckpt_restore(mesh, inputs, ckpt_dir):
+    """At this world: the bf16 leaf restored into an fp32 ``like`` and cut
+    to this rank's part; the trainer resumed from the saved run and run to
+    ``RESUME_STEPS``."""
+    m = mesh.shape["model"]
+    spec = {"w": (None, "model")}
+    full, extra = ckpt.restore(
+        os.path.join(ckpt_dir, "elastic", "step_00000001"),
+        {"w": torch.zeros(8, 8)})
+    log = []
+    tr = _trainer(mesh, os.path.join(ckpt_dir, "train"), log)
+    resumed_at = tr.step
+    tr.run(RESUME_STEPS - RESUME_AT)
+    return {"part": tp.shard_tree(full, spec, m, mesh.model_rank)["w"],
+            "extra": extra, "resumed_at": resumed_at,
+            "data_step": tr.dataset.step, "losses": _losses(tr), "log": log,
+            "contract": sorted(tr.plan.rules.contract_axes)}
+
+
+SCENARIOS = {f.__name__: f for f in (
+    block_attn_mlp, block_dec, psum, gpipe, ckpt_save, ckpt_restore,
+    *(_train(n) for n in TRAIN_CASES))}
+
+
+def run_scenarios(rank, inputs_file, ckpt_dir, names):
+    """A rank's results, {name: result or {"error": traceback}}, plus
+    "jax_loaded": whether anything imported jax or the JAX package."""
+    inputs = torch.load(inputs_file, weights_only=False)
+    world = dist.get_world_size()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        mesh = make_host_mesh(world, devices=["cpu"] * world)
+    out = {}
+    for name in names:
+        try:
+            # as numpy: a tensor would go back through shared memory, which
+            # needs this process alive after it returns
+            out[name] = pytree.tree_map(
+                lambda t: t.numpy() if isinstance(t, torch.Tensor) else t,
+                SCENARIOS[name](mesh, inputs, ckpt_dir))
+        except Exception:       # reported per scenario; the test fails it
+            out[name] = {"error": traceback.format_exc()}
+    out["jax_loaded"] = sorted(
+        m for m in sys.modules if m in ("jax", "repro")
+        or m.startswith(("jax.", "repro.")))
+    return out
