@@ -201,6 +201,17 @@ Phases, each failing loudly (non-zero exit, no result line):
    tests' bounds, every rank's losses equal; ``compressed_psum`` over the
    pair equal to the plain formula bit for bit; ``gpipe`` at 2 stages on
    CUDA tensors, or gloo's refusal, logged. No kernel launches in either.
+16. the dry-run (fake tensors on the CPU device, the H100 roofline): the
+   CLI ``python -m repro_torch.launch.dryrun --arch qwen2.5-3b`` (every
+   shape, pod16x16, full width, train_4k extrapolated from 1 and 2
+   layers; each kernel seam counted as its kernel) in a process of its
+   own, every cell ok, its prefill and decode cells' dot FLOPs equal to
+   the same cells traced in this process; qwen2.5-3b SMOKE at B 1, S 1024
+   with the seams' plain versions, dot FLOPs equal to the JAX dry-run's
+   (``SMOKE_DOT_FLOPS``); the dry-run of phase 14's step beside its
+   measured ms, peak memory and 6 N T, and of a dense decode cell at
+   phase 6's batch and lane length beside that step timed here (eager
+   and as a graph replay, lanes full).
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary (the
 seven TPU kernels' counterparts, the sampler's noise kernel, mha and
@@ -215,9 +226,13 @@ the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -255,6 +270,15 @@ from repro_torch.runtime.trace import Tracer  # noqa: E402
 
 SEED = 0
 PHASE6 = {}         # phase 6's serve tok/s, which phase 12 compares with
+PHASE14 = {}        # phase 14's full-width train step, for phase 16
+
+# phase 16: the JAX dry-run's matmul FLOPs (repro.analysis.hlo_cost of the
+# reference's compiled step) for qwen2.5-3b SMOKE at B 1, S 1024, which the
+# port's fake-tensor trace must equal on this machine's torch;
+# tests/test_torch_dryrun_flops.py holds these numbers to the JAX package
+SMOKE_DOT_FLOPS = {"qwen2.5-3b/prefill": 687898624,
+                   "qwen2.5-3b/decode": 704512,
+                   "qwen2.5-3b/train": 2852126720}
 
 # serving configuration of phase 6 (and the shapes phase 4 times at)
 SLOTS, MAX_LEN, PAGE, MAX_NEW, N_REQ = 8, 1024, 16, 32, 16
@@ -1593,8 +1617,8 @@ def serve_configs() -> None:
 
 
 def run_serve_bench() -> None:
-    """``launch/serve_bench.py --full`` in a process of its own: its CSV
-    on lines of their own, gated by ``launch/check_csv.py`` (the three
+    """``launch/serve_bench.py --full`` (``bench_csv``): its CSV on lines
+    of their own, gated by ``launch/check_csv.py`` (the three
     scenarios the port lacks are the only violations allowed)."""
     from repro_torch.launch import check_csv
     t0 = time.perf_counter()
@@ -1615,16 +1639,18 @@ def run_serve_bench() -> None:
 
 
 def bench_csv(args) -> str:
-    """``launch/serve_bench.py`` with ``args`` in a process of its own;
-    its CSV."""
-    r = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.serve_bench", *args],
-        cwd=ROOT, capture_output=True, text=True, timeout=600,
-        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-    if r.returncode != 0:
-        fail(f"serve_bench {' '.join(args)} exited {r.returncode}:\n"
-             f"{r.stderr[-3000:]}")
-    return r.stdout.strip()
+    """``launch/serve_bench.py`` with ``args`` in this process: its CSV
+    (what its ``main`` prints). A process of its own for each run cost its
+    start, CUDA context and kernel loads: 161.7 of phase 8's 179.1 s on an
+    H100 for its six runs. ``main`` sets no process-wide state but the
+    default tracer, which it puts back."""
+    from repro_torch.launch import serve_bench
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        serve_bench.main(list(args))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return buf.getvalue().strip()
 
 
 # ---------------------------------------------------------------------------
@@ -2000,8 +2026,9 @@ BENCH_SCENARIOS = ("shared-prefix", "speculative", "sampling")
 
 
 def run_serve_bench_policies() -> None:
-    """``serve_bench`` with the three scenarios this slice ports, each in a
-    process of its own, their CSVs as one sectioned file: on the fp32
+    """``serve_bench`` with the three scenarios this slice ports, all six
+    runs in this process (``bench_csv``), their CSVs as one sectioned
+    file: on the fp32
     4-layer cut, gated by ``launch/check_csv.py`` (``tokens_match_greedy``
     must pass; only the columns of the scenarios not in these CSVs may
     be missing); then at bf16 on 6 of 36 layers for their times, where
@@ -4591,6 +4618,8 @@ def train_full_width():
     ms = 1e3 * float(np.mean(times))
     tokens = TRAIN_B * TRAIN_S
     flops = 6 * cfg.param_count() * tokens
+    PHASE14.update(ms=[1e3 * t for t in times], peak=peak, static=static,
+                   flops=flops, busy=busy)
     log(f"train full width [qwen2.5-3b, {cfg.num_layers} layers, d "
         f"{cfg.d_model}, bf16 params, fp32 moments, remat full, {TRAIN_B} x "
         f"{TRAIN_S} tokens]: warm-up step "
@@ -5062,6 +5091,184 @@ def train_gloo_pair() -> None:
         f"{time.perf_counter() - t0:.1f} s with spawning")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the dry-run (fake-tensor traces, the H100 roofline)
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARCH = "qwen2.5-3b"
+DRYRUN_CROSS = ("prefill_32k", "decode_32k")   # traced again in-process
+
+
+def start_dryrun_cli(out: Path):
+    """``python -m repro_torch.launch.dryrun --arch qwen2.5-3b`` (every
+    shape, pod16x16, full width; train_4k by the period extrapolation;
+    each cell in a process of its own) in a process of its own, started
+    now: it runs on the host's cores while this process traces the
+    phase's other cells."""
+    shutil.rmtree(out, ignore_errors=True)
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         DRYRUN_ARCH, "--out", str(out)], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+
+
+def dryrun_smoke_flops() -> None:
+    """qwen2.5-3b SMOKE at B 1, S 1024 on one device, traced as the CPU
+    tests trace it (every kernel seam through its plain version, as XLA's
+    attention stands in for the Pallas kernels in the JAX dry-run on a
+    CPU host): each step's matmul FLOPs must equal the JAX dry-run's
+    (``SMOKE_DOT_FLOPS``) on this machine's torch."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    for key, want in SMOKE_DOT_FLOPS.items():
+        arch, kind = key.split("/")
+        tr, _ = dryrun.trace_cell(get_smoke_config(arch),
+                                  ShapeConfig("smoke", 1024, 1, kind),
+                                  make_host_mesh(1, devices=["cpu"]),
+                                  seams="plain")
+        if tr.cost.dot_flops != want:
+            fail(f"dryrun {key}: dot FLOPs {tr.cost.dot_flops:.0f}, the JAX "
+                 f"dry-run's {want}")
+    log(f"dryrun: SMOKE {', '.join(SMOKE_DOT_FLOPS)} dot FLOPs equal the "
+        f"JAX dry-run's")
+
+
+def dense_decode_ms(cfg) -> tuple:
+    """The dry-run's decode cell as the card runs it: ``api.decode_step``
+    (qwen2.5-3b whole, bf16, random weights) at phase 6's batch on dense
+    ``cache_init`` lanes of its length, every lane full (pos MAX_LEN - 1,
+    so the mha kernel reads each slot's whole lane, as the dry-run counts
+    a decode cell). (CUDA-event ms an eager call, ms a replay of the step
+    captured as a CUDA graph: the device's time without the host's launch
+    gaps, peak bytes allocated during the replays)."""
+    params = api.init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(SEED), device="cuda")
+    cache = api.cache_init(cfg, SLOTS, MAX_LEN, device="cuda")
+    tokens = torch.ones((SLOTS, 1), dtype=torch.int64, device="cuda")
+    pos = torch.full((SLOTS,), MAX_LEN - 1, dtype=torch.int32,
+                     device="cuda")
+
+    def step():
+        api.decode_step(cfg, params, cache, tokens, pos)
+    with torch.no_grad():
+        eager = cuda_ms(step, iters=5)
+        torch.cuda.reset_peak_memory_stats()
+        graph = graph_ms(step)
+    peak = torch.cuda.max_memory_allocated()
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return eager, graph, peak
+
+
+def dryrun_beside_measured() -> None:
+    """The dry-run of phase 14's own step (qwen2.5-3b whole, bf16, remat
+    full, 8 x 1024 tokens, one device) beside what phase 14 measured, and
+    of a dense decode cell at phase 6's batch and lane length beside that
+    step timed here (``dense_decode_ms``). Phase 6's own decode step
+    reads pages through the paged kernel, other work: it is not
+    compared."""
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    cfg = get_config(DRYRUN_ARCH)
+    one = make_host_mesh(1, devices=["cpu"])
+    eager, graph, peak = dense_decode_ms(cfg)
+    for shape in (ShapeConfig("phase14", TRAIN_S, TRAIN_B, "train"),
+                  ShapeConfig("phase6", MAX_LEN, SLOTS, "decode")):
+        t0 = time.perf_counter()
+        tr, depths = dryrun.trace_cell(cfg, shape, one)
+        r = rl.analyze(tr.cost, chips=1,
+                       model_flops=rl.model_flops_for(cfg, shape))
+        mem = tr.memory["total_bytes_per_device"]
+        head = (f"dryrun beside phase {shape.name[5:]} [{DRYRUN_ARCH}, "
+                f"{shape.kind} B{shape.global_batch} S{shape.seq_len}, one "
+                f"device, depths traced {depths}, "
+                f"{time.perf_counter() - t0:.1f} s]: predicted t_bound "
+                f"{1e3 * r.t_bound:.2f} ms ({r.bottleneck}; compute "
+                f"{1e3 * r.t_compute:.2f}, memory {1e3 * r.t_memory:.2f} ms), "
+                f"memory {mem / 2**30:.2f} GiB (arguments "
+                f"{tr.memory['argument_bytes'] / 2**30:.2f}, temp "
+                f"{tr.memory['temp_bytes'] / 2**30:.2f}), model FLOPs "
+                f"{r.model_flops:.4e}, op FLOPs {r.flops:.4e}, dot FLOPs "
+                f"{tr.cost.dot_flops:.4e}, bytes {r.bytes_hbm:.4e}")
+        if shape.kind == "train":
+            ms = PHASE14["ms"]
+            log(f"{head}; measured {min(ms):.1f}-{max(ms):.1f} ms a step "
+                f"(t_bound / step {1e3 * r.t_bound / max(ms):.1%}-"
+                f"{1e3 * r.t_bound / min(ms):.1%}), peak "
+                f"{PHASE14['peak'] / 2**30:.2f} GiB (predicted / measured "
+                f"{mem / PHASE14['peak']:.3f}), 6 N T {PHASE14['flops']:.4e} "
+                f"(model FLOPs / 6 N T {r.model_flops / PHASE14['flops']:.4f})")
+        else:
+            log(f"{head}; measured (the dense decode step, lanes full): "
+                f"{graph:.3f} ms a graph replay (t_bound / replay "
+                f"{1e3 * r.t_bound / graph:.1%}), {eager:.3f} ms an eager "
+                f"call, peak allocated {peak / 2**30:.2f} GiB (predicted / "
+                f"measured {mem / peak:.3f})")
+
+
+def finish_dryrun_cli(proc, out: Path) -> None:
+    """Wait for the CLI; fail on its exit code, on any cell that is not
+    ok or skipped, and if ``DRYRUN_CROSS``'s cells' dot FLOPs differ from
+    the same cells traced here (the CPU tests' code path)."""
+    from repro_torch.analysis import report
+    from repro_torch.configs.base import SHAPES, cell_runnable
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    t0 = time.perf_counter()
+    cross = {}
+    for name in DRYRUN_CROSS:
+        tr, _ = dryrun.trace_cell(get_config(DRYRUN_ARCH), SHAPES[name],
+                                  make_production_mesh())
+        cross[name] = tr.cost.dot_flops
+    t_cross = time.perf_counter() - t0
+    stdout, stderr = proc.communicate(timeout=300)
+    print(stdout, end="", flush=True)
+    if proc.returncode != 0:
+        fail(f"dryrun CLI exited {proc.returncode}:\n{stderr[-3000:]}")
+    rows = report.load_cells(str(out))
+    bad = [r["cell"] for r in rows if r["status"] != "ok"]
+    runnable = [name for name, shape in SHAPES.items()
+                if cell_runnable(get_config(DRYRUN_ARCH), shape)[0]]
+    if bad or sorted(r["shape"] for r in rows) != sorted(runnable):
+        fail(f"dryrun: cells {bad} failed; records "
+             f"{[r['cell'] for r in rows]} for the runnable {runnable}")
+    for r in rows:
+        if r["shape"] in cross and r["cost"]["dot_flops"] != cross[r["shape"]]:
+            fail(f"dryrun {r['cell']}: the CLI's dot FLOPs "
+                 f"{r['cost']['dot_flops']:.0f}, traced here "
+                 f"{cross[r['shape']]:.0f}")
+    traced = ", ".join(f"{r['shape']} {r['trace_s']}" for r in rows
+                       if r["status"] == "ok")
+    log(f"dryrun CLI ({DRYRUN_ARCH}, every shape, pod16x16, H100 "
+        f"constants; trace s {traced}); {', '.join(DRYRUN_CROSS)} traced "
+        f"again here in {t_cross:.1f} s, equal dot FLOPs:\n"
+        + report.roofline_table(rows) + f"\n{report.summary(rows)}")
+    for r in rows:
+        if r["status"] == "ok":
+            log(f"dryrun {r['cell']}: memory {r['memory']}, dot FLOPs "
+                f"{r['cost']['dot_flops']:.4e}, collective bytes "
+                f"{r['cost']['coll_bytes']}, sums {r['reduces']}, ops "
+                f"{r['ops']:.0f}, depths {r['depths']}")
+
+
+def dryrun_phase() -> None:
+    out = ROOT / "build" / "dryrun_torch"
+    proc = start_dryrun_cli(out)
+    try:
+        dryrun_smoke_flops()
+        dryrun_beside_measured()
+        finish_dryrun_cli(proc, out)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def main() -> None:
     smi = card()
     build_kernels()
@@ -5203,6 +5410,10 @@ def main() -> None:
     train_world1_nccl(plain_busy)
     train_gloo_pair()
     log(f"phase 15 in {time.perf_counter() - t15:.1f} s")
+    # phase 16: the dry-run
+    t16 = time.perf_counter()
+    dryrun_phase()
+    log(f"phase 16 in {time.perf_counter() - t16:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "paged_attention", "route": "cuda",

@@ -2,13 +2,19 @@
 
 Field for field the same as the JAX package's ``ModelConfig`` and its
 ``MoEConfig`` / ``SSMConfig`` / ``HybridConfig`` parts, so the two packages
-describe one model identically; the dry-run helpers (``input_specs``,
-``cache_specs``, shapes) stay with the JAX package.
+describe one model identically; and the dry-run's cells: ``ShapeConfig``,
+``SHAPES``, ``cell_runnable``, and ``input_specs`` / ``cache_specs``, whose
+stand-ins are tensors on the ``meta`` device (shapes and dtypes, nothing
+allocated) with the JAX package's shapes. Tokens and labels are int64, the
+dtype the port's ``models.api`` takes (the reference's are int32); ``pos``
+is int32 and embeddings take the config dtype, as there.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
+
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +89,11 @@ class ModelConfig:
     def is_encdec(self) -> bool:
         return self.enc_layers > 0
 
+    @property
+    def subquadratic(self) -> bool:
+        """True when the arch supports ~500k-token decode (no full-attn cache)."""
+        return self.family in ("ssm", "hybrid")
+
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks), the JAX package's
         formula: attention/MLP and MoE stacks exactly (an MoE layer every
@@ -152,3 +163,73 @@ class ModelConfig:
         total = sum(attn + (moe_ffn if self._is_moe_layer(layer) else ffn)
                     for layer in range(self.num_layers))
         return int(total + self.vocab * d * (1 if self.tie_embeddings else 2))
+
+
+# ---------------------------------------------------------------------------
+# Shapes (the dry-run's cells)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def cell_runnable(cfg: ModelConfig, shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether (arch, shape) is a runnable dry-run cell; reason if not."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "long_500k needs sub-quadratic attention; full-attn arch (see DESIGN.md)"
+    return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, Any]:
+    """``meta`` tensors standing in for every model input of this cell.
+
+    train:   {tokens, labels[, frontend_embeds | enc_embeds]}
+    prefill: {tokens[, frontend_embeds | enc_embeds]}
+    decode:  {tokens (1 new), cache (``cache_specs``), pos}
+    """
+    b, s = shape.global_batch, shape.seq_len
+    dt = getattr(torch, cfg.dtype)
+
+    def spec(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    def tok(bb, ss):
+        return spec((bb, ss), torch.int64)
+
+    specs: Dict[str, Any] = {}
+    if shape.kind in ("train", "prefill"):
+        n = s
+        if cfg.is_encdec:
+            specs["enc_embeds"] = spec((b, s, cfg.d_model), dt)
+        elif cfg.frontend == "patch":
+            ft = cfg.frontend_tokens
+            specs["frontend_embeds"] = spec((b, ft, cfg.d_model), dt)
+            n = s - ft
+        specs["tokens"] = tok(b, n)
+        if shape.kind == "train":
+            specs["labels"] = tok(b, n)
+    else:  # decode: one new token against a cache of seq_len
+        specs["tokens"] = tok(b, 1)
+        specs["pos"] = spec((b,), torch.int32)
+        specs["cache"] = cache_specs(cfg, b, s)
+    return specs
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Any:
+    """The dense decode cache (KV lanes / recurrent state) as ``meta``
+    tensors: ``models.api.cache_shapes``."""
+    from repro_torch.models import api  # local import to avoid cycles
+    return api.cache_shapes(cfg, batch, seq_len)

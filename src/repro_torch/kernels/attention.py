@@ -158,6 +158,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     i; one offset for the whole batch). window: a host int >= 0; > 0
     (causal only) limits row i to keys > q_offset + i - window, the band of
     ``layers.flash_attention(window=)``. Returns (B, Sq, H, D)."""
+    build.refuse_fake("mha", q, k, v, kv_valid)
     build.refuse_grad("mha", q, k, v, kv_valid)
     _require(q.is_cuda, "needs CUDA tensors (CPU tensors go through "
              "repro_torch.kernels.ops)")

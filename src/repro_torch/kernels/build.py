@@ -140,6 +140,22 @@ def launch_on(device, fn, *args) -> int:
         return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
+def refuse_fake(kernel: str, *tensors) -> None:
+    """Raise when an input is a ``FakeTensor`` or on the ``meta`` device:
+    it has shapes but no memory (a fake's ``data_ptr()`` is 0), so the
+    kernel would launch on null pointers. Checked first in every wrapper,
+    before any build or launch; a trace (the dry-run) makes its fakes on
+    the CPU device, where the seam takes the plain version."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    for t in tensors:
+        if isinstance(t, torch.Tensor) and (isinstance(t, FakeTensor)
+                                            or t.device.type == "meta"):
+            raise RuntimeError(
+                f"{kernel} kernel: an input is a fake or meta tensor (no "
+                f"memory behind it); trace on CPU-device fakes, whose seam "
+                f"takes the plain version")
+
+
 def refuse_grad(kernel: str, *tensors) -> None:
     """Raise when autograd would record through ``kernel``: its wrapper
     writes into a fresh tensor that has no ``grad_fn``, so a loss through it

@@ -65,6 +65,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1
     """x: (N, H, W, C); w: (R, S, C, K), one dtype (float32 or bfloat16),
     contiguous. SAME padding split (p//2, p - p//2). -> (N, OH, OW, K),
     OH = ceil(H / stride)."""
+    build.refuse_fake("conv_im2col", x, w)
     build.refuse_grad("conv_im2col", x, w)
     _require(x.is_cuda, "needs CUDA tensors (CPU tensors go through "
              "repro_torch.kernels.ops)")

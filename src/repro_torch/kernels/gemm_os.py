@@ -84,6 +84,7 @@ def gemm_os(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None,
     accumulation, int32 output; with ``quant_scale`` the fused epilogue
     ``clip(round_half_even(float32(acc) * scale), -128, 127)`` gives int8.
     """
+    build.refuse_fake("gemm_os", x, w)
     build.refuse_grad("gemm_os", x, w)
     _require(x.is_cuda, "needs CUDA tensors (CPU tensors go through "
              "repro_torch.kernels.ops)")

@@ -37,6 +37,7 @@ def maxpool2d(x: torch.Tensor, *, window: int = 2, stride: int = 2
               ) -> torch.Tensor:
     """x: (N, H, W, C) float32 or bfloat16, contiguous; VALID padding ->
     (N, OH, OW, C), OH = (H - window) // stride + 1."""
+    build.refuse_fake("maxpool", x)
     build.refuse_grad("maxpool", x)
     _require(x.is_cuda, "needs CUDA tensors (CPU tensors go through "
              "repro_torch.kernels.ops)")

@@ -4,6 +4,12 @@ A CPU tensor goes to the plain PyTorch version in ``ref``; a CUDA tensor goes
 to the hand-written CUDA kernel, whose wrapper launches it or raises. There
 is no fallback: a kernel that fails to build or launch is an error, never a
 silent detour through the plain version.
+
+``seam_hook``: None, or what the dry-run's cost mode sets
+(``analysis.op_cost.CostMode(seams="kernel")``) while it traces on
+CPU-device fakes: a CPU call then goes through ``seam_hook(name, plain,
+args, kwargs)``, which runs the plain version uncounted and counts the
+call as the work of kernel ``name``, what the card runs.
 """
 from __future__ import annotations
 
@@ -20,6 +26,16 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import reshuffle as _reshuffle
 from repro_torch.kernels import sampler as _sampler
 
+seam_hook = None
+
+
+def _plain(name: str, fn, *args, **kwargs):
+    """Kernel ``name``'s plain version ``fn`` on CPU tensors, through
+    ``seam_hook`` when it is set."""
+    if seam_hook is not None:
+        return seam_hook(name, fn, args, kwargs)
+    return fn(*args, **kwargs)
+
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, kv_valid=None, q_offset: int = 0,
@@ -28,8 +44,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     position ``q_offset``, with a sliding-window band of ``window`` keys
     when > 0; see ``kernels.attention.mha``."""
     if q.device.type == "cpu":
-        return ref.mha_ref(q, k, v, causal=causal, kv_valid=kv_valid,
-                           q_offset=q_offset, window=window)
+        return _plain("mha", ref.mha_ref, q, k, v, causal=causal,
+                      kv_valid=kv_valid, q_offset=q_offset, window=window)
     return _attention.mha(q, k, v, causal=causal, kv_valid=kv_valid,
                           q_offset=q_offset, window=window)
 
@@ -41,9 +57,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     """Flash-decode over a paged KV pool; see
     ``kernels.paged_attention.paged_attention``."""
     if q.device.type == "cpu":
-        return ref.paged_attention_ref(q, k_pool, v_pool, block_table,
-                                       lengths, kv_scale=kv_scale,
-                                       window=window)
+        return _plain("paged_attention", ref.paged_attention_ref, q,
+                      k_pool, v_pool, block_table, lengths,
+                      kv_scale=kv_scale, window=window)
     return _paged.paged_attention(q, k_pool, v_pool, block_table, lengths,
                                   kv_scale=kv_scale, window=window)
 
@@ -52,7 +68,7 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *, out_dtype=None
            ) -> torch.Tensor:
     """Output-stationary matmul (Voltra C1); see ``kernels.gemm_os``."""
     if x.device.type == "cpu":
-        return ref.gemm_ref(x, w, out_dtype=out_dtype)
+        return _plain("gemm_os", ref.gemm_ref, x, w, out_dtype=out_dtype)
     return _gemm.gemm_os(x, w, out_dtype=out_dtype)
 
 
@@ -61,7 +77,8 @@ def quant_matmul(x: torch.Tensor, w: torch.Tensor, scale: float
     """INT8 x INT8 -> INT32 accumulate -> fused quant epilogue -> INT8
     (Voltra C1 + C4)."""
     if x.device.type == "cpu":
-        return ref.gemm_ref(x, w, quant_scale=scale)
+        return _plain("gemm_os_int8", ref.gemm_ref, x, w,
+                      quant_scale=scale)
     return _gemm.gemm_os(x, w, quant_scale=scale)
 
 
@@ -70,7 +87,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1
     """Implicit-im2col Conv2D (the AGU analogue), NHWC x RSCK, SAME
     padding; see ``kernels.conv_im2col``."""
     if x.device.type == "cpu":
-        return ref.conv2d_ref(x, w, stride=stride)
+        return _plain("conv_im2col", ref.conv2d_ref, x, w, stride=stride)
     return _conv.conv2d(x, w, stride=stride)
 
 
@@ -78,21 +95,22 @@ def maxpool2d(x: torch.Tensor, *, window: int = 2, stride: int = 2
               ) -> torch.Tensor:
     """VALID max-pool over NHWC (Sec. II-E); see ``kernels.maxpool``."""
     if x.device.type == "cpu":
-        return ref.maxpool2d_ref(x, window=window, stride=stride)
+        return _plain("maxpool", ref.maxpool2d_ref, x, window=window,
+                      stride=stride)
     return _maxpool.maxpool2d(x, window=window, stride=stride)
 
 
 def blocked_layout(x: torch.Tensor, cb: int = 128) -> torch.Tensor:
     """(H, W, C) -> (Cp/cb, H, W, cb), the reshuffler's C/cb HWC cb."""
     if x.device.type == "cpu":
-        return ref.blocked_layout_ref(x, cb)
+        return _plain("blocked_layout", ref.blocked_layout_ref, x, cb)
     return _reshuffle.blocked_layout(x, cb)
 
 
 def transpose(x: torch.Tensor) -> torch.Tensor:
     """(M, N) -> (N, M), the dedicated-transposer pass."""
     if x.device.type == "cpu":
-        return ref.transpose_ref(x)
+        return _plain("tiled_transpose", ref.transpose_ref, x)
     return _reshuffle.tiled_transpose(x)
 
 
@@ -101,7 +119,8 @@ def sampler_noise(seed: torch.Tensor, rid: torch.Tensor, idx: torch.Tensor,
     """The sampler's Gumbel noise (or its raw bits) for each row's key
     (seed, rid, idx, draw); see ``kernels.sampler.sampler_noise``."""
     if seed.device.type == "cpu":
-        return ref.sampler_noise_ref(seed, rid, idx, n, draw=draw, bits=bits)
+        return _plain("sampler_noise", ref.sampler_noise_ref, seed, rid,
+                      idx, n, draw=draw, bits=bits)
     return _sampler.sampler_noise(seed, rid, idx, n, draw=draw, bits=bits)
 
 

@@ -81,6 +81,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                  lengths - T + t + 1.
     window:      > 0 limits each row to its last ``window`` keys.
     """
+    build.refuse_fake("paged_attention", q, k_pool, v_pool, block_table,
+                      lengths)
     build.refuse_grad("paged_attention", q, k_pool, v_pool, block_table,
                       lengths)
     squeeze = q.dim() == 3

@@ -34,6 +34,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def _check(name: str, x: torch.Tensor, dims: int) -> None:
+    build.refuse_fake(name, x)
     build.refuse_grad(name, x)
 
     def require(ok, msg):

@@ -34,6 +34,7 @@ def sampler_noise(seed: torch.Tensor, rid: torch.Tensor, idx: torch.Tensor,
     draw)`` (``ref.row_keys``), folded inside the kernel. Returns (R, n)
     float32 Gumbel noise of that key, or with ``bits`` the raw uint32 bits
     as (R, n) int64 (a check of the hash)."""
+    build.refuse_fake("sampler", seed, rid, idx)
     build.refuse_grad("sampler", seed, rid, idx)
     if not (seed.is_cuda and rid.is_cuda and idx.is_cuda):
         raise ValueError("sampler kernel: needs CUDA tensors (CPU tensors go "

@@ -14,7 +14,13 @@ and which ranks form each ``model`` group:
   make the mesh, in the same order: group creation is collective).
   Outside a world it only describes the fold (``group`` None), which the
   sharding rules and plans can read but an engine with ``model`` > 1
-  cannot run on.
+  cannot run on. When ``data`` > 1 each column of the fold is a ``data``
+  group too (``data_group``: the ranks holding replicas of one shard,
+  over which data-parallel training averages its gradients).
+* ``make_production_mesh(multi_pod=)`` describes the reference's
+  production meshes for the dry-run: 16 x 16 ``(data, model)`` or 2 x 16
+  x 16 ``(pod, data, model)``, the pod axis folded into the data rows, on
+  placeholder ``meta`` devices; no world, nothing allocated.
 * ``run_world(fn, world, backend=, init_file=)`` starts ``world`` ranks
   (``torch.multiprocessing``, spawn) that meet through a ``file://``
   rendezvous, calls ``fn(rank, *args)`` in each and returns their results
@@ -45,12 +51,14 @@ class Mesh:
     (rank i * model + j inside a world); ``group``: the calling rank's
     ``model`` group (None outside a world, or when ``model`` is 1);
     ``data_rank`` / ``model_rank``: the calling rank's coordinates (0, 0
-    outside a world); ``device``: its device."""
+    outside a world); ``data_group``: its ``data`` group (None outside a
+    world, or when ``data`` is 1); ``device``: its device."""
     devices: Tuple[Tuple[torch.device, ...], ...]
     shape: Dict[str, int]
     group: Any = None
     data_rank: int = 0
     model_rank: int = 0
+    data_group: Any = None
 
     @property
     def device(self) -> torch.device:
@@ -92,11 +100,27 @@ def make_host_mesh(model: int = 1, *,
         raise ValueError(
             f"make_host_mesh: a world of {world} rank(s) holds one device "
             f"a rank; {n} device(s) were listed")
-    group = None
+    group = data_group = None
     if model > 1:
         group, _ = dist.new_subgroups_by_enumeration(
             [list(range(i, i + model)) for i in range(0, n, model)])
-    return Mesh(rows, shape, group, rank // model, rank % model)
+    if n > model:
+        data_group, _ = dist.new_subgroups_by_enumeration(
+            [list(range(j, n, model)) for j in range(model)])
+    return Mesh(rows, shape, group, rank // model, rank % model, data_group)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production mesh as a described fold: 16 x 16
+    ``(data, model)``, or 2 x 16 x 16 ``(pod, data, model)`` whose 32 data
+    rows are the pods' rows in turn (``Rules`` maps "batch" to ``("pod",
+    "data")``, so the batch splits 32 ways). Devices are ``meta``
+    placeholders; there is no world and no group."""
+    shape = ({"pod": 2, "data": 16, "model": 16} if multi_pod
+             else {"data": 16, "model": 16})
+    rows = shape.get("pod", 1) * shape["data"]
+    meta = torch.device("meta")
+    return Mesh(tuple((meta,) * shape["model"] for _ in range(rows)), shape)
 
 
 def _rank_main(fn: Callable, rank: int, world: int, backend: str,

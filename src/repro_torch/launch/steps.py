@@ -1,0 +1,140 @@
+"""The dry-run's step functions, and one rank's arguments for them.
+
+Counterpart of ``repro.launch.steps``: the dry-run traces exactly these
+steps, the code the trainer and the server run (``trainer.
+make_train_step``, ``api.prefill``, ``api.decode_step``), so a passing
+dry-run certifies the production path. The reference hands ``jax.jit``
+global shapes and shardings; the port runs one process a rank, so
+``make_step`` hands back one rank's arguments:
+
+* parameters and optimizer state cut to the rank's part by the
+  tensor-parallel plan (``tp.tp_plan``: attention over heads when heads
+  and KV heads both divide ``model``, the MLP over ``ffn``; the rest
+  replicates, ``wembed``'s FSDP split over ``data`` included);
+* the batch split over ``("pod", "data")`` (a dim that does not divide
+  replicates, as ``Rules`` falls back);
+* for decode, the dense ``cache_init`` lanes at the rank's rows and KV
+  heads;
+
+and the rank's rules, a ``sharding.DryRunRules`` that records each sum
+over ``model`` (the contractions) and ``data`` (the train step's gradient
+average) instead of issuing it. Tensors are made on ``device`` with
+``torch.empty`` / ``torch.zeros``: inside a ``FakeTensorMode`` (the
+dry-run) nothing is allocated.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig, input_specs
+from repro_torch.models import api
+from repro_torch.optim import adamw
+from repro_torch.parallel import tp
+from repro_torch.parallel.sharding import DryRunRules, Rules
+from repro_torch.runtime import trainer as trainer_mod
+
+BATCH_AXES = {
+    "tokens": "batch,seq",
+    "labels": "batch,seq",
+    "pos": "batch",
+    "enc_embeds": "batch,seq,embed",
+    "frontend_embeds": "batch,seq,embed",
+}
+
+
+def opt_config_for(cfg: ModelConfig) -> adamw.AdamWConfig:
+    return adamw.AdamWConfig(moment_dtype=cfg.moment_dtype)
+
+
+def state_shapes(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, *,
+                 device="meta") -> Dict[str, Any]:
+    """The whole train state as uninitialised tensors on ``device``
+    (``meta``: shapes and dtypes only)."""
+    p = api.empty_params(cfg, device=device)
+    return {"params": p, "opt": adamw.init(opt_cfg, p)}
+
+
+def state_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    pa = api.param_axes(cfg)
+    return {"params": pa,
+            "opt": {"m": pa, "v": pa, "step": ""}}
+
+
+def local_shape(shape, spec, mesh) -> Tuple[int, ...]:
+    """A rank's part of a dim tuple under ``spec`` (per dim a mesh axis,
+    a tuple of them, or None)."""
+    out = []
+    for i, n in enumerate(shape):
+        ax = spec[i] if i < len(spec) else None
+        names = () if ax is None else (ax if isinstance(ax, tuple) else (ax,))
+        out.append(n // math.prod(mesh.shape[a] for a in names))
+    return tuple(out)
+
+
+def _check_table(rules: Rules) -> None:
+    if rules.table.get("seq") is not None:
+        raise ValueError(
+            f"rules_table seq -> {rules.table['seq']!r}: the port's plan "
+            f"shards heads and ffn only; context parallelism (sequence "
+            f"over a mesh axis) is not ported")
+
+
+def make_step(cfg: ModelConfig, shape: ShapeConfig, rules: Rules, *,
+              device="cpu") -> Tuple[Callable, tuple, DryRunRules]:
+    """(step fn, one rank's arguments, the rank's ``DryRunRules``) for the
+    cell's step kind on ``rules.mesh`` (``launch.mesh``; ``rules.table``
+    only decides the batch's split)."""
+    _check_table(rules)
+    mesh = rules.mesh
+    plan = tp.tp_plan(cfg, mesh)
+    pspecs = plan.param_specs(cfg)
+    rank = DryRunRules(plan.rules.contract_axes, tp.sharded_paths(pspecs),
+                       data=tp.data_size(mesh), train=shape.kind == "train")
+    ins = input_specs(cfg, shape)
+
+    def batch_of(names):
+        return {k: torch.zeros(local_shape(v.shape, rules.spec(
+                    tuple(v.shape), BATCH_AXES[k]), mesh),
+                    dtype=v.dtype, device=device)
+                for k, v in ins.items() if k in names}
+
+    def part(tree, specs):
+        return tp.shard_tree(tree, specs, plan.model_shards, 0)
+
+    if shape.kind == "train":
+        opt_cfg = opt_config_for(cfg)
+        state = state_shapes(cfg, opt_cfg, device=device)
+        state = part(state, tp.state_specs(plan, state))
+        step = trainer_mod.make_train_step(cfg, opt_cfg, rules=rank)
+        return step, (state, batch_of(BATCH_AXES)), rank
+
+    params = part(api.empty_params(cfg, device=device), pspecs)
+    if shape.kind == "prefill":
+        def fn(params, batch):
+            return api.prefill(cfg, params, batch["tokens"],
+                               enc_embeds=batch.get("enc_embeds"),
+                               frontend_embeds=batch.get("frontend_embeds"),
+                               rules=rank)
+
+        return fn, (params, batch_of(BATCH_AXES)), rank
+
+    # decode: the dense lanes, batch over (pod, data), KV heads with
+    # attention
+    table = {"batch": rules.table["batch"],
+             "kv_heads": "model" if "kv_heads" in plan.sharded_axes
+             else None}
+    crules = Rules(mesh, {name: table.get(name) for name in rules.table})
+    cache = [{name: torch.zeros(local_shape(t.shape, crules.spec(
+                  tuple(t.shape), axes[name]), mesh),
+                  dtype=t.dtype, device=device)
+              for name, t in e.items()}
+             for e, axes in zip(ins["cache"], api.cache_axes(cfg))]
+
+    def fn(params, cache, tokens, pos):
+        return api.decode_step(cfg, params, cache, tokens, pos, rules=rank)
+
+    b = batch_of(("tokens", "pos"))
+    return fn, (params, cache, b["tokens"], b["pos"]), rank

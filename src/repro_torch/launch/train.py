@@ -2,7 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2.5-3b \\
       --smoke --steps 30 [--ckpt-dir DIR] [--grad-accum 2] \\
-      [--compress-grads] [--model-parallel M] [--device cpu]
+      [--compress-grads] [--model-parallel M] [--data-parallel D] \\
+      [--device cpu]
 
 The flags are the reference launcher's (``repro.launch.train``), plus
 ``--device``: CUDA by default, which raises without a card (nothing falls
@@ -15,7 +16,12 @@ back to the CPU); ``--device cpu`` runs the same loop on the CPU.
 ``model`` axis of M (``Trainer(mesh=)``): NCCL over the first M CUDA
 devices, one a rank (fewer than M raises, naming the count), or gloo with
 ``--device cpu``. Rank 0 prints; a checkpoint holds the full leaves, so a
-resume may take another M.
+resume may take another M (and D).
+
+``--data-parallel D`` > 1 multiplies the world by D: D replicas of each
+shard (``data`` x ``model`` = D x M ranks, NCCL one CUDA device a rank or
+gloo on the CPU), each stepping on its ``--batch`` / D rows and averaging
+the gradients over the ``data`` axis.
 """
 from __future__ import annotations
 
@@ -45,28 +51,36 @@ def main(argv=None) -> None:
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--compress-grads", action="store_true")
     ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--data-parallel", type=int, default=1)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
-    m = args.model_parallel
-    if m == 1:
+    m, d = args.model_parallel, args.data_parallel
+    if m < 1 or d < 1:
+        raise SystemExit(f"--model-parallel {m} --data-parallel {d}: each "
+                         f"needs 1 or more ranks")
+    n = m * d
+    if n == 1:
         _train(args, device, 0)
         return
-    if m < 1:
-        raise SystemExit(f"--model-parallel {m}: needs 1 or more ranks")
-    if device.type == "cuda" and m > torch.cuda.device_count():
-        raise SystemExit(f"--model-parallel {m} needs {m} CUDA devices, one "
-                         f"a rank; have {torch.cuda.device_count()}")
+    if args.batch % d:
+        raise SystemExit(f"--batch {args.batch} does not split over "
+                         f"--data-parallel {d}")
+    what = (f"--model-parallel {m}" if d == 1 else
+            f"--model-parallel {m} --data-parallel {d}")
+    if device.type == "cuda" and n > torch.cuda.device_count():
+        raise SystemExit(f"{what} needs {n} CUDA devices, one a rank; have "
+                         f"{torch.cuda.device_count()}")
     backend = "gloo" if device.type == "cpu" else "nccl"
     with tempfile.TemporaryDirectory() as tmp:
-        run_world(_train_rank, m, backend=backend,
+        run_world(_train_rank, n, backend=backend,
                   init_file=os.path.join(tmp, "rendezvous"), args=(args,),
                   timeout=24 * 3600.0)
 
 
 def _train_rank(rank: int, args) -> None:
-    """One rank of a ``--model-parallel`` world."""
+    """One rank of a ``--model-parallel`` / ``--data-parallel`` world."""
     device = resolve_device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", rank)
@@ -82,16 +96,17 @@ def _train(args, device: torch.device, rank: int) -> None:
     """Build the config, data and trainer (this rank's part on a mesh),
     run it and print the summary (rank 0 only)."""
     say = print if rank == 0 else _quiet
-    m = args.model_parallel
+    m, d = args.model_parallel, args.data_parallel
     mesh = None
-    if m > 1:
-        devs = ["cpu"] * m if device.type == "cpu" \
-            else [torch.device("cuda", i) for i in range(m)]
+    if m * d > 1:
+        devs = ["cpu"] * (m * d) if device.type == "cpu" \
+            else [torch.device("cuda", i) for i in range(m * d)]
         mesh = make_host_mesh(m, devices=devs)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     say(f"[launch.train] {cfg.name}: {cfg.param_count()/1e6:.1f}M params "
         f"on {device}" + (f", model-parallel over {m} ranks" if m > 1
-                          else ""))
+                          else "")
+        + (f", data-parallel over {d} replicas" if d > 1 else ""))
     ds = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                      global_batch=args.batch))
     opt = adamw.AdamWConfig(lr=3e-3, warmup_steps=max(5, args.steps // 10),

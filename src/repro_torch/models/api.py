@@ -37,15 +37,22 @@ class _Maker:
     axes, how to fill it), as the reference's ``Maker`` does: in mode
     ``"init"`` the tensor, drawn on ``device`` from ``generator``; in
     ``"axes"`` the reference's logical-axes string; in ``"shape"`` the
-    shape."""
+    shape; in ``"empty"`` an uninitialised tensor of its dtype on
+    ``device``."""
 
     def __init__(self, mode: str, generator=None, device=None, dtype=None):
         self.mode, self.generator = mode, generator
         self.device, self.dtype = device, dtype
 
+    def _other(self, shape, axes: str, dtype):
+        if self.mode == "empty":
+            return torch.empty(shape, dtype=dtype or self.dtype,
+                               device=self.device)
+        return axes if self.mode == "axes" else torch.Size(shape)
+
     def normal(self, shape, axes: str, scale: float, dtype=None):
         if self.mode != "init":
-            return axes if self.mode == "axes" else torch.Size(shape)
+            return self._other(shape, axes, dtype)
         x = torch.randn(shape, generator=self.generator, device=self.device,
                         dtype=torch.float32)
         return (x * scale).to(dtype or self.dtype)
@@ -53,7 +60,7 @@ class _Maker:
     def experts(self, shape, axes: str, scale: float):
         """(E, ...) drawn one expert at a time."""
         if self.mode != "init":
-            return axes if self.mode == "axes" else torch.Size(shape)
+            return self._other(shape, axes, None)
         out = torch.empty(shape, dtype=self.dtype, device=self.device)
         for e in range(shape[0]):
             out[e] = self.normal(shape[1:], axes, scale)
@@ -61,7 +68,7 @@ class _Maker:
 
     def full(self, shape, axes: str, value: float, dtype=None):
         if self.mode != "init":
-            return axes if self.mode == "axes" else torch.Size(shape)
+            return self._other(shape, axes, dtype)
         return torch.full(shape, value, dtype=dtype or self.dtype,
                           device=self.device)
 
@@ -185,6 +192,14 @@ def param_axes(cfg) -> Dict[str, Any]:
 def param_shapes(cfg) -> Dict[str, Any]:
     """``init_params``' tree with each leaf's shape, nothing allocated."""
     return _build(cfg, _Maker("shape"))
+
+
+def empty_params(cfg, *, device="meta") -> Dict[str, Any]:
+    """``init_params``' tree of uninitialised tensors with its shapes and
+    dtypes (on ``meta`` by default: nothing allocated). Under a
+    ``FakeTensorMode`` any device gives fake tensors (the dry-run)."""
+    return _build(cfg, _Maker("empty", device=torch.device(device),
+                              dtype=_dtype(cfg.dtype)))
 
 
 def _logits(cfg, params, x: torch.Tensor) -> torch.Tensor:
@@ -442,6 +457,26 @@ def cache_init(cfg, slots: int, max_len: int, *, device="cuda"
         out.append({name: torch.zeros((slots, S, kv, hd), dtype=dt,
                                       device=device) for name in names})
     return out
+
+
+def cache_shapes(cfg, batch: int, seq_len: int
+                 ) -> List[Dict[str, torch.Tensor]]:
+    """``cache_init``'s entries as ``meta`` tensors (shapes and dtypes,
+    nothing allocated): the dry-run's decode cache."""
+    return cache_init(cfg, batch, seq_len, device="meta")
+
+
+def cache_axes(cfg) -> List[Dict[str, str]]:
+    """``cache_init``'s list with each leaf's logical axes, the
+    reference's ``cache_axes`` for one layer (its stacked leaves add a
+    leading "layers"): the dense lanes "batch,seq,kv_heads", Mamba2's
+    ``ssm`` state "batch,heads", RG-LRU's ``h`` "batch,ffn", a ``conv``
+    window "batch"."""
+    def ax(name: str) -> str:
+        if name in ("k", "v", "xk", "xv"):
+            return "batch,seq,kv_heads"
+        return {"ssm": "batch,heads", "h": "batch,ffn"}.get(name, "batch")
+    return [{name: ax(name) for name in e} for e in cache_shapes(cfg, 1, 2)]
 
 
 def paged_cache_init(cfg, num_pages: int, page_size: int, *,

@@ -461,16 +461,28 @@ def mlp_apply(cfg, p: Params, x: torch.Tensor,
     return rules.contract(h @ p["wo"], "ffn")
 
 
-def moe_capacity(cfg, T: int):
+def moe_capacity(cfg, T: int, replicas: int = 1):
     """(G, C) for ``T`` routed rows: dispatch groups (``dispatch_groups``
     when it divides T, else 1) and each expert's capacity in a group. C is
     the JAX package's expression copied as written: the two minus signs
-    cancel, so it FLOORS, max(4, floor(Tg * cf * K / E))."""
+    cancel, so it FLOORS, max(4, floor(Tg * cf * K / E)).
+
+    ``replicas`` > 1: the T rows are one data-parallel replica's share
+    (rows r·T to (r + 1)·T) of a global batch of ``replicas`` · T rows,
+    which the reference groups as one batch. G and C are then the global
+    batch's, and the replica routes its G / ``replicas`` of the groups;
+    raises ``ValueError`` when the groups do not split over the
+    replicas."""
     m = cfg.moe
-    G = m.dispatch_groups if T % max(m.dispatch_groups, 1) == 0 else 1
-    Tg = T // G
+    total = T * replicas
+    G = m.dispatch_groups if total % max(m.dispatch_groups, 1) == 0 else 1
+    if G % replicas:
+        raise ValueError(
+            f"{G} dispatch group(s) of {total} routed rows do not split "
+            f"over {replicas} data replicas")
+    Tg = total // G
     C = int(max(4, -(-Tg * m.capacity_factor * m.top_k) // m.num_experts))
-    return G, C
+    return G // replicas, C
 
 
 def moe_route(cfg, p: Params, x: torch.Tensor):
@@ -487,14 +499,15 @@ def moe_route(cfg, p: Params, x: torch.Tensor):
     return _route(cfg, p, x)[2:]
 
 
-def _route(cfg, p: Params, x: torch.Tensor):
+def _route(cfg, p: Params, x: torch.Tensor, replicas: int = 1):
     """``moe_route``'s work, with the router's fp32 logits (T, E) and
-    probabilities first: (logits, probs, gate_w, gate_i, flat, keep)."""
+    probabilities first: (logits, probs, gate_w, gate_i, flat, keep).
+    ``replicas``: as ``moe_capacity``'s."""
     B, S, d = x.shape
     m = cfg.moe
     E, K = m.num_experts, m.top_k
     T = B * S
-    G, C = moe_capacity(cfg, T)
+    G, C = moe_capacity(cfg, T, replicas)
     Tg = T // G
     logits = x.reshape(T, d).float() @ p["router"].float()
     probs = torch.softmax(logits, -1)
@@ -511,30 +524,45 @@ def _route(cfg, p: Params, x: torch.Tensor):
 
 
 def moe_aux(cfg, logits: torch.Tensor, probs: torch.Tensor,
-            gate_i: torch.Tensor) -> Dict[str, torch.Tensor]:
+            gate_i: torch.Tensor, rules: Rules = NO_RULES
+            ) -> Dict[str, torch.Tensor]:
     """The reference's auxiliary losses over all T routed rows:
     ``lb_loss`` (Switch load balance: E · sum_e mean_prob_e · share_e, the
     share of the T · K choices that went to expert e; no gradient through
     the choices) and ``z_loss`` (the mean squared logsumexp of the router
-    logits)."""
+    logits).
+
+    Over ``rules.data`` > 1 replicas (data-parallel training) both means
+    of ``lb_loss``'s product are the global batch's: averaged over the
+    ``data`` group, the mean probability with the identity for its
+    gradient, so that the train step's average of the replicas'
+    gradients is the global loss's. ``z_loss`` is a plain mean, whose
+    average over the replicas the train step takes."""
     E = cfg.moe.num_experts
     share = (gate_i.reshape(-1, 1) == torch.arange(E, device=gate_i.device)
              ).sum(0).float() / gate_i.numel()
-    lb = E * torch.sum(probs.mean(0) * share)
+    mean_prob = probs.mean(0)
+    if rules.data > 1:
+        share = rules.all_reduce(share, "data").div_(rules.data)
+        local = mean_prob.detach()
+        mean_prob = mean_prob + (
+            rules.all_reduce(local.clone(), "data").div_(rules.data) - local)
+    lb = E * torch.sum(mean_prob * share)
     z = torch.mean(torch.logsumexp(logits, -1).square())
     return {"lb_loss": lb, "z_loss": z}
 
 
-def moe_dispatch(cfg, x: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+def moe_dispatch(cfg, x: torch.Tensor, flat: torch.Tensor,
+                 replicas: int = 1) -> torch.Tensor:
     """The (G, E, C, d) expert buffer: each kept routed slot's row copied to
     its one row e * C + pos of its group (a dropped slot to the discarded
     row E * C, cut off here); rows no slot fills stay zero. No accumulating
     scatter: every kept row has one writer, so two runs give the same
-    bits."""
+    bits. ``replicas``: as ``moe_capacity``'s."""
     B, S, d = x.shape
     m = cfg.moe
     E, K = m.num_experts, m.top_k
-    G, C = moe_capacity(cfg, B * S)
+    G, C = moe_capacity(cfg, B * S, replicas)
     Tg = B * S // G
     xrep = x.reshape(G, 1, Tg, d).expand(G, K, Tg, d).reshape(G, K * Tg, d)
     buf = x.new_zeros((G, E * C + 1, d))
@@ -577,10 +605,18 @@ def moe_apply(cfg, p: Params, x: torch.Tensor,
     where the config has one. The shared expert gets ``rules`` (a
     tensor-parallel plan never shards an MoE stack's "ffn", so its contract
     is the identity there). x: (B, S, d) -> (B, S, d); with ``aux`` (the
-    training forward) -> (out, ``moe_aux``'s {"lb_loss", "z_loss"})."""
-    logits, probs, gate_w, gate_i, flat, keep = _route(cfg, p, x)
-    eo = moe_experts(p, moe_dispatch(cfg, x, flat))
+    training forward) -> (out, ``moe_aux``'s {"lb_loss", "z_loss"}),
+    the aux losses computed before the experts: under remat the
+    recompute then stops before the combine, the block's last product,
+    as the reference's dead-code elimination drops it. In the training
+    forward x is one replica's rows of the global batch over
+    ``rules.data`` replicas (the trainer splits it so), which route as
+    their share of the global batch's groups (``moe_capacity``)."""
+    replicas = rules.data if aux else 1
+    logits, probs, gate_w, gate_i, flat, keep = _route(cfg, p, x, replicas)
+    losses = moe_aux(cfg, logits, probs, gate_i, rules) if aux else None
+    eo = moe_experts(p, moe_dispatch(cfg, x, flat, replicas))
     out = moe_combine(cfg, eo, gate_w, flat, keep, x)
     if cfg.moe.shared_expert:
         out = out + mlp_apply(cfg, p["shared"], x, rules)
-    return (out, moe_aux(cfg, logits, probs, gate_i)) if aux else out
+    return (out, losses) if aux else out

@@ -20,9 +20,10 @@ dense layout only: cross-attention KV is per request, not paged.
 
 Training runs ``stack_train`` / ``block_train``: no cache, attention
 through the plain ``layers.flash_attention`` (autograd), the MoE blocks'
-auxiliary losses summed over the layers, each layer rematerialised per
-``cfg.remat`` (the reference's ``_remat``); one device, no tensor-parallel
-hooks (their sum is an in-place all-reduce, not differentiated).
+auxiliary losses summed over the layers, each period of the pattern
+rematerialised as one unit per ``cfg.remat`` and the tail layers not at all
+(the reference's ``_remat`` of its scan body); on a rank of a mesh its
+``rules`` are a ``sharding.TrainRules``, whose sums autograd differentiates.
 """
 from __future__ import annotations
 
@@ -295,24 +296,45 @@ def _remat(cfg, fn):
     raise ValueError(f"remat {cfg.remat!r} is not none, full or dots")
 
 
-def stack_train(cfg, blocks, x: torch.Tensor, *, kinds=None,
-                enc_out=None, rules: Rules = NO_RULES):
-    """The training forward of every layer (``block_train``), each
-    rematerialised per ``cfg.remat`` (the recompute runs a layer's
-    all-reduces again, in the same order on every rank). ``kinds``: the
-    blocks' kinds (default the decoder's); ``enc_out``: the encoder's
-    output, for ``dec`` blocks; ``rules``: the tensor-parallel hooks.
-    Returns (x, {"lb_loss", "z_loss"}: fp32 sums over the MoE layers, zero
-    without any), as the reference's ``stack_apply`` sums them."""
-    kinds = layer_kinds(cfg) if kinds is None else kinds
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    aux: Dict[str, torch.Tensor] = {"lb_loss": zero, "z_loss": zero}
-    layer = _remat(cfg, block_train)
+def _super_block(cfg, kinds, blocks, x: torch.Tensor, aux, enc_out,
+                 rules: Rules):
+    """``block_train`` over one period of layers, their aux losses added
+    to ``aux`` layer by layer (the reference's scan body)."""
+    aux = dict(aux)
     for kind, p in zip(kinds, blocks):
-        x, a = layer(cfg, kind, p, x, enc_out, rules)
+        x, a = block_train(cfg, kind, p, x, enc_out, rules)
         for name, v in a.items():
             aux[name] = aux[name] + v
     return x, aux
+
+
+def stack_train(cfg, blocks, x: torch.Tensor, *, kinds=None,
+                enc_out=None, rules: Rules = NO_RULES):
+    """The training forward of every layer (``block_train``), grouped as
+    the reference's ``stack_apply`` scans them: each whole period of the
+    pattern (``layer_plan``'s super-blocks; an encoder's blocks one at a
+    time) rematerialised as one unit per ``cfg.remat``, the tail layers
+    not at all (the reference's tail runs outside its remat'd scan). The
+    recompute runs a super-block's all-reduces again, in the same order
+    on every rank. ``kinds``: the blocks' kinds (default the decoder's,
+    by ``layer_plan``; given, one a period); ``enc_out``: the encoder's
+    output, for ``dec`` blocks; ``rules``: the tensor-parallel hooks.
+    Returns (x, {"lb_loss", "z_loss"}: fp32 sums over the MoE layers, zero
+    without any), as the reference's ``stack_apply`` sums them."""
+    if kinds is None:
+        kinds = layer_kinds(cfg)
+        n_super, _ = layer_plan(cfg)
+        period = len(pattern_for(cfg))
+    else:
+        n_super, period = len(kinds), 1
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux: Dict[str, torch.Tensor] = {"lb_loss": zero, "z_loss": zero}
+    body = _remat(cfg, _super_block)
+    for i in range(0, n_super * period, period):
+        x, aux = body(cfg, kinds[i:i + period], blocks[i:i + period], x,
+                      aux, enc_out, rules)
+    return _super_block(cfg, kinds[n_super * period:],
+                        blocks[n_super * period:], x, aux, enc_out, rules)
 
 
 def stack_decode(cfg, blocks, x: torch.Tensor, caches, pos: torch.Tensor,

@@ -19,7 +19,6 @@ import math
 from typing import Any, Callable, Dict, Optional
 
 import torch
-import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
 
@@ -62,12 +61,12 @@ def init(cfg: AdamWConfig, params) -> Dict[str, Any]:
 
 
 def global_norm(tree, *, sharded: Optional[Callable[[tuple], bool]] = None,
-                process_group=None) -> torch.Tensor:
+                all_reduce: Optional[Callable] = None) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's fp32 sum of squares.
     ``sharded`` (a leaf's key path -> whether ``tree`` holds a rank's part
-    of it): the parts' squares are summed over ``process_group`` (one
-    all-reduce), each other leaf counted once, so every rank gets the whole
-    tree's norm."""
+    of it): the parts' squares are summed over the model group by
+    ``all_reduce`` (a rank's ``ManualRules.all_reduce``; one call), each
+    other leaf counted once, so every rank gets the whole tree's norm."""
     flat = pytree.tree_flatten_with_path(tree)[0]
     total = torch.zeros((), dtype=torch.float32, device=flat[0][1].device)
     part = torch.zeros_like(total)
@@ -78,7 +77,7 @@ def global_norm(tree, *, sharded: Optional[Callable[[tuple], bool]] = None,
         else:
             total = total + sq
     if sharded is not None:
-        dist.all_reduce(part, group=process_group)
+        all_reduce(part)
         total = total + part
     return torch.sqrt(total)
 
@@ -86,15 +85,15 @@ def global_norm(tree, *, sharded: Optional[Callable[[tuple], bool]] = None,
 @torch.no_grad()
 def apply(cfg: AdamWConfig, grads, opt_state: Dict[str, Any], params, *,
           sharded: Optional[Callable[[tuple], bool]] = None,
-          process_group=None) -> Dict[str, torch.Tensor]:
+          all_reduce: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
     """One AdamW update of ``params`` and ``opt_state`` in place, leaf by
     leaf. ``grads`` and the moments pair with ``params`` by key path (any
-    float dtype for the gradients). ``sharded`` / ``process_group``: a
+    float dtype for the gradients). ``sharded`` / ``all_reduce``: a
     model-parallel rank's (``global_norm``). Returns
     {"grad_norm" (before clipping), "lr"}, 0-dim fp32 tensors."""
     opt_state["step"] += 1
     step = opt_state["step"]
-    gnorm = global_norm(grads, sharded=sharded, process_group=process_group)
+    gnorm = global_norm(grads, sharded=sharded, all_reduce=all_reduce)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.clip_norm > 0 else 1.0
     lr = schedule(cfg, step)

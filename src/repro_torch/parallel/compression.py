@@ -47,14 +47,15 @@ def compress(x: torch.Tensor, err: torch.Tensor
 def compress_tree(grads, err_tree,
                   group: Optional[Callable[[tuple], Hashable]] = None, *,
                   sharded: Optional[Callable[[tuple], bool]] = None,
-                  process_group=None):
+                  all_reduce: Optional[Callable] = None):
     """(dequantized grads, each leaf in its gradient's dtype; the new error
     tree, fp32, like ``grads``). ``err_tree`` pairs with ``grads`` by key
     path. ``group`` maps a leaf's key path to the name of its scale group:
     leaves of one name share one scale, the max-abs over all of them;
     default one a leaf. ``sharded`` (a leaf's key path -> whether the tree
     holds a rank's part of it): a group holding such a leaf takes its max
-    over ``process_group`` too (one MAX all-reduce for all of them)."""
+    over the model group too, by ``all_reduce`` (a rank's
+    ``ManualRules.all_reduce``; one MAX reduction for all of them)."""
     flat, spec = pytree.tree_flatten_with_path(grads)
     err_of = dict(pytree.tree_flatten_with_path(err_tree)[0])
     groups: Dict[Hashable, List[int]] = {}
@@ -70,7 +71,7 @@ def compress_tree(grads, err_tree,
              and any(sharded(flat[i][0]) for i in g)]
     if split:
         across = torch.stack([peak[j] for j in split])
-        dist.all_reduce(across, op=dist.ReduceOp.MAX, group=process_group)
+        all_reduce(across, op=dist.ReduceOp.MAX)
         for j, v in zip(split, across):
             peak[j] = v
     out_g, out_e = [None] * len(flat), [None] * len(flat)

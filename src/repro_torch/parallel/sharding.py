@@ -20,6 +20,13 @@ there, in place, and is the identity for every other axis (an axis that
 fell back to replication must NOT be summed, or the output is multiplied
 by the shard count).
 
+Every collective the rules issue goes through ``ManualRules.all_reduce(x,
+axis, op)``, in place over the ``model`` group (the contractions, the
+train step's norm and compression scales) or the ``data`` group
+(data-parallel training's gradient average, ``data_group``), so a
+subclass can change what a sum does: ``DryRunRules`` records its bytes
+instead of issuing it.
+
 ``TrainRules`` is its training variant, which autograd differentiates.
 A sharded sublayer's input is replicated and its output a per-rank partial
 sum, so two functions over the ``model`` group bracket it, for the axes in
@@ -31,6 +38,10 @@ gradient in backward (each rank's input gradient holds only its shard's
 share). ``torch.distributed.nn.functional.all_reduce`` at the contraction
 alone would sum the gradient in backward too, and hand each rank M times
 it.
+
+``DryRunRules`` are one rank's rules on a described mesh (no world): the
+contractions and the data-axis sums run as they would, but each sum is
+recorded, (mesh axis, operand bytes) in ``sums``, and not issued.
 """
 from __future__ import annotations
 
@@ -68,7 +79,11 @@ DEFAULT_TABLE: Dict[str, Phys] = {
 
 class Rules:
     """Maps logical-axes strings to per-dim mesh axes for a concrete mesh
-    (``launch.mesh.Mesh``, or None: everything replicated)."""
+    (``launch.mesh.Mesh``, or None: everything replicated). ``data``: the
+    data-parallel replicas of a rank's shard, 1 but on a ``ManualRules``
+    of data-parallel training."""
+
+    data = 1
 
     def __init__(self, mesh=None, table: Optional[Dict[str, Phys]] = None):
         self.mesh = mesh
@@ -145,15 +160,28 @@ class ManualRules(Rules):
     """Per-rank rules: ``contract`` all-reduces ``x`` in place over
     ``group`` (the mesh's ``model`` group) for exactly the axes in
     ``contract_axes``, and is the identity for the rest. ``reduces``
-    counts the all-reduces issued (in a captured graph: the ones
-    recorded). Without a group (a mesh made outside a world) the rules
-    can be read but a contraction raises."""
+    counts the ``model`` all-reduces issued (in a captured graph: the ones
+    recorded); ``data_group`` holds the ``data`` replicas of this rank's
+    shard (data-parallel training). Without a group (a mesh made outside
+    a world) the rules can be read but a contraction raises."""
 
-    def __init__(self, contract_axes: Iterable[str] = (), group=None):
+    def __init__(self, contract_axes: Iterable[str] = (), group=None, *,
+                 data_group=None, data: int = 1):
         super().__init__(None)
         self.contract_axes: FrozenSet[str] = frozenset(contract_axes)
         self.group = group
+        self.data_group, self.data = data_group, data
         self.reduces = 0
+
+    def all_reduce(self, x: torch.Tensor, axis: str = "model",
+                   op=None) -> torch.Tensor:
+        """Reduce ``x`` in place over mesh axis ``axis``'s group ("model"
+        or "data"), a sum unless ``op`` (a ``dist.ReduceOp``): the one
+        place these rules issue a collective."""
+        dist.all_reduce(x, op=dist.ReduceOp.SUM if op is None else op,
+                        group=self.group if axis == "model"
+                        else self.data_group)
+        return x
 
     def _check(self, axis: str) -> bool:
         """Whether ``axis`` is summed (raises without a group)."""
@@ -167,7 +195,7 @@ class ManualRules(Rules):
 
     def contract(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         if self._check(axis):
-            dist.all_reduce(x, group=self.group)
+            self.all_reduce(x)
             self.reduces += 1
         return x
 
@@ -178,10 +206,8 @@ class _SumForward(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, rules):
-        y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, group=rules.group)
         rules.reduces += 1
-        return y
+        return rules.all_reduce(x.clone(memory_format=torch.contiguous_format))
 
     @staticmethod
     def backward(ctx, g):
@@ -199,10 +225,9 @@ class _SumBackward(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g, group=ctx.rules.group)
         ctx.rules.reduces += 1
-        return g, None
+        return ctx.rules.all_reduce(
+            g.clone(memory_format=torch.contiguous_format)), None
 
 
 class TrainRules(ManualRules):
@@ -214,8 +239,10 @@ class TrainRules(ManualRules):
     compression scales the train step reduces over it."""
 
     def __init__(self, contract_axes: Iterable[str] = (), group=None,
-                 sharded: FrozenSet = frozenset()):
-        super().__init__(contract_axes, group)
+                 sharded: FrozenSet = frozenset(), *, data_group=None,
+                 data: int = 1):
+        super().__init__(contract_axes, group, data_group=data_group,
+                         data=data)
         self.sharded = frozenset(sharded)
 
     def contract(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -223,6 +250,36 @@ class TrainRules(ManualRules):
 
     def enter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         return _SumBackward.apply(x, self) if self._check(axis) else x
+
+
+class DryRunRules(TrainRules):
+    """One rank's rules on a described mesh: ``TrainRules``' sums when
+    ``train``, ``ManualRules``' in-place contraction otherwise (serving),
+    each recorded as (mesh axis, operand bytes) in ``sums``, none
+    issued; no group is needed. ``data``: the replicas of a shard."""
+
+    def __init__(self, contract_axes: Iterable[str] = (),
+                 sharded: FrozenSet = frozenset(), *, data: int = 1,
+                 train: bool = True):
+        super().__init__(contract_axes, None, sharded, data=data)
+        self.train = train
+        self.sums: list = []
+
+    def _check(self, axis: str) -> bool:
+        return axis in self.contract_axes
+
+    def all_reduce(self, x: torch.Tensor, axis: str = "model",
+                   op=None) -> torch.Tensor:
+        self.sums.append((axis, x.numel() * x.element_size()))
+        return x
+
+    def contract(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        if self.train:
+            return super().contract(x, axis)
+        return ManualRules.contract(self, x, axis)
+
+    def enter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        return super().enter(x, axis) if self.train else x
 
 
 NO_RULES = Rules(None)

@@ -37,6 +37,9 @@ differentiates. A train state's moments and error tree shard like the
 parameters (``state_specs``); ``gather_tree`` puts the full leaves back
 together on one rank (a checkpoint in the single-device format), and
 ``shard_tree`` cuts a full tree for any other model width (a restore).
+Over a ``data`` axis the plan's rules also carry the mesh's ``data``
+group, over which the train step averages the gradients (a shard's
+replicas hold the same parameters).
 The embeddings, the head and MoE blocks replicate, where the reference's
 GSPMD rules shard "vocab" and "experts": the same numbers, more memory a
 rank.
@@ -213,8 +216,14 @@ def train_plan(cfg, mesh) -> TPPlan:
     over)."""
     plan = tp_plan(cfg, mesh)
     rules = TrainRules(plan.rules.contract_axes, mesh.group,
-                       sharded_paths(plan.param_specs(cfg)))
+                       sharded_paths(plan.param_specs(cfg)),
+                       data_group=mesh.data_group, data=data_size(mesh))
     return dataclasses.replace(plan, rules=rules)
+
+
+def data_size(mesh) -> int:
+    """The replicas of a shard: the mesh's ``pod`` x ``data`` axes."""
+    return mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
 
 
 def gather_tree(tree, specs, group):

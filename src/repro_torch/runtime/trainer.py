@@ -24,8 +24,20 @@ the shards: the gradient norm (the sharded leaves' squares summed over
 the group, each replicated leaf counted once) and each compression
 group's max-abs scale (a MAX over the group). On a mesh the trainer saves
 full leaves in the single-device format (one rank writes) and restores at
-any model width. Only the ``model`` axis is ported: a mesh with ``data``
-> 1 raises.
+any ``(data, model)``.
+
+Data parallelism (the reference splits the batch over ``("pod", "data")``):
+each replica of a shard computes its gradient on its rows of the global
+batch, and the step averages the gradients (and the loss) over the
+``data`` group before the norm, the compression and AdamW, so every
+replica applies the single-device step on the global batch (the mean of
+the replicas' means: exact when their rows hold equal counts of labels,
+as the reference's micro-batch mean assumes). An MoE stack routes each
+replica's rows as its share of the global batch's dispatch groups, with
+the load-balance loss's two means taken over the global batch
+(``layers.moe_aux``). The weights replicate over
+``data``: the reference's FSDP sharding of ``wembed`` over ``data`` is not
+ported (the same numbers, more memory a card).
 """
 from __future__ import annotations
 
@@ -92,6 +104,19 @@ def stack_group(cfg) -> Callable[[tuple], Hashable]:
     return name
 
 
+def replica_rows(v, data: int, rank: int, grad_accum: int = 1):
+    """Replica ``rank``'s rows of ``v`` (a global batch's leaf, an array
+    or a tensor, rows first) over ``data`` replicas: of each of the
+    ``grad_accum`` micro-batches (blocks of rows in order), its ``rank``-th
+    of ``data`` slices. So the replica's i-th micro-batch is its share of
+    the global i-th one, which an MoE stack routes as one batch
+    (``layers.moe_capacity``). All rows at ``data`` 1."""
+    n = v.shape[0] // (grad_accum * data)
+    rest = tuple(v.shape[1:])
+    return v.reshape((grad_accum, data, n) + rest)[:, rank].reshape(
+        (grad_accum * n,) + rest)
+
+
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
                     rules: Rules = NO_RULES, grad_accum: int = 1,
                     compress_grads: bool = False):
@@ -103,17 +128,24 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
     ``compress_grads`` the gradients go through int8 with error feedback
     (``state["err"]``), a scale per reference leaf (``stack_group``).
     ``rules``: a rank's ``TrainRules`` (``tp.train_plan``), its state the
-    rank's part (``init_state(plan=)``); the whole batch on every rank.
-    metrics: {"loss", "grad_norm", "lr" [, "ce" when grad_accum == 1]},
-    0-dim tensors, the same on every rank; nothing syncs with the host."""
+    rank's part (``init_state(plan=)``); the batch is the rank's replica's
+    rows (``replica_rows``; the whole batch without a ``data`` axis), and
+    over ``rules.data`` > 1 replicas the gradients, loss and ce are
+    averaged over the data group first. metrics: {"loss", "grad_norm", "lr" [, "ce" when
+    grad_accum == 1]}, 0-dim tensors, the same on every rank; nothing
+    syncs with the host."""
     group = stack_group(cfg)
     split = getattr(rules, "sharded", frozenset())
-    pg = getattr(rules, "group", None)
+    data = getattr(rules, "data", 1)
+
+    def mean_over_data(t: torch.Tensor) -> torch.Tensor:
+        return rules.all_reduce(t, "data").div_(data)
 
     def sharded(path) -> bool:
         return tp.path_key(path) in split
 
-    reduce = dict(sharded=sharded, process_group=pg) if split else {}
+    reduce = dict(sharded=sharded, all_reduce=rules.all_reduce) \
+        if split else {}
 
     def step(state, batch):
         params = state["params"]
@@ -138,6 +170,11 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
             grads = pytree.tree_map(lambda g: g / grad_accum, grads)
             loss = loss / grad_accum
             aux = {}
+        if data > 1:
+            grads = pytree.tree_map(mean_over_data, grads)
+            loss = mean_over_data(loss.clone())
+            aux = {k: mean_over_data(v.clone()) for k, v in aux.items()
+                   if k == "ce"}
         if compress_grads:
             grads, state["err"] = compression.compress_tree(
                 grads, state["err"], group, **reduce)
@@ -202,12 +239,15 @@ class Trainer:
     state starts from ``init_state`` with a generator seeded ``seed`` on
     ``device`` (CUDA unless the caller asks for the CPU).
 
-    ``mesh`` (``launch.mesh.make_host_mesh(model=M)``, made inside the
-    world, ``data`` 1): this rank's part of a model-parallel trainer on
-    ``mesh.device`` (``tp.train_plan``). Every rank reads the same batches
-    and ``ckpt_dir``; a checkpoint holds the full leaves (the single-device
-    format, written by the group's first rank), and a resume at any model
-    width cuts its part from them."""
+    ``mesh`` (``launch.mesh.make_host_mesh(model=M)`` over D x M devices,
+    made inside the world): this rank's part of a model-parallel trainer on
+    ``mesh.device`` (``tp.train_plan``), replica ``mesh.data_rank`` of D.
+    Every rank reads the same batches and ``ckpt_dir`` and steps on its
+    replica's rows of each batch (``replica_rows``: ``global_batch`` / D
+    of them); a
+    checkpoint holds the full leaves (the single-device format, written by
+    the world's first rank), and a resume at any ``(data, model)`` cuts
+    its part from them."""
 
     def __init__(self, cfg, opt_cfg, dataset, *,
                  ckpt_dir: Optional[str] = None, save_every: int = 50,
@@ -219,11 +259,13 @@ class Trainer:
         self.mesh = mesh
         self.plan = None
         if mesh is not None:
-            if mesh.shape.get("data", 1) != 1:
-                raise ValueError(
-                    f"a mesh of {mesh.shape}: only the model axis is "
-                    f"ported (data-parallel training is not)")
             self.plan = tp.train_plan(cfg, mesh)
+            rows = dataset.cfg.global_batch // dataset.cfg.num_hosts
+            if rows % (self.plan.rules.data * grad_accum):
+                raise ValueError(
+                    f"a batch of {rows} rows does not split into "
+                    f"{grad_accum} micro-batches over "
+                    f"{self.plan.rules.data} data replicas")
             device = mesh.device
         self.device = resolve_device(device)
         rules = NO_RULES if self.plan is None else self.plan.rules
@@ -231,6 +273,7 @@ class Trainer:
         self.log_every, self.log = log_every, log_fn
         self.monitor = StragglerMonitor()
         self.checkpointer = ckpt.AsyncCheckpointer()
+        self.grad_accum = grad_accum
         self.step_fn = make_train_step(cfg, opt_cfg, rules=rules,
                                        grad_accum=grad_accum,
                                        compress_grads=compress_grads)
@@ -274,7 +317,7 @@ class Trainer:
         if self.plan is not None:
             state = tp.gather_tree(self.state, self._specs(),
                                    self.plan.rules.group)
-            if state is None:           # another rank of the group writes
+            if state is None or self.mesh.data_rank:   # another rank writes
                 return
         self.checkpointer.save(
             path, state,
@@ -284,9 +327,12 @@ class Trainer:
     def run(self, num_steps: int) -> Dict[str, Any]:
         it = iter(self.dataset)
         last_metrics: Dict[str, Any] = {}
+        d, r = (1, 0) if self.mesh is None else (self.plan.rules.data,
+                                                 self.mesh.data_rank)
         for _ in range(num_steps):
-            batch = {k: torch.from_numpy(v).to(self.device)
-                     for k, v in next(it).items()}
+            batch = {k: torch.from_numpy(
+                         replica_rows(v, d, r, self.grad_accum)
+                         ).to(self.device) for k, v in next(it).items()}
             t0 = time.perf_counter()
             self.state, metrics = self.step_fn(self.state, batch)
             # repro-lint: disable=host-sync — step timing needs the sync
@@ -308,7 +354,7 @@ class Trainer:
         if self.ckpt_dir:
             self.save()
             self.checkpointer.wait()
-            if self.mesh is not None and self.plan.rules.group is not None:
+            if self.mesh is not None and dist.is_initialized():
                 # the writer is done before any rank may read the directory
-                dist.barrier(group=self.plan.rules.group)
+                dist.barrier()
         return last_metrics

@@ -74,6 +74,9 @@ def test_import_loads_no_jax_and_no_repro_module():
         "import repro_torch.parallel.compression\n"
         "import repro_torch.parallel.pipeline\n"
         "import repro_torch.runtime.trainer, repro_torch.launch.train\n"
+        "import repro_torch.launch.steps, repro_torch.launch.dryrun\n"
+        "import repro_torch.analysis, repro_torch.analysis.op_cost\n"
+        "import repro_torch.analysis.roofline, repro_torch.analysis.report\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
         "print(bad)\n"

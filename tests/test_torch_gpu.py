@@ -31,7 +31,8 @@ from repro_torch.runtime.serving import (DenseServingEngine,  # noqa: E402
 from torch_cases import (BLOCKED_CASES, CONV_SPECS,  # noqa: E402
                          EPILOGUE_EDGES, F32, GEMM_SHAPES, MASK_PROBES,
                          dying_traffic,
-                         MHA_CASES, PAGED_CASES, POOL_SPECS, QUANT_SCALES,
+                         MHA_CASES, OP_NAMES, PAGED_CASES, POOL_SPECS,
+                         QUANT_SCALES, op_calls_on,
                          STEM_SPEC, TC_GEMM_SHAPES, TRANSPOSE_SHAPES,
                          epilogue_inputs, gemm_inputs, int8_extremes,
                          int8, mha_inputs, normal, paged_case,
@@ -1754,6 +1755,28 @@ def test_cuda_wrappers_refuse_grad(cuda, name):
     torch.cuda.synchronize()
     assert ops.launch_counts() != before
 
+
+
+@pytest.mark.gpu
+def test_cuda_seam_refuses_fake_inputs(cuda):
+    """On the card too, every ``kernels.ops`` entry refuses fake CUDA
+    tensors (null pointers) and meta tensors before it builds or launches;
+    the same calls on real CUDA tensors launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    before = ops.launch_counts()
+    for name in OP_NAMES:
+        with FakeTensorMode():
+            with pytest.raises(RuntimeError, match="fake or meta tensor"):
+                op_calls_on("cuda")[name]()
+        with pytest.raises(RuntimeError, match="fake or meta tensor"):
+            op_calls_on("meta")[name]()
+    assert ops.launch_counts() == before
+    for name in OP_NAMES:
+        op_calls_on("cuda")[name]()
+    torch.cuda.synchronize()
+    assert all(ops.launch_counts()[k] > before[k] for k in (
+        "paged_attention", "mha", "gemm_os", "gemm_os_int8", "conv_im2col",
+        "maxpool", "blocked_layout", "tiled_transpose", "sampler_noise"))
 
 
 # ---------------------------------------------------------------------------

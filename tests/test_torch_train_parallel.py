@@ -14,12 +14,20 @@ fixture, and each test asserts on one scenario's result on every rank:
   out-projection's gradient M times too large;
 * three steps (plain, ``grad_accum=4``, ``compress_grads``; at 2 ranks also
   recurrentgemma-9b, whose attention falls back, and dbrx-132b, whose MoE
-  replicates) from ``convert.state_from_jax`` against JAX's steps, and the
-  all-reduces of a step;
+  replicates, also with ``grad_accum=2``) from ``convert.state_from_jax``
+  against JAX's steps, and the all-reduces of a step;
 * ``compressed_psum`` bit for bit against the reference's under
   ``jax.vmap``; ``gpipe`` against the sequential stack;
+* data parallelism: a world of 2 as (data 2, model 1) and one of 4 as
+  (data 2, model 2), each rank on its replica's half of the global batch,
+  three steps (plain, ``compress_grads``, and dbrx-132b's MoE, whose
+  replicas route as halves of the global batch's dispatch groups, also
+  with ``grad_accum`` 2) against JAX's on the whole batch, the replicas'
+  parameters equal bit for bit; a checkpoint saved at (2, 2) restored in
+  one process;
 * checkpoints across meshes (``tests/test_elastic_restore.py``'s
-  contract) and the launcher's ``--model-parallel``.
+  contract) and the launcher's ``--model-parallel`` and
+  ``--data-parallel``.
 
 Bounds: layers at atol = rtol = 2e-5 (the same fp32 products, summed in
 another order); losses and the step's metrics within rtol 1e-4 of JAX's;
@@ -58,9 +66,11 @@ REPO = Path(__file__).resolve().parents[1]
 F32 = dict(atol=2e-5, rtol=2e-5)
 WORLD_SCENARIOS = {
     2: ("block_attn_mlp", "block_dec", "ckpt_save",
-        *(f"train_{n}" for n in ranks.TRAIN_CASES)),
+        *(f"train_{n}" for n in ranks.TRAIN_CASES),
+        *(f"dp_{n}" for n in ranks.DP_CASES)),
     4: ("block_attn_mlp", "block_dec", "psum", "gpipe", "ckpt_restore",
-        "train_plain", "train_accum4", "train_compress"),
+        "train_plain", "train_accum4", "train_compress",
+        *(f"dp_{n}" for n in ranks.DP_CASES), "dp_ckpt_save"),
 }
 GPIPE = dict(S=4, M=8, mb=2, d=8)
 
@@ -232,7 +242,8 @@ def test_block_shards_equal_the_whole_block(worlds, n, block):
 # 2 KV heads shard over 2 ranks, not 4; recurrentgemma's one KV head never
 # shards; an MoE stack's FFN always replicates
 CONTRACT = {(2, "plain"): ["ffn", "heads"], (4, "plain"): ["ffn"],
-            (2, "rgemma"): ["ffn"], (2, "dbrx"): ["heads"]}
+            (2, "rgemma"): ["ffn"], (2, "dbrx"): ["heads"],
+            (2, "dbrx_accum2"): ["heads"]}
 
 
 @pytest.mark.parametrize("n,name", [(2, n) for n in ranks.TRAIN_CASES]
@@ -258,6 +269,70 @@ def test_train_steps_track_jax(worlds, bundle, n, name):
     d = torch.cat([(x - y).abs().flatten() for x, y in zip(a, b)])
     assert d.max().item() <= 2 * sum(lrs)
     assert (d > 1e-5).float().mean().item() <= 1e-3
+
+
+def _params_track_jax(got, want):
+    """The parameter bound of ``test_train_steps_track_jax``."""
+    lrs = [m["lr"] for m in want["metrics"]]
+    a = pytree.tree_leaves(got)
+    b = pytree.tree_leaves(want["params"])
+    assert len(a) == len(b)
+    d = torch.cat([(x - y).abs().flatten() for x, y in zip(a, b)])
+    assert d.max().item() <= 2 * sum(lrs)
+    assert (d > 1e-5).float().mean().item() <= 1e-3
+
+
+@pytest.mark.parametrize("name", ranks.DP_CASES)
+@pytest.mark.parametrize("n", [2, 4])
+def test_data_parallel_steps_track_jax_on_the_global_batch(worlds, bundle,
+                                                           n, name):
+    """Each replica steps on 4 of the 8 rows and averages the gradients
+    over the data axis: the single-device step on all 8, every rank. On
+    dbrx-132b's MoE the replicas route their rows as their halves of the
+    global batch's dispatch groups, with the load-balance loss over the
+    global batch; with ``grad_accum`` 2 each replica's micro-batch is its
+    half of the global one. The replicas apply the same averaged update,
+    so their parameters are equal bit for bit."""
+    res = results(worlds[n], f"dp_{name}")
+    want = bundle[1][name]
+    moe = ranks.TRAIN_CASES[name][0] != ranks.QWEN
+    assert [r["data"] for r in res] == [2] * n
+    assert [r["rows"] for r in res] == [4] * n
+    assert res[0]["contract"] == ([] if n == 2 else
+                                  ["heads"] if moe else ["ffn", "heads"])
+    for r in res[1:]:
+        assert r["metrics"] == res[0]["metrics"]
+    # the first rank of each replica's model group holds its parameters
+    firsts = [res[i] for i in range(0, n, n // 2)]
+    assert [r["params"] is None for r in res] == [
+        i % (n // 2) != 0 for i in range(n)]
+    for got, jm in zip(res[0]["metrics"], want["metrics"]):
+        assert set(got) == set(jm)
+        for k in got:
+            np.testing.assert_allclose(got[k], jm[k], rtol=1e-4)
+    _params_track_jax(res[0]["params"], want)
+    a = pytree.tree_leaves(firsts[0]["params"])
+    b = pytree.tree_leaves(firsts[1]["params"])
+    assert len(a) == len(b)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_checkpoint_at_2x2_restores_at_1x1(world2, world4, bundle):
+    """4 steps at (data 2, model 2), saved; resumed in this process with no
+    mesh for 4 more: the losses of an uninterrupted run at (1, model 2)."""
+    saved = results(world4, "dp_ckpt_save")
+    whole = results(world2, "ckpt_save")[0]["whole"]
+    for r in saved:
+        assert r["shape"] == {"data": 2, "model": 2} and r["data"] == 2
+        np.testing.assert_allclose(r["losses"], whole[:ranks.RESUME_AT],
+                                   rtol=1e-4)
+    log = []
+    tr = ranks._trainer(None, str(bundle[0] / "ckpt" / "dp"), log)
+    assert tr.step == ranks.RESUME_AT
+    tr.run(ranks.RESUME_STEPS - ranks.RESUME_AT)
+    np.testing.assert_allclose(ranks._losses(tr), whole[ranks.RESUME_AT:],
+                               rtol=1e-4)
+    assert any("resumed from" in ln for ln in log)
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -371,6 +446,22 @@ def test_launch_train_model_parallel_on_the_cpu(tmp_path):
                         "steps")
 
 
+def test_launch_train_data_parallel_on_the_cpu(tmp_path):
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "qwen2.5-3b", "--smoke", "--steps", "3", "--seq", "16",
+         "--data-parallel", "2", "--device", "cpu"],
+        env=env, cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    lines = r.stdout.splitlines()
+    assert len(lines) == 2, r.stdout
+    assert lines[0].endswith("data-parallel over 2 replicas")
+    assert "model-parallel" not in lines[0]
+    assert lines[1] == ("[launch.train] done at step 3; 0 straggler-flagged "
+                        "steps")
+
+
 def test_launch_train_model_parallel_needs_a_card_a_rank(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -383,3 +474,7 @@ def test_launch_train_model_parallel_needs_a_card_a_rank(monkeypatch):
     with pytest.raises(SystemExit, match="needs 2 CUDA devices.*have 1"):
         launch_train.main(["--arch", "qwen2.5-3b", "--smoke",
                            "--model-parallel", "2"])
+    with pytest.raises(SystemExit, match="--data-parallel 2 needs 4 CUDA "
+                       "devices.*have 1"):
+        launch_train.main(["--arch", "qwen2.5-3b", "--smoke",
+                           "--model-parallel", "2", "--data-parallel", "2"])

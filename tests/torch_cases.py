@@ -230,3 +230,37 @@ def dying_traffic(slots, vocab):
     lens, budgets = rng.integers(3, 12, n), rng.integers(2, 12, n)
     return [([int(t) for t in rng.integers(1, vocab, L)], int(b))
             for L, b in zip(lens, budgets)]
+
+
+OP_NAMES = ("attention", "paged_attention", "matmul", "quant_matmul",
+            "conv2d", "maxpool2d", "blocked_layout", "transpose",
+            "sampler_noise")
+
+
+def op_calls_on(device):
+    """Each entry of ``repro_torch.kernels.ops`` (``OP_NAMES``) as a call
+    on small zeros made on ``device`` when it runs (inside a
+    ``FakeTensorMode``: fakes on that device)."""
+    import torch
+    from repro_torch.kernels import ops
+
+    def z(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    i8, i32, i64 = torch.int8, torch.int32, torch.int64
+    return {
+        "attention": lambda: ops.attention(z(1, 4, 2, 16), z(1, 4, 2, 16),
+                                           z(1, 4, 2, 16)),
+        "paged_attention": lambda: ops.paged_attention(
+            z(1, 4, 2, 16), z(2, 4, 2, 16), z(2, 4, 2, 16),
+            z(1, 1, dtype=i32), [4]),
+        "matmul": lambda: ops.matmul(z(8, 16), z(16, 8)),
+        "quant_matmul": lambda: ops.quant_matmul(z(8, 16, dtype=i8),
+                                                 z(16, 8, dtype=i8), 0.1),
+        "conv2d": lambda: ops.conv2d(z(1, 2, 4, 16), z(3, 3, 16, 8)),
+        "maxpool2d": lambda: ops.maxpool2d(z(1, 2, 4, 16)),
+        "blocked_layout": lambda: ops.blocked_layout(z(2, 4, 16)),
+        "transpose": lambda: ops.transpose(z(8, 16)),
+        "sampler_noise": lambda: ops.sampler_noise(
+            z(1, dtype=i64), z(1, dtype=i64), z(1, dtype=i64), 8, draw=0),
+    }

@@ -1,5 +1,5 @@
-"""Rank-side scenarios of tests/test_torch_train_parallel.py: model-parallel
-training of the port on the CPU, in spawned gloo worlds
+"""Rank-side scenarios of tests/test_torch_train_parallel.py: model- and
+data-parallel training of the port on the CPU, in spawned gloo worlds
 (``repro_torch.launch.mesh.run_world``). Imports neither jax nor the JAX
 package: the ranks read their inputs (the JAX package's initial states
 moved over by ``repro_torch.convert``, the batches, the pipeline's
@@ -43,6 +43,7 @@ TRAIN_CASES = {
     "compress": (QWEN, 1, True),
     "rgemma": ("recurrentgemma-9b", 1, False),
     "dbrx": ("dbrx-132b", 1, False),
+    "dbrx_accum2": ("dbrx-132b", 2, False),
 }
 STEPS = 3
 RESUME_AT, RESUME_STEPS = 4, 8        # the cross-mesh resume's schedule
@@ -135,30 +136,38 @@ def block_dec(mesh, inputs, ckpt_dir):
 
 def train_case(mesh, inputs, name):
     """``STEPS`` model-parallel steps of case ``name`` from the moved-over
-    JAX state: each step's metrics, the all-reduces of the first step,
-    the plan, and the final parameters gathered on the first rank."""
+    JAX state, each rank on its data replica's rows of the global batch:
+    each step's metrics, the all-reduces of the first step, the plan, and
+    the final parameters gathered on each replica's first rank."""
     arch, accum, compress = TRAIN_CASES[name]
     cfg = cfg_of(arch)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)   # the fallbacks warn
         plan = tp.train_plan(cfg, mesh)
-    state = inputs["states"][name]
+    # a copy: AdamW updates in place, and a replicated leaf's part is the
+    # leaf itself, which another scenario of this world starts from
+    state = pytree.tree_map(torch.clone, inputs["states"][name])
     specs = tp.state_specs(plan, state)
     state = tp.shard_tree(state, specs, plan.model_shards, mesh.model_rank)
     step = trainer.make_train_step(cfg, adamw.AdamWConfig(**OPT),
                                    rules=plan.rules, grad_accum=accum,
                                    compress_grads=compress)
     metrics, reduces = [], []
+    d, r = plan.rules.data, mesh.data_rank
     for b in inputs["batches"][name]:
         r0 = plan.rules.reduces
-        state, m = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
+        rows = {k: torch.from_numpy(trainer.replica_rows(v, d, r, accum))
+                for k, v in b.items()}
+        state, m = step(state, rows)
         reduces.append(plan.rules.reduces - r0)
         metrics.append({k: v.item() for k, v in m.items()})
+    params = tp.gather_tree(state["params"], specs["params"],
+                            plan.rules.group)
     return {"metrics": metrics, "reduces": reduces,
             "contract": sorted(plan.rules.contract_axes),
-            "n_sharded": len(plan.rules.sharded),
-            "params": tp.gather_tree(state["params"], specs["params"],
-                                     plan.rules.group)}
+            "n_sharded": len(plan.rules.sharded), "data": d,
+            "rows": len(rows["tokens"]),
+            "params": params if mesh.model_rank == 0 else None}
 
 
 def _train(name):
@@ -166,6 +175,35 @@ def _train(name):
         return train_case(mesh, inputs, name)
     scenario.__name__ = f"train_{name}"
     return scenario
+
+
+def dp_mesh():
+    """(data 2, model world / 2): the world's ranks folded two data
+    replicas deep (collective: every rank makes it, in scenario order)."""
+    world = dist.get_world_size()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return make_host_mesh(world // 2, devices=["cpu"] * world)
+
+
+def _dp(name):
+    def scenario(mesh, inputs, ckpt_dir):
+        return train_case(dp_mesh(), inputs, name)
+    scenario.__name__ = f"dp_{name}"
+    return scenario
+
+
+DP_CASES = ("plain", "compress", "dbrx", "dbrx_accum2")
+
+
+def dp_ckpt_save(mesh, inputs, ckpt_dir):
+    """At (data 2, model world / 2): a trainer run of ``RESUME_AT`` steps,
+    saved at its end under ``ckpt_dir/dp``, which one process restores."""
+    log = []
+    tr = _trainer(dp_mesh(), os.path.join(ckpt_dir, "dp"), log)
+    tr.run(RESUME_AT)
+    return {"losses": _losses(tr), "shape": tr.mesh.shape,
+            "data": tr.plan.rules.data}
 
 
 # ---------------------------------------------------------------------------
@@ -253,7 +291,8 @@ def ckpt_restore(mesh, inputs, ckpt_dir):
 
 SCENARIOS = {f.__name__: f for f in (
     block_attn_mlp, block_dec, psum, gpipe, ckpt_save, ckpt_restore,
-    *(_train(n) for n in TRAIN_CASES))}
+    dp_ckpt_save, *(_train(n) for n in TRAIN_CASES),
+    *(_dp(n) for n in DP_CASES))}
 
 
 def run_scenarios(rank, inputs_file, ckpt_dir, names):
