@@ -189,29 +189,40 @@ Phases, each failing loudly (non-zero exit, no result line):
    36 layers, fp32: 2 train steps on the card, then ``api.prefill``'s
    last-position logits (the mha kernel) against ``api.forward``'s (plain
    attention) on 4 prompts of 512 tokens, within 1e-4 of the logit scale.
-15. model-parallel training: (a) a spawned world of 1 over NCCL whose
-   ``tp.train_plan`` contracts "heads" and "ffn" anyway, qwen2.5-3b whole
-   as in phase 14 (bf16, remat full, 8 x 1024 tokens): a warm-up and two
-   timed steps after the same steps on one device in the same process,
-   losses and every parameter leaf equal bit for bit, 5 all-reduces a
-   layer a step, ms a step beside the plain step's. (b) two spawned gloo
-   ranks sharing cuda:0, qwen2.5-3b at full width cut to 4 layers, fp32:
-   3 steps plain and 3 with ``compress_grads`` (attention and MLP
-   sharded), held to the same steps on one device on the card by the CPU
-   tests' bounds, every rank's losses equal; ``compressed_psum`` over the
-   pair equal to the plain formula bit for bit; ``gpipe`` at 2 stages on
-   CUDA tensors, or gloo's refusal, logged. No kernel launches in either.
+15. model- and data-parallel training at the reference's layout: (a) a
+   spawned world of 1 over NCCL whose rules force every hook of the
+   layout anyway (``forced_layout_rules``: the FSDP and model gathers,
+   their backward reduce-scatters and parts, the heads, ffn, vocab and
+   experts sums, each over one rank), qwen2.5-3b whole as in phase 14
+   (bf16, remat full, 8 x 1024 tokens): a warm-up and two timed steps
+   after the same steps on one device in the same process, losses and
+   every parameter leaf equal bit for bit, 5 sums a layer and 11 for the
+   vocab a step, the collectives a step by kind and axis, ms a step
+   beside the plain step's. (b) four spawned gloo ranks sharing cuda:0
+   at (data 2, model 2): qwen2.5-3b at full width cut to 2 layers, fp32,
+   2 steps plain and 2 with ``compress_grads`` (attention, MLP and the
+   151936-token vocab computed sharded, every ``wembed`` dim over
+   ``data``), held to the same steps on one device on the card by the
+   CPU tests' bounds; dbrx-132b at full width (16 experts, 8 a rank) cut
+   to 1 layer with bf16 moments, 2 steps, held to one device within a
+   bf16 spacing; every rank's losses equal, the collectives a step
+   logged; ``compressed_psum`` over the four equal to the plain formula
+   bit for bit; ``gpipe`` at 4 stages on CUDA tensors, or gloo's
+   refusal, logged. No kernel launches in either.
 16. the dry-run (fake tensors on the CPU device, the H100 roofline): the
    CLI ``python -m repro_torch.launch.dryrun --arch qwen2.5-3b`` (every
    shape, pod16x16, full width, train_4k extrapolated from 1 and 2
-   layers; each kernel seam counted as its kernel) in a process of its
-   own, every cell ok, its prefill and decode cells' dot FLOPs equal to
-   the same cells traced in this process; qwen2.5-3b SMOKE at B 1, S 1024
-   with the seams' plain versions, dot FLOPs equal to the JAX dry-run's
-   (``SMOKE_DOT_FLOPS``); the dry-run of phase 14's step beside its
-   measured ms, peak memory and 6 N T, and of a dense decode cell at
-   phase 6's batch and lane length beside that step timed here (eager
-   and as a graph replay, lanes full).
+   layers; each kernel seam counted as its kernel) and ``--arch
+   dbrx-132b --shape train_4k``, each in a process of its own started
+   with phase 15 (they trace on the host's cores while it runs), every cell
+   ok, every cell's argument bytes equal to the layout's reckoning
+   (``layout_bytes``), qwen2.5-3b's prefill and decode cells' dot FLOPs
+   equal to the same cells traced in this process; qwen2.5-3b SMOKE at B
+   1, S 1024 with the seams' plain versions, dot FLOPs equal to the JAX
+   dry-run's (``SMOKE_DOT_FLOPS``); the dry-run of phase 14's step
+   beside its measured ms, peak memory and 6 N T, and of a dense decode
+   cell at phase 6's batch and lane length beside that step timed here
+   (eager and as a graph replay, lanes full).
 
 The line before the last is a JSON ``{"kernels": [...]}`` summary (the
 seven TPU kernels' counterparts, the sampler's noise kernel, mha and
@@ -4717,7 +4728,9 @@ def check_train_serve(rng) -> dict:
 # phase 15: model-parallel training
 # ---------------------------------------------------------------------------
 
-PAIR_LAYERS, PAIR_B, PAIR_S = 4, 4, 256       # phase 15 (b)'s steps
+PAIR_LAYERS, PAIR_B, PAIR_S = 2, 4, 256       # phase 15 (b)'s steps
+QUAD_QWEN_STEPS = 2
+QUAD_DBRX_LAYERS, QUAD_DBRX_STEPS = 1, 2       # phase 15 (b)'s dbrx-132b
 
 
 def leaf_items(tree):
@@ -4761,20 +4774,49 @@ def profiled_step(step, state, b) -> dict:
             "launches": sum(c for _, c, _ in rows)}
 
 
+def forced_layout_rules(cfg, group):
+    """``TrainRules`` over ``group`` (a world of one rank) that issue every
+    hook of the training layout anyway: the gathers of a (data 2, model
+    4) plan (every ``wembed`` dim over ``data``; qwen2.5-3b's 16 query
+    heads over ``model``, its 2 KV heads not), their backward
+    reduce-scatters and parts, and the heads, ffn, vocab and experts
+    contractions, each a collective over one rank (a copy). The same
+    function as ``tests/torch_layout_ranks.py``'s ``forced_rules``."""
+    import warnings
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel import tp
+    from repro_torch.parallel.sharding import TrainRules
+    desc = Mesh(tuple((torch.device("meta"),) * 4 for _ in range(2)),
+                {"data": 2, "model": 4})
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        uses = tp.train_plan(cfg, desc).rules.uses
+    return TrainRules(("heads", "ffn", "vocab", "experts"), group,
+                      data_group=group, uses=uses)
+
+
+def collectives_a_step(rules, c0, steps) -> dict:
+    """The collectives ``rules`` issued since the snapshot ``c0``, by
+    "kind:axis", per step."""
+    return {f"{k[0]}:{k[1]}": (n - c0.get(k, 0)) / steps
+            for k, n in sorted(rules.collectives.items())}
+
+
 def train_world1_rank(rank: int) -> dict:
     """Phase 15 (a), a spawned world of 1 over NCCL on cuda:0: qwen2.5-3b
     whole (bf16, remat full, 8 x 1024 tokens a step), one warm-up step,
     two timed ones and one profiled, first on one device
-    (``make_train_step``), then from
-    the same seed through ``tp.train_plan`` with rules that sum "heads"
-    and "ffn" anyway (over a world of one rank: copies). The two states do
-    not fit together, so the plain run's parameters are kept as host
-    copies and compared leaf by leaf."""
+    (``make_train_step``), then from the same seed with rules that issue
+    every hook of the training layout anyway (``forced_layout_rules``:
+    FSDP gathers, model gathers, the heads, ffn, vocab and experts sums,
+    over a world of one rank: copies). The two states do not fit
+    together, so the plain run's parameters are kept as host copies and
+    compared leaf by leaf."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.parallel import tp
-    from repro_torch.parallel.sharding import TrainRules
     torch.cuda.set_device(0)
     cfg = get_config("qwen2.5-3b")
     opt = launch_opt(3, cfg)
@@ -4790,9 +4832,12 @@ def train_world1_rank(rank: int) -> dict:
         rules = plan.rules if plan is not None else NO_RULES
         step = trainer.make_train_step(cfg, opt, rules=rules)
         r0 = getattr(rules, "reduces", 0)
+        c0 = dict(getattr(rules, "collectives", {}))
         torch.cuda.reset_peak_memory_stats()
         losses, times = timed_steps(step, state, batches[:3])
         reduces = getattr(rules, "reduces", 0) - r0
+        if plan is not None:
+            out["collectives"] = collectives_a_step(rules, c0, 3)
         peak = torch.cuda.max_memory_allocated()
         if plan is None:
             state, m = step(state, batch_on("cuda", batches[3]))
@@ -4810,8 +4855,8 @@ def train_world1_rank(rank: int) -> dict:
     # a mesh of 1 contracts nothing: the plan's rules sum anyway, over the
     # world (a sum over one rank is a copy)
     plan = tp.train_plan(cfg, make_host_mesh(1, devices=["cuda:0"]))
-    plan = dataclasses.replace(plan, rules=TrainRules(
-        ("heads", "ffn"), dist.group.WORLD))
+    plan = dataclasses.replace(plan, rules=forced_layout_rules(
+        cfg, dist.group.WORLD))
     (state, out["mp_losses"], out["mp_ms"], out["reduces"],
      out["peak"], out["mp_prof"]) = run(plan)
     out["contract"] = sorted(plan.rules.contract_axes)
@@ -4859,17 +4904,22 @@ def train_world1_nccl(plain_busy) -> float:
                         init_file=os.path.join(tmp, "rdv"), timeout=900)[0]
     cfg = get_config("qwen2.5-3b")
     sums = 2 * 2 + 1        # a layer: 2 forward + 2 backward + 1 recompute
+    # the vocab's: the lookup's, and each loss chunk's input gradient and
+    # two sums in forward and again in its recompute
+    vocab = 1 + 5 * (TRAIN_S // 512)
     ms = float(np.mean(res["mp_ms"]))
     log(f"train model-parallel [world of 1 over NCCL ({res['backend']}), "
-        f"contracting {res['contract']} anyway; qwen2.5-3b whole, bf16, "
+        f"every hook of the layout forced (FSDP and model gathers, "
+        f"contracting {res['contract']}); qwen2.5-3b whole, bf16, "
         f"remat full, {TRAIN_B} x {TRAIN_S} tokens]: "
         f"{time.perf_counter() - t0:.1f} s with spawning; losses "
         f"{res['mp_losses']} against the plain step's "
         f"{res['plain_losses']}; {len(res['diff'])} of {res['leaves']} "
         f"parameter leaves differ from the plain run's "
-        f"{res['diff'][:4]}; {res['reduces'] / 3:.0f} all-reduces a step "
-        f"({sums} a layer x {cfg.num_layers} layers = "
-        f"{sums * cfg.num_layers}); ms a step {ms:.1f} (each "
+        f"{res['diff'][:4]}; {res['reduces'] / 3:.0f} sums a step "
+        f"({sums} a layer x {cfg.num_layers} layers + {vocab} = "
+        f"{sums * cfg.num_layers + vocab}); collectives a step "
+        f"{res['collectives']}; ms a step {ms:.1f} (each "
         f"{', '.join(f'{t:.1f}' for t in res['mp_ms'])}) against the plain "
         f"step's {np.mean(res['plain_ms']):.1f} (each "
         f"{', '.join(f'{t:.1f}' for t in res['plain_ms'])}) in the same "
@@ -4893,9 +4943,8 @@ def train_world1_nccl(plain_busy) -> float:
     if res["mp_losses"] != res["plain_losses"] or res["diff"]:
         fail("train model-parallel: the world of 1 parts from the plain "
              "step")
-    if res["reduces"] != 3 * sums * cfg.num_layers:
-        fail(f"train model-parallel: {res['reduces']} all-reduces in 3 "
-             f"steps")
+    if res["reduces"] != 3 * (sums * cfg.num_layers + vocab):
+        fail(f"train model-parallel: {res['reduces']} sums in 3 steps")
     if any(res["launches"].values()):
         fail(f"train model-parallel: a kernel launched: {res['launches']}")
     return ms
@@ -4912,93 +4961,157 @@ def _bounded(got, want, losses_got, losses_want, lrs) -> dict:
     for (k, a), (k2, b) in zip(got, want):
         if k != k2 or a.shape != b.shape:
             return {"ok": False, "words": f"leaf {k} against {k2}"}
-        d = (a.to(b.device) - b).abs()
+        d = (a.to("cuda") - b.to("cuda")).abs()      # a leaf at a time
         worst = max(worst, d.max().item())
         over += int((d > 1e-5).sum())
         n += d.numel()
     ok = ok and worst <= 2 * sum(lrs)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses_got,
+                                                       losses_want))
+    pmax = max(b.to("cuda").abs().max().item() for _, b in want)
     return {"ok": ok and over <= 1e-3 * n, "ok_but_share": ok,
-            "over": over, "words": (
+            "over": over, "worst": worst, "loss_rel": loss_rel,
+            "pmax": pmax, "lr_sum": sum(lrs), "words": (
         f"losses {[round(x, 6) for x in losses_got]} / "
         f"{[round(x, 6) for x in losses_want]}, parameters within "
         f"{worst:.3g} (bound {2 * sum(lrs):.3g}), {over} of {n} elements "
         f"past 1e-5")}
 
 
-def train_pair_rank(rank: int) -> dict:
-    """Phase 15 (b), one of two gloo ranks sharing cuda:0: qwen2.5-3b at
-    full width cut to 4 layers, fp32, remat full; 3 steps plain and 3
-    with ``compress_grads`` on the mesh (attention and MLP sharded),
-    their parameters gathered on rank 0, which also runs the same steps
-    on one device and holds the two to the CPU bounds; ``compressed_psum``
-    over the pair against the plain formula; ``gpipe`` at 2 stages on CUDA
-    tensors."""
+def _quad_run(cfg, opt, batches, seed, mesh, plan, *, compress=False,
+              accum=1, keep="cuda"):
+    """Steps of ``cfg`` from the state drawn from ``seed``: on one device
+    (``plan`` None; its final parameters kept on ``keep``) or as this
+    rank's part of ``mesh`` on its replica's rows, its final parameters
+    gathered on the world's first rank (None elsewhere). (losses, ms of
+    each step after the first, parameter leaves, collectives a step)."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = trainer.init_state(cfg, opt, gen, device="cuda",
+                               compress_grads=compress, plan=plan,
+                               rank=mesh.model_rank)
+    torch.cuda.empty_cache()        # the whole draw, cut to the part
+    torch.cuda.synchronize()
+    secs = {"init": time.perf_counter() - t0}
+    rules = NO_RULES if plan is None else plan.rules
+    step = trainer.make_train_step(cfg, opt, rules=rules, grad_accum=accum,
+                                   compress_grads=compress)
+    d, r = (1, 0) if plan is None else (rules.data, mesh.data_rank)
+    rows = [{k: trainer.replica_rows(v, d, r, accum) for k, v in b.items()}
+            for b in batches]
+    c0 = dict(getattr(rules, "collectives", {}))
+    t0 = time.perf_counter()
+    losses, times = timed_steps(step, state, rows)
+    secs["steps"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if plan is None:
+        leaves = [(k, t.to(keep)) for k, t in leaf_items(state["params"])]
+        secs["keep"] = time.perf_counter() - t0
+        return losses, times, leaves, {}, secs
+    from repro_torch.parallel import tp
+    params = tp.gather_tree(state["params"],
+                            tp.state_specs(plan, state)["params"],
+                            rules.group, rules.data_group)
+    secs["gather"] = time.perf_counter() - t0
+    return (losses, times, None if params is None else leaf_items(params),
+            collectives_a_step(rules, c0, len(batches)), secs)
+
+
+def train_quad_rank(rank: int) -> dict:
+    """Phase 15 (b), one of four gloo ranks sharing cuda:0 at (data 2,
+    model 2), every state leaf at the reference's layout (``wembed`` over
+    ``data``; heads, ffn, vocab and experts over ``model``):
+
+    * qwen2.5-3b at full width cut to ``PAIR_LAYERS`` layers, fp32,
+      remat full: ``QUAD_QWEN_STEPS`` steps plain and as many with
+      ``compress_grads`` (attention, MLP and the 151936-token vocab
+      computed sharded);
+    * dbrx-132b at full width (16 experts, 8 a rank), cut to
+      ``QUAD_DBRX_LAYERS`` layer(s) with bf16 moments (its config's are
+      fp32): ``QUAD_DBRX_STEPS`` plain steps, experts computed in
+      parallel, the router gathered;
+
+    each rank on its replica's rows, their parameters gathered on rank 0,
+    which also runs the same steps on one device (and for qwen2.5-3b a
+    control: the same step with its gradient over 2 micro-batches) and
+    holds them to the bounds; ``compressed_psum`` over the four against the plain
+    formula; ``gpipe`` at 4 stages on CUDA tensors."""
+    import warnings
+
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.parallel import compression, pipeline, tp
     torch.cuda.set_device(0)
-    cfg = dataclasses.replace(get_config("qwen2.5-3b"),
-                              num_layers=PAIR_LAYERS, dtype="float32")
-    opt = launch_opt(30, cfg)
-    ds = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=PAIR_S,
-                                     global_batch=PAIR_B, seed=SEED + 151))
-    batches = [ds.next_batch() for _ in range(3)]
-    mesh = make_host_mesh(2, devices=["cuda:0"] * 2)
-    plan = tp.train_plan(cfg, mesh)
-    out = {"contract": sorted(plan.rules.contract_axes)}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        mesh = make_host_mesh(2, devices=["cuda:0"] * 4)
+    out = {"shape": dict(mesh.shape)}
     ops.reset_launch_counts()
-
-    def run(compress, p, accum=1):
-        gen = torch.Generator(device="cuda").manual_seed(SEED + 151)
-        state = trainer.init_state(cfg, opt, gen, device="cuda",
-                                   compress_grads=compress, plan=p,
-                                   rank=mesh.model_rank)
-        rules = NO_RULES if p is None else p.rules
-        step = trainer.make_train_step(cfg, opt, rules=rules,
-                                       grad_accum=accum,
-                                       compress_grads=compress)
-        losses, times = timed_steps(step, state, batches)
-        if p is None:                 # kept on the card for the comparison
-            return losses, times, leaf_items(state["params"])
-        params = tp.gather_tree(state["params"], p.param_specs(cfg),
-                                p.rules.group)
-        return losses, times, None if params is None else leaf_items(params)
-
-    lrs = [float(adamw.schedule(opt, torch.tensor(i + 1))) for i in range(3)]
-    with bench.fp32_exact():
-        for compress in (False, True):
-            name = "compress" if compress else "plain"
-            one = ctl = None
-            if rank == 0:
-                one = run(compress, None)
+    cases = [("qwen", dataclasses.replace(
+                  get_config("qwen2.5-3b"), num_layers=PAIR_LAYERS,
+                  dtype="float32"), (False, True), 3),
+             ("dbrx", dataclasses.replace(
+                  get_config("dbrx-132b"), num_layers=QUAD_DBRX_LAYERS,
+                  moment_dtype="bfloat16"), (False,), QUAD_DBRX_STEPS)]
+    for arch, cfg, modes, n in cases:
+        opt = launch_opt(30, cfg)
+        ds = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=PAIR_S,
+                                         global_batch=PAIR_B,
+                                         seed=SEED + 151))
+        batches = [ds.next_batch() for _ in range(n)]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            plan = tp.train_plan(cfg, mesh)
+        out[arch] = {"contract": sorted(plan.rules.contract_axes)}
+        lrs = [float(adamw.schedule(opt, torch.tensor(i + 1)))
+               for i in range(n)]
+        keep = "cpu" if arch == "dbrx" else "cuda"
+        with bench.fp32_exact():
+            for compress in modes:
+                name = "compress" if compress else "plain"
+                one = ctl = None
+                if rank == 0:
+                    one = _quad_run(cfg, opt, batches, SEED + 151, mesh,
+                                    None, compress=compress, keep=keep)
+                    torch.cuda.empty_cache()
+                    # the control (fp32 only: an MoE stack's micro-batch
+                    # routes as a batch of its own, another function)
+                    ctl = one if arch == "dbrx" else _quad_run(
+                        cfg, opt, batches, SEED + 151, mesh, None,
+                        compress=compress, accum=2, keep=keep)
+                    torch.cuda.empty_cache()
+                dist.barrier()
+                torch.cuda.reset_peak_memory_stats()
+                mp = _quad_run(cfg, opt, batches, SEED + 151, mesh, plan,
+                               compress=compress)
+                res = {"losses": mp[0], "ms": mp[1], "collectives": mp[3],
+                       "peak": torch.cuda.max_memory_allocated(),
+                       "secs": mp[4]}
                 torch.cuda.empty_cache()
-                # the control: the same step on one device with its
-                # gradient summed in another order (2 micro-batches)
-                ctl = run(compress, None, accum=2)
-                torch.cuda.empty_cache()
-            dist.barrier()
-            mp = run(compress, plan)
-            torch.cuda.empty_cache()
-            out[name] = {"losses": mp[0], "ms": mp[1]}
-            if rank == 0:           # held here: the leaves stay on rank 0
-                out[name].update(
-                    one_losses=one[0], one_ms=one[1],
-                    held=_bounded(mp[2], one[2], mp[0], one[0], lrs),
-                    control=_bounded(ctl[2], one[2], ctl[0], one[0], lrs))
-            del one, ctl, mp
+                if rank == 0:       # held here: the leaves stay on rank 0
+                    t0 = time.perf_counter()
+                    res.update(
+                        one_losses=one[0], one_ms=one[1], one_secs=one[4],
+                        held=_bounded(mp[2], one[2], mp[0], one[0], lrs),
+                        control=_bounded(ctl[2], one[2], ctl[0], one[0],
+                                         lrs))
+                    res["secs"]["compare"] = time.perf_counter() - t0
+                out[arch][name] = res
+                del one, ctl, mp
+                dist.barrier()
     out["launches"] = ops.launch_counts()
-    # compressed_psum over the pair against the plain formula
+    # compressed_psum over the four against the plain formula
     xs = [torch.randn(1 << 20, generator=torch.Generator().manual_seed(
-        SEED + 152 + r)).cuda() * (r + 1) for r in range(2)]
+        SEED + 152 + r)).cuda() * (r + 1) for r in range(4)]
     got = compression.compressed_psum(xs[rank])
     s = torch.stack([x.abs().max() for x in xs]).max().clamp(
         min=1e-12) / 127.0
     want = sum(torch.clamp(torch.round(x / s), -127, 127).to(torch.int32)
                for x in xs).float() * s
     out["psum_equal"] = bool(torch.equal(got, want))
-    # gpipe at 2 stages on CUDA tensors over gloo
-    w = torch.randn(2, 64, 64, generator=torch.Generator().manual_seed(
+    # gpipe at 4 stages on CUDA tensors over gloo
+    w = torch.randn(4, 64, 64, generator=torch.Generator().manual_seed(
         SEED + 154)).cuda() * 0.2
     xs = torch.randn(4, 2, 64, generator=torch.Generator().manual_seed(
         SEED + 155)).cuda()
@@ -5014,7 +5127,9 @@ def train_pair_rank(rank: int) -> dict:
         out["gpipe_cuda"] = f"refused: {e}"
     # the same pipeline on host tensors, which gloo's ring hop takes
     w, xs = w.cpu(), xs.cpu()
-    seq = torch.tanh(torch.tanh(xs @ w[0]) @ w[1])
+    seq = xs
+    for i in range(4):
+        seq = torch.tanh(seq @ w[i])
     out["gpipe_cpu_err"] = (run(w[rank], xs) - seq).abs().max().item()
     return out
 
@@ -5037,44 +5152,84 @@ def gloo_cuda_p2p_rank(rank: int) -> str:
         return f"raised: {str(e)[:200]}"
 
 
-def train_gloo_pair() -> None:
-    """Phase 15 (b): ``train_pair_rank`` on 2 spawned gloo ranks, checked
+def train_gloo_quad() -> None:
+    """Phase 15 (b): ``train_quad_rank`` on 4 spawned gloo ranks, checked
     and logged."""
     import tempfile
 
     from repro_torch.launch.mesh import WorldError, run_world
+    gc.collect()
     torch.cuda.empty_cache()
+    held = (torch.cuda.memory_allocated() / 2**30,
+            torch.cuda.memory_reserved() / 2**30)
+    log(f"train quad: this process holds {held[0]:.2f} GiB allocated, "
+        f"{held[1]:.2f} GiB reserved on the card before the four ranks "
+        f"start")
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        res = run_world(train_pair_rank, 2, backend="gloo",
-                        init_file=os.path.join(tmp, "rdv"), timeout=900)
+    # the four share 80 GB: their allocators grow segments in place, so
+    # the gathers' and reduce-scatters' GB-sized churn leaves no split
+    # blocks reserved (set for the spawned ranks only)
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            res = run_world(train_quad_rank, 4, backend="gloo",
+                            init_file=os.path.join(tmp, "rdv"),
+                            timeout=1000)
+    finally:
+        if conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF")
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
     first = res[0]
-    if first["contract"] != ["ffn", "heads"]:
-        fail(f"train pair: the plan contracts {first['contract']}")
-    for name in ("plain", "compress"):
-        r = first[name]
+    want = {"qwen": ["ffn", "heads", "vocab"],
+            "dbrx": ["experts", "heads", "vocab"]}
+    for arch, contract in want.items():
+        if first[arch]["contract"] != contract:
+            fail(f"train quad [{arch}]: the plan contracts "
+                 f"{first[arch]['contract']}")
+    for arch, name in (("qwen", "plain"), ("qwen", "compress"),
+                       ("dbrx", "plain")):
+        r = first[arch][name]
         held, ctl = r["held"], r["control"]
-        log(f"train pair [qwen2.5-3b full width, {PAIR_LAYERS} layers, "
-            f"fp32, 2 gloo ranks on cuda:0, {name}] against one device on "
-            f"the card: {held['words']}; the control (one device, the "
-            f"gradient over 2 micro-batches) against one device: "
-            f"{ctl['words']}; ms a step (host clock, correctness only) "
-            f"{np.mean(r['ms']):.1f} on the pair, "
-            f"{np.mean(r['one_ms']):.1f} on one device")
-        if res[1][name]["losses"] != r["losses"]:
-            fail(f"train pair [{name}]: the ranks' losses differ")
-        # the CPU bounds; past the share of elements, only as far as the
-        # control, two correct single-device runs, part from each other
-        if not (held["ok"] or (held["ok_but_share"]
-                               and held["over"] <= 2 * ctl["over"])):
-            fail(f"train pair [{name}]: outside the CPU bounds")
+        what = (f"qwen2.5-3b full width, {PAIR_LAYERS} layers, fp32"
+                if arch == "qwen" else
+                f"dbrx-132b full width (16 experts, 8 a rank), "
+                f"{QUAD_DBRX_LAYERS} layer(s), bf16, bf16 moments")
+        log(f"train quad [{what}, 4 gloo ranks on cuda:0 at {first['shape']}"
+            f", {name}] against one device on the card: {held['words']}; "
+            f"the control (one device, the gradient over 2 micro-batches) "
+            f"against one device: {ctl['words']}; ms a step (host clock, "
+            f"correctness only) {np.mean(r['ms']):.1f} on the four, "
+            f"{np.mean(r['one_ms']):.1f} on one device; collectives a step "
+            f"on a rank {r['collectives']}; s on rank 0: the four "
+            f"{ {k: round(v, 1) for k, v in r['secs'].items()} }, one "
+            f"device { {k: round(v, 1) for k, v in r['one_secs'].items()} }; "
+            f"peak allocated on the card "
+            f"while the four ran, seen from each rank "
+            f"{[round(x[arch][name]['peak'] / 2**30, 2) for x in res]} GiB")
+        if any(x[arch][name]["losses"] != r["losses"] for x in res[1:]):
+            fail(f"train quad [{arch} {name}]: the ranks' losses differ")
+        # fp32: the CPU bounds; past the share of elements, only as far
+        # as the control, two correct single-device runs, part from each
+        # other. bf16 (dbrx): losses within one bf16 spacing (2^-8
+        # relative) of one device's, every parameter within 2 lr a step
+        # plus one bf16 spacing of the largest parameter
+        if arch == "qwen":
+            ok = held["ok"] or (held["ok_but_share"]
+                                and held["over"] <= 2 * ctl["over"])
+        else:
+            ok = held["loss_rel"] <= 2.0 ** -8 and held["worst"] <= (
+                2 * held["lr_sum"] + 2.0 ** -8 * held["pmax"])
+        if not ok:
+            fail(f"train quad [{arch} {name}]: outside the bounds")
     if not all(r["psum_equal"] for r in res):
-        fail("train pair: compressed_psum differs from the plain formula")
+        fail("train quad: compressed_psum differs from the plain formula")
     if any(any(r["launches"].values()) for r in res):
-        fail(f"train pair: a kernel launched: {[r['launches'] for r in res]}")
+        fail(f"train quad: a kernel launched: {[r['launches'] for r in res]}")
     if not all(r["gpipe_cuda"].startswith("refused: gpipe: gloo") and
                r["gpipe_cpu_err"] <= 1e-5 for r in res):
-        fail(f"train pair: gpipe: "
+        fail(f"train quad: gpipe: "
              f"{[(r['gpipe_cuda'], r['gpipe_cpu_err']) for r in res]}")
     with tempfile.TemporaryDirectory() as tmp:
         try:
@@ -5082,9 +5237,9 @@ def train_gloo_pair() -> None:
                              init_file=os.path.join(tmp, "rdv"), timeout=120)
         except WorldError as e:
             bare = [f"the world failed: {str(e)[:300]}"]
-    log(f"train pair: compressed_psum over the pair equals the plain "
-        f"formula bit for bit (2 x 2^20 fp32); gpipe at 2 stages on CUDA "
-        f"tensors over gloo: {first['gpipe_cuda']}; on the same pair's "
+    log(f"train quad: compressed_psum over the four equals the plain "
+        f"formula bit for bit (4 x 2^20 fp32); gpipe at 4 stages on CUDA "
+        f"tensors over gloo: {first['gpipe_cuda']}; on the same ranks' "
         f"host tensors it equals the sequential stack to "
         f"{max(r['gpipe_cpu_err'] for r in res):.3g}; a bare gloo send / "
         f"receive of CUDA tensors on a pair of its own: {bare}; "
@@ -5099,18 +5254,64 @@ DRYRUN_ARCH = "qwen2.5-3b"
 DRYRUN_CROSS = ("prefill_32k", "decode_32k")   # traced again in-process
 
 
-def start_dryrun_cli(out: Path):
-    """``python -m repro_torch.launch.dryrun --arch qwen2.5-3b`` (every
-    shape, pod16x16, full width; train_4k by the period extrapolation;
-    each cell in a process of its own) in a process of its own, started
-    now: it runs on the host's cores while this process traces the
-    phase's other cells."""
+def start_dryrun_cli(out: Path, arch: str = DRYRUN_ARCH, shape=None):
+    """``python -m repro_torch.launch.dryrun --arch <arch> [--shape
+    <shape>]`` (every shape by default; pod16x16, full width; train_4k by
+    the period extrapolation; each cell in a process of its own) in a
+    process of its own, started now: it runs on the host's cores while
+    this process traces the phase's other cells."""
     shutil.rmtree(out, ignore_errors=True)
     return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         DRYRUN_ARCH, "--out", str(out)], cwd=ROOT, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True,
+         arch, "--out", str(out)] + (["--shape", shape] if shape else []),
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+
+
+def layout_bytes(cfg, shape) -> int:
+    """A rank's argument bytes on pod16x16 reckoned from the layout alone:
+    each leaf of the train state (a train cell) or of the parameters, at
+    the rank's part of its shape under ``tp.train_plan``'s specs (the
+    reference's ``Rules(mesh)`` specs), plus the rank's rows of the
+    batch and, for decode, of the dense cache lanes (KV heads over
+    ``model`` where attention computes sharded)."""
+    import math
+
+    from repro_torch.configs.base import input_specs
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.parallel import tp
+    from repro_torch.parallel.sharding import Rules
+    mesh = make_production_mesh()
+    m, d = mesh.shape["model"], tp.data_size(mesh)
+    plan = tp.train_plan(cfg, mesh)
+    if shape.kind == "train":
+        tree = steps.state_shapes(cfg, steps.opt_config_for(cfg))
+        specs = tp.state_specs(plan, tree)
+    else:
+        tree, specs = api.empty_params(cfg), plan.param_specs(cfg)
+    leaves = pytree.tree_leaves(tree)
+    spec_leaves = pytree.tree_leaves(
+        specs, is_leaf=lambda x: isinstance(x, tuple))
+    total = sum(math.prod(tp._local(tuple(t.shape), sp, m, d))
+                * t.element_size() for t, sp in zip(leaves, spec_leaves))
+    rules = Rules(mesh)
+    ins = input_specs(cfg, shape)
+    for k, v in ins.items():
+        if k == "cache":
+            kv = "kv_heads" in plan.sharded_axes
+            for e, axes in zip(v, api.cache_axes(cfg)):
+                for name, t in e.items():
+                    names = axes[name].split(",")
+                    local = [n // (d if ax == "batch" else m if kv and
+                                   ax == "kv_heads" else 1)
+                             for n, ax in zip(t.shape, names + [""] * 4)]
+                    total += math.prod(local) * t.element_size()
+            continue
+        local = steps.local_shape(v.shape, rules.spec(
+            tuple(v.shape), steps.BATCH_AXES[k]), mesh)
+        total += math.prod(local) * v.element_size()
+    return total
 
 
 def dryrun_smoke_flops() -> None:
@@ -5211,62 +5412,88 @@ def dryrun_beside_measured() -> None:
                 f"measured {mem / peak:.3f})")
 
 
-def finish_dryrun_cli(proc, out: Path) -> None:
+def finish_dryrun_cli(proc, out: Path, arch: str = DRYRUN_ARCH,
+                      shapes=None, cross=DRYRUN_CROSS) -> None:
     """Wait for the CLI; fail on its exit code, on any cell that is not
-    ok or skipped, and if ``DRYRUN_CROSS``'s cells' dot FLOPs differ from
-    the same cells traced here (the CPU tests' code path)."""
+    ok or skipped (of ``shapes``: every runnable shape by default), if
+    ``cross``'s cells' dot FLOPs differ from the same cells traced here
+    (the CPU tests' code path), and if a cell's argument bytes differ
+    from ``layout_bytes``' reckoning."""
     from repro_torch.analysis import report
     from repro_torch.configs.base import SHAPES, cell_runnable
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_production_mesh
     t0 = time.perf_counter()
-    cross = {}
-    for name in DRYRUN_CROSS:
-        tr, _ = dryrun.trace_cell(get_config(DRYRUN_ARCH), SHAPES[name],
+    flops = {}
+    for name in cross:
+        tr, _ = dryrun.trace_cell(get_config(arch), SHAPES[name],
                                   make_production_mesh())
-        cross[name] = tr.cost.dot_flops
+        flops[name] = tr.cost.dot_flops
     t_cross = time.perf_counter() - t0
-    stdout, stderr = proc.communicate(timeout=300)
+    stdout, stderr = proc.communicate(timeout=600)
     print(stdout, end="", flush=True)
     if proc.returncode != 0:
         fail(f"dryrun CLI exited {proc.returncode}:\n{stderr[-3000:]}")
     rows = report.load_cells(str(out))
     bad = [r["cell"] for r in rows if r["status"] != "ok"]
     runnable = [name for name, shape in SHAPES.items()
-                if cell_runnable(get_config(DRYRUN_ARCH), shape)[0]]
+                if (shapes is None or name in shapes)
+                and cell_runnable(get_config(arch), shape)[0]]
     if bad or sorted(r["shape"] for r in rows) != sorted(runnable):
         fail(f"dryrun: cells {bad} failed; records "
              f"{[r['cell'] for r in rows]} for the runnable {runnable}")
     for r in rows:
-        if r["shape"] in cross and r["cost"]["dot_flops"] != cross[r["shape"]]:
+        if r["shape"] in flops and r["cost"]["dot_flops"] != flops[
+                r["shape"]]:
             fail(f"dryrun {r['cell']}: the CLI's dot FLOPs "
                  f"{r['cost']['dot_flops']:.0f}, traced here "
-                 f"{cross[r['shape']]:.0f}")
+                 f"{flops[r['shape']]:.0f}")
     traced = ", ".join(f"{r['shape']} {r['trace_s']}" for r in rows
                        if r["status"] == "ok")
-    log(f"dryrun CLI ({DRYRUN_ARCH}, every shape, pod16x16, H100 "
-        f"constants; trace s {traced}); {', '.join(DRYRUN_CROSS)} traced "
-        f"again here in {t_cross:.1f} s, equal dot FLOPs:\n"
+    log(f"dryrun CLI ({arch}, {'every shape' if shapes is None else shapes}"
+        f", pod16x16, H100 constants; trace s {traced})"
+        + (f"; {', '.join(cross)} traced again here in {t_cross:.1f} s, "
+           f"equal dot FLOPs" if cross else "") + ":\n"
         + report.roofline_table(rows) + f"\n{report.summary(rows)}")
     for r in rows:
-        if r["status"] == "ok":
-            log(f"dryrun {r['cell']}: memory {r['memory']}, dot FLOPs "
-                f"{r['cost']['dot_flops']:.4e}, collective bytes "
-                f"{r['cost']['coll_bytes']}, sums {r['reduces']}, ops "
-                f"{r['ops']:.0f}, depths {r['depths']}")
+        if r["status"] != "ok":
+            continue
+        want = layout_bytes(get_config(arch), SHAPES[r["shape"]])
+        got = r["memory"]["argument_bytes"]
+        log(f"dryrun {r['cell']}: argument bytes {got:.0f} "
+            f"({got / 2**30:.3f} GiB), the layout's reckoning {want:.0f}; "
+            f"memory {r['memory']}, dot FLOPs "
+            f"{r['cost']['dot_flops']:.4e}, collective bytes "
+            f"{r['cost']['coll_bytes']}, t_collective "
+            f"{r['roofline']['t_collective_s']:.4g} s, sums {r['reduces']}, "
+            f"ops {r['ops']:.0f}, depths {r['depths']}")
+        if got != want:
+            fail(f"dryrun {r['cell']}: argument bytes {got} against the "
+                 f"layout's {want}")
 
 
-def dryrun_phase() -> None:
+def start_dryrun_clis() -> list:
+    """Phase 16's two CLI processes, started early: (process, out
+    directory, arch, shapes, cells traced again here) each."""
     out = ROOT / "build" / "dryrun_torch"
-    proc = start_dryrun_cli(out)
-    try:
-        dryrun_smoke_flops()
-        dryrun_beside_measured()
-        finish_dryrun_cli(proc, out)
-    finally:
+    out_moe = ROOT / "build" / "dryrun_torch_moe"
+    return [(start_dryrun_cli(out), out, DRYRUN_ARCH, None, DRYRUN_CROSS),
+            (start_dryrun_cli(out_moe, "dbrx-132b", "train_4k"), out_moe,
+             "dbrx-132b", ("train_4k",), ())]
+
+
+def stop(clis) -> None:
+    for proc, *_ in clis:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+
+
+def dryrun_phase(clis) -> None:
+    dryrun_smoke_flops()
+    dryrun_beside_measured()
+    for proc, out, arch, shapes, cross in clis:
+        finish_dryrun_cli(proc, out, arch, shapes, cross)
 
 
 def main() -> None:
@@ -5405,15 +5632,21 @@ def main() -> None:
     with bench.fp32_exact():
         train_counts = check_train_serve(own)
     log(f"phase 14 in {time.perf_counter() - t14:.1f} s")
-    # phase 15: model-parallel training
-    t15 = time.perf_counter()
-    train_world1_nccl(plain_busy)
-    train_gloo_pair()
-    log(f"phase 15 in {time.perf_counter() - t15:.1f} s")
-    # phase 16: the dry-run
-    t16 = time.perf_counter()
-    dryrun_phase()
-    log(f"phase 16 in {time.perf_counter() - t16:.1f} s")
+    # phase 16's CLIs trace on the host's cores while phase 15 runs
+    clis = start_dryrun_clis()
+    try:
+        # phase 15: model- and data-parallel training
+        t15 = time.perf_counter()
+        train_world1_nccl(plain_busy)
+        train_gloo_quad()
+        log(f"phase 15 in {time.perf_counter() - t15:.1f} s")
+        # phase 16: the dry-run
+        t16 = time.perf_counter()
+        dryrun_phase(clis)
+        log(f"phase 16 in {time.perf_counter() - t16:.1f} s (its CLIs "
+            f"started with phase 15)")
+    finally:
+        stop(clis)
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "paged_attention", "route": "cuda",

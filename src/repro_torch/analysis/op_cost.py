@@ -19,8 +19,10 @@ allocated, nothing launched) and fills the reference's ``Cost`` fields:
   the scatters) 2 x the update (the dynamic-update-slice rule). The port
   runs eagerly and fuses nothing, so every intermediate goes through
   memory: its bytes are its own, not XLA's fused bytes;
-* collective bytes: operand bytes of every sum the rank's
-  ``sharding.DryRunRules`` recorded, keyed ``all-reduce:<mesh axis>``.
+* collective bytes: operand bytes of every collective the rank's
+  ``sharding.DryRunRules`` recorded, keyed ``<kind>:<mesh axis>`` (kind
+  ``all-reduce``, ``all-gather`` or ``reduce-scatter``), as the
+  reference's ``collective_bytes`` sums operand bytes by kind.
 
 The port unrolls its layers in Python, so there is no trip count to
 multiply: a trace runs every layer (``launch/dryrun.py`` extrapolates a
@@ -314,7 +316,8 @@ def trace(fn: Callable, args: tuple, rules=None, *,
           seams: str = "kernel") -> Trace:
     """Run ``fn(*args)`` under a ``CostMode`` (inside the caller's
     ``FakeTensorMode``) and account it. ``rules``: the rank's
-    ``DryRunRules``, whose sums during the call become ``coll_bytes``.
+    ``DryRunRules``, whose collectives during the call become
+    ``coll_bytes``.
     ``seams``: how a kernel seam counts (the module doc).
 
     Memory, per device: ``argument_bytes`` the storages of ``args``;
@@ -327,6 +330,7 @@ def trace(fn: Callable, args: tuple, rules=None, *,
     mode = CostMode(arg_t, seams)
     if rules is not None:
         rules.sums.clear()
+        rules.moves.clear()
         r0 = rules.reduces
     if seams == "kernel":
         ops.seam_hook = mode.seam
@@ -337,8 +341,9 @@ def trace(fn: Callable, args: tuple, rules=None, *,
         ops.seam_hook = None
     cost = mode.cost
     if rules is not None:
-        for axis, b in rules.sums:
-            key = f"all-reduce:{axis}"
+        for kind, axis, b in [("all-reduce", *s) for s in rules.sums] \
+                + rules.moves:
+            key = f"{kind}:{axis}"
             cost.coll_bytes[key] = cost.coll_bytes.get(key, 0.0) + b
     arg_b = _storage_bytes(arg_t)
     out_b = _storage_bytes(_tensors(out))

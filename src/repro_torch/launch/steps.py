@@ -7,20 +7,24 @@ dry-run certifies the production path. The reference hands ``jax.jit``
 global shapes and shardings; the port runs one process a rank, so
 ``make_step`` hands back one rank's arguments:
 
-* parameters and optimizer state cut to the rank's part by the
-  tensor-parallel plan (``tp.tp_plan``: attention over heads when heads
-  and KV heads both divide ``model``, the MLP over ``ffn``; the rest
-  replicates, ``wembed``'s FSDP split over ``data`` included);
+* parameters and optimizer state cut to the rank's part at the
+  reference's layout (``tp.train_plan``: every leaf's spec from
+  ``Rules(mesh)`` over the whole table, so ``wembed`` splits over
+  ``("pod", "data")`` and the heads, ffn, vocab and expert dims over
+  ``model``), for all three step kinds, as the reference compiles them
+  all under one ``Rules(mesh)``;
 * the batch split over ``("pod", "data")`` (a dim that does not divide
   replicates, as ``Rules`` falls back);
 * for decode, the dense ``cache_init`` lanes at the rank's rows and KV
   heads;
 
-and the rank's rules, a ``sharding.DryRunRules`` that records each sum
-over ``model`` (the contractions) and ``data`` (the train step's gradient
-average) instead of issuing it. Tensors are made on ``device`` with
-``torch.empty`` / ``torch.zeros``: inside a ``FakeTensorMode`` (the
-dry-run) nothing is allocated.
+and the rank's rules, a ``sharding.DryRunRules`` (the train plan's
+contractions and gathers) that records each collective instead of issuing
+it: the sums over ``model`` (the contractions) and ``data`` (the train
+step's gradient average), the all-gathers of the split leaves at their
+use and the reduce-scatters of their gradients. Tensors are made on
+``device`` with ``torch.empty`` / ``torch.zeros``: inside a
+``FakeTensorMode`` (the dry-run) nothing is allocated.
 """
 from __future__ import annotations
 
@@ -78,8 +82,8 @@ def _check_table(rules: Rules) -> None:
     if rules.table.get("seq") is not None:
         raise ValueError(
             f"rules_table seq -> {rules.table['seq']!r}: the port's plan "
-            f"shards heads and ffn only; context parallelism (sequence "
-            f"over a mesh axis) is not ported")
+            f"computes heads, ffn, vocab and experts in parallel; context "
+            f"parallelism (sequence over a mesh axis) is not ported")
 
 
 def make_step(cfg: ModelConfig, shape: ShapeConfig, rules: Rules, *,
@@ -89,10 +93,12 @@ def make_step(cfg: ModelConfig, shape: ShapeConfig, rules: Rules, *,
     only decides the batch's split)."""
     _check_table(rules)
     mesh = rules.mesh
-    plan = tp.tp_plan(cfg, mesh)
+    plan = tp.train_plan(cfg, mesh)
     pspecs = plan.param_specs(cfg)
-    rank = DryRunRules(plan.rules.contract_axes, tp.sharded_paths(pspecs),
-                       data=tp.data_size(mesh), train=shape.kind == "train")
+    r = plan.rules
+    rank = DryRunRules(r.contract_axes, r.sharded, data=r.data,
+                       model=r.model, uses=r.uses,
+                       train=shape.kind == "train")
     ins = input_specs(cfg, shape)
 
     def batch_of(names):
@@ -102,7 +108,7 @@ def make_step(cfg: ModelConfig, shape: ShapeConfig, rules: Rules, *,
                 for k, v in ins.items() if k in names}
 
     def part(tree, specs):
-        return tp.shard_tree(tree, specs, plan.model_shards, 0)
+        return tp.shard_tree(tree, specs, plan.model_shards, 0, d=r.data)
 
     if shape.kind == "train":
         opt_cfg = opt_config_for(cfg)

@@ -22,6 +22,12 @@ resume may take another M (and D).
 shard (``data`` x ``model`` = D x M ranks, NCCL one CUDA device a rank or
 gloo on the CPU), each stepping on its ``--batch`` / D rows and averaging
 the gradients over the ``data`` axis.
+
+``--model-parallel M --data-parallel D`` trains at the reference's layout
+(``tp.train_plan``: its ``Rules(mesh)`` over the whole table, as the
+reference trains under ``Rules(mesh)``; there is no flag for it): every
+``wembed`` dim split over the D replicas (FSDP, gathered at its use), the
+heads, ffn, vocab and expert dims over the M ranks of a shard.
 """
 from __future__ import annotations
 

@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils import checkpoint
 
@@ -202,10 +203,44 @@ def empty_params(cfg, *, device="meta") -> Dict[str, Any]:
                               dtype=_dtype(cfg.dtype)))
 
 
+def _vocab_parallel(rules: Rules) -> bool:
+    return "vocab" in rules.contract_axes
+
+
+def _head(cfg, params) -> torch.Tensor:
+    """The head matrix (d, Vp), or the rank's (d, Vp/m) columns of it."""
+    return params["embed"].T if cfg.tie_embeddings else params["head"]
+
+
+def _used(params, rules: Rules):
+    """``params`` with the embedding and the head gathered at their use
+    (``rules.use``; the identity but on a sharded rank): gathered once,
+    so tied embeddings use the one tensor for the lookup and the head."""
+    out = dict(params, embed=rules.use(params["embed"], "embed"))
+    if "head" in params:
+        out["head"] = rules.use(params["head"], "head")
+    return out
+
+
+def _embed(params, tokens: torch.Tensor, rules: Rules) -> torch.Tensor:
+    """The token embeddings. Vocab-parallel (``rules`` contract "vocab")
+    the rank holds rows [r Vp/m, (r + 1) Vp/m): a token outside them reads
+    zeros, and ``contract`` sums the ranks' rows."""
+    w = params["embed"]
+    if not _vocab_parallel(rules):
+        return w[tokens]
+    n = w.shape[0]
+    local = tokens - rules.model_rank * n
+    inside = (local >= 0) & (local < n)
+    x = torch.where(inside[..., None], w[local.clamp(0, n - 1)], 0.0)
+    return rules.contract(x.to(w.dtype), "vocab")
+
+
 def _logits(cfg, params, x: torch.Tensor) -> torch.Tensor:
-    """Head matmul in the model dtype, then fp32."""
-    w = params["embed"].T if cfg.tie_embeddings else params["head"]
-    return (x @ w).float()
+    """Head matmul in the model dtype, then fp32: (..., Vp), or the rank's
+    (..., Vp/m) slice where the head is vocab-parallel (the reference's
+    ``rules.cons(logits, "batch,vocab")``)."""
+    return (x @ _head(cfg, params)).float()
 
 
 def encode(cfg, params, enc_embeds: torch.Tensor, *,
@@ -244,11 +279,18 @@ def forward_hidden(cfg, params, batch: Dict[str, torch.Tensor], *,
     attention is the plain ``layers.flash_attention`` on every device, so
     autograd differentiates the whole forward and no kernel is reached.
     ``rules``: the tensor-parallel hooks (``parallel.sharding.TrainRules``
-    on a rank of a mesh; the embeddings, norms and head replicate).
-    Returns (hidden (B, F + S, d) after the final norm, {"lb_loss",
-    "z_loss"} summed over the MoE layers)."""
+    on a rank of a mesh: the split leaves gathered at their use, the
+    embedding lookup vocab-parallel where the plan splits the vocab; the
+    norms replicate). Returns (hidden (B, F + S, d) after the final norm,
+    {"lb_loss", "z_loss"} summed over the MoE layers)."""
+    return _hidden(cfg, _used(params, rules), batch, rules)
+
+
+def _hidden(cfg, params, batch, rules: Rules):
+    """``forward_hidden`` on parameters whose embedding and head
+    ``_used`` gathered."""
     _need_enc(cfg, batch.get("enc_embeds"))
-    x = params["embed"][batch["tokens"]]
+    x = _embed(params, batch["tokens"], rules)
     if cfg.frontend == "patch" and "frontend_embeds" in batch:
         x = torch.cat([batch["frontend_embeds"].to(x.dtype), x], 1)
     enc_out = encode(cfg, params, batch["enc_embeds"], rules=rules,
@@ -269,19 +311,39 @@ def forward(cfg, params, batch: Dict[str, torch.Tensor]):
 CE_CHUNK = 512
 
 
-def _ce_chunk(cfg, w: torch.Tensor, x: torch.Tensor, labels: torch.Tensor):
+def _ce_chunk(cfg, w: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
+              rules: Rules = NO_RULES):
     """(sum of the cross-entropies, count of labels >= 0) over one sequence
     chunk; its (B, c, Vp) fp32 logits live only in here. Padded vocab rows
-    are -1e30."""
+    (by global index) are -1e30. The log-sum-exp is the max (no
+    gradient) plus the log of the sum of exp past it. Vocab-parallel
+    (``rules`` contract "vocab"; ``w`` the rank's (d, Vp/m) columns):
+    ``x`` enters, the logits are the rank's, the max is all-reduced (MAX)
+    over the model group, the sum of exp and the label's logit (taken on
+    the rank that owns it) are contracted."""
+    vocab = _vocab_parallel(rules)
+    if vocab:
+        x = rules.enter(x, "vocab")
     logits = (x @ w).float()
-    vp = logits.shape[-1]
-    if vp > cfg.vocab:
-        logits = torch.where(torch.arange(vp, device=x.device) < cfg.vocab,
-                             logits, -1e30)
+    vl = logits.shape[-1]
+    lo = rules.model_rank * vl if vocab else 0
+    if lo + vl > cfg.vocab:
+        logits = torch.where(
+            lo + torch.arange(vl, device=x.device) < cfg.vocab, logits,
+            -1e30)
     mask = (labels >= 0).float()
-    lab = labels.clamp(min=0).long()
-    lse = torch.logsumexp(logits, -1)
-    ll = torch.gather(logits, -1, lab[..., None])[..., 0]
+    lab = labels.clamp(min=0).long() - lo
+    m = logits.detach().amax(-1)
+    if vocab:
+        m = rules.all_reduce(m, "model", op=dist.ReduceOp.MAX)
+    total = torch.exp(logits - m[..., None]).sum(-1)
+    own = (lab >= 0) & (lab < vl)
+    ll = torch.gather(logits, -1, lab.clamp(0, vl - 1)[..., None])[..., 0]
+    ll = torch.where(own, ll, 0.0)
+    if vocab:
+        total = rules.contract(total, "vocab")
+        ll = rules.contract(ll, "vocab")
+    lse = m + torch.log(total)
     return ((lse - ll) * mask).sum(), mask.sum()
 
 
@@ -294,9 +356,12 @@ def loss_fn(cfg, params, batch: Dict[str, torch.Tensor], *,
     chunk's (B, 512, Vp) fp32 logits ever exist. A vlm's loss covers the
     text positions only (the last ``labels.shape[1]``). MoE stacks add
     0.01 · lb_loss + 0.001 · z_loss. ``rules``: as ``forward_hidden``'s
-    (every rank of a mesh computes the same loss). Returns (loss, {"ce",
+    (every rank of a mesh computes the same loss; the head and the
+    cross-entropy vocab-parallel where the plan splits the vocab,
+    ``_ce_chunk``). Returns (loss, {"ce",
     "lb_loss", "z_loss"}), 0-dim fp32."""
-    x, aux = forward_hidden(cfg, params, batch, rules=rules)
+    params = _used(params, rules)
+    x, aux = _hidden(cfg, params, batch, rules)
     labels = batch["labels"]
     if x.shape[1] != labels.shape[1]:    # frontend positions carry no loss
         x = x[:, -labels.shape[1]:]
@@ -306,11 +371,12 @@ def loss_fn(cfg, params, batch: Dict[str, torch.Tensor], *,
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
         labels = F.pad(labels, (0, pad), value=-1)
-    w = params["embed"].T if cfg.tie_embeddings else params["head"]
+    w = _head(cfg, params)
     tot = cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, S + pad, c):
         t, n = checkpoint.checkpoint(_ce_chunk, cfg, w, x[:, i:i + c],
-                                     labels[:, i:i + c], use_reentrant=False)
+                                     labels[:, i:i + c], rules,
+                                     use_reentrant=False)
         tot, cnt = tot + t, cnt + n
     ce = tot / cnt.clamp(min=1.0)
     loss = ce
@@ -360,11 +426,14 @@ def prefill(cfg, params, tokens: torch.Tensor, *,
 
     ``rules``: the tensor-parallel hooks (``parallel.sharding``; a rank's
     ``ManualRules`` sums the attention out-projection and the MLP
-    down-projection over its ``model`` group). ``NO_RULES``: none."""
+    down-projection over its ``model`` group; a dry-run rank's also
+    gather its split leaves and, where the vocab splits, look up and
+    return its (B, Vp/m) slice of the logits). ``NO_RULES``: none."""
     _need_enc(cfg, enc_embeds)
+    params = _used(params, rules)
     enc_out = encode(cfg, params, enc_embeds, rules=rules) \
         if cfg.is_encdec else None
-    x = params["embed"][tokens]
+    x = _embed(params, tokens, rules)
     if frontend_embeds is not None:
         if cfg.frontend != "patch":
             raise ValueError(f"{cfg.name} has no patch frontend")
@@ -417,7 +486,8 @@ def decode_step(cfg, params, cache: List[Dict[str, torch.Tensor]],
                 f"win_block_table for local_attn (the dense ring buffer "
                 f"is single-token — it has already overwritten the keys "
                 f"older block rows attend to)")
-    x = params["embed"][tokens]
+    params = _used(params, rules)
+    x = _embed(params, tokens, rules)
     x, cache = tfm.stack_decode(cfg, params["blocks"], x, cache, pos,
                                 block_table, win_block_table, state_out,
                                 rules=rules)

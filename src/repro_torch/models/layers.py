@@ -552,22 +552,36 @@ def moe_aux(cfg, logits: torch.Tensor, probs: torch.Tensor,
     return {"lb_loss": lb, "z_loss": z}
 
 
+def _expert_rows(flat: torch.Tensor, lo: int, n: int, C: int
+                 ) -> torch.Tensor:
+    """``flat`` (rows e * C + pos of all E experts) as rows of the buffer
+    of experts [lo, lo + n): (e - lo) * C + pos, and n * C (the discarded
+    row) for a slot routed to another expert or dropped."""
+    local = flat - lo * C
+    return torch.where((local >= 0) & (local < n * C), local,
+                       torch.full_like(local, n * C))
+
+
 def moe_dispatch(cfg, x: torch.Tensor, flat: torch.Tensor,
-                 replicas: int = 1) -> torch.Tensor:
+                 replicas: int = 1, experts=None) -> torch.Tensor:
     """The (G, E, C, d) expert buffer: each kept routed slot's row copied to
     its one row e * C + pos of its group (a dropped slot to the discarded
     row E * C, cut off here); rows no slot fills stay zero. No accumulating
     scatter: every kept row has one writer, so two runs give the same
-    bits. ``replicas``: as ``moe_capacity``'s."""
+    bits. ``replicas``: as ``moe_capacity``'s. ``experts`` (lo, n): only
+    experts [lo, lo + n) (an expert-parallel rank's), a (G, n, C, d)
+    buffer; a slot routed elsewhere goes to the discarded row."""
     B, S, d = x.shape
     m = cfg.moe
     E, K = m.num_experts, m.top_k
     G, C = moe_capacity(cfg, B * S, replicas)
+    lo, n = (0, E) if experts is None else experts
     Tg = B * S // G
     xrep = x.reshape(G, 1, Tg, d).expand(G, K, Tg, d).reshape(G, K * Tg, d)
-    buf = x.new_zeros((G, E * C + 1, d))
-    buf.scatter_(1, flat[..., None].expand(G, K * Tg, d), xrep)
-    return buf[:, : E * C].reshape(G, E, C, d)
+    buf = x.new_zeros((G, n * C + 1, d))
+    rows = flat if (lo, n) == (0, E) else _expert_rows(flat, lo, n, C)
+    buf.scatter_(1, rows[..., None].expand(G, K * Tg, d), xrep)
+    return buf[:, : n * C].reshape(G, n, C, d)
 
 
 def moe_experts(p: Params, buf: torch.Tensor) -> torch.Tensor:
@@ -581,13 +595,17 @@ def moe_experts(p: Params, buf: torch.Tensor) -> torch.Tensor:
 
 def moe_combine(cfg, eo: torch.Tensor, gate_w: torch.Tensor,
                 flat: torch.Tensor, keep: torch.Tensor,
-                x: torch.Tensor) -> torch.Tensor:
+                x: torch.Tensor, lo: int = 0) -> torch.Tensor:
     """Each row's output sum_k w_k * keep_k * (its k-th slot's expert row),
-    in x's dtype (a dropped slot reads the zero row E * C). -> x's shape."""
+    in x's dtype (a dropped slot reads the zero row E * C). ``eo`` may hold
+    experts [lo, lo + n) only (an expert-parallel rank's): a slot routed
+    to another expert then reads the zero row too. -> x's shape."""
     B, S, d = x.shape
     G, E, C = eo.shape[0], eo.shape[1], eo.shape[2]
     K = cfg.moe.top_k
     Tg = B * S // G
+    if (lo, E) != (0, cfg.moe.num_experts):
+        flat = _expert_rows(flat, lo, E, C)
     eo_flat = torch.cat([eo.reshape(G, E * C, d), eo.new_zeros((G, 1, d))], 1)
     got = torch.gather(eo_flat, 1, flat[..., None].expand(G, K * Tg, d))
     w = (gate_w.reshape(G, Tg, K).transpose(1, 2)
@@ -602,21 +620,34 @@ def moe_apply(cfg, p: Params, x: torch.Tensor,
     package's ``layers.moe_apply``: ``moe_route``, ``moe_dispatch``,
     ``moe_experts`` (the expert products stay plain PyTorch, as they stay
     jnp in the reference), ``moe_combine``, plus the shared expert's MLP
-    where the config has one. The shared expert gets ``rules`` (a
-    tensor-parallel plan never shards an MoE stack's "ffn", so its contract
-    is the identity there). x: (B, S, d) -> (B, S, d); with ``aux`` (the
-    training forward) -> (out, ``moe_aux``'s {"lb_loss", "z_loss"}),
-    the aux losses computed before the experts: under remat the
-    recompute then stops before the combine, the block's last product,
-    as the reference's dead-code elimination drops it. In the training
-    forward x is one replica's rows of the global batch over
-    ``rules.data`` replicas (the trainer splits it so), which route as
-    their share of the global batch's groups (``moe_capacity``)."""
+    where the config has one, which contracts its own "ffn" (a training
+    plan splits it like any MLP; the serving plan never does). x: (B, S,
+    d) -> (B, S, d); with ``aux`` (the training forward) -> (out,
+    ``moe_aux``'s {"lb_loss", "z_loss"}), the aux losses computed before
+    the experts: under remat the recompute then stops before the combine,
+    the block's last product, as the reference's dead-code elimination
+    drops it. In the training forward x is one replica's rows of the
+    global batch over ``rules.data`` replicas (the trainer splits it so),
+    which route as their share of the global batch's groups
+    (``moe_capacity``).
+
+    Expert-parallel (``rules`` contract "experts"; ``p``'s expert leaves
+    the rank's E/m experts, the router whole): every rank routes all rows
+    over all E experts (the same choices and aux losses on every rank),
+    dispatches only its experts' rows, runs them, and combines what they
+    computed (a slot routed to another rank reads zero); ``contract``
+    sums the ranks' outputs. The expert rows' input and the gate weights
+    ``enter``: each rank's gradient holds its experts' share."""
     replicas = rules.data if aux else 1
     logits, probs, gate_w, gate_i, flat, keep = _route(cfg, p, x, replicas)
     losses = moe_aux(cfg, logits, probs, gate_i, rules) if aux else None
-    eo = moe_experts(p, moe_dispatch(cfg, x, flat, replicas))
-    out = moe_combine(cfg, eo, gate_w, flat, keep, x)
+    n = p["wi"].shape[0]                # the rank's experts
+    lo = rules.model_rank * n if "experts" in rules.contract_axes else 0
+    eo = moe_experts(p, moe_dispatch(cfg, rules.enter(x, "experts"), flat,
+                                     replicas, experts=(lo, n)))
+    out = rules.contract(moe_combine(
+        cfg, eo, rules.enter(gate_w, "experts"), flat, keep, x, lo),
+        "experts")
     if cfg.moe.shared_expert:
         out = out + mlp_apply(cfg, p["shared"], x, rules)
     return (out, losses) if aux else out

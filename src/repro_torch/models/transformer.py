@@ -23,7 +23,10 @@ through the plain ``layers.flash_attention`` (autograd), the MoE blocks'
 auxiliary losses summed over the layers, each period of the pattern
 rematerialised as one unit per ``cfg.remat`` and the tail layers not at all
 (the reference's ``_remat`` of its scan body); on a rank of a mesh its
-``rules`` are a ``sharding.TrainRules``, whose sums autograd differentiates.
+``rules`` are a ``sharding.TrainRules``, whose sums and gathers autograd
+differentiates. Every stack gathers a layer's split leaves at the start of
+that layer (``rules.use``; the identity but on a sharded training or
+dry-run rank), inside the remat region.
 """
 from __future__ import annotations
 
@@ -225,8 +228,9 @@ def stack_apply(cfg, blocks, x: torch.Tensor, *, prefix_kv=None,
     for j, (kind, p) in enumerate(zip(kinds, blocks)):
         pref = None if prefix_kv is None else (
             prefix_kv[j]["k"], prefix_kv[j]["v"], prefix_len)
-        x, c = block_apply(cfg, kind, p, x, prefix=pref, length=length,
-                           enc_out=enc_out, max_len=max_len, rules=rules)
+        x, c = block_apply(cfg, kind, rules.use(p, kind), x, prefix=pref,
+                           length=length, enc_out=enc_out, max_len=max_len,
+                           rules=rules)
         caches.append(c)
     return x, caches
 
@@ -299,10 +303,13 @@ def _remat(cfg, fn):
 def _super_block(cfg, kinds, blocks, x: torch.Tensor, aux, enc_out,
                  rules: Rules):
     """``block_train`` over one period of layers, their aux losses added
-    to ``aux`` layer by layer (the reference's scan body)."""
+    to ``aux`` layer by layer (the reference's scan body). Each layer's
+    leaves are gathered at its start (``rules.use``), so whole weights
+    live one layer at a time, and a remat of the period gathers them
+    again."""
     aux = dict(aux)
     for kind, p in zip(kinds, blocks):
-        x, a = block_train(cfg, kind, p, x, enc_out, rules)
+        x, a = block_train(cfg, kind, rules.use(p, kind), x, enc_out, rules)
         for name, v in a.items():
             aux[name] = aux[name] + v
     return x, aux
@@ -364,8 +371,9 @@ def stack_decode(cfg, blocks, x: torch.Tensor, caches, pos: torch.Tensor,
                 else paged_rows(win_block_table, pos, T, S)
     out = list(caches)
     for j, (kind, p, c) in enumerate(zip(kinds, blocks, caches)):
-        x, new = block_decode(cfg, kind, p, x, c, pos, block_table,
-                              win_block_table, rows, win_rows, rules)
+        x, new = block_decode(cfg, kind, rules.use(p, kind), x, c, pos,
+                              block_table, win_block_table, rows, win_rows,
+                              rules)
         if new is None:
             continue
         dst = c if T == 1 else (None if state_out is None else state_out[j])

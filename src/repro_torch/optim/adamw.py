@@ -60,40 +60,45 @@ def init(cfg: AdamWConfig, params) -> Dict[str, Any]:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree, *, sharded: Optional[Callable[[tuple], bool]] = None,
+def global_norm(tree, *, split: Optional[Callable[[tuple], frozenset]] = None,
                 all_reduce: Optional[Callable] = None) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's fp32 sum of squares.
-    ``sharded`` (a leaf's key path -> whether ``tree`` holds a rank's part
-    of it): the parts' squares are summed over the model group by
-    ``all_reduce`` (a rank's ``ManualRules.all_reduce``; one call), each
-    other leaf counted once, so every rank gets the whole tree's norm."""
+    ``split`` (a leaf's key path -> the mesh axes, "model" and / or
+    "data", over which ``tree`` holds a rank's part of it): each part's
+    squares are summed over exactly those axes' groups by ``all_reduce``
+    (a rank's ``ManualRules.all_reduce``: one call for the data axis,
+    then one for the model axis), each other leaf counted once, so every
+    rank gets the whole tree's norm."""
     flat = pytree.tree_flatten_with_path(tree)[0]
-    total = torch.zeros((), dtype=torch.float32, device=flat[0][1].device)
-    part = torch.zeros_like(total)
+    zero = torch.zeros((), dtype=torch.float32, device=flat[0][1].device)
+    acc = {(): zero, ("data",): zero, ("model",): zero,
+           ("data", "model"): zero}
+    present: set = set()
     for path, g in flat:
-        sq = g.float().square().sum()
-        if sharded is not None and sharded(path):
-            part = part + sq
-        else:
-            total = total + sq
-    if sharded is not None:
-        all_reduce(part)
-        total = total + part
-    return torch.sqrt(total)
+        key = () if split is None else tuple(sorted(split(path)))
+        present.update(key)
+        acc[key] = acc[key] + g.float().square().sum()
+    over_data = torch.stack([acc[("data", "model")], acc[("data",)]])
+    if "data" in present:
+        all_reduce(over_data, "data")
+    over_model = acc[("model",)] + over_data[0]
+    if "model" in present:
+        all_reduce(over_model, "model")
+    return torch.sqrt(acc[()] + over_model + over_data[1])
 
 
 @torch.no_grad()
 def apply(cfg: AdamWConfig, grads, opt_state: Dict[str, Any], params, *,
-          sharded: Optional[Callable[[tuple], bool]] = None,
+          split: Optional[Callable[[tuple], frozenset]] = None,
           all_reduce: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
     """One AdamW update of ``params`` and ``opt_state`` in place, leaf by
     leaf. ``grads`` and the moments pair with ``params`` by key path (any
-    float dtype for the gradients). ``sharded`` / ``all_reduce``: a
-    model-parallel rank's (``global_norm``). Returns
+    float dtype for the gradients). ``split`` / ``all_reduce``: a
+    sharded rank's (``global_norm``). Returns
     {"grad_norm" (before clipping), "lr"}, 0-dim fp32 tensors."""
     opt_state["step"] += 1
     step = opt_state["step"]
-    gnorm = global_norm(grads, sharded=sharded, all_reduce=all_reduce)
+    gnorm = global_norm(grads, split=split, all_reduce=all_reduce)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.clip_norm > 0 else 1.0
     lr = schedule(cfg, step)

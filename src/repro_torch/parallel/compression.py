@@ -9,9 +9,10 @@ reference stacks a pattern position's layers into one leaf, so the port's
 per-layer leaves of one stack share a scale (``group``; the trainer's
 ``stack_group``). ``torch.round`` rounds half to even, as
 ``jnp.round`` does, so the port's int8 values are the reference's bit for
-bit. On a model-parallel rank a group that holds a sharded leaf takes
-the max over every rank's part (a MAX all-reduce), so its scale is the
-whole leaf's, as on one device.
+bit. On a sharded rank a group that holds a split leaf takes the max over
+every rank's part (a MAX all-reduce over each axis its leaves are split
+on: ``data``, then ``model``), so its scale is the whole reference leaf's,
+as on one device.
 
 ``compressed_psum`` is the int8 all-reduce of a data-parallel sync (the
 reference's ``shard_map`` one): one scale for all ranks (a MAX
@@ -46,16 +47,17 @@ def compress(x: torch.Tensor, err: torch.Tensor
 
 def compress_tree(grads, err_tree,
                   group: Optional[Callable[[tuple], Hashable]] = None, *,
-                  sharded: Optional[Callable[[tuple], bool]] = None,
+                  split: Optional[Callable[[tuple], frozenset]] = None,
                   all_reduce: Optional[Callable] = None):
     """(dequantized grads, each leaf in its gradient's dtype; the new error
     tree, fp32, like ``grads``). ``err_tree`` pairs with ``grads`` by key
     path. ``group`` maps a leaf's key path to the name of its scale group:
     leaves of one name share one scale, the max-abs over all of them;
-    default one a leaf. ``sharded`` (a leaf's key path -> whether the tree
-    holds a rank's part of it): a group holding such a leaf takes its max
-    over the model group too, by ``all_reduce`` (a rank's
-    ``ManualRules.all_reduce``; one MAX reduction for all of them)."""
+    default one a leaf. ``split`` (a leaf's key path -> the mesh axes,
+    "model" and / or "data", over which the tree holds a rank's part of
+    it): a group holding such leaves takes its max over those axes'
+    groups too, by ``all_reduce`` (a rank's ``ManualRules.all_reduce``;
+    one MAX reduction an axis for all the groups)."""
     flat, spec = pytree.tree_flatten_with_path(grads)
     err_of = dict(pytree.tree_flatten_with_path(err_tree)[0])
     groups: Dict[Hashable, List[int]] = {}
@@ -67,13 +69,14 @@ def compress_tree(grads, err_tree,
 
     grps = list(groups.values())
     peak = [torch.stack([xf(i).abs().max() for i in g]).max() for g in grps]
-    split = [j for j, g in enumerate(grps) if sharded is not None
-             and any(sharded(flat[i][0]) for i in g)]
-    if split:
-        across = torch.stack([peak[j] for j in split])
-        all_reduce(across, op=dist.ReduceOp.MAX)
-        for j, v in zip(split, across):
-            peak[j] = v
+    for axis in ("data", "model"):
+        over = [j for j, g in enumerate(grps) if split is not None
+                and any(axis in split(flat[i][0]) for i in g)]
+        if over:
+            across = torch.stack([peak[j] for j in over])
+            all_reduce(across, axis, op=dist.ReduceOp.MAX)
+            for j, v in zip(over, across):
+                peak[j] = v
     out_g, out_e = [None] * len(flat), [None] * len(flat)
     for grp, mx in zip(grps, peak):
         s = torch.clamp(mx, min=1e-12) / 127.0

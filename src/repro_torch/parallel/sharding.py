@@ -20,32 +20,51 @@ there, in place, and is the identity for every other axis (an axis that
 fell back to replication must NOT be summed, or the output is multiplied
 by the shard count).
 
-Every collective the rules issue goes through ``ManualRules.all_reduce(x,
-axis, op)``, in place over the ``model`` group (the contractions, the
-train step's norm and compression scales) or the ``data`` group
-(data-parallel training's gradient average, ``data_group``), so a
-subclass can change what a sum does: ``DryRunRules`` records its bytes
-instead of issuing it.
+Every collective the rules issue goes through one of three methods, so a
+subclass can change what a collective does (``DryRunRules`` records its
+bytes instead of issuing it): ``all_reduce(x, axis, op)``, in place over
+the ``model`` group (the contractions, the train step's norm and
+compression scales) or the ``data`` group (data-parallel training's
+gradient average); ``all_gather(x, dim, axis)`` and
+``reduce_scatter(x, dim, axis)``, out of place (``torch.distributed``'s
+list forms, which gloo and NCCL both take, on host and CUDA tensors).
 
 ``TrainRules`` is its training variant, which autograd differentiates.
 A sharded sublayer's input is replicated and its output a per-rank partial
 sum, so two functions over the ``model`` group bracket it, for the axes in
-``contract_axes`` only: ``contract`` (the out- and down-projection) sums
-the partials in forward, out of place, and passes the gradient through
-unchanged in backward (the gradient downstream is the same on every rank);
-``enter`` (the sublayer's input) is the identity in forward and sums the
-gradient in backward (each rank's input gradient holds only its shard's
-share). ``torch.distributed.nn.functional.all_reduce`` at the contraction
-alone would sum the gradient in backward too, and hand each rank M times
-it.
+``contract_axes`` only: ``contract`` (the out- and down-projection, the
+vocab-parallel embedding lookup and loss sums, the expert-parallel
+combine) sums the partials in forward, out of place, and passes the
+gradient through unchanged in backward (the gradient downstream is the
+same on every rank); ``enter`` (the sublayer's input) is the identity in
+forward and sums the gradient in backward (each rank's input gradient
+holds only its shard's share). ``torch.distributed.nn.functional.
+all_reduce`` at the contraction alone would sum the gradient in backward
+too, and hand each rank M times it.
+
+A stored leaf may also be split where its use is not: ``use(tree,
+where)`` gathers it at its use, per the ``uses`` spec of its block kind.
+Over ``data`` (FSDP: the reference shards every ``wembed`` dim over
+``("pod", "data")``) an all-gather in forward and in backward a
+reduce-scatter of the gradient divided by the group's size, which is the
+data average itself (the train step must not average such a leaf
+again). Over ``model``, where the rank computes the whole use
+replicated (a mixer's dims, attention whose KV heads do not divide the
+axis, the MoE router), an all-gather in forward and in backward the
+rank's part of the gradient, summed with nothing: every rank computed the
+same whole gradient, and a sum would hand each M times it (the trap of
+the contraction above).
 
 ``DryRunRules`` are one rank's rules on a described mesh (no world): the
-contractions and the data-axis sums run as they would, but each sum is
-recorded, (mesh axis, operand bytes) in ``sums``, and not issued.
+contractions, gathers and the data-axis sums run as they would, but each
+collective is recorded, (mesh axis, operand bytes) in ``sums`` for an
+all-reduce and (kind, mesh axis, operand bytes) in ``moves`` for an
+all-gather or a reduce-scatter, and not issued.
 """
 from __future__ import annotations
 
 import warnings
+from collections import Counter
 from typing import Dict, FrozenSet, Iterable, Optional, Tuple, Union
 
 import torch
@@ -81,9 +100,12 @@ class Rules:
     """Maps logical-axes strings to per-dim mesh axes for a concrete mesh
     (``launch.mesh.Mesh``, or None: everything replicated). ``data``: the
     data-parallel replicas of a rank's shard, 1 but on a ``ManualRules``
-    of data-parallel training."""
+    of data-parallel training; ``model_rank`` and ``contract_axes``: a
+    ``ManualRules``' (0 and none here)."""
 
     data = 1
+    model_rank = 0
+    contract_axes: FrozenSet[str] = frozenset()
 
     def __init__(self, mesh=None, table: Optional[Dict[str, Phys]] = None):
         self.mesh = mesh
@@ -145,8 +167,10 @@ class Rules:
 
     def contract(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """Hook at a contraction over logical ``axis`` (the attention
-        out-projection contracts "heads", the MLP down-projection "ffn").
-        The identity; ``ManualRules`` sums over the model group."""
+        out-projection contracts "heads", the MLP down-projection "ffn",
+        the embedding lookup and the loss's sums "vocab", the MoE combine
+        "experts"). The identity; ``ManualRules`` sums over the model
+        group."""
         return x
 
     def enter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -155,42 +179,93 @@ class Rules:
         group."""
         return x
 
+    def use(self, tree, where: str):
+        """Hook at the use of stored leaves: ``tree``, a block's parameters
+        of kind ``where`` or a top-level leaf ("embed", "head"). The
+        identity; ``ManualRules`` gathers the dims its ``uses`` name."""
+        return tree
+
+
+def _map(fn, tree, spec):
+    """``fn(leaf, spec)`` over a dict / list tree and its spec tree."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v, spec[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v, s) for v, s in zip(tree, spec)]
+    return fn(tree, spec)
+
 
 class ManualRules(Rules):
     """Per-rank rules: ``contract`` all-reduces ``x`` in place over
     ``group`` (the mesh's ``model`` group) for exactly the axes in
     ``contract_axes``, and is the identity for the rest. ``reduces``
-    counts the ``model`` all-reduces issued (in a captured graph: the ones
-    recorded); ``data_group`` holds the ``data`` replicas of this rank's
-    shard (data-parallel training). Without a group (a mesh made outside
-    a world) the rules can be read but a contraction raises."""
+    counts the ``model`` contractions issued (in a captured graph: the
+    ones recorded); ``collectives`` counts every collective issued, by
+    (kind, mesh axis). ``data_group`` holds the ``data`` replicas of this
+    rank's shard (data-parallel training), ``data`` their count; ``model``
+    is the ``model`` group's size and ``model_rank`` this rank's place in
+    it (the offset of its vocab rows and experts). ``uses``: per block
+    kind (or top-level leaf name), a tree of per-dim gather specs ("data",
+    "model" or None) that ``use`` applies. Without a group (a mesh made
+    outside a world) the rules can be read but a contraction raises."""
 
     def __init__(self, contract_axes: Iterable[str] = (), group=None, *,
-                 data_group=None, data: int = 1):
+                 data_group=None, data: int = 1, model: int = 1,
+                 model_rank: int = 0, uses: Optional[Dict] = None):
         super().__init__(None)
         self.contract_axes: FrozenSet[str] = frozenset(contract_axes)
         self.group = group
         self.data_group, self.data = data_group, data
+        self.model, self.model_rank = model, model_rank
+        self.uses = dict(uses or {})
         self.reduces = 0
+        self.collectives: Counter = Counter()
+
+    def _group(self, axis: str):
+        group = self.group if axis == "model" else self.data_group
+        if group is None:
+            raise RuntimeError(
+                f"a collective over {axis!r} needs that axis's process "
+                f"group: make the mesh inside a torch.distributed world")
+        return group
+
+    def _size(self, axis: str) -> int:
+        return self.model if axis == "model" else self.data
 
     def all_reduce(self, x: torch.Tensor, axis: str = "model",
                    op=None) -> torch.Tensor:
         """Reduce ``x`` in place over mesh axis ``axis``'s group ("model"
-        or "data"), a sum unless ``op`` (a ``dist.ReduceOp``): the one
-        place these rules issue a collective."""
+        or "data"), a sum unless ``op`` (a ``dist.ReduceOp``)."""
+        self.collectives["all-reduce", axis] += 1
         dist.all_reduce(x, op=dist.ReduceOp.SUM if op is None else op,
-                        group=self.group if axis == "model"
-                        else self.data_group)
+                        group=self._group(axis))
         return x
+
+    def all_gather(self, x: torch.Tensor, dim: int,
+                   axis: str) -> torch.Tensor:
+        """The parts of ``x`` over ``axis``'s group joined along ``dim``,
+        in rank order (a new tensor)."""
+        self.collectives["all-gather", axis] += 1
+        parts = [torch.empty_like(x, memory_format=torch.contiguous_format)
+                 for _ in range(self._size(axis))]
+        dist.all_gather(parts, x.contiguous(), group=self._group(axis))
+        return torch.cat(parts, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int,
+                       axis: str) -> torch.Tensor:
+        """Rank r's r-th part along ``dim`` of the sum of ``x`` over
+        ``axis``'s group (a new tensor)."""
+        self.collectives["reduce-scatter", axis] += 1
+        parts = [t.contiguous() for t in x.chunk(self._size(axis), dim)]
+        out = torch.empty_like(parts[0])
+        dist.reduce_scatter(out, parts, group=self._group(axis))
+        return out
 
     def _check(self, axis: str) -> bool:
         """Whether ``axis`` is summed (raises without a group)."""
         if axis not in self.contract_axes:
             return False
-        if self.group is None:
-            raise RuntimeError(
-                f"contracting {axis!r} needs the model axis's process "
-                f"group: make the mesh inside a torch.distributed world")
+        self._group("model")
         return True
 
     def contract(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -198,6 +273,19 @@ class ManualRules(Rules):
             self.all_reduce(x)
             self.reduces += 1
         return x
+
+    def use(self, tree, where: str):
+        spec = self.uses.get(where)
+        return tree if spec is None else _map(self._gathered, tree, spec)
+
+    def _gathered(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """``t`` gathered over every dim its spec names: the data dim
+        first (the FSDP split), then the model dim."""
+        for axis, fn in (("data", _GatherData), ("model", _GatherModel)):
+            for dim, ax in enumerate(spec):
+                if ax == axis:
+                    t = fn.apply(t, dim, self)
+        return t
 
 
 class _SumForward(torch.autograd.Function):
@@ -230,20 +318,61 @@ class _SumBackward(torch.autograd.Function):
             g.clone(memory_format=torch.contiguous_format)), None
 
 
+class _GatherData(torch.autograd.Function):
+    """FSDP: an all-gather over the ``data`` group along ``dim`` in
+    forward; in backward a reduce-scatter of the gradient over that group,
+    divided by its size (each replica's gradient is of its own rows: the
+    division is the data average)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, rules):
+        ctx.dim, ctx.rules = dim, rules
+        return rules.all_gather(x, dim, "data")
+
+    @staticmethod
+    def backward(ctx, g):
+        r = ctx.rules
+        return r.reduce_scatter(g, ctx.dim, "data").div_(r.data), None, None
+
+
+class _GatherModel(torch.autograd.Function):
+    """A leaf split over ``model`` whose use computes replicated: an
+    all-gather over the ``model`` group along ``dim`` in forward; in
+    backward the rank's part of the gradient, summed with nothing (every
+    rank computed the same whole gradient; a sum would give M times
+    it)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, rules):
+        ctx.dim, ctx.rules = dim, rules
+        return rules.all_gather(x, dim, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        r = ctx.rules
+        n = g.shape[ctx.dim] // r.model
+        return (g.narrow(ctx.dim, r.model_rank * n, n).contiguous(), None,
+                None)
+
+
 class TrainRules(ManualRules):
     """Per-rank rules of the training forward: ``contract`` and ``enter``
-    as the module doc says, for exactly the axes in ``contract_axes``.
-    ``reduces`` counts both kinds as they run: forward, recompute (remat)
-    and backward. ``sharded``: the paths (``tp.path_key``) of the
-    parameter leaves split over ``group``, whose gradients' squares and
-    compression scales the train step reduces over it."""
+    as the module doc says, for exactly the axes in ``contract_axes``;
+    ``use`` through the gathers autograd differentiates. ``reduces``
+    counts the sums of ``contract`` and ``enter`` as they run: forward,
+    recompute (remat) and backward. ``sharded``: {path (``tp.path_key``)
+    of a parameter leaf split over a mesh axis: the axes it is split on,
+    a frozenset of "model" and "data"}, over which the train step sums
+    the leaf's gradient squares and takes its compression scale."""
 
     def __init__(self, contract_axes: Iterable[str] = (), group=None,
-                 sharded: FrozenSet = frozenset(), *, data_group=None,
-                 data: int = 1):
+                 sharded: Optional[Dict[tuple, FrozenSet[str]]] = None, *,
+                 data_group=None, data: int = 1, model: int = 1,
+                 model_rank: int = 0, uses: Optional[Dict] = None):
         super().__init__(contract_axes, group, data_group=data_group,
-                         data=data)
-        self.sharded = frozenset(sharded)
+                         data=data, model=model, model_rank=model_rank,
+                         uses=uses)
+        self.sharded = dict(sharded or {})
 
     def contract(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         return _SumForward.apply(x, self) if self._check(axis) else x
@@ -253,25 +382,47 @@ class TrainRules(ManualRules):
 
 
 class DryRunRules(TrainRules):
-    """One rank's rules on a described mesh: ``TrainRules``' sums when
-    ``train``, ``ManualRules``' in-place contraction otherwise (serving),
-    each recorded as (mesh axis, operand bytes) in ``sums``, none
-    issued; no group is needed. ``data``: the replicas of a shard."""
+    """One rank's rules on a described mesh: ``TrainRules``' sums and
+    gathers when ``train``, ``ManualRules``' in-place contraction
+    otherwise (prefill, decode), each collective recorded, none issued;
+    no group is needed. ``sums``: (mesh axis, operand bytes) of each
+    all-reduce; ``moves``: (kind, mesh axis, operand bytes) of each
+    all-gather (operand: the rank's part) and reduce-scatter (operand:
+    the whole gradient). A gather returns the whole shape (the rank's
+    part repeated), a reduce-scatter the first part."""
 
     def __init__(self, contract_axes: Iterable[str] = (),
-                 sharded: FrozenSet = frozenset(), *, data: int = 1,
-                 train: bool = True):
-        super().__init__(contract_axes, None, sharded, data=data)
+                 sharded: Optional[Dict[tuple, FrozenSet[str]]] = None, *,
+                 data: int = 1, model: int = 1,
+                 uses: Optional[Dict] = None, train: bool = True):
+        super().__init__(contract_axes, None, sharded, data=data,
+                         model=model, uses=uses)
         self.train = train
         self.sums: list = []
+        self.moves: list = []
 
     def _check(self, axis: str) -> bool:
         return axis in self.contract_axes
 
     def all_reduce(self, x: torch.Tensor, axis: str = "model",
                    op=None) -> torch.Tensor:
+        self.collectives["all-reduce", axis] += 1
         self.sums.append((axis, x.numel() * x.element_size()))
         return x
+
+    def all_gather(self, x: torch.Tensor, dim: int,
+                   axis: str) -> torch.Tensor:
+        self.collectives["all-gather", axis] += 1
+        self.moves.append(("all-gather", axis, x.numel() * x.element_size()))
+        return torch.cat([x] * self._size(axis), dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int,
+                       axis: str) -> torch.Tensor:
+        self.collectives["reduce-scatter", axis] += 1
+        self.moves.append(("reduce-scatter", axis,
+                           x.numel() * x.element_size()))
+        return x.chunk(self._size(axis), dim)[0].clone(
+            memory_format=torch.contiguous_format)
 
     def contract(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         if self.train:

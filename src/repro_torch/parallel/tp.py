@@ -26,34 +26,48 @@ a shard, each running the engine's host logic on the same inputs. One
   flash-decode never crosses shards.
 
 The counterpart of the reference's ``put``: ``shard_params`` slices each
-sharded leaf to the rank's part (``.contiguous()``, so the full tensors
-can be freed), and ``paged_cache_init`` allocates the pools at the rank's
+sharded leaf to the rank's part (a copy, so the full tensors can be
+freed), and ``paged_cache_init`` allocates the pools at the rank's
 KV/m heads.
 
-Training (``train_plan``) shards the same leaves, an encoder-decoder's
-cross-attention with the rest of attention, and hooks
-``sharding.TrainRules`` into the forward, whose sums autograd
-differentiates. A train state's moments and error tree shard like the
-parameters (``state_specs``); ``gather_tree`` puts the full leaves back
-together on one rank (a checkpoint in the single-device format), and
-``shard_tree`` cuts a full tree for any other model width (a restore).
-Over a ``data`` axis the plan's rules also carry the mesh's ``data``
-group, over which the train step averages the gradients (a shard's
-replicas hold the same parameters).
-The embeddings, the head and MoE blocks replicate, where the reference's
-GSPMD rules shard "vocab" and "experts": the same numbers, more memory a
-rank.
+Training (``train_plan``) stores every leaf at the reference's layout:
+each leaf's spec is ``Rules(mesh).spec`` over the whole ``DEFAULT_TABLE``,
+so every ``wembed`` dim splits over ``("pod", "data")`` (FSDP) and the
+``model`` dims over ``model`` (heads, ffn, vocab, experts; a dim that
+does not divide, or that loses the ``model`` axis to an earlier dim of its
+leaf, replicates, as JAX's ``NamedSharding`` has it). The plan's
+``sharding.TrainRules`` then say where each split is used:
+
+* computed in parallel over ``model`` (the leaf stays the rank's part,
+  and ``contract`` / ``enter`` bracket its sublayer): attention over
+  heads when heads and KV heads both divide the axis, an MLP's (and an
+  MoE's shared expert's) ffn, the embedding and head over vocab
+  (``api``'s vocab-parallel lookup and loss), MoE experts (``layers.
+  moe_apply``: a rank runs its E/m experts);
+* gathered at the use, inside the layer's remat region (``use``): every
+  ``data`` split, and the ``model`` splits of the rest (a recurrent
+  mixer's dims, attention whose KV heads do not divide, the router).
+
+A train state's moments and error tree shard like the parameters
+(``state_specs``); ``gather_tree`` puts the full leaves back together on
+one rank, over both groups (a checkpoint in the single-device format),
+and ``shard_tree`` cuts a full tree for any other ``(data, model)`` (a
+restore). The serving plan (``tp_plan``) is unchanged: it replicates the
+embeddings, the head and MoE blocks, as the reference's serving plan
+does.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
-from typing import Any, FrozenSet, Optional
+from typing import Any, Dict, FrozenSet, Optional
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.models import api
+from repro_torch.models import transformer as tfm
 from repro_torch.parallel.sharding import (DEFAULT_TABLE, ManualRules, Rules,
                                            TrainRules)
 
@@ -78,19 +92,33 @@ def _tree_map(fn, *trees, path=()):
     return fn(path, *trees)
 
 
-def _local(t_shape, spec, m: int):
-    """The shape of a rank's part of a leaf of ``t_shape`` under ``spec``."""
-    return tuple(n // m if i < len(spec) and spec[i] == "model" else n
-                 for i, n in enumerate(t_shape))
+def _divisor(ax, m: int, d: int) -> int:
+    """The parts a dim of spec entry ``ax`` splits into: ``m`` over
+    "model", ``d`` over a data axis ("data" or ``("pod", "data")``)."""
+    return 1 if ax is None else m if ax == "model" else d
 
 
-def _part(t: torch.Tensor, spec, m: int, rank: int) -> torch.Tensor:
-    """Rank ``rank``'s contiguous part of ``t`` under ``spec``."""
+def _local(t_shape, spec, m: int, d: int = 1):
+    """The shape of a rank's part of a leaf of ``t_shape`` under ``spec``
+    (``m`` model shards, ``d`` data shards)."""
+    spec = tuple(spec) + (None,) * (len(t_shape) - len(spec))
+    return tuple(n // _divisor(ax, m, d) for n, ax in zip(t_shape, spec))
+
+
+def _part(t: torch.Tensor, spec, m: int, rank: int, d: int = 1,
+          data_rank: int = 0) -> torch.Tensor:
+    """The part of ``t`` under ``spec`` of model rank ``rank`` and data
+    rank ``data_rank``, a contiguous copy (the whole ``t`` may be freed);
+    ``t`` itself where nothing splits."""
+    out = t
     for dim, ax in enumerate(spec):
-        if ax == "model":
-            n = t.shape[dim] // m
-            return t.narrow(dim, rank * n, n).contiguous()
-    return t
+        k = _divisor(ax, m, d)
+        if k > 1:
+            n = t.shape[dim] // k
+            out = out.narrow(dim, (rank if ax == "model" else data_rank) * n,
+                             n)
+    return out if out is t else out.clone(
+        memory_format=torch.contiguous_format)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +130,7 @@ class TPPlan:
     model_shards: int
     sharded_axes: FrozenSet[str]
     rules: ManualRules                 # a rank's model hooks
+    specs: Any = None                  # a train plan's parameter specs
 
     def _spec_rules(self) -> Rules:
         table = {name: ("model" if name in self.sharded_axes else None)
@@ -109,8 +138,11 @@ class TPPlan:
         return Rules(self.mesh, table)
 
     def param_specs(self, cfg) -> Any:
-        """A spec tree matching ``api.init_params(cfg, ...)``: attn and mlp
-        weights shard per ``sharded_axes``, everything else ``()``."""
+        """A spec tree matching ``api.init_params(cfg, ...)``: a train
+        plan's ``specs``; the serving plan's attn and mlp weights shard per
+        ``sharded_axes``, everything else ``()``."""
+        if self.specs is not None:
+            return self.specs
         rules = self._spec_rules()
 
         def spec(path, shape, axes):
@@ -168,17 +200,21 @@ def tp_plan(cfg, mesh) -> Optional[TPPlan]:
                   rules=ManualRules(contract, mesh.group))
 
 
-def shard_params(params, plan: TPPlan, rank: int):
+def shard_params(params, plan: TPPlan, rank: int, data_rank: int = 0):
     """Rank ``rank``'s parameters (``rank``: its place on the ``model``
-    axis): each sharded leaf sliced to its part, a ``.contiguous()`` tensor
-    on the leaf's device; replicated leaves are the caller's tensors."""
+    axis, ``data_rank`` on the data axes): each sharded leaf sliced to its
+    part, a contiguous copy on the leaf's device; replicated leaves are
+    the caller's tensors."""
     return shard_tree(params, plan.param_specs(plan.cfg), plan.model_shards,
-                      rank)
+                      rank, d=data_size(plan.mesh), data_rank=data_rank)
 
 
-def shard_tree(tree, specs, m: int, rank: int):
-    """``shard_params`` for any tree with a spec tree of its structure."""
-    return _tree_map(lambda _, t, spec: _part(t, spec, m, rank), tree, specs)
+def shard_tree(tree, specs, m: int, rank: int, *, d: int = 1,
+               data_rank: int = 0):
+    """``shard_params`` for any tree with a spec tree of its structure
+    (``m`` model and ``d`` data shards)."""
+    return _tree_map(lambda _, t, spec: _part(t, spec, m, rank, d, data_rank),
+                     tree, specs)
 
 
 def state_specs(plan: TPPlan, state) -> Any:
@@ -192,15 +228,19 @@ def state_specs(plan: TPPlan, state) -> Any:
     return out
 
 
-def sharded_paths(specs) -> FrozenSet[tuple]:
-    """The paths (``path_key``) of the leaves a spec tree splits."""
-    out: set = set()
+def split_axes(specs) -> Dict[tuple, FrozenSet[str]]:
+    """{path (``path_key``) of each leaf a spec tree splits: the axes it
+    is split on, "model" and / or "data" (a composed ``("pod", "data")``
+    dim is "data")}."""
+    out: Dict[tuple, FrozenSet[str]] = {}
 
     def visit(path, spec):
-        if "model" in spec:
-            out.add(path)
+        axes = frozenset("model" if ax == "model" else "data"
+                         for ax in spec if ax is not None)
+        if axes:
+            out[path] = axes
     _tree_map(visit, specs)
-    return frozenset(out)
+    return out
 
 
 def path_key(path) -> tuple:
@@ -209,16 +249,84 @@ def path_key(path) -> tuple:
     return tuple(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
 
 
+def _layout(cfg, mesh) -> Any:
+    """Every parameter leaf's spec under ``Rules(mesh)`` and the whole
+    ``DEFAULT_TABLE``, a dim over an axis of size 1 replicated."""
+    rules = Rules(mesh)
+
+    def spec(_, shape, axes):
+        out = []
+        for ax in rules.spec(tuple(shape), axes):
+            names = () if ax is None else ax if isinstance(ax, tuple) \
+                else (ax,)
+            out.append(ax if math.prod(mesh.shape[a] for a in names) > 1
+                       else None)
+        while out and out[-1] is None:
+            out.pop()
+        return tuple(out)
+
+    return _tree_map(spec, api.param_shapes(cfg), api.param_axes(cfg))
+
+
+def _computed_in_parallel(path, name: str, attn: bool) -> bool:
+    """Whether the ``model`` split of logical weight axis ``name`` at
+    ``path`` stays the rank's part at its use (its sublayer computes in
+    parallel) rather than being gathered."""
+    if name in ("wheads", "wkv_heads"):
+        return attn and bool({"attn", "cross"} & set(path))
+    if name == "wff":
+        return bool({"mlp", "shared"} & set(path))
+    if name == "wexperts":
+        return path[-1] in ("wi", "wg", "wo")
+    return name == "wvocab"
+
+
 def train_plan(cfg, mesh) -> TPPlan:
-    """``tp_plan``'s shards for the training forward, its rules a
-    ``TrainRules`` over the mesh's ``model`` group (the sums autograd
-    differentiates, and the sharded leaves the train step reduces
-    over)."""
-    plan = tp_plan(cfg, mesh)
-    rules = TrainRules(plan.rules.contract_axes, mesh.group,
-                       sharded_paths(plan.param_specs(cfg)),
-                       data_group=mesh.data_group, data=data_size(mesh))
-    return dataclasses.replace(plan, rules=rules)
+    """The training plan: every leaf at the reference's layout
+    (``_layout``), its rules a ``TrainRules`` over the mesh's ``model``
+    and ``data`` groups that contract what computes in parallel, gather
+    the rest at its use (the module doc), and name each split leaf for
+    the train step's reductions."""
+    specs = _layout(cfg, mesh)
+    axes = api.param_axes(cfg)
+    m = int(mesh.shape["model"])
+    attn = m > 1 and cfg.num_heads % m == 0 and cfg.kv_heads % m == 0
+    contract: set = set()
+
+    def use(path, spec, ax_str):
+        names = [a.strip() for a in ax_str.split(",")] if ax_str else []
+        out = []
+        for dim, ax in enumerate(spec):
+            if ax is None:
+                out.append(None)
+            elif ax != "model":
+                out.append("data")
+            elif _computed_in_parallel(path, names[dim], attn):
+                contract.add({"wheads": "heads", "wkv_heads": "heads",
+                              "wff": "ffn", "wvocab": "vocab",
+                              "wexperts": "experts"}[names[dim]])
+                out.append(None)
+            else:
+                out.append("model")
+        return tuple(out)
+
+    uses_tree = _tree_map(use, specs, axes)
+    uses = {k: uses_tree[k] for k in ("embed", "head") if k in uses_tree}
+    for kind, block in zip(tfm.layer_kinds(cfg), uses_tree["blocks"]):
+        uses.setdefault(kind, block)
+    if cfg.is_encdec:
+        uses["enc"] = uses_tree["enc"]["blocks"][0]
+    sharded = {name for a in contract for name in _LOGICAL[a]}
+    rules = TrainRules(contract, mesh.group, split_axes(specs),
+                       data_group=mesh.data_group, data=data_size(mesh),
+                       model=m, model_rank=mesh.model_rank, uses=uses)
+    return TPPlan(cfg=cfg, mesh=mesh, model_shards=m,
+                  sharded_axes=frozenset(sharded), rules=rules, specs=specs)
+
+
+# the logical axes (activation and weight) of each contracted axis
+_LOGICAL = {"heads": _ATTN_AXES, "ffn": _FFN_AXES,
+            "vocab": ("vocab", "wvocab"), "experts": ("experts", "wexperts")}
 
 
 def data_size(mesh) -> int:
@@ -226,34 +334,53 @@ def data_size(mesh) -> int:
     return mesh.shape.get("pod", 1) * mesh.shape.get("data", 1)
 
 
-def gather_tree(tree, specs, group):
-    """The full leaves of a tree sharded over ``group`` (None: nothing is
-    split) as host tensors on the group's first rank, which gets the tree
-    (every other rank gets None): each sharded leaf's parts gathered in
-    rank order (host copies, so any backend that moves CPU tensors will
-    do) and joined along their sharded dim; replicated leaves copied.
-    Collective: every rank of the group calls it, with its own part."""
-    first = group is None or dist.get_rank(group) == 0
-    dst = 0 if group is None else dist.get_global_rank(group, 0)
-    m = 1 if group is None else dist.get_world_size(group)
+def _data_dim(spec):
+    """The dim a spec splits over a data axis, or None."""
+    return next((i for i, ax in enumerate(spec)
+                 if ax is not None and ax != "model"), None)
+
+
+def gather_tree(tree, specs, group, data_group=None):
+    """The full leaves of a tree sharded over the ``model`` ``group`` and
+    the ``data_group`` (either None: nothing is split over it) as host
+    tensors on the first rank of both, which gets the tree (every other
+    rank gets None): each leaf's parts gathered in rank order (host copies,
+    so any backend that moves CPU tensors will do, and a step that
+    updates the state in place leaves the tree as it was), first over the data
+    group (each model column to its first data rank), then over the model
+    group of the first data row, joined along their dims; replicated
+    leaves copied. Collective: every rank of the groups calls it, with
+    its own part."""
+    first_d = data_group is None or dist.get_rank(data_group) == 0
+    first = first_d and (group is None or dist.get_rank(group) == 0)
+
+    def joined(host, grp, dim, mine):
+        parts = [torch.empty_like(host) for _ in
+                 range(dist.get_world_size(grp))] if mine else None
+        dist.gather(host, parts, dst=dist.get_global_rank(grp, 0), group=grp)
+        return torch.cat(parts, dim) if mine else None
 
     def full(_, t, spec):
-        host = t.detach().cpu()
-        if "model" not in spec or m == 1:
-            return host if first else None
-        parts = [torch.empty_like(host) for _ in range(m)] if first else None
-        dist.gather(host, parts, dst=dst, group=group)
-        return torch.cat(parts, spec.index("model")) if first else None
+        host = t.detach().to("cpu", copy=True)     # never the live leaf
+        dd = _data_dim(spec)
+        if dd is not None and data_group is not None:
+            host = joined(host, data_group, dd, first_d)
+        if not first_d:
+            return None
+        if "model" in spec and group is not None:
+            host = joined(host, group, spec.index("model"), first)
+        return host if first else None
 
     out = _tree_map(full, tree, specs)
     return out if first else None
 
 
-def full_like(tree, specs, m: int):
+def full_like(tree, specs, m: int, d: int = 1):
     """Meta tensors of the full shapes and dtypes of a tree sharded ``m``
-    ways (``ckpt.restore``'s ``like``)."""
+    ways over ``model`` and ``d`` over the data axes (``ckpt.restore``'s
+    ``like``)."""
     def meta(_, t, spec):
-        shape = tuple(n * m if i < len(spec) and spec[i] == "model" else n
+        shape = tuple(n * _divisor(spec[i] if i < len(spec) else None, m, d)
                       for i, n in enumerate(t.shape))
         return torch.empty(shape, dtype=t.dtype, device="meta")
     return _tree_map(meta, tree, specs)

@@ -16,15 +16,18 @@ The training forward reaches no CUDA kernel: its attention is the plain
 (the kernels' wrappers raise if autograd would record through them).
 
 Model parallelism (the reference's ``rules=`` with a mesh): one process a
-rank of a ``launch.mesh`` mesh's ``model`` axis. ``tp.train_plan`` decides
-what shards; each rank keeps its part of the state, and ``rules`` (a
-``sharding.TrainRules``) sums the sharded sublayers' outputs in forward
-and their inputs' gradients in backward. Two reductions of the step cross
-the shards: the gradient norm (the sharded leaves' squares summed over
-the group, each replicated leaf counted once) and each compression
-group's max-abs scale (a MAX over the group). On a mesh the trainer saves
-full leaves in the single-device format (one rank writes) and restores at
-any ``(data, model)``.
+rank of a ``launch.mesh`` mesh. ``tp.train_plan`` stores every leaf at the
+reference's layout (FSDP over ``data``, the ``model`` dims over
+``model``); each rank keeps its part of the state, and ``rules`` (a
+``sharding.TrainRules``) sum the sublayers that compute in parallel
+(heads, ffn, vocab, experts) in forward and their inputs' gradients in
+backward, and gather every other split leaf at its use. The step's
+reductions cross exactly the axes a leaf is split on, once each: the
+gradient norm (each leaf's squares summed over its axes, a replicated
+leaf counted once) and each compression group's max-abs scale (a MAX
+over the groups of its leaves' axes). On a mesh the trainer saves full
+leaves in the single-device format (one rank writes) and restores at any
+``(data, model)``.
 
 Data parallelism (the reference splits the batch over ``("pod", "data")``):
 each replica of a shard computes its gradient on its rows of the global
@@ -32,12 +35,13 @@ batch, and the step averages the gradients (and the loss) over the
 ``data`` group before the norm, the compression and AdamW, so every
 replica applies the single-device step on the global batch (the mean of
 the replicas' means: exact when their rows hold equal counts of labels,
-as the reference's micro-batch mean assumes). An MoE stack routes each
-replica's rows as its share of the global batch's dispatch groups, with
-the load-balance loss's two means taken over the global batch
-(``layers.moe_aux``). The weights replicate over
-``data``: the reference's FSDP sharding of ``wembed`` over ``data`` is not
-ported (the same numbers, more memory a card).
+as the reference's micro-batch mean assumes). A leaf split over ``data``
+is averaged already: its gather's backward reduce-scatters the gradient
+and divides it by D; a leaf that replicates over ``data`` (norm scales,
+biases with no ``wembed`` dim) keeps the all-reduce mean. An MoE stack
+routes each replica's rows as its share of the global batch's dispatch
+groups, with the load-balance loss's two means taken over the global
+batch (``layers.moe_aux``).
 """
 from __future__ import annotations
 
@@ -130,21 +134,25 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
     ``rules``: a rank's ``TrainRules`` (``tp.train_plan``), its state the
     rank's part (``init_state(plan=)``); the batch is the rank's replica's
     rows (``replica_rows``; the whole batch without a ``data`` axis), and
-    over ``rules.data`` > 1 replicas the gradients, loss and ce are
+    over ``rules.data`` > 1 replicas the gradients (but those of leaves
+    split over ``data``, which their gathers averaged), loss and ce are
     averaged over the data group first. metrics: {"loss", "grad_norm", "lr" [, "ce" when
     grad_accum == 1]}, 0-dim tensors, the same on every rank; nothing
     syncs with the host."""
     group = stack_group(cfg)
-    split = getattr(rules, "sharded", frozenset())
+    split = getattr(rules, "sharded", {})
     data = getattr(rules, "data", 1)
 
     def mean_over_data(t: torch.Tensor) -> torch.Tensor:
         return rules.all_reduce(t, "data").div_(data)
 
-    def sharded(path) -> bool:
-        return tp.path_key(path) in split
+    def axes_of(path) -> frozenset:
+        return split.get(tp.path_key(path), frozenset())
 
-    reduce = dict(sharded=sharded, all_reduce=rules.all_reduce) \
+    def grad_mean(path, g: torch.Tensor) -> torch.Tensor:
+        return g if "data" in axes_of(path) else mean_over_data(g)
+
+    reduce = dict(split=axes_of, all_reduce=rules.all_reduce) \
         if split else {}
 
     def step(state, batch):
@@ -171,7 +179,7 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
             loss = loss / grad_accum
             aux = {}
         if data > 1:
-            grads = pytree.tree_map(mean_over_data, grads)
+            grads = pytree.tree_map_with_path(grad_mean, grads)
             loss = mean_over_data(loss.clone())
             aux = {k: mean_over_data(v.clone()) for k, v in aux.items()
                    if k == "ce"}
@@ -194,12 +202,12 @@ def init_state(cfg, opt_cfg: adamw.AdamWConfig, generator: torch.Generator,
     """{"params": ``api.init_params`` drawn on ``device`` from
     ``generator`` (which lives there), "opt": ``adamw.init`` [, "err": the
     compression's zero error tree]}. With a ``plan``: rank ``rank``'s part
-    (its place on the ``model`` axis), cut from the whole parameters that
-    every rank draws alike; the moments and error tree at the part's
-    shapes."""
+    (its place on the ``model`` axis; its place on the data axes is
+    ``plan.mesh.data_rank``), cut from the whole parameters that every
+    rank draws alike; the moments and error tree at the part's shapes."""
     params = api.init_params(cfg, generator, device=device)
     if plan is not None:
-        params = tp.shard_params(params, plan, rank)
+        params = tp.shard_params(params, plan, rank, plan.mesh.data_rank)
     state = {"params": params, "opt": adamw.init(opt_cfg, params)}
     if compress_grads:
         state["err"] = compression.init_error_tree(params)
@@ -300,11 +308,13 @@ class Trainer:
                                              device=self.device)
         else:
             m, specs = self.plan.model_shards, self._specs()
+            d = self.plan.rules.data
             full, extra = ckpt.restore(path,
-                                       tp.full_like(self.state, specs, m))
+                                       tp.full_like(self.state, specs, m, d))
             self.state = pytree.tree_map(
                 lambda t: t.to(self.device),
-                tp.shard_tree(full, specs, m, self.mesh.model_rank))
+                tp.shard_tree(full, specs, m, self.mesh.model_rank, d=d,
+                              data_rank=self.mesh.data_rank))
         self.step = int(extra["step"])
         self.dataset.load_state_dict(extra["data"])
         self.log(f"[trainer] resumed from {path} at step {self.step}")
@@ -316,8 +326,9 @@ class Trainer:
         state = self.state
         if self.plan is not None:
             state = tp.gather_tree(self.state, self._specs(),
-                                   self.plan.rules.group)
-            if state is None or self.mesh.data_rank:   # another rank writes
+                                   self.plan.rules.group,
+                                   self.plan.rules.data_group)
+            if state is None:                  # another rank writes
                 return
         self.checkpointer.save(
             path, state,

@@ -46,6 +46,7 @@ from repro_torch.launch.mesh import make_host_mesh, make_production_mesh  # noqa
 from repro_torch.models import api  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
+from repro_torch.parallel import tp  # noqa: E402
 from repro_torch.parallel.sharding import Rules  # noqa: E402
 from torch_cases import OP_NAMES, op_calls_on  # noqa: E402
 
@@ -375,19 +376,24 @@ def _model2():
 
 
 def test_decode_at_model_2_records_two_sums_a_layer():
+    """Two sums a layer (the out- and down-projections), and one more for
+    the step: the vocab-parallel embedding lookup's (the rank holds half
+    the rows). The logits are the rank's half of the vocab."""
     cfg, mesh = _model2()
     B = 3
     shape = base.ShapeConfig("d", 64, B, "decode")
     with op_cost.fake_mode():
         fn, args, rank = steps.make_step(cfg, shape, Rules(mesh))
+        logits = fn(*args)[0]
         tr = op_cost.trace(fn, args, rank)
-    assert rank.contract_axes == {"heads", "ffn"}
-    assert tr.reduces == rank.reduces == 2 * cfg.num_layers
+    assert rank.contract_axes == {"heads", "ffn", "vocab"}
+    sums = 2 * cfg.num_layers + 1
+    assert tr.reduces == sums
     each = B * cfg.d_model * torch.empty((), dtype=getattr(
         torch, cfg.dtype)).element_size()
-    assert rank.sums == [("model", each)] * (2 * cfg.num_layers)
-    assert tr.cost.coll_bytes == {"all-reduce:model":
-                                  2 * cfg.num_layers * each}
+    assert rank.sums == [("model", each)] * sums
+    assert tr.cost.coll_bytes == {"all-reduce:model": sums * each}
+    assert tuple(logits.shape) == (B, 256 // 2)
     # the rank's KV heads: half the lanes
     assert args[1][0]["k"].shape == (B, 64, cfg.kv_heads // 2,
                                      cfg.resolved_head_dim)
@@ -397,25 +403,35 @@ def test_decode_at_model_2_records_two_sums_a_layer():
 
 def test_remat_full_train_step_counts_five_sums_a_layer():
     """As ``tests/test_torch_train_parallel.py`` counts on gloo ranks: two
-    forward, two backward, and the attention's again in the recompute."""
+    forward, two backward, and the attention's again in the recompute;
+    and for the step the vocab-parallel head's: the embedding lookup's
+    sum, the loss input's gradient sum, and the loss chunk's two sums (of
+    exp, of the label's logit) in forward and again in its recompute,
+    beside its max (a MAX, no ``reduces``) in both."""
     cfg, mesh = _model2()
     assert cfg.remat == "full"
     shape = base.ShapeConfig("t", 64, 2, "train")
     with op_cost.fake_mode():
         fn, args, rank = steps.make_step(cfg, shape, Rules(mesh))
         tr = op_cost.trace(fn, args, rank)
-    assert tr.reduces == 5 * cfg.num_layers
+    assert tr.reduces == 5 * cfg.num_layers + 6
     model = [b for a, b in rank.sums if a == "model"]
     act = 2 * 64 * cfg.d_model * 2          # (B, S, d) bf16
-    assert model.count(act) == 5 * cfg.num_layers
-    # and the norm's one scalar sum; no data axis
-    assert model.count(4) == 1 and len(model) == 5 * cfg.num_layers + 1
+    chunk = 2 * 64 * 4                      # (B, chunk) fp32
+    assert model.count(act) == 5 * cfg.num_layers + 2
+    assert model.count(chunk) == 4 + 2
+    # and the norm's one scalar sum; no data axis, nothing gathered
+    assert model.count(4) == 1 and len(model) == 5 * cfg.num_layers + 9
     assert all(a == "model" for a, _ in rank.sums)
+    assert rank.moves == []
 
 
 def test_data_axis_sums_every_gradient_leaf():
-    """At (data 2, model 1) the step averages each gradient leaf (and the
-    loss and ce) over the data group: one sum a leaf of its bytes."""
+    """At (data 2, model 1) each gradient leaf crosses the data group once:
+    a leaf split over it (every ``wembed`` dim, FSDP) reduce-scatters its
+    whole gradient in its gather's backward, every other leaf (norms,
+    biases) is summed; the loss and ce are summed too, and the norm's
+    squares of the split leaves (one (2,) sum)."""
     cfg = get_smoke_config("qwen2.5-3b")
     mesh = make_host_mesh(1, devices=["cpu"] * 2)
     shape = base.ShapeConfig("t", 64, 4, "train")
@@ -423,11 +439,19 @@ def test_data_axis_sums_every_gradient_leaf():
         fn, args, rank = steps.make_step(cfg, shape, Rules(mesh))
         tr = op_cost.trace(fn, args, rank)
     params = args[0]["params"]
-    leaves = [t.numel() * t.element_size()
-              for t in torch.utils._pytree.tree_leaves(params)]
+    split = set(rank.sharded)
+    flat = torch.utils._pytree.tree_flatten_with_path(params)[0]
+    leaves = {tp.path_key(p): t.numel() * t.element_size() for p, t in flat}
     assert args[1]["tokens"].shape == (2, 64)       # the replica's rows
-    assert [b for a, b in rank.sums] == leaves + [4, 4]
-    assert tr.cost.coll_bytes == {"all-reduce:data": sum(leaves) + 8}
+    assert split and all(v == {"data"} for v in rank.sharded.values())
+    assert sorted(b for a, b in rank.sums) == sorted(
+        [b for k, b in leaves.items() if k not in split] + [4, 4, 8])
+    scatters = [b for kind, a, b in rank.moves if kind == "reduce-scatter"]
+    assert sorted(scatters) == sorted(2 * b for k, b in leaves.items()
+                                      if k in split)
+    assert tr.cost.coll_bytes["all-reduce:data"] == sum(
+        b for k, b in leaves.items() if k not in split) + 16
+    assert tr.cost.coll_bytes["reduce-scatter:data"] == sum(scatters)
     assert tr.reduces == 0
 
 

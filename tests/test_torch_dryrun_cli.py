@@ -72,7 +72,9 @@ def test_cli_decode_cell_at_full_width(tmp_path):
     # nothing allocated: the process stayed far below the cell's memory
     assert mem["total_bytes_per_device"] > 8 * 2**30
     assert rss < 2 * 2**30, rss
-    assert rec["reduces"] == 36 * 1       # the MLP's sum; heads replicate
+    # the MLP's sum a layer (heads replicate: 2 KV heads on 16), and the
+    # vocab-parallel embedding lookup's
+    assert rec["reduces"] == 36 * 1 + 1
     assert rec["roofline"]["collective_link"] == "nic"
 
 

@@ -1865,3 +1865,21 @@ def test_cuda_model_parallel_step_world_of_one_equals_plain(nccl_world,
     for a, c in zip(tree.tree_leaves(state), tree.tree_leaves(plain)):
         assert torch.equal(a, c)
     assert rules.reduces == 2 * cfg.num_layers * 5
+
+
+@pytest.mark.gpu
+def test_cuda_layout_hooks_world_of_one_equal_plain(nccl_world):
+    """``torch_layout_ranks.forced_rules`` over a world of 1 over NCCL: the
+    FSDP gathers and their reduce-scatters, the model gathers, and the
+    heads, ffn, vocab and experts contractions, each a collective over one
+    rank. 2 fp32 SMOKE steps of qwen2.5-3b and of dbrx-132b (expert-
+    parallel), plain and compressed, equal the plain step's losses and
+    state bit for bit."""
+    from torch_layout_ranks import forced_steps
+    for arch in ("qwen2.5-3b", "dbrx-132b"):
+        for compress in (False, True):
+            losses, equal, reduces, colls = forced_steps(
+                arch, nccl_world.group.WORLD, "cuda", compress)
+            assert all(a == b for a, b in losses) and equal, (arch, compress)
+            assert reduces > 0 and colls["reduce-scatter:data"] > 0
+            assert colls["all-gather:model"] > 0

@@ -14,7 +14,8 @@ fixture, and each test asserts on one scenario's result on every rank:
   out-projection's gradient M times too large;
 * three steps (plain, ``grad_accum=4``, ``compress_grads``; at 2 ranks also
   recurrentgemma-9b, whose attention falls back, and dbrx-132b, whose MoE
-  replicates, also with ``grad_accum=2``) from ``convert.state_from_jax``
+  runs expert-parallel, also with ``grad_accum=2``) from
+  ``convert.state_from_jax``
   against JAX's steps, and the all-reduces of a step;
 * ``compressed_psum`` bit for bit against the reference's under
   ``jax.vmap``; ``gpipe`` against the sequential stack;
@@ -60,7 +61,7 @@ from repro_torch.convert import params_from_jax, state_from_jax  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.launch.mesh import run_world  # noqa: E402
 from repro_torch.parallel.pipeline import bubble_fraction  # noqa: E402
-from torch_train_cases import pair  # noqa: E402
+from torch_train_cases import pair, results  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 F32 = dict(atol=2e-5, rtol=2e-5)
@@ -157,17 +158,6 @@ def worlds(world2, world4):
     return {2: world2, 4: world4}
 
 
-def results(world, name):
-    """``name``'s result on every rank (arrays as tensors again), after
-    checking none failed."""
-    out = [r[name] for r in world]
-    for rank, res in enumerate(out):
-        assert not (isinstance(res, dict) and "error" in res), \
-            f"rank {rank}:\n{res['error']}"
-    return [pytree.tree_map(lambda a: torch.from_numpy(a) if isinstance(
-        a, np.ndarray) else a, res) for res in out]
-
-
 # ---------------------------------------------------------------------------
 # one block: whole against shard by shard
 # ---------------------------------------------------------------------------
@@ -219,7 +209,7 @@ def _mismatches(res, which):
 @pytest.mark.parametrize("n", [2, 4])
 def test_block_shards_equal_the_whole_block(worlds, n, block):
     res = results(worlds[n], f"block_{block}")
-    assert res[0]["contract"] == ["ffn", "heads"]
+    assert res[0]["contract"] == ["ffn", "heads", "vocab"]
     for r in res:
         torch.testing.assert_close(r["shard"][0], r["whole"][0], **F32)
     assert _mismatches(res, "shard") == {}
@@ -239,11 +229,14 @@ def test_block_shards_equal_the_whole_block(worlds, n, block):
 
 
 # which sums each case's plan contracts at each world: qwen2.5-3b SMOKE's
-# 2 KV heads shard over 2 ranks, not 4; recurrentgemma's one KV head never
-# shards; an MoE stack's FFN always replicates
-CONTRACT = {(2, "plain"): ["ffn", "heads"], (4, "plain"): ["ffn"],
-            (2, "rgemma"): ["ffn"], (2, "dbrx"): ["heads"],
-            (2, "dbrx_accum2"): ["heads"]}
+# 2 KV heads shard over 2 ranks, not 4 (its query heads are then gathered
+# at their use); recurrentgemma's one KV head never shards; an MoE stack
+# runs its experts in parallel; every head is vocab-parallel
+CONTRACT = {(2, "plain"): ["ffn", "heads", "vocab"],
+            (4, "plain"): ["ffn", "vocab"],
+            (2, "rgemma"): ["ffn", "vocab"],
+            (2, "dbrx"): ["experts", "heads", "vocab"],
+            (2, "dbrx_accum2"): ["experts", "heads", "vocab"]}
 
 
 @pytest.mark.parametrize("n,name", [(2, n) for n in ranks.TRAIN_CASES]
@@ -291,30 +284,31 @@ def test_data_parallel_steps_track_jax_on_the_global_batch(worlds, bundle,
     dbrx-132b's MoE the replicas route their rows as their halves of the
     global batch's dispatch groups, with the load-balance loss over the
     global batch; with ``grad_accum`` 2 each replica's micro-batch is its
-    half of the global one. The replicas apply the same averaged update,
-    so their parameters are equal bit for bit."""
+    half of the global one. Every ``wembed`` dim is split over the
+    replicas (FSDP) and gathered on the world's first rank; the leaves
+    that replicate over data (norms, biases) take the same averaged
+    update on both replicas, so their parts are equal bit for bit."""
     res = results(worlds[n], f"dp_{name}")
     want = bundle[1][name]
     moe = ranks.TRAIN_CASES[name][0] != ranks.QWEN
     assert [r["data"] for r in res] == [2] * n
     assert [r["rows"] for r in res] == [4] * n
-    assert res[0]["contract"] == ([] if n == 2 else
-                                  ["heads"] if moe else ["ffn", "heads"])
+    assert res[0]["contract"] == (
+        [] if n == 2 else ["experts", "heads", "vocab"] if moe
+        else ["ffn", "heads", "vocab"])
     for r in res[1:]:
         assert r["metrics"] == res[0]["metrics"]
-    # the first rank of each replica's model group holds its parameters
-    firsts = [res[i] for i in range(0, n, n // 2)]
-    assert [r["params"] is None for r in res] == [
-        i % (n // 2) != 0 for i in range(n)]
+    assert [r["params"] is None for r in res] == [i != 0 for i in range(n)]
     for got, jm in zip(res[0]["metrics"], want["metrics"]):
         assert set(got) == set(jm)
         for k in got:
             np.testing.assert_allclose(got[k], jm[k], rtol=1e-4)
     _params_track_jax(res[0]["params"], want)
-    a = pytree.tree_leaves(firsts[0]["params"])
-    b = pytree.tree_leaves(firsts[1]["params"])
-    assert len(a) == len(b)
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    m = n // 2
+    for i in range(m):              # replica 0 and 1 of model column i
+        a, b = res[i]["replicated"], res[m + i]["replicated"]
+        assert a and set(a) == set(b)
+        assert all(torch.equal(a[k], b[k]) for k in a)
 
 
 def test_checkpoint_at_2x2_restores_at_1x1(world2, world4, bundle):
@@ -340,16 +334,21 @@ def test_all_reduces_a_step(worlds, n):
     """Per layer: each sharded sublayer's sum in forward and its input's in
     backward, and under remat "full" the recompute's sums up to the last
     tensor the backward saved: the attention's (its output feeds the second
-    norm, whose input is saved), not the MLP's (the block's last op). A
-    micro-batch of ``grad_accum`` is a whole step's worth."""
+    norm, whose input is saved), not the MLP's (the block's last op). And
+    a loss's vocab-parallel sums: the embedding lookup's, the loss input's
+    gradient's, and the loss chunk's two in forward and again in its
+    recompute. A micro-batch of ``grad_accum`` is a whole step's worth."""
     cfg = ranks.cfg_of(ranks.QWEN)
     assert cfg.remat == "full"
     for name, micro in (("plain", 1), ("accum4", 4)):
         res = results(worlds[n], f"train_{name}")
         contract = res[0]["contract"]
-        per_layer = 2 * len(contract) + ("heads" in contract)
+        layer = [a for a in contract if a != "vocab"]
+        per_layer = 2 * len(layer) + ("heads" in layer)
+        vocab = 6 if "vocab" in contract else 0
         for r in res:
-            assert r["reduces"] == [micro * cfg.num_layers * per_layer] * 3
+            assert r["reduces"] == [micro * (cfg.num_layers * per_layer
+                                             + vocab)] * 3
 
 
 # ---------------------------------------------------------------------------
@@ -405,8 +404,9 @@ def test_restore_at_four_ranks_is_bitwise(world4):
 
 
 def test_resume_at_another_width_continues_the_losses(world2, world4):
-    """4 steps at 2 ranks (attention and MLP sharded), saved; resumed at 4
-    ranks (the MLP alone sharded) for 4 more: the losses of an
+    """4 steps at 2 ranks (attention, MLP and vocab sharded), saved;
+    resumed at 4 ranks (the MLP and vocab computed sharded, the query
+    heads split and gathered) for 4 more: the losses of an
     uninterrupted run at 2 ranks, the data cursor continued."""
     saved = results(world2, "ckpt_save")
     whole = saved[0]["whole"]
@@ -415,7 +415,7 @@ def test_resume_at_another_width_continues_the_losses(world2, world4):
         np.testing.assert_allclose(r["cut"], whole[:ranks.RESUME_AT],
                                    rtol=1e-4)
     for r in results(world4, "ckpt_restore"):
-        assert r["contract"] == ["ffn"]
+        assert r["contract"] == ["ffn", "vocab"]
         assert r["resumed_at"] == ranks.RESUME_AT
         assert r["data_step"] == ranks.RESUME_STEPS
         np.testing.assert_allclose(r["losses"], whole[ranks.RESUME_AT:],

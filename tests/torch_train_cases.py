@@ -114,3 +114,64 @@ def check_loss_and_grads(arch, B, S, **over):
                                    rtol=LOSS_RTOL, atol=1e-7)
     leaves_close(tc, grads, jg)
     return aux
+
+
+def jax_train(arch, accum, compress, opt, *, steps=3, seq_len=32,
+              global_batch=8):
+    """The JAX trainer's run of ``steps`` steps of the fp32 SMOKE config
+    (``repro.runtime.trainer``, jitted) on the synthetic stream: {"state":
+    its initial state moved over (``convert.state_from_jax``), "batches":
+    the numpy batches, "metrics": each step's, "params": its final
+    parameters moved over}."""
+    from repro.data import synthetic as jdata
+    from repro.optim import adamw as jadamw
+    from repro.runtime import trainer as jtrainer
+    from repro_torch.convert import state_from_jax
+    jc, tc, _, _ = pair(arch)
+    jopt = jadamw.AdamWConfig(**opt)
+    js = jtrainer.init_state(jc, jopt, jax.random.key(0),
+                             compress_grads=compress)
+    ts = state_from_jax(tc, jax.tree.map(np.asarray, js), device="cpu")
+    jstep = jax.jit(jtrainer.make_train_step(
+        jc, jopt, grad_accum=accum, compress_grads=compress))
+    ds = jdata.SyntheticDataset(jdata.DataConfig(
+        vocab=jc.vocab, seq_len=seq_len, global_batch=global_batch))
+    batches, metrics = [], []
+    for _ in range(steps):
+        b = ds.next_batch()
+        batches.append(b)
+        js, jm = jstep(js, {k: jnp.asarray(v) for k, v in b.items()})
+        metrics.append({k: float(v) for k, v in jm.items()})
+    final = params_from_jax(tc, jax.tree.map(np.asarray, js["params"]),
+                            device="cpu")
+    return {"state": ts, "batches": batches, "metrics": metrics,
+            "params": final}
+
+
+def steps_track_jax(got_metrics, got_params, want):
+    """Three steps against ``jax_train``'s run: every metric within rtol
+    1e-4 at every step; every parameter within 2 · lr a step of JAX's, at
+    most 1e-3 of the elements more than 1e-5 apart."""
+    for got, jm in zip(got_metrics, want["metrics"]):
+        assert set(got) == set(jm)
+        for k in got:
+            np.testing.assert_allclose(got[k], jm[k], rtol=1e-4)
+    lrs = [m["lr"] for m in want["metrics"]]
+    a = pytree.tree_leaves(got_params)
+    b = pytree.tree_leaves(want["params"])
+    assert len(a) == len(b)
+    d = torch.cat([(x - y).abs().flatten() for x, y in zip(a, b)])
+    assert d.max().item() <= 2 * sum(lrs)
+    assert (d > 1e-5).float().mean().item() <= 1e-3
+
+
+def results(world, name):
+    """Scenario ``name``'s result on every rank of a ``run_world`` world
+    whose ranks return {name: result or {"error": traceback}} (arrays as
+    tensors again), after checking none failed."""
+    out = [r[name] for r in world]
+    for rank, res in enumerate(out):
+        assert not (isinstance(res, dict) and "error" in res), \
+            f"rank {rank}:\n{res['error']}"
+    return [pytree.tree_map(lambda a: torch.from_numpy(a) if isinstance(
+        a, np.ndarray) else a, res) for res in out]

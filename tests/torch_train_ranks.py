@@ -64,6 +64,7 @@ def cfg_of(arch, **over):
 BLOCKS = {
     "attn_mlp": (QWEN, dict(kv_heads=4), "attn_mlp"),
     "dec": ("seamless-m4t-large-v2", {}, "dec"),
+    "moe": ("dbrx-132b", {}, "attn_moe"),
 }
 
 
@@ -86,7 +87,8 @@ def _block_grads(cfg, kind, p, inputs, rules):
     leaves = [t.detach().requires_grad_() for t in leaves]
     ins = [t.detach().requires_grad_() for t in inputs]
     with torch.enable_grad():
-        y, _ = tfm.block_train(cfg, kind, pytree.tree_unflatten(leaves, spec),
+        y, _ = tfm.block_train(cfg, kind, rules.use(pytree.tree_unflatten(
+                                   leaves, spec), kind),
                                ins[0], ins[1] if len(ins) > 1 else None,
                                rules)
         w = torch.linspace(-1.0, 1.0, y.numel()).reshape(y.shape)
@@ -116,7 +118,9 @@ def block(mesh, name):
            "shard": _block_grads(cfg, kind, part, inputs, plan.rules),
            "specs": specs, "contract": sorted(plan.rules.contract_axes),
            "reduces": plan.rules.reduces}
-    naive = NaiveRules(plan.rules.contract_axes, plan.rules.group)
+    r = plan.rules
+    naive = NaiveRules(r.contract_axes, r.group, model=r.model,
+                       model_rank=r.model_rank, uses=r.uses)
     out["naive"] = _block_grads(cfg, kind, part, inputs, naive)
     return out
 
@@ -134,12 +138,14 @@ def block_dec(mesh, inputs, ckpt_dir):
 # ---------------------------------------------------------------------------
 
 
-def train_case(mesh, inputs, name):
-    """``STEPS`` model-parallel steps of case ``name`` from the moved-over
-    JAX state, each rank on its data replica's rows of the global batch:
-    each step's metrics, the all-reduces of the first step, the plan, and
-    the final parameters gathered on each replica's first rank."""
-    arch, accum, compress = TRAIN_CASES[name]
+def train_case(mesh, inputs, name, case=None):
+    """``STEPS`` model-parallel steps of case ``name`` (``TRAIN_CASES[name]``
+    unless ``case`` gives (arch, grad_accum, compress_grads)) from the
+    moved-over JAX state, each rank on its data replica's rows of the
+    global batch: each step's metrics, the all-reduces of the first step,
+    the collectives a step by kind and axis, the plan, and the final
+    parameters gathered on the world's first rank."""
+    arch, accum, compress = case or TRAIN_CASES[name]
     cfg = cfg_of(arch)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)   # the fallbacks warn
@@ -148,26 +154,33 @@ def train_case(mesh, inputs, name):
     # leaf itself, which another scenario of this world starts from
     state = pytree.tree_map(torch.clone, inputs["states"][name])
     specs = tp.state_specs(plan, state)
-    state = tp.shard_tree(state, specs, plan.model_shards, mesh.model_rank)
+    d, r = plan.rules.data, mesh.data_rank
+    state = tp.shard_tree(state, specs, plan.model_shards, mesh.model_rank,
+                          d=d, data_rank=r)
     step = trainer.make_train_step(cfg, adamw.AdamWConfig(**OPT),
                                    rules=plan.rules, grad_accum=accum,
                                    compress_grads=compress)
-    metrics, reduces = [], []
-    d, r = plan.rules.data, mesh.data_rank
+    metrics, reduces, colls = [], [], []
     for b in inputs["batches"][name]:
-        r0 = plan.rules.reduces
+        r0, c0 = plan.rules.reduces, dict(plan.rules.collectives)
         rows = {k: torch.from_numpy(trainer.replica_rows(v, d, r, accum))
                 for k, v in b.items()}
         state, m = step(state, rows)
         reduces.append(plan.rules.reduces - r0)
+        colls.append({f"{k[0]}:{k[1]}": n - c0.get(k, 0)
+                      for k, n in plan.rules.collectives.items()})
         metrics.append({k: v.item() for k, v in m.items()})
     params = tp.gather_tree(state["params"], specs["params"],
-                            plan.rules.group)
-    return {"metrics": metrics, "reduces": reduces,
+                            plan.rules.group, plan.rules.data_group)
+    replicated = {pytree.keystr(p): t for p, t in
+                  pytree.tree_flatten_with_path(state["params"])[0]
+                  if "data" not in plan.rules.sharded.get(tp.path_key(p),
+                                                          ())}
+    return {"metrics": metrics, "reduces": reduces, "collectives": colls,
             "contract": sorted(plan.rules.contract_axes),
             "n_sharded": len(plan.rules.sharded), "data": d,
-            "rows": len(rows["tokens"]),
-            "params": params if mesh.model_rank == 0 else None}
+            "rows": len(rows["tokens"]), "params": params,
+            "replicated": replicated}
 
 
 def _train(name):
