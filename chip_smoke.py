@@ -224,6 +224,27 @@ Phases, each failing loudly (non-zero exit, no result line):
    cell at phase 6's batch and lane length beside that step timed here
    (eager and as a graph replay, lanes full).
 
+17. context parallelism (the sequence over ``model``, the reference's
+   ``--optimized``; generators of their own): mha at a rank's block (B1,
+   Sq 1024 at q_offset 1024 against Sk 2048, H16 KV2 D128), bf16 and
+   fp32 against its plain version (bf16 also peaked, where the offset one
+   short must miss), timed beside SDPA with the band as a mask and its
+   bound; (a) a world of 1 over NCCL whose rules take every context-
+   parallel hook over one rank (``cp_forced_rules``), qwen2.5-3b at full
+   width and 4 layers: a bf16 train step and an fp32 prefill equal to the
+   plain path bit for bit, 8 fp32 dense-lane decode steps (plain
+   attention, merged) with the plain path's greedy tokens, logits within
+   1e-4 of their scale; (b) two gloo ranks sharing the card at (data 1,
+   model 2), qwen2.5-3b full width, 4 layers, fp32: a 2048-token prefill,
+   each rank's 1024 queries through the mha kernel at q_offset 0 and
+   1024, last-position logits within the CPU tests' bound (atol = rtol =
+   2e-5) of one device's, 8 greedy decode steps on the ranks' lane halves
+   with one device's tokens, and one train step at the layout within the
+   CPU bounds; (c) phase 16's CLIs also trace qwen2.5-3b's cells and
+   dbrx-132b train_4k ``--optimized``: memory a device, t_bound and
+   collective bytes by kind beside the plain cells, argument bytes equal
+   to ``layout_bytes`` with the sequence split.
+
 The line before the last is a JSON ``{"kernels": [...]}`` summary (the
 seven TPU kernels' counterparts, the sampler's noise kernel, mha and
 paged flash-decode again at the hybrid path's windowed shapes with that
@@ -231,8 +252,9 @@ path's launches, both again with the host tier path's launches,
 both at each MoE and vlm arch's heads with its serve run's launches,
 mha at the dense decode row and at seamless's encoder with those runs'
 launches, both at a tensor-parallel rank's heads with one rank's
-launches in the two-rank run, and mha at phase 14's train-to-serve
-prefill with its launches there);
+launches in the two-rank run, mha at phase 14's train-to-serve
+prefill with its launches there, and mha at a context-parallel rank's
+block with a rank's launches in phase 17 (b)'s prefill);
 the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -5050,7 +5072,7 @@ def train_quad_rank(rank: int) -> dict:
     ops.reset_launch_counts()
     cases = [("qwen", dataclasses.replace(
                   get_config("qwen2.5-3b"), num_layers=PAIR_LAYERS,
-                  dtype="float32"), (False, True), 3),
+                  dtype="float32"), (False, True), QUAD_QWEN_STEPS),
              ("dbrx", dataclasses.replace(
                   get_config("dbrx-132b"), num_layers=QUAD_DBRX_LAYERS,
                   moment_dtype="bfloat16"), (False,), QUAD_DBRX_STEPS)]
@@ -5254,27 +5276,31 @@ DRYRUN_ARCH = "qwen2.5-3b"
 DRYRUN_CROSS = ("prefill_32k", "decode_32k")   # traced again in-process
 
 
-def start_dryrun_cli(out: Path, arch: str = DRYRUN_ARCH, shape=None):
+def start_dryrun_cli(out: Path, arch: str = DRYRUN_ARCH, shape=None,
+                     optimized: bool = False):
     """``python -m repro_torch.launch.dryrun --arch <arch> [--shape
-    <shape>]`` (every shape by default; pod16x16, full width; train_4k by
-    the period extrapolation; each cell in a process of its own) in a
-    process of its own, started now: it runs on the host's cores while
-    this process traces the phase's other cells."""
+    <shape>] [--optimized]`` (every shape by default; pod16x16, full
+    width; train_4k by the period extrapolation; each cell in a process
+    of its own) in a process of its own, started now: it runs on the
+    host's cores while this process traces the phase's other cells."""
     shutil.rmtree(out, ignore_errors=True)
     return subprocess.Popen(
         [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         arch, "--out", str(out)] + (["--shape", shape] if shape else []),
+         arch, "--out", str(out)] + (["--shape", shape] if shape else [])
+        + (["--optimized"] if optimized else []),
         cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
 
 
-def layout_bytes(cfg, shape) -> int:
+def layout_bytes(cfg, shape, table=None) -> int:
     """A rank's argument bytes on pod16x16 reckoned from the layout alone:
     each leaf of the train state (a train cell) or of the parameters, at
     the rank's part of its shape under ``tp.train_plan``'s specs (the
     reference's ``Rules(mesh)`` specs), plus the rank's rows of the
     batch and, for decode, of the dense cache lanes (KV heads over
-    ``model`` where attention computes sharded)."""
+    ``model`` where attention computes sharded). ``table`` {"seq":
+    "model"} (``--optimized``): the batch's and the lanes' sequence split
+    over ``model`` instead (a dim that does not divide whole)."""
     import math
 
     from repro_torch.configs.base import input_specs
@@ -5284,7 +5310,8 @@ def layout_bytes(cfg, shape) -> int:
     from repro_torch.parallel.sharding import Rules
     mesh = make_production_mesh()
     m, d = mesh.shape["model"], tp.data_size(mesh)
-    plan = tp.train_plan(cfg, mesh)
+    plan = tp.train_plan(cfg, mesh, table)
+    seq = bool(table and table.get("seq"))
     if shape.kind == "train":
         tree = steps.state_shapes(cfg, steps.opt_config_for(cfg))
         specs = tp.state_specs(plan, tree)
@@ -5295,7 +5322,7 @@ def layout_bytes(cfg, shape) -> int:
         specs, is_leaf=lambda x: isinstance(x, tuple))
     total = sum(math.prod(tp._local(tuple(t.shape), sp, m, d))
                 * t.element_size() for t, sp in zip(leaves, spec_leaves))
-    rules = Rules(mesh)
+    rules = Rules(mesh, table)
     ins = input_specs(cfg, shape)
     for k, v in ins.items():
         if k == "cache":
@@ -5303,8 +5330,10 @@ def layout_bytes(cfg, shape) -> int:
             for e, axes in zip(v, api.cache_axes(cfg)):
                 for name, t in e.items():
                     names = axes[name].split(",")
-                    local = [n // (d if ax == "batch" else m if kv and
-                                   ax == "kv_heads" else 1)
+                    local = [n // (d if ax == "batch" else m if (
+                                   seq and ax == "seq" and n % m == 0) or (
+                                   not seq and kv and ax == "kv_heads")
+                                   else 1)
                              for n, ax in zip(t.shape, names + [""] * 4)]
                     total += math.prod(local) * t.element_size()
             continue
@@ -5413,12 +5442,15 @@ def dryrun_beside_measured() -> None:
 
 
 def finish_dryrun_cli(proc, out: Path, arch: str = DRYRUN_ARCH,
-                      shapes=None, cross=DRYRUN_CROSS) -> None:
+                      shapes=None, cross=DRYRUN_CROSS,
+                      optimized: bool = False) -> list:
     """Wait for the CLI; fail on its exit code, on any cell that is not
     ok or skipped (of ``shapes``: every runnable shape by default), if
     ``cross``'s cells' dot FLOPs differ from the same cells traced here
     (the CPU tests' code path), and if a cell's argument bytes differ
-    from ``layout_bytes``' reckoning."""
+    from ``layout_bytes``' reckoning (the sequence split with
+    ``optimized``, whose records must carry the reference's
+    ``optimized_kwargs``). Returns the ok records."""
     from repro_torch.analysis import report
     from repro_torch.configs.base import SHAPES, cell_runnable
     from repro_torch.launch import dryrun
@@ -5451,14 +5483,21 @@ def finish_dryrun_cli(proc, out: Path, arch: str = DRYRUN_ARCH,
     traced = ", ".join(f"{r['shape']} {r['trace_s']}" for r in rows
                        if r["status"] == "ok")
     log(f"dryrun CLI ({arch}, {'every shape' if shapes is None else shapes}"
-        f", pod16x16, H100 constants; trace s {traced})"
+        f", pod16x16{', --optimized' if optimized else ''}, H100 constants; "
+        f"trace s {traced})"
         + (f"; {', '.join(cross)} traced again here in {t_cross:.1f} s, "
            f"equal dot FLOPs" if cross else "") + ":\n"
         + report.roofline_table(rows) + f"\n{report.summary(rows)}")
     for r in rows:
         if r["status"] != "ok":
             continue
-        want = layout_bytes(get_config(arch), SHAPES[r["shape"]])
+        kw = dryrun.optimized_kwargs(r["shape"]) if optimized else {}
+        if optimized and any(r.get(k) != v for k, v in kw.items()):
+            fail(f"dryrun {r['cell']}: the record does not carry the "
+                 f"reference's optimized options {kw}")
+        want = layout_bytes(dataclasses.replace(
+            get_config(arch), **kw.get("cfg_patch", {})),
+            SHAPES[r["shape"]], kw.get("rules_table"))
         got = r["memory"]["argument_bytes"]
         log(f"dryrun {r['cell']}: argument bytes {got:.0f} "
             f"({got / 2**30:.3f} GiB), the layout's reckoning {want:.0f}; "
@@ -5470,16 +5509,24 @@ def finish_dryrun_cli(proc, out: Path, arch: str = DRYRUN_ARCH,
         if got != want:
             fail(f"dryrun {r['cell']}: argument bytes {got} against the "
                  f"layout's {want}")
+    return [r for r in rows if r["status"] == "ok"]
 
 
 def start_dryrun_clis() -> list:
-    """Phase 16's two CLI processes, started early: (process, out
-    directory, arch, shapes, cells traced again here) each."""
-    out = ROOT / "build" / "dryrun_torch"
-    out_moe = ROOT / "build" / "dryrun_torch_moe"
-    return [(start_dryrun_cli(out), out, DRYRUN_ARCH, None, DRYRUN_CROSS),
-            (start_dryrun_cli(out_moe, "dbrx-132b", "train_4k"), out_moe,
-             "dbrx-132b", ("train_4k",), ())]
+    """Phase 16's four CLI processes, started early: qwen2.5-3b every shape
+    and dbrx-132b train_4k, each plain and ``--optimized`` (phase 17 (c)):
+    (process, out directory, arch, shapes, cells traced again here,
+    optimized) each."""
+    out = []
+    for opt in (False, True):
+        tag = "_opt" if opt else ""
+        qwen = ROOT / "build" / f"dryrun_torch{tag}"
+        moe = ROOT / "build" / f"dryrun_torch_moe{tag}"
+        out += [(start_dryrun_cli(qwen, optimized=opt), qwen, DRYRUN_ARCH,
+                 None, () if opt else DRYRUN_CROSS, opt),
+                (start_dryrun_cli(moe, "dbrx-132b", "train_4k", opt), moe,
+                 "dbrx-132b", ("train_4k",), (), opt)]
+    return out
 
 
 def stop(clis) -> None:
@@ -5492,8 +5539,402 @@ def stop(clis) -> None:
 def dryrun_phase(clis) -> None:
     dryrun_smoke_flops()
     dryrun_beside_measured()
-    for proc, out, arch, shapes, cross in clis:
-        finish_dryrun_cli(proc, out, arch, shapes, cross)
+    recs = {}
+    for proc, out, arch, shapes, cross, opt in clis:
+        for r in finish_dryrun_cli(proc, out, arch, shapes, cross, opt):
+            recs[r["arch"], r["shape"], opt] = r
+    for (arch, shape, opt), r in sorted(recs.items()):
+        if not opt or (arch, shape, False) not in recs:
+            continue
+        lines = []
+        for name, x in (("plain", recs[arch, shape, False]),
+                        ("--optimized", r)):
+            rl = x["roofline"]
+            t_bound = max(rl["t_compute_s"], rl["t_memory_s"],
+                          rl["t_collective_s"])
+            lines.append(
+                f"{name}: memory a device "
+                f"{x['memory']['total_bytes_per_device'] / 2**30:.2f} GiB "
+                f"(arguments {x['memory']['argument_bytes'] / 2**30:.3f}), "
+                f"t_bound {t_bound:.4g} s ({rl['bottleneck']}; "
+                f"compute {rl['t_compute_s']:.4g}, memory "
+                f"{rl['t_memory_s']:.4g}, collective "
+                f"{rl['t_collective_s']:.4g}), collective bytes "
+                f"{ {k: f'{v:.4g}' for k, v in x['cost']['coll_bytes'].items()} }")
+        log(f"dryrun {arch} {shape} pod16x16 (phase 17 (c)): "
+            + "; ".join(lines))
+
+
+# ---------------------------------------------------------------------------
+# phase 17: context parallelism (the sequence over ``model``)
+# ---------------------------------------------------------------------------
+
+CP = {"seq": "model"}
+CP_LAYERS, CP_S, CP_STEPS = 4, 2048, 8         # (b)'s prefill and decode
+CP_TRAIN_B, CP_TRAIN_S = 2, 1024                # (a)'s train step
+CP_PAIR_TRAIN_B, CP_PAIR_TRAIN_S = 2, 512       # (b)'s train step
+CP_MHA = (1, 1024, 1024, 2048)                  # B, Sq, q_offset, Sk
+
+
+def cp_forced_rules(cfg, group):
+    """``TrainRules`` over ``group`` (a world of one rank) with the
+    sequence over ``model`` and every context-parallel hook taken at M =
+    1 (the sequence's gathers, the owner's lane write, the merge, the
+    loss's sums, the train step's sums of the leaves ``model`` does not
+    split), and the gathers of a (data 2, model 4) context-parallel plan
+    (every ``wembed`` dim over ``data``, every ``model`` dim but the
+    experts' over ``model``), each collective over one rank: a copy."""
+    import warnings
+
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.parallel import tp
+    from repro_torch.parallel.sharding import TrainRules
+    desc = Mesh(tuple((torch.device("meta"),) * 4 for _ in range(2)),
+                {"data": 2, "model": 4})
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        r = tp.train_plan(cfg, desc, CP).rules
+    return TrainRules(r.contract_axes, group, data_group=group, uses=r.uses,
+                      seq="model")
+
+
+def check_mha_cp(rng) -> float:
+    """mha at a context-parallel rank's block (B1, Sq 1024 at q_offset
+    1024 against Sk 2048, H16 KV2 D128, no prefix), bf16 and fp32, against
+    its plain version; bf16 also on inputs peaked on the diagonal, where
+    the plain version at the offset one short must miss. Returns the max
+    abs error."""
+    B, Sq, off, Sk = CP_MHA
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        def t(*shape):
+            return torch.tensor(rng.standard_normal(shape), dtype=dtype,
+                                device="cuda")
+        q, k, v = t(B, Sq, H, D), t(B, Sk, KV, D), t(B, Sk, KV, D)
+        got = mha_kernel.mha(q, k, v, causal=True, q_offset=off)
+        torch.cuda.synchronize()
+        want = ref.mha_ref(q, k, v, causal=True, q_offset=off)
+        worst = max(worst, agrees(
+            f"mha [context-parallel rank block: Sq {Sq} at q_offset {off}, "
+            f"Sk {Sk}, H{H} KV{KV} D{D}, {str(dtype)[6:]}]", got, want))
+    q, k, v = (torch.tensor(a, dtype=torch.bfloat16, device="cuda")
+               for a in ref.peaked_mha_inputs(rng, B, Sk, H, KV, D))
+    q = q[:, off:].contiguous()
+    got = mha_kernel.mha(q, k, v, causal=True, q_offset=off)
+    torch.cuda.synchronize()
+    want = ref.mha_ref(q, k, v, causal=True, q_offset=off)
+    name = f"mha [context-parallel rank block, peaked, q_offset {off}]"
+    worst = max(worst, agrees(name, got, want))
+    mask_shift_caught(name, ref.mha_ref(q, k, v, causal=True,
+                                        q_offset=off - 1), want)
+    return worst
+
+
+def time_mha_cp(rng) -> tuple:
+    """mha at a context-parallel rank's block (``CP_MHA``, bf16): CUDA-event
+    and device ms, the plain version's ms, SDPA with the offset-causal band
+    as a boolean attn_mask (its event and device ms), and the bound: the
+    band's FLOPs (4 D a visible pair and head) against q, k, v and the
+    output's bytes. (ms, plain ms, bound ms, bound by, SDPA ms)."""
+    B, Sq, off, Sk = CP_MHA
+
+    def t(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=torch.bfloat16,
+                            device="cuda")
+    q, k, v = t(B, Sq, H, D), t(B, Sk, KV, D), t(B, Sk, KV, D)
+
+    def kernel():
+        mha_kernel.mha(q, k, v, causal=True, q_offset=off)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = (torch.arange(Sk, device="cuda")[None, :]
+            <= off + torch.arange(Sq, device="cuda")[:, None])
+
+    def sdpa():
+        torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    ms = cuda_ms(kernel)
+    dev = device_ms(kernel, [()] * 20)
+    plain = cuda_ms(lambda: ref.mha_ref(q, k, v, causal=True, q_offset=off),
+                    iters=5)
+    lib = cuda_ms(sdpa)
+    lib_dev = device_ms(sdpa, [()] * 20)
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    flops = 4 * B * H * D * band_pairs(Sq, off, Sk + 1, Sk)
+    bms, by = bench.bound_ms(n_bytes, flops, torch.bfloat16)
+    log(f"mha time [context-parallel rank block: B{B} Sq {Sq} at q_offset "
+        f"{off}, Sk {Sk}, H{H} KV{KV} D{D}, bf16]: {ms:.4f} ms/launch "
+        f"(device {dev:.4f} ms), plain {plain:.4f} ms, SDPA with the band "
+        f"as a mask {lib:.4f} ms (device {lib_dev:.4f} ms), bound "
+        f"{bms:.4f} ms ({by}), {bms / ms:.1%} of bound ({bms / dev:.1%} on "
+        f"the device)")
+    return ms, plain, bms, by, lib
+
+
+def cp_world1_rank(rank: int) -> dict:
+    """Phase 17 (a), a spawned world of 1 over NCCL on cuda:0: qwen2.5-3b
+    at full width cut to ``CP_LAYERS`` layers, bf16, from one seed: a
+    train step (``CP_TRAIN_B`` x ``CP_TRAIN_S`` tokens), a prefill of 4
+    prompts of 512 tokens into dense lanes of 512 + ``CP_STEPS`` rows and
+    ``CP_STEPS`` greedy decode steps (those two at fp32 with an fp32
+    cache), each plain and with ``cp_forced_rules`` (every context-parallel
+    hook over one rank)."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=CP_LAYERS)
+    opt = launch_opt(3, cfg)
+    rules = cp_forced_rules(cfg, dist.group.WORLD)
+    ds = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=CP_TRAIN_S,
+                                     global_batch=CP_TRAIN_B,
+                                     seed=SEED + 170))
+    b = batch_on("cuda", ds.next_batch())
+    out = {"backend": dist.get_backend()}
+    t0 = time.perf_counter()
+    states, losses = [], []
+    for r in (NO_RULES, rules):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 170)
+        state = trainer.init_state(cfg, opt, gen, device="cuda")
+        state, m = trainer.make_train_step(cfg, opt, rules=r)(state, b)
+        losses.append(m["loss"].item())
+        states.append([t.cpu() for _, t in leaf_items(state["params"])])
+        del state
+        torch.cuda.empty_cache()
+    out["train_losses"] = losses
+    out["train_equal"] = all(torch.equal(a, c) for a, c in zip(*states))
+    out["train_leaves"] = len(states[0])
+    out["secs"] = {"train": round(time.perf_counter() - t0, 1)}
+    t0 = time.perf_counter()
+    del states
+    # the prefill and decode at fp32 with an fp32 cache: the decode's
+    # plain attention is held to the kernel's by a bound
+    cfg = dataclasses.replace(cfg, dtype="float32", kv_cache_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 171)
+    params = api.init_params(cfg, gen, device="cuda")
+    prompts = torch.randint(0, cfg.vocab, (4, 512), device="cuda",
+                            generator=torch.Generator(device="cuda")
+                            .manual_seed(SEED + 172))
+    runs = []
+    for r in (NO_RULES, rules):
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            logits, caches, pos = api.prefill(cfg, params, prompts,
+                                              max_len=512 + CP_STEPS,
+                                              rules=r)
+            first = logits.clone()
+            pre = ops.launch_counts()
+            ops.reset_launch_counts()
+            toks, steps = [], []
+            for _ in range(CP_STEPS):
+                tok = logits.argmax(-1)
+                toks.append(tok.tolist())
+                logits, caches = api.decode_step(cfg, params, caches,
+                                                 tok[:, None], pos, rules=r)
+                steps.append(logits.clone())
+                pos = pos + 1
+        runs.append({"first": first, "caches": caches, "toks": toks,
+                     "steps": steps, "prefill_launches": pre,
+                     "decode_launches": ops.launch_counts()})
+    a, c = runs
+    out["prefill_equal"] = torch.equal(a["first"], c["first"])
+    out["toks_equal"] = a["toks"] == c["toks"]
+    scale = max(s.abs().max().item() for s in a["steps"])
+    out["decode_err"] = max((x - y).abs().max().item()
+                            for x, y in zip(a["steps"], c["steps"])) / scale
+    out["launches"] = [(r["prefill_launches"], r["decode_launches"])
+                       for r in runs]
+    out["collectives"] = {f"{k[0]}:{k[1]}": n
+                          for k, n in sorted(rules.collectives.items())}
+    out["secs"]["serve"] = round(time.perf_counter() - t0, 1)
+    return out
+
+
+def cp_world1_nccl() -> None:
+    """Phase 17 (a): ``cp_world1_rank`` spawned, checked and logged. The
+    train step and the prefill must equal the plain path bit for bit; the
+    decode steps attend in plain PyTorch under context parallelism (a
+    partial softmax a rank, merged), where the plain path runs the mha
+    kernel: their greedy tokens must be equal, their logits within 1e-4
+    of the logit scale (fp32)."""
+    import tempfile
+
+    from repro_torch.launch.mesh import run_world
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run_world(cp_world1_rank, 1, backend="nccl",
+                        init_file=os.path.join(tmp, "rdv"), timeout=600)[0]
+    log(f"context parallelism [world of 1 over NCCL ({res['backend']}), "
+        f"the sequence over model with every hook forced; qwen2.5-3b full "
+        f"width, {CP_LAYERS} layers; the train step bf16, the prefill and "
+        f"decode fp32]: "
+        f"{time.perf_counter() - t0:.1f} s with spawning; train step losses "
+        f"{res['train_losses']} (plain, forced), all {res['train_leaves']} "
+        f"parameter leaves equal bit for bit: {res['train_equal']}; prefill "
+        f"logits (4 x 512) equal bit for bit: {res['prefill_equal']}; "
+        f"{CP_STEPS} decode steps: greedy tokens equal {res['toks_equal']}, "
+        f"logits within {res['decode_err']:.3g} of the logit scale; launches "
+        f"(prefill, decode) plain {res['launches'][0]}, forced "
+        f"{res['launches'][1]}; collectives {res['collectives']}; s in the "
+        f"rank {res['secs']}")
+    if not (res["train_equal"] and res["prefill_equal"]
+            and res["train_losses"][0] == res["train_losses"][1]):
+        fail("context parallelism: the forced world of 1 parts from the "
+             "plain path")
+    if not res["toks_equal"] or res["decode_err"] > 1e-4:
+        fail("context parallelism: the forced decode parts from the plain "
+             "decode")
+    forced_pre, forced_dec = res["launches"][1]
+    if forced_pre.get("mha") != CP_LAYERS or forced_dec.get("mha"):
+        fail(f"context parallelism: mha launches {res['launches'][1]}")
+
+
+def cp_pair_rank(rank: int) -> dict:
+    """Phase 17 (b), one of two gloo ranks sharing cuda:0 at (data 1,
+    model 2), the sequence over ``model``; qwen2.5-3b at full width cut to
+    ``CP_LAYERS`` layers, fp32 with an fp32 cache:
+
+    * a ``CP_S``-token prefill, each rank's half of the prompt (its
+      queries through the mha kernel at q_offset 0 and ``CP_S`` / 2 against
+      the gathered keys) into its half of the dense lanes, then
+      ``CP_STEPS`` greedy decode steps on those halves (the owner writes,
+      the partial softmaxes merged), whole weights on every rank;
+    * one train step (``CP_PAIR_TRAIN_B`` x ``CP_PAIR_TRAIN_S``) at the
+      reference's layout (``tp.train_plan(table=CP)``), its parameters
+      gathered on rank 0;
+
+    rank 0 also runs the same prefill, decode and step on one device."""
+    import warnings
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import tp
+    from repro_torch.parallel.sharding import ManualRules
+    torch.cuda.set_device(0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        mesh = make_host_mesh(2, devices=["cuda:0"] * 2)
+    cfg = dataclasses.replace(get_config("qwen2.5-3b"), num_layers=CP_LAYERS,
+                              dtype="float32", kv_cache_dtype="float32")
+    out = {"rank": mesh.model_rank}
+    rules = ManualRules((), mesh.group, model=2, model_rank=mesh.model_rank,
+                        seq="model")
+    params = api.init_params(cfg, torch.Generator(device="cuda")
+                             .manual_seed(SEED + 173), device="cuda")
+    prompt = torch.randint(0, cfg.vocab, (1, CP_S), device="cuda",
+                           generator=torch.Generator(device="cuda")
+                           .manual_seed(SEED + 174))
+    max_len = CP_S + CP_STEPS
+
+    def prefill_decode(r, tokens):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad(), bench.fp32_exact():
+            logits, caches, pos = api.prefill(cfg, params, tokens,
+                                              max_len=max_len, rules=r)
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            first, pre = logits.clone(), ops.launch_counts()
+            toks = []
+            for _ in range(CP_STEPS):
+                tok = logits.argmax(-1)
+                toks.append(int(tok[0]))
+                logits, caches = api.decode_step(cfg, params, caches,
+                                                 tok[:, None], pos, rules=r)
+                pos = pos + 1
+            torch.cuda.synchronize()
+        # numpy: a tensor would go back through shared memory, which
+        # needs this process alive after it returns
+        return {"first": first.cpu().numpy(), "toks": toks, "launches": pre,
+                "lane_rows": caches[0]["k"].shape[1],
+                "s": (t_pre, time.perf_counter() - t0 - t_pre)}
+
+    out["cp"] = prefill_decode(rules, rules.cp_own(prompt).contiguous())
+    out["cp"]["collectives"] = {f"{k[0]}:{k[1]}": n for k, n in
+                                sorted(rules.collectives.items())}
+    if rank == 0:
+        out["one"] = prefill_decode(NO_RULES, prompt)
+    dist.barrier()
+    # one train step at the layout, and on one device on rank 0
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        plan = tp.train_plan(cfg, mesh, CP)
+    opt = launch_opt(30, cfg)
+    ds = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=CP_PAIR_TRAIN_S,
+                                     global_batch=CP_PAIR_TRAIN_B,
+                                     seed=SEED + 175))
+    batches = [ds.next_batch()]
+    del params
+    torch.cuda.empty_cache()
+    with bench.fp32_exact():
+        one = None
+        if rank == 0:
+            one = _quad_run(cfg, opt, batches, SEED + 175, mesh, None)
+            torch.cuda.empty_cache()
+        dist.barrier()
+        cp_batches = [{k: np.ascontiguousarray(trainer.seq_rows(
+            v, 2, mesh.model_rank)) for k, v in b.items()} for b in batches]
+        mp = _quad_run(cfg, opt, cp_batches, SEED + 175, mesh, plan)
+    out["train"] = {"losses": mp[0], "collectives": mp[3],
+                    "contract": sorted(plan.rules.contract_axes),
+                    "seq": plan.rules.seq,
+                    "secs": {k: round(v, 1) for k, v in mp[4].items()}}
+    if rank == 0:
+        out["train"]["one_secs"] = {k: round(v, 1)
+                                    for k, v in one[4].items()}
+    if rank == 0:
+        lrs = [float(adamw.schedule(opt, torch.tensor(1)))]
+        out["train"]["held"] = _bounded(mp[2], one[2], mp[0], one[0], lrs)
+    return out
+
+
+def cp_gloo_pair() -> dict:
+    """Phase 17 (b): ``cp_pair_rank`` on 2 spawned gloo ranks sharing the
+    card, checked and logged. Returns the ranks' mha launches in the
+    prefill (each rank's ``CP_LAYERS``)."""
+    import tempfile
+
+    from repro_torch.launch.mesh import run_world
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = run_world(cp_pair_rank, 2, backend="gloo",
+                        init_file=os.path.join(tmp, "rdv"), timeout=900)
+    one = res[0]["one"]
+    want = one["first"]
+    worst = max(float(np.abs(r["cp"]["first"] - want).max()) for r in res)
+    close = all(np.allclose(r["cp"]["first"], want, atol=2e-5, rtol=2e-5)
+                for r in res)
+    scale = float(np.abs(want).max())
+    train = res[0]["train"]
+    log(f"context parallelism [2 gloo ranks on cuda:0, the sequence over "
+        f"model; qwen2.5-3b full width, {CP_LAYERS} layers, fp32]: a "
+        f"{CP_S}-token prefill, each rank's {CP_S // 2} queries at q_offset "
+        f"{[r['rank'] * CP_S // 2 for r in res]}: last-position logits "
+        f"within {worst:.3g} of one device's (scale {scale:.3g}; CPU bound "
+        f"atol = rtol = 2e-5: {close}); mha launches a rank "
+        f"{[r['cp']['launches'].get('mha') for r in res]}, one device "
+        f"{one['launches'].get('mha')}; lanes of {res[0]['cp']['lane_rows']} "
+        f"rows a rank; {CP_STEPS} greedy decode steps: "
+        f"{[r['cp']['toks'] for r in res]}, one device {one['toks']}; s "
+        f"(prefill, decode) a rank {[r['cp']['s'] for r in res]}, one "
+        f"device {one['s']}; collectives a rank {res[0]['cp']['collectives']}"
+        f"; train step at the layout (contract {train['contract']}, seq "
+        f"{train['seq']}): {train['held']['words']}, collectives "
+        f"{train['collectives']}, s on rank 0 {train['secs']}, one device "
+        f"{train['one_secs']}; {time.perf_counter() - t0:.1f} s with "
+        f"spawning")
+    if not close:
+        fail("context parallelism: the two ranks' prefill logits part from "
+             "one device's")
+    if any(r["cp"]["toks"] != one["toks"] for r in res):
+        fail("context parallelism: the decode tokens part from one device's")
+    if any(r["cp"]["launches"].get("mha") != CP_LAYERS for r in res):
+        fail("context parallelism: a rank's prefill did not launch mha "
+             "once a layer")
+    if any(r["train"]["losses"] != train["losses"] for r in res) \
+            or not train["held"]["ok"]:
+        fail("context parallelism: the train step is outside the bounds")
+    return {"mha": res[0]["cp"]["launches"].get("mha", 0)}
 
 
 def main() -> None:
@@ -5640,13 +6081,21 @@ def main() -> None:
         train_world1_nccl(plain_busy)
         train_gloo_quad()
         log(f"phase 15 in {time.perf_counter() - t15:.1f} s")
-        # phase 16: the dry-run
+        # phase 16: the dry-run, plain and --optimized (phase 17 (c))
         t16 = time.perf_counter()
         dryrun_phase(clis)
         log(f"phase 16 in {time.perf_counter() - t16:.1f} s (its CLIs "
             f"started with phase 15)")
     finally:
         stop(clis)
+    # phase 17: context parallelism, generators of their own
+    t17 = time.perf_counter()
+    own = np.random.default_rng(SEED + 170)
+    err_cp = check_mha_cp(own)
+    cp_t = time_mha_cp(own)
+    cp_world1_nccl()
+    cp_counts = cp_gloo_pair()
+    log(f"phase 17 in {time.perf_counter() - t17:.1f} s")
     print(smi, flush=True)
     print(json.dumps({"kernels": [
         {"name": "paged_attention", "route": "cuda",
@@ -5708,7 +6157,15 @@ def main() -> None:
             "launches": train_counts["mha"], "max_abs_err": err_train_mha,
             "ms": train_mha_t[0], "plain_ms": train_mha_t[1],
             "bound_ms": train_mha_t[2], "bound_by": train_mha_t[3],
-            "library_ms": train_mha_t[4]}] + layer}),
+            "library_ms": train_mha_t[4]},
+           {"name": f"mha[context-parallel rank block, qwen2.5-3b "
+                    f"{CP_LAYERS} layers, Sq {CP_MHA[1]} at q_offset "
+                    f"{CP_MHA[2]}, Sk {CP_MHA[3]}]", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mha.cu",
+            "replaces": "src/repro/kernels/attention.py:32",
+            "launches": cp_counts["mha"], "max_abs_err": err_cp,
+            "ms": cp_t[0], "plain_ms": cp_t[1], "bound_ms": cp_t[2],
+            "bound_by": cp_t[3], "library_ms": cp_t[4]}] + layer}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

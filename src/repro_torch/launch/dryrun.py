@@ -132,13 +132,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     """Trace one cell and write its record (``<cell>.json`` in
     ``out_dir``). ``donate_cache`` is recorded only: the port's decode
     always writes the cache in place (``memory.alias_bytes``).
-    ``rules_table`` with ``seq`` on a mesh axis raises ``ValueError``:
-    the port's plan shards heads and ffn only."""
-    if rules_table and rules_table.get("seq") is not None:
-        raise ValueError(
-            f"rules_table {rules_table}: context parallelism (seq over a "
-            f"mesh axis) is not ported; the port's plan shards heads and "
-            f"ffn only")
+    ``rules_table`` maps logical axes over ``DEFAULT_TABLE`` as the
+    reference's does: ``{"seq": "model"}`` is context parallelism
+    (``launch.steps.make_step``). The record carries ``rules_table`` and
+    ``cfg_patch`` as given."""
     cfg = get_config(arch)
     if cfg_patch:
         cfg = dataclasses.replace(cfg, **cfg_patch)
@@ -151,7 +148,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     mesh = make_production_mesh(multi_pod=multi_pod)
     chips = sum(len(row) for row in mesh.devices)
     rec = {"cell": cell, "arch": arch, "shape": shape_name,
-           "mesh": mesh_name, "chips": chips, "donate_cache": donate_cache}
+           "mesh": mesh_name, "chips": chips, "donate_cache": donate_cache,
+           "rules_table": rules_table, "cfg_patch": cfg_patch}
     t0 = time.time()
     try:
         tr, traced = trace_cell(cfg, shape, mesh, rules_table=rules_table)
@@ -191,13 +189,15 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
 
 
 def optimized_kwargs(shape_name: str) -> dict:
-    """The reference's tuned options (its ``optimized_kwargs``) that the
-    port has: single-pass decode attention with the cache aliased, and
-    unchunked attention for batch steps. Its ``rules_table={"seq":
-    "model"}`` (context parallelism) is not ported and left out."""
+    """The reference's tuned options (its ``optimized_kwargs``): context
+    parallelism (the sequence over ``model``) with one-shot attention for
+    batch steps; context-parallel caches, aliased, with single-pass decode
+    attention for decode steps."""
     if SHAPES[shape_name].kind == "decode":
-        return {"donate_cache": True, "cfg_patch": {"decode_kv_chunk": 0}}
-    return {"cfg_patch": {"flash_chunking": False}}
+        return {"rules_table": {"seq": "model"}, "donate_cache": True,
+                "cfg_patch": {"decode_kv_chunk": 0}}
+    return {"rules_table": {"seq": "model"},
+            "cfg_patch": {"flash_chunking": False}}
 
 
 def main(argv=None) -> None:
@@ -210,7 +210,8 @@ def main(argv=None) -> None:
     ap.add_argument("--multi-pod-too", action="store_true",
                     help="run each cell on both meshes")
     ap.add_argument("--optimized", action="store_true",
-                    help="apply the reference's tuned options the port has")
+                    help="apply the reference's tuned options (context "
+                    "parallelism, one-shot and single-pass attention)")
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default=OUT_DIR)
     args = ap.parse_args(argv)

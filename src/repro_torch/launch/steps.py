@@ -14,9 +14,13 @@ global shapes and shardings; the port runs one process a rank, so
   ``model``), for all three step kinds, as the reference compiles them
   all under one ``Rules(mesh)``;
 * the batch split over ``("pod", "data")`` (a dim that does not divide
-  replicates, as ``Rules`` falls back);
+  replicates, as ``Rules`` falls back), and its sequence over ``model``
+  when ``rules.table`` maps "seq" there (context parallelism: the
+  reference's ``--optimized``);
 * for decode, the dense ``cache_init`` lanes at the rank's rows and KV
-  heads;
+  heads, or under context parallelism its block of each lane (the KV
+  heads then lose ``model`` to the sequence, ``Rules.spec``'s conflict
+  fallback);
 
 and the rank's rules, a ``sharding.DryRunRules`` (the train plan's
 contractions and gathers) that records each collective instead of issuing
@@ -78,27 +82,19 @@ def local_shape(shape, spec, mesh) -> Tuple[int, ...]:
     return tuple(out)
 
 
-def _check_table(rules: Rules) -> None:
-    if rules.table.get("seq") is not None:
-        raise ValueError(
-            f"rules_table seq -> {rules.table['seq']!r}: the port's plan "
-            f"computes heads, ffn, vocab and experts in parallel; context "
-            f"parallelism (sequence over a mesh axis) is not ported")
-
-
 def make_step(cfg: ModelConfig, shape: ShapeConfig, rules: Rules, *,
               device="cpu") -> Tuple[Callable, tuple, DryRunRules]:
     """(step fn, one rank's arguments, the rank's ``DryRunRules``) for the
     cell's step kind on ``rules.mesh`` (``launch.mesh``; ``rules.table``
-    only decides the batch's split)."""
-    _check_table(rules)
+    decides the batch's split and whether the sequence splits over
+    ``model``, ``tp.train_plan``)."""
     mesh = rules.mesh
-    plan = tp.train_plan(cfg, mesh)
+    plan = tp.train_plan(cfg, mesh, rules.table)
     pspecs = plan.param_specs(cfg)
     r = plan.rules
     rank = DryRunRules(r.contract_axes, r.sharded, data=r.data,
                        model=r.model, uses=r.uses,
-                       train=shape.kind == "train")
+                       train=shape.kind == "train", seq=r.seq)
     ins = input_specs(cfg, shape)
 
     def batch_of(names):
@@ -128,8 +124,8 @@ def make_step(cfg: ModelConfig, shape: ShapeConfig, rules: Rules, *,
         return fn, (params, batch_of(BATCH_AXES)), rank
 
     # decode: the dense lanes, batch over (pod, data), KV heads with
-    # attention
-    table = {"batch": rules.table["batch"],
+    # attention, the sequence as the table says
+    table = {"batch": rules.table["batch"], "seq": r.seq,
              "kv_heads": "model" if "kv_heads" in plan.sharded_axes
              else None}
     crules = Rules(mesh, {name: table.get(name) for name in rules.table})

@@ -292,12 +292,24 @@ def _hidden(cfg, params, batch, rules: Rules):
     _need_enc(cfg, batch.get("enc_embeds"))
     x = _embed(params, batch["tokens"], rules)
     if cfg.frontend == "patch" and "frontend_embeds" in batch:
-        x = torch.cat([batch["frontend_embeds"].to(x.dtype), x], 1)
+        x = _with_frontend(batch["frontend_embeds"], x, rules)
     enc_out = encode(cfg, params, batch["enc_embeds"], rules=rules,
                      train=True) if cfg.is_encdec else None
     x, aux = tfm.stack_train(cfg, params["blocks"], x, enc_out=enc_out,
                              rules=rules)
     return norm_apply(params["final_norm"], x, cfg.norm), aux
+
+
+def _with_frontend(fe: torch.Tensor, x: torch.Tensor,
+                   rules: Rules) -> torch.Tensor:
+    """A patch frontend's embeddings before the token embeddings. Under
+    context parallelism both are the rank's blocks of their own
+    sequences: the joined sequence's block is cut from both gathered."""
+    fe = fe.to(x.dtype)
+    if not rules.seq:
+        return torch.cat([fe, x], 1)
+    return rules.cp_own(torch.cat([rules.cp_gather(fe),
+                                   rules.cp_gather(x)], 1))
 
 
 def forward(cfg, params, batch: Dict[str, torch.Tensor]):
@@ -358,12 +370,20 @@ def loss_fn(cfg, params, batch: Dict[str, torch.Tensor], *,
     0.01 · lb_loss + 0.001 · z_loss. ``rules``: as ``forward_hidden``'s
     (every rank of a mesh computes the same loss; the head and the
     cross-entropy vocab-parallel where the plan splits the vocab,
-    ``_ce_chunk``). Returns (loss, {"ce",
-    "lb_loss", "z_loss"}), 0-dim fp32."""
+    ``_ce_chunk``). Under context parallelism the batch is the rank's
+    block of each row's sequence, and the loss is the whole sequence's:
+    the sums of the label losses and of the label counts over the ranks
+    (``rules.cp_sum``), not a mean of the ranks' means. Returns (loss,
+    {"ce", "lb_loss", "z_loss"}), 0-dim fp32."""
     params = _used(params, rules)
     x, aux = _hidden(cfg, params, batch, rules)
     labels = batch["labels"]
-    if x.shape[1] != labels.shape[1]:    # frontend positions carry no loss
+    if rules.seq and "frontend_embeds" in batch:
+        # the rank's block of the joined sequence: frontend rows carry -1
+        whole = rules.all_gather(labels, 1, "model")
+        n = x.shape[1] * rules.cp - whole.shape[1]
+        labels = rules.cp_own(F.pad(whole, (n, 0), value=-1))
+    elif x.shape[1] != labels.shape[1]:  # frontend positions carry no loss
         x = x[:, -labels.shape[1]:]
     S = x.shape[1]
     c = min(CE_CHUNK, S)
@@ -378,6 +398,8 @@ def loss_fn(cfg, params, batch: Dict[str, torch.Tensor], *,
                                      labels[:, i:i + c], rules,
                                      use_reentrant=False)
         tot, cnt = tot + t, cnt + n
+    # context parallelism: the sums over every rank's rows
+    tot, cnt = rules.cp_sum(tot), rules.cp_sum(cnt)
     ce = tot / cnt.clamp(min=1.0)
     loss = ce
     if cfg.moe is not None and cfg.moe.num_experts > 0:
@@ -428,7 +450,14 @@ def prefill(cfg, params, tokens: torch.Tensor, *,
     ``ManualRules`` sums the attention out-projection and the MLP
     down-projection over its ``model`` group; a dry-run rank's also
     gather its split leaves and, where the vocab splits, look up and
-    return its (B, Vp/m) slice of the logits). ``NO_RULES``: none."""
+    return its (B, Vp/m) slice of the logits). ``NO_RULES``: none. Under
+    context parallelism (``rules.seq``) the prompt (and any frontend or
+    encoder embeddings) is the rank's block of each row, ``length`` and
+    the returned position are the whole sequence's, the logits at
+    ``length`` - 1 come from the rank that holds that position, and each
+    attention layer's entry is the rank's rows: its part of a
+    context-parallel dense lane (with ``max_len``, its block of the
+    padded lane or window ring)."""
     _need_enc(cfg, enc_embeds)
     params = _used(params, rules)
     enc_out = encode(cfg, params, enc_embeds, rules=rules) \
@@ -437,8 +466,8 @@ def prefill(cfg, params, tokens: torch.Tensor, *,
     if frontend_embeds is not None:
         if cfg.frontend != "patch":
             raise ValueError(f"{cfg.name} has no patch frontend")
-        x = torch.cat([frontend_embeds.to(x.dtype), x], 1)
-    B, S = x.shape[0], x.shape[1]
+        x = _with_frontend(frontend_embeds, x, rules)
+    B, S = x.shape[0], x.shape[1] * rules.cp
     x, caches = tfm.stack_apply(cfg, params["blocks"], x,
                                 prefix_kv=prefix_kv, prefix_len=prefix_len,
                                 length=length, enc_out=enc_out,
@@ -449,7 +478,17 @@ def prefill(cfg, params, tokens: torch.Tensor, *,
     length = torch.as_tensor(length, dtype=torch.int32,
                              device=x.device).expand(B)
     idx = (length.long() - 1).clamp(0, S - 1)
-    xl = x[torch.arange(B, device=x.device), idx]          # (B, d)
+    b = torch.arange(B, device=x.device)
+    if rules.seq:
+        # the rank that holds position length - 1 gives its row, every
+        # other rank zeros, and the sum reaches every rank
+        n = x.shape[1]
+        local = idx - rules.cp_offset(n)
+        own = ((local >= 0) & (local < n))[:, None]
+        xl = rules.all_reduce(torch.where(own, x[b, local.clamp(0, n - 1)],
+                                          0.0).to(x.dtype), "model")
+    else:
+        xl = x[b, idx]                                     # (B, d)
     return _logits(cfg, params, xl), caches, length
 
 
@@ -468,8 +507,11 @@ def decode_step(cfg, params, cache: List[Dict[str, torch.Tensor]],
     layer kinds. Recurrent layers' state slots change in place for T ==
     1; a T > 1 verify block writes their checkpointed states into
     ``state_out`` (``state_buffers``) when given
-    (``transformer.stack_decode``). ``rules``: as ``prefill``'s. Returns
-    (logits, cache): (B, Vp) fp32 for T == 1, (B, T, Vp) for T > 1."""
+    (``transformer.stack_decode``). ``rules``: as ``prefill``'s; under
+    context parallelism the dense lanes are the rank's blocks of their
+    rows (``layers.attention_decode``), while the tokens, positions and
+    recurrent state stay replicated over ``model``. Returns (logits,
+    cache): (B, Vp) fp32 for T == 1, (B, T, Vp) for T > 1."""
     T = tokens.shape[1]
     if T > 1:
         present = dict.fromkeys(tfm.layer_kinds(cfg))

@@ -15,6 +15,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel.sharding import NO_RULES, Rules
+
 _C = 8.0  # RG-LRU constant
 CONV_WIDTH = 4  # temporal conv width (RecurrentGemma uses 4)
 
@@ -86,12 +88,25 @@ def last_rows(conv_in: torch.Tensor, w: int) -> torch.Tensor:
 
 
 def rglru_apply(cfg, p: Params, x: torch.Tensor, *,
-                return_state: bool = False, length=None):
+                return_state: bool = False, length=None,
+                rules: Rules = NO_RULES):
     """Full-sequence RG-LRU block. x: (B, S, d). ``length`` (None, an int
     or (B,)): real tokens of a right-padded bucket; updates at padded rows
     are the identity (a = 1, b = 0), so the returned state is the state at
     length - 1, and the conv state is gathered at ``length``. Returns out,
-    or (out, {"h": (B, r) fp32, "conv": (B, 3, r)})."""
+    or (out, {"h": (B, r) fp32, "conv": (B, 3, r)}).
+
+    Context parallelism (``rules.seq``): x is the rank's block of the
+    sequence; it is gathered whole (``rules.cp_gather``), the conv and the
+    scan run over the whole sequence on every rank (M times a rank's
+    share of the work), and the rank keeps its rows of the output; the
+    state is the whole sequence's, the same on every rank."""
+    if rules.seq:
+        out = rglru_apply(cfg, p, rules.cp_gather(x),
+                          return_state=return_state, length=length)
+        if not return_state:
+            return rules.cp_own(out)
+        return rules.cp_own(out[0]), out[1]
     B, S, _ = x.shape
     u = x @ p["proj_x"]
     gate = _gelu(x @ p["proj_y"])

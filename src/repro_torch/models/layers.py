@@ -17,7 +17,10 @@ PyTorch, as they stay plain jnp in the JAX package. The kernels have no
 backward (their wrappers refuse a grad-requiring input), so training
 attends through ``flash_attention`` on every device, as the reference
 trains through its jnp ``flash_attention`` and never through a Pallas
-kernel: the caller chooses it (``attention_apply(train=True)``).
+kernel: the caller chooses it (``attention_apply(train=True)``). Under
+context parallelism (``rules.seq``) each layer works on a rank's block of
+the sequence: see ``attention_apply``, ``attention_decode`` and
+``moe_apply``.
 """
 from __future__ import annotations
 
@@ -80,19 +83,22 @@ def kv_dequant(cfg, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
                     kv_valid: Optional[int] = None, q_chunk: int = 256,
                     kv_chunk: int = 512, chunked: bool = True
                     ) -> torch.Tensor:
     """The reference's jnp ``layers.flash_attention`` in plain PyTorch, the
     attention of the training forward: autograd runs through it on every
     device. q: (B, Sq, H, D); k, v: (B, Sk, KV, D), GQA by head groups.
-    ``causal``: row i sees keys <= i; ``window`` > 0 also limits it to keys
-    > i - window. ``kv_valid`` (a host int): only the first kv_valid keys
-    are real. ``chunked``: q in chunks of ``q_chunk`` rows against k/v in
-    chunks of ``kv_chunk`` through an online softmax (fp32 max, sum and
-    accumulator), both padded to whole chunks, so no (Sq, Sk) score matrix
-    is made; else one softmax over all keys. Scores and P V products are
+    Row i sits at absolute position ``q_offset`` + i (a host int: a
+    context-parallel rank's first query); key j at j. ``causal``: row i
+    sees keys at positions <= its own; ``window`` > 0 also limits it to
+    keys within ``window`` of it. ``kv_valid`` (a host int): only the
+    first kv_valid keys are real. ``chunked``: q in chunks of
+    ``q_chunk`` rows against k/v in chunks of ``kv_chunk`` through an
+    online softmax (fp32 max, sum and accumulator), both padded to whole
+    chunks, so no (Sq, Sk) score matrix is made; else one softmax over all
+    keys. Scores and P V products are
     fp32 from the inputs' values (the reference's
     ``preferred_element_type``), P cast to v's dtype first; masked scores
     are -1e30. Returns (B, Sq, H, D) in q's dtype."""
@@ -115,7 +121,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not chunked:
         qg = q.reshape(B, Sq, KV, G, D).float()
         s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
-        mask = mask_of(torch.arange(Sq, device=dev),
+        mask = mask_of(q_offset + torch.arange(Sq, device=dev),
                        torch.arange(Sk, device=dev))
         p = torch.softmax(torch.where(mask, s, -1e30), -1)
         o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(),
@@ -129,7 +135,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     outs = []
     for qi in range(qp.shape[1]):
         qb = qp[:, qi].float()
-        qpos = qi * qc + torch.arange(qc, device=dev)
+        qpos = q_offset + qi * qc + torch.arange(qc, device=dev)
         m = torch.full((B, KV, G, qc), -torch.inf, device=dev)
         l = torch.zeros((B, KV, G, qc), device=dev)
         o = torch.zeros((B, KV, G, qc, D), device=dev)
@@ -168,12 +174,14 @@ def cross_kv(cfg, p: Params, enc: torch.Tensor, rules: Rules = NO_RULES):
     """A decoder layer's cross-attention k/v from the encoder output enc
     (B, S_enc, d): its ``cross`` weights' projections (plus ``bk`` /
     ``bv``), no RoPE. -> (k, v), each (B, S_enc, KV, D). ``enc`` enters a
-    sublayer that contracts "heads" (``rules.enter``)."""
+    sublayer that contracts "heads" (``rules.enter``). Under context
+    parallelism ``enc`` is the rank's block of the encoder's rows and the
+    k/v are gathered whole (``rules.cp_gather``)."""
     enc = rules.enter(enc, "heads")
     k, v = _proj(enc, p["wk"]), _proj(enc, p["wv"])
     if cfg.qkv_bias:
         k, v = k + p["bk"], v + p["bv"]
-    return k, v
+    return rules.cp_gather(k), rules.cp_gather(v)
 
 
 def _out(p: Params, o: torch.Tensor) -> torch.Tensor:
@@ -212,7 +220,15 @@ def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None,
 
     The out-projection contracts "heads": ``rules.contract`` (a rank's
     all-reduce over its ``model`` group under tensor parallelism); ``x``
-    enters through ``rules.enter`` (the gradient's sum in training)."""
+    enters through ``rules.enter`` (the gradient's sum in training).
+
+    Context parallelism (``rules.seq``): ``x`` is the rank's block of the
+    sequence, its rows at r S + 0.. S - 1 (``rules.cp_offset``); k and v
+    are gathered whole along the sequence (``rules.cp_gather``), and the
+    rank's queries attend them at that query offset (the kernel's
+    ``q_offset``; ``flash_attention``'s in training), so causal and window
+    masks work on absolute positions. The returned k/v are the rank's own
+    rows: its part of a context-parallel cache. No prefix."""
     x = rules.enter(x, "heads")
     if cross_kv is not None:
         q = _proj(x, p["wq"])
@@ -226,18 +242,22 @@ def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None,
         return rules.contract(_out(p, out), "heads"), None
     S = x.shape[1]
     q, k, v = _qkv(cfg, p, x)
+    off = rules.cp_offset(S)
+    if prefix is not None and rules.seq:
+        raise ValueError("a context-parallel prefill takes no prefix")
     plen = 0 if prefix is None else prefix[2]
-    positions = plen + torch.arange(S, device=x.device)[None, :]
+    positions = plen + off + torch.arange(S, device=x.device)[None, :]
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     if train:
         if prefix is not None:
             raise ValueError("the training forward takes no prefix")
-        out = flash_attention(q, k, v, causal=causal, window=window,
+        out = flash_attention(q, rules.cp_gather(k), rules.cp_gather(v),
+                              causal=causal, window=window, q_offset=off,
                               chunked=cfg.flash_chunking)
         return rules.contract(_out(p, out), "heads"), (k, v)
     if prefix is None:
-        kf, vf = k, v
+        kf, vf = rules.cp_gather(k), rules.cp_gather(v)
     else:
         pk, pv, _ = prefix
         kf = torch.cat([kv_dequant(cfg, pk, x.dtype), torch.zeros_like(k)], 1)
@@ -245,7 +265,7 @@ def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None,
         kf[:, plen:plen + S] = k
         vf[:, plen:plen + S] = v
     out = ops.attention(q.contiguous(), kf.contiguous(), vf.contiguous(),
-                        causal=causal, q_offset=plen, window=window)
+                        causal=causal, q_offset=plen + off, window=window)
     return rules.contract(_out(p, out), "heads"), (k, v)
 
 
@@ -319,16 +339,36 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
     The pools and lanes are updated IN PLACE (``index_put_``), where the
     JAX package returns new ones: the port never copies a layer's cache.
     The out-projection contracts "heads" (``rules.contract``), in every
-    mode. Returns (out, cache)."""
+    mode.
+
+    Context parallelism (``rules.seq``; dense and cross lanes only): a
+    rank's lane is its block of ``S`` rows of the whole lane (``rows``
+    then name the whole lane's slots). Only the rank that owns the new
+    row's slot writes it (the others write back what the slot held: the
+    reference's one-hot write, cut to the rank's rows); each rank attends
+    its rows with a partial softmax (``attend_partial``, plain PyTorch)
+    and ``rules.cp_merge`` merges the partials over the ranks. The mha
+    kernel is not used there: its decode row returns the normalised
+    output, not the row max and sum that a merge needs. Returns (out,
+    cache)."""
     if cross:
         q = _proj(x, p["wq"])
         if cfg.qkv_bias:
             q = q + p["bq"]
-        out = ops.attention(q.contiguous(),
-                            kv_dequant(cfg, cache["k"], q.dtype).contiguous(),
-                            kv_dequant(cfg, cache["v"], q.dtype).contiguous(),
-                            causal=False)
+        ck = kv_dequant(cfg, cache["k"], q.dtype)
+        cv = kv_dequant(cfg, cache["v"], q.dtype)
+        if rules.seq:
+            S = ck.shape[1]
+            every = torch.full((x.shape[0], 1), S * rules.cp,
+                               device=x.device)
+            out = _merged(q, ck, cv, every, rules, S)
+        else:
+            out = ops.attention(q.contiguous(), ck.contiguous(),
+                                cv.contiguous(), causal=False)
         return rules.contract(_out(p, out), "heads"), cache
+    if rules.seq and block_table is not None:
+        raise ValueError("context-parallel decode reads dense lanes; the "
+                         "page pools are not split over the sequence")
     B, T = x.shape[0], x.shape[1]
     q, k, v = _qkv(cfg, p, x)
     pos_t = pos[:, None] + torch.arange(T, device=x.device,
@@ -341,6 +381,18 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
             raise ValueError(f"dense-lane decode is single-token, got a "
                              f"T={T} block")
         b, slot, n = rows
+        if rules.seq:
+            S = ck.shape[1]
+            local = slot - rules.cp_offset(S)
+            own = ((local >= 0) & (local < S))[:, None, None]
+            local = local.clamp(0, S - 1)
+            for lane, new in ((ck, k), (cv, v)):
+                lane.index_put_((b, local), torch.where(
+                    own, kv_quant(cfg, new[:, 0]), lane[b, local]))
+            out = _merged(q, kv_dequant(cfg, ck, q.dtype),
+                          kv_dequant(cfg, cv, q.dtype), n[:, None], rules,
+                          S, kv_chunk=cfg.decode_kv_chunk)
+            return rules.contract(_out(p, out), "heads"), cache
         ck.index_put_((b, slot), kv_quant(cfg, k[:, 0]))
         cv.index_put_((b, slot), kv_quant(cfg, v[:, 0]))
         out = ops.attention(q.contiguous(),
@@ -365,6 +417,18 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
         out = ops.paged_attention(q.contiguous(), ck, cv, block_table,
                                   pos + T, kv_scale=scale, window=window)
     return rules.contract(_out(p, out), "heads"), cache
+
+
+def _merged(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+            nvalid: torch.Tensor, rules: Rules, S: int,
+            kv_chunk: int = 0) -> torch.Tensor:
+    """A context-parallel decode row: the partial softmax over this rank's
+    ``S`` lane rows (slots r S.. of the whole lane; slots below
+    ``nvalid`` are valid), merged over the ranks (``rules.cp_merge``)."""
+    m, l, o = attend_partial(q, ck, cv, nvalid, kv_chunk=kv_chunk,
+                             base=rules.cp_offset(S))
+    l, o = rules.cp_merge(m, l, o)
+    return normalised(o, l, q)
 
 
 def last_writer(target: torch.Tensor) -> torch.Tensor:
@@ -399,12 +463,10 @@ def attend_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     The keys go in chunks of ``kv_chunk``
     (one chunk if 0 or if it does not divide S) through an online
     softmax, scores and sums in fp32, P cast to the cache dtype before the
-    P V product, as in the reference. Returns q's shape and dtype."""
+    P V product, as in the reference (``attend_partial``). Returns q's
+    shape and dtype."""
     B, Tq, H, D = q.shape
-    S, KV = ck.shape[1], ck.shape[2]
-    G = H // KV
-    dev = q.device
-    qg = q.reshape(B, Tq, KV, G, D).float()
+    S = ck.shape[1]
     if ring:
         if Tq != 1:
             raise ValueError(
@@ -415,8 +477,36 @@ def attend_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
                 f"blocks")
         nvalid = torch.clamp(pos + 1, max=S)[:, None]       # slot count
     else:
-        nvalid = (pos[:, None] + torch.arange(Tq, device=dev)[None, :]
+        nvalid = (pos[:, None] + torch.arange(Tq, device=q.device)[None, :]
                   + 1)                                     # (B, Tq)
+    _, l, o = attend_partial(q, ck, cv, nvalid,
+                             window=0 if ring else window, kv_chunk=kv_chunk)
+    return normalised(o, l, q)
+
+
+def normalised(o: torch.Tensor, l: torch.Tensor,
+               q: torch.Tensor) -> torch.Tensor:
+    """A partial softmax's output (o (B, KV, G, Tq, D) over sums l) as q's
+    (B, Tq, H, D) rows in q's dtype."""
+    o = o / l[..., None].clamp(min=1e-30)
+    return o.permute(0, 3, 1, 2, 4).reshape(q.shape).to(q.dtype)
+
+
+def attend_partial(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                   nvalid: torch.Tensor, *, window: int = 0,
+                   kv_chunk: int = 0, base: int = 0):
+    """``attend_decode``'s online softmax over the slots of ``ck``/``cv``
+    (B, S, KV, D), slot j at index ``base`` + j of its lane: a slot is
+    valid for row t when its index < ``nvalid`` (B, Tq), and with
+    ``window`` > 0 when it is also > nvalid - 1 - window. Returns the
+    unnormalised partial (m, l, o): the row max (B, KV, G, Tq), the sum of
+    exp past it and the output (B, KV, G, Tq, D), fp32; a row with no
+    valid slot has m = -1e30, l = 0 and o = 0."""
+    B, Tq, H, D = q.shape
+    S, KV = ck.shape[1], ck.shape[2]
+    G = H // KV
+    dev = q.device
+    qg = q.reshape(B, Tq, KV, G, D).float()
     c = S if kv_chunk <= 0 else min(kv_chunk, S)
     if S % c:
         c = S
@@ -426,9 +516,9 @@ def attend_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
     for i in range(0, S, c):
         kb, vb = ck[:, i:i + c], cv[:, i:i + c]
         s = torch.einsum("btkgd,bckd->bkgtc", qg, kb.float()) * D ** -0.5
-        slots = i + torch.arange(c, device=dev)
+        slots = base + i + torch.arange(c, device=dev)
         mask = slots[None, None, :] < nvalid[:, :, None]    # (B, Tq, c)
-        if window and not ring:
+        if window:
             mask = mask & (slots[None, None, :]
                            > nvalid[:, :, None] - 1 - window)
         mask = mask[:, None, None]                 # over (b, k, g, t, c)
@@ -440,8 +530,7 @@ def attend_decode(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
         o = o * corr[..., None] + torch.einsum(
             "bkgtc,bckd->bkgtd", p.to(vb.dtype).float(), vb.float())
         m = m2
-    o = o / l[..., None].clamp(min=1e-30)
-    return o.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, D).to(q.dtype)
+    return m, l, o
 
 
 def mlp_apply(cfg, p: Params, x: torch.Tensor,
@@ -503,24 +592,36 @@ def _route(cfg, p: Params, x: torch.Tensor, replicas: int = 1):
     """``moe_route``'s work, with the router's fp32 logits (T, E) and
     probabilities first: (logits, probs, gate_w, gate_i, flat, keep).
     ``replicas``: as ``moe_capacity``'s."""
-    B, S, d = x.shape
-    m = cfg.moe
-    E, K = m.num_experts, m.top_k
-    T = B * S
-    G, C = moe_capacity(cfg, T, replicas)
-    Tg = T // G
-    logits = x.reshape(T, d).float() @ p["router"].float()
+    G, C = moe_capacity(cfg, x.shape[0] * x.shape[1], replicas)
+    logits, probs, gate_w, gate_i = _scores(cfg, p, x)
+    return (logits, probs, gate_w, gate_i) + _slots(cfg, gate_i, G, C)
+
+
+def _scores(cfg, p: Params, x: torch.Tensor):
+    """The router on every row of x (B, S, d): (logits, probs, gate_w,
+    gate_i), as ``_route`` returns them."""
+    K = cfg.moe.top_k
+    logits = x.reshape(-1, x.shape[-1]).float() @ p["router"].float()
     probs = torch.softmax(logits, -1)
     gate_w, gate_i = torch.sort(probs, dim=-1, descending=True,
                                 stable=True)
     gate_w, gate_i = gate_w[:, :K], gate_i[:, :K]
     gate_w = gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    return logits, probs, gate_w, gate_i
+
+
+def _slots(cfg, gate_i: torch.Tensor, G: int, C: int):
+    """(flat, keep) of ``_route`` from every row's choices ``gate_i``
+    (T, K) in G dispatch groups of capacity C a expert."""
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    Tg = gate_i.shape[0] // G
     eidx = gate_i.reshape(G, Tg, K).transpose(1, 2).reshape(G, K * Tg)
-    oh = (eidx[..., None] == torch.arange(E, device=x.device)).to(torch.int32)
+    oh = (eidx[..., None] == torch.arange(E, device=gate_i.device)
+          ).to(torch.int32)
     pos = torch.gather(torch.cumsum(oh, 1) - 1, 2, eidx[..., None])[..., 0]
     keep = pos < C
     flat = torch.where(keep, eidx * C + pos, torch.full_like(eidx, E * C))
-    return logits, probs, gate_w, gate_i, flat, keep
+    return flat, keep
 
 
 def moe_aux(cfg, logits: torch.Tensor, probs: torch.Tensor,
@@ -532,6 +633,11 @@ def moe_aux(cfg, logits: torch.Tensor, probs: torch.Tensor,
     the choices) and ``z_loss`` (the mean squared logsumexp of the router
     logits).
 
+    Under context parallelism (``rules.seq``) ``logits`` and ``probs`` are
+    the rank's rows and ``gate_i`` every rank's choices: the means are
+    the whole sequence's, their sums over the ranks' rows taken by
+    ``rules.cp_sum`` (each rank's gradient is of its own rows).
+
     Over ``rules.data`` > 1 replicas (data-parallel training) both means
     of ``lb_loss``'s product are the global batch's: averaged over the
     ``data`` group, the mean probability with the identity for its
@@ -541,14 +647,19 @@ def moe_aux(cfg, logits: torch.Tensor, probs: torch.Tensor,
     E = cfg.moe.num_experts
     share = (gate_i.reshape(-1, 1) == torch.arange(E, device=gate_i.device)
              ).sum(0).float() / gate_i.numel()
-    mean_prob = probs.mean(0)
+    if rules.seq:
+        n = probs.shape[0] * rules.cp
+        mean_prob = rules.cp_sum(probs.sum(0)) / n
+        z = rules.cp_sum(torch.logsumexp(logits, -1).square().sum()) / n
+    else:
+        mean_prob = probs.mean(0)
+        z = torch.mean(torch.logsumexp(logits, -1).square())
     if rules.data > 1:
         share = rules.all_reduce(share, "data").div_(rules.data)
         local = mean_prob.detach()
         mean_prob = mean_prob + (
             rules.all_reduce(local.clone(), "data").div_(rules.data) - local)
     lb = E * torch.sum(mean_prob * share)
-    z = torch.mean(torch.logsumexp(logits, -1).square())
     return {"lb_loss": lb, "z_loss": z}
 
 
@@ -615,7 +726,8 @@ def moe_combine(cfg, eo: torch.Tensor, gate_w: torch.Tensor,
 
 
 def moe_apply(cfg, p: Params, x: torch.Tensor,
-              rules: Rules = NO_RULES, aux: bool = False):
+              rules: Rules = NO_RULES, aux: bool = False,
+              seq_split: bool = True):
     """Token-dropping MoE FFN with grouped dispatch, after the JAX
     package's ``layers.moe_apply``: ``moe_route``, ``moe_dispatch``,
     ``moe_experts`` (the expert products stay plain PyTorch, as they stay
@@ -637,7 +749,13 @@ def moe_apply(cfg, p: Params, x: torch.Tensor,
     dispatches only its experts' rows, runs them, and combines what they
     computed (a slot routed to another rank reads zero); ``contract``
     sums the ranks' outputs. The expert rows' input and the gate weights
-    ``enter``: each rank's gradient holds its experts' share."""
+    ``enter``: each rank's gradient holds its experts' share.
+
+    Context-parallel (``rules.seq`` and ``seq_split``: x is the rank's
+    block of each row's sequence; a decode step's rows, replicated, pass
+    ``seq_split=False``): ``_moe_cp``."""
+    if rules.seq and seq_split:
+        return _moe_cp(cfg, p, x, rules, aux)
     replicas = rules.data if aux else 1
     logits, probs, gate_w, gate_i, flat, keep = _route(cfg, p, x, replicas)
     losses = moe_aux(cfg, logits, probs, gate_i, rules) if aux else None
@@ -651,3 +769,56 @@ def moe_apply(cfg, p: Params, x: torch.Tensor,
     if cfg.moe.shared_expert:
         out = out + mlp_apply(cfg, p["shared"], x, rules)
     return (out, losses) if aux else out
+
+
+def _moe_cp(cfg, p: Params, x: torch.Tensor, rules: Rules, aux: bool):
+    """``moe_apply`` on the rank's block of the sequence. The reference
+    groups the flattened (B, S) rows, row-major, into dispatch groups and
+    ranks each group's slots by a running count, so a group generally
+    spans every rank's block: each rank routes its own tokens, the top-K
+    choices are all-gathered (ints, small), and every rank computes every
+    group's capacity ranks (``keep``, the buffer rows), so the routing is
+    the whole sequence's. Each rank writes its kept tokens into their
+    rows of the (G, E, C, d) dispatch buffer, the other rows zero; a
+    reduce-scatter along E (``rules.cp_scatter``: every row has one
+    writer, so the sum adds zeros only) hands each rank its experts' rows
+    of every group; its experts run; an all-gather along E
+    (``rules.cp_gather``) returns every expert's rows, and each rank
+    combines its own tokens. Each collective's backward is the other one.
+    The experts must split over the ranks (their count divides
+    ``model``). The shared expert is the rank's rows' MLP. The aux losses
+    are the whole sequence's (``moe_aux``)."""
+    if "experts" not in rules.contract_axes:
+        raise ValueError(f"a context-parallel MoE needs its "
+                         f"{cfg.moe.num_experts} experts split over the "
+                         f"{rules.cp} ranks")
+    B, Sl, d = x.shape
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    S = Sl * rules.cp
+    G, C = moe_capacity(cfg, B * S, rules.data if aux else 1)
+    Tg = B * S // G
+    dev = x.device
+    logits, probs, gate_w, gate_i = _scores(cfg, p, x)
+    every = rules.all_gather(gate_i.reshape(B, Sl, K), 1,
+                             "model").reshape(B * S, K)
+    flat, keep = _slots(cfg, every, G, C)
+    losses = moe_aux(cfg, logits, probs, every, rules) if aux else None
+    # the rank's tokens: (b, rank block) of the replica's B x S, in groups
+    t = (torch.arange(B, device=dev)[:, None] * S + rules.cp_offset(Sl)
+         + torch.arange(Sl, device=dev)[None, :]).reshape(-1)
+    g = (t // Tg)[:, None]
+    cols = torch.arange(K, device=dev)[None, :] * Tg + (t % Tg)[:, None]
+    rows = g * (E * C + 1) + flat[g, cols]           # (B Sl, K)
+    xrep = x.reshape(B * Sl, 1, d).expand(B * Sl, K, d).reshape(-1, d)
+    buf = x.new_zeros((G * (E * C + 1), d)).scatter(
+        0, rows.reshape(-1, 1).expand(-1, d), xrep)
+    buf = buf.reshape(G, E * C + 1, d)[:, :E * C].reshape(G, E, C, d)
+    eo = rules.cp_gather(moe_experts(p, rules.cp_scatter(buf, 1)), 1)
+    eo = torch.cat([eo.reshape(G, E * C, d), eo.new_zeros((G, 1, d))], 1)
+    got = eo.reshape(-1, d)[rows]                     # (B Sl, K, d)
+    w = (gate_w * keep[g, cols]).to(x.dtype)
+    out = torch.einsum("tk,tkd->td", w, got).reshape(B, Sl, d)
+    if cfg.moe.shared_expert:
+        out = out + mlp_apply(cfg, p["shared"], x, rules)
+    return (out, losses) if aux else out
+

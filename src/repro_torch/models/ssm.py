@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.griffin import gather_conv_state, last_rows
 from repro_torch.models.layers import norm_apply
+from repro_torch.parallel.sharding import NO_RULES, Rules
 
 Params = Dict[str, torch.Tensor]
 
@@ -93,12 +94,23 @@ def _ssd_scan(x, dt, A, B, C, chunk: int):
 
 
 def ssm_apply(cfg, p: Params, x: torch.Tensor, *,
-              return_state: bool = False, length=None):
+              return_state: bool = False, length=None,
+              rules: Rules = NO_RULES):
     """Full-sequence Mamba2 mixer. x: (B, S, d). ``length`` (None, an int or
     (B,)): real tokens of a right-padded bucket; padded rows get dt = 0
     (identity updates), so the returned state is the state at length - 1,
     and the conv state gathers the last real pre-activation rows. Returns
-    out, or (out, {"ssm": (B, h, p, n) fp32, "conv": (B, w - 1, conv)})."""
+    out, or (out, {"ssm": (B, h, p, n) fp32, "conv": (B, w - 1, conv)}).
+
+    Context parallelism (``rules.seq``): as ``griffin.rglru_apply``'s,
+    the whole sequence gathered, the conv and the SSD scan run whole on
+    every rank, the rank's rows kept."""
+    if rules.seq:
+        out = ssm_apply(cfg, p, rules.cp_gather(x),
+                        return_state=return_state, length=length)
+        if not return_state:
+            return rules.cp_own(out)
+        return rules.cp_own(out[0]), out[1]
     s = cfg.ssm
     d_inner, nheads, _ = dims(cfg)
     b, l = x.shape[0], x.shape[1]

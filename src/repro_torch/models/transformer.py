@@ -26,7 +26,8 @@ rematerialised as one unit per ``cfg.remat`` and the tail layers not at all
 ``rules`` are a ``sharding.TrainRules``, whose sums and gathers autograd
 differentiates. Every stack gathers a layer's split leaves at the start of
 that layer (``rules.use``; the identity but on a sharded training or
-dry-run rank), inside the remat region.
+dry-run rank), inside the remat region, and the context-parallel gathers
+of the sequence (``rules.cp_gather``) run inside it too.
 """
 from __future__ import annotations
 
@@ -131,11 +132,11 @@ def block_apply(cfg, kind: str, p, x: torch.Tensor, prefix=None,
     h = norm_apply(p["ln1"], x, cfg.norm)
     if kind == "ssm":
         a, cache = ssm.ssm_apply(cfg, p["mixer"], h, return_state=True,
-                                 length=length)
+                                 length=length, rules=rules)
         return x + a, cache
     if kind == "rglru":
         a, cache = griffin.rglru_apply(cfg, p["mixer"], h, return_state=True,
-                                       length=length)
+                                       length=length, rules=rules)
     elif kind == "enc":
         a, _ = attention_apply(cfg, p["attn"], h, causal=False, rules=rules)
         cache = None
@@ -143,8 +144,14 @@ def block_apply(cfg, kind: str, p, x: torch.Tensor, prefix=None,
         window = cfg.hybrid.window if kind == "local_attn" else 0
         a, (k, v) = attention_apply(cfg, p["attn"], h, prefix=prefix,
                                     window=window, rules=rules)
+        if rules.seq and max_len is not None:
+            # a dense lane is split over the ranks as a whole: build it
+            # from the whole k/v and keep the rank's rows of it
+            k, v = rules.cp_gather(k), rules.cp_gather(v)
         cache = _window_cache(cfg, k, v, window) \
             if window and max_len is not None else _grow(cfg, k, v, max_len)
+        if rules.seq and max_len is not None:
+            cache = {name: rules.cp_own(t) for name, t in cache.items()}
     x = x + a
     if kind == "dec":
         hx = norm_apply(p["lnx"], x, cfg.norm)
@@ -152,17 +159,20 @@ def block_apply(cfg, kind: str, p, x: torch.Tensor, prefix=None,
         a, _ = attention_apply(cfg, p["cross"], hx, cross_kv=(ck, cv),
                                rules=rules)
         x = x + a
-        cache.update(xk=kv_quant(cfg, ck), xv=kv_quant(cfg, cv))
+        cache.update(xk=kv_quant(cfg, rules.cp_own(ck)),
+                     xv=kv_quant(cfg, rules.cp_own(cv)))
     return x + ffn_apply(cfg, kind, p, norm_apply(p["ln2"], x, cfg.norm),
                          rules), cache
 
 
 def ffn_apply(cfg, kind: str, p, h: torch.Tensor,
-              rules: Rules = NO_RULES) -> torch.Tensor:
+              rules: Rules = NO_RULES, seq_split: bool = True
+              ) -> torch.Tensor:
     """The FFN sublayer: ``moe_apply`` on an ``attn_moe`` block, else the
-    dense MLP."""
+    dense MLP. ``seq_split``: whether ``h``'s rows are the rank's block of
+    the sequence under context parallelism (not a decode step's)."""
     if kind == "attn_moe":
-        return moe_apply(cfg, p["moe"], h, rules)
+        return moe_apply(cfg, p["moe"], h, rules, seq_split=seq_split)
     return mlp_apply(cfg, p["mlp"], h, rules)
 
 
@@ -204,7 +214,7 @@ def block_decode(cfg, kind: str, p, x: torch.Tensor, cache,
                                 cross=True, rules=rules)
         x = x + a
     return x + ffn_apply(cfg, kind, p, norm_apply(p["ln2"], x, cfg.norm),
-                         rules), new
+                         rules, seq_split=False), new
 
 
 def stack_apply(cfg, blocks, x: torch.Tensor, *, prefix_kv=None,
@@ -246,9 +256,9 @@ def block_train(cfg, kind: str, p, x: torch.Tensor, enc_out=None,
     {}."""
     h = norm_apply(p["ln1"], x, cfg.norm)
     if kind == "ssm":
-        return x + ssm.ssm_apply(cfg, p["mixer"], h), {}
+        return x + ssm.ssm_apply(cfg, p["mixer"], h, rules=rules), {}
     if kind == "rglru":
-        a = griffin.rglru_apply(cfg, p["mixer"], h)
+        a = griffin.rglru_apply(cfg, p["mixer"], h, rules=rules)
     else:
         window = cfg.hybrid.window if kind == "local_attn" else 0
         a, _ = attention_apply(cfg, p["attn"], h, window=window,
@@ -361,13 +371,16 @@ def stack_decode(cfg, blocks, x: torch.Tensor, caches, pos: torch.Tensor,
     # (every layer on it writes the same rows)
     rows = win_rows = None
     for kind, c in zip(kinds, caches):
+        # a context-parallel rank's dense lane is its block of the whole
         if kind in PAGEABLE_KINDS + ("dec",) and rows is None:
             S = c["k"].shape[1]
-            rows = dense_rows(pos, S, False) if block_table is None \
+            rows = dense_rows(pos, S * rules.cp, False) \
+                if block_table is None \
                 else paged_rows(block_table, pos, T, S)
         if kind in WINDOW_KINDS and win_rows is None:
             S = c["k"].shape[1]
-            win_rows = dense_rows(pos, S, True) if win_block_table is None \
+            win_rows = dense_rows(pos, S * rules.cp, True) \
+                if win_block_table is None \
                 else paged_rows(win_block_table, pos, T, S)
     out = list(caches)
     for j, (kind, p, c) in enumerate(zip(kinds, blocks, caches)):

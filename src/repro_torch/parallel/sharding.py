@@ -55,6 +55,33 @@ rank's part of the gradient, summed with nothing: every rank computed the
 same whole gradient, and a sum would hand each M times it (the trap of
 the contraction above).
 
+Context parallelism (the reference's ``Rules(mesh, {"seq": "model"})``,
+its dry-run's ``--optimized``): a rank of ``seq`` holds its block of every
+activation's sequence, rows [r S/M, (r + 1) S/M). Each activation's heads,
+ffn and vocab then lose the ``model`` axis to the sequence (``Rules.spec``'s
+conflict fallback), so those sublayers compute replicated: ``contract`` and
+``enter`` sum nothing for them, and their leaves are gathered at their use.
+Every rank's gradient is then of its own tokens only, so a leaf gathered
+over ``model`` reduce-scatters its gradient with a sum in backward (the
+model gather above hands each rank its part of a whole gradient that
+every rank computed alike; under context parallelism that part would be
+its own tokens' share, 1/M of the gradient on average), and the train
+step sums the gradients of the leaves that ``model`` does not split. The
+hooks, identities without a sequence split:
+
+* ``cp_gather(x, dim)``: the ranks' blocks joined along ``dim`` (the keys
+  and values of attention, a recurrent mixer's input, the MoE expert
+  rows); in backward a reduce-scatter of the gradient with a sum (each
+  rank's gradient is of its own queries);
+* ``cp_scatter(x, dim)``: the rank's part along ``dim`` of the sum over
+  the ranks (the MoE dispatch buffer, each expert's rows to its rank); in
+  backward an all-gather;
+* ``cp_sum(x)``: the sum over the ranks in forward, the identity in
+  backward (a global loss's sums of per-rank partials);
+* ``cp_merge(m, l, o)``: the partial softmaxes of a decode row over the
+  ranks' slices of a lane merged: an all-reduce of the row max, then of
+  the rescaled sums and outputs.
+
 ``DryRunRules`` are one rank's rules on a described mesh (no world): the
 contractions, gathers and the data-axis sums run as they would, but each
 collective is recorded, (mesh axis, operand bytes) in ``sums`` for an
@@ -106,6 +133,7 @@ class Rules:
     data = 1
     model_rank = 0
     contract_axes: FrozenSet[str] = frozenset()
+    seq: Optional[str] = None       # the axis the sequence splits over
 
     def __init__(self, mesh=None, table: Optional[Dict[str, Phys]] = None):
         self.mesh = mesh
@@ -185,6 +213,37 @@ class Rules:
         identity; ``ManualRules`` gathers the dims its ``uses`` name."""
         return tree
 
+    # context parallelism (the module doc); identities here
+    @property
+    def cp(self) -> int:
+        """The ranks the sequence splits over (1: no split)."""
+        return 1
+
+    def cp_offset(self, n: int) -> int:
+        """The first position of this rank's block of ``n`` rows."""
+        return self.model_rank * n if self.seq else 0
+
+    def cp_own(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's block along ``dim`` of a whole-sequence tensor."""
+        if not self.seq:
+            return x
+        n = x.shape[dim] // self.cp
+        return x.narrow(dim, self.model_rank * n, n)
+
+    def cp_gather(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        return x
+
+    def cp_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return x
+
+    def cp_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def cp_merge(self, m: torch.Tensor, l: torch.Tensor, o: torch.Tensor):
+        """(l, o) of partial softmaxes (row max ``m``, sum ``l``,
+        unnormalised output ``o``) merged over the ranks."""
+        return l, o
+
 
 def _map(fn, tree, spec):
     """``fn(leaf, spec)`` over a dict / list tree and its spec tree."""
@@ -206,18 +265,25 @@ class ManualRules(Rules):
     is the ``model`` group's size and ``model_rank`` this rank's place in
     it (the offset of its vocab rows and experts). ``uses``: per block
     kind (or top-level leaf name), a tree of per-dim gather specs ("data",
-    "model" or None) that ``use`` applies. Without a group (a mesh made
-    outside a world) the rules can be read but a contraction raises."""
+    "model" or None) that ``use`` applies. ``seq``: "model" when the
+    sequence splits over the model group (context parallelism, the
+    module doc), else None. Without a group (a mesh made outside a world)
+    the rules can be read but a contraction raises."""
 
     def __init__(self, contract_axes: Iterable[str] = (), group=None, *,
                  data_group=None, data: int = 1, model: int = 1,
-                 model_rank: int = 0, uses: Optional[Dict] = None):
+                 model_rank: int = 0, uses: Optional[Dict] = None,
+                 seq: Optional[str] = None):
         super().__init__(None)
+        if seq not in (None, "model"):
+            raise ValueError(f"seq over {seq!r}: the sequence splits over "
+                             f"'model' or nothing")
         self.contract_axes: FrozenSet[str] = frozenset(contract_axes)
         self.group = group
         self.data_group, self.data = data_group, data
         self.model, self.model_rank = model, model_rank
         self.uses = dict(uses or {})
+        self.seq = seq
         self.reduces = 0
         self.collectives: Counter = Counter()
 
@@ -274,14 +340,36 @@ class ManualRules(Rules):
             self.reduces += 1
         return x
 
+    @property
+    def cp(self) -> int:
+        return self.model if self.seq else 1
+
+    def cp_gather(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        return _GatherSum.apply(x, dim, self) if self.seq else x
+
+    def cp_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        return _ScatterSum.apply(x, dim, self) if self.seq else x
+
+    def cp_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return _SumForward.apply(x, self) if self.seq else x
+
+    def cp_merge(self, m: torch.Tensor, l: torch.Tensor, o: torch.Tensor):
+        if not self.seq:
+            return l, o
+        top = self.all_reduce(m.clone(), "model", op=dist.ReduceOp.MAX)
+        c = torch.exp(m - top)
+        return self.all_reduce(l * c), self.all_reduce(o * c[..., None])
+
     def use(self, tree, where: str):
         spec = self.uses.get(where)
         return tree if spec is None else _map(self._gathered, tree, spec)
 
     def _gathered(self, t: torch.Tensor, spec) -> torch.Tensor:
         """``t`` gathered over every dim its spec names: the data dim
-        first (the FSDP split), then the model dim."""
-        for axis, fn in (("data", _GatherData), ("model", _GatherModel)):
+        first (the FSDP split), then the model dim (with a summing
+        backward under context parallelism)."""
+        model = _GatherSum if self.seq else _GatherModel
+        for axis, fn in (("data", _GatherData), ("model", model)):
             for dim, ax in enumerate(spec):
                 if ax == axis:
                     t = fn.apply(t, dim, self)
@@ -294,12 +382,40 @@ class _SumForward(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, rules):
-        rules.reduces += 1
         return rules.all_reduce(x.clone(memory_format=torch.contiguous_format))
 
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _GatherSum(torch.autograd.Function):
+    """An all-gather over the ``model`` group along ``dim`` in forward; in
+    backward a reduce-scatter of the gradient with a sum: each rank's
+    gradient of the whole is of its own tokens (context parallelism)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, rules):
+        ctx.dim, ctx.rules = dim, rules
+        return rules.all_gather(x, dim, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.rules.reduce_scatter(g, ctx.dim, "model"), None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    """A reduce-scatter (sum) over the ``model`` group along ``dim`` in
+    forward, an all-gather of the gradient in backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, rules):
+        ctx.dim, ctx.rules = dim, rules
+        return rules.reduce_scatter(x, dim, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.rules.all_gather(g, ctx.dim, "model"), None, None
 
 
 class _SumBackward(torch.autograd.Function):
@@ -339,8 +455,9 @@ class _GatherModel(torch.autograd.Function):
     """A leaf split over ``model`` whose use computes replicated: an
     all-gather over the ``model`` group along ``dim`` in forward; in
     backward the rank's part of the gradient, summed with nothing (every
-    rank computed the same whole gradient; a sum would give M times
-    it)."""
+    rank computed the same whole gradient; a sum would give M times it).
+    Under context parallelism each rank's gradient is of its own tokens:
+    there ``_GatherSum`` takes its place."""
 
     @staticmethod
     def forward(ctx, x, dim, rules):
@@ -368,14 +485,18 @@ class TrainRules(ManualRules):
     def __init__(self, contract_axes: Iterable[str] = (), group=None,
                  sharded: Optional[Dict[tuple, FrozenSet[str]]] = None, *,
                  data_group=None, data: int = 1, model: int = 1,
-                 model_rank: int = 0, uses: Optional[Dict] = None):
+                 model_rank: int = 0, uses: Optional[Dict] = None,
+                 seq: Optional[str] = None):
         super().__init__(contract_axes, group, data_group=data_group,
                          data=data, model=model, model_rank=model_rank,
-                         uses=uses)
+                         uses=uses, seq=seq)
         self.sharded = dict(sharded or {})
 
     def contract(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        return _SumForward.apply(x, self) if self._check(axis) else x
+        if not self._check(axis):
+            return x
+        self.reduces += 1
+        return _SumForward.apply(x, self)
 
     def enter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         return _SumBackward.apply(x, self) if self._check(axis) else x
@@ -394,9 +515,10 @@ class DryRunRules(TrainRules):
     def __init__(self, contract_axes: Iterable[str] = (),
                  sharded: Optional[Dict[tuple, FrozenSet[str]]] = None, *,
                  data: int = 1, model: int = 1,
-                 uses: Optional[Dict] = None, train: bool = True):
+                 uses: Optional[Dict] = None, train: bool = True,
+                 seq: Optional[str] = None):
         super().__init__(contract_axes, None, sharded, data=data,
-                         model=model, uses=uses)
+                         model=model, uses=uses, seq=seq)
         self.train = train
         self.sums: list = []
         self.moves: list = []

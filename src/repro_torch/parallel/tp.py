@@ -48,6 +48,14 @@ leaf, replicates, as JAX's ``NamedSharding`` has it). The plan's
   ``data`` split, and the ``model`` splits of the rest (a recurrent
   mixer's dims, attention whose KV heads do not divide, the router).
 
+With the sequence over ``model`` (``train_plan(table={"seq": "model"})``,
+context parallelism: the reference's ``Rules(mesh, table)``), the
+activations' heads, ffn and vocab lose ``model`` to their sequence, so
+attention, the MLPs, the embedding and the head are gathered at their use
+and only the experts stay computed in parallel; the rules' ``seq`` then
+makes every gathered leaf's backward a summing reduce-scatter (each rank's
+gradient is of its own tokens). The stored layout is the same.
+
 A train state's moments and error tree shard like the parameters
 (``state_specs``); ``gather_tree`` puts the full leaves back together on
 one rank, over both groups (a checkpoint in the single-device format),
@@ -249,10 +257,12 @@ def path_key(path) -> tuple:
     return tuple(str(getattr(k, "key", getattr(k, "idx", k))) for k in path)
 
 
-def _layout(cfg, mesh) -> Any:
-    """Every parameter leaf's spec under ``Rules(mesh)`` and the whole
-    ``DEFAULT_TABLE``, a dim over an axis of size 1 replicated."""
-    rules = Rules(mesh)
+def _layout(cfg, mesh, table=None) -> Any:
+    """Every parameter leaf's spec under ``Rules(mesh, table)`` over the
+    whole ``DEFAULT_TABLE`` (``table`` maps activation axes only, so the
+    parameters' specs are the default table's), a dim over an axis of size
+    1 replicated."""
+    rules = Rules(mesh, table)
 
     def spec(_, shape, axes):
         out = []
@@ -268,10 +278,13 @@ def _layout(cfg, mesh) -> Any:
     return _tree_map(spec, api.param_shapes(cfg), api.param_axes(cfg))
 
 
-def _computed_in_parallel(path, name: str, attn: bool) -> bool:
+def _computed_in_parallel(path, name: str, attn: bool, cp: bool) -> bool:
     """Whether the ``model`` split of logical weight axis ``name`` at
     ``path`` stays the rank's part at its use (its sublayer computes in
-    parallel) rather than being gathered."""
+    parallel) rather than being gathered. With the sequence over ``model``
+    (``cp``) only the experts do."""
+    if cp and name != "wexperts":
+        return False
     if name in ("wheads", "wkv_heads"):
         return attn and bool({"attn", "cross"} & set(path))
     if name == "wff":
@@ -281,15 +294,23 @@ def _computed_in_parallel(path, name: str, attn: bool) -> bool:
     return name == "wvocab"
 
 
-def train_plan(cfg, mesh) -> TPPlan:
+def train_plan(cfg, mesh, table=None) -> TPPlan:
     """The training plan: every leaf at the reference's layout
     (``_layout``), its rules a ``TrainRules`` over the mesh's ``model``
     and ``data`` groups that contract what computes in parallel, gather
     the rest at its use (the module doc), and name each split leaf for
-    the train step's reductions."""
-    specs = _layout(cfg, mesh)
+    the train step's reductions. ``table``: the reference's rules table
+    over ``DEFAULT_TABLE``; ``{"seq": "model"}`` splits the sequence over
+    ``model`` (context parallelism; a mesh whose ``model`` is 1 splits
+    nothing)."""
+    seq = Rules(mesh, table).table.get("seq")
+    if seq not in (None, "model"):
+        raise ValueError(f"rules_table seq -> {seq!r}: the port splits the "
+                         f"sequence over 'model' or not at all")
+    specs = _layout(cfg, mesh, table)
     axes = api.param_axes(cfg)
     m = int(mesh.shape["model"])
+    cp = seq == "model" and m > 1
     attn = m > 1 and cfg.num_heads % m == 0 and cfg.kv_heads % m == 0
     contract: set = set()
 
@@ -301,7 +322,7 @@ def train_plan(cfg, mesh) -> TPPlan:
                 out.append(None)
             elif ax != "model":
                 out.append("data")
-            elif _computed_in_parallel(path, names[dim], attn):
+            elif _computed_in_parallel(path, names[dim], attn, cp):
                 contract.add({"wheads": "heads", "wkv_heads": "heads",
                               "wff": "ffn", "wvocab": "vocab",
                               "wexperts": "experts"}[names[dim]])
@@ -319,7 +340,8 @@ def train_plan(cfg, mesh) -> TPPlan:
     sharded = {name for a in contract for name in _LOGICAL[a]}
     rules = TrainRules(contract, mesh.group, split_axes(specs),
                        data_group=mesh.data_group, data=data_size(mesh),
-                       model=m, model_rank=mesh.model_rank, uses=uses)
+                       model=m, model_rank=mesh.model_rank, uses=uses,
+                       seq="model" if cp else None)
     return TPPlan(cfg=cfg, mesh=mesh, model_shards=m,
                   sharded_axes=frozenset(sharded), rules=rules, specs=specs)
 

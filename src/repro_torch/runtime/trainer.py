@@ -42,6 +42,14 @@ biases with no ``wembed`` dim) keeps the all-reduce mean. An MoE stack
 routes each replica's rows as its share of the global batch's dispatch
 groups, with the load-balance loss's two means taken over the global
 batch (``layers.moe_aux``).
+
+Context parallelism (``Trainer(rules_table={"seq": "model"})``, the
+reference's ``Trainer(rules=Rules(mesh, table))``): each rank of a
+``model`` group steps on its block of every row's sequence (``seq_rows``)
+and the loss is the whole sequence's. A rank's gradient is then of its
+own tokens: the gathers of the leaves split over ``model`` sum it in
+their backward, and the step sums the gradients of the leaves that
+``model`` does not split over the group, before the data average.
 """
 from __future__ import annotations
 
@@ -121,6 +129,47 @@ def replica_rows(v, data: int, rank: int, grad_accum: int = 1):
         (grad_accum * n,) + rest)
 
 
+def seq_rows(v, parts: int, rank: int):
+    """Rank ``rank``'s block of ``parts`` along the sequence (dim 1) of
+    ``v`` (an array or a tensor: tokens and labels (B, S), frontend or
+    encoder embeddings (B, F, d)); ``v`` itself at ``parts`` 1."""
+    if parts == 1:
+        return v
+    if v.shape[1] % parts:
+        raise ValueError(f"a sequence of {v.shape[1]} does not split over "
+                         f"{parts} context-parallel ranks")
+    n = v.shape[1] // parts
+    return v[:, rank * n:(rank + 1) * n]
+
+
+def reduce_grads(grads, rules: Rules = NO_RULES):
+    """A rank's gradients made the step's: under context parallelism
+    (``rules.seq``) those of the leaves that ``model`` does not split
+    summed over the ``model`` group (each rank's are of its own tokens;
+    a gathered leaf's gather summed its own in backward), then over
+    ``rules.data`` > 1 replicas those of the leaves that ``data`` does
+    not split averaged over the ``data`` group (a split leaf's gather
+    averaged its own). The identity without a mesh."""
+    axes_of = _split_of(rules)
+
+    def one(path, g: torch.Tensor) -> torch.Tensor:
+        if rules.seq and "model" not in axes_of(path):
+            g = rules.all_reduce(g)
+        if rules.data > 1 and "data" not in axes_of(path):
+            g = rules.all_reduce(g, "data").div_(rules.data)
+        return g
+
+    if not rules.seq and rules.data == 1:
+        return grads
+    return pytree.tree_map_with_path(one, grads)
+
+
+def _split_of(rules: Rules) -> Callable[[tuple], frozenset]:
+    """A leaf's key path -> the mesh axes ``rules`` split it on."""
+    split = getattr(rules, "sharded", {})
+    return lambda path: split.get(tp.path_key(path), frozenset())
+
+
 def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
                     rules: Rules = NO_RULES, grad_accum: int = 1,
                     compress_grads: bool = False):
@@ -136,24 +185,21 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
     rows (``replica_rows``; the whole batch without a ``data`` axis), and
     over ``rules.data`` > 1 replicas the gradients (but those of leaves
     split over ``data``, which their gathers averaged), loss and ce are
-    averaged over the data group first. metrics: {"loss", "grad_norm", "lr" [, "ce" when
+    averaged over the data group first. Under context parallelism
+    (``rules.seq``) the rows are the rank's blocks of their sequences
+    (``seq_rows``), and the gradients of the leaves that ``model`` does
+    not split are summed over the group first (each rank's is of its own
+    tokens). metrics: {"loss", "grad_norm", "lr" [, "ce" when
     grad_accum == 1]}, 0-dim tensors, the same on every rank; nothing
     syncs with the host."""
     group = stack_group(cfg)
-    split = getattr(rules, "sharded", {})
     data = getattr(rules, "data", 1)
 
     def mean_over_data(t: torch.Tensor) -> torch.Tensor:
         return rules.all_reduce(t, "data").div_(data)
 
-    def axes_of(path) -> frozenset:
-        return split.get(tp.path_key(path), frozenset())
-
-    def grad_mean(path, g: torch.Tensor) -> torch.Tensor:
-        return g if "data" in axes_of(path) else mean_over_data(g)
-
-    reduce = dict(split=axes_of, all_reduce=rules.all_reduce) \
-        if split else {}
+    reduce = dict(split=_split_of(rules), all_reduce=rules.all_reduce) \
+        if getattr(rules, "sharded", {}) else {}
 
     def step(state, batch):
         params = state["params"]
@@ -178,8 +224,8 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
             grads = pytree.tree_map(lambda g: g / grad_accum, grads)
             loss = loss / grad_accum
             aux = {}
+        grads = reduce_grads(grads, rules)
         if data > 1:
-            grads = pytree.tree_map_with_path(grad_mean, grads)
             loss = mean_over_data(loss.clone())
             aux = {k: mean_over_data(v.clone()) for k, v in aux.items()
                    if k == "ce"}
@@ -254,20 +300,25 @@ class Trainer:
     replica's rows of each batch (``replica_rows``: ``global_batch`` / D
     of them); a
     checkpoint holds the full leaves (the single-device format, written by
-    the world's first rank), and a resume at any ``(data, model)`` cuts
-    its part from them."""
+    the world's first rank), and a resume at any ``(data, model)`` and
+    table cuts its part from them. ``rules_table``: the reference's rules
+    table over the mesh (``tp.train_plan``); ``{"seq": "model"}`` is
+    context parallelism, each rank on its block of every row's sequence
+    (``seq_rows``)."""
 
     def __init__(self, cfg, opt_cfg, dataset, *,
                  ckpt_dir: Optional[str] = None, save_every: int = 50,
                  grad_accum: int = 1,
                  compress_grads: bool = False, seed: int = 0,
                  log_every: int = 10, log_fn: Callable[[str], None] = print,
-                 device="cuda", mesh=None):
+                 device="cuda", mesh=None, rules_table=None):
         self.cfg, self.opt_cfg, self.dataset = cfg, opt_cfg, dataset
         self.mesh = mesh
         self.plan = None
+        if mesh is None and rules_table:
+            raise ValueError("a rules table needs a mesh")
         if mesh is not None:
-            self.plan = tp.train_plan(cfg, mesh)
+            self.plan = tp.train_plan(cfg, mesh, rules_table)
             rows = dataset.cfg.global_batch // dataset.cfg.num_hosts
             if rows % (self.plan.rules.data * grad_accum):
                 raise ValueError(
@@ -338,12 +389,14 @@ class Trainer:
     def run(self, num_steps: int) -> Dict[str, Any]:
         it = iter(self.dataset)
         last_metrics: Dict[str, Any] = {}
-        d, r = (1, 0) if self.mesh is None else (self.plan.rules.data,
+        rules = NO_RULES if self.plan is None else self.plan.rules
+        d, r = (1, 0) if self.mesh is None else (rules.data,
                                                  self.mesh.data_rank)
         for _ in range(num_steps):
-            batch = {k: torch.from_numpy(
-                         replica_rows(v, d, r, self.grad_accum)
-                         ).to(self.device) for k, v in next(it).items()}
+            batch = {k: torch.from_numpy(seq_rows(
+                         replica_rows(v, d, r, self.grad_accum), rules.cp,
+                         rules.model_rank)).to(self.device)
+                     for k, v in next(it).items()}
             t0 = time.perf_counter()
             self.state, metrics = self.step_fn(self.state, batch)
             # repro-lint: disable=host-sync — step timing needs the sync

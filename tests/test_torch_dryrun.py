@@ -475,15 +475,18 @@ def test_a_step_that_reads_the_host_is_an_error(monkeypatch, tmp_path):
 
 
 def test_optimized_refuses_context_parallelism(tmp_path):
-    with pytest.raises(ValueError, match="context parallelism"):
-        dryrun.run_cell("qwen2.5-3b", "train_4k", out_dir=str(tmp_path),
-                        rules_table={"seq": "model"}, verbose=False)
+    """No longer: ``--optimized`` is the reference's options exactly, its
+    context parallelism included (``rules_table`` {"seq": "model"}), and a
+    cell run with them traces (the context-parallel cells themselves are
+    held in ``tests/test_torch_dryrun_cp.py``)."""
+    from repro.launch import dryrun as jdryrun
     for shape in base.SHAPES:
-        kw = dryrun.optimized_kwargs(shape)
-        assert "rules_table" not in kw
-        want = ({"decode_kv_chunk": 0} if base.SHAPES[shape].kind == "decode"
-                else {"flash_chunking": False})
-        assert kw["cfg_patch"] == want
+        assert dryrun.optimized_kwargs(shape) == \
+            jdryrun.optimized_kwargs(shape)
+    rec = dryrun.run_cell("qwen2.5-3b", "decode_32k", out_dir=str(tmp_path),
+                          verbose=False,
+                          **dryrun.optimized_kwargs("decode_32k"))
+    assert rec["status"] == "ok" and rec["rules_table"] == {"seq": "model"}
 
 
 # ---------------------------------------------------------------------------

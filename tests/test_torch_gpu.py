@@ -1883,3 +1883,50 @@ def test_cuda_layout_hooks_world_of_one_equal_plain(nccl_world):
             assert all(a == b for a, b in losses) and equal, (arch, compress)
             assert reduces > 0 and colls["reduce-scatter:data"] > 0
             assert colls["all-gather:model"] > 0
+
+
+# ---------------------------------------------------------------------------
+# context parallelism (chip_smoke.py phase 17)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_mha_at_a_cp_rank_block_matches_plain(cuda, dtype):
+    """mha at a context-parallel rank's block: B1, 1024 queries at
+    q_offset 1024 against the 2048 gathered keys, H16 KV2 D128, no
+    prefix; per row against its plain version, and the plain version
+    with the offset one short misses on some row (fp32)."""
+    Sq, off, Sk, Hq, KVh, Dh = 1024, 1024, 2048, 16, 2, 128
+    q, k, v = (torch.from_numpy(x).to(cuda, getattr(torch, dtype))
+               for x in mha_inputs(off + Sq, 1, Sq, Sk, Hq, KVh, Dh))
+    got = launched_once(lambda: mha_kernel.mha.launches,
+                        lambda: ops.attention(q, k, v, causal=True,
+                                              q_offset=off))
+    want = ref.mha_ref(q, k, v, causal=True, q_offset=off)
+    if dtype == "bfloat16":
+        assert_agrees(got, want)
+    else:
+        assert_rows_agree(got, want)
+        shifted = ref.mha_ref(q, k, v, causal=True, q_offset=off - 1)
+        assert ref.row_error(shifted, want).max().item() > \
+            ref.ROW_TOL[torch.float32]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen2.5-3b", "mamba2-2.7b"])
+def test_cuda_cp_hooks_world_of_one_equal_plain(nccl_world, arch):
+    """``torch_cp_ranks.forced_cp_rules`` over a world of 1 over NCCL: the
+    sequence over ``model`` with every context-parallel hook taken over
+    one rank (a copy). 2 fp32 SMOKE steps equal the plain step's losses
+    and state bit for bit, and the prefill's logits bit for bit; 4 greedy
+    decode steps (plain attention a rank, merged, where the plain path
+    runs the mha kernel) give the plain path's tokens, logits within 1e-5
+    of their scale."""
+    from torch_cp_ranks import forced_cp_steps
+    losses, equal, prefill_equal, (ta, tc), err, colls = forced_cp_steps(
+        arch, nccl_world.group.WORLD, "cuda")
+    assert all(a == b for a, b in losses) and equal
+    assert prefill_equal and ta == tc and err <= 1e-5
+    assert colls["all-reduce:model"] > 0
+    assert colls["all-gather:model"] > 0

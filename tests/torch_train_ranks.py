@@ -138,18 +138,19 @@ def block_dec(mesh, inputs, ckpt_dir):
 # ---------------------------------------------------------------------------
 
 
-def train_case(mesh, inputs, name, case=None):
+def train_case(mesh, inputs, name, case=None, table=None):
     """``STEPS`` model-parallel steps of case ``name`` (``TRAIN_CASES[name]``
     unless ``case`` gives (arch, grad_accum, compress_grads)) from the
     moved-over JAX state, each rank on its data replica's rows of the
-    global batch: each step's metrics, the all-reduces of the first step,
-    the collectives a step by kind and axis, the plan, and the final
+    global batch (and with ``table`` {"seq": "model"} on its block of
+    their sequences): each step's metrics, the all-reduces of the first
+    step, the collectives a step by kind and axis, the plan, and the final
     parameters gathered on the world's first rank."""
     arch, accum, compress = case or TRAIN_CASES[name]
     cfg = cfg_of(arch)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)   # the fallbacks warn
-        plan = tp.train_plan(cfg, mesh)
+        plan = tp.train_plan(cfg, mesh, table)
     # a copy: AdamW updates in place, and a replicated leaf's part is the
     # leaf itself, which another scenario of this world starts from
     state = pytree.tree_map(torch.clone, inputs["states"][name])
@@ -163,8 +164,9 @@ def train_case(mesh, inputs, name, case=None):
     metrics, reduces, colls = [], [], []
     for b in inputs["batches"][name]:
         r0, c0 = plan.rules.reduces, dict(plan.rules.collectives)
-        rows = {k: torch.from_numpy(trainer.replica_rows(v, d, r, accum))
-                for k, v in b.items()}
+        rows = {k: torch.from_numpy(trainer.seq_rows(
+                    trainer.replica_rows(v, d, r, accum), plan.rules.cp,
+                    mesh.model_rank)) for k, v in b.items()}
         state, m = step(state, rows)
         reduces.append(plan.rules.reduces - r0)
         colls.append({f"{k[0]}:{k[1]}": n - c0.get(k, 0)
