@@ -2493,11 +2493,11 @@ def piece_times(cfg, params, eng) -> None:
                 lambda: griffin._conv(mx, ur), iters=5)
         elif kind == "ssm":
             mx = p["mixer"]
-            zx = rand(B, mx["in_proj"].shape[1])
+            zx = ssm._split(cfg, rand(B, mx["in_proj"].shape[1]))
             dec["ssm mixer"] = n * graph_ms(
                 lambda: ssm.ssm_decode(cfg, mx, x1, c))
             dec["  of which recurrence + conv"] = n * graph_ms(
-                lambda: ssm._token_step(cfg, mx, c["ssm"], c["conv"], zx))
+                lambda: ssm._token_step(cfg, mx, c["ssm"], c["conv"], *zx))
             d_inner, nh, conv_dim = ssm.dims(cfg)
             sc = cfg.ssm
             xin = rand(1, S, nh, sc.head_dim)
@@ -4753,6 +4753,12 @@ def check_train_serve(rng) -> dict:
 PAIR_LAYERS, PAIR_B, PAIR_S = 2, 4, 256       # phase 15 (b)'s steps
 QUAD_QWEN_STEPS = 2
 QUAD_DBRX_LAYERS, QUAD_DBRX_STEPS = 1, 2       # phase 15 (b)'s dbrx-132b
+# phase 15 (a)'s recurrent stacks at full width (arch, layers), bf16, and
+# their batch; phase 15 (b)'s cases at (data 1, model 4), fp32
+MIXER_CASES = (("recurrentgemma-9b", 3), ("mamba2-2.7b", 4))
+MIXER_B, MIXER_S, MIXER_STEPS = 4, 1024, 2
+QUAD4_CASES = (("qwen2.5-3b", 2), ("recurrentgemma-9b", 3),
+               ("mamba2-2.7b", 2))
 
 
 def leaf_items(tree):
@@ -4801,9 +4807,12 @@ def forced_layout_rules(cfg, group):
     hook of the training layout anyway: the gathers of a (data 2, model
     4) plan (every ``wembed`` dim over ``data``; qwen2.5-3b's 16 query
     heads over ``model``, its 2 KV heads not), their backward
-    reduce-scatters and parts, and the heads, ffn, vocab and experts
-    contractions, each a collective over one rank (a copy). The same
-    function as ``tests/torch_layout_ranks.py``'s ``forced_rules``."""
+    reduce-scatters and parts, the heads, ffn, vocab, experts and
+    recurrent mixers' contractions (RG-LRU's gate reduce-scatter, mamba2's
+    ``in_proj`` gather and norm sum), and the KV heads read in part (their
+    slice and their leaves' gradient sum), each a collective over one rank
+    (a copy). The same function as ``tests/torch_layout_ranks.py``'s
+    ``forced_rules``."""
     import warnings
 
     from repro_torch.launch.mesh import Mesh
@@ -4814,8 +4823,8 @@ def forced_layout_rules(cfg, group):
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
         uses = tp.train_plan(cfg, desc).rules.uses
-    return TrainRules(("heads", "ffn", "vocab", "experts"), group,
-                      data_group=group, uses=uses)
+    return TrainRules(("heads", "ffn", "vocab", "experts", "rglru", "ssm"),
+                      group, data_group=group, uses=uses, whole_kv=True)
 
 
 def collectives_a_step(rules, c0, steps) -> dict:
@@ -4909,6 +4918,47 @@ def train_world1_rank(rank: int) -> dict:
         torch.cuda.synchronize()
         out[name + "_alone"] = (1e3 * host_s / 180,
                                 ev[0].elapsed_time(ev[1]) / 180)
+    del x
+    torch.cuda.empty_cache()
+    out["mixers"] = {arch: forced_mixer_steps(arch, layers, dist.group.WORLD)
+                     for arch, layers in MIXER_CASES}
+    return out
+
+
+def forced_mixer_steps(arch: str, layers: int, group) -> dict:
+    """Phase 15 (a)'s recurrent stacks: ``arch`` at full width cut to
+    ``layers`` layers, bf16, ``MIXER_STEPS`` steps of ``MIXER_B`` x
+    ``MIXER_S`` tokens plain and then, from the same seed, through
+    ``forced_layout_rules`` over ``group`` (a world of one rank): their
+    losses, ms a step, the forced run's sums and collectives a step, and
+    the parameter leaves that differ (the plain run's kept on the host)."""
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    opt = launch_opt(3, cfg)
+    ds = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=MIXER_S,
+                                     global_batch=MIXER_B, seed=SEED + 156))
+    batches = [ds.next_batch() for _ in range(MIXER_STEPS)]
+    out, host = {"kinds": tfm.layer_kinds(cfg)}, None
+    for name, rules in (("plain", NO_RULES),
+                        ("forced", forced_layout_rules(cfg, group))):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 156)
+        state = trainer.init_state(cfg, opt, gen, device="cuda")
+        step = trainer.make_train_step(cfg, opt, rules=rules)
+        r0 = getattr(rules, "reduces", 0)
+        c0 = dict(getattr(rules, "collectives", {}))
+        out[name + "_losses"], out[name + "_ms"] = timed_steps(
+            step, state, batches)
+        if host is None:
+            host = [(k, t.cpu()) for k, t in leaf_items(state["params"])]
+        else:
+            out["reduces"] = (rules.reduces - r0) / MIXER_STEPS
+            out["collectives"] = collectives_a_step(rules, c0, MIXER_STEPS)
+            out["diff"] = [k for (k, a), (k2, b) in zip(
+                host, leaf_items(state["params"]))
+                if k != k2 or not torch.equal(a, b.cpu())]
+            out["leaves"] = len(host)
+        del state, step
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4925,7 +4975,9 @@ def train_world1_nccl(plain_busy) -> float:
         res = run_world(train_world1_rank, 1, backend="nccl",
                         init_file=os.path.join(tmp, "rdv"), timeout=900)[0]
     cfg = get_config("qwen2.5-3b")
-    sums = 2 * 2 + 1        # a layer: 2 forward + 2 backward + 1 recompute
+    # a layer: 2 forward + 2 backward + 1 recompute + the KV leaves'
+    # gradients (read in part)
+    sums = 2 * 2 + 1 + 1
     # the vocab's: the lookup's, and each loss chunk's input gradient and
     # two sums in forward and again in its recompute
     vocab = 1 + 5 * (TRAIN_S // 512)
@@ -4969,6 +5021,24 @@ def train_world1_nccl(plain_busy) -> float:
         fail(f"train model-parallel: {res['reduces']} sums in 3 steps")
     if any(res["launches"].values()):
         fail(f"train model-parallel: a kernel launched: {res['launches']}")
+    for arch, r in res["mixers"].items():
+        moved = ("reduce-scatter:model" if arch.startswith("recurrent")
+                 else "all-gather:model")
+        log(f"train model-parallel [world of 1 over NCCL, every hook of the "
+            f"layout forced, the mixers' too; {arch} full width, "
+            f"{len(r['kinds'])} layers {r['kinds']}, bf16, {MIXER_B} x "
+            f"{MIXER_S} tokens, {MIXER_STEPS} steps]: losses "
+            f"{r['forced_losses']} against the plain step's "
+            f"{r['plain_losses']}; {len(r['diff'])} of {r['leaves']} "
+            f"parameter leaves differ {r['diff'][:4]}; {r['reduces']:.0f} "
+            f"sums a step; collectives a step {r['collectives']}; ms a "
+            f"step after the first {r['forced_ms']} against the plain "
+            f"step's {r['plain_ms']}")
+        if r["forced_losses"] != r["plain_losses"] or r["diff"]:
+            fail(f"train model-parallel [{arch}]: the world of 1 parts "
+                 f"from the plain step")
+        if not r["collectives"].get(moved):
+            fail(f"train model-parallel [{arch}]: no {moved} a step")
     return ms
 
 
@@ -4990,14 +5060,16 @@ def _bounded(got, want, losses_got, losses_want, lrs) -> dict:
     ok = ok and worst <= 2 * sum(lrs)
     loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses_got,
                                                        losses_want))
-    pmax = max(b.to("cuda").abs().max().item() for _, b in want)
+    pmax = max((b.to("cuda").abs().max().item() for _, b in want),
+               default=0.0)
+    held = (f"parameters within {worst:.3g} (bound {2 * sum(lrs):.3g}), "
+            f"{over} of {n} elements past 1e-5" if n else
+            "parameters not gathered")
     return {"ok": ok and over <= 1e-3 * n, "ok_but_share": ok,
             "over": over, "worst": worst, "loss_rel": loss_rel,
             "pmax": pmax, "lr_sum": sum(lrs), "words": (
         f"losses {[round(x, 6) for x in losses_got]} / "
-        f"{[round(x, 6) for x in losses_want]}, parameters within "
-        f"{worst:.3g} (bound {2 * sum(lrs):.3g}), {over} of {n} elements "
-        f"past 1e-5")}
+        f"{[round(x, 6) for x in losses_want]}, {held}")}
 
 
 def _quad_run(cfg, opt, batches, seed, mesh, plan, *, compress=False,
@@ -5005,8 +5077,9 @@ def _quad_run(cfg, opt, batches, seed, mesh, plan, *, compress=False,
     """Steps of ``cfg`` from the state drawn from ``seed``: on one device
     (``plan`` None; its final parameters kept on ``keep``) or as this
     rank's part of ``mesh`` on its replica's rows, its final parameters
-    gathered on the world's first rank (None elsewhere). (losses, ms of
-    each step after the first, parameter leaves, collectives a step)."""
+    gathered on the world's first rank (None elsewhere). ``keep`` None:
+    no parameters kept or gathered. (losses, ms of each step after the
+    first, parameter leaves, collectives a step)."""
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(seed)
     state = trainer.init_state(cfg, opt, gen, device="cuda",
@@ -5026,6 +5099,10 @@ def _quad_run(cfg, opt, batches, seed, mesh, plan, *, compress=False,
     losses, times = timed_steps(step, state, rows)
     secs["steps"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    colls = {} if plan is None else collectives_a_step(rules, c0,
+                                                       len(batches))
+    if keep is None:
+        return losses, times, None, colls, secs
     if plan is None:
         leaves = [(k, t.to(keep)) for k, t in leaf_items(state["params"])]
         secs["keep"] = time.perf_counter() - t0
@@ -5036,7 +5113,7 @@ def _quad_run(cfg, opt, batches, seed, mesh, plan, *, compress=False,
                             rules.group, rules.data_group)
     secs["gather"] = time.perf_counter() - t0
     return (losses, times, None if params is None else leaf_items(params),
-            collectives_a_step(rules, c0, len(batches)), secs)
+            colls, secs)
 
 
 def train_quad_rank(rank: int) -> dict:
@@ -5051,13 +5128,19 @@ def train_quad_rank(rank: int) -> dict:
     * dbrx-132b at full width (16 experts, 8 a rank), cut to
       ``QUAD_DBRX_LAYERS`` layer(s) with bf16 moments (its config's are
       fp32): ``QUAD_DBRX_STEPS`` plain steps, experts computed in
-      parallel, the router gathered;
+      parallel, the router gathered, held by its losses alone;
 
     each rank on its replica's rows, their parameters gathered on rank 0,
     which also runs the same steps on one device (and for qwen2.5-3b a
     control: the same step with its gradient over 2 micro-batches) and
-    holds them to the bounds; ``compressed_psum`` over the four against the plain
-    formula; ``gpipe`` at 4 stages on CUDA tensors."""
+    holds them to the bounds; then the same four re-folded at (data 1,
+    model 4), ``QUAD4_CASES`` at full width, fp32, ``QUAD_QWEN_STEPS``
+    steps each held to one device the same way: qwen2.5-3b (16 query heads
+    over 4, its 2 KV heads whole), recurrentgemma-9b (16 heads over 4, its
+    KV head whole; ``lru_dim`` 4096 over 4) and mamba2-2.7b (80 heads over
+    4; ``in_proj``'s 10576 columns, 2644 a rank); ``compressed_psum`` over
+    the four against the plain formula; ``gpipe`` at 4 stages on CUDA
+    tensors."""
     import warnings
 
     import torch.distributed as dist
@@ -5088,7 +5171,9 @@ def train_quad_rank(rank: int) -> dict:
         out[arch] = {"contract": sorted(plan.rules.contract_axes)}
         lrs = [float(adamw.schedule(opt, torch.tensor(i + 1)))
                for i in range(n)]
-        keep = "cpu" if arch == "dbrx" else "cuda"
+        # dbrx-132b is held by its losses alone: gathering its 4.5e9
+        # parameters through gloo and comparing them took 30-35 s
+        keep = None if arch == "dbrx" else "cuda"
         with bench.fp32_exact():
             for compress in modes:
                 name = "compress" if compress else "plain"
@@ -5106,22 +5191,69 @@ def train_quad_rank(rank: int) -> dict:
                 dist.barrier()
                 torch.cuda.reset_peak_memory_stats()
                 mp = _quad_run(cfg, opt, batches, SEED + 151, mesh, plan,
-                               compress=compress)
+                               compress=compress, keep=keep)
                 res = {"losses": mp[0], "ms": mp[1], "collectives": mp[3],
                        "peak": torch.cuda.max_memory_allocated(),
                        "secs": mp[4]}
                 torch.cuda.empty_cache()
                 if rank == 0:       # held here: the leaves stay on rank 0
                     t0 = time.perf_counter()
+                    held = _bounded(mp[2] or [], one[2] or [], mp[0],
+                                    one[0], lrs)
                     res.update(
                         one_losses=one[0], one_ms=one[1], one_secs=one[4],
-                        held=_bounded(mp[2], one[2], mp[0], one[0], lrs),
-                        control=_bounded(ctl[2], one[2], ctl[0], one[0],
-                                         lrs))
+                        held=held, control=held if ctl is one else _bounded(
+                            ctl[2], one[2], ctl[0], one[0], lrs))
                     res["secs"]["compare"] = time.perf_counter() - t0
                 out[arch][name] = res
                 del one, ctl, mp
                 dist.barrier()
+    # the same four re-folded at (data 1, model 4): query heads over
+    # whole KV heads, the recurrent mixers over their model dims
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        mesh4 = make_host_mesh(4, devices=["cuda:0"] * 4)
+    out["shape4"] = dict(mesh4.shape)
+    for arch, layers in QUAD4_CASES:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                                  dtype="float32")
+        opt = launch_opt(30, cfg)
+        ds = SyntheticDataset(DataConfig(vocab=cfg.vocab, seq_len=PAIR_S,
+                                         global_batch=PAIR_B,
+                                         seed=SEED + 157))
+        batches = [ds.next_batch() for _ in range(QUAD_QWEN_STEPS)]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            plan = tp.train_plan(cfg, mesh4)
+        lrs = [float(adamw.schedule(opt, torch.tensor(i + 1)))
+               for i in range(QUAD_QWEN_STEPS)]
+        uses = pytree.tree_flatten_with_path(
+            plan.rules.uses, is_leaf=lambda x: isinstance(x, tuple))[0]
+        res = {"contract": sorted(plan.rules.contract_axes),
+               "whole_kv": plan.rules.whole_kv,
+               "gathered": [pytree.keystr(k) for k, spec in uses
+                            if "model" in spec]}
+        with bench.fp32_exact():
+            one = None
+            if rank == 0:
+                one = _quad_run(cfg, opt, batches, SEED + 157, mesh4, None,
+                                keep="cpu")
+                torch.cuda.empty_cache()
+            dist.barrier()
+            torch.cuda.reset_peak_memory_stats()
+            mp = _quad_run(cfg, opt, batches, SEED + 157, mesh4, plan)
+            res.update(losses=mp[0], ms=mp[1], collectives=mp[3],
+                       peak=torch.cuda.max_memory_allocated(), secs=mp[4])
+            torch.cuda.empty_cache()
+            if rank == 0:
+                t0 = time.perf_counter()
+                res.update(one_losses=one[0], one_ms=one[1],
+                           one_secs=one[4], held=_bounded(
+                               mp[2], one[2], mp[0], one[0], lrs))
+                res["secs"]["compare"] = time.perf_counter() - t0
+        out[arch + "_1x4"] = res
+        del one, mp
+        dist.barrier()
     out["launches"] = ops.launch_counts()
     # compressed_psum over the four against the plain formula
     xs = [torch.randn(1 << 20, generator=torch.Generator().manual_seed(
@@ -5235,16 +5367,35 @@ def train_gloo_quad() -> None:
         # fp32: the CPU bounds; past the share of elements, only as far
         # as the control, two correct single-device runs, part from each
         # other. bf16 (dbrx): losses within one bf16 spacing (2^-8
-        # relative) of one device's, every parameter within 2 lr a step
-        # plus one bf16 spacing of the largest parameter
+        # relative) of one device's (its parameters are not gathered)
         if arch == "qwen":
             ok = held["ok"] or (held["ok_but_share"]
                                 and held["over"] <= 2 * ctl["over"])
         else:
-            ok = held["loss_rel"] <= 2.0 ** -8 and held["worst"] <= (
-                2 * held["lr_sum"] + 2.0 ** -8 * held["pmax"])
+            ok = held["loss_rel"] <= 2.0 ** -8
         if not ok:
             fail(f"train quad [{arch} {name}]: outside the bounds")
+    for arch, layers in QUAD4_CASES:
+        r = first[arch + "_1x4"]
+        held = r["held"]
+        log(f"train quad [{arch} full width, {layers} layers, fp32, 4 gloo "
+            f"ranks on cuda:0 at {first['shape4']}: contracting "
+            f"{r['contract']}, KV heads whole {r['whole_kv']}, leaves "
+            f"gathered over model {r['gathered']}] against one device on "
+            f"the card: {held['words']}; ms a step (host clock, "
+            f"correctness only) {np.mean(r['ms']):.1f} on the four, "
+            f"{np.mean(r['one_ms']):.1f} on one device; collectives a step "
+            f"on a rank {r['collectives']}; s on rank 0: the four "
+            f"{ {k: round(v, 1) for k, v in r['secs'].items()} }, one "
+            f"device { {k: round(v, 1) for k, v in r['one_secs'].items()} }; "
+            f"peak allocated on the card while the four ran, seen from each "
+            f"rank {[round(x[arch + '_1x4']['peak'] / 2**30, 2) for x in res]}"
+            f" GiB")
+        if any(x[arch + "_1x4"]["losses"] != r["losses"] for x in res[1:]):
+            fail(f"train quad [{arch} (1, 4)]: the ranks' losses differ")
+        if r["gathered"] or not held["ok"]:
+            fail(f"train quad [{arch} (1, 4)]: leaves gathered over model "
+                 f"{r['gathered']}, or outside the bounds")
     if not all(r["psum_equal"] for r in res):
         fail("train quad: compressed_psum differs from the plain formula")
     if any(any(r["launches"].values()) for r in res):
@@ -5513,10 +5664,11 @@ def finish_dryrun_cli(proc, out: Path, arch: str = DRYRUN_ARCH,
 
 
 def start_dryrun_clis() -> list:
-    """Phase 16's four CLI processes, started early: qwen2.5-3b every shape
-    and dbrx-132b train_4k, each plain and ``--optimized`` (phase 17 (c)):
-    (process, out directory, arch, shapes, cells traced again here,
-    optimized) each."""
+    """Phase 16's six CLI processes, started early: qwen2.5-3b every shape
+    and dbrx-132b train_4k, each plain and ``--optimized`` (phase 17 (c)),
+    and recurrentgemma-9b and mamba2-2.7b train_4k plain (their mixers
+    over ``model``): (process, out directory, arch, shapes, cells traced
+    again here, optimized) each."""
     out = []
     for opt in (False, True):
         tag = "_opt" if opt else ""
@@ -5526,6 +5678,10 @@ def start_dryrun_clis() -> list:
                  None, () if opt else DRYRUN_CROSS, opt),
                 (start_dryrun_cli(moe, "dbrx-132b", "train_4k", opt), moe,
                  "dbrx-132b", ("train_4k",), (), opt)]
+    for arch in ("recurrentgemma-9b", "mamba2-2.7b"):
+        where = ROOT / "build" / f"dryrun_torch_{arch}"
+        out.append((start_dryrun_cli(where, arch, "train_4k"), where, arch,
+                    ("train_4k",), (), False))
     return out
 
 
@@ -5543,6 +5699,15 @@ def dryrun_phase(clis) -> None:
     for proc, out, arch, shapes, cross, opt in clis:
         for r in finish_dryrun_cli(proc, out, arch, shapes, cross, opt):
             recs[r["arch"], r["shape"], opt] = r
+    for (arch, shape, opt), r in sorted(recs.items()):
+        rl = r["roofline"]
+        log(f"dryrun {r['cell']}{' --optimized' if opt else ''}: memory a "
+            f"device {r['memory']['total_bytes_per_device'] / 2**30:.2f} "
+            f"GiB, t_comp {rl['t_compute_s']:.4g} s, t_mem "
+            f"{rl['t_memory_s']:.4g} s, t_coll {rl['t_collective_s']:.4g} "
+            f"s ({rl['bottleneck']}), useful_flops "
+            f"{rl['useful_flops_frac']:.3f}, dot FLOPs a rank "
+            f"{r['cost']['dot_flops']:.4e}, sums {r['reduces']}")
     for (arch, shape, opt), r in sorted(recs.items()):
         if not opt or (arch, shape, False) not in recs:
             continue

@@ -94,7 +94,8 @@ def make_step(cfg: ModelConfig, shape: ShapeConfig, rules: Rules, *,
     r = plan.rules
     rank = DryRunRules(r.contract_axes, r.sharded, data=r.data,
                        model=r.model, uses=r.uses,
-                       train=shape.kind == "train", seq=r.seq)
+                       train=shape.kind == "train", seq=r.seq,
+                       whole_kv=r.whole_kv)
     ins = input_specs(cfg, shape)
 
     def batch_of(names):

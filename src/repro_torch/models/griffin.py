@@ -7,6 +7,17 @@ ceil(log2 S) steps of whole-tensor products, where the reference runs
 ``lax.associative_scan``; the sums go in another order, so fp32 outputs
 agree to about 1e-6 relative); decode is the O(1) step. Plain PyTorch: the
 reference has no Pallas kernel here either.
+
+Over ``model`` (``rules`` contract "rglru": a training plan whose ``model``
+divides ``lru_dim``, after the reference's ``"batch,seq,ffn"`` branch) a
+rank computes its block of r / m channels: ``proj_x`` / ``proj_y`` /
+``proj_out`` / ``lam`` are its parts; ``gate_a`` / ``gate_x``, split on
+their rows, give partial sums of all r outputs, which a reduce-scatter
+sums to the rank's columns (``rules.scatter_sum``, an all-gather in
+backward); the conv and the gate biases, whole on every rank, are used at
+the rank's columns (``rules.partial`` sums their gradients);
+``proj_out`` contracts "rglru" and the input enters it. A returned state
+is gathered back to whole rows (the caches keep it whole).
 """
 from __future__ import annotations
 
@@ -42,11 +53,36 @@ def _conv(p: Params, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _gates(p: Params, u: torch.Tensor):
-    """u: (..., r) post-conv branch input -> (a, gated input), fp32."""
+def _parallel(rules: Rules) -> bool:
+    return "rglru" in rules.contract_axes
+
+
+def _cols(cfg, rules: Rules) -> slice:
+    """The rank's block of the ``lru_dim`` channels."""
+    w = lru_dim(cfg) // rules.model
+    return slice(rules.model_rank * w, (rules.model_rank + 1) * w)
+
+
+def _rank_part(cfg, p: Params, rules: Rules) -> Params:
+    """The leaves at the rank's block of channels (module doc): the split
+    leaves as they are, the whole ones cut to its columns through
+    ``rules.partial``."""
+    names = ("conv_w", "conv_b", "gate_a_b", "gate_x_b")
+    whole = rules.partial(*(p[n] for n in names))
+    c = _cols(cfg, rules)
+    return dict(p, **{n: t[..., c] for n, t in zip(names, whole)})
+
+
+def _gates(p: Params, u: torch.Tensor, rules: Rules = NO_RULES):
+    """u: (..., r) post-conv branch input -> (a, gated input), fp32. Over
+    ``model`` (module doc) u is the rank's channels and the gates' partial
+    sums are reduce-scattered to them, both in one collective."""
     uf = u.float()
-    r_t = torch.sigmoid(uf @ p["gate_a"].float() + p["gate_a_b"])
-    i_t = torch.sigmoid(uf @ p["gate_x"].float() + p["gate_x_b"])
+    ya, yx = uf @ p["gate_a"].float(), uf @ p["gate_x"].float()
+    if _parallel(rules):
+        ya, yx = rules.scatter_sum(torch.stack([ya, yx], -2), -1).unbind(-2)
+    r_t = torch.sigmoid(ya + p["gate_a_b"])
+    i_t = torch.sigmoid(yx + p["gate_x_b"])
     log_a = -_C * F.softplus(p["lam"]) * r_t
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-9)) \
@@ -96,6 +132,8 @@ def rglru_apply(cfg, p: Params, x: torch.Tensor, *,
     length - 1, and the conv state is gathered at ``length``. Returns out,
     or (out, {"h": (B, r) fp32, "conv": (B, 3, r)}).
 
+    Over ``model`` (``rules`` contract "rglru"): the module doc.
+
     Context parallelism (``rules.seq``): x is the rank's block of the
     sequence; it is gathered whole (``rules.cp_gather``), the conv and the
     scan run over the whole sequence on every rank (M times a rank's
@@ -107,11 +145,15 @@ def rglru_apply(cfg, p: Params, x: torch.Tensor, *,
         if not return_state:
             return rules.cp_own(out)
         return rules.cp_own(out[0]), out[1]
+    par = _parallel(rules)
+    if par:
+        x = rules.enter(x, "rglru")
+        p = _rank_part(cfg, p, rules)
     B, S, _ = x.shape
     u = x @ p["proj_x"]
     gate = _gelu(x @ p["proj_y"])
     conv_in = u
-    a, b = _gates(p, _conv(p, u))
+    a, b = _gates(p, _conv(p, u), rules)
     if length is not None:
         lv = torch.as_tensor(length, device=x.device).expand(B)
         live = (torch.arange(S, device=x.device)[None, :]
@@ -119,13 +161,22 @@ def rglru_apply(cfg, p: Params, x: torch.Tensor, *,
         a = torch.where(live, a, torch.ones_like(a))
         b = torch.where(live, b, torch.zeros_like(b))
     hh = _scan(a, b)
-    out = (hh.to(x.dtype) * gate) @ p["proj_out"]
+    out = rules.contract((hh.to(x.dtype) * gate) @ p["proj_out"], "rglru")
     if not return_state:
         return out
     w = p["conv_w"].shape[0]
     conv = gather_conv_state(conv_in, length, w) if length is not None \
         else last_rows(conv_in, w)
-    return out, {"h": hh[:, -1].float(), "conv": conv.to(x.dtype)}
+    return out, _whole({"h": hh[:, -1].float(), "conv": conv.to(x.dtype)},
+                       rules, par)
+
+
+def _whole(state: Params, rules: Rules, par: bool) -> Params:
+    """A state of the rank's channels (the last dim) gathered whole."""
+    if not par:
+        return state
+    return {k: rules.all_gather(t, t.dim() - 1, "model")
+            for k, t in state.items()}
 
 
 def rglru_state_shapes(cfg, batch: int):
@@ -136,31 +187,39 @@ def rglru_state_shapes(cfg, batch: int):
 
 
 def _token_step(p: Params, h_prev: torch.Tensor, conv_prev: torch.Tensor,
-                u: torch.Tensor):
+                u: torch.Tensor, rules: Rules = NO_RULES):
     """One recurrent token: (h, conv) x u (B, r) -> (h', conv')."""
     hist = torch.cat([conv_prev, u[:, None]], 1)                # (B, w, r)
     conv_out = torch.einsum("bwr,wr->br", hist, p["conv_w"]) + p["conv_b"]
-    a, b = _gates(p, conv_out)
+    a, b = _gates(p, conv_out, rules)
     return a * h_prev + b, hist[:, 1:]
 
 
-def rglru_decode(cfg, p: Params, x: torch.Tensor, cache: Params):
+def rglru_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
+                 rules: Rules = NO_RULES):
     """Decode step. x: (B, T, d); cache {"h": (B, r), "conv": (B, 3, r)}.
     T == 1 returns plain states; T > 1 (a speculative verify block) runs T
     steps and returns checkpointed states ({"h": (B, T, r), "conv": (B, T,
     3, r)}, state t after block row t). Returns (out, new state); the cache
-    is read, never written."""
+    is read, never written. Over ``model`` (module doc) a rank steps its
+    channels of the state and the new state is gathered whole."""
     T = x.shape[1]
+    h, conv = cache["h"], cache["conv"]
+    par = _parallel(rules)
+    if par:
+        p = _rank_part(cfg, p, rules)
+        h, conv = h[..., _cols(cfg, rules)], conv[..., _cols(cfg, rules)]
     u_all = x @ p["proj_x"]
     gate_all = _gelu(x @ p["proj_y"])
-    h, conv = cache["h"], cache["conv"]
     hs, convs = [], []
     for t in range(T):
-        h, conv = _token_step(p, h, conv, u_all[:, t])
+        h, conv = _token_step(p, h, conv, u_all[:, t], rules)
         hs.append(h)
         convs.append(conv)
     h_seq = torch.stack(hs, 1)                                  # (B, T, r)
-    out = (h_seq.to(x.dtype) * gate_all) @ p["proj_out"]
+    out = rules.contract((h_seq.to(x.dtype) * gate_all) @ p["proj_out"],
+                         "rglru")
     if T == 1:
-        return out, {"h": hs[0], "conv": convs[0]}
-    return out, {"h": h_seq, "conv": torch.stack(convs, 1)}
+        return out, _whole({"h": hs[0], "conv": convs[0]}, rules, par)
+    return out, _whole({"h": h_seq, "conv": torch.stack(convs, 1)}, rules,
+                       par)

@@ -163,24 +163,76 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
 
-def _qkv(cfg, p: Params, x: torch.Tensor):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+def kv_heads_of(cfg, rules: Rules, heads: int):
+    """(lo, hi): the KV heads that a rank's ``heads`` query heads read,
+    where its query heads split over ``model`` while every rank holds the
+    KV heads whole (``rules.whole_kv``; head j reads KV head j // G,
+    kv-major, so rank r's heads [r heads, (r + 1) heads) read KV heads
+    [r heads // G, ((r + 1) heads - 1) // G + 1)); None elsewhere (a rank's
+    KV heads are those its queries read). Raises ``ValueError`` where a
+    rank's heads would take part of a KV head's group and more than that
+    head."""
+    if not rules.whole_kv:
+        return None
+    G = cfg.num_heads // cfg.kv_heads
+    first = rules.model_rank * heads
+    lo, hi = first // G, (first + heads - 1) // G + 1
+    if hi - lo > 1 and (first % G or heads % G):
+        raise ValueError(
+            f"{cfg.name}: a rank's {heads} query heads from head {first} "
+            f"straddle the {G}-head groups of its {cfg.kv_heads} KV heads "
+            f"over model = {rules.model}")
+    return lo, hi
+
+
+def _attended(cfg, rules: Rules, q: torch.Tensor, *kv: torch.Tensor):
+    """Each of ``kv`` (..., KV, D) cut to the KV heads the rank's queries
+    q (..., H, D) read (``kv_heads_of``; views), or as they are."""
+    heads = kv_heads_of(cfg, rules, q.shape[-2])
+    if heads is None:
+        return kv
+    return tuple(t[..., heads[0]:heads[1], :] for t in kv)
+
+
+def _kv_leaves(cfg, p: Params, rules: Rules):
+    """``wk`` / ``wv`` (and ``bk`` / ``bv``): where they are whole on a
+    rank that reads only some of their heads (``rules.whole_kv``), through
+    ``rules.partial``, which sums their gradients over ``model``."""
+    names = ("wk", "wv") + (("bk", "bv") if cfg.qkv_bias else ())
+    leaves = tuple(p[n] for n in names)
+    if rules.whole_kv:
+        leaves = rules.partial(*leaves)
+    return dict(zip(names, leaves))
+
+
+def _qkv(cfg, p: Params, x: torch.Tensor, rules: Rules = NO_RULES,
+         v_heads=None):
+    """q, k, v of x; with ``v_heads`` (lo, hi) v only at KV heads [lo,
+    hi)."""
+    kv = _kv_leaves(cfg, p, rules)
+    wv, bv = kv["wv"], kv.get("bv")
+    if v_heads is not None:
+        wv = wv[:, v_heads[0]:v_heads[1]]
+        bv = None if bv is None else bv[v_heads[0]:v_heads[1]]
+    q, k, v = _proj(x, p["wq"]), _proj(x, kv["wk"]), _proj(x, wv)
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q, k, v = q + p["bq"], k + kv["bk"], v + bv
     return q, k, v
 
 
 def cross_kv(cfg, p: Params, enc: torch.Tensor, rules: Rules = NO_RULES):
     """A decoder layer's cross-attention k/v from the encoder output enc
     (B, S_enc, d): its ``cross`` weights' projections (plus ``bk`` /
-    ``bv``), no RoPE. -> (k, v), each (B, S_enc, KV, D). ``enc`` enters a
+    ``bv``), no RoPE. -> (k, v), each (B, S_enc, KV, D), every KV head
+    (``attention_apply`` cuts them to a rank's). ``enc`` enters a
     sublayer that contracts "heads" (``rules.enter``). Under context
     parallelism ``enc`` is the rank's block of the encoder's rows and the
     k/v are gathered whole (``rules.cp_gather``)."""
     enc = rules.enter(enc, "heads")
-    k, v = _proj(enc, p["wk"]), _proj(enc, p["wv"])
+    kv = _kv_leaves(cfg, p, rules)
+    k, v = _proj(enc, kv["wk"]), _proj(enc, kv["wv"])
     if cfg.qkv_bias:
-        k, v = k + p["bk"], v + p["bv"]
+        k, v = k + kv["bk"], v + kv["bv"]
     return rules.cp_gather(k), rules.cp_gather(v)
 
 
@@ -216,11 +268,18 @@ def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None,
     ``train``: the training forward's choice, attention through
     ``flash_attention`` (chunked per ``cfg.flash_chunking``; cross-attention
     always chunked, as in the reference), which autograd differentiates, in
-    place of the kernel; no prefix.
+    place of the kernel; no prefix. Where the rank's queries read only some
+    of the whole KV heads (``rules.whole_kv``), v is projected at those
+    heads only (the reference's partition computes k whole, as its
+    ``kv_heads`` constraint asks, and v at the heads its use reads), and
+    the returned v is theirs.
 
     The out-projection contracts "heads": ``rules.contract`` (a rank's
     all-reduce over its ``model`` group under tensor parallelism); ``x``
-    enters through ``rules.enter`` (the gradient's sum in training).
+    enters through ``rules.enter`` (the gradient's sum in training). A
+    rank whose query heads split over ``model`` while its KV heads are
+    whole (``rules.whole_kv``) computes k and v whole, returns them whole
+    and attends only the KV heads its queries read (``kv_heads_of``).
 
     Context parallelism (``rules.seq``): ``x`` is the rank's block of the
     sequence, its rows at r S + 0.. S - 1 (``rules.cp_offset``); k and v
@@ -234,14 +293,18 @@ def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None,
         q = _proj(x, p["wq"])
         if cfg.qkv_bias:
             q = q + p["bq"]
+        ck, cv = _attended(cfg, rules, q, *cross_kv)
         if train:
-            out = flash_attention(q, cross_kv[0], cross_kv[1], causal=False)
+            out = flash_attention(q, ck, cv, causal=False)
         else:
-            out = ops.attention(q.contiguous(), cross_kv[0].contiguous(),
-                                cross_kv[1].contiguous(), causal=False)
+            out = ops.attention(q.contiguous(), ck.contiguous(),
+                                cv.contiguous(), causal=False)
         return rules.contract(_out(p, out), "heads"), None
     S = x.shape[1]
-    q, k, v = _qkv(cfg, p, x)
+    v_heads = None
+    if train and rules.whole_kv:
+        v_heads = kv_heads_of(cfg, rules, p["wq"].shape[1])
+    q, k, v = _qkv(cfg, p, x, rules, v_heads)
     off = rules.cp_offset(S)
     if prefix is not None and rules.seq:
         raise ValueError("a context-parallel prefill takes no prefix")
@@ -252,8 +315,9 @@ def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None,
     if train:
         if prefix is not None:
             raise ValueError("the training forward takes no prefix")
-        out = flash_attention(q, rules.cp_gather(k), rules.cp_gather(v),
-                              causal=causal, window=window, q_offset=off,
+        kf, = _attended(cfg, rules, q, rules.cp_gather(k))
+        out = flash_attention(q, kf, rules.cp_gather(v), causal=causal,
+                              window=window, q_offset=off,
                               chunked=cfg.flash_chunking)
         return rules.contract(_out(p, out), "heads"), (k, v)
     if prefix is None:
@@ -264,6 +328,7 @@ def attention_apply(cfg, p: Params, x: torch.Tensor, prefix=None,
         vf = torch.cat([kv_dequant(cfg, pv, x.dtype), torch.zeros_like(v)], 1)
         kf[:, plen:plen + S] = k
         vf[:, plen:plen + S] = v
+    kf, vf = _attended(cfg, rules, q, kf, vf)
     out = ops.attention(q.contiguous(), kf.contiguous(), vf.contiguous(),
                         causal=causal, q_offset=plen + off, window=window)
     return rules.contract(_out(p, out), "heads"), (k, v)
@@ -339,7 +404,9 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
     The pools and lanes are updated IN PLACE (``index_put_``), where the
     JAX package returns new ones: the port never copies a layer's cache.
     The out-projection contracts "heads" (``rules.contract``), in every
-    mode.
+    mode. Where a rank's query heads split over ``model`` while its KV
+    heads are whole (``rules.whole_kv``), the rank writes every KV head
+    and attends only those its queries read (``kv_heads_of``).
 
     Context parallelism (``rules.seq``; dense and cross lanes only): a
     rank's lane is its block of ``S`` rows of the whole lane (``rows``
@@ -355,8 +422,8 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
         q = _proj(x, p["wq"])
         if cfg.qkv_bias:
             q = q + p["bq"]
-        ck = kv_dequant(cfg, cache["k"], q.dtype)
-        cv = kv_dequant(cfg, cache["v"], q.dtype)
+        ck, cv = _attended(cfg, rules, q, cache["k"], cache["v"])
+        ck, cv = kv_dequant(cfg, ck, q.dtype), kv_dequant(cfg, cv, q.dtype)
         if rules.seq:
             S = ck.shape[1]
             every = torch.full((x.shape[0], 1), S * rules.cp,
@@ -370,7 +437,7 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
         raise ValueError("context-parallel decode reads dense lanes; the "
                          "page pools are not split over the sequence")
     B, T = x.shape[0], x.shape[1]
-    q, k, v = _qkv(cfg, p, x)
+    q, k, v = _qkv(cfg, p, x, rules)
     pos_t = pos[:, None] + torch.arange(T, device=x.device,
                                         dtype=pos.dtype)[None, :]
     q = rope(q, pos_t, cfg.rope_theta)
@@ -395,6 +462,7 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
             return rules.contract(_out(p, out), "heads"), cache
         ck.index_put_((b, slot), kv_quant(cfg, k[:, 0]))
         cv.index_put_((b, slot), kv_quant(cfg, v[:, 0]))
+        ck, cv = _attended(cfg, rules, q, ck, cv)
         out = ops.attention(q.contiguous(),
                             kv_dequant(cfg, ck, q.dtype).contiguous(),
                             kv_dequant(cfg, cv, q.dtype).contiguous(),
@@ -403,6 +471,7 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
     phys, off, last = rows
     ck.index_put_((phys, off), kv_quant(cfg, k).flatten(0, 1)[last])
     cv.index_put_((phys, off), kv_quant(cfg, v).flatten(0, 1)[last])
+    ck, cv = _attended(cfg, rules, q, ck, cv)
     if cfg.paged_attn_impl == "gather":
         # the reference's baseline: every request's whole table gathered
         # into a dense (B, n_blocks * page, KV, D) copy, then plain
@@ -414,8 +483,9 @@ def attention_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
                             window=window, kv_chunk=cfg.decode_kv_chunk)
     else:
         scale = cfg.kv_scale if ck.dtype == torch.int8 else None
-        out = ops.paged_attention(q.contiguous(), ck, cv, block_table,
-                                  pos + T, kv_scale=scale, window=window)
+        out = ops.paged_attention(q.contiguous(), ck.contiguous(),
+                                  cv.contiguous(), block_table, pos + T,
+                                  kv_scale=scale, window=window)
     return rules.contract(_out(p, out), "heads"), cache
 
 

@@ -195,10 +195,10 @@ def block_decode(cfg, kind: str, p, x: torch.Tensor, cache,
     h = norm_apply(p["ln1"], x, cfg.norm)
     new = None
     if kind == "ssm":
-        a, new = ssm.ssm_decode(cfg, p["mixer"], h, cache)
+        a, new = ssm.ssm_decode(cfg, p["mixer"], h, cache, rules)
         return x + a, new
     if kind == "rglru":
-        a, new = griffin.rglru_decode(cfg, p["mixer"], h, cache)
+        a, new = griffin.rglru_decode(cfg, p["mixer"], h, cache, rules)
     elif kind == "local_attn":
         a, _ = attention_decode(cfg, p["attn"], h, cache, pos,
                                 win_block_table, win_rows,

@@ -82,6 +82,25 @@ hooks, identities without a sequence split:
   ranks' slices of a lane merged: an all-reduce of the row max, then of
   the rescaled sums and outputs.
 
+A sublayer may also compute at the rank's part of leaves that are whole
+on every rank (the reference's GSPMD computes there at a split activation
+of a replicated weight): attention whose query heads split over ``model``
+while its KV heads do not (``whole_kv``: each rank's queries read only
+their own KV heads), and the recurrent mixers over their ``model`` dims
+(contract axes "rglru" and "ssm"). Each rank's gradient of such a leaf is
+then a partial sum, so the hooks:
+
+* ``partial(*leaves)``: the identity in forward; in backward one
+  all-reduce over ``model`` of their gradients (one a dtype), counted in
+  ``reduces``;
+* ``sum_both(x)``: an all-reduce over ``model`` in forward and of the
+  gradient in backward (a sum whose downstream differs per rank: the
+  mamba2 norm's mean square over its channels);
+* ``gather_sum(x, dim)`` / ``scatter_sum(x, dim)``: ``_GatherSum`` and
+  ``_ScatterSum`` over ``model`` (an activation split over ``model``
+  gathered whole with a summing backward; a partial sum reduce-scattered to
+  the rank's columns, with an all-gather in backward).
+
 ``DryRunRules`` are one rank's rules on a described mesh (no world): the
 contractions, gathers and the data-axis sums run as they would, but each
 collective is recorded, (mesh axis, operand bytes) in ``sums`` for an
@@ -131,9 +150,11 @@ class Rules:
     ``ManualRules``' (0 and none here)."""
 
     data = 1
+    model = 1
     model_rank = 0
     contract_axes: FrozenSet[str] = frozenset()
     seq: Optional[str] = None       # the axis the sequence splits over
+    whole_kv = False    # KV heads whole on a rank whose query heads split
 
     def __init__(self, mesh=None, table: Optional[Dict[str, Phys]] = None):
         self.mesh = mesh
@@ -213,6 +234,12 @@ class Rules:
         identity; ``ManualRules`` gathers the dims its ``uses`` name."""
         return tree
 
+    def partial(self, *leaves):
+        """Hook at leaves whole on every rank that the rank uses only in
+        part (the module doc): the leaves, as a tuple. The identity;
+        ``TrainRules`` sums their gradients over the model group."""
+        return leaves
+
     # context parallelism (the module doc); identities here
     @property
     def cp(self) -> int:
@@ -267,13 +294,15 @@ class ManualRules(Rules):
     kind (or top-level leaf name), a tree of per-dim gather specs ("data",
     "model" or None) that ``use`` applies. ``seq``: "model" when the
     sequence splits over the model group (context parallelism, the
-    module doc), else None. Without a group (a mesh made outside a world)
-    the rules can be read but a contraction raises."""
+    module doc), else None. ``whole_kv``: attention's query heads split
+    over ``model`` while its KV heads are whole on every rank (each rank
+    attends the KV heads its queries read). Without a group (a mesh made
+    outside a world) the rules can be read but a contraction raises."""
 
     def __init__(self, contract_axes: Iterable[str] = (), group=None, *,
                  data_group=None, data: int = 1, model: int = 1,
                  model_rank: int = 0, uses: Optional[Dict] = None,
-                 seq: Optional[str] = None):
+                 seq: Optional[str] = None, whole_kv: bool = False):
         super().__init__(None)
         if seq not in (None, "model"):
             raise ValueError(f"seq over {seq!r}: the sequence splits over "
@@ -284,6 +313,7 @@ class ManualRules(Rules):
         self.model, self.model_rank = model, model_rank
         self.uses = dict(uses or {})
         self.seq = seq
+        self.whole_kv = whole_kv
         self.reduces = 0
         self.collectives: Counter = Counter()
 
@@ -344,11 +374,27 @@ class ManualRules(Rules):
     def cp(self) -> int:
         return self.model if self.seq else 1
 
+    def gather_sum(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' parts of ``x`` joined along ``dim``; in backward the
+        rank's part of the gradient's sum over the model group."""
+        return _GatherSum.apply(x, dim, self)
+
+    def scatter_sum(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The rank's part along ``dim`` of the sum of ``x`` over the model
+        group; in backward the gradient's parts gathered."""
+        return _ScatterSum.apply(x, dim, self)
+
+    def sum_both(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the model group, out of place; in training
+        (``TrainRules``) its gradient summed over the group too."""
+        self.reduces += 1
+        return self.all_reduce(x.clone(memory_format=torch.contiguous_format))
+
     def cp_gather(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
-        return _GatherSum.apply(x, dim, self) if self.seq else x
+        return self.gather_sum(x, dim) if self.seq else x
 
     def cp_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        return _ScatterSum.apply(x, dim, self) if self.seq else x
+        return self.scatter_sum(x, dim) if self.seq else x
 
     def cp_sum(self, x: torch.Tensor) -> torch.Tensor:
         return _SumForward.apply(x, self) if self.seq else x
@@ -419,13 +465,38 @@ class _ScatterSum(torch.autograd.Function):
 
 
 class _SumBackward(torch.autograd.Function):
-    """The identity in forward, an all-reduce of the gradient over
-    ``rules.group`` in backward."""
+    """The identity on each of its tensors in forward; in backward their
+    gradients summed over ``rules.group``, one all-reduce (into a new
+    tensor) a dtype, each counted in ``rules.reduces``."""
+
+    @staticmethod
+    def forward(ctx, rules, *xs):
+        ctx.rules = rules
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        r = ctx.rules
+        out = list(gs)
+        for dtype in dict.fromkeys(g.dtype for g in gs):
+            idx = [i for i, g in enumerate(gs) if g.dtype == dtype]
+            flat = r.all_reduce(torch.cat([gs[i].reshape(-1) for i in idx]))
+            r.reduces += 1
+            for i, part in zip(idx, flat.split([gs[i].numel()
+                                                for i in idx])):
+                out[i] = part.view_as(gs[i])
+        return (None, *out)
+
+
+class _SumBoth(torch.autograd.Function):
+    """An all-reduce over ``rules.group`` in forward (into a new tensor)
+    and of the gradient in backward, each counted in ``rules.reduces``."""
 
     @staticmethod
     def forward(ctx, x, rules):
         ctx.rules = rules
-        return x.view_as(x)
+        rules.reduces += 1
+        return rules.all_reduce(x.clone(memory_format=torch.contiguous_format))
 
     @staticmethod
     def backward(ctx, g):
@@ -486,10 +557,10 @@ class TrainRules(ManualRules):
                  sharded: Optional[Dict[tuple, FrozenSet[str]]] = None, *,
                  data_group=None, data: int = 1, model: int = 1,
                  model_rank: int = 0, uses: Optional[Dict] = None,
-                 seq: Optional[str] = None):
+                 seq: Optional[str] = None, whole_kv: bool = False):
         super().__init__(contract_axes, group, data_group=data_group,
                          data=data, model=model, model_rank=model_rank,
-                         uses=uses, seq=seq)
+                         uses=uses, seq=seq, whole_kv=whole_kv)
         self.sharded = dict(sharded or {})
 
     def contract(self, x: torch.Tensor, axis: str) -> torch.Tensor:
@@ -499,7 +570,15 @@ class TrainRules(ManualRules):
         return _SumForward.apply(x, self)
 
     def enter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        return _SumBackward.apply(x, self) if self._check(axis) else x
+        return _SumBackward.apply(self, x)[0] if self._check(axis) else x
+
+    def partial(self, *leaves):
+        self._group("model")
+        return _SumBackward.apply(self, *leaves)
+
+    def sum_both(self, x: torch.Tensor) -> torch.Tensor:
+        self._group("model")
+        return _SumBoth.apply(x, self)
 
 
 class DryRunRules(TrainRules):
@@ -516,9 +595,9 @@ class DryRunRules(TrainRules):
                  sharded: Optional[Dict[tuple, FrozenSet[str]]] = None, *,
                  data: int = 1, model: int = 1,
                  uses: Optional[Dict] = None, train: bool = True,
-                 seq: Optional[str] = None):
+                 seq: Optional[str] = None, whole_kv: bool = False):
         super().__init__(contract_axes, None, sharded, data=data,
-                         model=model, uses=uses, seq=seq)
+                         model=model, uses=uses, seq=seq, whole_kv=whole_kv)
         self.train = train
         self.sums: list = []
         self.moves: list = []
@@ -553,6 +632,17 @@ class DryRunRules(TrainRules):
 
     def enter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         return super().enter(x, axis) if self.train else x
+
+    def _group(self, axis: str):
+        return None
+
+    def partial(self, *leaves):
+        return super().partial(*leaves) if self.train else leaves
+
+    def sum_both(self, x: torch.Tensor) -> torch.Tensor:
+        if self.train:
+            return super().sum_both(x)
+        return ManualRules.sum_both(self, x)
 
 
 NO_RULES = Rules(None)

@@ -39,14 +39,27 @@ leaf, replicates, as JAX's ``NamedSharding`` has it). The plan's
 ``sharding.TrainRules`` then say where each split is used:
 
 * computed in parallel over ``model`` (the leaf stays the rank's part,
-  and ``contract`` / ``enter`` bracket its sublayer): attention over
-  heads when heads and KV heads both divide the axis, an MLP's (and an
-  MoE's shared expert's) ffn, the embedding and head over vocab
-  (``api``'s vocab-parallel lookup and loss), MoE experts (``layers.
-  moe_apply``: a rank runs its E/m experts);
+  and ``contract`` / ``enter`` bracket its sublayer): attention over its
+  query heads when they divide the axis, an MLP's (and an MoE's shared
+  expert's) ffn, the embedding and head over vocab (``api``'s
+  vocab-parallel lookup and loss), MoE experts (``layers.moe_apply``: a
+  rank runs its E/m experts), griffin's RG-LRU over its ``lru_dim``
+  channels and mamba2's mixer over its heads (contract axes "rglru" and
+  "ssm"; mamba2 with one group of B and C);
 * gathered at the use, inside the layer's remat region (``use``): every
-  ``data`` split, and the ``model`` splits of the rest (a recurrent
-  mixer's dims, attention whose KV heads do not divide, the router).
+  ``data`` split, and the ``model`` splits of the rest (the router, and a
+  mixer or attention whose compute axis does not divide).
+
+Where attention's KV heads do not divide the axis while its query heads
+do, ``wk`` / ``wv`` / ``bk`` / ``bv`` replicate in storage (``Rules.spec``
+falls back) and are used whole: K and V are computed whole on every rank,
+and each rank's queries attend only the KV heads they read
+(``layers.kv_heads_of``), so each rank's gradient of those leaves is a
+partial sum, summed over ``model`` in backward (``rules.partial``; the
+plan's ``whole_kv``). A mixer's leaves that replicate (its conv, gate
+biases, the mamba2 norm's scale, and an ``in_proj`` whose columns do not
+divide) are used at the rank's part the same way (``models.griffin``,
+``models.ssm``).
 
 With the sequence over ``model`` (``train_plan(table={"seq": "model"})``,
 context parallelism: the reference's ``Rules(mesh, table)``), the
@@ -74,7 +87,7 @@ from typing import Any, Dict, FrozenSet, Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.models import api
+from repro_torch.models import api, griffin, ssm
 from repro_torch.models import transformer as tfm
 from repro_torch.parallel.sharding import (DEFAULT_TABLE, ManualRules, Rules,
                                            TrainRules)
@@ -278,20 +291,38 @@ def _layout(cfg, mesh, table=None) -> Any:
     return _tree_map(spec, api.param_shapes(cfg), api.param_axes(cfg))
 
 
-def _computed_in_parallel(path, name: str, attn: bool, cp: bool) -> bool:
-    """Whether the ``model`` split of logical weight axis ``name`` at
-    ``path`` stays the rank's part at its use (its sublayer computes in
-    parallel) rather than being gathered. With the sequence over ``model``
-    (``cp``) only the experts do."""
+def _computed_in_parallel(path, name: str, attn: bool, cp: bool,
+                          mixer: Optional[str] = None) -> Optional[str]:
+    """The axis a sublayer contracts when the ``model`` split of logical
+    weight axis ``name`` at ``path`` stays the rank's part at its use (its
+    sublayer computes in parallel), or None where the split is gathered.
+    ``attn``: attention's query heads divide the axis (its KV heads may
+    not: a whole KV leaf has no ``model`` split to ask about); ``mixer``:
+    the block's recurrent kind ("rglru" or "ssm") when its mixer computes
+    in parallel. With the sequence over ``model`` (``cp``) only the
+    experts do."""
     if cp and name != "wexperts":
-        return False
+        return None
+    if "mixer" in path:
+        return mixer
     if name in ("wheads", "wkv_heads"):
-        return attn and bool({"attn", "cross"} & set(path))
+        return "heads" if attn and {"attn", "cross"} & set(path) else None
     if name == "wff":
-        return bool({"mlp", "shared"} & set(path))
+        return "ffn" if {"mlp", "shared"} & set(path) else None
     if name == "wexperts":
-        return path[-1] in ("wi", "wg", "wo")
-    return name == "wvocab"
+        return "experts" if path[-1] in ("wi", "wg", "wo") else None
+    return "vocab" if name == "wvocab" else None
+
+
+def _mixer_parallel(cfg, kind: str, m: int) -> bool:
+    """Whether a ``kind`` block's recurrent mixer computes in parallel
+    over ``m`` ranks: griffin over its ``lru_dim`` channels, mamba2 over
+    its heads (with one group of B and C, which every head reads)."""
+    if kind == "rglru":
+        return griffin.lru_dim(cfg) % m == 0
+    if kind == "ssm":
+        return ssm.dims(cfg)[1] % m == 0 and cfg.ssm.num_groups == 1
+    return False
 
 
 def train_plan(cfg, mesh, table=None) -> TPPlan:
@@ -311,21 +342,25 @@ def train_plan(cfg, mesh, table=None) -> TPPlan:
     axes = api.param_axes(cfg)
     m = int(mesh.shape["model"])
     cp = seq == "model" and m > 1
-    attn = m > 1 and cfg.num_heads % m == 0 and cfg.kv_heads % m == 0
-    contract: set = set()
+    attn = m > 1 and not cp and cfg.num_heads % m == 0
+    kinds = tfm.layer_kinds(cfg)
+    mixers = {k for k in set(kinds)
+              if m > 1 and not cp and _mixer_parallel(cfg, k, m)}
+    contract: set = set(mixers)
 
     def use(path, spec, ax_str):
         names = [a.strip() for a in ax_str.split(",")] if ax_str else []
+        kind = kinds[int(path[1])] if path[0] == "blocks" else None
         out = []
         for dim, ax in enumerate(spec):
             if ax is None:
                 out.append(None)
             elif ax != "model":
                 out.append("data")
-            elif _computed_in_parallel(path, names[dim], attn, cp):
-                contract.add({"wheads": "heads", "wkv_heads": "heads",
-                              "wff": "ffn", "wvocab": "vocab",
-                              "wexperts": "experts"}[names[dim]])
+            elif axis := _computed_in_parallel(
+                    path, names[dim], attn, cp,
+                    kind if kind in mixers else None):
+                contract.add(axis)
                 out.append(None)
             else:
                 out.append("model")
@@ -333,15 +368,18 @@ def train_plan(cfg, mesh, table=None) -> TPPlan:
 
     uses_tree = _tree_map(use, specs, axes)
     uses = {k: uses_tree[k] for k in ("embed", "head") if k in uses_tree}
-    for kind, block in zip(tfm.layer_kinds(cfg), uses_tree["blocks"]):
+    for kind, block in zip(kinds, uses_tree["blocks"]):
         uses.setdefault(kind, block)
     if cfg.is_encdec:
         uses["enc"] = uses_tree["enc"]["blocks"][0]
-    sharded = {name for a in contract for name in _LOGICAL[a]}
+    whole_kv = attn and cfg.kv_heads % m != 0
+    sharded = {name for a in contract for name in _LOGICAL.get(a, ())}
+    if whole_kv:                # the KV heads do not split
+        sharded -= {"kv_heads", "wkv_heads"}
     rules = TrainRules(contract, mesh.group, split_axes(specs),
                        data_group=mesh.data_group, data=data_size(mesh),
                        model=m, model_rank=mesh.model_rank, uses=uses,
-                       seq="model" if cp else None)
+                       seq="model" if cp else None, whole_kv=whole_kv)
     return TPPlan(cfg=cfg, mesh=mesh, model_shards=m,
                   sharded_axes=frozenset(sharded), rules=rules, specs=specs)
 

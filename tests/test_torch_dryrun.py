@@ -352,18 +352,21 @@ def test_a_seam_without_a_kernel_cost_is_an_error():
 
 
 def test_the_prefill_cell_holds_no_scores():
-    """qwen2.5-3b's prefill_32k on pod16x16 (2 rows of 32k a rank): the
-    card's kernel holds no (32k, 32k) scores, so the rank's memory is its
-    parameters, activations and cache, under 16 GiB, where the plain
-    version's fp32 scores alone take 2 x 2 x 16 x 32k x 32k x 4 bytes;
-    the causal kernel does about half the plain products."""
+    """qwen2.5-3b's prefill_32k on pod16x16 (2 rows of 32k a rank, its 16
+    query heads over the 16 ranks, one a rank): the card's kernel holds no
+    (32k, 32k) scores, so the rank's memory is its parameters, activations
+    and cache, under 16 GiB, where the plain version's fp32 scores alone
+    take 2 x 2 x 1 x 32k x 32k x 4 bytes; the causal kernel does about
+    half the plain products."""
     cfg, mesh = get_config("qwen2.5-3b"), make_production_mesh()
     shape = base.SHAPES["prefill_32k"]
     kern, _ = dryrun.trace_cell(cfg, shape, mesh)
     plain, _ = dryrun.trace_cell(cfg, shape, mesh, seams="plain")
     assert kern.memory["total_bytes_per_device"] < 16 * 2**30
-    assert plain.memory["temp_bytes"] > 2 * 16 * 32768**2 * 4
-    per_layer = 4 * 128 * 16 * 2          # 4 D H B, a head each rank
+    heads = cfg.num_heads // mesh.shape["model"]
+    assert heads == 1
+    assert plain.memory["temp_bytes"] > 2 * 2 * heads * 32768**2 * 4
+    per_layer = 4 * 128 * heads * 2       # 4 D H B, a head each rank
     assert plain.cost.dot_flops - kern.cost.dot_flops == \
         cfg.num_layers * per_layer * (32768**2 - 32768 * 32769 // 2)
 

@@ -65,16 +65,17 @@ def test_cli_decode_cell_at_full_width(tmp_path):
     assert set(jrl.Roofline(1, 1, 1, 1, {}).to_dict()) <= set(rec["roofline"])
     assert rec["status"] == "ok" and rec["chips"] == 256
     mem = rec["memory"]
-    # the rank's cache (8 rows of 32k, 2 KV heads: attention replicates
-    # over 16) is written in place
+    # the rank's cache (8 rows of 32k, 2 KV heads, whole on every rank:
+    # they do not split over 16) is written in place
     kv = 36 * 2 * 8 * 32768 * 2 * 128 * 2
     assert mem["alias_bytes"] == kv
     # nothing allocated: the process stayed far below the cell's memory
     assert mem["total_bytes_per_device"] > 8 * 2**30
     assert rss < 2 * 2**30, rss
-    # the MLP's sum a layer (heads replicate: 2 KV heads on 16), and the
-    # vocab-parallel embedding lookup's
-    assert rec["reduces"] == 36 * 1 + 1
+    # the out-projection's and the MLP's sums a layer (the 16 query heads
+    # split over 16, one a rank; the 2 KV heads are whole on every rank),
+    # and the vocab-parallel embedding lookup's
+    assert rec["reduces"] == 36 * 2 + 1
     assert rec["roofline"]["collective_link"] == "nic"
 
 

@@ -1870,11 +1870,12 @@ def test_cuda_model_parallel_step_world_of_one_equals_plain(nccl_world,
 @pytest.mark.gpu
 def test_cuda_layout_hooks_world_of_one_equal_plain(nccl_world):
     """``torch_layout_ranks.forced_rules`` over a world of 1 over NCCL: the
-    FSDP gathers and their reduce-scatters, the model gathers, and the
-    heads, ffn, vocab and experts contractions, each a collective over one
-    rank. 2 fp32 SMOKE steps of qwen2.5-3b and of dbrx-132b (expert-
-    parallel), plain and compressed, equal the plain step's losses and
-    state bit for bit."""
+    FSDP gathers and their reduce-scatters, the model gathers (dbrx's
+    router), the heads, ffn, vocab and experts contractions, and the KV
+    heads read in part (their slice and their leaves' gradient sum), each
+    a collective over one rank. 2 fp32 SMOKE steps of qwen2.5-3b and of
+    dbrx-132b (expert-parallel), plain and compressed, equal the plain
+    step's losses and state bit for bit."""
     from torch_layout_ranks import forced_steps
     for arch in ("qwen2.5-3b", "dbrx-132b"):
         for compress in (False, True):
@@ -1882,7 +1883,26 @@ def test_cuda_layout_hooks_world_of_one_equal_plain(nccl_world):
                 arch, nccl_world.group.WORLD, "cuda", compress)
             assert all(a == b for a, b in losses) and equal, (arch, compress)
             assert reduces > 0 and colls["reduce-scatter:data"] > 0
-            assert colls["all-gather:model"] > 0
+            assert (colls.get("all-gather:model", 0) > 0) == (
+                arch == "dbrx-132b")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["recurrentgemma-9b", "mamba2-2.7b"])
+def test_cuda_mixer_hooks_world_of_one_equal_plain(nccl_world, arch):
+    """``torch_layout_ranks.forced_rules`` over a world of 1 over NCCL on
+    the recurrent stacks: RG-LRU's reduce-scatter of its gates (an
+    all-gather in backward) and its whole leaves' gradient sum, the local
+    attention's KV heads read in part; mamba2's ``in_proj`` product
+    gathered (a reduce-scatter in backward), its norm's sum both ways and
+    its whole leaves' gradient sum. 2 fp32 SMOKE steps equal the plain
+    step's losses and state bit for bit."""
+    from torch_layout_ranks import forced_steps
+    losses, equal, reduces, colls = forced_steps(
+        arch, nccl_world.group.WORLD, "cuda", False)
+    assert all(a == b for a, b in losses) and equal
+    assert reduces > 0
+    assert colls["all-gather:model"] > 0 and colls["reduce-scatter:model"] > 0
 
 
 # ---------------------------------------------------------------------------

@@ -11,14 +11,15 @@ fixture:
 
 * three steps from ``convert.state_from_jax`` against JAX's steps on the
   whole batch: qwen2.5-3b SMOKE at (2, 2), (4, 1) and (1, 4) (4 query
-  heads over 4 ranks, 2 KV heads replicated: attention gathered),
+  heads over 4 ranks, one a rank, its 2 KV heads whole on every rank),
   granite-3-2b (tied embeddings: one vocab shard for the lookup and the
-  head) and mamba2-2.7b (a mixer gathered over ``model``) at (2, 2), and
-  ``compress_grads`` at (2, 2);
+  head) and mamba2-2.7b (its mixer over its heads, ``in_proj``'s product
+  gathered over ``model``) at (2, 2), and ``compress_grads`` at (2, 2);
 * a checkpoint saved at (2, 2), restored at (4, 1) in the world and at
   (1, 1) in this process, with equal leaves, the losses continuing;
-* the control: a model gather whose backward sums the gradient over the
-  group hands each rank M times its part.
+* the control: a model gather (dbrx-132b SMOKE's MoE router at (1, 4))
+  whose backward sums the gradient over the group hands each rank M times
+  its part.
 
 Bounds (``torch_train_cases.steps_track_jax``): the step's metrics
 within rtol 1e-4 of JAX's; parameters after three steps each within 2 ·
@@ -72,12 +73,13 @@ def world(bundle):
                            SCENARIOS), timeout=300)
 
 
-# the plan's contractions of each case: qwen2.5-3b SMOKE's 2 KV heads
-# split over 2 ranks but not 4; mamba2's mixer never computes in parallel
+# the plan's contractions of each case: qwen2.5-3b SMOKE's 4 query heads
+# split over 2 and 4 ranks (its 2 KV heads over 2 but not 4); mamba2's
+# mixer computes over its heads' parts
 CONTRACT = {"qwen_2x2": ["ffn", "heads", "vocab"], "qwen_4x1": [],
-            "qwen_1x4": ["ffn", "vocab"],
+            "qwen_1x4": ["ffn", "heads", "vocab"],
             "granite_2x2": ["ffn", "heads", "vocab"],
-            "mamba2_2x2": ["vocab"],
+            "mamba2_2x2": ["ssm", "vocab"],
             "compress_2x2": ["ffn", "heads", "vocab"]}
 
 
@@ -99,16 +101,21 @@ def test_steps_track_jax(world, bundle, name):
 def test_collectives_cross_the_split_axes(world, name):
     """Each step gathers over ``data`` exactly when the layout splits
     ``wembed`` over it (and then reduce-scatters a gradient for every
-    gather of the forward), and gathers over ``model`` exactly where a
-    split dim's use is replicated."""
+    gather of the forward), and gathers over ``model`` exactly where the
+    plan's ``uses`` gather a split dim whose use is replicated, or where
+    mamba2's mixer gathers its split ``in_proj``'s product (whose
+    gradient it then reduce-scatters over ``model``)."""
     res = results(world, name)
     _, (d, m), _, _ = ranks.CASES[name]
+    gathered = any("model" in spec for spec in pytree.tree_leaves(
+        res[0]["uses"], is_leaf=lambda x: isinstance(x, tuple)))
+    mixer = "ssm" in res[0]["contract"]
+    assert not gathered      # no split leaf is gathered over model here
     for step in res[0]["collectives"]:
         assert (step.get("all-gather:data", 0) > 0) == (d > 1)
         assert (step.get("reduce-scatter:data", 0) > 0) == (d > 1)
-        gathered = name in ("qwen_1x4", "mamba2_2x2")
-        assert (step.get("all-gather:model", 0) > 0) == gathered
-        assert "reduce-scatter:model" not in step
+        assert (step.get("all-gather:model", 0) > 0) == (gathered or mixer)
+        assert ("reduce-scatter:model" in step) == mixer
     assert all(r["collectives"] == res[0]["collectives"] for r in res)
 
 
@@ -145,26 +152,27 @@ def _flat(tree):
 
 
 def test_model_gather_backward_is_the_part_and_a_sum_is_m_times(world):
-    """At (1, 4) attention computes replicated on every rank, its query
-    leaves split over ``model`` and gathered at their use: each rank's
-    gradient is its part of the whole block's, every leaf; a backward
-    that sums over the group hands each rank 4 times its part on every
-    gathered leaf, and the right gradient on the rest."""
+    """dbrx-132b SMOKE's MoE block at (1, 4): its router computes
+    replicated on every rank, split over ``model`` and gathered at its
+    use: each rank's gradient is its part of the whole block's, every
+    leaf; a backward that sums over the group hands each rank 4 times its
+    part on the gathered leaf, and the right gradient on the rest."""
     res = results(world, "model_gather_control")
+    m = len(res)
     whole = _flat(res[0]["whole"])
     spec = {pytree.keystr(p): s for p, s in pytree.tree_flatten_with_path(
         res[0]["specs"], is_leaf=lambda x: isinstance(x, tuple))[0]}
     use = {pytree.keystr(p): s for p, s in pytree.tree_flatten_with_path(
         res[0]["uses"], is_leaf=lambda x: isinstance(x, tuple))[0]}
     gathered = {k for k, s in use.items() if "model" in s}
-    assert gathered == {"['attn']['wq']", "['attn']['bq']",
-                        "['attn']['wo']"}
+    assert gathered == {"['moe']['router']"}
     for key, want in whole.items():
         for which in ("shard", "summed"):
             parts = [_flat(r[which])[key] for r in res]
             got = torch.cat(parts, spec[key].index("model")) \
                 if "model" in spec[key] else parts[0]
-            ratio = 4.0 if which == "summed" and key in gathered else 1.0
+            ratio = float(m) if which == "summed" and key in gathered \
+                else 1.0
             torch.testing.assert_close(got, ratio * want, atol=2e-5,
                                        rtol=2e-5)
 
@@ -184,20 +192,25 @@ def world1(tmp_path_factory):
 @pytest.mark.parametrize("arch,compress", ONE)
 def test_every_hook_over_a_world_of_one_equals_the_plain_step(
         world1, arch, compress):
-    """The gathers (data and model), their backward reduce-scatters and
-    parts, and the heads, ffn, vocab and experts contractions, each over a
-    world of one gloo rank (a copy): 2 fp32 SMOKE steps equal the plain
-    step's losses and state bit for bit, the vocab-parallel loss and
-    lookup, the expert-parallel combine and the tied embeddings included.
-    A step sums 5 times a dense layer (heads and ffn: 2 forward, 2
-    backward, the attention's again in the recompute), 6 times an MoE
-    layer (the attention's 3; the combine's sum, and in backward its
-    expert rows' and gate weights' gradient sums) and 6 times for the
-    vocab."""
+    """The gathers (data, and model: dbrx's router), their backward
+    reduce-scatters and parts, the heads, ffn, vocab and experts
+    contractions, and the KV
+    heads read in part (``whole_kv``: their slice and their leaves'
+    gradient sum), each over a world of one gloo rank (a copy): 2 fp32
+    SMOKE steps equal the plain step's losses and state bit for bit, the
+    vocab-parallel loss and lookup, the expert-parallel combine and the
+    tied embeddings included. A step sums 6 times a dense layer (heads and
+    ffn: 2 forward, 2 backward, the attention's again in the recompute,
+    and the KV leaves' gradients), 7 times an MoE layer (the attention's
+    4; the combine's sum, and in backward its expert rows' and gate
+    weights' gradient sums) and 6 times for the vocab."""
     losses, equal, reduces, colls = world1[arch, compress]
     assert all(a == b for a, b in losses) and equal
     cfg = ranks.cfg_of(arch)
-    per_layer = [6 if k == "attn_moe" else 5 for k in tfm.layer_kinds(cfg)]
+    per_layer = [7 if k == "attn_moe" else 6 for k in tfm.layer_kinds(cfg)]
     assert reduces == 2 * (sum(per_layer) + 6)
-    assert colls["all-gather:data"] > 0 and colls["all-gather:model"] > 0
+    assert colls["all-gather:data"] > 0
     assert colls["reduce-scatter:data"] > 0
+    # a (2, 4) plan gathers only dbrx's MoE router over model: every other
+    # split computes in parallel
+    assert (colls.get("all-gather:model", 0) > 0) == (arch == "dbrx-132b")

@@ -136,34 +136,36 @@ class SummedGatherRules(TrainRules):
 
 
 def model_gather_control(inputs, ckpt_dir):
-    """qwen2.5-3b SMOKE at (data 1, model 4): 4 query heads split over 4
-    ranks, 2 KV heads replicated, so attention is gathered at its use. One
-    block's gradient under a fixed read-out, whole and on each rank (its
-    part of each split leaf), under the plan's rules and under
+    """dbrx-132b SMOKE's MoE block at (data 1, model 4): its router is
+    split over ``model`` and gathered at its use (every rank routes every
+    row). The block's gradient under a fixed read-out, whole and on each
+    rank (its part of each split leaf), under the plan's rules and under
     ``SummedGatherRules``."""
-    cfg = cfg_of(QWEN)
+    cfg = cfg_of("dbrx-132b")
     mesh = mesh_of(1, 4)
+    kind = "attn_moe"
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
         plan = tp.train_plan(cfg, mesh)
     params = api.init_params(cfg, torch.Generator().manual_seed(3),
                              device="cpu")
-    p = params["blocks"][0]
-    specs = plan.param_specs(cfg)["blocks"][0]
+    j = tfm.layer_kinds(cfg).index(kind)
+    p = params["blocks"][j]
+    specs = plan.param_specs(cfg)["blocks"][j]
     part = tp.shard_tree(p, specs, 4, mesh.model_rank)
     x = torch.randn(2, 8, cfg.d_model, generator=torch.Generator()
                     .manual_seed(4))
     r = plan.rules
     summed = SummedGatherRules(r.contract_axes, r.group, r.sharded,
                                model=r.model, model_rank=r.model_rank,
-                               uses=r.uses)
+                               uses=r.uses, whole_kv=r.whole_kv)
 
     def grads(tree, rules):
         leaves, spec = pytree.tree_flatten(tree)
         leaves = [t.detach().requires_grad_() for t in leaves]
         with torch.enable_grad():
-            y, _ = tfm.block_train(cfg, "attn_mlp", rules.use(
-                pytree.tree_unflatten(leaves, spec), "attn_mlp"), x,
+            y, _ = tfm.block_train(cfg, kind, rules.use(
+                pytree.tree_unflatten(leaves, spec), kind), x,
                 None, rules)
             w = torch.linspace(-1.0, 1.0, y.numel()).reshape(y.shape)
             g = torch.autograd.grad((y * w).sum(), leaves)
@@ -171,7 +173,7 @@ def model_gather_control(inputs, ckpt_dir):
 
     return {"whole": grads(p, TrainRules()), "shard": grads(part, r),
             "summed": grads(part, summed), "specs": specs,
-            "uses": r.uses["attn_mlp"]}
+            "uses": r.uses[kind]}
 
 
 def moe_block(inputs, ckpt_dir):
@@ -190,15 +192,16 @@ def forced_rules(cfg, group):
     """``TrainRules`` over ``group`` (a world of one rank) that issue every
     hook of the layout anyway: the gathers of a (data 2, model 4) plan
     (every ``wembed`` dim over ``data``; qwen2.5-3b's 4 query heads over
-    ``model``, its 2 KV heads not) and the heads, ffn, vocab and experts
-    contractions, each a collective over one rank (a copy)."""
+    ``model``, its 2 KV heads not), the heads, ffn, vocab, experts and
+    recurrent mixers' contractions, and the KV heads read in part
+    (``whole_kv``), each a collective over one rank (a copy)."""
     desc = Mesh(tuple((torch.device("meta"),) * 4 for _ in range(2)),
                 {"data": 2, "model": 4})
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
         uses = tp.train_plan(cfg, desc).rules.uses
-    return TrainRules(("heads", "ffn", "vocab", "experts"), group,
-                      data_group=group, uses=uses)
+    return TrainRules(("heads", "ffn", "vocab", "experts", "rglru", "ssm"),
+                      group, data_group=group, uses=uses, whole_kv=True)
 
 
 def forced_steps(arch, group, device, compress, steps=2):

@@ -44,13 +44,23 @@ GRAD_REL, GRAD_ABS = 1e-4, 1e-7
 _PAIRS = {}
 
 
+def _fields(cfg, over):
+    """``over`` for ``cfg``'s package: a sub-config (a dataclass) made
+    again as the class ``cfg`` holds there, from its fields."""
+    return {k: type(getattr(cfg, k))(**dataclasses.asdict(v))
+            if dataclasses.is_dataclass(v) else v for k, v in over.items()}
+
+
 def pair(arch, **over):
     """(jax cfg, port cfg, jax params, port params on the CPU), fp32, the
-    configs with ``over`` replaced; made once per (arch, over)."""
+    configs with ``over`` replaced (a sub-config given as either package's
+    dataclass); made once per (arch, over)."""
     key = (arch, tuple(sorted(over.items())))
     if key not in _PAIRS:
-        jc = dataclasses.replace(jcfg(arch), dtype="float32", **over)
-        tc = dataclasses.replace(tcfg(arch), dtype="float32", **over)
+        jc = dataclasses.replace(jcfg(arch), dtype="float32",
+                                 **_fields(jcfg(arch), over))
+        tc = dataclasses.replace(tcfg(arch), dtype="float32",
+                                 **_fields(tcfg(arch), over))
         jp = japi.init_params(jc, jax.random.key(0))
         _PAIRS[key] = (jc, tc, jp, params_from_jax(
             tc, jax.tree.map(np.asarray, jp), device="cpu"))
@@ -117,17 +127,17 @@ def check_loss_and_grads(arch, B, S, **over):
 
 
 def jax_train(arch, accum, compress, opt, *, steps=3, seq_len=32,
-              global_batch=8):
+              global_batch=8, **over):
     """The JAX trainer's run of ``steps`` steps of the fp32 SMOKE config
-    (``repro.runtime.trainer``, jitted) on the synthetic stream: {"state":
-    its initial state moved over (``convert.state_from_jax``), "batches":
-    the numpy batches, "metrics": each step's, "params": its final
-    parameters moved over}."""
+    (with ``over`` replaced; ``repro.runtime.trainer``, jitted) on the
+    synthetic stream: {"state": its initial state moved over
+    (``convert.state_from_jax``), "batches": the numpy batches, "metrics":
+    each step's, "params": its final parameters moved over}."""
     from repro.data import synthetic as jdata
     from repro.optim import adamw as jadamw
     from repro.runtime import trainer as jtrainer
     from repro_torch.convert import state_from_jax
-    jc, tc, _, _ = pair(arch)
+    jc, tc, _, _ = pair(arch, **over)
     jopt = jadamw.AdamWConfig(**opt)
     js = jtrainer.init_state(jc, jopt, jax.random.key(0),
                              compress_grads=compress)
@@ -175,3 +185,60 @@ def results(world, name):
             f"rank {rank}:\n{res['error']}"
     return [pytree.tree_map(lambda a: torch.from_numpy(a) if isinstance(
         a, np.ndarray) else a, res) for res in out]
+
+
+def joined(res, which):
+    """The whole gradient tree from every rank's ``res[r][which]["grads"]``
+    (its part of each leaf split over ``model``, joined along that dim; a
+    whole leaf from the first rank), by ``pytree.keystr``; and {keystr:
+    each rank's part} of the whole leaves."""
+    specs = {pytree.keystr(p): s for p, s in pytree.tree_flatten_with_path(
+        res[0]["specs"], is_leaf=lambda x: isinstance(x, tuple))[0]}
+    parts = [dict((pytree.keystr(p), t) for p, t in
+                  pytree.tree_flatten_with_path(r[which]["grads"])[0])
+             for r in res]
+    out, whole = {}, {}
+    for key, spec in specs.items():
+        if "model" in spec:
+            out[key] = torch.cat([p[key] for p in parts],
+                                 spec.index("model"))
+        else:
+            out[key] = parts[0][key]
+            whole[key] = [p[key] for p in parts]
+    return out, whole
+
+
+def grads_against_jax(res, arch, batch_np, partial, **over):
+    """A world's gradients (``torch_heads_ranks``' ``grads_*`` scenario)
+    against JAX's at the same parameters and batch: the plan's, joined,
+    within the gradient bounds of every leaf, each whole leaf equal on
+    every rank; the control's (no ``partial`` sum) apart from JAX's on
+    every rank exactly on the leaves whose keystr ends with one of
+    ``partial``, where the ranks' shares add up to JAX's, and equal to the
+    plan's on every other leaf."""
+    jc, tc, jp, _ = pair(arch, **over)
+    jl, _, jg = jax_loss_and_grads(jc, jp, batch_np)
+    want = params_from_jax(tc, jax.tree.map(np.asarray, jg), device="cpu")
+    want = {pytree.keystr(p): t for p, t in
+            pytree.tree_flatten_with_path(want)[0]}
+    got, whole = joined(res, "plan")
+    ctl, ctl_whole = joined(res, "control")
+    assert set(got) == set(want)
+    for r in res:
+        np.testing.assert_allclose(r["plan"]["loss"], float(jl),
+                                   rtol=LOSS_RTOL)
+    hit = set()
+    for key, w in want.items():
+        lim = GRAD_REL * w.abs().max().item() + GRAD_ABS
+        assert (got[key] - w).abs().max().item() <= lim, key
+        if key in whole:
+            assert all(torch.equal(t, whole[key][0]) for t in whole[key])
+        if key.endswith(partial):
+            hit.add(key)
+            shares = ctl_whole[key]
+            assert all((t - w).abs().max().item() > lim for t in shares), \
+                key
+            assert (sum(shares) - w).abs().max().item() <= lim, key
+        else:
+            assert torch.equal(ctl[key], got[key]), key
+    return hit

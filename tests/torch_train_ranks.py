@@ -138,16 +138,17 @@ def block_dec(mesh, inputs, ckpt_dir):
 # ---------------------------------------------------------------------------
 
 
-def train_case(mesh, inputs, name, case=None, table=None):
+def train_case(mesh, inputs, name, case=None, table=None, over=None):
     """``STEPS`` model-parallel steps of case ``name`` (``TRAIN_CASES[name]``
-    unless ``case`` gives (arch, grad_accum, compress_grads)) from the
-    moved-over JAX state, each rank on its data replica's rows of the
-    global batch (and with ``table`` {"seq": "model"} on its block of
-    their sequences): each step's metrics, the all-reduces of the first
-    step, the collectives a step by kind and axis, the plan, and the final
-    parameters gathered on the world's first rank."""
+    unless ``case`` gives (arch, grad_accum, compress_grads); the SMOKE
+    config with ``over`` replaced) from the moved-over JAX state, each rank
+    on its data replica's rows of the global batch (and with ``table``
+    {"seq": "model"} on its block of their sequences): each step's
+    metrics, the all-reduces of the first step, the collectives a step by
+    kind and axis, the plan, and the final parameters gathered on the
+    world's first rank."""
     arch, accum, compress = case or TRAIN_CASES[name]
-    cfg = cfg_of(arch)
+    cfg = cfg_of(arch, **(over or {}))
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)   # the fallbacks warn
         plan = tp.train_plan(cfg, mesh, table)
@@ -180,6 +181,7 @@ def train_case(mesh, inputs, name, case=None, table=None):
                                                           ())}
     return {"metrics": metrics, "reduces": reduces, "collectives": colls,
             "contract": sorted(plan.rules.contract_axes),
+            "whole_kv": plan.rules.whole_kv, "uses": plan.rules.uses,
             "n_sharded": len(plan.rules.sharded), "data": d,
             "rows": len(rows["tokens"]), "params": params,
             "replicated": replicated}
